@@ -1,0 +1,168 @@
+"""Weight bridge: the JAX package's trees <-> the port's tensors.
+
+The JAX package keeps parameters, LoRA banks and caches as nested
+dicts/lists/tuples of arrays, each segment's layers stacked on axis 0
+(``repro.models.transformer``, transformer.py:128-158).  Given those trees
+as numpy arrays, this module builds the port's per-layer layout and back:
+
+* params  (``Model.init``)      <-> ``Model``'s parameters;
+* LoRA    (``Model.init_lora``) <-> {"layers": [{"a_q", "b_q", ...}, ...]};
+* caches  (``init_cache``, ``prefill``) <-> {"pos", "layers": [{"k", "v"}]}.
+
+bf16 crosses bit-exact: an array whose ``dtype.name`` is "bfloat16" is
+viewed as uint16, then int16 (which torch reads), then as torch.bfloat16.
+The way back needs numpy's bfloat16 dtype, which is registered once the
+JAX package's ml_dtypes is loaded; this module never imports it.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+
+def tensor(arr, device="cpu") -> torch.Tensor:
+    """One numpy array -> a torch tensor on ``device``, bit for bit."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.uint16).view(np.int16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def array(t: torch.Tensor) -> np.ndarray:
+    """One torch tensor -> a numpy array, bit for bit (bf16 -> bfloat16)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16).view(
+            np.dtype("bfloat16"))
+    return t.numpy()
+
+
+def to_torch(tree, device="cpu"):
+    """Map ``tensor`` over a nested dict/list/tuple of arrays."""
+    if isinstance(tree, dict):
+        return {k: to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_torch(v, device) for v in tree)
+    return tensor(tree, device)
+
+
+def to_numpy(tree):
+    """Map ``array`` over a nested dict/list/tuple of tensors."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_numpy(v) for v in tree)
+    return array(tree)
+
+
+# --------------------------------------------------------------------------- #
+# per-segment stacks <-> per-layer lists
+# --------------------------------------------------------------------------- #
+
+def _unstack(segments) -> List[Dict[str, Any]]:
+    """JAX [{"blocks": (block tree, ...)}] -> one tree per layer, in
+    order: repeat r of a segment runs its blocks in pattern order."""
+    out = []
+    for seg in segments:
+        blocks = seg["blocks"]
+        repeats = _leaves(blocks[0])[0].shape[0]
+        for r in range(repeats):
+            for blk in blocks:
+                out.append(_map(lambda a, r=r: a[r], blk))
+    return out
+
+
+def _stack(per_layer, pattern_len: int, n_layers: int):
+    """Inverse of ``_unstack`` for the segments of ``build_segments``."""
+    full, rem = divmod(n_layers, pattern_len)
+    segs, i = [], 0
+    for kinds, repeats in ((pattern_len, full), (rem, 1)):
+        if not kinds or not repeats:
+            continue
+        rows = [per_layer[i + r * kinds:i + (r + 1) * kinds]
+                for r in range(repeats)]
+        i += kinds * repeats
+        segs.append({"blocks": tuple(
+            _zip_stack([row[b] for row in rows]) for b in range(kinds))})
+    return segs
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _zip_stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _zip_stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def load_params(model, params) -> None:
+    """Copy a JAX ``Model.init`` tree (numpy leaves) into ``model``."""
+    mapped = {"embed": params["embed"], "final_norm": params["final_norm"]}
+    for i, blk in enumerate(_unstack(params["segments"])):
+        mapped[f"layers.{i}"] = blk
+    state = {}
+
+    def walk(prefix, tree):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(f"{prefix}.{k}" if prefix else k, v)
+        else:
+            state[prefix] = tensor(tree, model.device)
+    walk("", mapped)
+    model.load_state_dict(state, strict=True, assign=False)
+
+
+def export_params(model) -> Dict[str, Any]:
+    """``model``'s parameters as a JAX ``Model.init`` tree of numpy arrays."""
+    cfg = model.cfg
+    per_layer = []
+    for blk in model.layers:
+        tree: Dict[str, Any] = {}
+        for name, p in blk.named_parameters():
+            node = tree
+            *path, leaf = name.split(".")
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = array(p)
+        per_layer.append(tree)
+    return {"embed": {k: array(v) for k, v in model.embed.items()},
+            "final_norm": {k: array(v) for k, v in model.final_norm.items()},
+            "segments": _stack(per_layer, len(cfg.block_pattern),
+                               cfg.n_layers)}
+
+
+def lora_to_torch(lora, device="cpu"):
+    """JAX ``init_lora`` tree -> the port's {"layers": [...]}."""
+    return {"layers": to_torch(_unstack(lora["segments"]), device)}
+
+
+def lora_to_numpy(lora, cfg):
+    """The port's LoRA banks -> a JAX ``init_lora`` tree."""
+    return {"segments": _stack(to_numpy(lora["layers"]),
+                               len(cfg.block_pattern), cfg.n_layers)}
+
+
+def cache_to_torch(cache, device="cpu"):
+    """JAX ``init_cache``/``prefill`` cache -> the port's cache."""
+    return {"pos": tensor(cache["pos"]),
+            "layers": to_torch(_unstack(cache["segments"]), device)}
+
+
+def cache_to_numpy(cache, cfg):
+    """The port's cache -> a JAX cache tree."""
+    return {"pos": array(torch.as_tensor(cache["pos"])),
+            "segments": _stack(to_numpy(cache["layers"]),
+                               len(cfg.block_pattern), cfg.n_layers)}

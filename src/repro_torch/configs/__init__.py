@@ -1,0 +1,1 @@
+from .registry import ARCH_IDS, ALIASES, canonical, get_config, get_reduced  # noqa

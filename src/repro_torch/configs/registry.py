@@ -1,0 +1,52 @@
+"""Architecture registry of the port.
+
+The port serves phi4-mini-3.8b only so far.  Every entry exposes:
+  * ``CONFIG``    — the exact published configuration,
+  * ``reduced()`` — a structurally identical, CPU-sized variant for tests.
+The other architectures of ``repro.configs`` raise and name the ROADMAP item
+that brings them.
+"""
+from __future__ import annotations
+
+import importlib
+
+from ..models.config import ModelConfig
+
+ARCH_IDS = ("phi4_mini_3p8b",)
+
+ALIASES = {"phi4-mini-3.8b": "phi4_mini_3p8b"}
+
+#: architectures of the JAX package not ported yet -> the ROADMAP item
+NOT_PORTED = {
+    "internlm2_20b": "queue 1 item 6 (other dense variants)",
+    "qwen1p5_4b": "queue 1 item 6 (other dense variants)",
+    "gemma3_1b": "queue 1 item 6 (local layers, tied embeddings)",
+    "musicgen_medium": "queue 1 item 6 (layernorm, gelu, sinusoidal)",
+    "internvl2_2b": "queue 1 item 6 (image-embedding prefix)",
+    "moonshot_v1_16b_a3b": "queue 1 item 7 (MoE)",
+    "olmoe_1b_7b": "queue 1 item 7 (MoE)",
+    "mamba2_2p7b": "queue 1 item 8 (SSM mixers)",
+    "recurrentgemma_9b": "queue 1 item 8 (RG-LRU mixers)",
+}
+
+
+def canonical(arch: str) -> str:
+    return ALIASES.get(arch, arch.replace("-", "_").replace(".", "p"))
+
+
+def _module(arch: str):
+    name = canonical(arch)
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"{arch} is not ported to PyTorch yet: ROADMAP.md {NOT_PORTED[name]}")
+    if name not in ARCH_IDS:
+        raise ValueError(f"unknown architecture {arch!r}")
+    return importlib.import_module(f".{name}", __package__)
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_reduced(arch: str) -> ModelConfig:
+    return _module(arch).reduced()

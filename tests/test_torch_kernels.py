@@ -1,0 +1,213 @@
+"""The port's kernels (their plain versions, as they run on a CPU tensor)
+against the JAX package's Pallas kernels run with interpret=True.
+
+Inputs are drawn with numpy from a fixed seed and handed to both sides
+(bf16 through the bridge, bit for bit).  Tolerances are the JAX suite's:
+f32 2e-5, bf16 3e-2 (the port keeps h = x @ A in f32, as the Pallas
+kernels do).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels.bgmv import bgmv as jax_bgmv  # noqa: E402
+from repro.kernels.flash_decode import flash_decode as jax_flash_decode  # noqa: E402
+from repro.kernels.sgmv import sgmv as jax_sgmv  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.kernels import bgmv, flash_decode, ops, ref, sgmv  # noqa: E402
+
+DTYPES = {"float32": (jnp.float32, 2e-5), "bfloat16": (jnp.bfloat16, 3e-2)}
+
+
+def _both(arr, dtype):
+    """One array as (jax array, torch tensor) with identical bits."""
+    j = jnp.asarray(arr).astype(dtype)
+    return j, bridge.tensor(np.asarray(j))
+
+
+def _lora(seed, t, d, r, o, n, dtype, ids=None):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((t, d), np.float32)
+    a = rng.standard_normal((n, d, r), np.float32) * 0.1
+    b = rng.standard_normal((n, r, o), np.float32) * 0.1
+    if ids is None:
+        ids = rng.integers(-1, n, t)
+    ids = np.asarray(ids, np.int32)
+    jx, tx = _both(x, dtype)
+    ja, ta = _both(a, dtype)
+    jb, tb = _both(b, dtype)
+    return (jx, ja, jb, jnp.asarray(ids)), (tx, ta, tb, torch.from_numpy(ids))
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t,d,r,o,n", [
+    (4, 64, 8, 64, 2), (8, 128, 16, 256, 4), (1, 512, 4, 512, 3),
+    (8, 32, 1, 32, 4),
+])
+def test_bgmv_matches_pallas(t, d, r, o, n, dtype):
+    jdt, tol = DTYPES[dtype]
+    (jx, ja, jb, ji), (tx, ta, tb, ti) = _lora(0, t, d, r, o, n, jdt)
+    got = bgmv.bgmv(tx, ta, tb, ti, 1.5)
+    assert got.dtype == tx.dtype and got.shape == (t, o)
+    _close(got, jax_bgmv(jx, ja, jb, ji, 1.5, interpret=True), tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t,d,r,o,n", [
+    (256, 64, 8, 64, 2), (300, 128, 16, 128, 3), (130, 32, 8, 48, 3),
+])
+def test_sgmv_dense_matches_pallas(t, d, r, o, n, dtype):
+    jdt, tol = DTYPES[dtype]
+    (jx, ja, jb, ji), (tx, ta, tb, ti) = _lora(1, t, d, r, o, n, jdt)
+    _close(sgmv.sgmv(tx, ta, tb, ti), jax_sgmv(jx, ja, jb, ji, interpret=True),
+           tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sgmv_ragged_matches_pallas(dtype):
+    jdt, tol = DTYPES[dtype]
+    (jx, ja, jb, ji), (tx, ta, tb, ti) = _lora(2, 192, 32, 16, 48, 4, jdt)
+    ranks = np.array([1, 16, 7, 4], np.int32)
+    got = sgmv.sgmv(tx, ta, tb, ti, ranks=torch.from_numpy(ranks))
+    want = jax_sgmv(jx, ja, jb, ji, ranks=jnp.asarray(ranks), interpret=True)
+    _close(got, want, tol)
+    # ragged == dense on the masked bank, bitwise (test_kernels_edge.py:166)
+    am, bm = ref.mask_ragged(ta, tb, torch.from_numpy(ranks))
+    assert torch.equal(got, sgmv.sgmv(tx, am, bm, ti))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sgmv_capacity_overflow_matches_pallas(dtype):
+    # test_kernels_edge.py:138-150: 512 tokens all on adapter 0 of 8;
+    # capacity 256, tokens past it get exactly 0
+    jdt, tol = DTYPES[dtype]
+    (jx, ja, jb, ji), (tx, ta, tb, ti) = _lora(
+        3, 512, 32, 8, 32, 8, jdt, ids=np.zeros(512))
+    assert ref.sgmv_capacity(512, 8) == 256
+    got = sgmv.sgmv(tx, ta, tb, ti)
+    _close(got, jax_sgmv(jx, ja, jb, ji, interpret=True), tol)
+    assert bool((got[256:] == 0).all()) and bool(got[:256].any())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,kv,d,s,block_s", [
+    (2, 8, 2, 64, 512, 512), (2, 4, 1, 64, 300, 512), (2, 4, 2, 16, 33, 16),
+    (3, 6, 2, 32, 100, 512),
+])
+def test_flash_decode_matches_pallas(b, h, kv, d, s, block_s, dtype):
+    # S not divisible by the block; ragged per-row lengths
+    jdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(4)
+    jq, tq = _both(rng.standard_normal((b, h, d)), jdt)
+    jk, tk = _both(rng.standard_normal((b, s, kv, d)), jdt)
+    jv, tv = _both(rng.standard_normal((b, s, kv, d)), jdt)
+    length = rng.integers(1, s + 1, b).astype(np.int32)
+    got = flash_decode.flash_decode(tq, tk, tv, torch.from_numpy(length))
+    want = jax_flash_decode(jq, jk, jv, jnp.asarray(length),
+                            block_s=block_s, interpret=True)
+    _close(got, want, tol)
+
+
+def test_flash_decode_length_zero_gives_zero_like_pallas():
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((2, 4, 16), (2, 32, 2, 16), (2, 32, 2, 16)))
+    got = flash_decode.flash_decode(*map(torch.from_numpy, (q, k, v)), 0)
+    want = jax_flash_decode(q, k, v, 0, interpret=True)
+    assert bool((got == 0).all())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_flash_decode_ref_matches_jax_ref():
+    from repro.kernels import ref as jref
+    rng = np.random.default_rng(6)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((3, 4, 16), (3, 40, 2, 16), (3, 40, 2, 16)))
+    length = np.array([1, 17, 40], np.int32)
+    got = ref.flash_decode_ref(*map(torch.from_numpy, (q, k, v, length)))
+    _close(got, jref.flash_decode_ref(q, k, v, length), 2e-5)
+
+
+@pytest.mark.parametrize("t", [4, 12, 96])
+def test_lora_apply_routes_like_pallas(t, monkeypatch):
+    # T <= 4N -> BGMV, larger T -> SGMV (ops.py:77-89), ragged bank included
+    n = 3
+    (jx, ja, jb, ji), (tx, ta, tb, ti) = _lora(7, t, 16, 8, 24, n,
+                                               jnp.float32)
+    ranks = np.array([2, 8, 5], np.int32)
+    calls = []
+    for mod, name in ((bgmv, "bgmv"), (sgmv, "sgmv")):
+        real = getattr(mod, name)
+
+        def spy(*args, _real=real, _name=name, **kw):
+            calls.append(_name)
+            return _real(*args, **kw)
+        monkeypatch.setattr(mod, name, spy)
+    got = ops.lora_apply(tx, ta, tb, ti, 1.0, ranks=torch.from_numpy(ranks))
+    want = jops.lora_apply(jx, ja, jb, ji, 1.0, ranks=jnp.asarray(ranks),
+                           force="interpret")
+    assert calls == (["bgmv"] if t <= 4 * n else ["sgmv"])
+    _close(got, want, 2e-5)
+
+
+def test_lora_apply_per_request_layout_matches_jax_ref():
+    # (B, S, d) with per-request ids (B,): the JAX plain path (ops.py:48-62)
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((3, 5, 16)).astype(np.float32)
+    a = rng.standard_normal((4, 16, 4)).astype(np.float32)
+    b = rng.standard_normal((4, 4, 24)).astype(np.float32)
+    ids = np.array([0, -1, 3], np.int32)
+    got = ops.lora_apply(*map(torch.from_numpy, (x, a, b, ids)), 0.5)
+    want = jops.lora_apply(x, a, b, jnp.asarray(ids), 0.5, force="ref")
+    assert got.shape == (3, 5, 24)
+    _close(got, want, 2e-5)
+    assert bool((got[1] == 0).all())
+
+
+@pytest.mark.parametrize("t", [8, 64])
+def test_negative_id_gives_exact_zero(t):
+    _, (tx, ta, tb, _) = _lora(9, t, 32, 4, 16, 2, jnp.float32)
+    ids = torch.full((t,), -1, dtype=torch.int32)
+    ids[0] = 1
+    out = ops.lora_apply(tx, ta, tb, ids)
+    assert bool((out[1:] == 0).all()) and bool(out[0].any())
+
+
+def test_kernel_wrappers_count_only_launches():
+    # a CPU tensor runs the plain version: no launch is counted
+    ops.reset_launches()
+    _, (tx, ta, tb, ti) = _lora(10, 8, 32, 4, 16, 2, jnp.float32)
+    ops.lora_apply(tx, ta, tb, ti)
+    ops.lora_apply(tx.repeat(8, 1), ta, tb, ti.repeat(8))
+    assert ops.launch_counts() == {"bgmv": 0, "sgmv": 0, "flash_decode": 0}
+
+
+@pytest.mark.parametrize("name", ["lora_ref", "lora_ref_ragged",
+                                  "lora_ref_bucketed", "lora_shrink_ref",
+                                  "mask_ragged"])
+def test_oracles_match_jax_oracles(name):
+    # the port's copies of repro.kernels.ref, same inputs, f32
+    from repro.kernels import ref as jref
+    (jx, ja, jb, ji), (tx, ta, tb, ti) = _lora(11, 40, 24, 8, 16, 3,
+                                               jnp.float32)
+    ranks = np.array([3, 8, 1], np.int32)
+    jr, tr = jnp.asarray(ranks), torch.from_numpy(ranks)
+    args = {"lora_ref": ((jx, ja, jb, ji, 0.5), (tx, ta, tb, ti, 0.5)),
+            "lora_ref_ragged": ((jx, ja, jb, ji, jr), (tx, ta, tb, ti, tr)),
+            "lora_ref_bucketed": ((jx, ja, jb, ji), (tx, ta, tb, ti)),
+            "lora_shrink_ref": ((jx, ja, jnp.maximum(ji, 0)),
+                                (tx, ta, ti.clamp(min=0).long())),
+            "mask_ragged": ((ja, jb, jr), (ta, tb, tr))}[name]
+    want, got = getattr(jref, name)(*args[0]), getattr(ref, name)(*args[1])
+    for w, g in zip(want if isinstance(want, tuple) else (want,),
+                    got if isinstance(got, tuple) else (got,)):
+        _close(g, w, 2e-5)
