@@ -5,21 +5,15 @@ writes to ``build/torch_kernels/`` at the root of the checkout (``build/``
 is git-ignored).  It is never triggered by an import: the CPU tests import
 every module and never build.
 
-Two routes give the same callable interface, ``kernels().bgmv(...)``,
-``.sgmv(...)`` and ``.flash_decode(...)``, taking device pointers, sizes and
-the stream as Python numbers:
-
-* with ``ninja``: one ``torch.utils.cpp_extension.load`` call over every
-  ``.cu`` source and the one binding file that includes PyTorch's headers
-  (``csrc/binding.cpp``); ninja compiles the sources in parallel;
-* without it: one ``nvcc`` per ``.cu`` source, all started together, linked
-  into a shared library with a plain C interface that ``ctypes`` loads.
+One ``torch.utils.cpp_extension.load`` call compiles every ``.cu`` source
+(in parallel, through ninja) and the one binding file that includes
+PyTorch's headers (``csrc/binding.cpp``).  The extension exposes
+``kernels().bgmv(...)``, ``.sgmv(...)`` and ``.flash_decode(...)``, taking
+device pointers, sizes and the stream as Python numbers.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
-import subprocess
 from pathlib import Path
 
 import torch
@@ -29,14 +23,6 @@ CU_SOURCES = ("bgmv.cu", "sgmv.cu", "flash_decode.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NAME = "repro_torch_kernels"
 ARCH_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
-
-# ctypes argument kinds per C launcher: p = pointer, i = int, f = float
-_SIGNATURES = {
-    "bgmv": "pppppiiiiifiip",
-    "sgmv": "pppppppiiiiiifiip",
-    "flash_decode": "ppppppppiiiiiiiip",
-}
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh
 
 
@@ -47,50 +33,11 @@ def dtype_code(dtype) -> int:
     return DTYPE_CODES[dtype]
 
 
-class _CtypesKernels:
-    """The nvcc route's library behind the same interface as the extension."""
-
-    def __init__(self, path: Path):
-        self._lib = ctypes.CDLL(str(path))
-        for name, sig in _SIGNATURES.items():
-            fn = getattr(self._lib, f"repro_{name}")
-            fn.argtypes = [_CTYPES[c] for c in sig]
-            fn.restype = ctypes.c_int
-            setattr(self, name, functools.partial(self._call, fn, name))
-
-    @staticmethod
-    def _call(fn, name, *args):
-        rc = fn(*args)
-        if rc:
-            raise RuntimeError(f"{name}: CUDA error {rc} at launch")
-
-
-def _build_nvcc() -> _CtypesKernels:
-    from torch.utils.cpp_extension import CUDA_HOME
-    nvcc = str(Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "nvcc")
-    objs, procs = [], []
-    for src in CU_SOURCES:
-        obj = BUILD_DIR / (Path(src).stem + ".o")
-        objs.append(str(obj))
-        procs.append(subprocess.Popen(
-            [nvcc, *ARCH_FLAGS, "-std=c++17", "-Xcompiler", "-fPIC", "-c",
-             str(CSRC / src), "-o", str(obj)]))
-    codes = [p.wait() for p in procs]
-    if any(codes):
-        raise RuntimeError(f"nvcc failed on {CU_SOURCES}: exit codes {codes}")
-    lib = BUILD_DIR / f"lib{NAME}.so"
-    subprocess.run([nvcc, *ARCH_FLAGS, "-shared", *objs, "-o", str(lib)],
-                   check=True)
-    return _CtypesKernels(lib)
-
-
 @functools.lru_cache(maxsize=None)
 def kernels():
-    """Build (once per process) and return the kernel library."""
+    """Build (once per process) and return the kernel extension."""
     from torch.utils import cpp_extension
     BUILD_DIR.mkdir(parents=True, exist_ok=True)  # load() does not
-    if not cpp_extension.is_ninja_available():
-        return _build_nvcc()
     return cpp_extension.load(
         name=NAME,
         sources=[str(CSRC / "binding.cpp")] + [str(CSRC / s)

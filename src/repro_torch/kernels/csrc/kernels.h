@@ -1,11 +1,10 @@
 // Plain C interface of the port's CUDA kernels.
 //
 // Each launcher enqueues its kernel(s) on `stream` (a cudaStream_t passed as
-// a pointer) and returns cudaPeekAtLastError() as an int, so a refused
-// launch is visible to either binding: binding.cpp raises through
-// C10_CUDA_KERNEL_LAUNCH_CHECK(), the ctypes route in kernels/build.py
-// raises on a non-zero return.  Pointers are device pointers; every array
-// is contiguous.  dtype codes: 0 = float32, 1 = bfloat16.
+// a pointer) and returns cudaPeekAtLastError() as an int, or an error code
+// for arguments it does not take; binding.cpp raises on either.  Pointers
+// are device pointers; every array is contiguous.  dtype codes:
+// 0 = float32, 1 = bfloat16.
 #pragma once
 
 #ifdef __cplusplus

@@ -8,8 +8,8 @@ fixture, never at import).  On the GPU machine:
 ``chip_smoke.py`` holds the kernels at the main path's shapes; these hold
 them at edge shapes (rank 1 and odd ranks, expand widths off the tile,
 every head dim the flash-decode kernel instantiates, group sizes 1..8,
-lengths 0 and past S), check that the wrappers reject what the kernels do
-not take, and build the nvcc + ctypes route.
+lengths 0 and past S), and check that the wrappers and the binding reject
+what the kernels do not take.
 """
 import pytest
 
@@ -20,6 +20,7 @@ from repro_torch.kernels import bgmv, build, flash_decode, ref, sgmv  # noqa: E4
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+ROW_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 
 
 @pytest.fixture
@@ -48,6 +49,16 @@ def _close(got, want, dtype):
     torch.cuda.synchronize()
     tol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _close_rows(got, want, dtype):
+    # attention outputs are weighted means of V and shrink with the row's
+    # length, so besides _close each row is held to a share of its own
+    # largest magnitude
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs().amax(-1)
+    scale = want.float().abs().amax(-1).clamp(min=1e-30)
+    assert (diff / scale).max().item() <= ROW_TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -102,7 +113,9 @@ def test_flash_decode_kernel_edges(gen, bsz, h, kv, s, d, dtype):
                             dtype=torch.int32)
     lengths[0] = 0
     got = flash_decode.flash_decode(q, k, v, lengths)
-    _close(got, flash_decode.flash_decode_plain(q, k, v, lengths), dtype)
+    want = flash_decode.flash_decode_plain(q, k, v, lengths)
+    _close(got, want, dtype)
+    _close_rows(got, want, dtype)
     assert bool((got[0] == 0).all())
 
 
@@ -123,25 +136,10 @@ def test_wrappers_reject_what_kernels_do_not_take(gen):
         flash_decode.flash_decode(q, kv, kv, 16)
 
 
-def test_nvcc_ctypes_route(gen, monkeypatch, tmp_path):
-    # the route taken where ninja is missing: one nvcc per source, ctypes
-    from torch.utils import cpp_extension
-    monkeypatch.setattr(cpp_extension, "is_ninja_available", lambda: False)
-    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
-    build.kernels.cache_clear()
-    try:
-        assert isinstance(build.kernels(), build._CtypesKernels)
-        x = _normal(gen, 8, 256)
-        a, b = _bank(gen, 4, 256, 8, 512, torch.float32)
-        ids = _ids(gen, 8, 4)
-        _close(bgmv.bgmv(x, a, b, ids), bgmv.bgmv_plain(x, a, b, ids),
-               torch.float32)
-        big = x.repeat(16, 1)
-        bids = ids.repeat(16)
-        _close(sgmv.sgmv(big, a, b, bids), ref.sgmv_ref(big, a, b, bids),
-               torch.float32)
-        with pytest.raises(RuntimeError, match="CUDA error"):
-            build.kernels().bgmv(0, 0, 0, 0, 0, 4, 8, 100, 8, 2, 1.0, 0, 0,
-                                 build.stream_handle(x.device))
-    finally:
-        build.kernels.cache_clear()
+def test_binding_raises_on_rejected_arguments(gen):
+    # a launcher that refuses its arguments (rank 100 > 64) launches nothing,
+    # and the binding raises rather than return an unwritten output
+    x = _normal(gen, 4, 8)
+    with pytest.raises(RuntimeError, match="bgmv: launcher rejected"):
+        build.kernels().bgmv(0, 0, 0, 0, 0, 4, 8, 100, 8, 2, 1.0, 0, 0,
+                             build.stream_handle(x.device))
