@@ -8,9 +8,16 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 2. the build of the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the main
    path's shapes, in bf16 and f32, within 3e-2 (bf16) and 2e-5 (f32),
-   absolute and relative; flash-decode, whose outputs are weighted means
-   of V and shrink with the row's length, also within 1e-2 (bf16) and
-   2e-5 (f32) of each output row's largest magnitude;
+   absolute and relative; flash-decode and the fused flash-decode+LoRA,
+   whose attention outputs are weighted means of V and shrink with the
+   row's length, also within 1e-2 (bf16) and 2e-5 (f32) of each output
+   row's largest magnitude; the fused kernel with its delta at two sizes
+   (one that dominates the output, one of the attention's size), also with
+   an f32 bank under bf16 attention and with a ragged bank
+   (``ops.fused_decode``), bitwise equal to flash-decode on an all-base
+   batch, raising on an expand dim other than H*D, and at the measurement
+   path's widest points (batch 32, 4096 positions, 32 adapters, ranks 8,
+   16 and 32) on the inputs that path draws;
 4. teacher forcing at phi4-mini's published widths, f32, 4 layers:
    decode after ``prefill(tokens[:, :-1])`` must match ``prefill(tokens)``
    to a relative error below 2e-4;
@@ -19,12 +26,24 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    published phi4-mini-3.8b (32 layers, bf16, weights from seed 0); at
    least 12 requests must finish;
 6. per kernel at the main path's shapes: its time, its plain version's, the
-   least time the card could take (bound), and a PyTorch library call's.
+   least time the card could take (bound), and a PyTorch library call's
+   (for the fused kernel, which no single PyTorch call computes, the
+   unfused flash-decode + BGMV + add sequence instead, as ``unfused_ms``);
+   ragged SGMV is timed apart (``ragged_ms``);
+7. the measurement path: ``repro_torch.bench.kernels_bench`` times the
+   fused kernel (and SGMV for prefill) over its (batch, seq, rank) grid at
+   phi4-mini-3.8b's published widths, fits a ``MeasuredStepTimes``, and
+   the port's Digital Twin sweeps placements (``find_optimal_placement``,
+   32 adapters of ranks 8/16/32 at 3.2 req/s each, dataset small, 60 s
+   horizon) with the analytic step-time fit of the synthetic H100 profile
+   and with the measured surface; both (N*, G*) are printed.  The measured
+   surface times one layer's launch, not a model step.
 
 Launch counts are zeroed just before each path a user drives (teacher
 forcing through ``Model.prefill``/``decode_step`` in phase 4, serving in
-phase 5) and read just after it.  SGMV must have launched in phase 4,
-where prefill reaches it; BGMV and flash-decode in both.  Each kernel's
+phase 5, measurement in phase 7) and read just after it.  SGMV, BGMV and
+flash-decode must have launched in phase 4, BGMV and flash-decode in
+phase 5, the fused kernel and SGMV in phase 7.  Each kernel's
 ``launches`` in the kernel table is the count of the path it serves
 (``path``).  Float32 products run in full f32 (TF32 off) wherever parity
 is checked.  The last two lines are the kernel table and the device, as
@@ -56,11 +75,29 @@ KERNEL_ROWS = {  # name -> (source, TPU kernel it replaces)
              "src/repro/kernels/sgmv.py:77"),
     "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_decode.py:95"),
+    "flash_decode_lora": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                          "src/repro/kernels/flash_decode.py:205"),
 }
+# the path each kernel is counted on, and the kernels each path must launch
+KERNEL_PATH = {"bgmv": "serving", "sgmv": "teacher_forcing",
+               "flash_decode": "serving",
+               "flash_decode_lora": "measurement"}
+PATH_KERNELS = {"teacher_forcing": ("sgmv", "bgmv", "flash_decode"),
+                "serving": ("bgmv", "flash_decode"),
+                "measurement": ("flash_decode_lora", "sgmv")}
 # main-path shapes (phi4-mini-3.8b serving: max_batch 8, cache 512, 4 slots)
 D_MODEL, Q_OUT, V_OUT, RANK, SLOTS = 3072, 3072, 1024, 8, 4
 HEADS, KV_HEADS, HEAD_DIM, BATCH, CACHE = 24, 8, 128, 8, 512
 PREFILL_T = 1024
+RAGGED_RANKS = (8, 3, 5, 1)                     # a ragged bank of SLOTS
+# The fused delta at two sizes: with ``lora_bank``'s draws it is about
+# N(0, scale^2), against attention outputs of about 0.05-0.1 (1 where a
+# row's length is 1).  At 2.0 the delta dominates and a fault in the LoRA
+# epilogue shows; at 0.05 it is the attention's size and a fault in the
+# attention part shows too.
+FUSED_SCALES = {"delta-sized": 2.0, "attention-sized": 0.05}
+# the measurement path's widest points: batch, positions, adapters, ranks
+GRID_B, GRID_S, GRID_N, GRID_RANKS = 32, 4096, 32, (8, 16, 32)
 
 
 def say(*parts) -> None:
@@ -160,7 +197,82 @@ def phase_kernels():
               per_row=True)
         check("flash_decode length 0", flash_decode.flash_decode(q, k, v, 0),
               torch.zeros_like(q), dn, errs, exact=True)
+        check_fused(inp, q, k, v, lengths, dtype, dn, errs)
+    del q, k, v
+    check_fused_grid(errs)
     return errs
+
+
+def check_fused(inp, q, k, v, lengths, dtype, dn, errs):
+    """The fused flash-decode+LoRA kernel at the serving shapes."""
+    from repro_torch.kernels import flash_decode, ops, ref
+    fd, plain = flash_decode.flash_decode_lora, \
+        flash_decode.flash_decode_lora_plain
+    x = inp.normal(BATCH, D_MODEL, dtype=dtype)
+    ids = torch.tensor([0, 1, 2, 3, -1, 0, -1, 2], dtype=torch.int32,
+                       device="cuda")
+    a, b = inp.lora_bank(SLOTS, D_MODEL, RANK, HEADS * HEAD_DIM, dtype)
+    ranks = torch.tensor(RAGGED_RANKS, dtype=torch.int32, device="cuda")
+    am, bm = ref.mask_ragged(a, b, ranks)
+    if dtype == torch.bfloat16:
+        a32, b32 = inp.lora_bank(SLOTS, D_MODEL, RANK, HEADS * HEAD_DIM,
+                                 torch.float32)
+    for size, scale in FUSED_SCALES.items():
+        check(f"flash_decode_lora ids with -1, {size}",
+              fd(q, k, v, lengths, x, a, b, ids, scale),
+              plain(q, k, v, lengths, x, a, b, ids, scale), dn, errs,
+              per_row=True)
+        check(f"flash_decode_lora ragged bank (ops.fused_decode), {size}",
+              ops.fused_decode(q, k, v, lengths, x, a, b, ids, scale,
+                               ranks=ranks),
+              plain(q, k, v, lengths, x, am, bm, ids, scale), dn, errs,
+              per_row=True)
+        if dtype == torch.bfloat16:
+            check(f"flash_decode_lora f32 bank, {size}",
+                  fd(q, k, v, lengths, x, a32, b32, ids, scale),
+                  plain(q, k, v, lengths, x, a32, b32, ids, scale), dn, errs,
+                  per_row=True)
+    base = torch.full_like(ids, -1)
+    check("flash_decode_lora all-base vs flash_decode",
+          fd(q, k, v, lengths, x, a, b, base),
+          flash_decode.flash_decode(q, k, v, lengths), dn, errs, exact=True)
+    wide = inp.normal(SLOTS, RANK, HEADS * HEAD_DIM + 8, dtype=dtype)
+    try:
+        fd(q, k, v, lengths, x, a, wide, ids)
+    except ValueError as e:
+        say(f"  flash_decode_lora expand dim {wide.shape[-1]}: raises ({e})")
+    else:
+        raise AssertionError("flash_decode_lora took an expand dim != H*D")
+
+
+def check_fused_grid(errs):
+    """The fused kernel at the measurement path's widest points (phase 7):
+    batch 32 (768 combine blocks), 4096 positions (the longest split
+    plan), 32 adapters and each rank of the grid, on the bf16 inputs that
+    ``kernels_bench`` draws there.  Those are all N(0, 1), so the delta is
+    about N(0, dx * rank) and hides the attention (about 0.03): each point
+    is also held at a scale that shrinks the delta to the attention's
+    size.  The errors are kept apart (``flash_decode_lora_grid``): at
+    scale 1 the outputs reach about 10^3, where a bf16 step is 4-8."""
+    from repro_torch.bench import kernels_bench as kb
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode, ops
+    w = kb.Widths.of(get_config("phi4-mini-3.8b"))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for rank in GRID_RANKS:
+        q, k, v, x, a, b, idx = kb._decode_data(
+            gen, GRID_B, GRID_S, rank, GRID_N, h=w.h, kv=w.kv, d=w.d,
+            dx=w.dx)
+        for size, scale in (("path's scale 1", 1.0), (
+                "attention-sized", 0.05 / math.sqrt(w.dx * rank))):
+            check(f"flash_decode_lora_grid B {GRID_B} S {GRID_S} r {rank} "
+                  f"N {GRID_N}, {size}",
+                  ops.fused_decode(q, k, v, GRID_S, x, a, b, idx, scale),
+                  flash_decode.flash_decode_lora_plain(
+                      q, k, v, GRID_S, x, a, b, idx, scale),
+                  "bfloat16", errs, per_row=True)
+        del q, k, v
+        torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------- #
@@ -311,9 +423,16 @@ def phase_timing():
                       "plain_ms": graph_ms(plain, sets),
                       "bound_ms": b_ms, "bound_by": b_by,
                       "library_ms": None}
+        return sets
 
     lora_row("bgmv", bgmv.bgmv, bgmv.bgmv_plain, BATCH, Q_OUT)
-    lora_row("sgmv", sgmv.sgmv, ref.sgmv_ref, PREFILL_T, Q_OUT)
+    sets = lora_row("sgmv", sgmv.sgmv, ref.sgmv_ref, PREFILL_T, Q_OUT)
+    # ragged SGMV (row 3 of the TPU kernels) on the same inputs
+    ranks = torch.tensor(RAGGED_RANKS, dtype=torch.int32, device="cuda")
+    rows["sgmv"]["ragged_ms"] = graph_ms(
+        lambda x, a, b, i: sgmv.sgmv(x, a, b, i, ranks=ranks), sets)
+    rows["sgmv"]["ragged_plain_ms"] = graph_ms(
+        lambda x, a, b, i: ref.sgmv_ref(x, a, b, i, ranks=ranks), sets)
 
     lengths = torch.full((BATCH,), CACHE, dtype=torch.int32, device="cuda")
 
@@ -338,13 +457,116 @@ def phase_timing():
         "plain_ms": graph_ms(flash_decode.flash_decode_plain, sets),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": graph_ms(sdpa, lib_sets)}
+
+    # fused: the same attention plus a rank-8 delta from 4 adapters
+    ids = (torch.arange(BATCH, device="cuda") % SLOTS).to(torch.int32)
+    expand = HEADS * HEAD_DIM
+
+    def make_fused():
+        x = inp.normal(BATCH, D_MODEL, dtype=dt)
+        a, b = inp.lora_bank(SLOTS, D_MODEL, RANK, expand, dt)
+        return make_fd() + (x, a, b, ids)
+    n_used = int(torch.unique(ids).numel())
+    lora_elems = BATCH * D_MODEL + n_used * RANK * (D_MODEL + expand)
+    nbytes_f = nbytes + lora_elems * es + 4 * BATCH
+    sets = copies(make_fused, nbytes_f)
+    b_ms, b_by = bound(nbytes_f, 4 * HEADS // KV_HEADS * kv_elems
+                       + 2 * BATCH * RANK * (D_MODEL + expand), "bfloat16")
+
+    def unfused(q, k, v, length, x, a, b, i):
+        # the JAX bench's yardstick: base attention, a separate LoRA
+        # launch, the add
+        return flash_decode.flash_decode(q, k, v, length) \
+            + bgmv.bgmv(x, a, b, i).reshape(q.shape)
+    rows["flash_decode_lora"] = {
+        "ms": graph_ms(flash_decode.flash_decode_lora, sets),
+        "plain_ms": graph_ms(flash_decode.flash_decode_lora_plain, sets),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,          # no single PyTorch call computes it
+        "unfused_ms": graph_ms(unfused, sets)}
     return rows
 
 
 # --------------------------------------------------------------------------- #
+# phase 7: the measurement path
+# --------------------------------------------------------------------------- #
 
-SERVE_KERNELS = ("bgmv", "flash_decode")   # SGMV is reached by prefill
+# 3.2 req/s per adapter: the saturating rate of
+# benchmarks/fig2_loaded_adapters.py (the paper's Fig. 2 sweep)
+PLACEMENT_POOL = dict(n=32, ranks=(8, 16, 32), rates=(3.2,))
+PLACEMENT_SWEEP = dict(dataset="small", horizon=60.0, seed=0)
 
+
+def phase_measure(ops):
+    """Kernel launches at full width -> MeasuredStepTimes -> the port's
+    twin -> (N*, G*), beside the analytic fit's.  Returns the launch
+    counts of the path."""
+    from repro_torch.bench import kernels_bench as kb
+    from repro_torch.configs import get_config
+    from repro_torch.core import (collect_benchmark, collect_memmax,
+                                  find_optimal_placement, fit_estimators,
+                                  make_adapter_pool)
+    from repro_torch.serving.executor import HardwareProfile, \
+        SyntheticExecutor
+    t0 = time.perf_counter()
+    widths = kb.Widths.of(get_config("phi4-mini-3.8b"))
+    ops.reset_launches()
+    rows = kb.collect_kernel_rows(device="cuda", smoke=False, widths=widths)
+    counts = ops.launch_counts()
+    t_rows = time.perf_counter() - t0
+    say(f"  {len(rows)} rows at {widths} in {t_rows:.1f} s; launches on "
+        f"the measurement path: {counts}")
+    for r in rows:
+        say("    " + json.dumps(r))
+    values = [r["t"] if "t" in r else r["mult"] for r in rows]
+    if not all(math.isfinite(x) and x > 0 for x in values):
+        raise AssertionError("measurement rows must be positive times")
+
+    mst = kb.fit_rows(rows)
+    c = mst.decode
+    dec = [r for r in rows if r["kind"] == "decode"]
+    resid = [float(c @ [1.0, r["batch"], r["batch"] * r["seq"],
+                        r["batch"] * r["rank"]]) - r["t"] for r in dec]
+    say(f"  MeasuredStepTimes: c0 {c[0] * 1e6:.3f} us, cB {c[1] * 1e6:.4f}"
+        f" us, cBS {c[2] * 1e9:.5f} ns, cBr {c[3] * 1e6:.5f} us (mean_seq "
+        f"{mst.mean_seq:.1f}, mean_rank {mst.mean_rank:.2f}); prefill "
+        f"{mst.prefill_per_token * 1e9:.4f} ns/token; adapters "
+        f"{mst.adapters[0]:.5f} + {mst.adapters[1]:.6f}*A")
+    say(f"  decode fit: rms residual "
+        f"{math.sqrt(sum(x * x for x in resid) / len(resid)) * 1e6:.2f} us"
+        f" over t of {min(r['t'] for r in dec) * 1e6:.2f}-"
+        f"{max(r['t'] for r in dec) * 1e6:.2f} us")
+    if not (all(map(math.isfinite, list(c) + list(mst.adapters)))
+            and math.isfinite(mst.prefill_per_token)):
+        raise AssertionError("the measured fit is not finite")
+
+    # base estimators of Eq. (1), fitted as repro.core.pipeline fits them
+    profile = HardwareProfile()
+    ranks = {i: (8, 16, 32)[i % 3] for i in range(96)}
+    ex = SyntheticExecutor(profile, ranks, slots=32, n_adapters=96, seed=0)
+    est = fit_estimators(collect_benchmark(ex, 32, 96, ranks),
+                         collect_memmax(profile, seed=0), 32, 96)
+    pool = make_adapter_pool(PLACEMENT_POOL["n"], PLACEMENT_POOL["ranks"],
+                             PLACEMENT_POOL["rates"])
+    for label, surface in (("analytic", None), ("measured", mst)):
+        t1 = time.perf_counter()
+        res = find_optimal_placement(est, pool, measured_step_times=surface,
+                                     **PLACEMENT_SWEEP)
+        if res.best is None or not res.throughput > 0:
+            raise AssertionError(f"{label} sweep found no placement")
+        say(f"  placement ({label} step times): N* {res.n_adapters}, G* "
+            f"{res.slots}, throughput {res.throughput:.1f} tok/s (ideal "
+            f"{res.best.ideal:.1f}), {len(res.curve)} twin runs in "
+            f"{time.perf_counter() - t1:.1f} s")
+    say("  note: the measured surface times one layer's fused launch (and "
+        "the host's synchronise), not a model step, so the two placements "
+        "are not comparable: the measured one shows how small that "
+        "surface is")
+    say(f"  phase wall {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+# --------------------------------------------------------------------------- #
 
 def require_launched(path, counts, names) -> None:
     missing = [k for k in names if counts[k] == 0]
@@ -388,7 +610,8 @@ def main() -> int:
     phase_parity()
     tf_launches = ops.launch_counts()
     say(f"  launches on the teacher-forcing path: {tf_launches}")
-    require_launched("teacher forcing", tf_launches, KERNEL_ROWS)
+    require_launched("teacher forcing", tf_launches,
+                     PATH_KERNELS["teacher_forcing"])
     torch.cuda.empty_cache()
 
     say("phase 5: serving phi4-mini-3.8b (published widths, bf16)")
@@ -407,27 +630,40 @@ def main() -> int:
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("serving produced non-finite logits")
     # decode batches of 8 rows on 4 slots stay at T <= 4N: BGMV, not SGMV
-    require_launched("serving", serve_launches, SERVE_KERNELS)
+    require_launched("serving", serve_launches, PATH_KERNELS["serving"])
 
     say("phase 6: timing at the main path's shapes (bf16)")
     per_step = phase_step(executor, ops)
     del executor, logits
     torch.cuda.empty_cache()
     rows = phase_timing()
-    table = []
-    for name, (source, replaces) in KERNEL_ROWS.items():
-        r = rows[name]
+    for name, r in rows.items():
+        extra = {k: v for k, v in r.items() if k not in
+                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         say(f"  {name}: {r['ms'] * 1e3:.2f} us (plain {r['plain_ms'] * 1e3:.2f}"
             f" us, bound {r['bound_ms'] * 1e3:.3f} us by {r['bound_by']}, "
-            f"library {r['library_ms']}), {per_step[name]} per decode step")
-        path, counts = (("serving", serve_launches) if name in SERVE_KERNELS
-                        else ("teacher_forcing", tf_launches))
+            f"library {r['library_ms']}), {per_step[name]} per decode step"
+            + "".join(f", {k} {v * 1e3:.2f} us" for k, v in extra.items()))
+    torch.cuda.empty_cache()
+
+    say("phase 7: measurement path (kernel launches -> MeasuredStepTimes ->"
+        " Digital Twin -> (N*, G*))")
+    measure_launches = phase_measure(ops)
+    require_launched("measurement", measure_launches,
+                     PATH_KERNELS["measurement"])
+
+    paths = {"teacher_forcing": tf_launches, "serving": serve_launches,
+             "measurement": measure_launches}
+    rows["flash_decode_lora"]["grid_max_abs_err"] = \
+        errs["flash_decode_lora_grid"]
+    table = []
+    for name, (source, replaces) in KERNEL_ROWS.items():
+        path = KERNEL_PATH[name]
         table.append({"name": name, "route": "cuda", "source": source,
-                      "replaces": replaces, "launches": counts[name],
+                      "replaces": replaces, "launches": paths[path][name],
                       "path": path,
-                      "launches_serving": serve_launches[name],
-                      "launches_teacher_forcing": tf_launches[name],
-                      "max_abs_err": errs[name], **r})
+                      **{f"launches_{p}": c[name] for p, c in paths.items()},
+                      "max_abs_err": errs[name], **rows[name]})
     say(json.dumps({"kernels": table}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,11 @@
-"""Workload generation for the port (a copy of part of repro.core.workload)."""
+"""The paper's Digital Twin and placement sweep, with the workload
+generation and the Eq. (1) estimators they run on (copies of parts of
+``repro.core``)."""
+from .digital_twin import DigitalTwin, DTResult, EstimatorExecutor  # noqa
+from .estimators import (FittedEstimators, MeasuredStepTimes,  # noqa
+                         collect_benchmark, collect_memmax,
+                         fit_estimators, fit_measured_step_times)
+from .placement import (PlacementPoint, PlacementResult,  # noqa
+                        default_slot_grid, find_optimal_placement)
+from .workload import (DATASETS, WorkloadSpec, generate_requests,  # noqa
+                       make_adapter_pool, resample_requests)

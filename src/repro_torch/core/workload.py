@@ -1,7 +1,8 @@
 """Workload generation: multi-adapter request streams (paper §IV-A Setup).
 
 The port's copy of the part of ``repro.core.workload`` that the serve
-launcher needs; the functions are verbatim.  Each adapter has an independent
+launcher and the Digital Twin's *mean* mode need; the functions are
+verbatim.  Each adapter has an independent
 Poisson arrival process; request lengths come from the paper's datasets: the
 three synthetic single-length profiles (SmallRequest 23/27, MediumRequest
 250/231, LargeRequest 423/358 — P25 / mean / P75 of cleaned ShareGPT) or a
@@ -120,6 +121,45 @@ def generate_requests(spec: WorkloadSpec) -> List[Request]:
         r.uid = i
     return assign_shared_prefixes(reqs, spec.prefix_share, spec.prefix_len,
                                   seed=spec.seed)
+
+
+def _moment_sampler(mean: float, std: float, rng, lo: int):
+    """Positive-valued sampler matching (mean, std) via a lognormal
+    (method of moments) — request lengths are heavy-tailed, so this
+    preserves queueing behaviour far better than a clipped normal."""
+    if std <= 0:
+        return lambda: max(int(mean), lo)
+    sigma2 = math.log(1.0 + (std / mean) ** 2)
+    mu = math.log(mean) - sigma2 / 2.0
+    sig = math.sqrt(sigma2)
+    return lambda: max(int(rng.lognormal(mu, sig)), lo)
+
+
+def resample_requests(spec: WorkloadSpec, stats: Dict[str, float],
+                      seed_shift: int = 1) -> List[Request]:
+    """DT *mean* mode: regenerate a statistically equivalent stream from
+    aggregate in/out length stats and the adapter rates."""
+    rng = np.random.default_rng(spec.seed + seed_shift)
+    sample_in = _moment_sampler(stats["in_mean"], stats["in_std"], rng, 4)
+    sample_out = _moment_sampler(stats["out_mean"], stats["out_std"], rng, 1)
+    reqs: List[Request] = []
+    uid = 0
+    for ad in spec.adapters:
+        if ad.rate <= 0:
+            continue
+        t = 0.0
+        while True:
+            t += rng.exponential(1.0 / ad.rate)
+            if t >= spec.horizon:
+                break
+            reqs.append(Request(uid=uid, adapter=ad.uid, arrival=t,
+                                prompt_len=sample_in(), output_len=sample_out()))
+            uid += 1
+    reqs.sort(key=lambda r: r.arrival)
+    for i, r in enumerate(reqs):
+        r.uid = i
+    return assign_shared_prefixes(reqs, spec.prefix_share, spec.prefix_len,
+                                  seed=spec.seed + seed_shift)
 
 
 def make_adapter_pool(n: int, ranks: Sequence[int], rates: Sequence[float],

@@ -1,9 +1,11 @@
-"""Flash-decode: single-token GQA attention over a contiguous KV cache.
+"""Flash-decode: single-token GQA attention over a contiguous KV cache, and
+the fused decode step that adds a multi-adapter LoRA delta to it.
 
-The port of ``repro.kernels.flash_decode.flash_decode`` (Pallas,
-flash_decode.py:95).  On a CUDA tensor ``flash_decode`` launches the
-split-KV kernel in ``csrc/flash_decode.cu`` (a split pass and a log-sum-exp
-combine); on a CPU tensor it runs ``flash_decode_plain``.
+The ports of ``repro.kernels.flash_decode.flash_decode`` (Pallas,
+flash_decode.py:95) and ``flash_decode_lora`` (flash_decode.py:205).  On a
+CUDA tensor each launches the split-KV kernel in ``csrc/flash_decode.cu``
+(a split pass and a log-sum-exp combine, the fused one with a LoRA epilogue
+in the combine); on a CPU tensor each runs its plain version.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import math
 import torch
 
 from . import build
+from .bgmv import MAX_RANK
 
 HEAD_DIMS = (16, 32, 64, 128, 256)  # csrc/flash_decode.cu instantiations
 MAX_GROUP = 8                       # query heads per KV head (kMaxG)
@@ -34,6 +37,11 @@ def flash_decode_plain(q, k, v, length):
 
     q: (B, H, D); k/v: (B, S, KV, D); length: scalar or (B,).
     """
+    return _attention_f32(q, k, v, length).to(q.dtype)
+
+
+def _attention_f32(q, k, v, length):
+    """``flash_decode_plain`` before its cast: (B, H, D) in f32."""
     bsz, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
     qs = q.reshape(bsz, kv, h // kv, d).float()
@@ -45,7 +53,37 @@ def flash_decode_plain(q, k, v, length):
                     torch.zeros_like(sc))
     out = torch.einsum("bkgs,bskd->bkgd", p, v.float())
     out = out / p.sum(-1, keepdim=True).clamp(min=1e-20)
-    return out.reshape(bsz, h, d).to(q.dtype)
+    return out.reshape(bsz, h, d)
+
+
+def _check_expand(q, b):
+    h, d = q.shape[1:]
+    if b.shape[-1] != h * d:
+        raise ValueError(f"expand dim {b.shape[-1]} != H*D = {h * d}")
+
+
+def flash_decode_lora_plain(q, k, v, length, x, a, b, idx,
+                            scale: float = 1.0):
+    """The fused kernel's function in plain PyTorch: the attention of
+    ``flash_decode_plain`` in f32, plus scale * x @ A[idx] @ B[idx] with
+    h = x @ A kept in f32, then one cast to q's dtype (as the Pallas
+    epilogue, flash_decode.py:160-175).  A row whose id is outside [0, N)
+    gets the attention alone (no add).
+
+    q: (B, H, D); k/v: (B, S, KV, D); x: (B, dx); a: (N, dx, r);
+    b: (N, r, H*D); idx: (B,) -> (B, H, D).
+    """
+    _check_expand(q, b)
+    attn = _attention_f32(q, k, v, length)
+    n = a.shape[0]
+    idx = torch.as_tensor(idx, device=q.device)
+    live = (idx >= 0) & (idx < n)
+    ida = idx.clamp(0, n - 1).long()
+    h = torch.einsum("bd,bdr->br", x.float(), a[ida].float())
+    delta = torch.einsum("br,bro->bo", h, b[ida].float()) * scale
+    out = torch.where(live[:, None, None], attn + delta.reshape(attn.shape),
+                      attn)
+    return out.to(q.dtype)
 
 
 def split_plan(bsz: int, kv: int, s: int, n_sm: int):
@@ -74,13 +112,33 @@ def _check(q, k, v, lengths):
         raise ValueError("flash_decode: inputs must be contiguous")
 
 
-def flash_decode(q, k, v, length):
-    """q: (B, H, D); k/v: (B, S, KV, D); length: scalar or (B,) -> (B, H, D).
+def _check_lora(q, x, a, b, idx):
+    bsz = q.shape[0]
+    if not all(t.device == q.device for t in (x, a, b, idx)):
+        raise ValueError("flash_decode_lora: inputs must lie on one CUDA "
+                         "device")
+    _check_expand(q, b)
+    n, dx, r = a.shape
+    if x.shape != (bsz, dx) or b.shape[:2] != (n, r) or idx.shape != (bsz,):
+        raise ValueError(f"flash_decode_lora: shapes x {tuple(x.shape)}, a "
+                         f"{tuple(a.shape)}, b {tuple(b.shape)}, idx "
+                         f"{tuple(idx.shape)}")
+    if x.dtype != q.dtype or a.dtype != b.dtype:
+        raise TypeError("flash_decode_lora: x must share q's dtype and b "
+                        "a's")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"flash_decode_lora: idx must be int32, not "
+                        f"{idx.dtype}")
+    if not 1 <= r <= MAX_RANK:
+        raise ValueError(f"flash_decode_lora: rank {r} outside "
+                         f"[1, {MAX_RANK}]")
+    if not all(t.is_contiguous() for t in (x, a, b, idx)):
+        raise ValueError("flash_decode_lora: inputs must be contiguous")
 
-    Query head h attends KV head h // (H/KV) over positions < length.
-    """
-    if q.device.type == "cpu":
-        return flash_decode_plain(q, k, v, length)
+
+def _launch_args(q, k, v, length):
+    """The arguments both kernels share: the checked lengths, the split
+    plan and its f32 partials, and the output."""
     bsz, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
     lengths = _lengths(length, bsz, q.device)
@@ -93,13 +151,55 @@ def flash_decode(q, k, v, length):
     acc_part = torch.empty((bsz, h, n_splits, d), dtype=torch.float32,
                            device=q.device)
     out = torch.empty_like(q)
+    return (lengths, m_part, l_part, acc_part, out,
+            (bsz, s, h, kv, d, n_splits, chunk))
+
+
+def flash_decode(q, k, v, length):
+    """q: (B, H, D); k/v: (B, S, KV, D); length: scalar or (B,) -> (B, H, D).
+
+    Query head h attends KV head h // (H/KV) over positions < length.
+    """
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k, v, length)
+    lengths, m_part, l_part, acc_part, out, dims = _launch_args(q, k, v,
+                                                                length)
     build.kernels().flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-        out.data_ptr(), bsz, s, h, kv, d, n_splits, chunk,
-        build.dtype_code(q.dtype), build.stream_handle(q.device))
+        out.data_ptr(), *dims, build.dtype_code(q.dtype),
+        build.stream_handle(q.device))
     flash_decode.launches += 1
     return out
 
 
 flash_decode.launches = 0
+
+
+def flash_decode_lora(q, k, v, length, x, a, b, idx, scale: float = 1.0):
+    """Fused decode step: ``attn(q, K, V) + scale * x @ A[idx] @ B[idx]``.
+
+    q: (B, H, D); k/v: (B, S, KV, D); length: scalar or (B,); x: (B, dx)
+    in q's dtype; a: (N, dx, r); b: (N, r, H*D); idx: (B,) int32 adapter
+    ids (outside [0, N) -> the attention alone).  The bank may be f32
+    under bf16 attention.  One call per decode step, one split plan with
+    ``flash_decode``: an all-base batch gives its output bit for bit.
+    """
+    if q.device.type == "cpu":
+        return flash_decode_lora_plain(q, k, v, length, x, a, b, idx, scale)
+    _check_lora(q, x, a, b, idx)
+    lengths, m_part, l_part, acc_part, out, dims = _launch_args(q, k, v,
+                                                                length)
+    n, dx, r = a.shape
+    build.kernels().flash_decode_lora(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+        x.data_ptr(), a.data_ptr(), b.data_ptr(), idx.data_ptr(),
+        m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
+        out.data_ptr(), *dims, dx, r, n, float(scale),
+        build.dtype_code(q.dtype), build.dtype_code(a.dtype),
+        build.stream_handle(q.device))
+    flash_decode_lora.launches += 1
+    return out
+
+
+flash_decode_lora.launches = 0

@@ -1,9 +1,9 @@
 """Public kernel entry points, dispatched by the tensor's device.
 
 The counterparts of ``repro.kernels.ops``.  A CUDA tensor launches the
-hand-written kernel (BGMV, SGMV, flash-decode) or raises; a CPU tensor takes
-the kernel's plain version.  Nothing here probes for a backend or falls
-back from a failed launch.
+hand-written kernel (BGMV, SGMV, flash-decode, fused flash-decode+LoRA) or
+raises; a CPU tensor takes the kernel's plain version.  Nothing here
+probes for a backend or falls back from a failed launch.
 
 Shared conventions with the JAX package:
 
@@ -19,7 +19,8 @@ from . import bgmv as bgmv_mod, flash_decode as fd_mod, ref, sgmv as sgmv_mod
 
 #: the wrappers that count their launches (``<wrapper>.launches``)
 KERNELS = {"bgmv": bgmv_mod.bgmv, "sgmv": sgmv_mod.sgmv,
-           "flash_decode": fd_mod.flash_decode}
+           "flash_decode": fd_mod.flash_decode,
+           "flash_decode_lora": fd_mod.flash_decode_lora}
 
 
 def reset_launches() -> None:
@@ -83,3 +84,21 @@ def flash_decode(q, k, v, length):
     or (B,).
     """
     return fd_mod.flash_decode(q, k, v, length)
+
+
+def fused_decode(q, k, v, length, x, a, b, idx, scale: float = 1.0,
+                 ranks=None):
+    """Fused decode step: ``attn(q,K,V) + scale * x @ A[idx] @ B[idx]``.
+
+    One kernel launch per decode step instead of base-then-adapter.
+    q: (B, H, D); k/v: (B, S, KV, D); x: (B, dx); a: (N, dx, r);
+    b: (N, r, H*D); idx: (B,) adapter ids (< 0 -> base model);
+    ``ranks`` (N,) enables ragged per-adapter ranks (the bank is masked
+    first, as ``repro.kernels.ops.fused_decode`` masks it).  Returns
+    (B, H, D).
+    """
+    if ranks is not None:
+        a, b = ref.mask_ragged(a, b, ranks)
+    idx = torch.as_tensor(idx, dtype=torch.int32, device=q.device)
+    return fd_mod.flash_decode_lora(q, k, v, length, x, a.contiguous(),
+                                    b.contiguous(), idx, scale)

@@ -146,3 +146,19 @@ def flash_decode_ref(q, k, v, length):
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v.float())
     return out.reshape(bsz, h, d).to(q.dtype)
+
+
+def fused_decode_ref(q, k, v, length, x, a, b, idx, scale: float = 1.0):
+    """Composed oracle for the fused decode kernel:
+
+        attn(q, K, V)  +  scale * x @ A[idx] @ B[idx]   (reshaped (H, D))
+
+    q: (B, H, D); k/v: (B, S, KV, D); x: (B, dx); a: (N, dx, r);
+    b: (N, r, H*D); idx: (B,) per-request adapter ids, -1 = base model
+    (zero delta).  This is literally ``flash_decode_ref`` + ``lora_ref``
+    — the fused kernel is tested against this composition.
+    """
+    bsz, h, d = q.shape
+    attn = flash_decode_ref(q, k, v, length)
+    delta = lora_ref(x, a, b, idx, scale).reshape(bsz, h, d)
+    return (attn.float() + delta.float()).to(q.dtype)

@@ -1,15 +1,20 @@
-"""Executor of the port: supplies the engine's step times from a real model.
+"""Executors of the port: supply the step-time components of Eq. (1).
 
 ``TorchExecutor`` mirrors ``repro.serving.executor.JaxExecutor``
 (executor.py:100-149) line for line: it runs one ``Model.decode_step`` per
 engine step over a fixed ``max_batch`` and ``cache_len`` with per-request
 adapter ids, and reports measured wall times.  Steps run eagerly; replaying
 the step as a CUDA graph is ROADMAP.md queue 1 item 13.
+
+``HardwareProfile`` and ``SyntheticExecutor`` are verbatim copies of the
+JAX package's (executor.py:37-98): step times from a hidden profile, which
+the twin's base estimators are fitted from (``core.estimators``).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -27,6 +32,69 @@ class StepTiming:
     @property
     def total(self) -> float:
         return self.sched + self.load + self.model
+
+
+@dataclasses.dataclass
+class HardwareProfile:
+    """Hidden ground-truth constants of the synthetic serving node."""
+    name: str = "h100-llama8b"
+    # Lat_sched = s1*R_run + s2*R_wait + s3*R_wait*(slots/adapters)
+    s1: float = 8e-6
+    s2: float = 4e-6
+    s3: float = 2.5e-5
+    sched_base: float = 4e-4
+    # Lat_model = m1*R_run + m2*prefill_tokens + m_base
+    m1: float = 2.2e-4
+    m2: float = 6.5e-6
+    m_base: float = 2.4e-2
+    # Lat_adapters (multiplicative) = 1 + a1*A_unique (+a0 if any adapter)
+    a0: float = 0.06
+    a1: float = 0.004
+    # loading: seconds per rank unit from cpu / disk
+    load_cpu_per_rank: float = 1.1e-3
+    load_cpu_base: float = 8e-3
+    load_disk_mult: float = 1.7
+    # memory model (tokens of KV per device after weights)
+    total_kv_tokens: int = 200_000
+    kv_tokens_per_rank_slot: float = 220.0
+    noise: float = 0.015
+
+    def kv_capacity(self, slots: int, mean_rank: float) -> int:
+        cap = self.total_kv_tokens - \
+            int(slots * mean_rank / 8.0 * self.kv_tokens_per_rank_slot)
+        return max(cap, 0)
+
+
+class SyntheticExecutor:
+    def __init__(self, profile: Optional[HardwareProfile] = None,
+                 ranks: Optional[Dict[int, int]] = None,
+                 slots: int = 0, n_adapters: int = 1, seed: int = 0):
+        self.profile = profile or HardwareProfile()
+        self.ranks = ranks or {}
+        self.slots = max(slots, 1)
+        self.n_adapters = max(n_adapters, 1)
+        self.rng = np.random.default_rng(seed)
+
+    def _noise(self) -> float:
+        p = self.profile
+        return float(1.0 + self.rng.normal(0.0, p.noise)) if p.noise else 1.0
+
+    def step(self, plan: StepPlan, n_waiting: int) -> StepTiming:
+        p = self.profile
+        r_run = len(plan.running)
+        sched = (p.sched_base + p.s1 * r_run + p.s2 * n_waiting
+                 + p.s3 * n_waiting * (self.slots / self.n_adapters))
+        load = 0.0
+        for uid in plan.cold_loads:
+            rank = self.ranks.get(uid, 8)
+            load += (p.load_cpu_base + p.load_cpu_per_rank * rank)
+        model = p.m_base + p.m1 * r_run + p.m2 * plan.prefill_tokens
+        a = len(plan.unique_adapters)
+        adapters_mult = 1.0 + (p.a0 + p.a1 * a if a > 0 else 0.0)
+        model *= adapters_mult
+        return StepTiming(sched=sched * self._noise(),
+                          load=load * self._noise(),
+                          model=model * self._noise())
 
 
 def _sync(device: torch.device) -> None:

@@ -7,9 +7,9 @@ fixture, never at import).  On the GPU machine:
 
 ``chip_smoke.py`` holds the kernels at the main path's shapes; these hold
 them at edge shapes (rank 1 and odd ranks, expand widths off the tile,
-every head dim the flash-decode kernel instantiates, group sizes 1..8,
-lengths 0 and past S), and check that the wrappers and the binding reject
-what the kernels do not take.
+every head dim the flash-decode kernels instantiate, group sizes 1..8,
+lengths 0 and past S, adapter id -1 in the fused decode step), and check
+that the wrappers and the binding reject what the kernels do not take.
 """
 import pytest
 
@@ -119,6 +119,40 @@ def test_flash_decode_kernel_edges(gen, bsz, h, kv, s, d, dtype):
     assert bool((got[0] == 0).all())
 
 
+@pytest.mark.parametrize("dtype,wdtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("d", flash_decode.HEAD_DIMS)
+@pytest.mark.parametrize("bsz,h,kv,s,dx,r,n", [
+    (3, 8, 8, 7, 40, 1, 1), (4, 24, 8, 100, 96, 7, 3),
+    (3, 16, 2, 1000, 64, 16, 2)])
+def test_flash_decode_lora_kernel_edges(gen, bsz, h, kv, s, dx, r, n, d,
+                                        dtype, wdtype):
+    # group sizes 1, 3 and 8; row 0 has length 0 and some rows run past S;
+    # row 1 is a base request (id -1)
+    q = _normal(gen, bsz, h, d, dtype=dtype)
+    k = _normal(gen, bsz, s, kv, d, dtype=dtype)
+    v = _normal(gen, bsz, s, kv, d, dtype=dtype)
+    x = _normal(gen, bsz, dx, dtype=dtype)
+    a, b = _bank(gen, n, dx, r, h * d, wdtype)
+    ids = torch.randint(0, n, (bsz,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    ids[1] = -1
+    lengths = torch.randint(0, s + 40, (bsz,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    lengths[0] = 0
+    got = flash_decode.flash_decode_lora(q, k, v, lengths, x, a, b, ids, 1.5)
+    want = flash_decode.flash_decode_lora_plain(q, k, v, lengths, x, a, b,
+                                                ids, 1.5)
+    _close(got, want, dtype)
+    _close_rows(got, want, dtype)
+    attn = flash_decode.flash_decode(q, k, v, lengths)
+    assert torch.equal(got[1], attn[1])          # no add for id -1
+    base = torch.full_like(ids, -1)
+    assert torch.equal(flash_decode.flash_decode_lora(
+        q, k, v, lengths, x, a, b, base, 1.5), attn)
+
+
 def test_wrappers_reject_what_kernels_do_not_take(gen):
     x = _normal(gen, 4, 32)
     a, b = _bank(gen, 2, 32, 65, 16, torch.float32)
@@ -134,6 +168,21 @@ def test_wrappers_reject_what_kernels_do_not_take(gen):
     kv = _normal(gen, 2, 16, 2, 48)
     with pytest.raises(ValueError, match="D=48"):
         flash_decode.flash_decode(q, kv, kv, 16)
+    q, kv = _normal(gen, 2, 4, 16), _normal(gen, 2, 16, 2, 16)
+    x = _normal(gen, 2, 32)
+    ids = torch.zeros(2, dtype=torch.int32, device="cuda")
+    a, b = _bank(gen, 2, 32, 4, 4 * 16 + 8, torch.float32)
+    with pytest.raises(ValueError, match="expand dim"):
+        flash_decode.flash_decode_lora(q, kv, kv, 16, x, a, b, ids)
+    a, b = _bank(gen, 2, 32, 65, 4 * 16, torch.float32)
+    with pytest.raises(ValueError, match="rank 65"):
+        flash_decode.flash_decode_lora(q, kv, kv, 16, x, a, b, ids)
+    a, b = _bank(gen, 2, 32, 4, 4 * 16, torch.float32)
+    with pytest.raises(TypeError, match="int32"):
+        flash_decode.flash_decode_lora(q, kv, kv, 16, x, a, b, ids.long())
+    with pytest.raises(TypeError, match="q's dtype"):
+        flash_decode.flash_decode_lora(q, kv, kv, 16, x.bfloat16(), a, b,
+                                       ids)
 
 
 def test_binding_raises_on_rejected_arguments(gen):

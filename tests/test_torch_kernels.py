@@ -1,5 +1,7 @@
 """The port's kernels (their plain versions, as they run on a CPU tensor)
-against the JAX package's Pallas kernels run with interpret=True.
+against the JAX package's Pallas kernels run with interpret=True, and
+the fused decode step also against the JAX composed oracle
+``fused_decode_ref``.
 
 Inputs are drawn with numpy from a fixed seed and handed to both sides
 (bf16 through the bridge, bit for bit).  Tolerances are the JAX suite's:
@@ -14,7 +16,9 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels.bgmv import bgmv as jax_bgmv  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_decode import flash_decode as jax_flash_decode  # noqa: E402
+from repro.kernels.flash_decode import flash_decode_lora as jax_fd_lora  # noqa: E402
 from repro.kernels.sgmv import sgmv as jax_sgmv  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.kernels import bgmv, flash_decode, ops, ref, sgmv  # noqa: E402
@@ -188,7 +192,111 @@ def test_kernel_wrappers_count_only_launches():
     _, (tx, ta, tb, ti) = _lora(10, 8, 32, 4, 16, 2, jnp.float32)
     ops.lora_apply(tx, ta, tb, ti)
     ops.lora_apply(tx.repeat(8, 1), ta, tb, ti.repeat(8))
-    assert ops.launch_counts() == {"bgmv": 0, "sgmv": 0, "flash_decode": 0}
+    _, args = _decode(12, 2, 4, 2, 16, 32, 24, 4, 2, np.float32)
+    ops.flash_decode(*args[:4])
+    ops.fused_decode(*args)
+    assert ops.launch_counts() == {"bgmv": 0, "sgmv": 0, "flash_decode": 0,
+                                   "flash_decode_lora": 0}
+
+
+def _decode(seed, b, h, kv, d, s, dx, r, n, dtype, wdtype=None, ids=None,
+            length=None):
+    """Seeded inputs of the fused decode step as (jax args, torch args),
+    each (q, k, v, length, x, a, b, idx); x follows the attention dtype,
+    the bank ``wdtype`` (default: the same)."""
+    rng = np.random.default_rng(seed)
+    wdtype = wdtype or dtype
+    q, k, v = (_both(rng.standard_normal(sh), dtype)
+               for sh in ((b, h, d), (b, s, kv, d), (b, s, kv, d)))
+    x = _both(rng.standard_normal((b, dx)), dtype)
+    a = _both(rng.standard_normal((n, dx, r)) * 0.1, wdtype)
+    bw = _both(rng.standard_normal((n, r, h * d)) * 0.1, wdtype)
+    ids = np.asarray(rng.integers(-1, n, b) if ids is None else ids,
+                     np.int32)
+    length = np.asarray(rng.integers(1, s + 1, b) if length is None
+                        else length, np.int32)
+    j = (q[0], k[0], v[0], jnp.asarray(length), x[0], a[0], bw[0],
+         jnp.asarray(ids))
+    t = (q[1], k[1], v[1], torch.from_numpy(length), x[1], a[1], bw[1],
+         torch.from_numpy(ids))
+    return j, t
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,kv,d,s,dx,r,n", [
+    (2, 8, 2, 64, 512, 128, 8, 3), (3, 4, 1, 16, 100, 32, 4, 2),
+    (4, 6, 2, 32, 33, 48, 16, 4),
+])
+def test_fused_decode_matches_pallas_and_oracle(b, h, kv, d, s, dx, r, n,
+                                                dtype):
+    # ragged lengths, S not a multiple of the block, ids with -1
+    jdt, tol = DTYPES[dtype]
+    j, t = _decode(13, b, h, kv, d, s, dx, r, n, jdt)
+    got = ops.fused_decode(*t, 0.5)
+    assert got.dtype == t[0].dtype and got.shape == (b, h, d)
+    _close(got, jax_fd_lora(*j, 0.5, interpret=True), tol)
+    _close(got, jref.fused_decode_ref(*j, 0.5), tol)
+
+
+def test_fused_decode_ref_matches_jax_oracle():
+    j, t = _decode(14, 3, 4, 2, 16, 40, 32, 8, 3, jnp.float32)
+    _close(ref.fused_decode_ref(*t, 0.5), jref.fused_decode_ref(*j, 0.5),
+           2e-5)
+
+
+def test_fused_decode_mixed_dtypes_like_pallas():
+    # test_kernels_edge.py:116-131: bf16 q/K/V and x on an f32 bank
+    j, t = _decode(15, 2, 4, 2, 16, 64, 32, 8, 3, jnp.bfloat16,
+                  wdtype=jnp.float32, ids=[1, -1], length=[40, 64])
+    got = flash_decode.flash_decode_lora(*t, 1.0)
+    assert got.dtype == torch.bfloat16 and t[5].dtype == torch.float32
+    _close(got, jax_fd_lora(*j, 1.0, interpret=True), 3e-2)
+    _close(got, jref.fused_decode_ref(*j, 1.0), 3e-2)
+
+
+def test_fused_decode_batch_one_rank_one_like_pallas():
+    # test_kernels_edge.py:196-208: batch 1, one KV head, rank 1, scale 3
+    j, t = _decode(16, 1, 2, 1, 16, 48, 16, 1, 1, jnp.float32, ids=[0],
+                  length=[20])
+    got = flash_decode.flash_decode_lora(*t, 3.0)
+    _close(got, jax_fd_lora(*j, 3.0, interpret=True), 2e-5)
+    _close(got, jref.fused_decode_ref(*j, 3.0), 2e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_decode_all_base_is_flash_decode_bitwise(dtype):
+    # test_kernels_edge.py:211-226: every id -1 gives plain flash-decode
+    # bit for bit (the add is skipped, not a zero added)
+    jdt, tol = DTYPES[dtype]
+    j, t = _decode(17, 3, 4, 2, 16, 64, 32, 8, 2, jdt,
+                  ids=[-1, -1, -1], length=[10, 64, 33])
+    fused = flash_decode.flash_decode_lora(*t, 1.0)
+    assert torch.equal(fused, flash_decode.flash_decode_plain(*t[:4]))
+    _close(fused, jax_fd_lora(*j, 1.0, interpret=True), tol)
+
+
+def test_fused_decode_expand_dim_mismatch_raises():
+    # test_kernels_edge.py:229-236: B's expand dim must be H*D
+    q = torch.zeros(1, 4, 16)
+    k = torch.zeros(1, 32, 2, 16)
+    x, a, b = torch.zeros(1, 16), torch.zeros(1, 16, 4), torch.zeros(1, 4, 72)
+    idx = torch.zeros(1, dtype=torch.int32)
+    for fn in (flash_decode.flash_decode_lora, ops.fused_decode):
+        with pytest.raises(ValueError, match="expand dim"):
+            fn(q, k, k, 8, x, a, b, idx)
+
+
+def test_fused_decode_ragged_dispatch_like_pallas():
+    # test_kernels_edge.py:239-260: ops.fused_decode masks a ragged bank
+    j, t = _decode(18, 2, 4, 2, 16, 64, 32, 8, 3, jnp.float32,
+                  ids=[2, 0], length=[64, 17])
+    ranks = np.array([8, 3, 1], np.int32)
+    got = ops.fused_decode(*t, 1.0, ranks=torch.from_numpy(ranks))
+    am, bm = jref.mask_ragged(j[5], j[6], jnp.asarray(ranks))
+    want = jref.fused_decode_ref(*j[:5], am, bm, j[7], 1.0)
+    _close(got, want, 2e-5)
+    _close(got, jops.fused_decode(*j, 1.0, ranks=jnp.asarray(ranks),
+                                  force="interpret"), 2e-5)
 
 
 @pytest.mark.parametrize("name", ["lora_ref", "lora_ref_ragged",
