@@ -17,7 +17,8 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    (``ops.fused_decode``), bitwise equal to flash-decode on an all-base
    batch, raising on an expand dim other than H*D, and at the measurement
    path's widest points (batch 32, 4096 positions, 32 adapters, ranks 8,
-   16 and 32) on the inputs that path draws;
+   16 and 32) on the inputs that path draws, where plain flash-decode is
+   held too (full and ragged lengths);
 4. teacher forcing at phi4-mini's published widths, f32, 4 layers:
    decode after ``prefill(tokens[:, :-1])`` must match ``prefill(tokens)``
    to a relative error below 2e-4;
@@ -25,11 +26,19 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    flags (8 adapters, 4 slots, rank 8, dataset small, 30 s horizon) on the
    published phi4-mini-3.8b (32 layers, bf16, weights from seed 0); at
    least 12 requests must finish;
-6. per kernel at the main path's shapes: its time, its plain version's, the
-   least time the card could take (bound), and a PyTorch library call's
-   (for the fused kernel, which no single PyTorch call computes, the
-   unfused flash-decode + BGMV + add sequence instead, as ``unfused_ms``);
-   ragged SGMV is timed apart (``ragged_ms``);
+6. the served model's decode step (launches, wall, device time by kernel
+   group from the profiler, failing if a kernel the step launched shows no
+   device time under its own name); then per kernel at the main path's
+   shapes: its time, its plain version's, the least time the card could
+   take (bound), and a PyTorch library call's (for the fused kernel, which
+   no single PyTorch call computes, the unfused flash-decode + BGMV + add
+   sequence instead, as ``unfused_ms``); BGMV also at the v projection's
+   width (``o1024_*``), flash-decode's split and combine kernels apart
+   from the profiler (``split_ms``, ``combine_ms``), SDPA also on
+   transposed views of the port's cache (``library_on_views_ms``; the
+   ``library_ms`` yardstick gets head-major copies), ragged SGMV apart
+   (``ragged_ms``), and beside every row the per-launch floor
+   (``floor_ms``: a 1-element in-place op, replayed the same way);
 7. the measurement path: ``repro_torch.bench.kernels_bench`` times the
    fused kernel (and SGMV for prefill) over its (batch, seq, rank) grid at
    phi4-mini-3.8b's published widths, fits a ``MeasuredStepTimes``, and
@@ -263,6 +272,17 @@ def check_fused_grid(errs):
         q, k, v, x, a, b, idx = kb._decode_data(
             gen, GRID_B, GRID_S, rank, GRID_N, h=w.h, kv=w.kv, d=w.d,
             dx=w.dx)
+        if rank == GRID_RANKS[0]:
+            # plain flash-decode on the same split plan: the full cache, and
+            # ragged lengths that end inside tiles and chunks
+            ragged = torch.randint(0, GRID_S + 1, (GRID_B,), generator=gen,
+                                   device="cuda", dtype=torch.int32)
+            ragged[:4] = torch.tensor([1, 63, 64, GRID_S], device="cuda")
+            for name, length in (("full", GRID_S), ("ragged", ragged)):
+                check(f"flash_decode B {GRID_B} S {GRID_S} {name} lengths",
+                      flash_decode.flash_decode(q, k, v, length),
+                      flash_decode.flash_decode_plain(q, k, v, length),
+                      "bfloat16", errs, per_row=True)
         for size, scale in (("path's scale 1", 1.0), (
                 "attention-sized", 0.05 / math.sqrt(w.dx * rank))):
             check(f"flash_decode_lora_grid B {GRID_B} S {GRID_S} r {rank} "
@@ -305,9 +325,12 @@ def phase_parity():
 # phase 6: timing
 # --------------------------------------------------------------------------- #
 
+# device kernel (as the profiler names it) -> the wrapper that launches it;
+# the fused wrapper launches flash-decode's two kernels
 KERNEL_NAMES = {"bgmv_kernel": "bgmv", "sgmv_kernel": "sgmv",
                 "fd_split_kernel": "flash_decode",
                 "fd_combine_kernel": "flash_decode"}
+FD_KERNELS = ("fd_split_kernel", "fd_combine_kernel")  # flash-decode's two
 GEMM_WORDS = ("gemm", "nvjet", "cutlass", "xmma")  # cuBLAS kernel names
 
 
@@ -338,15 +361,25 @@ def phase_step(executor, ops, n=10):
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    groups, kernels = {}, []
+    groups, kernels, seen = {}, [], {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = e.self_device_time_total / 3
         kernels.append((us, e.key))
-        group = next((g for k, g in KERNEL_NAMES.items() if k in e.key),
-                     "gemm" if any(w in e.key.lower() for w in GEMM_WORDS) else "other")
+        name = next((k for k in KERNEL_NAMES if k in e.key), None)
+        if name is not None:
+            seen[name] = seen.get(name, 0.0) + us
+        group = KERNEL_NAMES[name] if name is not None else (
+            "gemm" if any(w in e.key.lower() for w in GEMM_WORDS) else "other")
         groups[group] = groups.get(group, 0.0) + us
+    # a kernel the step launched must show up under its own name: a renamed
+    # kernel would otherwise fall silently into "other"
+    missing = [k for k, wrapper in KERNEL_NAMES.items()
+               if per_step.get(wrapper, 0) and not seen.get(k, 0.0) > 0]
+    if missing:
+        raise AssertionError(f"kernels launched in the step have no profiled "
+                             f"device time: {missing}")
     busy = sum(groups.values())
     say(f"  decode step: {step_ms:.2f} ms wall (mean of {n}); device busy "
         f"{busy / 1e3:.2f} ms per step = {busy * 3 / wall_us:.1%} of the "
@@ -392,6 +425,29 @@ def copies(make, set_bytes):
     return [make() for _ in range(max(1, min(256, math.ceil(1e8 / set_bytes))))]
 
 
+def profiled_ms(fn, arg_sets, names, calls=20):
+    """Device time per call of each kernel in ``names`` (a substring of the
+    profiler's kernel name), over ``calls`` eager calls."""
+    for args in arg_sets[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(calls):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for n in names:
+                if n in e.key:
+                    out[n] += e.self_device_time_total / calls / 1e3
+    if not all(v > 0 for v in out.values()):
+        raise AssertionError(f"no profiled device time for {names}: {out}")
+    return out
+
+
 def bound(bytes_moved, flops, dtype_name):
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype_name]
@@ -425,7 +481,18 @@ def phase_timing():
                       "library_ms": None}
         return sets
 
+    # the per-launch floor: a 1-element in-place op, captured and replayed
+    # like every row below; no kernel launch takes less
+    one = torch.zeros(1, device="cuda")
+    floor = graph_ms(lambda z: z.add_(1.0), [(one,)])
+    # BGMV at the q projection's shape (o 3072) and the v projection's
+    # (o 1024): each runs 32 times a decode step
+    lora_row("bgmv", bgmv.bgmv, bgmv.bgmv_plain, BATCH, V_OUT)
+    v_row = rows.pop("bgmv")
     lora_row("bgmv", bgmv.bgmv, bgmv.bgmv_plain, BATCH, Q_OUT)
+    rows["bgmv"].update({"o1024_ms": v_row["ms"],
+                         "o1024_plain_ms": v_row["plain_ms"],
+                         "o1024_bound_ms": v_row["bound_ms"]})
     sets = lora_row("sgmv", sgmv.sgmv, ref.sgmv_ref, PREFILL_T, Q_OUT)
     # ragged SGMV (row 3 of the TPU kernels) on the same inputs
     ranks = torch.tensor(RAGGED_RANKS, dtype=torch.int32, device="cuda")
@@ -452,11 +519,19 @@ def phase_timing():
 
     def sdpa(q, k, v):
         return F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+    # the same call on the cache as the port lays it out, (B, S, KV, D),
+    # through transposed views: no copy
+    view_sets = [(q[:, :, None], k.transpose(1, 2), v.transpose(1, 2))
+                 for q, k, v, _ in sets]
+    split = profiled_ms(flash_decode.flash_decode, sets, FD_KERNELS)
     rows["flash_decode"] = {
         "ms": graph_ms(flash_decode.flash_decode, sets),
         "plain_ms": graph_ms(flash_decode.flash_decode_plain, sets),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": graph_ms(sdpa, lib_sets)}
+        "library_ms": graph_ms(sdpa, lib_sets),
+        "library_on_views_ms": graph_ms(sdpa, view_sets),
+        "split_ms": split["fd_split_kernel"],
+        "combine_ms": split["fd_combine_kernel"]}
 
     # fused: the same attention plus a rank-8 delta from 4 adapters
     ids = (torch.arange(BATCH, device="cuda") % SLOTS).to(torch.int32)
@@ -484,6 +559,8 @@ def phase_timing():
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,          # no single PyTorch call computes it
         "unfused_ms": graph_ms(unfused, sets)}
+    for r in rows.values():
+        r["floor_ms"] = floor
     return rows
 
 

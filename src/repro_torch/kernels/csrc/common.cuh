@@ -5,6 +5,9 @@
 // with -D__CUDA_NO_BFLOAT16_CONVERSIONS__, which removes the implicit ones.
 #pragma once
 
+#include <cstdint>
+#include <cstring>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -28,6 +31,49 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// Full-warp max; every lane ends with it.
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// The 16 bytes of `u` as floats: 4 of float, or 8 of bfloat16.
+template <typename T> __device__ __forceinline__ void unpack16(const uint4& u, float* f);
+template <> __device__ __forceinline__ void unpack16<float>(const uint4& u, float* f) {
+  f[0] = __uint_as_float(u.x); f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z); f[3] = __uint_as_float(u.w);
+}
+template <> __device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4& u, float* f) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __nv_bfloat162 p;
+    memcpy(&p, &w[i], 4);
+    const float2 v = __bfloat1622float2(p);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+
+// 16-byte global -> shared copy that bypasses registers (cp.async, sm_80+).
+// With `valid` false it reads nothing and fills the 16 bytes with zeros.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most `pending` (0..2) of this thread's groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if (pending >= 2) asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else if (pending == 1) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 }  // namespace repro

@@ -12,134 +12,570 @@
 // What bounds it here: each query head reads its whole KV row once and does
 // 4*D FLOPs per position against 2*D*bytes of K and V, so the kernel is bound
 // by the bytes of K and V it streams (at B=8, S=512, KV=8, D=128 in bf16,
-// 16.8 MB: about 5 us at 3.35 TB/s).  The LoRA delta adds the bytes of x and
-// of each used adapter's A and B (at dx=3072, r=8: 0.1 MB per adapter).
+// 16.8 MB: about 5 us at 3.35 TB/s).  Streaming at that rate across 132 SMs
+// with about 1 us of memory latency needs about 25 KB in flight on each SM.
+// The LoRA delta adds the bytes of x and of each used adapter's A and B (at
+// dx=3072, r=8: 0.1 MB per adapter).
 //
 // Design: split-KV.  Blocks cannot carry state from one to the next, and one
 // block per (row, kv-head) would leave most of the 132 SMs idle at decode
-// batch sizes, so the sequence is cut into n_splits chunks and one block per
-// (split, kv-head, row) covers the G query heads that share that KV head
-// (query head h reads KV head h / G), so K and V are read once for all G.
-// Each of its 4 warps takes every 4th position; a lane holds D/32 elements of
-// q, K, V and acc, and the G dot products reduce across the warp.  Each warp
-// keeps f32 (m, l, acc) per query head; the block merges its warps and writes
-// one partial per (row, head, split).  A second kernel, one block per
-// (row, head), merges the splits by log-sum-exp and writes q's dtype.  The
-// tail is masked by the loop bound (no block-size halving); a length >= S
-// means all of S; a length of 0 gives 0, as the Pallas kernel does.
+// batch sizes, so the sequence is cut into n_splits chunks of whole tiles
+// (flash_decode.py::split_plan) and one block per (split, kv-head, row)
+// covers the G query heads that share that KV head (query head h reads KV
+// head h / G), so K and V are read once for all G.
 //
-// The fused kernel runs the same split kernel and the same combine kernel,
-// instantiated with kLora: each (row, head) block shrinks h = x[row] @ A[id]
-// in f32 into shared memory (kept f32, as the Pallas epilogue keeps it), then
-// adds scale * h @ B[id][:, head*D:(head+1)*D] to the f32 attention before
-// the one cast.  Every head of a row recomputes the rank-r shrink from L2
-// (dx*r reads of A per block) rather than pay a third launch.  A row whose
-// id is outside [0, N) skips the add, so an all-base batch is bitwise the
-// plain kernel's output.
+// The split pass streams its chunk through shared memory in tiles of kP
+// positions (16 KB of K and 16 KB of V at D 128 in bf16) with 16-byte
+// cp.async copies, in a ring of as many stages as the chunk has tiles (at
+// most three), all issued before anything waits, so an SM with two or three
+// blocks keeps 100-200 KB in flight.  Rows of K and V are 16-byte chunks
+// whose slot is XOR-swizzled by position, so that eight lanes (or an
+// ldmatrix phase) reading one chunk of eight positions hit distinct banks.
+// Positions past the chunk's end or the row's length are filled with zeros
+// by the copy (never read from memory) and masked out of the softmax; a
+// length >= S means all of S; a block past its row's length writes an empty
+// partial, and a length of 0 gives 0, as the Pallas kernel does.
+//
+// In bf16 (D <= 128) the tile is computed on tensor cores (split_mma): each
+// of the block's four warps owns a quarter of every tile's positions, copies
+// its own rows and runs its own online softmax, so the tile loop has no
+// block barrier.  S = Q K^T is an m16n8k16 product with the G query heads as
+// rows (padded to 16); (m, l) are updated once per tile from the score
+// fragments with quad shuffles; P, rounded to bf16 in the same registers, is
+// the A operand of O += P V, V's fragments coming from ldmatrix.trans.  The
+// warps merge by log-sum-exp at the end of the chunk.  In f32, and in bf16
+// at D 256 (a warp's share of a tile is under 16 positions), the same ring
+// feeds a CUDA-core pass (split_scalar): threads that own positions compute
+// the scores, one warp per head updates the softmax once per tile, threads
+// that own (d-chunk, position group) accumulate P V in registers.  The
+// first design (PR 11) had each warp take one position at a time with
+// 2-byte loads, a shuffle reduction and two expf per head per position:
+// 29.70 us at the serving shape, 3x SDPA (PERF.md).
+//
+// A second kernel, one block per (row, head), merges the splits by
+// log-sum-exp and writes q's dtype.  The fused kernel runs the same split
+// kernel and the same combine kernel, instantiated with kLora: each (row,
+// head) block shrinks h = x[row] @ A[id] in f32 into shared memory (kept
+// f32, as the Pallas epilogue keeps it), then adds scale * h @
+// B[id][:, head*D:(head+1)*D] to the f32 attention before the one cast.
+// Every head of a row recomputes the rank-r shrink from L2 (dx*r reads of A
+// per block) rather than pay a third launch.  A row whose id is outside
+// [0, N) skips the add, so an all-base batch is bitwise the plain kernel's
+// output.
+#include <type_traits>
+
 #include "common.cuh"
 #include "kernels.h"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
+constexpr int kThreads = 128;        // split pass
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 8;
+constexpr int kMaxStages = 3;
+constexpr int kTileBytes = 16384;    // of K in one tile (as many of V)
 constexpr int kCombineThreads = 128;
 constexpr int kMaxRank = 64;  // as bgmv.cu
 constexpr int kBatch = 8;     // loads in flight a thread in the LoRA epilogue
 constexpr float kNegInf = -1.0e30f;  // finite, as in Pallas: exp(m - m) stays 1
 
+constexpr int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
+
+// The tile geometry of one (dtype, head dim) instance.  kP is mirrored by
+// flash_decode.py::tile_positions, which cuts chunks into whole tiles.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const int* __restrict__ length,
-                float* __restrict__ m_part, float* __restrict__ l_part,
-                float* __restrict__ acc_part, int s, int h, int kv,
-                int n_splits, int chunk) {
-  constexpr int kE = (D + 31) / 32;  // elements per lane
+struct Tile {
+  static constexpr int kRowBytes = D * static_cast<int>(sizeof(T));
+  static constexpr int kChunks = kRowBytes / 16;   // 16-byte chunks a row
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  static constexpr int kP = clampi(kTileBytes / kRowBytes, 16, 128);
+  static constexpr int kBytes = kP * kRowBytes;    // K (or V) of one tile
+  static constexpr int kKS = kThreads / kP;        // threads a position (scores)
+  static constexpr int kPG = kThreads / kChunks;   // position groups (P.V)
+  static constexpr int kWarpPG = kChunks >= 32 ? 1 : 32 / kChunks;
+  static constexpr int kParts = kPG / kWarpPG;     // P.V partials after shuffles
+  static constexpr int kSw = kChunks < 8 ? kChunks : 8;
+  // the tensor-core pass: bf16, and 16-position k-blocks for each warp
+  static constexpr bool kMma =
+      std::is_same<T, __nv_bfloat16>::value && kP % (16 * kWarps) == 0;
+  static_assert(kChunks >= 2 && kChunks % kKS == 0 && kP % kPG == 0, "tile");
+  static_assert(kParts * kMaxG * D * 4 <= 2 * kBytes, "reduction fits the ring");
+  // Shared-memory slot of chunk c of position p: the chunk index is XORed
+  // with bits of p so that chunk c of 8 consecutive positions lands in 8
+  // distinct 16-byte bank groups (a row is kRowBytes, often a multiple of
+  // the 128-byte bank line).
+  __device__ static int slot(int p, int c) {
+    return p * kChunks + (c ^ ((p / (8 / kSw)) % kSw));
+  }
+};
+
+// Issue the copies of rows [r0, r0 + kRows) of one tile of K and V (tile
+// position p is sequence position p0 + p; those at or past `end` are
+// zero-filled) into the ring slot at `ks` (K, then V), thread t of nt.
+template <typename T, int D, int kRows>
+__device__ __forceinline__ void load_tile(T* ks, const T* k, const T* v,
+                                          size_t base, size_t stride, int p0,
+                                          int end, int r0, int t, int nt) {
+  using G = Tile<T, D>;
+#pragma unroll
+  for (int i = t; i < kRows * G::kChunks; i += nt) {
+    const int p = r0 + i / G::kChunks, c = i % G::kChunks;
+    const bool valid = p0 + p < end;
+    const size_t off = base + (valid ? (size_t)(p0 + p) * stride : 0) + c * G::kVec;
+    const int sl = G::slot(p, c) * G::kVec;
+    repro::cp_async16(ks + sl, k + off, valid);
+    repro::cp_async16(ks + G::kP * D + sl, v + off, valid);
+  }
+}
+
+// The split pass on CUDA cores (f32, and bf16 at D 256): all 128 threads
+// work on each tile together, four barriers a tile.
+template <typename T, int D>
+__device__ __forceinline__ void split_scalar(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const int* __restrict__ length, float* __restrict__ m_part,
+    float* __restrict__ l_part, float* __restrict__ acc_part, int s, int h,
+    int kv, int n_splits, int chunk, int stages) {
+  using G = Tile<T, D>;
+  constexpr int kP = G::kP, kVec = G::kVec, kChunks = G::kChunks;
   const int split = blockIdx.x, kvh = blockIdx.y, row = blockIdx.z;
   const int g_n = h / kv;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const float scale = rsqrtf(static_cast<float>(D));
   const int len = min(max(length[row], 0), s);
   const int s0 = split * chunk;
   const int s1 = min(s0 + chunk, len);
+  const int n_tiles = s1 > s0 ? (s1 - s0 + kP - 1) / kP : 0;
 
-  float qv[kMaxG][kE], acc[kMaxG][kE], m[kMaxG], l[kMaxG];
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < kE; ++e) {
-      const int dd = lane + 32 * e;
-      acc[g][e] = 0.f;
-      qv[g][e] = (g < g_n && dd < D)
-                     ? repro::to_float(q[((size_t)row * h + kvh * g_n + g) * D + dd])
-                     : 0.f;
-    }
+  extern __shared__ __align__(16) unsigned char fd_ring[];
+  __shared__ __align__(16) float qs[kMaxG][D];
+  __shared__ float sc[G::kKS][kMaxG][kP];
+  __shared__ float pr[kMaxG][kP];
+  __shared__ float corr_s[kMaxG];
+  T* ring = reinterpret_cast<T*>(fd_ring);
+  auto k_slot = [&](int i) { return ring + (size_t)(i % stages) * 2 * kP * D; };
+
+  const size_t base = ((size_t)row * s * kv + kvh) * D;
+  const size_t stride = (size_t)kv * D;
+  auto load = [&](int i) {
+    load_tile<T, D, kP>(k_slot(i), k, v, base, stride, s0 + i * kP, s1, 0,
+                        tid, kThreads);
+  };
+  for (int i = 0; i < stages; ++i) {  // every slot's copies in flight
+    if (i < n_tiles) load(i);
+    repro::cp_async_commit();
   }
+  for (int i = tid; i < g_n * D; i += kThreads)
+    qs[i / D][i % D] =
+        repro::to_float(q[((size_t)row * h + kvh * g_n) * D + i]);
 
-  for (int p = s0 + warp; p < s1; p += kWarps) {
-    const size_t base = (((size_t)row * s + p) * kv + kvh) * D;
-    float kk[kE], vv[kE];
+  // Softmax state of the heads this warp owns (w, w + kWarps), and the P.V
+  // accumulator of this thread's (d-chunk, position group) for every head.
+  float m[kMaxG / kWarps], l[kMaxG / kWarps];
 #pragma unroll
-    for (int e = 0; e < kE; ++e) {
-      const int dd = lane + 32 * e;
-      kk[e] = dd < D ? repro::to_float(k[base + dd]) : 0.f;
-      vv[e] = dd < D ? repro::to_float(v[base + dd]) : 0.f;
+  for (int j = 0; j < kMaxG / kWarps; ++j) {
+    m[j] = kNegInf;
+    l[j] = 0.f;
+  }
+  float acc[kMaxG][kVec];
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g)
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[g][e] = 0.f;
+  const int sp = tid % kP, sks = tid / kP;           // score pass
+  const int vc = tid % kChunks, vpg = tid / kChunks;  // P.V pass
+
+  for (int it = 0; it < n_tiles; ++it) {
+    repro::cp_async_wait(stages - 1);  // this thread's copies of tile `it`
+    __syncthreads();                   // everyone's
+    const T* kt = k_slot(it);
+    const T* vt = kt + kP * D;
+    const int n_valid = min(kP, s1 - (s0 + it * kP));
+
+    // Scores: thread (sp, sks) dots chunks sks, sks + kKS, ... of K[sp].
+    {
+      float part[kMaxG];
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) part[g] = 0.f;
+#pragma unroll
+      for (int i = 0; i < kChunks / G::kKS; ++i) {
+        const int c = sks + G::kKS * i;
+        float kf[kVec];
+        repro::unpack16<T>(
+            *reinterpret_cast<const uint4*>(kt + G::slot(sp, c) * kVec), kf);
+#pragma unroll
+        for (int g = 0; g < kMaxG; ++g) {
+          if (g < g_n) {
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) part[g] += qs[g][c * kVec + e] * kf[e];
+          }
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g)
+        if (g < g_n) sc[sks][g][sp] = part[g];
     }
+    __syncthreads();
+
+    // Online softmax, once per tile: warp w updates heads w, w + kWarps.
+#pragma unroll
+    for (int j = 0; j < kMaxG / kWarps; ++j) {
+      const int g = warp + kWarps * j;
+      if (g < g_n) {
+        constexpr int kPer = (kP + 31) / 32;
+        float sv[kPer];
+        float mx = kNegInf;
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          const int p = lane + 32 * i;
+          float x = kNegInf;
+          if (p < n_valid) {
+            x = 0.f;
+#pragma unroll
+            for (int u = 0; u < G::kKS; ++u) x += sc[u][g][p];
+            x *= scale;
+          }
+          sv[i] = x;
+          mx = fmaxf(mx, x);
+        }
+        const float m_new = fmaxf(m[j], repro::warp_max(mx));
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          const int p = lane + 32 * i;
+          const float e = p < n_valid ? expf(sv[i] - m_new) : 0.f;
+          if (p < kP) pr[g][p] = e;
+          sum += e;
+        }
+        const float corr = expf(m[j] - m_new);
+        l[j] = l[j] * corr + repro::warp_sum(sum);
+        m[j] = m_new;
+        if (lane == 0) corr_s[g] = corr;
+      }
+    }
+    __syncthreads();
+
+    // P.V: thread (vc, vpg) owns d-chunk vc and positions vpg + kPG * i.
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) {
       if (g < g_n) {
-        float dot = 0.f;
+        const float c = corr_s[g];
 #pragma unroll
-        for (int e = 0; e < kE; ++e) dot += qv[g][e] * kk[e];
-        const float sc = repro::warp_sum(dot) * scale;
-        const float m_new = fmaxf(m[g], sc);
-        const float corr = expf(m[g] - m_new);
-        const float pr = expf(sc - m_new);
-        l[g] = l[g] * corr + pr;
-#pragma unroll
-        for (int e = 0; e < kE; ++e) acc[g][e] = acc[g][e] * corr + pr * vv[e];
-        m[g] = m_new;
+        for (int e = 0; e < kVec; ++e) acc[g][e] *= c;
       }
     }
+#pragma unroll
+    for (int i = 0; i < kP / G::kPG; ++i) {
+      const int p = vpg + G::kPG * i;
+      if (p < n_valid) {
+        float vf[kVec];
+        repro::unpack16<T>(
+            *reinterpret_cast<const uint4*>(vt + G::slot(p, vc) * kVec), vf);
+#pragma unroll
+        for (int g = 0; g < kMaxG; ++g) {
+          if (g < g_n) {
+            const float pg = pr[g][p];
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) acc[g][e] += pg * vf[e];
+          }
+        }
+      }
+    }
+    __syncthreads();  // the slot is free: refill it
+    if (it + stages < n_tiles) load(it + stages);
+    repro::cp_async_commit();
+  }
+  repro::cp_async_wait(0);
+
+  // Sum the position groups: within a warp by shuffles (lanes vc + kChunks *
+  // i), then across warps through shared memory (the ring, now free), in a
+  // fixed order.
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g)
+#pragma unroll
+    for (int e = 0; e < kVec; ++e)
+#pragma unroll
+      for (int off = kChunks; off < 32; off <<= 1)
+        acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+  float* red = reinterpret_cast<float*>(fd_ring);  // [kParts][g_n][D]
+  __syncthreads();
+  if (vpg % G::kWarpPG == 0) {
+    const int part = vpg / G::kWarpPG;
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g)
+      if (g < g_n)
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          red[(part * g_n + g) * D + vc * kVec + e] = acc[g][e];
+  }
+  __syncthreads();
+  const size_t hp0 = ((size_t)row * h + kvh * g_n) * n_splits + split;
+  for (int i = tid; i < g_n * D; i += kThreads) {
+    float a = 0.f;
+#pragma unroll
+    for (int u = 0; u < G::kParts; ++u) a += red[u * g_n * D + i];
+    const int g = i / D;
+    acc_part[(hp0 + (size_t)g * n_splits) * D + i % D] = a;
+  }
+#pragma unroll
+  for (int j = 0; j < kMaxG / kWarps; ++j) {
+    const int g = warp + kWarps * j;
+    if (g < g_n && lane == 0) {
+      m_part[hp0 + (size_t)g * n_splits] = m[j];
+      l_part[hp0 + (size_t)g * n_splits] = l[j];
+    }
+  }
+}
+
+// bf16 m16n8k16 tensor-core product with f32 accumulators, d += a * b.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 b16 matrices from shared memory; lane i gives the address of row
+// i % 8 of matrix i / 8.  With kTrans each matrix arrives transposed.
+template <bool kTrans>
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  if constexpr (kTrans)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  unsigned u;
+  memcpy(&u, &p, 4);
+  return u;
+}
+
+// The split pass on tensor cores (bf16, D <= 128).  Each warp owns a
+// quarter of every tile's positions and runs its own pipeline and its own
+// online softmax, so the tile loop has no block barrier: it copies its rows
+// of K and V (cp.async), computes S = Q K^T with m16n8k16 products (rows:
+// the G query heads, padded to 16; columns: its positions), updates
+// (m, l) once per tile from the fragments (quad shuffles), rescales its
+// accumulator, and adds P V with P rounded to bf16 from the same
+// registers.  The four warps' states merge by log-sum-exp at the end.
+template <int D>
+__device__ __forceinline__ void split_mma(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ length,
+    float* __restrict__ m_part, float* __restrict__ l_part,
+    float* __restrict__ acc_part, int s, int h, int kv, int n_splits,
+    int chunk, int stages) {
+  using T = __nv_bfloat16;
+  using G = Tile<T, D>;
+  constexpr int kP = G::kP, kVec = G::kVec;
+  constexpr int kPW = kP / kWarps;  // positions a warp per tile
+  constexpr int kNB = kPW / 8;      // score n-blocks a warp per tile
+  constexpr int kKS = D / 16;       // k-steps of Q K^T
+  constexpr int kDB = D / 8;        // n-blocks of the output
+  static_assert(kPW % 16 == 0 && kDB % 2 == 0, "mma tile");
+  static_assert(kWarps * kMaxG * D * 4 <= 2 * G::kBytes, "merge fits the ring");
+  const int split = blockIdx.x, kvh = blockIdx.y, row = blockIdx.z;
+  const int g_n = h / kv;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;  // fragment row (head), column pair
+  const float scale = rsqrtf(static_cast<float>(D));
+  // q's loads go out first: nothing waits on them until the tiles' copies
+  // are in flight
+  constexpr int kQPer = kMaxG * D / kThreads;
+  T qv[kQPer];
+#pragma unroll
+  for (int j = 0; j < kQPer; ++j) {
+    const int i = tid + j * kThreads;
+    qv[j] = i / D < g_n ? q[((size_t)row * h + kvh * g_n) * D + i]
+                        : __float2bfloat16(0.f);
+  }
+  const int len = min(max(length[row], 0), s);
+  const int s0 = split * chunk;
+  const int s1 = min(s0 + chunk, len);
+  const int n_tiles = s1 > s0 ? (s1 - s0 + kP - 1) / kP : 0;
+
+  extern __shared__ __align__(16) unsigned char fd_ring[];
+  __shared__ __align__(16) T qs[kMaxG][D];
+  __shared__ float wm[kWarps][kMaxG], wl[kWarps][kMaxG];
+  T* ring = reinterpret_cast<T*>(fd_ring);
+  const size_t base = ((size_t)row * s * kv + kvh) * D;
+  const size_t stride = (size_t)kv * D;
+  const int w0 = warp * kPW;  // this warp's first row in a tile
+  auto k_slot = [&](int i) { return ring + (size_t)(i % stages) * 2 * kP * D; };
+  auto load = [&](int i) {  // this warp's rows of tile i
+    load_tile<T, D, kPW>(k_slot(i), k, v, base, stride, s0 + i * kP, s1, w0,
+                         lane, 32);
+  };
+  for (int i = 0; i < stages; ++i) {  // every slot's copies in flight
+    if (i < n_tiles) load(i);
+    repro::cp_async_commit();
   }
 
-  // Merge the warps' states, then write this split's partial.
-  __shared__ float sm[kWarps][kMaxG], sl[kWarps][kMaxG];
-  __shared__ float sacc[kWarps][kMaxG][D];
+  // Q as the A operand: row g is query head kvh * g_n + g, zero past g_n.
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (lane == 0) {
-      sm[warp][g] = m[g];
-      sl[warp][g] = l[g];
+  for (int j = 0; j < kQPer; ++j) {
+    const int i = tid + j * kThreads;
+    qs[i / D][i % D] = qv[j];
+  }
+  __syncthreads();
+  unsigned qa[kKS][4];
+#pragma unroll
+  for (int ks = 0; ks < kKS; ++ks) {
+    memcpy(&qa[ks][0], &qs[gq][ks * 16 + 2 * tq], 4);
+    memcpy(&qa[ks][2], &qs[gq][ks * 16 + 8 + 2 * tq], 4);
+    qa[ks][1] = qa[ks][3] = 0u;  // rows 8-15
+  }
+
+  float m = kNegInf, l = 0.f;  // head gq over this warp's positions
+  float o[kDB][4];
+#pragma unroll
+  for (int db = 0; db < kDB; ++db)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[db][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    repro::cp_async_wait(stages - 1);  // this lane's copies of tile `it`
+    __syncwarp();                      // and the warp's
+    const T* kt = k_slot(it);
+    const T* vt = kt + kP * D;
+    const int pos0 = s0 + it * kP + w0;
+
+    // S = Q K^T over this warp's kPW positions: ldmatrix gives the K^T
+    // fragments of two n-blocks a k-step.
+    float sc[kNB][4];
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nb][e] = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < kNB; nb += 2) {
+#pragma unroll
+      for (int ks = 0; ks < kKS; ++ks) {
+        unsigned b[4];
+        const int p = w0 + nb * 8 + (lane / 16) * 8 + lane % 8;
+        ldmatrix_x4<false>(b, kt + G::slot(p, 2 * ks + (lane / 8) % 2) * kVec);
+        mma_bf16(sc[nb], qa[ks], b[0], b[1]);
+        mma_bf16(sc[nb + 1], qa[ks], b[2], b[3]);
+      }
     }
+
+    // Online softmax, once per tile: a quad holds one head's row.
+    float mx = kNegInf;
 #pragma unroll
-    for (int e = 0; e < kE; ++e) {
-      const int dd = lane + 32 * e;
-      if (dd < D) sacc[warp][g][dd] = acc[g][e];
+    for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const bool ok = pos0 + nb * 8 + 2 * tq + j < s1;
+        sc[nb][j] = ok ? sc[nb][j] * scale : kNegInf;
+        mx = fmaxf(mx, sc[nb][j]);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m, mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const bool ok = pos0 + nb * 8 + 2 * tq + j < s1;
+        sc[nb][j] = ok ? expf(sc[nb][j] - m_new) : 0.f;
+        sum += sc[nb][j];
+      }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float corr = expf(m - m_new);
+    l = l * corr + sum;
+    m = m_new;
+#pragma unroll
+    for (int db = 0; db < kDB; ++db) {
+      o[db][0] *= corr;
+      o[db][1] *= corr;
+    }
+
+    // O += P V: the score fragments of two n-blocks are the A fragment of
+    // one 16-position k-block; V's B fragments come transposed.
+#pragma unroll
+    for (int kb = 0; kb < kNB / 2; ++kb) {
+      const unsigned pa[4] = {pack_bf16(sc[2 * kb][0], sc[2 * kb][1]), 0u,
+                              pack_bf16(sc[2 * kb + 1][0], sc[2 * kb + 1][1]),
+                              0u};
+      const int p = w0 + kb * 16 + ((lane / 8) % 2) * 8 + lane % 8;
+#pragma unroll
+      for (int db = 0; db < kDB; db += 2) {
+        unsigned b[4];
+        ldmatrix_x4<true>(b, vt + G::slot(p, db + lane / 16) * kVec);
+        mma_bf16(o[db], pa, b[0], b[1]);
+        mma_bf16(o[db + 1], pa, b[2], b[3]);
+      }
+    }
+    __syncwarp();  // the warp's rows of this slot are free: refill it
+    if (it + stages < n_tiles) load(it + stages);
+    repro::cp_async_commit();
+  }
+  repro::cp_async_wait(0);
+
+  // Merge the four warps by log-sum-exp through shared memory (the ring).
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(fd_ring);  // [kWarps][kMaxG][D]
+  if (gq < g_n) {
+#pragma unroll
+    for (int db = 0; db < kDB; ++db) {
+      red[(warp * kMaxG + gq) * D + db * 8 + 2 * tq] = o[db][0];
+      red[(warp * kMaxG + gq) * D + db * 8 + 2 * tq + 1] = o[db][1];
+    }
+    if (tq == 0) {
+      wm[warp][gq] = m;
+      wl[warp][gq] = l;
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < g_n * D; i += kThreads) {
-    const int g = i / D, dd = i % D;
-    float mx = kNegInf;
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm[w][g]);
-    float ls = 0.f, as = 0.f;
+  const size_t hp0 = ((size_t)row * h + kvh * g_n) * n_splits + split;
+  if (tid < g_n) {  // each head's max, the warps' weights, the sum
+    float mw = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mw = fmaxf(mw, wm[w][tid]);
+    float ls = 0.f;
+#pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float c = expf(sm[w][g] - mx);
-      ls += sl[w][g] * c;
-      as += sacc[w][g][dd] * c;
+      wm[w][tid] = expf(wm[w][tid] - mw);
+      ls += wl[w][tid] * wm[w][tid];
     }
-    const size_t hp = ((size_t)row * h + kvh * g_n + g) * n_splits + split;
-    acc_part[hp * D + dd] = as;
-    if (dd == 0) {
-      m_part[hp] = mx;
-      l_part[hp] = ls;
-    }
+    m_part[hp0 + (size_t)tid * n_splits] = mw;
+    l_part[hp0 + (size_t)tid * n_splits] = ls;
   }
+  __syncthreads();
+  for (int i = tid; i < g_n * D; i += kThreads) {
+    const int g = i / D;
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) a += red[(w * kMaxG + g) * D + i % D] * wm[w][g];
+    acc_part[(hp0 + (size_t)g * n_splits) * D + i % D] = a;
+  }
+}
+
+// One block per (split, kv-head, row): the tensor-core pass where the
+// tile allows it (bf16, each warp's quarter of a tile a multiple of 16
+// positions), else the CUDA-core pass.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 2)
+fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const int* __restrict__ length,
+                float* __restrict__ m_part, float* __restrict__ l_part,
+                float* __restrict__ acc_part, int s, int h, int kv,
+                int n_splits, int chunk, int stages) {
+  if constexpr (Tile<T, D>::kMma)
+    split_mma<D>(q, k, v, length, m_part, l_part, acc_part, s, h, kv,
+                 n_splits, chunk, stages);
+  else
+    split_scalar<T, D>(q, k, v, length, m_part, l_part, acc_part, s, h, kv,
+                       n_splits, chunk, stages);
 }
 
 // The LoRA epilogue's operands: x (bsz, dx) in the attention dtype, a
@@ -249,36 +685,50 @@ fd_combine_kernel(const float* __restrict__ m_part,
   }
 }
 
+// The split pass of one (dtype, head dim) instance: chunks must be whole
+// tiles; the ring has as many stages as a chunk has tiles, at most
+// kMaxStages.  Returns the launch error, or cudaErrorInvalidValue.
 template <typename T, int D>
-void launch_split(const dim3& grid, cudaStream_t st, const void* q,
-                  const void* k, const void* v, const void* length,
-                  void* m_part, void* l_part, void* acc_part, int s, int h,
-                  int kv, int n_splits, int chunk) {
-  fd_split_kernel<T, D><<<grid, kThreads, 0, st>>>(
+cudaError_t launch_split(const dim3& grid, cudaStream_t st, const void* q,
+                         const void* k, const void* v, const void* length,
+                         void* m_part, void* l_part, void* acc_part, int s,
+                         int h, int kv, int n_splits, int chunk) {
+  using G = Tile<T, D>;
+  if (chunk % G::kP) return cudaErrorInvalidValue;
+  const int stages = min(kMaxStages, chunk / G::kP);
+  const int smem = stages * 2 * G::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      fd_split_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  fd_split_kernel<T, D><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(length),
       static_cast<float*>(m_part), static_cast<float*>(l_part),
-      static_cast<float*>(acc_part), s, h, kv, n_splits, chunk);
+      static_cast<float*>(acc_part), s, h, kv, n_splits, chunk, stages);
+  return cudaPeekAtLastError();
 }
 
 // Both kernels of one call: the split pass, then the combine (kLora selects
 // the epilogue).  Returns the launch error, or cudaErrorInvalidValue for a
-// head dim that has no instance.
+// head dim that has no instance or a chunk that is not whole tiles.
 template <typename T, typename W, bool kLora>
 int launch_fd(const void* q, const void* k, const void* v, const void* length,
               void* m_part, void* l_part, void* acc_part, void* out, int bsz,
               int s, int h, int kv, int dh, int n_splits, int chunk,
               const LoraArgs<T, W>& lora, cudaStream_t st) {
+  // cp.async copies 16-byte chunks of K and V (rows are >= 32 bytes)
+  if ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(n_splits, kv, bsz);
+  cudaError_t err;
   switch (dh) {
-    case 16: launch_split<T, 16>(grid, st, q, k, v, length, m_part, l_part, acc_part, s, h, kv, n_splits, chunk); break;
-    case 32: launch_split<T, 32>(grid, st, q, k, v, length, m_part, l_part, acc_part, s, h, kv, n_splits, chunk); break;
-    case 64: launch_split<T, 64>(grid, st, q, k, v, length, m_part, l_part, acc_part, s, h, kv, n_splits, chunk); break;
-    case 128: launch_split<T, 128>(grid, st, q, k, v, length, m_part, l_part, acc_part, s, h, kv, n_splits, chunk); break;
-    case 256: launch_split<T, 256>(grid, st, q, k, v, length, m_part, l_part, acc_part, s, h, kv, n_splits, chunk); break;
+    case 16: err = launch_split<T, 16>(grid, st, q, k, v, length, m_part, l_part, acc_part, s, h, kv, n_splits, chunk); break;
+    case 32: err = launch_split<T, 32>(grid, st, q, k, v, length, m_part, l_part, acc_part, s, h, kv, n_splits, chunk); break;
+    case 64: err = launch_split<T, 64>(grid, st, q, k, v, length, m_part, l_part, acc_part, s, h, kv, n_splits, chunk); break;
+    case 128: err = launch_split<T, 128>(grid, st, q, k, v, length, m_part, l_part, acc_part, s, h, kv, n_splits, chunk); break;
+    case 256: err = launch_split<T, 256>(grid, st, q, k, v, length, m_part, l_part, acc_part, s, h, kv, n_splits, chunk); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaPeekAtLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   fd_combine_kernel<T, W, kLora><<<bsz * h, kCombineThreads, 0, st>>>(
       static_cast<const float*>(m_part), static_cast<const float*>(l_part),

@@ -13,9 +13,14 @@ extern "C" {
 
 // y[t] = scale * x[t] @ a[idx[t]] @ b[idx[t]]; idx[t] outside [0, n) -> 0.
 // x (t, d); a (n, d, r); b (n, r, o); idx (t,) int32; y (t, o) in x's dtype.
+// One cluster of `cluster` (1..8) blocks per token; block c shrinks rows
+// [c * d_tile, (c + 1) * d_tile) of d and expands columns [c * o_tile,
+// (c + 1) * o_tile) of o (both tiles multiples of 8; kernels/bgmv.py::
+// bgmv_plan).
 int repro_bgmv(const void* x, const void* a, const void* b, const void* idx,
                void* y, int t, int d, int r, int o, int n, float scale,
-               int x_dtype, int w_dtype, void* stream);
+               int cluster, int d_tile, int o_tile, int x_dtype, int w_dtype,
+               void* stream);
 
 // Segmented LoRA over tokens sorted by adapter.  perm (t,) maps sorted
 // position -> token; seg (n + 2,) holds the segment starts in sorted order,
@@ -26,9 +31,11 @@ int repro_sgmv(const void* x, const void* a, const void* b, const void* perm,
                int r, int o, int n, int cap, float scale, int x_dtype,
                int w_dtype, void* stream);
 
-// Split-KV single-query GQA attention.  q (bsz, h, dh); k, v (bsz, s, kv, dh);
-// length (bsz,) int32.  Partials m, l (bsz, h, n_splits) and
-// acc (bsz, h, n_splits, dh) are f32 scratch; out (bsz, h, dh) in q's dtype.
+// Split-KV single-query GQA attention.  q (bsz, h, dh); k, v (bsz, s, kv,
+// dh), 16-byte aligned; length (bsz,) int32; `chunk` positions a split, a
+// whole number of tiles (kernels/flash_decode.py::tile_positions).  Partials
+// m, l (bsz, h, n_splits) and acc (bsz, h, n_splits, dh) are f32 scratch;
+// out (bsz, h, dh) in q's dtype.
 int repro_flash_decode(const void* q, const void* k, const void* v,
                        const void* length, void* m_part, void* l_part,
                        void* acc_part, void* out, int bsz, int s, int h,

@@ -18,7 +18,8 @@ from .bgmv import MAX_RANK
 
 HEAD_DIMS = (16, 32, 64, 128, 256)  # csrc/flash_decode.cu instantiations
 MAX_GROUP = 8                       # query heads per KV head (kMaxG)
-MIN_CHUNK = 64                      # positions per split, at least
+TILE_BYTES = 16384                  # of K in one tile of the split pass
+TILE_MIN, TILE_MAX = 16, 128        # positions in a tile, at least / most
 
 
 def _lengths(length, bsz: int, device):
@@ -86,13 +87,22 @@ def flash_decode_lora_plain(q, k, v, length, x, a, b, idx,
     return out.to(q.dtype)
 
 
-def split_plan(bsz: int, kv: int, s: int, n_sm: int):
-    """(n_splits, chunk): enough (split, kv-head, row) blocks to cover about
-    two waves of the card's SMs, with chunks of at least MIN_CHUNK."""
+def tile_positions(d: int, itemsize: int) -> int:
+    """Positions in one tile of the split pass (``Tile::kP`` of
+    ``csrc/flash_decode.cu``): TILE_BYTES of K, within [TILE_MIN,
+    TILE_MAX]."""
+    return min(TILE_MAX, max(TILE_MIN, TILE_BYTES // (d * itemsize)))
+
+
+def split_plan(bsz: int, kv: int, s: int, n_sm: int, tile: int):
+    """(n_splits, chunk): enough (split, kv-head, row) blocks to give each
+    of the card's SMs about two, with chunks of whole tiles of ``tile``
+    positions; split i covers [i*chunk, min((i+1)*chunk, s))."""
+    n_tiles = max(-(-s // tile), 1)
     want = -(-2 * n_sm // max(bsz * kv, 1))
-    n_splits = max(1, min(want, -(-s // MIN_CHUNK)))
-    chunk = max(-(-s // n_splits), 1)
-    return -(-s // chunk), chunk
+    n_splits = max(1, min(want, n_tiles))
+    chunk = -(-n_tiles // n_splits) * tile
+    return max(-(-s // chunk), 1), chunk
 
 
 def _check(q, k, v, lengths):
@@ -110,6 +120,8 @@ def _check(q, k, v, lengths):
         raise TypeError("flash_decode: q, k and v must share one dtype")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_decode: inputs must be contiguous")
+    if (k.data_ptr() | v.data_ptr()) % 16:
+        raise ValueError("flash_decode: k and v must be 16-byte aligned")
 
 
 def _check_lora(q, x, a, b, idx):
@@ -144,7 +156,8 @@ def _launch_args(q, k, v, length):
     lengths = _lengths(length, bsz, q.device)
     _check(q, k, v, lengths)
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    n_splits, chunk = split_plan(bsz, kv, s, n_sm)
+    n_splits, chunk = split_plan(bsz, kv, s, n_sm,
+                                 tile_positions(d, q.element_size()))
     m_part = torch.empty((bsz, h, n_splits), dtype=torch.float32,
                          device=q.device)
     l_part = torch.empty_like(m_part)

@@ -8,9 +8,13 @@ fixture, never at import).  On the GPU machine:
 ``chip_smoke.py`` holds the kernels at the main path's shapes; these hold
 them at edge shapes (rank 1 and odd ranks, expand widths off the tile,
 every head dim the flash-decode kernels instantiate, group sizes 1..8,
-lengths 0 and past S, adapter id -1 in the fused decode step), and check
+lengths 0 and past S and at the split pass's tile edges, NaN past a row's
+length, BGMV at ranks 1-64 with widths and views off the 16-byte vector,
+adapter id -1 in the fused decode step), and check
 that the wrappers and the binding reject what the kernels do not take.
 """
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -72,6 +76,46 @@ def test_bgmv_kernel_edges(gen, t, d, r, o, n, dtype):
            dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [1, 7, 8, 16, 32, 64])
+@pytest.mark.parametrize("t,d,o,n", [(8, 3072, 1024, 4), (5, 200, 1003, 3)])
+def test_bgmv_kernel_ranks_and_ragged_widths(gen, t, d, r, o, n, dtype):
+    # every rank of the vector path's lane mapping (r below, at and above a
+    # 16-byte vector, and 7, which no vector width divides); o 1003 is no
+    # multiple of 8, so B and y take the scalar path, and ids repeat and fall
+    # outside [0, N) on both sides
+    x = _normal(gen, t, d, dtype=dtype)
+    a, b = _bank(gen, n, d, r, o, dtype)
+    ids = torch.tensor([0, n, 1, 0, -3, n + 5, 1, 0][:t], dtype=torch.int32,
+                       device="cuda")
+    got = bgmv.bgmv(x, a, b, ids, 0.5)
+    _close(got, bgmv.bgmv_plain(x, a, b, ids, 0.5), dtype)
+    bad = (ids < 0) | (ids >= n)
+    assert bool((got[bad] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [7, 8])
+def test_bgmv_kernel_unaligned_views(gen, r, dtype):
+    # x, A and B as contiguous views one element past a 16-byte boundary:
+    # the kernel reads them on its scalar path
+    t, d, o, n = 6, 3072, 1024, 3
+
+    def shifted(*shape, std):
+        flat = _normal(gen, math.prod(shape) + 1, dtype=dtype, std=std)
+        view = flat[1:].view(*shape)
+        assert view.data_ptr() % 16
+        return view
+    x = shifted(t, d, std=1.0)
+    a = shifted(n, d, r, std=d ** -0.5)
+    b = shifted(n, r, o, std=r ** -0.5)
+    ids = torch.tensor([2, 0, 2, -1, 1, 0], dtype=torch.int32, device="cuda")
+    _close(bgmv.bgmv(x, a, b, ids), bgmv.bgmv_plain(x, a, b, ids), dtype)
+    # aligned copies of the same values take the vector path: same function
+    _close(bgmv.bgmv(x.clone(), a.clone(), b.clone(), ids),
+           bgmv.bgmv_plain(x, a, b, ids), dtype)
+
+
 def test_bgmv_kernel_mixed_dtypes(gen):
     # bf16 activations on an f32 bank; the output follows x
     x = _normal(gen, 8, 128, dtype=torch.bfloat16)
@@ -117,6 +161,43 @@ def test_flash_decode_kernel_edges(gen, bsz, h, kv, s, d, dtype):
     _close(got, want, dtype)
     _close_rows(got, want, dtype)
     assert bool((got[0] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", flash_decode.HEAD_DIMS)
+def test_flash_decode_kernel_tile_edges(gen, d, dtype):
+    # lengths at a tile's edges (P - 1, P, P + 1) and inside the last
+    # chunk, which is not a whole tile (S = 5P + 3), for each tile geometry
+    p = flash_decode.tile_positions(d, torch.tensor([], dtype=dtype)
+                                    .element_size())
+    s = 5 * p + 3
+    lengths = torch.tensor([p - 1, p, p + 1, 2 * p + 1, s - 1, s, s + 9, 1],
+                           dtype=torch.int32, device="cuda")
+    bsz, h, kv = lengths.numel(), 6, 2
+    q = _normal(gen, bsz, h, d, dtype=dtype)
+    k = _normal(gen, bsz, s, kv, d, dtype=dtype)
+    v = _normal(gen, bsz, s, kv, d, dtype=dtype)
+    got = flash_decode.flash_decode(q, k, v, lengths)
+    want = flash_decode.flash_decode_plain(q, k, v, lengths)
+    _close(got, want, dtype)
+    _close_rows(got, want, dtype)
+
+
+def test_flash_decode_positions_past_length_are_never_read(gen):
+    # NaN in the cache past each row's length (as in an unwritten cache)
+    # must not reach the output: the split pass zero-fills those positions
+    bsz, s, h, kv, d = 3, 300, 8, 2, 128
+    q = _normal(gen, bsz, h, d, dtype=torch.bfloat16)
+    k = _normal(gen, bsz, s, kv, d, dtype=torch.bfloat16)
+    v = _normal(gen, bsz, s, kv, d, dtype=torch.bfloat16)
+    lengths = torch.tensor([1, 65, 250], dtype=torch.int32, device="cuda")
+    want = flash_decode.flash_decode_plain(q, k, v, lengths)
+    for i, n in enumerate(lengths.tolist()):
+        k[i, n:] = float("nan")
+        v[i, n:] = float("nan")
+    got = flash_decode.flash_decode(q, k, v, lengths)
+    assert bool(torch.isfinite(got).all())
+    _close(got, want, torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype,wdtype", [
@@ -168,6 +249,10 @@ def test_wrappers_reject_what_kernels_do_not_take(gen):
     kv = _normal(gen, 2, 16, 2, 48)
     with pytest.raises(ValueError, match="D=48"):
         flash_decode.flash_decode(q, kv, kv, 16)
+    q = _normal(gen, 2, 4, 16)
+    shifted = _normal(gen, 2 * 16 * 2 * 16 + 1)[1:].view(2, 16, 2, 16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_decode.flash_decode(q, shifted, shifted, 16)
     q, kv = _normal(gen, 2, 4, 16), _normal(gen, 2, 16, 2, 16)
     x = _normal(gen, 2, 32)
     ids = torch.zeros(2, dtype=torch.int32, device="cuda")
@@ -190,5 +275,10 @@ def test_binding_raises_on_rejected_arguments(gen):
     # and the binding raises rather than return an unwritten output
     x = _normal(gen, 4, 8)
     with pytest.raises(RuntimeError, match="bgmv: launcher rejected"):
-        build.kernels().bgmv(0, 0, 0, 0, 0, 4, 8, 100, 8, 2, 1.0, 0, 0,
+        build.kernels().bgmv(0, 0, 0, 0, 0, 4, 8, 100, 8, 2, 1.0,
+                             *bgmv.bgmv_plan(8, 8), 0, 0,
                              build.stream_handle(x.device))
+    # as does one given a launch plan whose tiles do not cover o
+    with pytest.raises(RuntimeError, match="bgmv: launcher rejected"):
+        build.kernels().bgmv(0, 0, 0, 0, 0, 4, 8, 8, 64, 2, 1.0, 2, 8, 8,
+                             0, 0, build.stream_handle(x.device))
