@@ -12,26 +12,6 @@ from . import build
 from .ref import lora_f32
 
 MAX_RANK = 64  # kMaxRank of csrc/bgmv.cu and csrc/sgmv.cu
-MAX_CLUSTER = 8   # blocks of a thread-block cluster (kMaxCluster), portable
-TILE_ALIGN = 8    # d_tile and o_tile are multiples of this (kAlign)
-O_PER_BLOCK = 128  # output columns a block, at least, before the cluster grows
-D_PER_BLOCK = 512  # shrink rows a block, at least, before the cluster grows
-
-
-def _round_up(v: int, m: int) -> int:
-    return -(-v // m) * m
-
-
-def bgmv_plan(d: int, o: int):
-    """(cluster, d_tile, o_tile): the launch of ``csrc/bgmv.cu`` for one
-    token.  A cluster of up to MAX_CLUSTER blocks splits the shrink's d
-    rows and the expand's o columns into tiles of TILE_ALIGN multiples;
-    block c takes rows [c*d_tile, (c+1)*d_tile) and columns [c*o_tile,
-    (c+1)*o_tile), clipped to d and o."""
-    cluster = min(MAX_CLUSTER, max(1, -(-o // O_PER_BLOCK),
-                                   -(-d // D_PER_BLOCK)))
-    return (cluster, _round_up(-(-d // cluster), TILE_ALIGN),
-            _round_up(-(-o // cluster), TILE_ALIGN))
 
 
 def bgmv_plain(x, a, b, idx, scale: float = 1.0):
@@ -79,9 +59,8 @@ def bgmv(x, a, b, idx, scale: float = 1.0):
     y = torch.empty((t, o), dtype=x.dtype, device=x.device)
     build.kernels().bgmv(
         x.data_ptr(), a.data_ptr(), b.data_ptr(), idx.data_ptr(), y.data_ptr(),
-        t, d, r, o, n, float(scale), *bgmv_plan(d, o),
-        build.dtype_code(x.dtype), build.dtype_code(a.dtype),
-        build.stream_handle(x.device))
+        t, d, r, o, n, float(scale), build.dtype_code(x.dtype),
+        build.dtype_code(a.dtype), build.stream_handle(x.device))
     bgmv.launches += 1
     return y
 

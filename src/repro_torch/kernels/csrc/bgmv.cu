@@ -11,7 +11,7 @@
 // round trips (id -> A[id] -> h -> B[id] -> y).
 //
 // Design: one thread-block cluster per token, of C <= 8 blocks along o
-// (kernels/bgmv.py::bgmv_plan: 8 x 384 columns at o 3072, 8 x 128 at o 1024).
+// (plan(): 8 x 384 columns at o 3072, 8 x 128 at o 1024).
 // The shrink is split across the cluster: block c stages only its d/C slice
 // of x[t] in shared memory (f32) and computes the partial h_c = x[t, slice]
 // @ A[id][slice, :] in f32, reading the flattened slice of A with 16-byte
@@ -41,8 +41,10 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMaxRank = 64;
-constexpr int kMaxCluster = 8;   // kernels/bgmv.py: MAX_CLUSTER
+constexpr int kMaxCluster = 8;   // blocks of a cluster, portable
 constexpr int kAlign = 8;        // d_tile and o_tile are multiples (elements)
+constexpr int kOPerBlock = 128;  // columns of o a block, at least, and rows
+constexpr int kDPerBlock = 512;  // of d, before the cluster grows
 constexpr int kBatch = 4;        // vectors of A in flight a thread
 constexpr int kRowBatch = 8;     // rows of B in flight a thread
 constexpr int kMaxVec = 8;       // elements of a 16-byte vector, at most
@@ -319,11 +321,26 @@ bgmv_kernel(const TX* __restrict__ x, const TW* __restrict__ a,
     bgmv_block<TX, TW, 1, 1>(cluster, xr, xs, as, rows, bt, yt, r, o, o0, o1, scale, part, parts, h);
 }
 
+// The launch for one token: a cluster of up to kMaxCluster blocks; block c
+// shrinks rows [c * d_tile, (c + 1) * d_tile) of d and expands columns
+// [c * o_tile, (c + 1) * o_tile) of o, clipped to d and o.  Tiles are
+// multiples of kAlign, so each block's slice of A starts on 16 bytes.
+struct Plan {
+  int cluster, d_tile, o_tile;
+};
+
+Plan plan(int d, int o) {
+  auto cdiv = [](int a, int b) { return (a + b - 1) / b; };
+  const int c = min(kMaxCluster, max(1, max(cdiv(o, kOPerBlock), cdiv(d, kDPerBlock))));
+  return {c, cdiv(cdiv(d, c), kAlign) * kAlign, cdiv(cdiv(o, c), kAlign) * kAlign};
+}
+
 template <typename TX, typename TW>
 int launch(const void* x, const void* a, const void* b, const void* idx,
            void* y, int t, int d, int r, int o, int n, float scale,
-           int cluster, int d_tile, int o_tile, cudaStream_t st) {
+           cudaStream_t st) {
   constexpr int kVW = 16 / sizeof(TW);
+  const auto [cluster, d_tile, o_tile] = plan(d, o);
   // 16-byte loads of A need A[id]'s slices aligned: the base, a whole
   // adapter and a slice start (a multiple of kAlign rows) are multiples of
   // 16 bytes.  Those of B and stores of y need the base and every row.
@@ -334,8 +351,8 @@ int launch(const void* x, const void* a, const void* b, const void* idx,
                      o % kVW == 0;
   const int smem = d_tile * static_cast<int>(sizeof(float));
   auto kernel = bgmv_kernel<TX, TW>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static repro::SmemLimit limit;
+  cudaError_t err = limit.raise(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster, t);
@@ -361,17 +378,14 @@ int launch(const void* x, const void* a, const void* b, const void* idx,
 
 extern "C" int repro_bgmv(const void* x, const void* a, const void* b,
                           const void* idx, void* y, int t, int d, int r, int o,
-                          int n, float scale, int cluster, int d_tile,
-                          int o_tile, int x_dtype, int w_dtype, void* stream) {
+                          int n, float scale, int x_dtype, int w_dtype,
+                          void* stream) {
   if (t <= 0 || o <= 0) return 0;
-  if (r < 1 || r > kMaxRank || d < 1 || cluster < 1 || cluster > kMaxCluster ||
-      d_tile < 1 || o_tile < 1 || d_tile % kAlign || o_tile % kAlign ||
-      (long long)cluster * d_tile < d || (long long)cluster * o_tile < o)
+  if (r < 1 || r > kMaxRank || d < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc = 0;
   REPRO_DISPATCH_DTYPE(x_dtype, TX, REPRO_DISPATCH_DTYPE(w_dtype, TW,
-      rc = (launch<TX, TW>(x, a, b, idx, y, t, d, r, o, n, scale, cluster,
-                           d_tile, o_tile, static_cast<cudaStream_t>(st)))));
+      rc = (launch<TX, TW>(x, a, b, idx, y, t, d, r, o, n, scale, st))));
   return rc;
 }

@@ -25,11 +25,9 @@ inline void check(int rc, const char* name) {
 
 void bgmv(int64_t x, int64_t a, int64_t b, int64_t idx, int64_t y, int64_t t,
           int64_t d, int64_t r, int64_t o, int64_t n, double scale,
-          int64_t cluster, int64_t d_tile, int64_t o_tile, int64_t x_dtype,
-          int64_t w_dtype, int64_t stream) {
+          int64_t x_dtype, int64_t w_dtype, int64_t stream) {
   check(repro_bgmv(cptr(x), cptr(a), cptr(b), cptr(idx), ptr(y), t, d, r, o, n,
-             static_cast<float>(scale), cluster, d_tile, o_tile, x_dtype,
-             w_dtype, ptr(stream)),
+             static_cast<float>(scale), x_dtype, w_dtype, ptr(stream)),
         "bgmv");
 }
 

@@ -5,6 +5,7 @@
 // with -D__CUDA_NO_BFLOAT16_CONVERSIONS__, which removes the implicit ones.
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <cstring>
 
@@ -75,6 +76,29 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
   else if (pending == 1) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
   else asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+
+// A kernel instance's dynamic shared-memory limit on each device, raised
+// with cudaFuncSetAttribute only when a launch needs more than was set
+// before: the launchers keep one `static` per instance, so a launch that
+// fits makes no API call (the eager decode step is bound by host time).
+struct SmemLimit {
+  static constexpr int kDevices = 64;
+  std::atomic<int> set[kDevices] = {};
+
+  template <typename K>
+  cudaError_t raise(K kernel, int bytes) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < kDevices && bytes <= set[dev].load(std::memory_order_relaxed))
+      return cudaSuccess;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess && dev < kDevices)
+      set[dev].store(bytes, std::memory_order_relaxed);
+    return err;
+  }
+};
 
 }  // namespace repro
 

@@ -41,9 +41,11 @@
 // its own rows and runs its own online softmax, so the tile loop has no
 // block barrier.  S = Q K^T is an m16n8k16 product with the G query heads as
 // rows (padded to 16); (m, l) are updated once per tile from the score
-// fragments with quad shuffles; P, rounded to bf16 in the same registers, is
-// the A operand of O += P V, V's fragments coming from ldmatrix.trans.  The
-// warps merge by log-sum-exp at the end of the chunk.  In f32, and in bf16
+// fragments with quad shuffles; P, split in the same registers into
+// bf16(P) and bf16(P - bf16(P)), is the A operand of two products O += P V
+// into one accumulator (about 16 bits of P, where the Pallas kernel keeps
+// f32), V's fragments coming from ldmatrix.trans.  The warps merge by
+// log-sum-exp at the end of the chunk.  In f32, and in bf16
 // at D 256 (a warp's share of a tile is under 16 positions), the same ring
 // feeds a CUDA-core pass (split_scalar): threads that own positions compute
 // the scores, one warp per head updates the softmax once per tile, threads
@@ -350,11 +352,20 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
 }
 
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+__device__ __forceinline__ unsigned pack_bf16(__nv_bfloat162 p) {
   unsigned u;
   memcpy(&u, &p, 4);
   return u;
+}
+
+// Two floats as a bf16 pair `hi` and the bf16 pair of what rounding left
+// out, `lo`: hi + lo carries about 16 bits of each.
+__device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi,
+                                           unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = pack_bf16(h);
+  lo = pack_bf16(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
 }
 
 // The split pass on tensor cores (bf16, D <= 128).  Each warp owns a
@@ -363,8 +374,8 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 // of K and V (cp.async), computes S = Q K^T with m16n8k16 products (rows:
 // the G query heads, padded to 16; columns: its positions), updates
 // (m, l) once per tile from the fragments (quad shuffles), rescales its
-// accumulator, and adds P V with P rounded to bf16 from the same
-// registers.  The four warps' states merge by log-sum-exp at the end.
+// accumulator, and adds P V with P split into two bf16 operands from the
+// same registers.  The four warps' states merge by log-sum-exp at the end.
 template <int D>
 __device__ __forceinline__ void split_mma(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -500,19 +511,24 @@ __device__ __forceinline__ void split_mma(
     }
 
     // O += P V: the score fragments of two n-blocks are the A fragment of
-    // one 16-position k-block; V's B fragments come transposed.
+    // one 16-position k-block; V's B fragments come transposed.  P goes in
+    // as two bf16 operands, P_hi = bf16(P) and P_lo = bf16(P - P_hi), into
+    // the same accumulator, so it keeps about 16 bits (the Pallas kernel
+    // keeps it f32) and agrees with l, which sums the f32 P.
 #pragma unroll
     for (int kb = 0; kb < kNB / 2; ++kb) {
-      const unsigned pa[4] = {pack_bf16(sc[2 * kb][0], sc[2 * kb][1]), 0u,
-                              pack_bf16(sc[2 * kb + 1][0], sc[2 * kb + 1][1]),
-                              0u};
+      unsigned hi[4] = {0u, 0u, 0u, 0u}, lo[4] = {0u, 0u, 0u, 0u};
+      split_bf16(sc[2 * kb][0], sc[2 * kb][1], hi[0], lo[0]);
+      split_bf16(sc[2 * kb + 1][0], sc[2 * kb + 1][1], hi[2], lo[2]);
       const int p = w0 + kb * 16 + ((lane / 8) % 2) * 8 + lane % 8;
 #pragma unroll
       for (int db = 0; db < kDB; db += 2) {
         unsigned b[4];
         ldmatrix_x4<true>(b, vt + G::slot(p, db + lane / 16) * kVec);
-        mma_bf16(o[db], pa, b[0], b[1]);
-        mma_bf16(o[db + 1], pa, b[2], b[3]);
+        mma_bf16(o[db], hi, b[0], b[1]);
+        mma_bf16(o[db + 1], hi, b[2], b[3]);
+        mma_bf16(o[db], lo, b[0], b[1]);
+        mma_bf16(o[db + 1], lo, b[2], b[3]);
       }
     }
     __syncwarp();  // the warp's rows of this slot are free: refill it
@@ -697,8 +713,8 @@ cudaError_t launch_split(const dim3& grid, cudaStream_t st, const void* q,
   if (chunk % G::kP) return cudaErrorInvalidValue;
   const int stages = min(kMaxStages, chunk / G::kP);
   const int smem = stages * 2 * G::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      fd_split_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static repro::SmemLimit limit;
+  cudaError_t err = limit.raise(fd_split_kernel<T, D>, smem);
   if (err != cudaSuccess) return err;
   fd_split_kernel<T, D><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),

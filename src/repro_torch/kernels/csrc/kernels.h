@@ -13,14 +13,9 @@ extern "C" {
 
 // y[t] = scale * x[t] @ a[idx[t]] @ b[idx[t]]; idx[t] outside [0, n) -> 0.
 // x (t, d); a (n, d, r); b (n, r, o); idx (t,) int32; y (t, o) in x's dtype.
-// One cluster of `cluster` (1..8) blocks per token; block c shrinks rows
-// [c * d_tile, (c + 1) * d_tile) of d and expands columns [c * o_tile,
-// (c + 1) * o_tile) of o (both tiles multiples of 8; kernels/bgmv.py::
-// bgmv_plan).
 int repro_bgmv(const void* x, const void* a, const void* b, const void* idx,
                void* y, int t, int d, int r, int o, int n, float scale,
-               int cluster, int d_tile, int o_tile, int x_dtype, int w_dtype,
-               void* stream);
+               int x_dtype, int w_dtype, void* stream);
 
 // Segmented LoRA over tokens sorted by adapter.  perm (t,) maps sorted
 // position -> token; seg (n + 2,) holds the segment starts in sorted order,

@@ -94,6 +94,24 @@ def test_bgmv_kernel_ranks_and_ragged_widths(gen, t, d, r, o, n, dtype):
     assert bool((got[bad] == 0).all())
 
 
+@pytest.mark.parametrize("d,o", [
+    (3072, 3072), (3072, 1024), (64, 32), (96, 300), (512, 1000), (1, 1),
+    (200, 1003), (20, 8), (8192, 16), (4096, 16384), (100000, 7)])
+def test_bgmv_plan_tiles_cover_d_and_o(gen, d, o):
+    # the C launcher cuts d and o across a cluster of up to 8 blocks, in
+    # tiles of multiples of 8 (the serving shapes: 8 x 384 of d, and 8 x 384
+    # or 8 x 128 of o): every row of d must reach h and every column of o
+    # be written once: a plan that left a gap would show as a wrong h or an
+    # unwritten column of y (torch.empty's memory)
+    t, r, n = 3, 8, 2
+    x = _normal(gen, t, d, dtype=torch.bfloat16)
+    a, b = _bank(gen, n, d, r, o, torch.bfloat16)
+    ids = torch.tensor([1, 0, 1], dtype=torch.int32, device="cuda")
+    got = bgmv.bgmv(x, a, b, ids, 0.5)
+    assert bool(torch.isfinite(got).all())
+    _close(got, bgmv.bgmv_plain(x, a, b, ids, 0.5), torch.bfloat16)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("r", [7, 8])
 def test_bgmv_kernel_unaligned_views(gen, r, dtype):
@@ -275,10 +293,5 @@ def test_binding_raises_on_rejected_arguments(gen):
     # and the binding raises rather than return an unwritten output
     x = _normal(gen, 4, 8)
     with pytest.raises(RuntimeError, match="bgmv: launcher rejected"):
-        build.kernels().bgmv(0, 0, 0, 0, 0, 4, 8, 100, 8, 2, 1.0,
-                             *bgmv.bgmv_plan(8, 8), 0, 0,
+        build.kernels().bgmv(0, 0, 0, 0, 0, 4, 8, 100, 8, 2, 1.0, 0, 0,
                              build.stream_handle(x.device))
-    # as does one given a launch plan whose tiles do not cover o
-    with pytest.raises(RuntimeError, match="bgmv: launcher rejected"):
-        build.kernels().bgmv(0, 0, 0, 0, 0, 4, 8, 8, 64, 2, 1.0, 2, 8, 8,
-                             0, 0, build.stream_handle(x.device))

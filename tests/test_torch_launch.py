@@ -1,19 +1,18 @@
-"""The Python that chooses the CUDA kernels' launches, on the CPU.
+"""The Python that chooses the flash-decode kernels' launch, on the CPU.
 
 ``flash_decode.split_plan`` cuts each row's S positions into chunks of whole
-tiles for the split pass, and ``bgmv.bgmv_plan`` cuts d and o across one
-thread-block cluster per token.  The kernels reject a plan that breaks
-these rules (``csrc/flash_decode.cu::launch_split``, ``csrc/bgmv.cu::
-repro_bgmv``), so these tests hold the plans to them over the shapes the
-port runs: the serving step, the measurement grid
+tiles for the split pass.  The kernel rejects a plan that breaks this rule
+(``csrc/flash_decode.cu::launch_split``), so these tests hold the plan to it
+over the shapes the port runs: the serving step, the measurement grid
 (``repro_torch.bench.kernels_bench``: batch 1/8/32 x seq 256/1024/4096)
-and edge widths.
+and edge widths.  (BGMV's launch plan lives in its C launcher and is held
+by the card tests of ``tests/test_torch_cuda.py``.)
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import bgmv, flash_decode  # noqa: E402
+from repro_torch.kernels import flash_decode  # noqa: E402
 
 H100_SMS = 132
 BATCHES = (1, 3, 8, 32)
@@ -66,39 +65,3 @@ def test_split_plan_at_the_serving_shape():
     tile = flash_decode.tile_positions(128, 2)
     assert tile == 64
     assert flash_decode.split_plan(8, 8, 512, H100_SMS, tile) == (4, 128)
-
-
-@pytest.mark.parametrize("d,o", [
-    (3072, 3072), (3072, 1024), (64, 32), (96, 300), (512, 1000), (1, 1),
-    (200, 1003), (20, 8), (8192, 16), (4096, 16384), (100000, 7)])
-def test_bgmv_plan_tiles_cover_d_and_o(d, o):
-    cluster, d_tile, o_tile = bgmv.bgmv_plan(d, o)
-    assert 1 <= cluster <= bgmv.MAX_CLUSTER
-    assert d_tile % bgmv.TILE_ALIGN == 0 and o_tile % bgmv.TILE_ALIGN == 0
-    for width, tile in ((d, d_tile), (o, o_tile)):
-        # block c takes [c * tile, (c + 1) * tile) clipped to the width:
-        # the clipped tiles partition [0, width)
-        sizes = [max(0, min((c + 1) * tile, width) - c * tile)
-                 for c in range(cluster)]
-        assert sum(sizes) == width and sizes[0] > 0
-
-
-def test_bgmv_plan_at_the_serving_shapes():
-    # the q projection (o 3072) and the v projection (o 1024) of phi4-mini
-    assert bgmv.bgmv_plan(3072, 3072) == (8, 384, 384)
-    assert bgmv.bgmv_plan(3072, 1024) == (8, 384, 128)
-
-
-@pytest.mark.parametrize("kernel", ["flash_decode", "bgmv"])
-def test_kernel_variants_still_apply_to_the_kernel_source(kernel):
-    # bench/kernel_variants.py cuts parts out of csrc/<kernel>.cu by text;
-    # each variant must still find its part and differ from the others
-    from repro_torch.bench import kernel_variants as kv
-    variants = kv.KERNELS[kernel]((kv.CSRC / f"{kernel}.cu").read_text())
-    assert len(variants) >= 4
-    assert len(set(variants.values())) == len(variants)
-    assert (kv.HERE / "csrc" / f"{kernel}_harness.cu").exists()
-    if kernel == "flash_decode":   # the D 128 instances only
-        for text in variants.values():
-            assert "case 128: err = launch_split" in text
-            assert "case 64: err = launch_split" not in text
