@@ -8,7 +8,10 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 2. the build of the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the main
    path's shapes, in bf16 and f32, within 3e-2 (bf16) and 2e-5 (f32),
-   absolute and relative; flash-decode and the fused flash-decode+LoRA,
+   absolute and relative; SGMV also at the measurement path's 32 adapters
+   with skewed ids (one past capacity, empty ones, ids outside [0, N)),
+   and its sort kernel bit for bit against ``sgmv.segments_plain``;
+   flash-decode and the fused flash-decode+LoRA,
    whose attention outputs are weighted means of V and shrink with the
    row's length, also within 1e-2 (bf16) and 2e-5 (f32) of each output
    row's largest magnitude; the fused kernel with its delta at two sizes
@@ -37,7 +40,15 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    from the profiler (``split_ms``, ``combine_ms``), SDPA also on
    transposed views of the port's cache (``library_on_views_ms``; the
    ``library_ms`` yardstick gets head-major copies), ragged SGMV apart
-   (``ragged_ms``), and beside every row the per-launch floor
+   (``ragged_ms``), SGMV's sort and product kernels apart from the
+   profiler (``sort_ms``, ``product_ms``) beside the torch.sort path the
+   sort replaced (``sort_plain_ms``), SGMV at N 1 beside the two matrix
+   products that compute it there (``n1_library_two_matmuls_ms``: two
+   calls, not one) and at the measurement path's prefill shape
+   (``measure_*``: T 4096, r 16, N 32, random ids), the fused kernel also
+   at the measurement path's widest point (``grid_*``: batch 32, 4096
+   positions, rank 32, 32 adapters) beside the unfused sequence, and
+   beside every row the per-launch floor
    (``floor_ms``: a 1-element in-place op, replayed the same way);
 7. the measurement path: ``repro_torch.bench.kernels_bench`` times the
    fused kernel (and SGMV for prefill) over its (batch, seq, rank) grid at
@@ -107,6 +118,8 @@ RAGGED_RANKS = (8, 3, 5, 1)                     # a ragged bank of SLOTS
 FUSED_SCALES = {"delta-sized": 2.0, "attention-sized": 0.05}
 # the measurement path's widest points: batch, positions, adapters, ranks
 GRID_B, GRID_S, GRID_N, GRID_RANKS = 32, 4096, 32, (8, 16, 32)
+# its widest SGMV prefill: tokens and rank (at N = GRID_N, random ids)
+MEASURE_T, MEASURE_RANK = 4096, 16
 
 
 def say(*parts) -> None:
@@ -194,6 +207,13 @@ def phase_kernels():
               ref.sgmv_ref(x, a, b, same), dn, errs)
         if not (bool((over[cap:] == 0).all()) and bool(over[:cap].any())):
             raise AssertionError("sgmv: tokens past capacity must get 0")
+        skew = check_sgmv_skewed(inp, x, dtype, dn, errs)
+        for name, i, n in (("random ids", ids, SLOTS),
+                           ("one adapter", same, SLOTS),
+                           (f"N {GRID_N} skewed", skew, GRID_N)):
+            check(f"sgmv sort kernel, {name}",
+                  torch.cat(sgmv.segments(i, n)),
+                  torch.cat(sgmv.segments_plain(i, n)), dn, errs, exact=True)
 
         q = inp.normal(BATCH, HEADS, HEAD_DIM, dtype=dtype)
         k = inp.normal(BATCH, CACHE, KV_HEADS, HEAD_DIM, dtype=dtype)
@@ -210,6 +230,42 @@ def phase_kernels():
     del q, k, v
     check_fused_grid(errs)
     return errs
+
+
+def check_sgmv_skewed(inp, x, dtype, dn, errs):
+    """SGMV at the measurement path's adapter count with skew: adapter 5
+    past its capacity, adapters 10-31 empty, some ids outside [0, N);
+    dense, ragged, and ragged bitwise dense on the masked bank.  Returns
+    the ids."""
+    from repro_torch.kernels import ref, sgmv
+    t, n = x.shape[0], GRID_N
+    cap = ref.sgmv_capacity(t, n)
+    over = cap + 44
+    ids = torch.cat([
+        torch.full((over,), 5, device="cuda"),
+        torch.randint(0, 10, (t - over - 40,), generator=inp.gen,
+                      device="cuda"),
+        torch.tensor([-1, n, n + 8, -5] * 10, device="cuda")])
+    ids = ids[torch.randperm(t, generator=inp.gen, device="cuda")]
+    ids = ids.to(torch.int32)
+    a, b = inp.lora_bank(n, D_MODEL, MEASURE_RANK, Q_OUT, dtype)
+    got = sgmv.sgmv(x, a, b, ids)
+    check(f"sgmv N {n} skewed (cap {cap})", got, ref.sgmv_ref(x, a, b, ids),
+          dn, errs)
+    fives = torch.nonzero(ids == 5).flatten()
+    if not (bool((got[fives[cap:]] == 0).all())
+            and bool((got[(ids < 0) | (ids >= n)] == 0).all())):
+        raise AssertionError("sgmv: tokens past capacity or without an "
+                             "adapter must get 0")
+    ranks = torch.randint(1, MEASURE_RANK + 1, (n,), generator=inp.gen,
+                          device="cuda", dtype=torch.int32)
+    ragged = sgmv.sgmv(x, a, b, ids, ranks=ranks)
+    check(f"sgmv N {n} skewed ragged", ragged,
+          ref.sgmv_ref(x, a, b, ids, ranks=ranks), dn, errs)
+    am, bm = ref.mask_ragged(a, b, ranks)
+    check(f"sgmv N {n} skewed ragged vs dense on the masked bank", ragged,
+          sgmv.sgmv(x, am, bm, ids), dn, errs, exact=True)
+    return ids
 
 
 def check_fused(inp, q, k, v, lengths, dtype, dn, errs):
@@ -328,9 +384,11 @@ def phase_parity():
 # device kernel (as the profiler names it) -> the wrapper that launches it;
 # the fused wrapper launches flash-decode's two kernels
 KERNEL_NAMES = {"bgmv_kernel": "bgmv", "sgmv_kernel": "sgmv",
+                "sgmv_segments_kernel": "sgmv",
                 "fd_split_kernel": "flash_decode",
                 "fd_combine_kernel": "flash_decode"}
 FD_KERNELS = ("fd_split_kernel", "fd_combine_kernel")  # flash-decode's two
+SGMV_KERNELS = ("sgmv_segments_kernel", "sgmv_kernel")  # SGMV's sort, product
 GEMM_WORDS = ("gemm", "nvjet", "cutlass", "xmma")  # cuBLAS kernel names
 
 
@@ -425,27 +483,35 @@ def copies(make, set_bytes):
     return [make() for _ in range(max(1, min(256, math.ceil(1e8 / set_bytes))))]
 
 
-def profiled_ms(fn, arg_sets, names, calls=20):
+def profiled_ms(fn, arg_sets, names, calls=20, attempts=3):
     """Device time per call of each kernel in ``names`` (a substring of the
-    profiler's kernel name), over ``calls`` eager calls."""
+    profiler's kernel name), over ``calls`` eager calls.  A session that
+    records none of a kernel's launches is repeated (one of them, after
+    ``phase_step``'s session, once recorded no device time at all); after
+    ``attempts`` such sessions it raises."""
     for args in arg_sets[:2]:
         fn(*args)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for i in range(calls):
-            fn(*arg_sets[i % len(arg_sets)])
-        torch.cuda.synchronize()
-    out = dict.fromkeys(names, 0.0)
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            for n in names:
-                if n in e.key:
-                    out[n] += e.self_device_time_total / calls / 1e3
-    if not all(v > 0 for v in out.values()):
-        raise AssertionError(f"no profiled device time for {names}: {out}")
-    return out
+    for attempt in range(attempts):
+        with torch.profiler.profile(activities=acts) as prof:
+            for i in range(calls):
+                fn(*arg_sets[i % len(arg_sets)])
+            torch.cuda.synchronize()
+        out = dict.fromkeys(names, 0.0)
+        seen = []
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                seen.append(e.key[:60])
+                for n in names:
+                    if n in e.key:
+                        out[n] += e.self_device_time_total / calls / 1e3
+        if all(v > 0 for v in out.values()):
+            return out
+        say(f"  profiler session {attempt + 1} recorded no device time for "
+            f"{names}: {out}; device keys seen: {seen[:8]}")
+    raise AssertionError(f"no profiled device time for {names}")
 
 
 def bound(bytes_moved, flops, dtype_name):
@@ -462,19 +528,24 @@ def phase_timing():
     inp = Inputs(seed=3)
     rows = {}
 
-    def lora_row(name, kernel, plain, t, o):
-        ids = (torch.arange(t, device="cuda") % SLOTS).to(torch.int32)
+    def lora_sets(t, o, n=SLOTS, r=RANK, ids=None):
+        """Input sets of a LoRA kernel and the bound of one call."""
+        if ids is None:
+            ids = (torch.arange(t, device="cuda") % n).to(torch.int32)
 
         def make():
             x = inp.normal(t, D_MODEL, dtype=dt)
-            a, b = inp.lora_bank(SLOTS, D_MODEL, RANK, o, dt)
+            a, b = inp.lora_bank(n, D_MODEL, r, o, dt)
             return x, a, b, ids
-        n_used = int(torch.unique(ids).numel())
-        nbytes = (t * D_MODEL + n_used * (D_MODEL * RANK + RANK * o)
+        n_used = int(torch.unique(ids[(ids >= 0) & (ids < n)]).numel())
+        nbytes = (t * D_MODEL + n_used * (D_MODEL * r + r * o)
                   + t * o) * es + 4 * t
-        sets = copies(make, nbytes)
-        b_ms, b_by = bound(nbytes, 2 * t * (D_MODEL * RANK + RANK * o),
+        b_ms, b_by = bound(nbytes, 2 * t * (D_MODEL * r + r * o),
                            "bfloat16")
+        return copies(make, nbytes), b_ms, b_by
+
+    def lora_row(name, kernel, plain, t, o):
+        sets, b_ms, b_by = lora_sets(t, o)
         rows[name] = {"ms": graph_ms(kernel, sets),
                       "plain_ms": graph_ms(plain, sets),
                       "bound_ms": b_ms, "bound_by": b_by,
@@ -500,6 +571,28 @@ def phase_timing():
         lambda x, a, b, i: sgmv.sgmv(x, a, b, i, ranks=ranks), sets)
     rows["sgmv"]["ragged_plain_ms"] = graph_ms(
         lambda x, a, b, i: ref.sgmv_ref(x, a, b, i, ranks=ranks), sets)
+    # its two kernels apart (profiler), and the sort's plain version (the
+    # torch.sort + searchsorted that the sort kernel replaced)
+    split = profiled_ms(sgmv.sgmv, sets, SGMV_KERNELS)
+    rows["sgmv"]["sort_ms"] = split["sgmv_segments_kernel"]
+    rows["sgmv"]["product_ms"] = split["sgmv_kernel"]
+    rows["sgmv"]["sort_plain_ms"] = graph_ms(
+        lambda x, a, b, i: sgmv.segments_plain(i, SLOTS), sets)
+    # at N 1 the function is two matrix products, (x @ A[0]) @ B[0]: the
+    # library yardstick there (two calls, h rounded to bf16 between them)
+    sets, b_ms, _ = lora_sets(PREFILL_T, Q_OUT, n=1)
+    rows["sgmv"].update({
+        "n1_ms": graph_ms(sgmv.sgmv, sets), "n1_bound_ms": b_ms,
+        "n1_library_two_matmuls_ms": graph_ms(
+            lambda x, a, b, i: (x @ a[0]) @ b[0], sets)})
+    # the measurement path's prefill shape: T 4096, r 16, N 32, random ids
+    ids = torch.randint(0, GRID_N, (MEASURE_T,), generator=inp.gen,
+                        device="cuda", dtype=torch.int32)
+    sets, b_ms, _ = lora_sets(MEASURE_T, Q_OUT, n=GRID_N, r=MEASURE_RANK,
+                              ids=ids)
+    rows["sgmv"].update({"measure_ms": graph_ms(sgmv.sgmv, sets),
+                         "measure_bound_ms": b_ms})
+    del sets
 
     lengths = torch.full((BATCH,), CACHE, dtype=torch.int32, device="cuda")
 
@@ -559,9 +652,37 @@ def phase_timing():
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,          # no single PyTorch call computes it
         "unfused_ms": graph_ms(unfused, sets)}
+    rows["flash_decode_lora"].update(fused_grid_times(unfused))
     for r in rows.values():
         r["floor_ms"] = floor
     return rows
+
+
+def fused_grid_times(unfused):
+    """The fused kernel beside the unfused sequence at the measurement
+    path's widest point (batch 32, 4096 positions, rank 32, 32 adapters),
+    on the inputs that path draws; one input set (537 MB of K and V)."""
+    from repro_torch.bench import kernels_bench as kb
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode
+    w = kb.Widths.of(get_config("phi4-mini-3.8b"))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rank = max(GRID_RANKS)
+    q, k, v, x, a, b, idx = kb._decode_data(gen, GRID_B, GRID_S, rank,
+                                            GRID_N, h=w.h, kv=w.kv, d=w.d,
+                                            dx=w.dx)
+    sets = [(q, k, v, GRID_S, x, a, b, idx)]
+    n_used = int(torch.unique(idx).numel())
+    nbytes = (2 * q.numel() + k.numel() + v.numel() + x.numel()
+              + n_used * rank * (w.dx + w.h * w.d)) * 2 + 4 * GRID_B
+    b_ms, _ = bound(nbytes, 4 * (w.h // w.kv) * k.numel()
+                    + 2 * GRID_B * rank * (w.dx + w.h * w.d), "bfloat16")
+    out = {"grid_ms": graph_ms(flash_decode.flash_decode_lora, sets),
+           "grid_unfused_ms": graph_ms(unfused, sets),
+           "grid_bound_ms": b_ms}
+    del q, k, v, sets
+    torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------------- #

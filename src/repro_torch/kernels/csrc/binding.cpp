@@ -31,13 +31,19 @@ void bgmv(int64_t x, int64_t a, int64_t b, int64_t idx, int64_t y, int64_t t,
         "bgmv");
 }
 
-void sgmv(int64_t x, int64_t a, int64_t b, int64_t perm, int64_t seg,
-          int64_t ranks, int64_t y, int64_t t, int64_t d, int64_t r, int64_t o,
-          int64_t n, int64_t cap, double scale, int64_t x_dtype,
-          int64_t w_dtype, int64_t stream) {
-  check(repro_sgmv(cptr(x), cptr(a), cptr(b), cptr(perm), cptr(seg), cptr(ranks),
-             ptr(y), t, d, r, o, n, cap, static_cast<float>(scale), x_dtype,
-             w_dtype, ptr(stream)),
+void sgmv_segments(int64_t idx, int64_t perm, int64_t seg, int64_t t,
+                   int64_t n, int64_t stream) {
+  check(repro_sgmv_segments(cptr(idx), ptr(perm), ptr(seg), t, n, ptr(stream)),
+        "sgmv_segments");
+}
+
+void sgmv(int64_t x, int64_t a, int64_t b, int64_t idx, int64_t perm,
+          int64_t seg, int64_t ranks, int64_t y, int64_t t, int64_t d,
+          int64_t r, int64_t o, int64_t n, int64_t cap, double scale,
+          int64_t x_dtype, int64_t w_dtype, int64_t stream) {
+  check(repro_sgmv(cptr(x), cptr(a), cptr(b), cptr(idx), ptr(perm), ptr(seg),
+             cptr(ranks), ptr(y), t, d, r, o, n, cap, static_cast<float>(scale),
+             x_dtype, w_dtype, ptr(stream)),
         "sgmv");
 }
 
@@ -72,6 +78,8 @@ void flash_decode_lora(int64_t q, int64_t k, int64_t v, int64_t length,
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("bgmv", &bgmv, "BGMV LoRA (decode-sized batches)");
+  m.def("sgmv_segments", &sgmv_segments,
+        "stable sort of tokens by adapter (SGMV's segments)");
   m.def("sgmv", &sgmv, "SGMV LoRA (prefill-sized batches, dense or ragged)");
   m.def("flash_decode", &flash_decode, "split-KV flash-decode attention");
   m.def("flash_decode_lora", &flash_decode_lora,

@@ -77,6 +77,38 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
   else asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// bf16 m16n8k16 tensor-core product with f32 accumulators, d += a * b.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 b16 matrices from shared memory; lane i gives the address of row
+// i % 8 of matrix i / 8.  With kTrans each matrix arrives transposed.
+template <bool kTrans>
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  if constexpr (kTrans)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// Two 8x8 b16 matrices from shared memory, each arriving transposed; lanes
+// 0-15 give the addresses of rows 0-7 of the first and of the second.
+__device__ __forceinline__ void ldmatrix_x2_trans(unsigned& r0, unsigned& r1,
+                                                  const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1) : "r"(a));
+}
+
 // A kernel instance's dynamic shared-memory limit on each device, raised
 // with cudaFuncSetAttribute only when a launch needs more than was set
 // before: the launchers keep one `static` per instance, so a launch that

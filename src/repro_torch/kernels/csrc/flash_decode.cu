@@ -56,20 +56,31 @@
 //
 // A second kernel, one block per (row, head), merges the splits by
 // log-sum-exp and writes q's dtype.  The fused kernel runs the same split
-// kernel and the same combine kernel, instantiated with kLora: each (row,
-// head) block shrinks h = x[row] @ A[id] in f32 into shared memory (kept
-// f32, as the Pallas epilogue keeps it), then adds scale * h @
+// kernel and the same combine kernel, instantiated with kLora and launched
+// as thread-block clusters of C blocks along the heads of one row (C the
+// largest divisor of h that is <= 8: 8 of phi4-mini's 24 heads).  Block c
+// of a cluster shrinks only its dx/C slice of h = x[row] @ A[id] with
+// 16-byte loads of A, the cluster sums the partials through distributed
+// shared memory in one fixed order (lora.cuh::cluster_shrink, BGMV's
+// shrink), so every head adds the same f32 h, as the Pallas epilogue keeps
+// it; the block then merges its head's splits and adds scale * h @
 // B[id][:, head*D:(head+1)*D] to the f32 attention before the one cast.
-// Every head of a row recomputes the rank-r shrink from L2 (dx*r reads of A
-// per block) rather than pay a third launch.  A row whose id is outside
-// [0, N) skips the add, so an all-base batch is bitwise the plain kernel's
+// The fused combine is launched as the split pass's programmatic
+// dependent (the split pass's kEarly instance lets it launch at once), so
+// its shrink runs beside the split pass and only the merge waits for it
+// (griddepcontrol.wait); plain flash-decode launches both as before.  A
+// row whose id is outside [0, N) skips the shrink in every block of its
+// cluster and the add, so an all-base batch is bitwise the plain kernel's
 // output.
 #include <type_traits>
 
 #include "common.cuh"
 #include "kernels.h"
+#include "lora.cuh"
 
 namespace {
+
+namespace lr = repro::lora;
 
 constexpr int kThreads = 128;        // split pass
 constexpr int kWarps = kThreads / 32;
@@ -77,8 +88,6 @@ constexpr int kMaxG = 8;
 constexpr int kMaxStages = 3;
 constexpr int kTileBytes = 16384;    // of K in one tile (as many of V)
 constexpr int kCombineThreads = 128;
-constexpr int kMaxRank = 64;  // as bgmv.cu
-constexpr int kBatch = 8;     // loads in flight a thread in the LoRA epilogue
 constexpr float kNegInf = -1.0e30f;  // finite, as in Pallas: exp(m - m) stays 1
 
 constexpr int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
@@ -329,29 +338,6 @@ __device__ __forceinline__ void split_scalar(
   }
 }
 
-// bf16 m16n8k16 tensor-core product with f32 accumulators, d += a * b.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 b16 matrices from shared memory; lane i gives the address of row
-// i % 8 of matrix i / 8.  With kTrans each matrix arrives transposed.
-template <bool kTrans>
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  if constexpr (kTrans)
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-  else
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
 __device__ __forceinline__ unsigned pack_bf16(__nv_bfloat162 p) {
   unsigned u;
   memcpy(&u, &p, 4);
@@ -471,9 +457,9 @@ __device__ __forceinline__ void split_mma(
       for (int ks = 0; ks < kKS; ++ks) {
         unsigned b[4];
         const int p = w0 + nb * 8 + (lane / 16) * 8 + lane % 8;
-        ldmatrix_x4<false>(b, kt + G::slot(p, 2 * ks + (lane / 8) % 2) * kVec);
-        mma_bf16(sc[nb], qa[ks], b[0], b[1]);
-        mma_bf16(sc[nb + 1], qa[ks], b[2], b[3]);
+        repro::ldmatrix_x4<false>(b, kt + G::slot(p, 2 * ks + (lane / 8) % 2) * kVec);
+        repro::mma_bf16(sc[nb], qa[ks], b[0], b[1]);
+        repro::mma_bf16(sc[nb + 1], qa[ks], b[2], b[3]);
       }
     }
 
@@ -524,11 +510,11 @@ __device__ __forceinline__ void split_mma(
 #pragma unroll
       for (int db = 0; db < kDB; db += 2) {
         unsigned b[4];
-        ldmatrix_x4<true>(b, vt + G::slot(p, db + lane / 16) * kVec);
-        mma_bf16(o[db], hi, b[0], b[1]);
-        mma_bf16(o[db + 1], hi, b[2], b[3]);
-        mma_bf16(o[db], lo, b[0], b[1]);
-        mma_bf16(o[db + 1], lo, b[2], b[3]);
+        repro::ldmatrix_x4<true>(b, vt + G::slot(p, db + lane / 16) * kVec);
+        repro::mma_bf16(o[db], hi, b[0], b[1]);
+        repro::mma_bf16(o[db + 1], hi, b[2], b[3]);
+        repro::mma_bf16(o[db], lo, b[0], b[1]);
+        repro::mma_bf16(o[db + 1], lo, b[2], b[3]);
       }
     }
     __syncwarp();  // the warp's rows of this slot are free: refill it
@@ -578,14 +564,18 @@ __device__ __forceinline__ void split_mma(
 
 // One block per (split, kv-head, row): the tensor-core pass where the
 // tile allows it (bf16, each warp's quarter of a tile a multiple of 16
-// positions), else the CUDA-core pass.
-template <typename T, int D>
+// positions), else the CUDA-core pass.  With kEarly (the fused kernel's
+// instance) the combine, launched as this grid's programmatic dependent,
+// may start at once and run its LoRA shrink beside this pass.
+template <typename T, int D, bool kEarly>
 __global__ void __launch_bounds__(kThreads, 2)
 fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const int* __restrict__ length,
                 float* __restrict__ m_part, float* __restrict__ l_part,
                 float* __restrict__ acc_part, int s, int h, int kv,
                 int n_splits, int chunk, int stages) {
+  if constexpr (kEarly)
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   if constexpr (Tile<T, D>::kMma)
     split_mma<D>(q, k, v, length, m_part, l_part, acc_part, s, h, kv,
                  n_splits, chunk, stages);
@@ -595,7 +585,9 @@ fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // The LoRA epilogue's operands: x (bsz, dx) in the attention dtype, a
-// (n, dx, r) and b (n, r, h*dh) in the bank's dtype W, idx (bsz,) int32.
+// (n, dx, r) and b (n, r, h*dh) in the bank's dtype W, idx (bsz,) int32;
+// block c of a row's cluster shrinks rows [c * d_tile, (c + 1) * d_tile)
+// of dx (16-byte loads of A where vec_a).
 template <typename T, typename W>
 struct LoraArgs {
   const T* x;
@@ -604,11 +596,17 @@ struct LoraArgs {
   const int* idx;
   int dx, r, n, h;
   float scale;
+  int d_tile;
+  bool vec_a;
 };
 
 // One block per (row, head): merge the splits by log-sum-exp; with kLora,
 // add the row's LoRA delta for this head before the cast.  Plain
-// flash-decode is the kLora = false instance of this code.
+// flash-decode is the kLora = false instance of this code, launched
+// without clusters.  With kLora the blocks of one row's heads form
+// clusters of C (a divisor of h), so a cluster is always one row: each
+// block shrinks its slice of x[row] @ A[id] and the cluster sums the
+// partials (lora.cuh::cluster_shrink), so every head adds the same f32 h.
 template <typename T, typename W, bool kLora>
 __global__ void __launch_bounds__(kCombineThreads)
 fd_combine_kernel(const float* __restrict__ m_part,
@@ -616,6 +614,48 @@ fd_combine_kernel(const float* __restrict__ m_part,
                   const float* __restrict__ acc_part, T* __restrict__ out,
                   int n_splits, int dh, LoraArgs<T, W> lora) {
   const size_t hp = blockIdx.x;  // row * h + head
+  bool live = false;
+  const W* bt = nullptr;
+  const float* hs = nullptr;
+  const size_t ld = (size_t)lora.h * dh;  // B's row stride
+  lr::BRows<W, 1> first;  // rows 0..7 of B for column threadIdx.x
+  if constexpr (kLora) {
+    static_assert(kCombineThreads == lr::kThreads, "the shrink's block");
+    constexpr int kVW = 16 / sizeof(W);
+    const int row = static_cast<int>(hp / lora.h);
+    const int head = static_cast<int>(hp % lora.h);
+    const int id = lora.idx[row];
+    live = id >= 0 && id < lora.n;  // the same for the whole cluster
+    if (live) {
+      lr::cluster_arrive();
+      __shared__ lr::ShrinkSmem sm;
+      extern __shared__ float xs[];  // [d_tile]
+      lr::cg::cluster_group cluster = lr::cg::this_cluster();
+      const int c = static_cast<int>(cluster.block_rank());
+      const int i0 = min(c * lora.d_tile, lora.dx);
+      const int rows = min(i0 + lora.d_tile, lora.dx) - i0;
+      const T* xr = lora.x + (size_t)row * lora.dx + i0;
+      const W* as = lora.a + ((size_t)id * lora.dx + i0) * lora.r;
+      bt = lora.b + (size_t)id * lora.r * ld + (size_t)head * dh;
+      // B's first rows go out before the shrink, which overlaps them
+      if (static_cast<int>(threadIdx.x) < dh)
+        first.load(bt, ld, threadIdx.x, 0, lora.r);
+      if (lora.vec_a) {
+        lr::Shrink<W, kVW> sh;
+        sh.issue(as, rows, lora.r);
+        lr::cluster_shrink(cluster, sh, xr, rows, as, lora.r, xs, sm);
+      } else {
+        lr::Shrink<W, 1> sh;
+        sh.issue(as, rows, lora.r);
+        lr::cluster_shrink(cluster, sh, xr, rows, as, lora.r, xs, sm);
+      }
+      hs = sm.h;
+    }
+    // the split pass's partials: launched as its programmatic dependent,
+    // this grid may have started before the split pass ended
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  }
+
   const float* mp = m_part + hp * n_splits;
   const float* lp = l_part + hp * n_splits;
   float mx = kNegInf;
@@ -624,57 +664,6 @@ fd_combine_kernel(const float* __restrict__ m_part,
   for (int i = 0; i < n_splits; ++i) ls += lp[i] * expf(mp[i] - mx);
   const float inv = 1.f / fmaxf(ls, 1e-20f);
 
-  // LoRA shrink: thread t owns lane t % r and walks the rows of A[id] (dx, r)
-  // from t / r in steps of kCombineThreads / r, so neighbouring threads read
-  // neighbouring elements; the lanes reduce through shared memory.  Loads
-  // are issued kBatch at a time before their products are summed (in the
-  // same order): with one load in flight a thread, each waiting for the
-  // last, the shrink took ~70 us at dx 3072, r 8 on an H100 (PERF.md).
-  __shared__ float part[kLora ? kCombineThreads : 1];
-  __shared__ float hs[kLora ? kMaxRank : 1];
-  bool live = false;
-  const W* bt = nullptr;
-  if constexpr (kLora) {
-    const int row = static_cast<int>(hp / lora.h);
-    const int head = static_cast<int>(hp % lora.h);
-    const int id = lora.idx[row];
-    live = id >= 0 && id < lora.n;  // the same for the whole block
-    const int ida = min(max(id, 0), lora.n - 1);  // the address, clamped
-    if (live) {
-      const T* xr = lora.x + (size_t)row * lora.dx;
-      const W* ar = lora.a + (size_t)ida * lora.dx * lora.r;
-      const int step = kCombineThreads / lora.r;
-      const int stride = lora.r * step;
-      float acc = 0.f;
-      if (threadIdx.x < stride) {
-        const int lane = threadIdx.x % lora.r;
-        int i = threadIdx.x / lora.r;
-        for (; i + (kBatch - 1) * step < lora.dx; i += kBatch * step) {
-          float xv[kBatch], av[kBatch];
-#pragma unroll
-          for (int u = 0; u < kBatch; ++u) {
-            xv[u] = repro::to_float(xr[i + u * step]);
-            av[u] = repro::to_float(ar[(size_t)(i + u * step) * lora.r + lane]);
-          }
-#pragma unroll
-          for (int u = 0; u < kBatch; ++u) acc += xv[u] * av[u];
-        }
-        for (; i < lora.dx; i += step)
-          acc += repro::to_float(xr[i]) *
-                 repro::to_float(ar[(size_t)i * lora.r + lane]);
-      }
-      part[threadIdx.x] = acc;
-      __syncthreads();
-      if (threadIdx.x < lora.r) {
-        float sum = 0.f;
-        for (int k = threadIdx.x; k < stride; k += lora.r) sum += part[k];
-        hs[threadIdx.x] = sum;
-      }
-      __syncthreads();
-      bt = lora.b + (size_t)ida * lora.r * lora.h * dh + (size_t)head * dh;
-    }
-  }
-
   for (int dd = threadIdx.x; dd < dh; dd += blockDim.x) {
     float a = 0.f;
     for (int i = 0; i < n_splits; ++i)
@@ -682,18 +671,19 @@ fd_combine_kernel(const float* __restrict__ m_part,
     float o = a * inv;
     if constexpr (kLora) {
       if (live) {
-        const size_t ld = (size_t)lora.h * dh;  // B's row stride
         float delta = 0.f;
-        int j = 0;
-        for (; j + kBatch <= lora.r; j += kBatch) {
-          float bv[kBatch];
-#pragma unroll
-          for (int u = 0; u < kBatch; ++u)
-            bv[u] = repro::to_float(bt[(j + u) * ld + dd]);
-#pragma unroll
-          for (int u = 0; u < kBatch; ++u) delta += hs[j + u] * bv[u];
+        if (dd == static_cast<int>(threadIdx.x)) {
+          first.add(hs, 0, lora.r, &delta);
+        } else {
+          lr::BRows<W, 1> rows0;
+          rows0.load(bt, ld, dd, 0, lora.r);
+          rows0.add(hs, 0, lora.r, &delta);
         }
-        for (; j < lora.r; ++j) delta += hs[j] * repro::to_float(bt[j * ld + dd]);
+        for (int l0 = lr::kRowBatch; l0 < lora.r; l0 += lr::kRowBatch) {
+          lr::BRows<W, 1> more;
+          more.load(bt, ld, dd, l0, lora.r);
+          more.add(hs, l0, lora.r, &delta);
+        }
         o += delta * lora.scale;
       }
     }
@@ -704,7 +694,7 @@ fd_combine_kernel(const float* __restrict__ m_part,
 // The split pass of one (dtype, head dim) instance: chunks must be whole
 // tiles; the ring has as many stages as a chunk has tiles, at most
 // kMaxStages.  Returns the launch error, or cudaErrorInvalidValue.
-template <typename T, int D>
+template <typename T, int D, bool kEarly>
 cudaError_t launch_split(const dim3& grid, cudaStream_t st, const void* q,
                          const void* k, const void* v, const void* length,
                          void* m_part, void* l_part, void* acc_part, int s,
@@ -714,9 +704,9 @@ cudaError_t launch_split(const dim3& grid, cudaStream_t st, const void* q,
   const int stages = min(kMaxStages, chunk / G::kP);
   const int smem = stages * 2 * G::kBytes;
   static repro::SmemLimit limit;
-  cudaError_t err = limit.raise(fd_split_kernel<T, D>, smem);
+  cudaError_t err = limit.raise(fd_split_kernel<T, D, kEarly>, smem);
   if (err != cudaSuccess) return err;
-  fd_split_kernel<T, D><<<grid, kThreads, smem, st>>>(
+  fd_split_kernel<T, D, kEarly><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(length),
       static_cast<float*>(m_part), static_cast<float*>(l_part),
@@ -738,18 +728,42 @@ int launch_fd(const void* q, const void* k, const void* v, const void* length,
   const dim3 grid(n_splits, kv, bsz);
   cudaError_t err;
   switch (dh) {
-    case 16: err = launch_split<T, 16>(grid, st, q, k, v, length, m_part, l_part, acc_part, s, h, kv, n_splits, chunk); break;
-    case 32: err = launch_split<T, 32>(grid, st, q, k, v, length, m_part, l_part, acc_part, s, h, kv, n_splits, chunk); break;
-    case 64: err = launch_split<T, 64>(grid, st, q, k, v, length, m_part, l_part, acc_part, s, h, kv, n_splits, chunk); break;
-    case 128: err = launch_split<T, 128>(grid, st, q, k, v, length, m_part, l_part, acc_part, s, h, kv, n_splits, chunk); break;
-    case 256: err = launch_split<T, 256>(grid, st, q, k, v, length, m_part, l_part, acc_part, s, h, kv, n_splits, chunk); break;
+    case 16: err = launch_split<T, 16, kLora>(grid, st, q, k, v, length, m_part, l_part, acc_part, s, h, kv, n_splits, chunk); break;
+    case 32: err = launch_split<T, 32, kLora>(grid, st, q, k, v, length, m_part, l_part, acc_part, s, h, kv, n_splits, chunk); break;
+    case 64: err = launch_split<T, 64, kLora>(grid, st, q, k, v, length, m_part, l_part, acc_part, s, h, kv, n_splits, chunk); break;
+    case 128: err = launch_split<T, 128, kLora>(grid, st, q, k, v, length, m_part, l_part, acc_part, s, h, kv, n_splits, chunk); break;
+    case 256: err = launch_split<T, 256, kLora>(grid, st, q, k, v, length, m_part, l_part, acc_part, s, h, kv, n_splits, chunk); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  fd_combine_kernel<T, W, kLora><<<bsz * h, kCombineThreads, 0, st>>>(
-      static_cast<const float*>(m_part), static_cast<const float*>(l_part),
-      static_cast<const float*>(acc_part), static_cast<T*>(out), n_splits, dh,
-      lora);
+  if constexpr (kLora) {
+    // clusters of C heads of one row: C the largest divisor of h <= 8
+    int cluster = lr::kMaxCluster;
+    while (h % cluster) --cluster;
+    LoraArgs<T, W> args = lora;
+    auto cdiv = [](int a, int b) { return (a + b - 1) / b; };
+    args.d_tile = cdiv(cdiv(lora.dx, cluster), lr::kAlign) * lr::kAlign;
+    // 16-byte loads of A need the base, a whole adapter and a slice start
+    // (a multiple of kAlign rows) on 16 bytes
+    args.vec_a = reinterpret_cast<uintptr_t>(lora.a) % 16 == 0 &&
+                 (size_t)lora.dx * lora.r * sizeof(W) % 16 == 0;
+    const int smem = args.d_tile * static_cast<int>(sizeof(float));
+    auto kernel = fd_combine_kernel<T, W, true>;
+    static repro::SmemLimit limit;
+    err = limit.raise(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = lr::launch_clusters(
+        kernel, dim3(bsz * h), kCombineThreads, cluster, smem, st, true,
+        static_cast<const float*>(m_part), static_cast<const float*>(l_part),
+        static_cast<const float*>(acc_part), static_cast<T*>(out), n_splits,
+        dh, args);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else {
+    fd_combine_kernel<T, W, false><<<bsz * h, kCombineThreads, 0, st>>>(
+        static_cast<const float*>(m_part), static_cast<const float*>(l_part),
+        static_cast<const float*>(acc_part), static_cast<T*>(out), n_splits,
+        dh, lora);
+  }
   return static_cast<int>(cudaPeekAtLastError());
 }
 
@@ -784,7 +798,7 @@ extern "C" int repro_flash_decode_lora(
     int h, int kv, int dh, int n_splits, int chunk, int dx, int r, int n,
     float scale, int dtype, int w_dtype, void* stream) {
   if (bsz <= 0 || h <= 0) return 0;
-  if (bad_shape(h, kv, n_splits, chunk) || r < 1 || r > kMaxRank || n < 1 ||
+  if (bad_shape(h, kv, n_splits, chunk) || r < 1 || r > lr::kMaxRank || n < 1 ||
       dx < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -795,7 +809,8 @@ extern "C" int repro_flash_decode_lora(
           n_splits, chunk,
           LoraArgs<T, W>{static_cast<const T*>(x), static_cast<const W*>(a),
                          static_cast<const W*>(b),
-                         static_cast<const int*>(idx), dx, r, n, h, scale},
+                         static_cast<const int*>(idx), dx, r, n, h, scale,
+                         0, false},
           st)));
   return rc;
 }

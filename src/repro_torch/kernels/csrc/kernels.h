@@ -17,13 +17,19 @@ int repro_bgmv(const void* x, const void* a, const void* b, const void* idx,
                void* y, int t, int d, int r, int o, int n, float scale,
                int x_dtype, int w_dtype, void* stream);
 
-// Segmented LoRA over tokens sorted by adapter.  perm (t,) maps sorted
-// position -> token; seg (n + 2,) holds the segment starts in sorted order,
-// segment n being the tokens with no adapter.  ranks (n,) int32 or NULL.
-// A token whose rank inside its segment is >= cap gets exactly 0.
-int repro_sgmv(const void* x, const void* a, const void* b, const void* perm,
-               const void* seg, const void* ranks, void* y, int t, int d,
-               int r, int o, int n, int cap, float scale, int x_dtype,
+// Stable sort of the tokens by adapter: perm (t,) int32 maps sorted
+// position -> token; seg (n + 2,) int32 receives the segment starts in
+// sorted order, segment n holding the tokens whose id is outside [0, n).
+int repro_sgmv_segments(const void* idx, void* perm, void* seg, int t, int n,
+                        void* stream);
+
+// Segmented LoRA: repro_sgmv_segments into the scratch perm and seg, then
+// y[t] = scale * x[t] @ a[idx[t]] @ b[idx[t]] over each adapter's segment;
+// idx[t] outside [0, n) -> 0.  ranks (n,) int32 or NULL.  A token whose
+// rank inside its segment is >= cap gets exactly 0.
+int repro_sgmv(const void* x, const void* a, const void* b, const void* idx,
+               void* perm, void* seg, const void* ranks, void* y, int t,
+               int d, int r, int o, int n, int cap, float scale, int x_dtype,
                int w_dtype, void* stream);
 
 // Split-KV single-query GQA attention.  q (bsz, h, dh); k, v (bsz, s, kv,

@@ -10,7 +10,9 @@ them at edge shapes (rank 1 and odd ranks, expand widths off the tile,
 every head dim the flash-decode kernels instantiate, group sizes 1..8,
 lengths 0 and past S and at the split pass's tile edges, NaN past a row's
 length, BGMV at ranks 1-64 with widths and views off the 16-byte vector,
-adapter id -1 in the fused decode step), and check
+SGMV at T around its 64-token tile, 32 skewed adapters, unaligned views and
+its sort kernel bit for bit, the fused decode step at every cluster size
+and adapter id -1), and check
 that the wrappers and the binding reject what the kernels do not take.
 """
 import math
@@ -147,7 +149,14 @@ def test_bgmv_kernel_mixed_dtypes(gen):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,d,r,o,n,same", [
     (130, 32, 8, 48, 3, False), (700, 200, 5, 260, 6, False),
-    (512, 64, 16, 100, 8, True)])
+    (512, 64, 16, 100, 8, True),
+    # T below, at and past one 64-token tile; ranks 1, 7, 16 and 64; d off
+    # the 128-wide chunk, and off the 16-byte vector (36 in bf16), o off
+    # it; rank 64 at d 3072, where the cluster shrinks to fit its partials
+    (63, 64, 1, 40, 2, False), (64, 96, 7, 64, 3, False),
+    (65, 200, 16, 72, 2, False), (1000, 256, 64, 264, 5, False),
+    (97, 36, 9, 30, 2, False), (64, 3072, 8, 3072, 4, True),
+    (300, 3072, 64, 3072, 3, False)])
 def test_sgmv_kernel_edges(gen, t, d, r, o, n, same, dtype):
     x = _normal(gen, t, d, dtype=dtype)
     a, b = _bank(gen, n, d, r, o, dtype)
@@ -161,6 +170,76 @@ def test_sgmv_kernel_edges(gen, t, d, r, o, n, same, dtype):
     ragged = sgmv.sgmv(x, a, b, ids, ranks=ranks)
     assert torch.equal(ragged, sgmv.sgmv(x, am, bm, ids))
     _close(ragged, ref.sgmv_ref(x, a, b, ids, ranks=ranks), dtype)
+
+
+def _check_ragged_equals_dense(x, a, b, ids, ranks, dtype):
+    am, bm = ref.mask_ragged(a, b, ranks)
+    ragged = sgmv.sgmv(x, a, b, ids, ranks=ranks)
+    assert torch.equal(ragged, sgmv.sgmv(x, am, bm, ids))
+    _close(ragged, ref.sgmv_ref(x, a, b, ids, ranks=ranks), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d,r,o", [(700, 512, 16, 320), (700, 3072, 8, 96)])
+def test_sgmv_kernel_skewed_segments(gen, t, d, r, o, dtype):
+    # the measurement path's 32 adapters with skew: adapter 5 past its
+    # capacity, adapters 10-31 empty, ids -1 and >= N (no adapter: 0)
+    n = 32
+    cap = ref.sgmv_capacity(t, n)
+    ids = torch.cat([torch.full((cap + 37,), 5),
+                     torch.randint(0, 10, (t - cap - 37 - 30,), generator=gen,
+                                   device="cuda").cpu(),
+                     torch.tensor([-1, -7, n, n + 3, 1000] * 6)])
+    ids = ids[torch.randperm(t, generator=gen, device="cuda").cpu()]
+    ids = ids.to(device="cuda", dtype=torch.int32)
+    x = _normal(gen, t, d, dtype=dtype)
+    a, b = _bank(gen, n, d, r, o, dtype)
+    got = sgmv.sgmv(x, a, b, ids, 0.5)
+    _close(got, ref.sgmv_ref(x, a, b, ids, 0.5), dtype)
+    fives = torch.nonzero(ids == 5).flatten()
+    assert bool((got[fives[cap:]] == 0).all()) and bool(got[fives[:cap]].any())
+    assert bool((got[(ids < 0) | (ids >= n)] == 0).all())
+    ranks = torch.randint(1, r + 1, (n,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    _check_ragged_equals_dense(x, a, b, ids, ranks, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [7, 8])
+def test_sgmv_kernel_unaligned_views(gen, r, dtype):
+    # x, A and B as contiguous views one element past a 16-byte boundary:
+    # the kernel fills the same shared-memory layout element by element
+    t, d, o, n = 300, 3072, 1024, 3
+
+    def shifted(*shape, std):
+        flat = _normal(gen, math.prod(shape) + 1, dtype=dtype, std=std)
+        view = flat[1:].view(*shape)
+        assert view.data_ptr() % 16
+        return view
+    x = shifted(t, d, std=1.0)
+    a = shifted(n, d, r, std=d ** -0.5)
+    b = shifted(n, r, o, std=r ** -0.5)
+    ids = _ids(gen, t, n)
+    got = sgmv.sgmv(x, a, b, ids)
+    _close(got, ref.sgmv_ref(x, a, b, ids), dtype)
+    # aligned copies of the same values take the vector path: same bits
+    assert torch.equal(sgmv.sgmv(x.clone(), a.clone(), b.clone(), ids), got)
+    ranks = torch.tensor([r, 1, 3], dtype=torch.int32, device="cuda")
+    _check_ragged_equals_dense(x, a, b, ids, ranks, dtype)
+
+
+@pytest.mark.parametrize("t,n", [(1, 1), (31, 4), (1000, 4), (4096, 32),
+                                 (5000, 300), (70, 2000)])
+def test_sgmv_segments_kernel_matches_plain(gen, t, n):
+    # the sort kernel against its plain version (torch.sort + searchsorted),
+    # bit for bit; ids outside [0, N) on both sides
+    ids = torch.randint(-3, n + 3, (t,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    perm, seg = sgmv.segments(ids, n)
+    want_perm, want_seg = sgmv.segments_plain(ids, n)
+    torch.cuda.synchronize()
+    assert torch.equal(seg, want_seg)
+    assert torch.equal(perm, want_perm)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -224,11 +303,15 @@ def test_flash_decode_positions_past_length_are_never_read(gen):
 @pytest.mark.parametrize("d", flash_decode.HEAD_DIMS)
 @pytest.mark.parametrize("bsz,h,kv,s,dx,r,n", [
     (3, 8, 8, 7, 40, 1, 1), (4, 24, 8, 100, 96, 7, 3),
-    (3, 16, 2, 1000, 64, 16, 2)])
+    (3, 16, 2, 1000, 64, 16, 2),
+    # clusters of 1, 3, 7 and 8 heads (h 1, 3, 7, 32), dx 3072 and 40,
+    # ranks 64, 5, 33 and 32, batch 1 and 32
+    (1, 1, 1, 50, 3072, 64, 4), (2, 3, 1, 60, 40, 5, 2),
+    (32, 7, 7, 33, 96, 33, 5), (2, 32, 8, 70, 3072, 32, 3)])
 def test_flash_decode_lora_kernel_edges(gen, bsz, h, kv, s, dx, r, n, d,
                                         dtype, wdtype):
-    # group sizes 1, 3 and 8; row 0 has length 0 and some rows run past S;
-    # row 1 is a base request (id -1)
+    # group sizes 1, 3, 4 and 8; some rows run past S; with more than one
+    # row, row 0 has length 0 and row 1 is a base request (id -1)
     q = _normal(gen, bsz, h, d, dtype=dtype)
     k = _normal(gen, bsz, s, kv, d, dtype=dtype)
     v = _normal(gen, bsz, s, kv, d, dtype=dtype)
@@ -236,17 +319,19 @@ def test_flash_decode_lora_kernel_edges(gen, bsz, h, kv, s, dx, r, n, d,
     a, b = _bank(gen, n, dx, r, h * d, wdtype)
     ids = torch.randint(0, n, (bsz,), generator=gen, device="cuda",
                         dtype=torch.int32)
-    ids[1] = -1
-    lengths = torch.randint(0, s + 40, (bsz,), generator=gen, device="cuda",
+    lengths = torch.randint(1, s + 40, (bsz,), generator=gen, device="cuda",
                             dtype=torch.int32)
-    lengths[0] = 0
+    if bsz > 1:
+        ids[1] = -1
+        lengths[0] = 0
     got = flash_decode.flash_decode_lora(q, k, v, lengths, x, a, b, ids, 1.5)
     want = flash_decode.flash_decode_lora_plain(q, k, v, lengths, x, a, b,
                                                 ids, 1.5)
     _close(got, want, dtype)
     _close_rows(got, want, dtype)
     attn = flash_decode.flash_decode(q, k, v, lengths)
-    assert torch.equal(got[1], attn[1])          # no add for id -1
+    if bsz > 1:
+        assert torch.equal(got[1], attn[1])      # no add for id -1
     base = torch.full_like(ids, -1)
     assert torch.equal(flash_decode.flash_decode_lora(
         q, k, v, lengths, x, a, b, base, 1.5), attn)

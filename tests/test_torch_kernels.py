@@ -65,22 +65,55 @@ def test_bgmv_matches_pallas(t, d, r, o, n, dtype):
     _close(got, jax_bgmv(jx, ja, jb, ji, 1.5, interpret=True), tol)
 
 
+def _skewed_ids(seed, t, n):
+    """The measurement path's adapter count with skew: adapter 0 takes more
+    tokens than the capacity ``ref.sgmv_capacity(t, n)``, adapters 1-9
+    share most of the rest, the others stay empty, and some tokens have
+    no adapter (-1); shuffled.  (An id >= N has no meaning in the JAX
+    package, whose bucketing clamps it to adapter N-1: only the card tests
+    use one.)"""
+    rng = np.random.default_rng(seed)
+    over = ref.sgmv_capacity(t, n) + 44
+    ids = np.concatenate([np.zeros(over, np.int64),
+                          rng.integers(1, 10, t - over - 20),
+                          np.full(20, -1)])
+    assert ids.size == t and over < t
+    return rng.permutation(ids)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("t,d,r,o,n", [
-    (256, 64, 8, 64, 2), (300, 128, 16, 128, 3), (130, 32, 8, 48, 3),
+@pytest.mark.parametrize("t,d,r,o,n,skewed", [
+    pytest.param(256, 64, 8, 64, 2, False, id="256-64-8-64-2"),
+    pytest.param(300, 128, 16, 128, 3, False, id="300-128-16-128-3"),
+    pytest.param(130, 32, 8, 48, 3, False, id="130-32-8-48-3"),
+    pytest.param(600, 32, 8, 48, 32, True, id="600-32-8-48-32-skewed"),
 ])
-def test_sgmv_dense_matches_pallas(t, d, r, o, n, dtype):
+def test_sgmv_dense_matches_pallas(t, d, r, o, n, skewed, dtype):
     jdt, tol = DTYPES[dtype]
-    (jx, ja, jb, ji), (tx, ta, tb, ti) = _lora(1, t, d, r, o, n, jdt)
-    _close(sgmv.sgmv(tx, ta, tb, ti), jax_sgmv(jx, ja, jb, ji, interpret=True),
-           tol)
+    ids = _skewed_ids(11, t, n) if skewed else None
+    (jx, ja, jb, ji), (tx, ta, tb, ti) = _lora(1, t, d, r, o, n, jdt, ids)
+    got = sgmv.sgmv(tx, ta, tb, ti)
+    _close(got, jax_sgmv(jx, ja, jb, ji, interpret=True), tol)
+    if skewed:  # adapter 0's tokens past its capacity get exactly 0
+        first = np.flatnonzero(ti.numpy() == 0)
+        cap = ref.sgmv_capacity(t, n)
+        assert bool((got[first[cap:]] == 0).all())
+        assert bool(got[first[:cap]].any())
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_sgmv_ragged_matches_pallas(dtype):
+@pytest.mark.parametrize("dtype,t,n,ranks", [
+    pytest.param("float32", 192, 4, (1, 16, 7, 4), id="float32"),
+    pytest.param("bfloat16", 192, 4, (1, 16, 7, 4), id="bfloat16"),
+    pytest.param("float32", 600, 32, tuple(range(1, 17)) * 2,
+                 id="float32-600-32-skewed"),
+    pytest.param("bfloat16", 600, 32, tuple(range(1, 17)) * 2,
+                 id="bfloat16-600-32-skewed"),
+])
+def test_sgmv_ragged_matches_pallas(dtype, t, n, ranks):
     jdt, tol = DTYPES[dtype]
-    (jx, ja, jb, ji), (tx, ta, tb, ti) = _lora(2, 192, 32, 16, 48, 4, jdt)
-    ranks = np.array([1, 16, 7, 4], np.int32)
+    ids = _skewed_ids(12, t, n) if n == 32 else None
+    (jx, ja, jb, ji), (tx, ta, tb, ti) = _lora(2, t, 32, 16, 48, n, jdt, ids)
+    ranks = np.array(ranks, np.int32)
     got = sgmv.sgmv(tx, ta, tb, ti, ranks=torch.from_numpy(ranks))
     want = jax_sgmv(jx, ja, jb, ji, ranks=jnp.asarray(ranks), interpret=True)
     _close(got, want, tol)
@@ -319,3 +352,25 @@ def test_oracles_match_jax_oracles(name):
     for w, g in zip(want if isinstance(want, tuple) else (want,),
                     got if isinstance(got, tuple) else (got,)):
         _close(g, w, 2e-5)
+
+
+@pytest.mark.parametrize("t,n", [(600, 32), (130, 3), (1, 1)])
+def test_sgmv_segments_plain_is_a_stable_sort(t, n):
+    # the plain version of SGMV's sort kernel: numpy's stable argsort of the
+    # adapter ids, ids outside [0, N) last; seg holds the N+2 starts, and a
+    # token's position minus its segment's start is its rank among its
+    # adapter's tokens, the rank the capacity rule reads
+    ids = _skewed_ids(13, t, n) if n == 32 else \
+        np.random.default_rng(14).integers(-2, n + 2, t)
+    keys = np.where((ids >= 0) & (ids < n), ids, n)
+    perm, seg = sgmv.segments(torch.from_numpy(ids.astype(np.int32)), n)
+    assert perm.dtype == seg.dtype == torch.int32
+    np.testing.assert_array_equal(perm.numpy(),
+                                  np.argsort(keys, kind="stable"))
+    np.testing.assert_array_equal(
+        seg.numpy(), np.searchsorted(np.sort(keys), np.arange(n + 2)))
+    rank = np.empty(t, np.int64)
+    rank[perm.numpy()] = np.arange(t) - seg.numpy()[np.sort(keys)]
+    onehot = keys[:, None] == np.arange(n + 1)[None, :]
+    want = ((np.cumsum(onehot, 0) - onehot) * onehot).sum(1)
+    np.testing.assert_array_equal(rank, want)
