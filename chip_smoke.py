@@ -120,6 +120,7 @@ FUSED_SCALES = {"delta-sized": 2.0, "attention-sized": 0.05}
 GRID_B, GRID_S, GRID_N, GRID_RANKS = 32, 4096, 32, (8, 16, 32)
 # its widest SGMV prefill: tokens and rank (at N = GRID_N, random ids)
 MEASURE_T, MEASURE_RANK = 4096, 16
+MEASURE_TOKENS = (512, 2048, MEASURE_T)   # its prefill token counts
 
 
 def say(*parts) -> None:
@@ -228,6 +229,7 @@ def phase_kernels():
               torch.zeros_like(q), dn, errs, exact=True)
         check_fused(inp, q, k, v, lengths, dtype, dn, errs)
     del q, k, v
+    check_sgmv_measure(inp, errs)
     check_fused_grid(errs)
     return errs
 
@@ -266,6 +268,32 @@ def check_sgmv_skewed(inp, x, dtype, dn, errs):
     check(f"sgmv N {n} skewed ragged vs dense on the masked bank", ragged,
           sgmv.sgmv(x, am, bm, ids), dn, errs, exact=True)
     return ids
+
+
+def check_sgmv_measure(inp, errs):
+    """SGMV at the measurement path's prefill shapes (``kernels_bench``'s
+    pf_grid and its ragged arm): T 512, 2048 and 4096 at N 32, r 16,
+    d = o = 3072, ids drawn from [0, N), bf16; dense, ragged (its ranks
+    4/8/12), and ragged bitwise dense on the masked bank."""
+    from repro_torch.kernels import ref, sgmv
+    dt, dn = torch.bfloat16, "bfloat16"
+    a, b = inp.lora_bank(GRID_N, D_MODEL, MEASURE_RANK, Q_OUT, dt)
+    ranks = ((torch.arange(GRID_N, device="cuda") % 3 + 1)
+             * (MEASURE_RANK // 4)).to(torch.int32)
+    am, bm = ref.mask_ragged(a, b, ranks)
+    for t in MEASURE_TOKENS:
+        x = inp.normal(t, D_MODEL, dtype=dt)
+        ids = torch.randint(0, GRID_N, (t,), generator=inp.gen,
+                            device="cuda", dtype=torch.int32)
+        check(f"sgmv T {t} N {GRID_N} r {MEASURE_RANK}",
+              sgmv.sgmv(x, a, b, ids), ref.sgmv_ref(x, a, b, ids), dn, errs,
+              per_row=True)
+        ragged = sgmv.sgmv(x, a, b, ids, ranks=ranks)
+        check(f"sgmv T {t} N {GRID_N} ragged", ragged,
+              ref.sgmv_ref(x, a, b, ids, ranks=ranks), dn, errs,
+              per_row=True)
+        check(f"sgmv T {t} N {GRID_N} ragged vs dense on the masked bank",
+              ragged, sgmv.sgmv(x, am, bm, ids), dn, errs, exact=True)
 
 
 def check_fused(inp, q, k, v, lengths, dtype, dn, errs):
@@ -483,18 +511,19 @@ def copies(make, set_bytes):
     return [make() for _ in range(max(1, min(256, math.ceil(1e8 / set_bytes))))]
 
 
-def profiled_ms(fn, arg_sets, names, calls=20, attempts=3):
+def profiled_ms(fn, arg_sets, names, calls=20):
     """Device time per call of each kernel in ``names`` (a substring of the
     profiler's kernel name), over ``calls`` eager calls.  A session that
-    records none of a kernel's launches is repeated (one of them, after
-    ``phase_step``'s session, once recorded no device time at all); after
-    ``attempts`` such sessions it raises."""
+    records none of a kernel's launches (one, after ``phase_step``'s
+    session, once recorded no device time at all; cause not known) prints
+    a line that starts with ``PROFILER_EMPTY_SESSION`` and is made once
+    more; a second empty session raises."""
     for args in arg_sets[:2]:
         fn(*args)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for attempt in range(attempts):
+    for session in (1, 2):
         with torch.profiler.profile(activities=acts) as prof:
             for i in range(calls):
                 fn(*arg_sets[i % len(arg_sets)])
@@ -509,8 +538,8 @@ def profiled_ms(fn, arg_sets, names, calls=20, attempts=3):
                         out[n] += e.self_device_time_total / calls / 1e3
         if all(v > 0 for v in out.values()):
             return out
-        say(f"  profiler session {attempt + 1} recorded no device time for "
-            f"{names}: {out}; device keys seen: {seen[:8]}")
+        say(f"PROFILER_EMPTY_SESSION {session}: no device time for {names}: "
+            f"{out}; device keys seen: {seen[:8]}")
     raise AssertionError(f"no profiled device time for {names}")
 
 
@@ -659,29 +688,40 @@ def phase_timing():
 
 
 def fused_grid_times(unfused):
-    """The fused kernel beside the unfused sequence at the measurement
-    path's widest point (batch 32, 4096 positions, rank 32, 32 adapters),
-    on the inputs that path draws; one input set (537 MB of K and V)."""
+    """The fused kernel beside the unfused sequence and plain flash-decode
+    at the measurement path's widest point (batch 32, 4096 positions, rank
+    32, 32 adapters; one input set, 537 MB of K and V), and at two other
+    of its points at rank 32 (batch 32 at 1024 positions, batch 8 at
+    4096), on the inputs that path draws.  Fused minus plain is what the
+    LoRA epilogue adds to the attention there."""
     from repro_torch.bench import kernels_bench as kb
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_decode
     w = kb.Widths.of(get_config("phi4-mini-3.8b"))
-    gen = torch.Generator(device="cuda").manual_seed(5)
     rank = max(GRID_RANKS)
-    q, k, v, x, a, b, idx = kb._decode_data(gen, GRID_B, GRID_S, rank,
-                                            GRID_N, h=w.h, kv=w.kv, d=w.d,
-                                            dx=w.dx)
-    sets = [(q, k, v, GRID_S, x, a, b, idx)]
-    n_used = int(torch.unique(idx).numel())
-    nbytes = (2 * q.numel() + k.numel() + v.numel() + x.numel()
-              + n_used * rank * (w.dx + w.h * w.d)) * 2 + 4 * GRID_B
-    b_ms, _ = bound(nbytes, 4 * (w.h // w.kv) * k.numel()
-                    + 2 * GRID_B * rank * (w.dx + w.h * w.d), "bfloat16")
-    out = {"grid_ms": graph_ms(flash_decode.flash_decode_lora, sets),
-           "grid_unfused_ms": graph_ms(unfused, sets),
-           "grid_bound_ms": b_ms}
-    del q, k, v, sets
-    torch.cuda.empty_cache()
+    out = {}
+    for prefix, bsz, s in (("grid", GRID_B, GRID_S), ("b32_s1024", GRID_B, 1024),
+                           ("b8_s4096", 8, GRID_S)):
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        q, k, v, x, a, b, idx = kb._decode_data(gen, bsz, s, rank, GRID_N,
+                                                h=w.h, kv=w.kv, d=w.d,
+                                                dx=w.dx)
+        sets = [(q, k, v, s, x, a, b, idx)]
+        out[f"{prefix}_ms"] = graph_ms(flash_decode.flash_decode_lora, sets)
+        out[f"{prefix}_unfused_ms"] = graph_ms(unfused, sets)
+        out[f"{prefix}_fd_ms"] = graph_ms(
+            lambda q, k, v, length, *_: flash_decode.flash_decode(q, k, v,
+                                                                  length),
+            sets)
+        if prefix == "grid":
+            n_used = int(torch.unique(idx).numel())
+            nbytes = (2 * q.numel() + k.numel() + v.numel() + x.numel()
+                      + n_used * rank * (w.dx + w.h * w.d)) * 2 + 4 * bsz
+            out["grid_bound_ms"], _ = bound(
+                nbytes, 4 * (w.h // w.kv) * k.numel()
+                + 2 * bsz * rank * (w.dx + w.h * w.d), "bfloat16")
+        del q, k, v, sets
+        torch.cuda.empty_cache()
     return out
 
 

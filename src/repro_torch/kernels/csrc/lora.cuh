@@ -8,21 +8,23 @@
 // in shared memory (f32) and sums the products over that slice of d with
 // 16-byte loads of A's contiguous rows (Shrink), a batch of them in
 // flight before their products are summed.  The partials are summed
-// through distributed shared memory: each block stores its partial into
-// every block's shared memory (map_shared_rank), and after one cluster
-// barrier every block sums the C partials in the same order, so every
-// block holds the same f32 h (cluster_shrink).  A slice that is not
-// 16-byte aligned, or a rank that does not fill whole vectors, takes the
-// scalar path: the same code with one element a load (V == 1).
+// through distributed shared memory by cluster_sum, the port's one
+// exchange (SGMV sums its tiles' partial h with it too): each block
+// stores its partial into every block's shared memory (map_shared_rank),
+// and after one cluster barrier every block sums the C partials in the
+// same order, so every block holds the same f32 h (cluster_shrink).  A
+// slice that is not 16-byte aligned, or a rank that does not fill whole
+// vectors, takes the scalar path: the same code with one element a load
+// (V == 1).
 //
-// Protocol: a block that takes part arrives at the cluster barrier
-// (barrier.cluster.arrive.relaxed) on entry, before any other work;
-// cluster_shrink waits on that phase before it writes into another
-// block's shared memory, so no block's memory is written before that
-// block has started.  After the second barrier no block touches another's
-// memory again, so none has to wait to leave.  Every block of a cluster
-// must take part, or none (the callers decide from data that is the same
-// for the whole cluster: one token, one row).
+// Protocol of cluster_sum: a block that takes part arrives at the cluster
+// barrier (cluster_arrive) on entry, before any other work; cluster_sum
+// waits on that phase before it writes into another block's shared
+// memory, so no block's memory is written before that block has started.
+// After the second barrier no block touches another's memory again, so
+// none has to wait to leave.  Every block of a cluster must take part, or
+// none (the callers decide from data that is the same for the whole
+// cluster: one token, one row, one tile).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -174,19 +176,54 @@ struct Shrink {
   }
 };
 
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+// The cluster's sum of `count` floats that every block holds: element e is
+// the u-th value of thread e % blockDim.x (e = threadIdx.x + u * blockDim.x,
+// u < kPer), get(u).  Each block pushes its elements into slot `rank` of
+// every block's `slots` (cluster x count floats of shared memory), and
+// after one cluster barrier out[e] is the sum of the blocks' elements e in
+// block order, the same f32 in every block.  The caller arrived at the
+// cluster barrier on entry (cluster_arrive); out may be memory that get()
+// was computed from.
+template <int kPer, typename Get>
+__device__ __forceinline__ void cluster_sum(cg::cluster_group& cluster,
+                                            float* slots, int count, Get get,
+                                            float* out) {
+  const unsigned rank = cluster.block_rank(), n_blocks = cluster.num_blocks();
+  // the phase every block arrived at on entry: all of them have started
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  for (unsigned c = 0; c < n_blocks; ++c) {
+    float* dst = cluster.map_shared_rank(slots + rank * count, c);
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int e = threadIdx.x + u * blockDim.x;
+      if (e < count) dst[e] = get(u);
+    }
+  }
+  cluster.sync();  // every partial has arrived everywhere
+  for (int e = threadIdx.x; e < count; e += blockDim.x) {
+    float s = 0.f;
+    for (unsigned c = 0; c < n_blocks; ++c) s += slots[c * count + e];
+    out[e] = s;
+  }
+  __syncthreads();  // the sum is complete
+}
+
 // Shared memory of cluster_shrink.
 struct ShrinkSmem {
   float part[kThreads * kMaxVec];
-  float parts[kMaxCluster][kMaxRank];  // h_c of every block c
-  float h[kMaxRank];                   // the cluster's h
+  float parts[kMaxCluster * kMaxRank];  // h_c of every block c
+  float h[kMaxRank];                    // the cluster's h
 };
 
 // The cluster's h = x[row] @ A[id] into sm.h, after the caller arrived at
 // the cluster barrier on entry and called sh.issue(as, rows, r) (and put
 // whatever loads of its own in flight): stage this block's slice of x
 // (rows elements at xr) into xs, sum its partial over the slice of A at
-// as, push it into every block's sm.parts, and after one cluster barrier
-// sum the partials in block order.
+// as, and sum the cluster's partials (cluster_sum).
 template <typename TX, typename TW, int V>
 __device__ __forceinline__ void cluster_shrink(cg::cluster_group& cluster,
                                                Shrink<TW, V>& sh,
@@ -196,23 +233,7 @@ __device__ __forceinline__ void cluster_shrink(cg::cluster_group& cluster,
   stage_x(xr, rows, xs);
   __syncthreads();
   const float hc = sh.finish(as, xs, r, sm.part);
-  const unsigned rank = cluster.block_rank(), n_blocks = cluster.num_blocks();
-  // the phase every block arrived at on entry: all of them have started
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-  if (threadIdx.x < r)
-    for (unsigned c = 0; c < n_blocks; ++c)
-      cluster.map_shared_rank(&sm.parts[rank][0], c)[threadIdx.x] = hc;
-  cluster.sync();  // every partial has arrived everywhere
-  if (threadIdx.x < r) {
-    float s = 0.f;
-    for (unsigned c = 0; c < n_blocks; ++c) s += sm.parts[c][threadIdx.x];
-    sm.h[threadIdx.x] = s;
-  }
-  __syncthreads();  // h is complete
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  cluster_sum<1>(cluster, sm.parts, r, [&](int) { return hc; }, sm.h);
 }
 
 // Rows l0 .. l0 + kRowBatch - 1 (those < r) of B's columns [col, col + V),

@@ -32,17 +32,17 @@
 // (kTile x r, f32): on tensor cores (m16n8k16, bf16 in, f32 accumulate,
 // ldmatrix) where x and the bank are both bf16, and with f32 FMAs
 // otherwise (never TF32: f32 SGMV holds 2e-5).  The cluster sums the
-// partials through distributed shared memory in block order, so every
-// block holds the same f32 h; block c then expands its o/C columns in f32
-// with 16-byte loads of B (the first rows loaded before the shrink) and
-// 16-byte stores of the y rows, scattered back to token order through
-// perm.  Two blocks share an SM (128 registers a thread).  A pointer or
+// partials through distributed shared memory in block order
+// (lora.cuh::cluster_sum), so every block holds the same f32 h; block c
+// then expands its o/C columns in f32 with 16-byte loads of B (the first
+// rows loaded before the shrink) and 16-byte stores of the y rows,
+// scattered back to token order through perm.  Two blocks share an SM (128 registers a thread).  A pointer or
 // width off the 16-byte vector takes the scalar path: the same
 // shared-memory layout filled element by element, so the arithmetic does
 // not change.  What bounds it is the latency of one block's chain of
 // round trips (seg, perm, x, the cluster barrier, B, y), not bytes: 20.1
-// us at T 1024 against a 3.875 us bound (PERF.md; bench/sgmv_probe.py
-// times one block's phases).
+// us at T 1024 against a 3.875 us bound (PERF.md, with one block's
+// phases as timed on an H100).
 //
 // The capacity contract of the TPU kernel stays: a token whose rank inside
 // its adapter (arrival order) is >= cap gets exactly 0 (sgmv.py:121-127);
@@ -436,23 +436,8 @@ sgmv_kernel(const TX* __restrict__ x, const TW* __restrict__ a,
       for (int kp = 0; kp < kparts; ++kp) s += kpart[kp * kTile * rp + e];
     mine[u] = s;
   }
-  // the phase every block arrived at on entry: all of them have started
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-  for (int cc = 0; cc < p.cluster; ++cc) {
-    float* dst = cluster.map_shared_rank(parts + c * kTile * rp, cc);
-#pragma unroll
-    for (int u = 0; u < kMaxOut; ++u) {
-      const int e = tid + u * kThreads;
-      if (e < kTile * rp) dst[e] = mine[u];
-    }
-  }
-  cluster.sync();  // every partial has arrived everywhere
-  for (int e = tid; e < kTile * rp; e += kThreads) {
-    float s = 0.f;
-    for (int cc = 0; cc < p.cluster; ++cc) s += parts[cc * kTile * rp + e];
-    h[e] = s;
-  }
-  __syncthreads();
+  lr::cluster_sum<kMaxOut>(cluster, parts, kTile * rp,
+                           [&](int u) { return mine[u]; }, h);
 
   // Expand columns [o0, o1) of the tile's rows, kRG rows a thread.
   auto expand = [&](auto vb, const lr::BRows<TW, decltype(vb)::value>& first) {

@@ -156,7 +156,11 @@ def test_bgmv_kernel_mixed_dtypes(gen):
     (63, 64, 1, 40, 2, False), (64, 96, 7, 64, 3, False),
     (65, 200, 16, 72, 2, False), (1000, 256, 64, 264, 5, False),
     (97, 36, 9, 30, 2, False), (64, 3072, 8, 3072, 4, True),
-    (300, 3072, 64, 3072, 3, False)])
+    (300, 3072, 64, 3072, 3, False),
+    # the measurement path's prefill shapes: T 512, 2048 and 4096 at its 32
+    # adapters, rank 16, d = o = 3072
+    (512, 3072, 16, 3072, 32, False), (2048, 3072, 16, 3072, 32, False),
+    (4096, 3072, 16, 3072, 32, False)])
 def test_sgmv_kernel_edges(gen, t, d, r, o, n, same, dtype):
     x = _normal(gen, t, d, dtype=dtype)
     a, b = _bank(gen, n, d, r, o, dtype)
@@ -307,7 +311,10 @@ def test_flash_decode_positions_past_length_are_never_read(gen):
     # clusters of 1, 3, 7 and 8 heads (h 1, 3, 7, 32), dx 3072 and 40,
     # ranks 64, 5, 33 and 32, batch 1 and 32
     (1, 1, 1, 50, 3072, 64, 4), (2, 3, 1, 60, 40, 5, 2),
-    (32, 7, 7, 33, 96, 33, 5), (2, 32, 8, 70, 3072, 32, 3)])
+    (32, 7, 7, 33, 96, 33, 5), (2, 32, 8, 70, 3072, 32, 3),
+    # the serving shape (3 heads a block); 11 heads in one block (a cluster
+    # of 1) over many splits, so their m and l outnumber the threads
+    (8, 24, 8, 512, 3072, 8, 4), (1, 11, 11, 4096, 96, 8, 2)])
 def test_flash_decode_lora_kernel_edges(gen, bsz, h, kv, s, dx, r, n, d,
                                         dtype, wdtype):
     # group sizes 1, 3, 4 and 8; some rows run past S; with more than one

@@ -354,7 +354,11 @@ def test_oracles_match_jax_oracles(name):
         _close(g, w, 2e-5)
 
 
-@pytest.mark.parametrize("t,n", [(600, 32), (130, 3), (1, 1)])
+@pytest.mark.parametrize("t,n", [
+    (600, 32), (130, 3), (1, 1),
+    # the measurement path's prefill token counts at its 32 adapters, one
+    # adapter, and more adapters than a warp's 32 lanes
+    (512, 32), (2048, 32), (4096, 32), (4096, 1), (4096, 300)])
 def test_sgmv_segments_plain_is_a_stable_sort(t, n):
     # the plain version of SGMV's sort kernel: numpy's stable argsort of the
     # adapter ids, ids outside [0, N) last; seg holds the N+2 starts, and a

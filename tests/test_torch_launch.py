@@ -6,15 +6,12 @@ tiles for the split pass.  The kernel rejects a plan that breaks this rule
 over the shapes the port runs: the serving step, the measurement grid
 (``repro_torch.bench.kernels_bench``: batch 1/8/32 x seq 256/1024/4096)
 and edge widths.  (BGMV's launch plan lives in its C launcher and is held
-by the card tests of ``tests/test_torch_cuda.py``.)  Also: the SGMV
-variants that ``repro_torch.bench.sgmv_probe`` times still apply to the
-kernel's source.
+by the card tests of ``tests/test_torch_cuda.py``.)
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.bench import sgmv_probe  # noqa: E402
 from repro_torch.kernels import flash_decode  # noqa: E402
 
 H100_SMS = 132
@@ -69,12 +66,3 @@ def test_split_plan_at_the_serving_shape():
     assert tile == 64
     assert flash_decode.split_plan(8, 8, 512, H100_SMS, tile) == (4, 128)
 
-
-@pytest.mark.parametrize("variant", sorted(sgmv_probe.VARIANTS))
-def test_sgmv_probe_variants_still_apply_to_the_kernel_source(variant):
-    # bench/sgmv_probe.py times copies of csrc/sgmv.cu with one design
-    # choice undone; each edit must still find its text exactly once
-    src = sgmv_probe.variant_source(variant)
-    assert "sgmv_kernel" in src
-    assert (src == (sgmv_probe.CSRC / "sgmv.cu").read_text()) == (
-        variant == "final")
