@@ -414,8 +414,10 @@ def phase_parity():
 KERNEL_NAMES = {"bgmv_kernel": "bgmv", "sgmv_kernel": "sgmv",
                 "sgmv_segments_kernel": "sgmv",
                 "fd_split_kernel": "flash_decode",
-                "fd_combine_kernel": "flash_decode"}
+                "fd_combine_kernel": "flash_decode",
+                "fd_lora_shrink_kernel": "flash_decode_lora"}
 FD_KERNELS = ("fd_split_kernel", "fd_combine_kernel")  # flash-decode's two
+FUSED_KERNELS = FD_KERNELS + ("fd_lora_shrink_kernel",)  # the fused three
 SGMV_KERNELS = ("sgmv_segments_kernel", "sgmv_kernel")  # SGMV's sort, product
 GEMM_WORDS = ("gemm", "nvjet", "cutlass", "xmma")  # cuBLAS kernel names
 
@@ -675,8 +677,12 @@ def phase_timing():
         # launch, the add
         return flash_decode.flash_decode(q, k, v, length) \
             + bgmv.bgmv(x, a, b, i).reshape(q.shape)
+    split = profiled_ms(flash_decode.flash_decode_lora, sets, FUSED_KERNELS)
     rows["flash_decode_lora"] = {
         "ms": graph_ms(flash_decode.flash_decode_lora, sets),
+        "split_ms": split["fd_split_kernel"],
+        "shrink_ms": split["fd_lora_shrink_kernel"],
+        "combine_ms": split["fd_combine_kernel"],
         "plain_ms": graph_ms(flash_decode.flash_decode_lora_plain, sets),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,          # no single PyTorch call computes it

@@ -61,14 +61,16 @@ void flash_decode(int64_t q, int64_t k, int64_t v, int64_t length,
 void flash_decode_lora(int64_t q, int64_t k, int64_t v, int64_t length,
                        int64_t x, int64_t a, int64_t b, int64_t idx,
                        int64_t m_part, int64_t l_part, int64_t acc_part,
-                       int64_t out, int64_t bsz, int64_t s, int64_t h,
+                       int64_t h_part, int64_t out, int64_t bsz, int64_t s,
+                       int64_t h,
                        int64_t kv, int64_t dh, int64_t n_splits,
                        int64_t chunk, int64_t dx, int64_t r, int64_t n,
                        double scale, int64_t dtype, int64_t w_dtype,
                        int64_t stream) {
   check(repro_flash_decode_lora(
             cptr(q), cptr(k), cptr(v), cptr(length), cptr(x), cptr(a), cptr(b),
-            cptr(idx), ptr(m_part), ptr(l_part), ptr(acc_part), ptr(out), bsz,
+            cptr(idx), ptr(m_part), ptr(l_part), ptr(acc_part), ptr(h_part),
+            ptr(out), bsz,
             s, h, kv, dh, n_splits, chunk, dx, r, n, static_cast<float>(scale),
             dtype, w_dtype, ptr(stream)),
         "flash_decode_lora");

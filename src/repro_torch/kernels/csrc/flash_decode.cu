@@ -55,23 +55,24 @@
 // 29.70 us at the serving shape, 3x SDPA (PERF.md).
 //
 // A second kernel, one block per (row, head), merges the splits by
-// log-sum-exp and writes q's dtype.  The fused kernel runs the same split
-// kernel and the same combine kernel, instantiated with kLora and launched
-// as thread-block clusters of C blocks along the heads of one row (C the
-// largest divisor of h that is <= 8: 8 of phi4-mini's 24 heads).  Block c
-// of a cluster shrinks only its dx/C slice of h = x[row] @ A[id] with
-// 16-byte loads of A, the cluster sums the partials through distributed
-// shared memory in one fixed order (lora.cuh::cluster_shrink, BGMV's
-// shrink), so every head adds the same f32 h, as the Pallas epilogue keeps
-// it; the block then merges its head's splits and adds scale * h @
-// B[id][:, head*D:(head+1)*D] to the f32 attention before the one cast.
-// The fused combine is launched as the split pass's programmatic
-// dependent (the split pass's kEarly instance lets it launch at once), so
-// its shrink runs beside the split pass and only the merge waits for it
-// (griddepcontrol.wait); plain flash-decode launches both as before.  A
-// row whose id is outside [0, N) skips the shrink in every block of its
-// cluster and the add, so an all-base batch is bitwise the plain kernel's
-// output.
+// log-sum-exp and writes q's dtype.  The fused kernel launches a LoRA
+// shrink between the two (fd_lora_shrink_kernel): one thread-block cluster
+// of C <= 8 blocks per row, block c shrinking its dx/C slice of h = x[row]
+// @ A[id] with 16-byte loads of A and the cluster summing the partials
+// through distributed shared memory in one fixed order
+// (lora.cuh::cluster_shrink, BGMV's), into an f32 scratch, as the Pallas
+// epilogue keeps h in f32.  The shrink and the combine (instantiated with
+// kLora) are each the programmatic dependent of the launch before, and the
+// split pass's fused instance (kEarly) lets the shrink start at once: the
+// shrink runs beside the split pass, then waits for it; the combine puts
+// its rows of B in flight, waits for the shrink, and then reads h, merges
+// its head and adds scale * h @ B[id][:, head*D:(head+1)*D] (rows spread
+// over the block's threads, 16-byte loads) to the f32 attention before the
+// one cast.  With the shrink inside a clustered combine (one block per
+// (row, head) computing it) most of batch 32's 768 combine blocks ran it
+// after the split pass (PERF.md).  Plain flash-decode launches its two
+// kernels as before.  A row whose id is outside [0, N) skips the shrink
+// and the add, so an all-base batch is bitwise the plain kernel's output.
 #include <type_traits>
 
 #include "common.cuh"
@@ -88,6 +89,12 @@ constexpr int kMaxG = 8;
 constexpr int kMaxStages = 3;
 constexpr int kTileBytes = 16384;    // of K in one tile (as many of V)
 constexpr int kCombineThreads = 128;
+constexpr int kShrinkRows = 512;     // rows of dx a shrink block, at least
+constexpr int kMaxHeadDim = 256;
+// The fused combine starts while the split pass runs and should fit on an
+// SM beside two split blocks of up to 216 registers a thread (bf16, D
+// 128): 6 blocks an SM holds it to 80 registers, 10240 a block.
+constexpr int kLoraCombineBlocks = 6;
 constexpr float kNegInf = -1.0e30f;  // finite, as in Pallas: exp(m - m) stays 1
 
 constexpr int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
@@ -565,8 +572,8 @@ __device__ __forceinline__ void split_mma(
 // One block per (split, kv-head, row): the tensor-core pass where the
 // tile allows it (bf16, each warp's quarter of a tile a multiple of 16
 // positions), else the CUDA-core pass.  With kEarly (the fused kernel's
-// instance) the combine, launched as this grid's programmatic dependent,
-// may start at once and run its LoRA shrink beside this pass.
+// instance) the LoRA shrink, launched as this grid's programmatic
+// dependent, may start at once and run beside this pass.
 template <typename T, int D, bool kEarly>
 __global__ void __launch_bounds__(kThreads, 2)
 fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -585,109 +592,227 @@ fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // The LoRA epilogue's operands: x (bsz, dx) in the attention dtype, a
-// (n, dx, r) and b (n, r, h*dh) in the bank's dtype W, idx (bsz,) int32;
-// block c of a row's cluster shrinks rows [c * d_tile, (c + 1) * d_tile)
-// of dx (16-byte loads of A where vec_a).
+// (n, dx, r) and b (n, r, h*dh) in the bank's dtype W, idx (bsz,) int32,
+// h_part (bsz, r) f32 scratch for the shrink's h; block c of a row's
+// shrink cluster shrinks rows [c * d_tile, (c + 1) * d_tile) of dx
+// (16-byte loads of A where vec_a).
 template <typename T, typename W>
 struct LoraArgs {
   const T* x;
   const W* a;
   const W* b;
   const int* idx;
+  float* h_part;
   int dx, r, n, h;
   float scale;
   int d_tile;
-  bool vec_a;
+  bool vec_a, vec_b;
 };
 
-// One block per (row, head): merge the splits by log-sum-exp; with kLora,
-// add the row's LoRA delta for this head before the cast.  Plain
-// flash-decode is the kLora = false instance of this code, launched
-// without clusters.  With kLora the blocks of one row's heads form
-// clusters of C (a divisor of h), so a cluster is always one row: each
-// block shrinks its slice of x[row] @ A[id] and the cluster sums the
-// partials (lora.cuh::cluster_shrink), so every head adds the same f32 h.
-template <typename T, typename W, bool kLora>
-__global__ void __launch_bounds__(kCombineThreads)
-fd_combine_kernel(const float* __restrict__ m_part,
-                  const float* __restrict__ l_part,
-                  const float* __restrict__ acc_part, T* __restrict__ out,
-                  int n_splits, int dh, LoraArgs<T, W> lora) {
-  const size_t hp = blockIdx.x;  // row * h + head
-  bool live = false;
-  const W* bt = nullptr;
-  const float* hs = nullptr;
-  const size_t ld = (size_t)lora.h * dh;  // B's row stride
-  lr::BRows<W, 1> first;  // rows 0..7 of B for column threadIdx.x
-  if constexpr (kLora) {
-    static_assert(kCombineThreads == lr::kThreads, "the shrink's block");
-    constexpr int kVW = 16 / sizeof(W);
-    const int row = static_cast<int>(hp / lora.h);
-    const int head = static_cast<int>(hp % lora.h);
-    const int id = lora.idx[row];
-    live = id >= 0 && id < lora.n;  // the same for the whole cluster
-    if (live) {
-      lr::cluster_arrive();
-      __shared__ lr::ShrinkSmem sm;
-      extern __shared__ float xs[];  // [d_tile]
-      lr::cg::cluster_group cluster = lr::cg::this_cluster();
-      const int c = static_cast<int>(cluster.block_rank());
-      const int i0 = min(c * lora.d_tile, lora.dx);
-      const int rows = min(i0 + lora.d_tile, lora.dx) - i0;
-      const T* xr = lora.x + (size_t)row * lora.dx + i0;
-      const W* as = lora.a + ((size_t)id * lora.dx + i0) * lora.r;
-      bt = lora.b + (size_t)id * lora.r * ld + (size_t)head * dh;
-      // B's first rows go out before the shrink, which overlaps them
-      if (static_cast<int>(threadIdx.x) < dh)
-        first.load(bt, ld, threadIdx.x, 0, lora.r);
-      if (lora.vec_a) {
-        lr::Shrink<W, kVW> sh;
-        sh.issue(as, rows, lora.r);
-        lr::cluster_shrink(cluster, sh, xr, rows, as, lora.r, xs, sm);
-      } else {
-        lr::Shrink<W, 1> sh;
-        sh.issue(as, rows, lora.r);
-        lr::cluster_shrink(cluster, sh, xr, rows, as, lora.r, xs, sm);
-      }
-      hs = sm.h;
-    }
-    // the split pass's partials: launched as its programmatic dependent,
-    // this grid may have started before the split pass ended
+// The fused kernel's second launch: h_part[row] = x[row] @ A[id] in f32,
+// one cluster of C blocks a row (lora.cuh::cluster_shrink).  Launched as
+// the split pass's programmatic dependent, it runs beside the split pass,
+// and lets the combine, its own dependent, launch at once.  Every block
+// waits for the split pass before it exits, so that this grid's end,
+// which the combine waits for, implies the split pass's.  A row whose id
+// is outside [0, N) writes nothing (the combine reads no h for it).
+template <typename T, typename W>
+__global__ void __launch_bounds__(lr::kThreads)
+fd_lora_shrink_kernel(LoraArgs<T, W> lora) {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  constexpr int kVW = 16 / sizeof(W);
+  const int row = blockIdx.y;
+  const int id = lora.idx[row];
+  if (id < 0 || id >= lora.n) {  // the whole cluster (one row)
     asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    return;
   }
+  lr::cluster_arrive();
+  __shared__ lr::ShrinkSmem sm;
+  extern __shared__ float xs[];  // [d_tile]
+  lr::cg::cluster_group cluster = lr::cg::this_cluster();
+  const int c = static_cast<int>(cluster.block_rank());
+  const int i0 = min(c * lora.d_tile, lora.dx);
+  const int rows = min(i0 + lora.d_tile, lora.dx) - i0;
+  const T* xr = lora.x + (size_t)row * lora.dx + i0;
+  const W* as = lora.a + ((size_t)id * lora.dx + i0) * lora.r;
+  if (lora.vec_a) {
+    lr::Shrink<W, kVW> sh;
+    sh.issue(as, rows, lora.r);
+    lr::cluster_shrink(cluster, sh, xr, rows, as, lora.r, xs, sm);
+  } else {
+    lr::Shrink<W, 1> sh;
+    sh.issue(as, rows, lora.r);
+    lr::cluster_shrink(cluster, sh, xr, rows, as, lora.r, xs, sm);
+  }
+  if (c == 0 && static_cast<int>(threadIdx.x) < lora.r)
+    lora.h_part[(size_t)row * lora.r + threadIdx.x] = sm.h[threadIdx.x];
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
 
-  const float* mp = m_part + hp * n_splits;
-  const float* lp = l_part + hp * n_splits;
+// The merge of one (row, head), hp = row * h + head: the splits by
+// log-sum-exp in f32 (merge_stats: the largest m and 1 / sum; merge_head:
+// the outputs); with delta, scale * delta[dd] is added before the cast.
+struct MergeStats {
+  float mx, inv;
+};
+
+__device__ __forceinline__ MergeStats merge_stats(const float* mp,
+                                                  const float* lp,
+                                                  int n_splits) {
   float mx = kNegInf;
   for (int i = 0; i < n_splits; ++i) mx = fmaxf(mx, mp[i]);
   float ls = 0.f;
   for (int i = 0; i < n_splits; ++i) ls += lp[i] * expf(mp[i] - mx);
-  const float inv = 1.f / fmaxf(ls, 1e-20f);
+  return {mx, 1.f / fmaxf(ls, 1e-20f)};
+}
 
+template <typename T>
+__device__ __forceinline__ void merge_head(const float* __restrict__ m_part,
+                                          const float* __restrict__ l_part,
+                                          const float* __restrict__ acc_part,
+                                          T* __restrict__ out, int n_splits,
+                                          int dh, size_t hp, MergeStats st,
+                                          const float* delta, float scale) {
+  const float* mp = m_part + hp * n_splits;
+  const float mx = st.mx, inv = st.inv;
   for (int dd = threadIdx.x; dd < dh; dd += blockDim.x) {
     float a = 0.f;
     for (int i = 0; i < n_splits; ++i)
       a += acc_part[(hp * n_splits + i) * dh + dd] * expf(mp[i] - mx);
     float o = a * inv;
-    if constexpr (kLora) {
-      if (live) {
-        float delta = 0.f;
-        if (dd == static_cast<int>(threadIdx.x)) {
-          first.add(hs, 0, lora.r, &delta);
-        } else {
-          lr::BRows<W, 1> rows0;
-          rows0.load(bt, ld, dd, 0, lora.r);
-          rows0.add(hs, 0, lora.r, &delta);
-        }
-        for (int l0 = lr::kRowBatch; l0 < lora.r; l0 += lr::kRowBatch) {
-          lr::BRows<W, 1> more;
-          more.load(bt, ld, dd, l0, lora.r);
-          more.add(hs, l0, lora.r, &delta);
-        }
-        o += delta * lora.scale;
-      }
-    }
+    if (delta) o += delta[dd] * scale;
     out[hp * dh + dd] = repro::from_float<T>(o);
+  }
+}
+
+// The expand of one (row, head): delta[dd] = sum over l of h[l] * B[l, col0
+// + dd] in f32, B's rows ld elements apart, with loads of V elements (16
+// bytes, or 1 on the scalar path).  Thread item (column group cg, row
+// group rg) sums rows [rg * rpg, (rg + 1) * rpg) of its V columns, a
+// group's rows in flight together (kRows at a time); the groups' sums
+// then add in group order.  issue() puts the first rows in flight before
+// h is known.
+template <typename W, int V>
+struct Expand {
+  static constexpr int kRows = 4;  // rows in flight a thread
+  lr::BRows<W, V, kRows> first;
+  int ncg, nrg, rpg;
+
+  __device__ __forceinline__ void rows_of(int item, int r, int& l0,
+                                          int& l1) const {
+    l0 = min((item / ncg) * rpg, r);
+    l1 = min(l0 + rpg, r);
+  }
+
+  __device__ __forceinline__ void issue(const W* bt, size_t ld, int dh,
+                                        int r) {
+    ncg = dh / V;
+    nrg = max(1, static_cast<int>(blockDim.x) / ncg);
+    rpg = (r + nrg - 1) / nrg;
+    const int item = threadIdx.x;
+    if (item < ncg * nrg) {
+      int l0, l1;
+      rows_of(item, r, l0, l1);
+      if (l0 < l1) first.load(bt, ld, (item % ncg) * V, l0, l1);
+    }
+  }
+
+  // part: nrg * dh floats; delta: dh floats
+  __device__ __forceinline__ void finish(const W* bt, size_t ld, int dh,
+                                         int r, const float* h, float* part,
+                                         float* delta) {
+    for (int item = threadIdx.x; item < ncg * nrg; item += blockDim.x) {
+      int l0, l1;
+      rows_of(item, r, l0, l1);
+      const int col = (item % ncg) * V;
+      float sum[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) sum[e] = 0.f;
+      for (int l = l0; l < l1; l += kRows) {
+        if (l == l0 && item == static_cast<int>(threadIdx.x)) {
+          first.add(h, l, l1, sum);
+        } else {
+          lr::BRows<W, V, kRows> more;
+          more.load(bt, ld, col, l, l1);
+          more.add(h, l, l1, sum);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < V; ++e) part[(item / ncg) * dh + col + e] = sum[e];
+    }
+    __syncthreads();
+    for (int dd = threadIdx.x; dd < dh; dd += blockDim.x) {
+      float t = 0.f;
+      for (int g = 0; g < nrg; ++g) t += part[g * dh + dd];
+      delta[dd] = t;
+    }
+    __syncthreads();
+  }
+};
+
+// The fused combine of one (row, head): B's rows for this head go out
+// before the wait; after it h (the shrink kernel's, the same f32 for every
+// head of the row) and the merge's m and l are read together, then the
+// expand and the merge with scale * delta.
+template <typename T, typename W, int V>
+__device__ __forceinline__ void combine_lora(
+    const float* __restrict__ m_part, const float* __restrict__ l_part,
+    const float* __restrict__ acc_part, T* __restrict__ out, int n_splits,
+    int dh, const LoraArgs<T, W>& lora) {
+  const size_t hp = blockIdx.x;
+  const int row = static_cast<int>(hp / lora.h);
+  const int head = static_cast<int>(hp % lora.h);
+  const int id = lora.idx[row];
+  const bool live = id >= 0 && id < lora.n;  // the same for the whole block
+  const size_t ld = (size_t)lora.h * dh;     // B's row stride
+  const W* bt = lora.b + (size_t)(live ? id : 0) * lora.r * ld +
+                (size_t)head * dh;
+  Expand<W, V> ex;
+  if (live) ex.issue(bt, ld, dh, lora.r);
+  // the shrink's h, and through the shrink's own wait the split pass's
+  // partials: launched as the shrink's programmatic dependent, this grid
+  // may have started before either ended
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  __shared__ float h_row[lr::kMaxRank];
+  __shared__ float part[kCombineThreads * lr::kMaxVec];
+  __shared__ float delta[kMaxHeadDim];
+  if (live && static_cast<int>(threadIdx.x) < lora.r)
+    h_row[threadIdx.x] =
+        __ldcg(lora.h_part + (size_t)row * lora.r + threadIdx.x);
+  const MergeStats st = merge_stats(m_part + hp * n_splits,
+                                    l_part + hp * n_splits, n_splits);
+  if (live) {
+    __syncthreads();
+    ex.finish(bt, ld, dh, lora.r, h_row, part, delta);
+  }
+  merge_head<T>(m_part, l_part, acc_part, out, n_splits, dh, hp, st,
+                live ? delta : nullptr, lora.scale);
+}
+
+// One block per (row, head): merge the splits by log-sum-exp (merge_head);
+// with kLora, add the row's LoRA delta for this head, scale * h @
+// B[id][:, head], in f32 before the cast (combine_lora).  Plain
+// flash-decode is the kLora = false instance.
+template <typename T, typename W, bool kLora>
+__global__ void __launch_bounds__(kCombineThreads, kLora ? kLoraCombineBlocks : 1)
+fd_combine_kernel(const float* __restrict__ m_part,
+                  const float* __restrict__ l_part,
+                  const float* __restrict__ acc_part, T* __restrict__ out,
+                  int n_splits, int dh, LoraArgs<T, W> lora) {
+  if constexpr (kLora) {
+    if (lora.vec_b)
+      combine_lora<T, W, 16 / sizeof(W)>(m_part, l_part, acc_part, out,
+                                         n_splits, dh, lora);
+    else
+      combine_lora<T, W, 1>(m_part, l_part, acc_part, out, n_splits, dh,
+                            lora);
+  } else {
+    const size_t hp = blockIdx.x;
+    merge_head<T>(m_part, l_part, acc_part, out, n_splits, dh, hp,
+                  merge_stats(m_part + hp * n_splits, l_part + hp * n_splits,
+                              n_splits),
+                  nullptr, 0.f);
   }
 }
 
@@ -714,9 +839,10 @@ cudaError_t launch_split(const dim3& grid, cudaStream_t st, const void* q,
   return cudaPeekAtLastError();
 }
 
-// Both kernels of one call: the split pass, then the combine (kLora selects
-// the epilogue).  Returns the launch error, or cudaErrorInvalidValue for a
-// head dim that has no instance or a chunk that is not whole tiles.
+// The kernels of one call: the split pass, then the combine; with kLora
+// the shrink kernel between them, the shrink and the combine each the
+// programmatic dependent of the launch before.  Returns the launch error, or cudaErrorInvalidValue for
+// a head dim that has no instance or a chunk that is not whole tiles.
 template <typename T, typename W, bool kLora>
 int launch_fd(const void* q, const void* k, const void* v, const void* length,
               void* m_part, void* l_part, void* acc_part, void* out, int bsz,
@@ -737,26 +863,32 @@ int launch_fd(const void* q, const void* k, const void* v, const void* length,
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   if constexpr (kLora) {
-    // clusters of C heads of one row: C the largest divisor of h <= 8
-    int cluster = lr::kMaxCluster;
-    while (h % cluster) --cluster;
+    // the shrink: one cluster of C blocks a row, C <= 8 from dx (as BGMV
+    // cuts d); then the combine
     LoraArgs<T, W> args = lora;
     auto cdiv = [](int a, int b) { return (a + b - 1) / b; };
+    const int cluster = min(lr::kMaxCluster, max(1, cdiv(lora.dx, kShrinkRows)));
     args.d_tile = cdiv(cdiv(lora.dx, cluster), lr::kAlign) * lr::kAlign;
     // 16-byte loads of A need the base, a whole adapter and a slice start
     // (a multiple of kAlign rows) on 16 bytes
     args.vec_a = reinterpret_cast<uintptr_t>(lora.a) % 16 == 0 &&
                  (size_t)lora.dx * lora.r * sizeof(W) % 16 == 0;
+    // those of B the base and every head's first column
+    args.vec_b = reinterpret_cast<uintptr_t>(lora.b) % 16 == 0 &&
+                 dh * sizeof(W) % 16 == 0;
     const int smem = args.d_tile * static_cast<int>(sizeof(float));
-    auto kernel = fd_combine_kernel<T, W, true>;
+    auto kernel = fd_lora_shrink_kernel<T, W>;
     static repro::SmemLimit limit;
     err = limit.raise(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
+    err = lr::launch_clusters(kernel, dim3(cluster, bsz), lr::kThreads,
+                              cluster, smem, st, true, args);
+    if (err != cudaSuccess) return static_cast<int>(err);
     err = lr::launch_clusters(
-        kernel, dim3(bsz * h), kCombineThreads, cluster, smem, st, true,
-        static_cast<const float*>(m_part), static_cast<const float*>(l_part),
-        static_cast<const float*>(acc_part), static_cast<T*>(out), n_splits,
-        dh, args);
+        fd_combine_kernel<T, W, true>, dim3(bsz * h), kCombineThreads, 0, 0,
+        st, true, static_cast<const float*>(m_part),
+        static_cast<const float*>(l_part), static_cast<const float*>(acc_part),
+        static_cast<T*>(out), n_splits, dh, args);
     if (err != cudaSuccess) return static_cast<int>(err);
   } else {
     fd_combine_kernel<T, W, false><<<bsz * h, kCombineThreads, 0, st>>>(
@@ -794,9 +926,9 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
 extern "C" int repro_flash_decode_lora(
     const void* q, const void* k, const void* v, const void* length,
     const void* x, const void* a, const void* b, const void* idx,
-    void* m_part, void* l_part, void* acc_part, void* out, int bsz, int s,
-    int h, int kv, int dh, int n_splits, int chunk, int dx, int r, int n,
-    float scale, int dtype, int w_dtype, void* stream) {
+    void* m_part, void* l_part, void* acc_part, void* h_part, void* out,
+    int bsz, int s, int h, int kv, int dh, int n_splits, int chunk, int dx,
+    int r, int n, float scale, int dtype, int w_dtype, void* stream) {
   if (bsz <= 0 || h <= 0) return 0;
   if (bad_shape(h, kv, n_splits, chunk) || r < 1 || r > lr::kMaxRank || n < 1 ||
       dx < 1)
@@ -809,8 +941,9 @@ extern "C" int repro_flash_decode_lora(
           n_splits, chunk,
           LoraArgs<T, W>{static_cast<const T*>(x), static_cast<const W*>(a),
                          static_cast<const W*>(b),
-                         static_cast<const int*>(idx), dx, r, n, h, scale,
-                         0, false},
+                         static_cast<const int*>(idx),
+                         static_cast<float*>(h_part), dx, r, n, h, scale, 0,
+                         false, false},
           st)));
   return rc;
 }

@@ -46,11 +46,13 @@ int repro_flash_decode(const void* q, const void* k, const void* v,
 // repro_flash_decode plus scale * x @ a[idx] @ b[idx] (reshaped (h, dh))
 // added in f32 before the cast; idx[i] outside [0, n) adds nothing.
 // x (bsz, dx) in q's dtype (`dtype`); a (n, dx, r), b (n, r, h * dh) in the
-// bank's dtype (`w_dtype`); idx (bsz,) int32; 1 <= r <= 64.
+// bank's dtype (`w_dtype`); idx (bsz,) int32; 1 <= r <= 64; h_part
+// (bsz, r) f32 scratch.
 int repro_flash_decode_lora(const void* q, const void* k, const void* v,
                             const void* length, const void* x, const void* a,
                             const void* b, const void* idx, void* m_part,
-                            void* l_part, void* acc_part, void* out, int bsz,
+                            void* l_part, void* acc_part, void* h_part,
+                            void* out, int bsz,
                             int s, int h, int kv, int dh, int n_splits,
                             int chunk, int dx, int r, int n, float scale,
                             int dtype, int w_dtype, void* stream);

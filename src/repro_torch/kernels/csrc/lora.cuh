@@ -236,20 +236,20 @@ __device__ __forceinline__ void cluster_shrink(cg::cluster_group& cluster,
   cluster_sum<1>(cluster, sm.parts, r, [&](int) { return hc; }, sm.h);
 }
 
-// Rows l0 .. l0 + kRowBatch - 1 (those < r) of B's columns [col, col + V),
-// B's rows `ld` elements apart.
-template <typename TW, int V>
+// Rows l0 .. l0 + R - 1 (those < r) of B's columns [col, col + V), B's
+// rows `ld` elements apart.
+template <typename TW, int V, int R = kRowBatch>
 struct BRows {
-  Raw<TW, V> row[kRowBatch];
+  Raw<TW, V> row[R];
   __device__ __forceinline__ void load(const TW* bt, size_t ld, int col,
                                        int l0, int r) {
 #pragma unroll
-    for (int j = 0; j < kRowBatch; ++j)
+    for (int j = 0; j < R; ++j)
       if (l0 + j < r) row[j].load(bt + (size_t)(l0 + j) * ld + col);
   }
   __device__ __forceinline__ void add(const float* h, int l0, int r, float* out) const {
 #pragma unroll
-    for (int j = 0; j < kRowBatch; ++j) {
+    for (int j = 0; j < R; ++j) {
       if (l0 + j < r) {
         float bv[V];
         row[j].get(bv);
@@ -282,7 +282,8 @@ __device__ __forceinline__ void store(TX* y, const float* out, float scale) {
 }
 
 // Launch `kernel` on a grid of `grid` blocks of `threads`, in clusters of
-// `cluster` blocks along x, with `smem` bytes of dynamic shared memory.
+// `cluster` blocks along x (0: no clusters), with `smem` bytes of dynamic
+// shared memory.
 // With `after` the launch is the programmatic dependent of the kernel
 // before it on the stream: it may start before that kernel ends, and must
 // run griddepcontrol.wait before it reads that kernel's output.
@@ -296,14 +297,21 @@ cudaError_t launch_clusters(K kernel, dim3 grid, int threads, int cluster,
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cudaLaunchAttribute attr[2];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  int n_attrs = 0;
+  if (cluster > 0) {
+    attr[n_attrs].id = cudaLaunchAttributeClusterDimension;
+    attr[n_attrs].val.clusterDim.x = cluster;
+    attr[n_attrs].val.clusterDim.y = 1;
+    attr[n_attrs].val.clusterDim.z = 1;
+    ++n_attrs;
+  }
+  if (after) {
+    attr[n_attrs].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[n_attrs].val.programmaticStreamSerializationAllowed = 1;
+    ++n_attrs;
+  }
   cfg.attrs = attr;
-  cfg.numAttrs = after ? 2 : 1;
+  cfg.numAttrs = n_attrs;
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 

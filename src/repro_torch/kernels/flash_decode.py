@@ -3,9 +3,10 @@ the fused decode step that adds a multi-adapter LoRA delta to it.
 
 The ports of ``repro.kernels.flash_decode.flash_decode`` (Pallas,
 flash_decode.py:95) and ``flash_decode_lora`` (flash_decode.py:205).  On a
-CUDA tensor each launches the split-KV kernel in ``csrc/flash_decode.cu``
-(a split pass and a log-sum-exp combine, the fused one with a LoRA epilogue
-in the combine); on a CPU tensor each runs its plain version.
+CUDA tensor each launches the split-KV kernels in ``csrc/flash_decode.cu``
+(a split pass and a log-sum-exp combine; the fused step adds a LoRA shrink
+between them and the expand to the combine); on a CPU tensor each runs its
+plain version.
 """
 from __future__ import annotations
 
@@ -204,11 +205,13 @@ def flash_decode_lora(q, k, v, length, x, a, b, idx, scale: float = 1.0):
     lengths, m_part, l_part, acc_part, out, dims = _launch_args(q, k, v,
                                                                 length)
     n, dx, r = a.shape
+    h_part = torch.empty((q.shape[0], r), dtype=torch.float32,
+                         device=q.device)  # the shrink's h, row by row
     build.kernels().flash_decode_lora(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         x.data_ptr(), a.data_ptr(), b.data_ptr(), idx.data_ptr(),
         m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-        out.data_ptr(), *dims, dx, r, n, float(scale),
+        h_part.data_ptr(), out.data_ptr(), *dims, dx, r, n, float(scale),
         build.dtype_code(q.dtype), build.dtype_code(a.dtype),
         build.stream_handle(q.device))
     flash_decode_lora.launches += 1

@@ -11,7 +11,7 @@ every head dim the flash-decode kernels instantiate, group sizes 1..8,
 lengths 0 and past S and at the split pass's tile edges, NaN past a row's
 length, BGMV at ranks 1-64 with widths and views off the 16-byte vector,
 SGMV at T around its 64-token tile, 32 skewed adapters, unaligned views and
-its sort kernel bit for bit, the fused decode step at every cluster size
+its sort kernel bit for bit, the fused decode step at shrink clusters of 1 to 8 blocks
 and adapter id -1), and check
 that the wrappers and the binding reject what the kernels do not take.
 """
@@ -308,12 +308,13 @@ def test_flash_decode_positions_past_length_are_never_read(gen):
 @pytest.mark.parametrize("bsz,h,kv,s,dx,r,n", [
     (3, 8, 8, 7, 40, 1, 1), (4, 24, 8, 100, 96, 7, 3),
     (3, 16, 2, 1000, 64, 16, 2),
-    # clusters of 1, 3, 7 and 8 heads (h 1, 3, 7, 32), dx 3072 and 40,
-    # ranks 64, 5, 33 and 32, batch 1 and 32
+    # h 1, 3, 7, 32; dx 3072 and 40, ranks 64, 5, 33 and 32, batch 1 and
+    # 32; the shrink's clusters of 1, 2, 6 and 8 blocks (dx 40/96, 1000,
+    # 3072, 4096)
     (1, 1, 1, 50, 3072, 64, 4), (2, 3, 1, 60, 40, 5, 2),
     (32, 7, 7, 33, 96, 33, 5), (2, 32, 8, 70, 3072, 32, 3),
-    # the serving shape (3 heads a block); 11 heads in one block (a cluster
-    # of 1) over many splits, so their m and l outnumber the threads
+    (3, 4, 2, 90, 1000, 9, 2), (2, 8, 8, 70, 4096, 16, 3),
+    # the serving shape; 11 heads over many splits
     (8, 24, 8, 512, 3072, 8, 4), (1, 11, 11, 4096, 96, 8, 2)])
 def test_flash_decode_lora_kernel_edges(gen, bsz, h, kv, s, dx, r, n, d,
                                         dtype, wdtype):
