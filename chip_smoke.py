@@ -27,11 +27,20 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    to a relative error below 2e-4;
 5. serving: ``repro_torch.launch.serve.serve`` with the launcher's default
    flags (8 adapters, 4 slots, rank 8, dataset small, 30 s horizon) on the
-   published phi4-mini-3.8b (32 layers, bf16, weights from seed 0); at
-   least 12 requests must finish;
-6. the served model's decode step (launches, wall, device time by kernel
-   group from the profiler, failing if a kernel the step launched shows no
-   device time under its own name); then per kernel at the main path's
+   published phi4-mini-3.8b (32 layers, bf16, weights from seed 0), every
+   step a replay of the executor's captured CUDA graph; at least 12
+   requests must finish, and the path's launches must be the warmup
+   step's plus the replays'; then the replayed step against the eager
+   ``decode_step`` from the same cache, cloned, over 4 steps with mixed
+   adapter ids (-1 among them), the last two past the cache's end: logits
+   and every layer's K/V bit for bit (else within bf16's 3e-2, the largest
+   difference printed);
+6. the served model's decode step three ways: the eager step's wall, the
+   replayed step's wall (as ``TorchExecutor.step`` times it) and device
+   span (CUDA events), and the device time of each by kernel group from
+   the profiler, failing if a kernel the step launched shows no device
+   time under its own name, over eager steps and over replays; then per
+   kernel at the main path's
    shapes: its time, its plain version's, the least time the card could
    take (bound), and a PyTorch library call's (for the fused kernel, which
    no single PyTorch call computes, the unfused flash-decode + BGMV + add
@@ -423,29 +432,83 @@ GEMM_WORDS = ("gemm", "nvjet", "cutlass", "xmma")  # cuBLAS kernel names
 
 
 def phase_step(executor, ops, n=10):
-    """One decode step of the serving executor (8 rows, 32 layers): its
-    launches, its wall time (host clock around a synchronised run of ``n``
-    steps), and where the device time goes (torch.profiler, 3 steps)."""
+    """One decode step of the serving executor (8 rows, 32 layers), three
+    ways from the same executor and cache: the eager ``decode_step``'s
+    wall, the replayed graph's wall (host clock around ``n`` synchronised
+    ``executor.decode`` calls, as ``TorchExecutor.step`` times them) and its
+    device span (CUDA events around ``n`` back-to-back replays), and where
+    the device time goes in each (torch.profiler, 3 steps).  The replayed
+    step's busy share is its profiled device busy time over that wall:
+    the profiler's own tracing of ~2,600 kernels a step stretches the wall
+    of the window it profiles.  Returns the launches of one step and the
+    step's numbers."""
     model, lora, cache = executor.model, executor.lora, executor.cache
     idx = torch.arange(8, dtype=torch.int32, device="cuda") % SLOTS
+    idx_host = idx.cpu().numpy()
 
-    def step():
+    def eager():
         model.decode_step(lora, cache, executor.tokens, idx)
+
+    def replay():
+        executor.decode(idx_host)
     ops.reset_launches()
-    step()
+    eager()
     per_step = ops.launch_counts()
-    say(f"  launches per decode step: {per_step}")
+    say(f"  launches per decode step: {per_step}; per replay: "
+        f"{executor.graph_launches}")
+    if executor.graph_launches != {k: c for k, c in per_step.items() if c}:
+        raise AssertionError("the captured step launches other kernels than "
+                             "the eager step")
+    stats = {"eager_ms": wall_ms(eager, n), "replay_ms": wall_ms(replay, n)}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        executor.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    stats["replay_span_ms"] = start.elapsed_time(end) / n
+    busy_e, wall_e = profile_step(eager, per_step, "eager")
+    busy_r, wall_r = profile_step(replay, per_step, "replayed")
+    stats.update(eager_busy_ms=busy_e / 1e3, replay_busy_ms=busy_r / 1e3,
+                 replay_busy_share=busy_r / 1e3 / stats["replay_ms"],
+                 replay_span_share=stats["replay_span_ms"] / stats[
+                     "replay_ms"])
+    say(f"  decode step: eager {stats['eager_ms']:.2f} ms wall (mean of "
+        f"{n}), device busy {busy_e / 1e3:.2f} ms = {busy_e * 3 / wall_e:.1%}"
+        f" of the profiled wall; replayed {stats['replay_ms']:.2f} ms wall "
+        f"(mean of {n}), {stats['replay_span_ms']:.2f} ms a replay by CUDA "
+        f"events ({stats['replay_span_share']:.1%} of the wall), device busy"
+        f" {busy_r / 1e3:.2f} ms = {stats['replay_busy_share']:.1%} of the "
+        f"wall ({busy_r * 3 / wall_r:.1%} of the profiled wall)")
+    return per_step, stats
+
+
+def wall_ms(fn, n):
+    """Host-clock ms of one synchronised call, mean of ``n`` after one."""
+    fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
-        step()
+        fn()
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / n * 1e3
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def profile_step(step, per_step, label, steps=3):
+    """Device busy µs per step (the union of the device's kernel and copy
+    intervals: kernels chained as programmatic dependents overlap, so
+    their sum counts some time twice) and the profiled wall µs of
+    ``steps`` steps (torch.profiler), printing the time by kernel group
+    and the largest kernels; fails if a kernel the step launched
+    (``per_step``) shows no device time under its own name, which a
+    renamed kernel, or one the profiler did not see inside a graph,
+    would."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(3):
+        for _ in range(steps):
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -453,7 +516,7 @@ def phase_step(executor, ops, n=10):
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        us = e.self_device_time_total / 3
+        us = e.self_device_time_total / steps
         kernels.append((us, e.key))
         name = next((k for k in KERNEL_NAMES if k in e.key), None)
         if name is not None:
@@ -461,23 +524,69 @@ def phase_step(executor, ops, n=10):
         group = KERNEL_NAMES[name] if name is not None else (
             "gemm" if any(w in e.key.lower() for w in GEMM_WORDS) else "other")
         groups[group] = groups.get(group, 0.0) + us
-    # a kernel the step launched must show up under its own name: a renamed
-    # kernel would otherwise fall silently into "other"
     missing = [k for k, wrapper in KERNEL_NAMES.items()
                if per_step.get(wrapper, 0) and not seen.get(k, 0.0) > 0]
     if missing:
-        raise AssertionError(f"kernels launched in the step have no profiled "
-                             f"device time: {missing}")
-    busy = sum(groups.values())
-    say(f"  decode step: {step_ms:.2f} ms wall (mean of {n}); device busy "
-        f"{busy / 1e3:.2f} ms per step = {busy * 3 / wall_us:.1%} of the "
-        f"profiled wall")
-    say("  device time per step by group (us): "
+        raise AssertionError(f"kernels launched in the {label} step have no "
+                             f"profiled device time: {missing}")
+    busy, end = 0.0, -math.inf
+    for t0, t1 in sorted((e.time_range.start, e.time_range.end)
+                         for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA):
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    say(f"  {label} step, device time per step by group (us): "
         + ", ".join(f"{g} {us:.1f}" for g, us in
-                    sorted(groups.items(), key=lambda kv: -kv[1])))
+                    sorted(groups.items(), key=lambda kv: -kv[1]))
+        + f"; {len(kernels)} kernel names; busy (union) {busy / steps:.1f}")
     for us, key in sorted(kernels, reverse=True)[:6]:
         say(f"    {us:9.1f} us  {key[:90]}")
-    return per_step
+    return busy / steps, wall_us
+
+
+def check_replay(executor, steps=4):
+    """The executor's replayed step against the eager ``decode_step`` from
+    the same cache, cloned: ``steps`` consecutive steps with mixed adapter
+    ids (base rows, -1, among them) from ``pos`` = S - 2, so the last two
+    run past the cache's end (write skipped, all of S attended).  The
+    logits of every step and every layer's K and V must be equal bit for
+    bit (the same kernels and GEMMs), or else, should cuBLAS pick another
+    algorithm under capture, within bf16's 3e-2; the largest difference is
+    printed either way."""
+    model, lora, cache = executor.model, executor.lora, executor.cache
+    s = cache["layers"][0]["k"].shape[1]
+    cache["pos"].fill_(s - 2)
+    eager = {"pos": cache["pos"].clone(),
+             "layers": [{k: v.clone() for k, v in c.items()}
+                        for c in cache["layers"]]}
+    ids = torch.tensor([[0, 1, 2, 3, -1, 0, 1, 2], [3, -1, 2, 1, 0, -1, 3, 3],
+                        [-1, -1, 1, 1, 2, 2, 0, 3], [2, 3, 0, 1, -1, 3, -1, 0]],
+                       dtype=torch.int32)
+    pairs = []
+    for i in range(steps):
+        got = executor.decode(ids[i % len(ids)].numpy()).clone()
+        want, _ = model.decode_step(lora, eager, executor.tokens,
+                                    ids[i % len(ids)].cuda())
+        pairs.append((f"logits step {i}", got, want))
+    for n, (c, e) in enumerate(zip(cache["layers"], eager["layers"])):
+        pairs += [(f"k layer {n}", c["k"], e["k"]),
+                  (f"v layer {n}", c["v"], e["v"])]
+    torch.cuda.synchronize()
+    worst = max([((g.float() - w.float()).abs().max().item(), name)
+                 for name, g, w in pairs], key=lambda t: t[0])
+    bitwise = all(torch.equal(g, w) for _, g, w in pairs)
+    ok = bitwise or all(torch.allclose(g.float(), w.float(), rtol=TOL[
+        "bfloat16"], atol=TOL["bfloat16"]) for _, g, w in pairs)
+    pos = (int(cache["pos"]), int(eager["pos"]))
+    ok = ok and pos == (s - 2 + steps,) * 2 and \
+        bool(torch.isfinite(pairs[steps - 1][1]).all())
+    say(f"  replay vs eager, {steps} steps from pos {s - 2} (S {s}), ids "
+        f"with -1, logits and {2 * len(cache['layers'])} K/V tensors: "
+        f"{'bitwise' if bitwise else 'not bitwise'}, largest difference "
+        f"{worst[0]:.3e} ({worst[1]}), pos {pos} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"replayed step disagrees with the eager step: "
+                             f"{worst}, pos {pos}")
 
 
 def graph_ms(fn, arg_sets, calls=32, reps=5):
@@ -868,16 +977,25 @@ def main() -> int:
     say(report(metrics))
     logits = executor.last_logits
     say(f"  wall {wall:.1f} s; launches on the serving path: "
-        f"{serve_launches}")
+        f"{serve_launches}; {executor.replays} replays of the captured step, "
+        f"{executor.graph_launches} each, after one eager warmup step")
     if metrics.n_finished < 12:
         raise AssertionError(f"served only {metrics.n_finished} requests")
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("serving produced non-finite logits")
     # decode batches of 8 rows on 4 slots stay at T <= 4N: BGMV, not SGMV
     require_launched("serving", serve_launches, PATH_KERNELS["serving"])
+    # every step but the warmup was a replay, counted by the executor
+    if executor.replays == 0 or serve_launches != {
+            k: executor.graph_launches.get(k, 0) * (executor.replays + 1)
+            for k in serve_launches}:
+        raise AssertionError("the serving path's launches are not the "
+                             "warmup's and the replays'")
+    check_replay(executor)
 
     say("phase 6: timing at the main path's shapes (bf16)")
-    per_step = phase_step(executor, ops)
+    per_step, step_stats = phase_step(executor, ops)
+    say("  step " + json.dumps(step_stats))
     del executor, logits
     torch.cuda.empty_cache()
     rows = phase_timing()

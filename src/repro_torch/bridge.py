@@ -156,13 +156,16 @@ def lora_to_numpy(lora, cfg):
 
 
 def cache_to_torch(cache, device="cpu"):
-    """JAX ``init_cache``/``prefill`` cache -> the port's cache."""
-    return {"pos": tensor(cache["pos"]),
+    """JAX ``init_cache``/``prefill`` cache -> the port's cache, ``pos`` a
+    0-d int32 tensor on ``device`` beside the K/V (the model reads it
+    there, as JAX reads its traced ``pos``)."""
+    return {"pos": tensor(cache["pos"], device),
             "layers": to_torch(_unstack(cache["segments"]), device)}
 
 
 def cache_to_numpy(cache, cfg):
-    """The port's cache -> a JAX cache tree."""
-    return {"pos": array(torch.as_tensor(cache["pos"])),
+    """The port's cache -> a JAX cache tree (``pos`` taken back from the
+    device it lies on)."""
+    return {"pos": array(cache["pos"]),
             "segments": _stack(to_numpy(cache["layers"]),
                                len(cfg.block_pattern), cfg.n_layers)}

@@ -32,6 +32,17 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def add_launches(counts: dict, times: int = 1) -> None:
+    """Add ``times`` x ``counts`` (wrapper name -> launches) to the counts.
+
+    A CUDA graph's replay launches what its capture counted without calling
+    a wrapper, so whoever replays it counts it here; a capture, which
+    counted but launched nothing, takes its counts back with ``times=-1``.
+    """
+    for name, n in counts.items():
+        KERNELS[name].launches += n * times
+
+
 def lora_apply(x, a, b, idx, scale: float = 1.0, ranks=None):
     """Multi-adapter LoRA delta: y[t] = scale * x[t] @ A[idx[t]] @ B[idx[t]].
 

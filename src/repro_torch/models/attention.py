@@ -4,10 +4,13 @@ Prefill runs causal attention in plain PyTorch, chunked over the queries
 with an f32 online-softmax state, as the JAX package's ``ring_attention``
 at one shard (``_attend_chunked`` + ``_finalize``); the JAX package
 computes it outside any Pallas kernel too.  Decode writes the new K/V into
-the cache in place and attends with the port's flash-decode kernel.
+the cache in place and attends with the port's flash-decode kernel; the
+step's position stays on the device (``CacheSlot``).
 Sequence sharding (``n_shards > 1``) is ROADMAP.md queue 1 item 11.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -84,24 +87,38 @@ def ring_attention(q, k, v, *, scale: float, q_chunk: int = 256):
     return _finalize(m, lse, acc, q.dtype)
 
 
-def decode_update_cache(cache, new, pos: int) -> None:
-    """Write ``new`` (B, KV, D) at position ``pos`` of ``cache``
-    (B, S, KV, D), IN PLACE (the JAX package returns an updated copy).  A
-    ``pos`` at or past S writes nothing, as in the JAX package
-    (attention.py:247-253)."""
-    if 0 <= pos < cache.shape[1]:
-        cache[:, pos] = new.to(cache.dtype)
+class CacheSlot(NamedTuple):
+    """Where one decode step writes into a cache of S positions and how far
+    it attends, as device tensors made once a step from the batch's one
+    ``pos`` (a 0-d int32 tensor): no host value, so a CUDA graph that
+    captured the step replays it at every position."""
+    index: torch.Tensor   # (1,) int64: clamp(pos, 0, S - 1), the row written
+    live: torch.Tensor    # () bool: 0 <= pos < S; else the write is skipped
+    length: torch.Tensor  # () int32: min(pos + 1, S), the positions attended
+
+    @classmethod
+    def at(cls, pos: torch.Tensor, s: int) -> "CacheSlot":
+        index = pos.clamp(0, s - 1).reshape(1).long()
+        return cls(index, index[0] == pos, (pos + 1).clamp(max=s))
 
 
-def decode_attention(q, k_cache, v_cache, new_k, new_v, pos: int):
+def decode_update_cache(cache, new, slot: CacheSlot) -> None:
+    """Write ``new`` (B, KV, D) at ``slot.index`` of ``cache`` (B, S, KV, D),
+    IN PLACE (the JAX package returns an updated copy).  A ``pos`` outside
+    [0, S) writes the row back unchanged, as the JAX package's clipped
+    write and ``where`` keep it (attention.py:244-253), in O(B*KV*D)."""
+    old = cache.index_select(1, slot.index)
+    cache.index_copy_(1, slot.index,
+                      torch.where(slot.live, new[:, None].to(cache.dtype), old))
+
+
+def decode_attention(q, k_cache, v_cache, new_k, new_v, slot: CacheSlot):
     """One new token against the cache, which it first extends in place.
 
-    q: (B, H, D); caches: (B, S, KV, D); new_k/new_v: (B, KV, D); pos: the
-    batch's one position.  Attends positions <= pos, i.e. length pos + 1
+    q: (B, H, D); caches: (B, S, KV, D); new_k/new_v: (B, KV, D); slot: the
+    step's ``CacheSlot``.  Attends positions <= pos, i.e. length pos + 1
     (all of S once pos passes the end).  Returns (B, H, D).
     """
-    decode_update_cache(k_cache, new_k, pos)
-    decode_update_cache(v_cache, new_v, pos)
-    length = min(pos + 1, k_cache.shape[1])
-    return ops.flash_decode(q.contiguous(), k_cache, v_cache, length)
-
+    decode_update_cache(k_cache, new_k, slot)
+    decode_update_cache(v_cache, new_v, slot)
+    return ops.flash_decode(q.contiguous(), k_cache, v_cache, slot.length)

@@ -13,9 +13,11 @@ Two entry points, as in the JAX package:
                       adapters (the serving hot path).
 
 The port keeps these JAX behaviours for parity: one scalar ``pos`` for the
-whole batch; a ``pos`` past the cache skips the write; LoRA on q and v
-only; the vocab padded to a multiple of 256 with the padded logits kept.
-Unlike the JAX package, ``decode_step`` updates the KV cache in place.
+whole batch (a 0-d int32 tensor on the model's device, as the JAX
+package's traced ``cache["pos"]``); a ``pos`` past the cache skips the
+write; LoRA on q and v only; the vocab padded to a multiple of 256 with
+the padded logits kept.  Unlike the JAX package, ``decode_step`` updates
+the cache in place: its KV tensors and its ``pos``.
 """
 from __future__ import annotations
 
@@ -121,12 +123,14 @@ class Block(nn.Module):
         out = attention.ring_attention(q, k, v, scale=scale)
         return self._residual(x, out), {"k": k, "v": v}
 
-    def decode(self, x, lora_p, adapter_idx, cache, pos: int):
-        """x: (B, 1, d); cache {"k", "v"} is updated in place."""
-        positions = torch.full((x.shape[0], 1), pos, device=x.device)
+    def decode(self, x, lora_p, adapter_idx, cache, pos, slot):
+        """x: (B, 1, d); pos: the batch's position, a 0-d int32 tensor on
+        x's device; slot: its ``attention.CacheSlot``; cache {"k", "v"} is
+        updated in place."""
+        positions = pos.reshape(1, 1).expand(x.shape[0], 1)
         q, k, v = self._qkv(x, lora_p, adapter_idx, positions)
         out = attention.decode_attention(q[:, 0], cache["k"], cache["v"],
-                                         k[:, 0], v[:, 0], pos)
+                                         k[:, 0], v[:, 0], slot)
         return self._residual(x, out[:, None])
 
 
@@ -177,7 +181,7 @@ class Model(nn.Module):
     def init_cache(self, batch: int, cache_len: int) -> Dict[str, Any]:
         cfg = self.cfg
         shape = (batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-        return {"pos": torch.tensor(0, dtype=torch.int32),
+        return {"pos": torch.zeros((), dtype=torch.int32, device=self.device),
                 "layers": [{"k": torch.zeros(shape, dtype=cfg.torch_dtype,
                                              device=self.device),
                             "v": torch.zeros(shape, dtype=cfg.torch_dtype,
@@ -202,21 +206,26 @@ class Model(nn.Module):
             x, kv = block.prefill(x, lp, adapter_idx, positions)
             caches.append(kv)
         logits = self._logits(x[:, -1:])
-        return logits[:, 0], {"pos": torch.tensor(s, dtype=torch.int32),
-                              "layers": caches}
+        pos = torch.full((), s, dtype=torch.int32, device=x.device)
+        return logits[:, 0], {"pos": pos, "layers": caches}
 
     @torch.no_grad()
     def decode_step(self, lora, cache, tokens, adapter_idx=None):
-        """tokens: (B, 1). Returns (logits (B, V), cache); the cache's KV
-        tensors are updated in place and shared with the returned cache."""
-        pos = int(cache["pos"])
+        """tokens: (B, 1). Returns (logits (B, V), cache): the cache itself,
+        its KV tensors written and its ``pos`` advanced by one in place.
+
+        ``pos`` is read on the device only, and nothing in the step waits
+        for the host or the host for it, so a CUDA graph that captures one
+        call replays the step at every position."""
+        pos = cache["pos"]
+        slot = attention.CacheSlot.at(pos, cache["layers"][0]["k"].shape[1])
         x = layers.embed_tokens(self.embed["embed"], tokens)
         for block, lp, c in zip(self.layers, self._lora_layers(lora),
                                 cache["layers"]):
-            x = block.decode(x, lp, adapter_idx, c, pos)
+            x = block.decode(x, lp, adapter_idx, c, pos, slot)
         logits = self._logits(x)
-        return logits[:, 0], {"pos": torch.tensor(pos + 1, dtype=torch.int32),
-                              "layers": cache["layers"]}
+        pos.add_(1)
+        return logits[:, 0], cache
 
 
 def pad_cache(cache, extra: int):
@@ -224,7 +233,7 @@ def pad_cache(cache, extra: int):
     def pad(t):
         return torch.cat([t, t.new_zeros((t.shape[0], extra) + t.shape[2:])],
                          dim=1)
-    return {"pos": cache["pos"],
+    return {"pos": cache["pos"].clone(),
             "layers": [{k: pad(v) for k, v in c.items()}
                        for c in cache["layers"]]}
 

@@ -3,8 +3,10 @@
 ``TorchExecutor`` mirrors ``repro.serving.executor.JaxExecutor``
 (executor.py:100-149) line for line: it runs one ``Model.decode_step`` per
 engine step over a fixed ``max_batch`` and ``cache_len`` with per-request
-adapter ids, and reports measured wall times.  Steps run eagerly; replaying
-the step as a CUDA graph is ROADMAP.md queue 1 item 13.
+adapter ids, and reports measured wall times.  As the JAX executor compiles
+its step once (``jax.jit``, executor.py:118), on CUDA it captures the step
+once as a CUDA graph and replays that graph every step; on the CPU it runs
+the step eagerly with the kernels' plain versions.
 
 ``HardwareProfile`` and ``SyntheticExecutor`` are verbatim copies of the
 JAX package's (executor.py:37-98): step times from a hidden profile, which
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels import ops
 from .scheduler import StepPlan
 
 
@@ -108,6 +111,15 @@ class TorchExecutor:
     Fixed-capacity batch shapes (requests packed into ``max_batch`` rows),
     as the JAX executor keeps them for its one jit cache entry.  ``device``
     defaults to CUDA and must be the model's.
+
+    On CUDA the constructor warms the step up eagerly on a side stream (the
+    kernel build, cuBLAS's workspace), resets ``pos`` and captures one
+    ``decode_step`` into a ``torch.cuda.CUDAGraph``, the counterpart of the
+    JAX executor's single jit cache entry; a failed capture raises.  The
+    graph reads the adapter ids from ``ids`` and the position from the
+    cache's ``pos``, both static device buffers, and writes ``last_logits``.
+    ``graph_launches`` is what one replay launches (wrapper -> count) and
+    ``replays`` how many replays ran.  On the CPU the step runs eagerly.
     """
 
     def __init__(self, model, lora, max_batch: int = 8,
@@ -123,11 +135,56 @@ class TorchExecutor:
         # the JAX executor's constant zero token (executor.py:117)
         self.tokens = torch.zeros((max_batch, 1), dtype=torch.long,
                                   device=self.device)
+        self.ids = torch.zeros((max_batch,), dtype=torch.int32,
+                               device=self.device)
         self.last_logits = None
+        self.graph = None
+        self.graph_launches: Dict[str, int] = {}
+        self.replays = 0
         # warmup (its cache write at pos 0 is overwritten by the first step)
-        idx = torch.zeros((max_batch,), dtype=torch.int32, device=self.device)
-        model.decode_step(lora, self.cache, self.tokens, idx)
+        if self.device.type == "cuda":
+            self._ids_host = torch.zeros((max_batch,), dtype=torch.int32,
+                                         pin_memory=True)
+            self._capture()
+        else:
+            self._decode_eager(self.ids)
+            self.cache["pos"].zero_()
+
+    def _decode_eager(self, ids):
+        return self.model.decode_step(self.lora, self.cache, self.tokens,
+                                      ids)[0]
+
+    def _capture(self) -> None:
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._decode_eager(self.ids)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        self.cache["pos"].zero_()
+        before = ops.launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.last_logits = self._decode_eager(self.ids)
+        self.graph_launches = {k: n - before[k]
+                               for k, n in ops.launch_counts().items()
+                               if n != before[k]}
+        # the capture counted its wrappers' calls but launched nothing
+        ops.add_launches(self.graph_launches, -1)
+
+    def decode(self, idx: np.ndarray) -> torch.Tensor:
+        """One decode step with adapter ids ``idx`` (max_batch,) int32;
+        returns the logits (max_batch, V), synchronised.  On CUDA: the ids
+        into the static buffer (one copy from pinned memory), one replay."""
+        if self.graph is None:
+            self.last_logits = self._decode_eager(torch.from_numpy(idx))
+        else:
+            self._ids_host.numpy()[:] = idx
+            self.ids.copy_(self._ids_host, non_blocking=True)
+            self.graph.replay()
+            ops.add_launches(self.graph_launches)
+            self.replays += 1
         _sync(self.device)
+        return self.last_logits
 
     def step(self, plan: StepPlan, n_waiting: int) -> StepTiming:
         t0 = time.perf_counter()
@@ -137,11 +194,7 @@ class TorchExecutor:
         t_sched = time.perf_counter() - t0
 
         t1 = time.perf_counter()
-        logits, self.cache = self.model.decode_step(
-            self.lora, self.cache, self.tokens,
-            torch.from_numpy(idx).to(self.device))
-        _sync(self.device)
-        self.last_logits = logits
+        self.decode(idx)
         # emulate prefill cost: extra decode steps pro-rated by tokens
         t_model = time.perf_counter() - t1
         if plan.prefill_tokens:

@@ -68,6 +68,9 @@ def test_cache_round_trip_bitwise(models):
     cache = _numpy(cache)
     port = bridge.cache_to_torch(cache)
     assert int(port["pos"]) == 12
+    # pos lies beside the K/V, a 0-d int32 tensor, as the model reads it
+    assert port["pos"].shape == () and port["pos"].dtype == torch.int32
+    assert port["pos"].device == port["layers"][0]["k"].device
     assert port["layers"][0]["k"].shape == (2, 12, model.cfg.n_kv_heads,
                                             model.cfg.resolved_head_dim)
     _assert_bitwise(cache, bridge.cache_to_numpy(port, model.cfg))

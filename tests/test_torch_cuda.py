@@ -14,14 +14,22 @@ SGMV at T around its 64-token tile, 32 skewed adapters, unaligned views and
 its sort kernel bit for bit, the fused decode step at shrink clusters of 1 to 8 blocks
 and adapter id -1), and check
 that the wrappers and the binding reject what the kernels do not take.
+They also hold the serving executor's captured step (a CUDA graph) bitwise
+equal to the eager step over 20 steps that cross the cache's end, count its
+launches under replay, and run an eager step under the sync debug mode.
 """
+import dataclasses
 import math
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import bgmv, build, flash_decode, ref, sgmv  # noqa: E402
+from repro_torch.configs import get_reduced  # noqa: E402
+from repro_torch.kernels import bgmv, build, flash_decode, ops, ref, sgmv  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
+from repro_torch.serving.executor import TorchExecutor  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -388,3 +396,73 @@ def test_binding_raises_on_rejected_arguments(gen):
     with pytest.raises(RuntimeError, match="bgmv: launcher rejected"):
         build.kernels().bgmv(0, 0, 0, 0, 0, 4, 8, 100, 8, 2, 1.0, 0, 0,
                              build.stream_handle(x.device))
+
+
+# --------------------------------------------------------------------------- #
+# the serving step captured as a CUDA graph (``TorchExecutor``)
+# --------------------------------------------------------------------------- #
+
+def _served(dtype, cache_len=16):
+    """A reduced phi4-mini on the card and its executor (8 rows)."""
+    cfg = dataclasses.replace(get_reduced("phi4-mini-3.8b"),
+                              dtype=str(dtype).split(".")[1])
+    model = Model(cfg, device="cuda", seed=3)
+    lora = model.init_lora(4, 4, seed=3)
+    return model, lora, TorchExecutor(model, lora, max_batch=8,
+                                      cache_len=cache_len, device="cuda")
+
+
+def _clone_cache(cache):
+    return {"pos": cache["pos"].clone(),
+            "layers": [{k: v.clone() for k, v in c.items()}
+                       for c in cache["layers"]]}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_executor_replay_equals_eager_step(gen, dtype):
+    # 20 steps at cache_len 16: the last 4 past the end (write skipped, all
+    # of S attended); ids mixed, with base rows (-1)
+    model, lora, ex = _served(dtype)
+    assert ex.graph is not None and int(ex.cache["pos"]) == 0
+    eager = _clone_cache(ex.cache)
+    rng = np.random.default_rng(0)
+    for step in range(20):
+        idx = rng.integers(-1, 4, 8).astype(np.int32)
+        got = ex.decode(idx)
+        want, _ = model.decode_step(lora, eager, ex.tokens,
+                                    torch.from_numpy(idx).cuda())
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"step {step}"
+    assert int(ex.cache["pos"]) == int(eager["pos"]) == 20
+    for c, e in zip(ex.cache["layers"], eager["layers"]):
+        assert torch.equal(c["k"], e["k"]) and torch.equal(c["v"], e["v"])
+
+
+def test_executor_replays_count_their_launches(gen):
+    model, lora, ex = _served(torch.bfloat16)
+    ops.reset_launches()
+    model.decode_step(lora, _clone_cache(ex.cache), ex.tokens, ex.ids)
+    per_step = {k: n for k, n in ops.launch_counts().items() if n}
+    assert per_step == {"bgmv": 2 * model.cfg.n_layers,
+                        "flash_decode": model.cfg.n_layers}
+    assert ex.graph_launches == per_step
+    ops.reset_launches()
+    for _ in range(5):
+        ex.decode(np.zeros(8, np.int32))
+    assert ex.replays == 5
+    assert {k: n for k, n in ops.launch_counts().items() if n} == \
+        {k: 5 * n for k, n in per_step.items()}
+
+
+def test_eager_decode_step_does_not_synchronise(gen):
+    model, lora, ex = _served(torch.bfloat16)
+    ids = torch.tensor([0, 1, -1, 3, 2, 2, -1, 0], dtype=torch.int32,
+                       device="cuda")
+    cache = _clone_cache(ex.cache)
+    model.decode_step(lora, cache, ex.tokens, ids)   # cuBLAS handle, kernels
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, _ = model.decode_step(lora, cache, ex.tokens, ids)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(logits).all())
