@@ -92,6 +92,7 @@ class CacheSlot(NamedTuple):
     it attends, as device tensors made once a step from the batch's one
     ``pos`` (a 0-d int32 tensor): no host value, so a CUDA graph that
     captured the step replays it at every position."""
+    pos: torch.Tensor     # () int32: the batch's position, for RoPE
     index: torch.Tensor   # (1,) int64: clamp(pos, 0, S - 1), the row written
     live: torch.Tensor    # () bool: 0 <= pos < S; else the write is skipped
     length: torch.Tensor  # () int32: min(pos + 1, S), the positions attended
@@ -99,7 +100,7 @@ class CacheSlot(NamedTuple):
     @classmethod
     def at(cls, pos: torch.Tensor, s: int) -> "CacheSlot":
         index = pos.clamp(0, s - 1).reshape(1).long()
-        return cls(index, index[0] == pos, (pos + 1).clamp(max=s))
+        return cls(pos, index, index[0] == pos, (pos + 1).clamp(max=s))
 
 
 def decode_update_cache(cache, new, slot: CacheSlot) -> None:

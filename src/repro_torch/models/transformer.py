@@ -123,11 +123,10 @@ class Block(nn.Module):
         out = attention.ring_attention(q, k, v, scale=scale)
         return self._residual(x, out), {"k": k, "v": v}
 
-    def decode(self, x, lora_p, adapter_idx, cache, pos, slot):
-        """x: (B, 1, d); pos: the batch's position, a 0-d int32 tensor on
-        x's device; slot: its ``attention.CacheSlot``; cache {"k", "v"} is
-        updated in place."""
-        positions = pos.reshape(1, 1).expand(x.shape[0], 1)
+    def decode(self, x, lora_p, adapter_idx, cache, slot):
+        """x: (B, 1, d); slot: the step's ``attention.CacheSlot``, its
+        position on x's device; cache {"k", "v"} is updated in place."""
+        positions = slot.pos.reshape(1, 1).expand(x.shape[0], 1)
         q, k, v = self._qkv(x, lora_p, adapter_idx, positions)
         out = attention.decode_attention(q[:, 0], cache["k"], cache["v"],
                                          k[:, 0], v[:, 0], slot)
@@ -222,7 +221,7 @@ class Model(nn.Module):
         x = layers.embed_tokens(self.embed["embed"], tokens)
         for block, lp, c in zip(self.layers, self._lora_layers(lora),
                                 cache["layers"]):
-            x = block.decode(x, lp, adapter_idx, c, pos, slot)
+            x = block.decode(x, lp, adapter_idx, c, slot)
         logits = self._logits(x)
         pos.add_(1)
         return logits[:, 0], cache

@@ -142,9 +142,10 @@ class TorchExecutor:
         self.graph_launches: Dict[str, int] = {}
         self.replays = 0
         # warmup (its cache write at pos 0 is overwritten by the first step)
+        # the ids' host side, pinned on CUDA so their copy is asynchronous
+        self._ids_host = torch.zeros((max_batch,), dtype=torch.int32,
+                                     pin_memory=self.device.type == "cuda")
         if self.device.type == "cuda":
-            self._ids_host = torch.zeros((max_batch,), dtype=torch.int32,
-                                         pin_memory=True)
             self._capture()
         else:
             self._decode_eager(self.ids)
@@ -173,13 +174,14 @@ class TorchExecutor:
 
     def decode(self, idx: np.ndarray) -> torch.Tensor:
         """One decode step with adapter ids ``idx`` (max_batch,) int32;
-        returns the logits (max_batch, V), synchronised.  On CUDA: the ids
-        into the static buffer (one copy from pinned memory), one replay."""
+        returns the logits (max_batch, V), synchronised.  The ids go into
+        the static buffer ``ids`` (on CUDA one copy from pinned memory),
+        then the graph replays, or on the CPU the step runs eagerly."""
+        self._ids_host.numpy()[:] = idx
+        self.ids.copy_(self._ids_host, non_blocking=True)
         if self.graph is None:
-            self.last_logits = self._decode_eager(torch.from_numpy(idx))
+            self.last_logits = self._decode_eager(self.ids)
         else:
-            self._ids_host.numpy()[:] = idx
-            self.ids.copy_(self._ids_host, non_blocking=True)
             self.graph.replay()
             ops.add_launches(self.graph_launches)
             self.replays += 1
