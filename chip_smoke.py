@@ -21,10 +21,17 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    batch, raising on an expand dim other than H*D, and at the measurement
    path's widest points (batch 32, 4096 positions, 32 adapters, ranks 8,
    16 and 32) on the inputs that path draws, where plain flash-decode is
-   held too (full and ragged lengths);
+   held too (full and ragged lengths); flash-decode (B 8, S 512, ragged
+   lengths, per row) and BGMV (the q and v projections' widths) at the
+   published shapes of gemma3-1b, qwen1.5-4b, internlm2-20b,
+   musicgen-medium and internvl2-2b, and SGMV at gemma3's d 1152, T 1024;
 4. teacher forcing at phi4-mini's published widths, f32, 4 layers:
    decode after ``prefill(tokens[:, :-1])`` must match ``prefill(tokens)``
-   to a relative error below 2e-4;
+   to a relative error below 2e-4; then the same for each of the five
+   other dense architectures at its published widths, f32, its depth cut
+   (``VARIANTS``: gemma3 8 layers on 624-token prompts, past its 512
+   window; the others 2 layers; internvl2 after 256 image embeddings),
+   each printed with its cut, SGMV, BGMV and flash-decode launched;
 5. serving: ``repro_torch.launch.serve.serve`` with the launcher's default
    flags (8 adapters, 4 slots, rank 8, dataset small, 30 s horizon) on the
    published phi4-mini-3.8b (32 layers, bf16, weights from seed 0), every
@@ -34,7 +41,11 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    ``decode_step`` from the same cache, cloned, over 4 steps with mixed
    adapter ids (-1 among them), the last two past the cache's end: logits
    and every layer's K/V bit for bit (else within bf16's 3e-2, the largest
-   difference printed);
+   difference printed).  Phase 5b does the same for the published
+   gemma3-1b (26 layers, 21 of them local on 512-row rolling buffers,
+   bf16), whose replay must launch BGMV 52 and flash-decode 26 times and
+   whose last two checked steps also wrap the rolling buffers; phase 6b
+   times its step as phase 6 times phi4-mini's;
 6. the served model's decode step three ways: the eager step's wall, the
    replayed step's wall (as ``TorchExecutor.step`` times it) and device
    span (CUDA events), and the device time of each by kernel group from
@@ -58,7 +69,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    at the measurement path's widest point (``grid_*``: batch 32, 4096
    positions, rank 32, 32 adapters) beside the unfused sequence, and
    beside every row the per-launch floor
-   (``floor_ms``: a 1-element in-place op, replayed the same way);
+   (``floor_ms``: a 1-element in-place op, replayed the same way); BGMV and
+   flash-decode also at gemma3-1b's serving shapes (``gemma3_*``: d 1152,
+   o 1024 and 256; 4 heads of D 256 on 1 KV head, beside SDPA);
 7. the measurement path: ``repro_torch.bench.kernels_bench`` times the
    fused kernel (and SGMV for prefill) over its (batch, seq, rank) grid at
    phi4-mini-3.8b's published widths, fits a ``MeasuredStepTimes``, and
@@ -69,10 +82,11 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    surface times one layer's launch, not a model step.
 
 Launch counts are zeroed just before each path a user drives (teacher
-forcing through ``Model.prefill``/``decode_step`` in phase 4, serving in
-phase 5, measurement in phase 7) and read just after it.  SGMV, BGMV and
-flash-decode must have launched in phase 4, BGMV and flash-decode in
-phase 5, the fused kernel and SGMV in phase 7.  Each kernel's
+forcing through ``Model.prefill``/``decode_step`` in phase 4, for each
+architecture, serving in phases 5 and 5b, measurement in phase 7) and read
+just after it.  SGMV, BGMV and flash-decode must have launched in phase 4,
+BGMV and flash-decode in phases 5 and 5b, the fused kernel and SGMV in
+phase 7.  Each kernel's
 ``launches`` in the kernel table is the count of the path it serves
 (``path``).  Float32 products run in full f32 (TF32 off) wherever parity
 is checked.  The last two lines are the kernel table and the device, as
@@ -130,6 +144,15 @@ GRID_B, GRID_S, GRID_N, GRID_RANKS = 32, 4096, 32, (8, 16, 32)
 # its widest SGMV prefill: tokens and rank (at N = GRID_N, random ids)
 MEASURE_T, MEASURE_RANK = 4096, 16
 MEASURE_TOKENS = (512, 2048, MEASURE_T)   # its prefill token counts
+# the other dense architectures: phase 3 holds the kernels at their shapes,
+# phase 4 teacher-forces each at its published widths, f32, its depth cut
+# to these layers (gemma3: its 5 local + 1 global repeat and the 2-local
+# remainder), on B x S tokens (gemma3: 624-token prompts, past its 512
+# window; 625 and 624 split into whole chunks of 125 and 208 queries)
+VARIANTS = {"gemma3-1b": (8, 625), "qwen1.5-4b": (2, 33),
+            "internlm2-20b": (2, 33), "musicgen-medium": (2, 33),
+            "internvl2-2b": (2, 33)}
+SERVED_VARIANT = "gemma3-1b"    # served at its published widths (phase 5b)
 
 
 def say(*parts) -> None:
@@ -237,10 +260,47 @@ def phase_kernels():
         check("flash_decode length 0", flash_decode.flash_decode(q, k, v, 0),
               torch.zeros_like(q), dn, errs, exact=True)
         check_fused(inp, q, k, v, lengths, dtype, dn, errs)
+        check_variant_shapes(inp, lengths, dtype, dn, errs)
     del q, k, v
     check_sgmv_measure(inp, errs)
     check_fused_grid(errs)
     return errs
+
+
+def check_variant_shapes(inp, lengths, dtype, dn, errs):
+    """Flash-decode (B 8, S 512, ragged lengths, per row) and BGMV (T 8, the
+    q and v projections' widths, N 4, r 8) at each other dense
+    architecture's published shapes, and SGMV at gemma3's d 1152, T 1024:
+    gemma3's D 256 with 4 heads on 1 KV head, internlm2's group of 6,
+    qwen1.5's and musicgen's group of 1, musicgen's D 64."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import bgmv, flash_decode, ref, sgmv
+    ids = torch.tensor([0, 1, 2, 3, -1, 0, 1, 2], dtype=torch.int32,
+                       device="cuda")
+    for arch in VARIANTS:
+        cfg = get_config(arch)
+        h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        q = inp.normal(BATCH, h, d, dtype=dtype)
+        k = inp.normal(BATCH, CACHE, kv, d, dtype=dtype)
+        v = inp.normal(BATCH, CACHE, kv, d, dtype=dtype)
+        check(f"flash_decode {arch} H {h} KV {kv} D {d} ragged lengths",
+              flash_decode.flash_decode(q, k, v, lengths),
+              flash_decode.flash_decode_plain(q, k, v, lengths), dn, errs,
+              per_row=True)
+        x = inp.normal(BATCH, cfg.d_model, dtype=dtype)
+        for o in (h * d, kv * d):
+            a, b = inp.lora_bank(SLOTS, cfg.d_model, RANK, o, dtype)
+            check(f"bgmv {arch} d={cfg.d_model} o={o}",
+                  bgmv.bgmv(x, a, b, ids), bgmv.bgmv_plain(x, a, b, ids), dn,
+                  errs)
+    cfg = get_config(SERVED_VARIANT)
+    o = cfg.n_heads * cfg.resolved_head_dim
+    x = inp.normal(PREFILL_T, cfg.d_model, dtype=dtype)
+    a, b = inp.lora_bank(SLOTS, cfg.d_model, RANK, o, dtype)
+    t_ids = torch.randint(-1, SLOTS, (PREFILL_T,), generator=inp.gen,
+                          device="cuda", dtype=torch.int32)
+    check(f"sgmv {SERVED_VARIANT} d={cfg.d_model} o={o} T {PREFILL_T}",
+          sgmv.sgmv(x, a, b, t_ids), ref.sgmv_ref(x, a, b, t_ids), dn, errs)
 
 
 def check_sgmv_skewed(inp, x, dtype, dn, errs):
@@ -392,26 +452,71 @@ def check_fused_grid(errs):
 # phase 4: teacher forcing at full width
 # --------------------------------------------------------------------------- #
 
-def phase_parity():
-    from repro_torch.configs import get_config
+def teacher_force(cfg, s):
+    """Decode after ``prefill(tokens[:, :-1])`` against ``prefill(tokens)``
+    on 4 rows of ``s`` seeded tokens (and, for a VLM, seeded image
+    embeddings first), 4 adapters: the relative error of the logits, and
+    whether the full prefill's logits are finite."""
     from repro_torch.models import Model, pad_cache
-    cfg = dataclasses.replace(get_config("phi4-mini-3.8b"), n_layers=4,
-                              dtype="float32")
     model = Model(cfg, device="cuda", seed=0)
     lora = model.init_lora(SLOTS, RANK, seed=0)
     gen = torch.Generator(device="cuda").manual_seed(2)
-    tokens = torch.randint(0, cfg.vocab_size, (4, 33), generator=gen,
+    tokens = torch.randint(0, cfg.vocab_size, (4, s), generator=gen,
                            device="cuda")
+    img = None
+    if cfg.n_image_tokens:
+        img = torch.randn((4, cfg.n_image_tokens, cfg.d_model),
+                          generator=gen, device="cuda")
     ids = torch.arange(4, dtype=torch.int32, device="cuda")   # 4 adapters
-    full, _ = model.prefill(lora, tokens, ids)
-    _, cache = model.prefill(lora, tokens[:, :-1], ids)
-    dec, _ = model.decode_step(lora, pad_cache(cache, 4), tokens[:, -1:], ids)
+    full, _ = model.prefill(lora, tokens, ids, img_embeds=img)
+    _, cache = model.prefill(lora, tokens[:, :-1], ids, img_embeds=img)
+    dec, _ = model.decode_step(lora, pad_cache(cache, 4, cfg.local_window),
+                               tokens[:, -1:], ids)
     rel = ((dec - full).abs().max() / (full.abs().max() + 1e-9)).item()
-    ok = bool(torch.isfinite(full).all()) and rel < 2e-4
+    return rel, bool(torch.isfinite(full).all())
+
+
+def phase_parity():
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("phi4-mini-3.8b"), n_layers=4,
+                              dtype="float32")
+    rel, finite = teacher_force(cfg, 33)
+    ok = finite and rel < 2e-4
     say(f"  teacher forcing, {cfg.n_layers} layers at d={cfg.d_model}, f32: "
         f"rel={rel:.3e} (limit 2e-4) -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"teacher forcing: rel={rel}")
+
+
+def phase_parity_variants(ops):
+    """Teacher forcing for each of ``VARIANTS`` at its published widths,
+    f32, its depth cut, as ``phase_parity`` (internvl2 with its 256 image
+    embeddings); the launch counts are zeroed before each and SGMV, BGMV
+    and flash-decode must have launched.  Returns the counts summed over
+    the five."""
+    from repro_torch.configs import get_config
+    total = dict.fromkeys(ops.launch_counts(), 0)
+    for arch, (n_layers, s) in VARIANTS.items():
+        published = get_config(arch)
+        cfg = dataclasses.replace(published, n_layers=n_layers,
+                                  dtype="float32")
+        ops.reset_launches()
+        rel, finite = teacher_force(cfg, s)
+        counts = ops.launch_counts()
+        ok = finite and rel < 2e-4
+        prompt = f"4x{s - 1}" + (f" after {cfg.n_image_tokens} image "
+                                 "embeddings" if cfg.n_image_tokens else "")
+        say(f"  teacher forcing {arch}, {n_layers} of {published.n_layers} "
+            f"layers ({'/'.join(cfg.layer_kinds)}) at d={cfg.d_model}, f32, "
+            f"prompt {prompt}: rel={rel:.3e} (limit 2e-4) -> "
+            f"{'ok' if ok else 'FAIL'}; launches {counts}")
+        if not ok:
+            raise AssertionError(f"teacher forcing {arch}: rel={rel}")
+        require_launched(f"{arch} teacher forcing", counts,
+                         PATH_KERNELS["teacher_forcing"])
+        total = {k: total[k] + n for k, n in counts.items()}
+        torch.cuda.empty_cache()
+    return total
 
 
 # --------------------------------------------------------------------------- #
@@ -432,8 +537,8 @@ GEMM_WORDS = ("gemm", "nvjet", "cutlass", "xmma")  # cuBLAS kernel names
 
 
 def phase_step(executor, ops, n=10):
-    """One decode step of the serving executor (8 rows, 32 layers), three
-    ways from the same executor and cache: the eager ``decode_step``'s
+    """One decode step of the serving executor (8 rows), three ways from
+    the same executor and cache: the eager ``decode_step``'s
     wall, the replayed graph's wall (host clock around ``n`` synchronised
     ``executor.decode`` calls, as ``TorchExecutor.step`` times them) and its
     device span (CUDA events around ``n`` back-to-back replays), and where
@@ -548,13 +653,14 @@ def check_replay(executor, steps=4):
     """The executor's replayed step against the eager ``decode_step`` from
     the same cache, cloned: ``steps`` consecutive steps with mixed adapter
     ids (base rows, -1, among them) from ``pos`` = S - 2, so the last two
-    run past the cache's end (write skipped, all of S attended).  The
-    logits of every step and every layer's K and V must be equal bit for
-    bit (the same kernels and GEMMs), or else, should cuBLAS pick another
-    algorithm under capture, within bf16's 3e-2; the largest difference is
-    printed either way."""
+    run past the global caches' end (write skipped, all of S attended) and
+    wrap a local layer's rolling buffer of S rows (rows 0 and 1 written).
+    The logits of every step and every layer's K and V must be equal bit
+    for bit (the same kernels and GEMMs), or else, should cuBLAS pick
+    another algorithm under capture, within bf16's 3e-2; the largest
+    difference is printed either way."""
     model, lora, cache = executor.model, executor.lora, executor.cache
-    s = cache["layers"][0]["k"].shape[1]
+    s = next(c["k"] for c in cache["layers"] if "k" in c).shape[1]
     cache["pos"].fill_(s - 2)
     eager = {"pos": cache["pos"].clone(),
              "layers": [{k: v.clone() for k, v in c.items()}
@@ -569,8 +675,7 @@ def check_replay(executor, steps=4):
                                     ids[i % len(ids)].cuda())
         pairs.append((f"logits step {i}", got, want))
     for n, (c, e) in enumerate(zip(cache["layers"], eager["layers"])):
-        pairs += [(f"k layer {n}", c["k"], e["k"]),
-                  (f"v layer {n}", c["v"], e["v"])]
+        pairs += [(f"{key} layer {n}", c[key], e[key]) for key in c]
     torch.cuda.synchronize()
     worst = max([((g.float() - w.float()).abs().max().item(), name)
                  for name, g, w in pairs], key=lambda t: t[0])
@@ -662,26 +767,25 @@ def bound(bytes_moved, flops, dtype_name):
 
 
 def phase_timing():
+    from repro_torch.configs import get_config
     from repro_torch.kernels import bgmv, flash_decode, ref, sgmv
     import torch.nn.functional as F
     dt, es = torch.bfloat16, 2
     inp = Inputs(seed=3)
     rows = {}
 
-    def lora_sets(t, o, n=SLOTS, r=RANK, ids=None):
+    def lora_sets(t, o, n=SLOTS, r=RANK, ids=None, d=D_MODEL):
         """Input sets of a LoRA kernel and the bound of one call."""
         if ids is None:
             ids = (torch.arange(t, device="cuda") % n).to(torch.int32)
 
         def make():
-            x = inp.normal(t, D_MODEL, dtype=dt)
-            a, b = inp.lora_bank(n, D_MODEL, r, o, dt)
+            x = inp.normal(t, d, dtype=dt)
+            a, b = inp.lora_bank(n, d, r, o, dt)
             return x, a, b, ids
         n_used = int(torch.unique(ids[(ids >= 0) & (ids < n)]).numel())
-        nbytes = (t * D_MODEL + n_used * (D_MODEL * r + r * o)
-                  + t * o) * es + 4 * t
-        b_ms, b_by = bound(nbytes, 2 * t * (D_MODEL * r + r * o),
-                           "bfloat16")
+        nbytes = (t * d + n_used * (d * r + r * o) + t * o) * es + 4 * t
+        b_ms, b_by = bound(nbytes, 2 * t * (d * r + r * o), "bfloat16")
         return copies(make, nbytes), b_ms, b_by
 
     def lora_row(name, kernel, plain, t, o):
@@ -736,22 +840,32 @@ def phase_timing():
 
     lengths = torch.full((BATCH,), CACHE, dtype=torch.int32, device="cuda")
 
-    def make_fd():
-        return (inp.normal(BATCH, HEADS, HEAD_DIM, dtype=dt),
-                inp.normal(BATCH, CACHE, KV_HEADS, HEAD_DIM, dtype=dt),
-                inp.normal(BATCH, CACHE, KV_HEADS, HEAD_DIM, dtype=dt),
-                lengths)
-    kv_elems = int(lengths.sum()) * KV_HEADS * HEAD_DIM
-    nbytes = (2 * BATCH * HEADS * HEAD_DIM + 2 * kv_elems) * es + 4 * BATCH
-    sets = copies(make_fd, nbytes)
-    b_ms, b_by = bound(nbytes, 4 * HEADS // KV_HEADS * kv_elems, "bfloat16")
-    # the library yardstick wants (B, heads, S, D); the layout change is
-    # made here, outside the timed calls
-    lib_sets = [(q[:, :, None], k.transpose(1, 2).contiguous(),
-                 v.transpose(1, 2).contiguous()) for q, k, v, _ in sets]
+    def fd_sets(heads, kv_heads, head_dim):
+        """Flash-decode's input maker and sets at B 8 over all S 512
+        positions, the bound of one call and its bytes, and the library
+        yardstick's sets: (B, heads, S, D), the layout change made here,
+        outside the timed calls."""
+        def make():
+            return (inp.normal(BATCH, heads, head_dim, dtype=dt),
+                    inp.normal(BATCH, CACHE, kv_heads, head_dim, dtype=dt),
+                    inp.normal(BATCH, CACHE, kv_heads, head_dim, dtype=dt),
+                    lengths)
+        kv_elems = int(lengths.sum()) * kv_heads * head_dim
+        nbytes = (2 * BATCH * heads * head_dim + 2 * kv_elems) * es \
+            + 4 * BATCH
+        sets = copies(make, nbytes)
+        b_ms, b_by = bound(nbytes, 4 * heads // kv_heads * kv_elems,
+                           "bfloat16")
+        lib_sets = [(q[:, :, None], k.transpose(1, 2).contiguous(),
+                     v.transpose(1, 2).contiguous()) for q, k, v, _ in sets]
+        return make, sets, b_ms, b_by, nbytes, lib_sets
 
     def sdpa(q, k, v):
         return F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+
+    make_fd, sets, b_ms, b_by, nbytes, lib_sets = fd_sets(HEADS, KV_HEADS,
+                                                          HEAD_DIM)
+    kv_elems = int(lengths.sum()) * KV_HEADS * HEAD_DIM
     # the same call on the cache as the port lays it out, (B, S, KV, D),
     # through transposed views: no copy
     view_sets = [(q[:, :, None], k.transpose(1, 2), v.transpose(1, 2))
@@ -797,6 +911,25 @@ def phase_timing():
         "library_ms": None,          # no single PyTorch call computes it
         "unfused_ms": graph_ms(unfused, sets)}
     rows["flash_decode_lora"].update(fused_grid_times(unfused))
+    del sets
+
+    # gemma3-1b's serving shapes: BGMV at d 1152 (q projection o 1024, v
+    # projection o 256), flash-decode at 4 heads of D 256 on 1 KV head
+    g3 = get_config(SERVED_VARIANT)
+    g3_h, g3_kv, g3_d = g3.n_heads, g3.n_kv_heads, g3.resolved_head_dim
+    for o, prefix in ((g3_h * g3_d, "gemma3"), (g3_kv * g3_d, "gemma3_o256")):
+        g_sets, b_ms, _ = lora_sets(BATCH, o, d=g3.d_model)
+        rows["bgmv"].update({
+            f"{prefix}_ms": graph_ms(bgmv.bgmv, g_sets),
+            f"{prefix}_plain_ms": graph_ms(bgmv.bgmv_plain, g_sets),
+            f"{prefix}_bound_ms": b_ms})
+    _, g_sets, b_ms, _, _, g_lib = fd_sets(g3_h, g3_kv, g3_d)
+    rows["flash_decode"].update({
+        "gemma3_ms": graph_ms(flash_decode.flash_decode, g_sets),
+        "gemma3_plain_ms": graph_ms(flash_decode.flash_decode_plain, g_sets),
+        "gemma3_bound_ms": b_ms, "gemma3_library_ms": graph_ms(sdpa, g_lib)})
+    del g_sets, g_lib
+
     for r in rows.values():
         r["floor_ms"] = floor
     return rows
@@ -921,6 +1054,42 @@ def phase_measure(ops):
 
 # --------------------------------------------------------------------------- #
 
+def phase_serve(arch, ops):
+    """Serve ``arch`` at its published widths (bf16, weights from seed 0)
+    with the launcher's default flags, every step but the warmup a replay
+    of the executor's captured step; at least 12 requests must finish,
+    the logits be finite, BGMV and flash-decode have launched, and the
+    launches be the warmup's and the replays'; then ``check_replay``.
+    Returns the executor and the serving path's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_parser, report, serve
+    args = build_parser().parse_args([])   # the launcher's defaults
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    metrics, executor = serve(get_config(arch), args)
+    serve_launches = ops.launch_counts()
+    wall = time.perf_counter() - t0
+    say(report(metrics))
+    logits = executor.last_logits
+    say(f"  wall {wall:.1f} s; launches on the serving path: "
+        f"{serve_launches}; {executor.replays} replays of the captured step, "
+        f"{executor.graph_launches} each, after one eager warmup step")
+    if metrics.n_finished < 12:
+        raise AssertionError(f"served only {metrics.n_finished} requests")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("serving produced non-finite logits")
+    # decode batches of 8 rows on 4 slots stay at T <= 4N: BGMV, not SGMV
+    require_launched("serving", serve_launches, PATH_KERNELS["serving"])
+    # every step but the warmup was a replay, counted by the executor
+    if executor.replays == 0 or serve_launches != {
+            k: executor.graph_launches.get(k, 0) * (executor.replays + 1)
+            for k in serve_launches}:
+        raise AssertionError("the serving path's launches are not the "
+                             "warmup's and the replays'")
+    check_replay(executor)
+    return executor, serve_launches
+
+
 def require_launched(path, counts, names) -> None:
     missing = [k for k in names if counts[k] == 0]
     if missing:
@@ -934,8 +1103,6 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import build, ops
-    from repro_torch.launch.serve import build_parser, report, serve
-    from repro_torch.configs import get_config
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -966,37 +1133,29 @@ def main() -> int:
     require_launched("teacher forcing", tf_launches,
                      PATH_KERNELS["teacher_forcing"])
     torch.cuda.empty_cache()
+    tfv_launches = phase_parity_variants(ops)
+    say(f"  launches on the five teacher-forcing paths: {tfv_launches}")
 
     say("phase 5: serving phi4-mini-3.8b (published widths, bf16)")
-    args = build_parser().parse_args([])   # the launcher's defaults
-    t0 = time.perf_counter()
-    ops.reset_launches()
-    metrics, executor = serve(get_config("phi4-mini-3.8b"), args)
-    serve_launches = ops.launch_counts()
-    wall = time.perf_counter() - t0
-    say(report(metrics))
-    logits = executor.last_logits
-    say(f"  wall {wall:.1f} s; launches on the serving path: "
-        f"{serve_launches}; {executor.replays} replays of the captured step, "
-        f"{executor.graph_launches} each, after one eager warmup step")
-    if metrics.n_finished < 12:
-        raise AssertionError(f"served only {metrics.n_finished} requests")
-    if not bool(torch.isfinite(logits).all()):
-        raise AssertionError("serving produced non-finite logits")
-    # decode batches of 8 rows on 4 slots stay at T <= 4N: BGMV, not SGMV
-    require_launched("serving", serve_launches, PATH_KERNELS["serving"])
-    # every step but the warmup was a replay, counted by the executor
-    if executor.replays == 0 or serve_launches != {
-            k: executor.graph_launches.get(k, 0) * (executor.replays + 1)
-            for k in serve_launches}:
-        raise AssertionError("the serving path's launches are not the "
-                             "warmup's and the replays'")
-    check_replay(executor)
+    executor, serve_launches = phase_serve("phi4-mini-3.8b", ops)
 
     say("phase 6: timing at the main path's shapes (bf16)")
     per_step, step_stats = phase_step(executor, ops)
     say("  step " + json.dumps(step_stats))
-    del executor, logits
+    del executor
+    torch.cuda.empty_cache()
+
+    say(f"phase 5b: serving {SERVED_VARIANT} (published widths, bf16)")
+    executor, variant_launches = phase_serve(SERVED_VARIANT, ops)
+    cfg = executor.model.cfg
+    want = {"bgmv": 2 * cfg.n_layers, "flash_decode": cfg.n_layers}
+    if executor.graph_launches != want:
+        raise AssertionError(f"{SERVED_VARIANT}: a replay launches "
+                             f"{executor.graph_launches}, not {want}")
+    say(f"phase 6b: {SERVED_VARIANT}'s replayed step (bf16)")
+    _, variant_stats = phase_step(executor, ops)
+    say(f"  step {SERVED_VARIANT} " + json.dumps(variant_stats))
+    del executor
     torch.cuda.empty_cache()
     rows = phase_timing()
     for name, r in rows.items():
@@ -1015,7 +1174,9 @@ def main() -> int:
                      PATH_KERNELS["measurement"])
 
     paths = {"teacher_forcing": tf_launches, "serving": serve_launches,
-             "measurement": measure_launches}
+             "measurement": measure_launches,
+             "teacher_forcing_variants": tfv_launches,
+             "serving_" + SERVED_VARIANT: variant_launches}
     rows["flash_decode_lora"]["grid_max_abs_err"] = \
         errs["flash_decode_lora_grid"]
     table = []

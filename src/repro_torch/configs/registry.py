@@ -1,6 +1,7 @@
 """Architecture registry of the port.
 
-The port serves phi4-mini-3.8b only so far.  Every entry exposes:
+The port serves the dense architectures of ``repro.configs``.  Every entry
+exposes:
   * ``CONFIG``    — the exact published configuration,
   * ``reduced()`` — a structurally identical, CPU-sized variant for tests.
 The other architectures of ``repro.configs`` raise and name the ROADMAP item
@@ -12,17 +13,26 @@ import importlib
 
 from ..models.config import ModelConfig
 
-ARCH_IDS = ("phi4_mini_3p8b",)
+ARCH_IDS = (
+    "phi4_mini_3p8b",
+    "internlm2_20b",
+    "gemma3_1b",
+    "qwen1p5_4b",
+    "musicgen_medium",
+    "internvl2_2b",
+)
 
-ALIASES = {"phi4-mini-3.8b": "phi4_mini_3p8b"}
+ALIASES = {
+    "phi4-mini-3.8b": "phi4_mini_3p8b",
+    "internlm2-20b": "internlm2_20b",
+    "gemma3-1b": "gemma3_1b",
+    "qwen1.5-4b": "qwen1p5_4b",
+    "musicgen-medium": "musicgen_medium",
+    "internvl2-2b": "internvl2_2b",
+}
 
 #: architectures of the JAX package not ported yet -> the ROADMAP item
 NOT_PORTED = {
-    "internlm2_20b": "queue 1 item 6 (other dense variants)",
-    "qwen1p5_4b": "queue 1 item 6 (other dense variants)",
-    "gemma3_1b": "queue 1 item 6 (local layers, tied embeddings)",
-    "musicgen_medium": "queue 1 item 6 (layernorm, gelu, sinusoidal)",
-    "internvl2_2b": "queue 1 item 6 (image-embedding prefix)",
     "moonshot_v1_16b_a3b": "queue 1 item 7 (MoE)",
     "olmoe_1b_7b": "queue 1 item 7 (MoE)",
     "mamba2_2p7b": "queue 1 item 8 (SSM mixers)",

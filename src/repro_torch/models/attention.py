@@ -2,15 +2,16 @@
 
 Prefill runs causal attention in plain PyTorch, chunked over the queries
 with an f32 online-softmax state, as the JAX package's ``ring_attention``
-at one shard (``_attend_chunked`` + ``_finalize``); the JAX package
-computes it outside any Pallas kernel too.  Decode writes the new K/V into
-the cache in place and attends with the port's flash-decode kernel; the
-step's position stays on the device (``CacheSlot``).
+and ``local_attention`` at one shard (``_attend_chunked`` + ``_finalize``);
+the JAX package computes it outside any Pallas kernel too.  Decode writes
+the new K/V into the cache in place and attends with the port's
+flash-decode kernel, on global layers' caches and on local layers' rolling
+buffers alike; the step's position stays on the device (``CacheSlot``).
 Sequence sharding (``n_shards > 1``) is ROADMAP.md queue 1 item 11.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -43,8 +44,11 @@ def _chunk_count(seq: int, chunk: int) -> int:
     return seq // chunk
 
 
-def _attend_chunked(q, k, v, q_pos, kv_pos, scale, q_chunk: int):
-    """Chunked (over Q) causal attention of q against a kv buffer.
+def _attend_chunked(q, k, v, q_pos, kv_pos, scale, window: int,
+                    q_chunk: int):
+    """Chunked (over Q) causal attention of q against a kv buffer; with
+    ``window`` > 0 a query attends only the ``window`` positions ending at
+    its own; a negative ``kv_pos`` is masked.
 
     q: (B, Sq, H, D); k/v: (B, Skv, KV, D); q_pos: (Sq,); kv_pos: (Skv,)
     Returns f32 (m, lse, acc) of shapes (B,Sq,KV,G), (B,Sq,KV,G),
@@ -60,6 +64,8 @@ def _attend_chunked(q, k, v, q_pos, kv_pos, scale, q_chunk: int):
     for i in range(nc):
         qp = q_pos[i * c:(i + 1) * c]
         mask = (qp[:, None] >= kv_pos[None, :]) & (kv_pos[None, :] >= 0)
+        if window:
+            mask &= (qp[:, None] - kv_pos[None, :]) < window
         m0 = qs.new_full((b, c, kvh, g), NEG_INF, dtype=torch.float32)
         l0 = qs.new_zeros((b, c, kvh, g), dtype=torch.float32)
         a0 = qs.new_zeros((b, c, kvh, g, d), dtype=torch.float32)
@@ -79,11 +85,18 @@ def ring_attention(q, k, v, *, scale: float, q_chunk: int = 256):
 
     q: (B, S, H, D); k/v: (B, S, KV, D) -> (B, S, H, D) in q's dtype.
     """
-    sq, skv = q.shape[1], k.shape[1]
-    q_pos = torch.arange(sq, device=q.device)
-    m, lse, acc = _attend_chunked(q, k, v, q_pos,
-                                  torch.arange(skv, device=q.device),
-                                  scale, q_chunk)
+    return local_attention(q, k, v, scale=scale, window=0, q_chunk=q_chunk)
+
+
+def local_attention(q, k, v, *, scale: float, window: int,
+                    q_chunk: int = 256):
+    """Sliding-window causal self-attention at one sequence shard (the JAX
+    package's ``local_attention`` at ``n_shards == 1``, which gathers no
+    neighbour chunk); shapes as ``ring_attention``; window 0: no window."""
+    q_pos = torch.arange(q.shape[1], device=q.device)
+    kv_pos = torch.arange(k.shape[1], device=q.device)
+    m, lse, acc = _attend_chunked(q, k, v, q_pos, kv_pos, scale, window,
+                                  q_chunk)
     return _finalize(m, lse, acc, q.dtype)
 
 
@@ -93,32 +106,49 @@ class CacheSlot(NamedTuple):
     ``pos`` (a 0-d int32 tensor): no host value, so a CUDA graph that
     captured the step replays it at every position."""
     pos: torch.Tensor     # () int32: the batch's position, for RoPE
-    index: torch.Tensor   # (1,) int64: clamp(pos, 0, S - 1), the row written
-    live: torch.Tensor    # () bool: 0 <= pos < S; else the write is skipped
-    length: torch.Tensor  # () int32: min(pos + 1, S), the positions attended
+    index: torch.Tensor   # (1,) int64: the row written
+    live: Optional[torch.Tensor]  # () bool: whether it is written; None: always
+    length: torch.Tensor  # () int32: the positions attended, a prefix of S
 
     @classmethod
     def at(cls, pos: torch.Tensor, s: int) -> "CacheSlot":
+        """A global layer's cache: row clamp(pos, 0, S - 1), written while
+        0 <= pos < S, attending min(pos + 1, S) rows."""
         index = pos.clamp(0, s - 1).reshape(1).long()
         return cls(pos, index, index[0] == pos, (pos + 1).clamp(max=s))
+
+    @classmethod
+    def rolling(cls, pos: torch.Tensor, w: int) -> "CacheSlot":
+        """A local layer's rolling buffer of w rows (the JAX package's
+        ``decode_attention_rolling``, attention.py:317-351): row pos % w,
+        always written, attending min(pos + 1, w) rows.  Slot i holds
+        position i until the first wrap and the latest position p with
+        p % w == i after it, so the positions in (pos - w, pos] fill the
+        prefix [0, min(pos + 1, w)) of the buffer, and attention, which is
+        order-free over keys, is flash-decode's over that prefix."""
+        index = pos.remainder(w).reshape(1).long()
+        return cls(pos, index, None, (pos + 1).clamp(max=w))
 
 
 def decode_update_cache(cache, new, slot: CacheSlot) -> None:
     """Write ``new`` (B, KV, D) at ``slot.index`` of ``cache`` (B, S, KV, D),
-    IN PLACE (the JAX package returns an updated copy).  A ``pos`` outside
-    [0, S) writes the row back unchanged, as the JAX package's clipped
-    write and ``where`` keep it (attention.py:244-253), in O(B*KV*D)."""
-    old = cache.index_select(1, slot.index)
-    cache.index_copy_(1, slot.index,
-                      torch.where(slot.live, new[:, None].to(cache.dtype), old))
+    IN PLACE (the JAX package returns an updated copy).  A global slot
+    whose ``pos`` lies outside [0, S) writes the row back unchanged, as the
+    JAX package's clipped write and ``where`` keep it
+    (attention.py:244-253), in O(B*KV*D)."""
+    new = new[:, None].to(cache.dtype)
+    if slot.live is not None:
+        new = torch.where(slot.live, new, cache.index_select(1, slot.index))
+    cache.index_copy_(1, slot.index, new)
 
 
 def decode_attention(q, k_cache, v_cache, new_k, new_v, slot: CacheSlot):
     """One new token against the cache, which it first extends in place.
 
     q: (B, H, D); caches: (B, S, KV, D); new_k/new_v: (B, KV, D); slot: the
-    step's ``CacheSlot``.  Attends positions <= pos, i.e. length pos + 1
-    (all of S once pos passes the end).  Returns (B, H, D).
+    step's ``CacheSlot`` for this cache (``at`` for a global layer's,
+    ``rolling`` for a local layer's buffer).  Attends the slot's
+    ``length`` rows.  Returns (B, H, D).
     """
     decode_update_cache(k_cache, new_k, slot)
     decode_update_cache(v_cache, new_v, slot)

@@ -2,7 +2,7 @@
 
 Functions on tensors; parameters live in the ``nn.Module``s of
 ``transformer.py``.  Weights keep the JAX package's (in, out) layout, so a
-projection is ``x @ w``.  RMSNorm, RoPE and the SwiGLU activation compute
+projection is ``x @ w``.  The norms, RoPE and the MLP's activation compute
 in f32 and cast back, as the JAX package does.
 """
 from __future__ import annotations
@@ -36,14 +36,29 @@ def embed_init(gen: torch.Generator, shape, dtype, device):
 # norms, positions, MLP
 # --------------------------------------------------------------------------- #
 
-def apply_norm(kind: str, scale, x, eps: float = 1e-6):
-    """RMSNorm computed in f32, then cast to x's dtype."""
-    if kind != "rmsnorm":
-        raise NotImplementedError(
-            f"norm={kind!r}: ROADMAP.md queue 1 item 6 (other dense variants)")
+def apply_norm(kind: str, p, x, eps: float = 1e-6):
+    """RMSNorm (``p["scale"]``) or LayerNorm (``p["scale"]``, ``p["bias"]``,
+    population variance), computed in f32, then cast to x's dtype."""
     xf = x.float()
-    var = xf.square().mean(-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+    if kind == "rmsnorm":
+        var = xf.square().mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps) * p["scale"].float()
+    else:  # layernorm
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        out = (xf - mu) * torch.rsqrt(var + eps)
+        out = out * p["scale"].float() + p["bias"].float()
+    return out.to(x.dtype)
+
+
+def sinusoidal_pos_emb(positions, width: int):
+    """positions: (..., S) -> f32 (..., S, width): the ``[sin | cos]``
+    halves of the JAX package (layers.py:72-77), not interleaved."""
+    half = width // 2
+    freqs = torch.exp(-math.log(10_000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    angles = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
 
 
 def rope_freqs(head_dim: int, theta: float, device):
@@ -69,14 +84,14 @@ def apply_rope(x, positions, theta: float):
 
 
 def apply_mlp(kind: str, p, x):
-    """SwiGLU MLP; the activation is computed in f32, then cast."""
-    if kind != "swiglu":
-        raise NotImplementedError(
-            f"mlp={kind!r}: ROADMAP.md queue 1 item 6 (other dense variants)")
-    gate = (x @ p["w_gate"]).float()
+    """SwiGLU or GELU MLP; the activation is computed in f32, then cast.
+    GELU is the tanh approximation, ``jax.nn.gelu``'s default."""
     up = (x @ p["w_up"]).float()
-    h = (F.silu(gate) * up).to(x.dtype)
-    return h @ p["w_down"]
+    if kind == "swiglu":
+        h = F.silu((x @ p["w_gate"]).float()) * up
+    else:
+        h = F.gelu(up, approximate="tanh")
+    return h.to(x.dtype) @ p["w_down"]
 
 
 # --------------------------------------------------------------------------- #

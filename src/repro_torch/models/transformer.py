@@ -2,10 +2,13 @@
 
 ``Model`` is an ``nn.Module`` holding one ``Block`` per layer; the JAX
 package stacks each segment's layers on axis 0 and scans them, the port
-loops over its layers (``bridge.py`` maps one layout to the other).  So far
-the port builds ``global`` attention blocks with a dense SwiGLU MLP, RoPE
-and RMSNorm (phi4-mini); other block kinds raise and name their ROADMAP.md
-item.
+loops over its layers (``bridge.py`` maps one layout to the other).  The
+port builds attention blocks, ``global`` (a cache of ``cache_len`` rows)
+and ``local`` (a sliding window over a rolling buffer), with a dense
+SwiGLU or GELU MLP, RoPE or sinusoidal positions, RMSNorm or LayerNorm,
+optional q/k/v biases, tied embeddings and an image-embedding prefix: the
+dense architectures.  MoE, SSM and RG-LRU blocks raise and name their
+ROADMAP.md item.
 
 Two entry points, as in the JAX package:
   * ``prefill``     — runs the prompt, emits last-position logits + cache;
@@ -14,10 +17,10 @@ Two entry points, as in the JAX package:
 
 The port keeps these JAX behaviours for parity: one scalar ``pos`` for the
 whole batch (a 0-d int32 tensor on the model's device, as the JAX
-package's traced ``cache["pos"]``); a ``pos`` past the cache skips the
-write; LoRA on q and v only; the vocab padded to a multiple of 256 with
-the padded logits kept.  Unlike the JAX package, ``decode_step`` updates
-the cache in place: its KV tensors and its ``pos``.
+package's traced ``cache["pos"]``); a ``pos`` past a global cache skips
+the write; LoRA on q and v only; the vocab padded to a multiple of 256
+with the padded logits kept.  Unlike the JAX package, ``decode_step``
+updates the cache in place: its KV tensors and its ``pos``.
 """
 from __future__ import annotations
 
@@ -32,63 +35,72 @@ from ..kernels import ops
 from . import attention, layers
 from .config import ModelConfig
 
-#: block kinds and features of ModelConfig not ported yet -> ROADMAP item
+#: block kinds of ModelConfig not ported yet -> ROADMAP item
 _NOT_PORTED = {
-    "local": "queue 1 item 6 (local attention, rolling cache)",
     "moe": "queue 1 item 7 (MoE)",
     "ssd": "queue 1 item 8 (SSM mixers)",
     "rglru": "queue 1 item 8 (RG-LRU mixers)",
-    "variant": "queue 1 item 6 (other dense variants)",
 }
 
 
 def _check_ported(cfg: ModelConfig) -> None:
     for kind in cfg.layer_kinds:
-        if kind != "global":
+        if kind not in ("global", "local"):
             raise NotImplementedError(
                 f"{kind!r} blocks: ROADMAP.md {_NOT_PORTED.get(kind, kind)}")
     if cfg.n_experts:
         raise NotImplementedError(f"MoE blocks: ROADMAP.md {_NOT_PORTED['moe']}")
-    if (cfg.qkv_bias or cfg.tie_embeddings or cfg.n_image_tokens
-            or cfg.pos_emb != "rope" or cfg.norm != "rmsnorm"
-            or cfg.mlp != "swiglu"):
-        raise NotImplementedError(
-            f"{cfg.name}: ROADMAP.md {_NOT_PORTED['variant']}")
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-class Block(nn.Module):
-    """One ``global`` attention layer with a dense SwiGLU MLP."""
+def _norm(cfg: ModelConfig, dev) -> nn.ParameterDict:
+    """``init_stack_norm`` (transformer.py:626-630): a scale of ones, and
+    for LayerNorm a bias of zeros."""
+    p = {"scale": _param(torch.ones(cfg.d_model, dtype=cfg.torch_dtype,
+                                    device=dev))}
+    if cfg.norm != "rmsnorm":
+        p["bias"] = _param(torch.zeros(cfg.d_model, dtype=cfg.torch_dtype,
+                                       device=dev))
+    return nn.ParameterDict(p)
 
-    def __init__(self, cfg: ModelConfig, gen: torch.Generator,
+
+class Block(nn.Module):
+    """One attention layer, ``global`` or ``local`` (``kind``), with a
+    dense MLP."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, gen: torch.Generator,
                  device: torch.device):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.kind = cfg, kind
         d, dt = cfg.d_model, cfg.torch_dtype
         hd, nq, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
 
         def dense(shape, fan_in=None):
             return _param(layers.dense_init(gen, shape, dt, device, fan_in))
 
-        def ones():
-            return _param(torch.ones(d, dtype=dt, device=device))
-
-        self.norm1 = nn.ParameterDict({"scale": ones()})
+        self.norm1 = _norm(cfg, device)
         self.wq = dense((d, nq * hd))
         self.wk = dense((d, nkv * hd))
         self.wv = dense((d, nkv * hd))
         self.wo = dense((nq * hd, d), fan_in=nq * hd)
-        self.norm2 = nn.ParameterDict({"scale": ones()})
-        self.mlp = nn.ParameterDict({
-            "w_gate": dense((d, cfg.d_ff)),
-            "w_up": dense((d, cfg.d_ff)),
-            "w_down": dense((cfg.d_ff, d), fan_in=cfg.d_ff)})
+        self.norm2 = _norm(cfg, device)
+        if cfg.qkv_bias:
+            for name, width in (("bq", nq), ("bk", nkv), ("bv", nkv)):
+                setattr(self, name, _param(torch.zeros(
+                    width * hd, dtype=dt, device=device)))
+        mlp = {"w_up": dense((d, cfg.d_ff)),
+               "w_down": dense((cfg.d_ff, d), fan_in=cfg.d_ff)}
+        if cfg.mlp == "swiglu":
+            mlp["w_gate"] = dense((d, cfg.d_ff))
+        self.mlp = nn.ParameterDict(mlp)
 
     def _attn_proj(self, lora_p, h, name, adapter_idx):
-        out = h @ {"q": self.wq, "k": self.wk, "v": self.wv}[name]
+        out = h @ getattr(self, f"w{name}")
+        if self.cfg.qkv_bias:
+            out = out + getattr(self, f"b{name}")
         if lora_p is not None and f"a_{name}" in lora_p and \
                 adapter_idx is not None:
             delta = ops.lora_apply(h, lora_p[f"a_{name}"],
@@ -100,37 +112,61 @@ class Block(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.resolved_head_dim
-        h = layers.apply_norm(cfg.norm, self.norm1["scale"], x)
+        h = layers.apply_norm(cfg.norm, self.norm1, x)
         q = self._attn_proj(lora_p, h, "q", adapter_idx)
         k = self._attn_proj(lora_p, h, "k", adapter_idx)
         v = self._attn_proj(lora_p, h, "v", adapter_idx)
-        q = layers.apply_rope(q.reshape(b, s, cfg.n_heads, hd), positions,
-                              cfg.rope_theta)
-        k = layers.apply_rope(k.reshape(b, s, cfg.n_kv_heads, hd), positions,
-                              cfg.rope_theta)
+        q = q.reshape(b, s, cfg.n_heads, hd)
+        k = k.reshape(b, s, cfg.n_kv_heads, hd)
+        if cfg.pos_emb == "rope":
+            q = layers.apply_rope(q, positions, cfg.rope_theta)
+            k = layers.apply_rope(k, positions, cfg.rope_theta)
         return q, k, v.reshape(b, s, cfg.n_kv_heads, hd)
 
     def _residual(self, x, attn_out):
         b, s = x.shape[:2]
         x = x + attn_out.reshape(b, s, -1) @ self.wo
-        h = layers.apply_norm(self.cfg.norm, self.norm2["scale"], x)
+        h = layers.apply_norm(self.cfg.norm, self.norm2, x)
         return x + layers.apply_mlp(self.cfg.mlp, self.mlp, h)
 
     def prefill(self, x, lora_p, adapter_idx, positions):
-        """x: (B, S, d) -> (x, {"k", "v"}: (B, S, KV, D))."""
+        """x: (B, S, d) -> (x, cache): a global layer's {"k", "v"} of
+        (B, S, KV, D), a local layer's rolling {"k_loc", "v_loc"} of
+        (B, min(window, S), KV, D) (``_prefill_cache``,
+        transformer.py:297-315)."""
         q, k, v = self._qkv(x, lora_p, adapter_idx, positions)
         scale = 1.0 / math.sqrt(self.cfg.resolved_head_dim)
-        out = attention.ring_attention(q, k, v, scale=scale)
-        return self._residual(x, out), {"k": k, "v": v}
+        if self.kind == "global":
+            out = attention.ring_attention(q, k, v, scale=scale)
+            return self._residual(x, out), {"k": k, "v": v}
+        window = self.cfg.local_window
+        out = attention.local_attention(q, k, v, scale=scale, window=window)
+        s = k.shape[1]
+        w = min(window, s)
+        shift = (s - w) % w   # position p lands in row p % w
+
+        def to_rolling(t):
+            return torch.roll(t[:, s - w:], shifts=shift, dims=1)
+        return self._residual(x, out), {"k_loc": to_rolling(k),
+                                        "v_loc": to_rolling(v)}
 
     def decode(self, x, lora_p, adapter_idx, cache, slot):
-        """x: (B, 1, d); slot: the step's ``attention.CacheSlot``, its
-        position on x's device; cache {"k", "v"} is updated in place."""
+        """x: (B, 1, d); slot: the step's ``attention.CacheSlot`` for this
+        layer's cache, its position on x's device; the cache is updated in
+        place."""
         positions = slot.pos.reshape(1, 1).expand(x.shape[0], 1)
         q, k, v = self._qkv(x, lora_p, adapter_idx, positions)
-        out = attention.decode_attention(q[:, 0], cache["k"], cache["v"],
-                                         k[:, 0], v[:, 0], slot)
+        kc, vc = _kv(cache)
+        out = attention.decode_attention(q[:, 0], kc, vc, k[:, 0], v[:, 0],
+                                         slot)
         return self._residual(x, out[:, None])
+
+
+def _kv(cache):
+    """A layer's (K, V) cache tensors, global or rolling."""
+    if "k" in cache:
+        return cache["k"], cache["v"]
+    return cache["k_loc"], cache["v_loc"]
 
 
 class Model(nn.Module):
@@ -139,6 +175,8 @@ class Model(nn.Module):
     ``device`` defaults to CUDA and raises without it; weights are drawn
     from a ``torch.Generator`` seeded with ``seed`` (the JAX package's
     distributions, not its values: ``bridge.load_params`` copies those).
+    Layer i's kind is ``cfg.layer_kinds[i]``: the block pattern repeated,
+    the JAX package's segment order (``build_segments``).
     """
 
     def __init__(self, cfg: ModelConfig, device=None, seed: int = 0):
@@ -149,13 +187,13 @@ class Model(nn.Module):
         dev, dt = self.device, cfg.torch_dtype
         gen = torch.Generator(device=dev).manual_seed(seed)
         v, d = layers.pad_vocab(cfg.vocab_size), cfg.d_model
-        self.embed = nn.ParameterDict({
-            "embed": _param(layers.embed_init(gen, (v, d), dt, dev)),
-            "unembed": _param(layers.dense_init(gen, (d, v), dt, dev))})
-        self.final_norm = nn.ParameterDict(
-            {"scale": _param(torch.ones(d, dtype=dt, device=dev))})
+        embed = {"embed": _param(layers.embed_init(gen, (v, d), dt, dev))}
+        if not cfg.tie_embeddings:   # tied: the unembedding reads embed.T
+            embed["unembed"] = _param(layers.dense_init(gen, (d, v), dt, dev))
+        self.embed = nn.ParameterDict(embed)
+        self.final_norm = _norm(cfg, dev)
         self.layers = nn.ModuleList(
-            Block(cfg, gen, dev) for _ in range(cfg.n_layers))
+            Block(cfg, kind, gen, dev) for kind in cfg.layer_kinds)
 
     def init_lora(self, n_adapters: int, rank: int,
                   seed: int = 0) -> Dict[str, Any]:
@@ -178,26 +216,46 @@ class Model(nn.Module):
         return {"layers": banks}
 
     def init_cache(self, batch: int, cache_len: int) -> Dict[str, Any]:
+        """A global layer's {"k", "v"} of ``cache_len`` rows, a local
+        layer's rolling {"k_loc", "v_loc"} of min(window, cache_len) rows
+        (``_cache_block``, transformer.py:163-197)."""
         cfg = self.cfg
-        shape = (batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+
+        def zeros(rows):
+            return torch.zeros((batch, rows, cfg.n_kv_heads,
+                                cfg.resolved_head_dim),
+                               dtype=cfg.torch_dtype, device=self.device)
+        w = min(cfg.local_window, cache_len)
         return {"pos": torch.zeros((), dtype=torch.int32, device=self.device),
-                "layers": [{"k": torch.zeros(shape, dtype=cfg.torch_dtype,
-                                             device=self.device),
-                            "v": torch.zeros(shape, dtype=cfg.torch_dtype,
-                                             device=self.device)}
-                           for _ in self.layers]}
+                "layers": [{"k": zeros(cache_len), "v": zeros(cache_len)}
+                           if blk.kind == "global" else
+                           {"k_loc": zeros(w), "v_loc": zeros(w)}
+                           for blk in self.layers]}
 
     def _lora_layers(self, lora):
         return lora["layers"] if lora is not None else [None] * len(self.layers)
 
+    def _embed_in(self, tokens, img_embeds=None):
+        """Token embeddings after the image embeddings, if any, plus the
+        sinusoidal positions (``_embed_in``, transformer.py:504-513)."""
+        x = layers.embed_tokens(self.embed["embed"], tokens)
+        if img_embeds is not None:
+            x = torch.cat([img_embeds.to(x.dtype), x], dim=1)
+        if self.cfg.pos_emb == "sinusoidal":
+            positions = torch.arange(x.shape[1], device=x.device)[None]
+            x = x + layers.sinusoidal_pos_emb(
+                positions, self.cfg.d_model).to(x.dtype)
+        return x
+
     def _logits(self, x):
-        x = layers.apply_norm(self.cfg.norm, self.final_norm["scale"], x)
+        x = layers.apply_norm(self.cfg.norm, self.final_norm, x)
         return layers.unembed(self.embed, x, self.cfg.logit_softcap)
 
     @torch.no_grad()
-    def prefill(self, lora, tokens, adapter_idx=None):
-        """tokens: (B, S). Returns (last-token logits (B, V), cache)."""
-        x = layers.embed_tokens(self.embed["embed"], tokens)
+    def prefill(self, lora, tokens, adapter_idx=None, img_embeds=None):
+        """tokens: (B, S); img_embeds: (B, I, d) or None, prepended.
+        Returns (last-position logits (B, V), cache at ``pos`` = I + S)."""
+        x = self._embed_in(tokens, img_embeds)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         caches = []
@@ -217,22 +275,46 @@ class Model(nn.Module):
         for the host or the host for it, so a CUDA graph that captures one
         call replays the step at every position."""
         pos = cache["pos"]
-        slot = attention.CacheSlot.at(pos, cache["layers"][0]["k"].shape[1])
+        slots = {}   # one CacheSlot per (kind, rows), made once a step
         x = layers.embed_tokens(self.embed["embed"], tokens)
+        if self.cfg.pos_emb == "sinusoidal":
+            x = x + layers.sinusoidal_pos_emb(
+                pos.reshape(1, 1), self.cfg.d_model).to(x.dtype)
         for block, lp, c in zip(self.layers, self._lora_layers(lora),
                                 cache["layers"]):
-            x = block.decode(x, lp, adapter_idx, c, slot)
+            key = (block.kind, _kv(c)[0].shape[1])
+            if key not in slots:
+                make = (attention.CacheSlot.at if block.kind == "global"
+                        else attention.CacheSlot.rolling)
+                slots[key] = make(pos, key[1])
+            x = block.decode(x, lp, adapter_idx, c, slots[key])
         logits = self._logits(x)
         pos.add_(1)
         return logits[:, 0], cache
 
 
-def pad_cache(cache, extra: int):
-    """Grow the KV capacity of a prefill cache by ``extra`` positions."""
-    def pad(t):
-        return torch.cat([t, t.new_zeros((t.shape[0], extra) + t.shape[2:])],
-                         dim=1)
-    return {"pos": cache["pos"].clone(),
-            "layers": [{k: pad(v) for k, v in c.items()}
-                       for c in cache["layers"]]}
+def pad_cache(cache, extra: int, window: int = 0):
+    """Grow the KV capacity of a prefill cache by ``extra`` positions.
 
+    Global layers' caches get ``extra`` rows.  A local layer's rolling
+    buffer of w < ``window`` rows (a prompt shorter than the window, whose
+    row i holds position i) grows to min(window, w + extra) rows, so the
+    next ``extra`` steps evict nothing the window still holds; one of
+    ``window`` rows passes through.  The JAX package passes every rolling
+    buffer through (transformer.py:606-622), so its first decode step
+    after a prompt shorter than the window evicts position 0 (ROADMAP.md
+    queue 3).
+    """
+    def pad(t, rows):
+        return torch.cat([t, t.new_zeros((t.shape[0], rows) + t.shape[2:])],
+                         dim=1)
+
+    def grow(name, t):
+        if name in ("k", "v"):
+            return pad(t, extra)
+        if not window:
+            raise ValueError("pad_cache: a rolling buffer needs the window")
+        return pad(t, max(0, min(window, t.shape[1] + extra) - t.shape[1]))
+    return {"pos": cache["pos"].clone(),
+            "layers": [{k: grow(k, v) for k, v in c.items()}
+                       for c in cache["layers"]]}

@@ -1,6 +1,8 @@
 """The weight bridge: JAX trees -> the port's tensors -> JAX trees is
-bitwise for every leaf of reduced phi4-mini's params, LoRA banks and caches,
-in bf16 and f32."""
+bitwise for every leaf of the params, LoRA banks and caches, in bf16 and
+f32, of reduced phi4-mini, gemma3 (tied embeddings, local layers' rolling
+caches, a remainder segment), qwen1.5 (q/k/v biases) and musicgen
+(LayerNorm biases, a GELU MLP)."""
 import dataclasses
 
 import jax
@@ -29,12 +31,18 @@ def _assert_bitwise(want, got):
         assert w.tobytes() == g.tobytes()
 
 
-@pytest.fixture(params=["bfloat16", "float32"])
+def _case(arch, dtype):
+    return pytest.param((arch, dtype), id=dtype if arch == "phi4-mini-3.8b"
+                        else f"{arch}-{dtype}")
+
+
+@pytest.fixture(params=[_case(a, d) for a in ("phi4-mini-3.8b", "gemma3-1b",
+                                              "qwen1.5-4b", "musicgen-medium")
+                        for d in ("bfloat16", "float32")])
 def models(request):
-    cfg = dataclasses.replace(get_reduced("phi4_mini_3p8b"),
-                              dtype=request.param)
-    port_cfg = dataclasses.replace(port_reduced("phi4-mini-3.8b"),
-                                   dtype=request.param)
+    arch, dtype = request.param
+    cfg = dataclasses.replace(get_reduced(arch), dtype=dtype)
+    port_cfg = dataclasses.replace(port_reduced(arch), dtype=dtype)
     return (JaxModel(cfg, ShardingPlan(mode="prefill")),
             Model(port_cfg, device="cpu"))
 
@@ -44,10 +52,19 @@ def test_params_round_trip_bitwise(models):
     params = _numpy(jm.init(KEY))
     bridge.load_params(model, params)
     _assert_bitwise(params, bridge.export_params(model))
-    # the per-layer split: layer i is row i of the stacked segment
-    wq = params["segments"][0]["blocks"][0]["wq"]
-    assert len(model.layers) == wq.shape[0]
-    np.testing.assert_array_equal(bridge.array(model.layers[1].wq), wq[1])
+    # the per-layer split: repeat r of a segment runs its blocks in pattern
+    # order, so layer i is row r of one block of one segment
+    i = 0
+    for seg in params["segments"]:
+        blocks = seg["blocks"]
+        for r in range(blocks[0]["wq"].shape[0]):
+            for blk in blocks:
+                assert model.layers[i].kind == model.cfg.layer_kinds[i]
+                np.testing.assert_array_equal(
+                    bridge.array(model.layers[i].wq), blk["wq"][r])
+                i += 1
+    assert i == len(model.layers) == model.cfg.n_layers
+    assert ("unembed" in params["embed"]) != model.cfg.tie_embeddings
 
 
 def test_lora_round_trip_bitwise(models):
@@ -63,17 +80,23 @@ def test_cache_round_trip_bitwise(models):
     init = _numpy(jm.init_cache(2, 16))
     _assert_bitwise(init, bridge.cache_to_numpy(
         bridge.cache_to_torch(init), model.cfg))
-    tokens = np.random.default_rng(0).integers(0, 512, (2, 12), np.int32)
+    cfg = model.cfg
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 12),
+                                               np.int32)
     _, cache = jm.prefill(jm.init(KEY), None, tokens)
     cache = _numpy(cache)
     port = bridge.cache_to_torch(cache)
     assert int(port["pos"]) == 12
     # pos lies beside the K/V, a 0-d int32 tensor, as the model reads it
+    g = cfg.layer_kinds.index("global")
     assert port["pos"].shape == () and port["pos"].dtype == torch.int32
-    assert port["pos"].device == port["layers"][0]["k"].device
-    assert port["layers"][0]["k"].shape == (2, 12, model.cfg.n_kv_heads,
-                                            model.cfg.resolved_head_dim)
-    _assert_bitwise(cache, bridge.cache_to_numpy(port, model.cfg))
+    assert port["pos"].device == port["layers"][g]["k"].device
+    assert port["layers"][g]["k"].shape == (2, 12, cfg.n_kv_heads,
+                                            cfg.resolved_head_dim)
+    for kind, c in zip(cfg.layer_kinds, port["layers"]):
+        assert set(c) == ({"k", "v"} if kind == "global"
+                          else {"k_loc", "v_loc"})
+    _assert_bitwise(cache, bridge.cache_to_numpy(port, cfg))
 
 
 def test_bf16_values_cross_exactly():

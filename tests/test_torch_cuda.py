@@ -15,7 +15,8 @@ its sort kernel bit for bit, the fused decode step at shrink clusters of 1 to 8 
 and adapter id -1), and check
 that the wrappers and the binding reject what the kernels do not take.
 They also hold the serving executor's captured step (a CUDA graph) bitwise
-equal to the eager step over 20 steps that cross the cache's end, count its
+equal to the eager step over 20 steps that cross the cache's end (and for
+reduced gemma3 over 28 that cross its rolling buffers' wrap), count its
 launches under replay, and run an eager step under the sync debug mode.
 """
 import dataclasses
@@ -402,9 +403,9 @@ def test_binding_raises_on_rejected_arguments(gen):
 # the serving step captured as a CUDA graph (``TorchExecutor``)
 # --------------------------------------------------------------------------- #
 
-def _served(dtype, cache_len=16):
-    """A reduced phi4-mini on the card and its executor (8 rows)."""
-    cfg = dataclasses.replace(get_reduced("phi4-mini-3.8b"),
+def _served(dtype, cache_len=16, arch="phi4-mini-3.8b"):
+    """A reduced model on the card and its executor (8 rows)."""
+    cfg = dataclasses.replace(get_reduced(arch),
                               dtype=str(dtype).split(".")[1])
     model = Model(cfg, device="cuda", seed=3)
     lora = model.init_lora(4, 4, seed=3)
@@ -418,24 +419,39 @@ def _clone_cache(cache):
                        for c in cache["layers"]]}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_executor_replay_equals_eager_step(gen, dtype):
-    # 20 steps at cache_len 16: the last 4 past the end (write skipped, all
-    # of S attended); ids mixed, with base rows (-1)
-    model, lora, ex = _served(dtype)
+def _replays_equal_eager(model, lora, ex, steps):
+    """``steps`` replays against eager steps on a clone of the cache, ids
+    mixed with base rows (-1): logits, and at the end every cache tensor,
+    bit for bit."""
     assert ex.graph is not None and int(ex.cache["pos"]) == 0
     eager = _clone_cache(ex.cache)
     rng = np.random.default_rng(0)
-    for step in range(20):
+    for step in range(steps):
         idx = rng.integers(-1, 4, 8).astype(np.int32)
         got = ex.decode(idx)
         want, _ = model.decode_step(lora, eager, ex.tokens,
                                     torch.from_numpy(idx).cuda())
         torch.cuda.synchronize()
         assert torch.equal(got, want), f"step {step}"
-    assert int(ex.cache["pos"]) == int(eager["pos"]) == 20
+    assert int(ex.cache["pos"]) == int(eager["pos"]) == steps
     for c, e in zip(ex.cache["layers"], eager["layers"]):
-        assert torch.equal(c["k"], e["k"]) and torch.equal(c["v"], e["v"])
+        assert c.keys() == e.keys()
+        assert all(torch.equal(c[k], e[k]) for k in c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_executor_replay_equals_eager_step(gen, dtype):
+    # 20 steps at cache_len 16: the last 4 past the end (write skipped, all
+    # of S attended)
+    _replays_equal_eager(*_served(dtype), steps=20)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_executor_replay_equals_eager_step_rolling(gen, dtype):
+    # reduced gemma3 (window 16) at cache_len 20: 28 steps, the local
+    # layers' 16-row buffers written at pos % 16 (wrapping at step 16), the
+    # global caches skipping their write from step 20
+    _replays_equal_eager(*_served(dtype, 20, "gemma3-1b"), steps=28)
 
 
 def test_executor_replays_count_their_launches(gen):

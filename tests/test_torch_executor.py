@@ -5,7 +5,8 @@ JAX package on the CPU.
 ``cache_len + 4`` engine steps, crossing the cache's end, against the JAX
 executor's chain of jitted ``decode_step`` calls on the same weights: the
 logits within a relative error of 2e-4 (test_consistency.py:39) at every
-step, reduced phi4-mini in float32.  Also: ``pos`` as a 0-d tensor that
+step, reduced phi4-mini and reduced gemma3 (whose local layers' rolling
+buffers wrap) in float32.  Also: ``pos`` as a 0-d tensor that
 ``decode_step`` advances in place, the cache write against the JAX
 package's at positions inside and outside the cache, and the launch-count
 helper that graph replays count through.
@@ -40,33 +41,57 @@ def _rel(got, want):
                  / (np.max(np.abs(want)) + 1e-9))
 
 
-@pytest.fixture(scope="module")
-def pair():
+def _build(arch):
     """(JAX decode model, params, lora, port model, port lora) on the same
-    float32 weights, 4 adapters of rank 4."""
-    cfg = dataclasses.replace(get_reduced("phi4_mini_3p8b"), dtype="float32")
+    float32 weights of reduced ``arch``, 4 adapters of rank 4."""
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
     jd = JaxModel(cfg, ShardingPlan(mode="decode"))
     key = jax.random.PRNGKey(5)
     params, lora = jd.init(key), jd.init_lora(key, 4, 4)
-    model = Model(dataclasses.replace(port_reduced("phi4-mini-3.8b"),
-                                      dtype="float32"), device="cpu")
+    model = Model(dataclasses.replace(port_reduced(arch), dtype="float32"),
+                  device="cpu")
     bridge.load_params(model, jax.tree.map(np.asarray, params))
     return jd, params, lora, model, bridge.lora_to_torch(
         jax.tree.map(np.asarray, lora))
 
 
-@pytest.mark.parametrize("max_batch,n_running", [(8, 5), (4, 4)])
-def test_executor_steps_match_jax_executor_chain(pair, max_batch, n_running):
-    jd, params, lora, model, port_lora = pair
+@pytest.fixture(scope="module")
+def pairs():
+    built = {}
+
+    def get(arch):
+        if arch not in built:
+            built[arch] = _build(arch)
+        return built[arch]
+    return get
+
+
+@pytest.fixture(scope="module")
+def pair(pairs):
+    return pairs("phi4-mini-3.8b")
+
+
+@pytest.mark.parametrize("arch,max_batch,n_running,cache_len", [
+    pytest.param("phi4-mini-3.8b", 8, 5, CACHE_LEN, id="8-5"),
+    pytest.param("phi4-mini-3.8b", 4, 4, CACHE_LEN, id="4-4"),
+    # reduced gemma3 (window 16): at cache_len 20 the local layers' 16-row
+    # buffers wrap at step 16 and the global caches end at step 20; at
+    # cache_len 8 the buffers have 8 rows and wrap where the caches end
+    pytest.param("gemma3-1b", 8, 5, 20, id="gemma3-8-5-20"),
+    pytest.param("gemma3-1b", 4, 4, CACHE_LEN, id="gemma3-4-4-8"),
+])
+def test_executor_steps_match_jax_executor_chain(pairs, arch, max_batch,
+                                                 n_running, cache_len):
+    jd, params, lora, model, port_lora = pairs(arch)
     ex = TorchExecutor(model, port_lora, max_batch=max_batch,
-                       cache_len=CACHE_LEN, device="cpu")
+                       cache_len=cache_len, device="cpu")
     # the JAX executor's sequence (executor.py:117-140): a jitted step on
     # its cache, the warmup's output discarded, the zero token every step
     decode = jax.jit(jd.decode_step)
-    jcache = jd.init_cache(max_batch, CACHE_LEN)
+    jcache = jd.init_cache(max_batch, cache_len)
     tokens = jnp.zeros((max_batch, 1), jnp.int32)
     rng = np.random.default_rng(max_batch)
-    for step in range(CACHE_LEN + 4):
+    for step in range(cache_len + 4):
         adapters = rng.integers(0, 9, n_running)
         running = [Request(uid=i, adapter=int(a), arrival=0.0, prompt_len=4,
                            output_len=4) for i, a in enumerate(adapters)]
@@ -76,8 +101,8 @@ def test_executor_steps_match_jax_executor_chain(pair, max_batch, n_running):
         idx[:n_running] = adapters % 4
         want, jcache = decode(params, lora, jcache, tokens, jnp.asarray(idx))
         assert _rel(ex.last_logits.numpy(), want) < 2e-4, f"step {step}"
-    assert int(ex.cache["pos"]) == int(jcache["pos"]) == CACHE_LEN + 4
-    # every row of the cache was written, none past its end
+    assert int(ex.cache["pos"]) == int(jcache["pos"]) == cache_len + 4
+    # every row of the cache was written, none past a global cache's end
     got = bridge.cache_to_numpy(ex.cache, model.cfg)
     for g, w in zip(jax.tree.leaves(got["segments"]),
                     jax.tree.leaves(jcache["segments"])):

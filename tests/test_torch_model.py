@@ -128,7 +128,7 @@ def test_decode_past_cache_end_skips_write(pair):
     assert all(bool((c["k"] == 0).all()) for c in cache["layers"])
 
 
-@pytest.mark.parametrize("arch,item", [("gemma3-1b", "queue 1 item 6"),
+@pytest.mark.parametrize("arch,item", [("recurrentgemma-9b", "queue 1 item 8"),
                                        ("olmoe-1b-7b", "queue 1 item 7"),
                                        ("mamba2-2.7b", "queue 1 item 8")])
 def test_unported_architectures_raise(arch, item):
@@ -138,10 +138,11 @@ def test_unported_architectures_raise(arch, item):
 
 
 @pytest.mark.parametrize("change,item", [
-    ({"block_pattern": ("local", "global")}, "queue 1 item 6"),
+    ({"block_pattern": ("rglru", "rglru", "local")}, "queue 1 item 8"),
     ({"n_experts": 4, "top_k": 2}, "queue 1 item 7"),
     ({"block_pattern": ("ssd",)}, "queue 1 item 8"),
-    ({"qkv_bias": True}, "queue 1 item 6"),
+    ({"block_pattern": ("local", "global"), "n_experts": 4, "top_k": 2},
+     "queue 1 item 7"),
 ])
 def test_unported_blocks_raise(change, item):
     cfg: ModelConfig = dataclasses.replace(_port_cfg(), **change)

@@ -110,3 +110,17 @@ def test_serve_launcher_runs_on_cpu():
     assert metrics.duration > 0
     assert ex.last_logits.shape == (8, 512)
     assert bool(torch.isfinite(ex.last_logits).all())
+
+
+def test_serve_launcher_serves_gemma3_on_cpu():
+    # ``--arch gemma3-1b``: the reduced configuration main() serves, its
+    # local layers on 16-row rolling buffers beside 512-row global caches
+    args = build_parser().parse_args(["--arch", "gemma3-1b", "--horizon",
+                                      "2", "--adapters", "4"])
+    metrics, ex = serve(port_reduced(args.arch), args, device="cpu")
+    assert metrics.duration > 0
+    rows = {tuple(c)[0]: c[tuple(c)[0]].shape[1] for c in ex.cache["layers"]}
+    assert rows == {"k_loc": 16, "k": 512}
+    assert int(ex.cache["pos"]) > 0
+    assert ex.last_logits.shape == (8, 512)
+    assert bool(torch.isfinite(ex.last_logits).all())
