@@ -457,7 +457,7 @@ def teacher_force(cfg, s):
     on 4 rows of ``s`` seeded tokens (and, for a VLM, seeded image
     embeddings first), 4 adapters: the relative error of the logits, and
     whether the full prefill's logits are finite."""
-    from repro_torch.models import Model, pad_cache
+    from repro_torch.models import Model
     model = Model(cfg, device="cuda", seed=0)
     lora = model.init_lora(SLOTS, RANK, seed=0)
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -470,7 +470,7 @@ def teacher_force(cfg, s):
     ids = torch.arange(4, dtype=torch.int32, device="cuda")   # 4 adapters
     full, _ = model.prefill(lora, tokens, ids, img_embeds=img)
     _, cache = model.prefill(lora, tokens[:, :-1], ids, img_embeds=img)
-    dec, _ = model.decode_step(lora, pad_cache(cache, 4, cfg.local_window),
+    dec, _ = model.decode_step(lora, model.pad_cache(cache, 4),
                                tokens[:, -1:], ids)
     rel = ((dec - full).abs().max() / (full.abs().max() + 1e-9)).item()
     return rel, bool(torch.isfinite(full).all())
@@ -660,7 +660,7 @@ def check_replay(executor, steps=4):
     another algorithm under capture, within bf16's 3e-2; the largest
     difference is printed either way."""
     model, lora, cache = executor.model, executor.lora, executor.cache
-    s = next(c["k"] for c in cache["layers"] if "k" in c).shape[1]
+    s = executor.cache_len
     cache["pos"].fill_(s - 2)
     eager = {"pos": cache["pos"].clone(),
              "layers": [{k: v.clone() for k, v in c.items()}

@@ -1,2 +1,2 @@
 from .config import ModelConfig  # noqa
-from .transformer import Model, pad_cache  # noqa
+from .transformer import Model  # noqa

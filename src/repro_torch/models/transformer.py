@@ -75,6 +75,9 @@ class Block(nn.Module):
                  device: torch.device):
         super().__init__()
         self.cfg, self.kind = cfg, kind
+        #: this layer's cache tensors, under the JAX package's names
+        self.cache_keys = (("k", "v") if kind == "global"
+                           else ("k_loc", "v_loc"))
         d, dt = cfg.d_model, cfg.torch_dtype
         hd, nq, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
 
@@ -96,6 +99,23 @@ class Block(nn.Module):
         if cfg.mlp == "swiglu":
             mlp["w_gate"] = dense((d, cfg.d_ff))
         self.mlp = nn.ParameterDict(mlp)
+
+    def cache_rows(self, cache_len: int) -> int:
+        """Rows of this layer's cache for ``cache_len`` positions: all of
+        them for a global layer, at most the window for a local one."""
+        if self.kind == "global":
+            return cache_len
+        return min(self.cfg.local_window, cache_len)
+
+    def cache_kv(self, cache):
+        """This layer's (K, V) cache tensors."""
+        return tuple(cache[name] for name in self.cache_keys)
+
+    def slot(self, pos: torch.Tensor, rows: int) -> attention.CacheSlot:
+        """The step's ``CacheSlot`` in this layer's cache of ``rows`` rows."""
+        if self.kind == "global":
+            return attention.CacheSlot.at(pos, rows)
+        return attention.CacheSlot.rolling(pos, rows)
 
     def _attn_proj(self, lora_p, h, name, adapter_idx):
         out = h @ getattr(self, f"w{name}")
@@ -138,17 +158,17 @@ class Block(nn.Module):
         scale = 1.0 / math.sqrt(self.cfg.resolved_head_dim)
         if self.kind == "global":
             out = attention.ring_attention(q, k, v, scale=scale)
-            return self._residual(x, out), {"k": k, "v": v}
-        window = self.cfg.local_window
-        out = attention.local_attention(q, k, v, scale=scale, window=window)
+            return self._residual(x, out), dict(zip(self.cache_keys, (k, v)))
+        out = attention.local_attention(q, k, v, scale=scale,
+                                        window=self.cfg.local_window)
         s = k.shape[1]
-        w = min(window, s)
+        w = self.cache_rows(s)
         shift = (s - w) % w   # position p lands in row p % w
 
         def to_rolling(t):
             return torch.roll(t[:, s - w:], shifts=shift, dims=1)
-        return self._residual(x, out), {"k_loc": to_rolling(k),
-                                        "v_loc": to_rolling(v)}
+        return self._residual(x, out), dict(zip(
+            self.cache_keys, (to_rolling(k), to_rolling(v))))
 
     def decode(self, x, lora_p, adapter_idx, cache, slot):
         """x: (B, 1, d); slot: the step's ``attention.CacheSlot`` for this
@@ -156,17 +176,10 @@ class Block(nn.Module):
         place."""
         positions = slot.pos.reshape(1, 1).expand(x.shape[0], 1)
         q, k, v = self._qkv(x, lora_p, adapter_idx, positions)
-        kc, vc = _kv(cache)
+        kc, vc = self.cache_kv(cache)
         out = attention.decode_attention(q[:, 0], kc, vc, k[:, 0], v[:, 0],
                                          slot)
         return self._residual(x, out[:, None])
-
-
-def _kv(cache):
-    """A layer's (K, V) cache tensors, global or rolling."""
-    if "k" in cache:
-        return cache["k"], cache["v"]
-    return cache["k_loc"], cache["v_loc"]
 
 
 class Model(nn.Module):
@@ -225,11 +238,9 @@ class Model(nn.Module):
             return torch.zeros((batch, rows, cfg.n_kv_heads,
                                 cfg.resolved_head_dim),
                                dtype=cfg.torch_dtype, device=self.device)
-        w = min(cfg.local_window, cache_len)
         return {"pos": torch.zeros((), dtype=torch.int32, device=self.device),
-                "layers": [{"k": zeros(cache_len), "v": zeros(cache_len)}
-                           if blk.kind == "global" else
-                           {"k_loc": zeros(w), "v_loc": zeros(w)}
+                "layers": [{name: zeros(blk.cache_rows(cache_len))
+                            for name in blk.cache_keys}
                            for blk in self.layers]}
 
     def _lora_layers(self, lora):
@@ -282,39 +293,32 @@ class Model(nn.Module):
                 pos.reshape(1, 1), self.cfg.d_model).to(x.dtype)
         for block, lp, c in zip(self.layers, self._lora_layers(lora),
                                 cache["layers"]):
-            key = (block.kind, _kv(c)[0].shape[1])
+            key = (block.kind, block.cache_kv(c)[0].shape[1])
             if key not in slots:
-                make = (attention.CacheSlot.at if block.kind == "global"
-                        else attention.CacheSlot.rolling)
-                slots[key] = make(pos, key[1])
+                slots[key] = block.slot(pos, key[1])
             x = block.decode(x, lp, adapter_idx, c, slots[key])
         logits = self._logits(x)
         pos.add_(1)
         return logits[:, 0], cache
 
+    def pad_cache(self, cache, extra: int) -> Dict[str, Any]:
+        """A copy of a prefill cache with room for ``extra`` more positions.
 
-def pad_cache(cache, extra: int, window: int = 0):
-    """Grow the KV capacity of a prefill cache by ``extra`` positions.
-
-    Global layers' caches get ``extra`` rows.  A local layer's rolling
-    buffer of w < ``window`` rows (a prompt shorter than the window, whose
-    row i holds position i) grows to min(window, w + extra) rows, so the
-    next ``extra`` steps evict nothing the window still holds; one of
-    ``window`` rows passes through.  The JAX package passes every rolling
-    buffer through (transformer.py:606-622), so its first decode step
-    after a prompt shorter than the window evicts position 0 (ROADMAP.md
-    queue 3).
-    """
-    def pad(t, rows):
-        return torch.cat([t, t.new_zeros((t.shape[0], rows) + t.shape[2:])],
-                         dim=1)
-
-    def grow(name, t):
-        if name in ("k", "v"):
-            return pad(t, extra)
-        if not window:
-            raise ValueError("pad_cache: a rolling buffer needs the window")
-        return pad(t, max(0, min(window, t.shape[1] + extra) - t.shape[1]))
-    return {"pos": cache["pos"].clone(),
-            "layers": [{k: grow(k, v) for k, v in c.items()}
-                       for c in cache["layers"]]}
+        A global layer's cache gets ``extra`` rows.  A local layer's rolling
+        buffer of w rows grows to min(window, w + extra): one shorter than
+        the window (a prompt shorter than the window, whose row i holds
+        position i) grows, so the next ``extra`` steps evict nothing the
+        window still holds; one of ``window`` rows passes through.  The JAX
+        package passes every rolling buffer through (transformer.py:606-622),
+        so its first decode step after a prompt shorter than the window
+        evicts position 0 (ROADMAP.md queue 3).
+        """
+        def pad(t, rows):
+            return torch.cat(
+                [t, t.new_zeros((t.shape[0], rows) + t.shape[2:])], dim=1)
+        out = []
+        for blk, c in zip(self.layers, cache["layers"]):
+            rows = blk.cache_kv(c)[0].shape[1]
+            grow = blk.cache_rows(rows + extra) - rows
+            out.append({name: pad(c[name], grow) for name in blk.cache_keys})
+        return {"pos": cache["pos"].clone(), "layers": out}

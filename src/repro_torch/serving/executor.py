@@ -130,7 +130,7 @@ class TorchExecutor:
                              f"{model.device}")
         self.model = model
         self.lora = lora
-        self.max_batch = max_batch
+        self.max_batch, self.cache_len = max_batch, cache_len
         self.cache = model.init_cache(max_batch, cache_len)
         # the JAX executor's constant zero token (executor.py:117)
         self.tokens = torch.zeros((max_batch, 1), dtype=torch.long,

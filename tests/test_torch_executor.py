@@ -26,7 +26,7 @@ from repro.models.attention import decode_update_cache as jax_update  # noqa: E4
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_reduced as port_reduced  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.models import Model, pad_cache  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.attention import CacheSlot, decode_update_cache  # noqa: E402
 from repro_torch.serving.executor import TorchExecutor  # noqa: E402
 from repro_torch.serving.request import Request  # noqa: E402
@@ -126,7 +126,7 @@ def test_decode_step_advances_device_pos_in_place(pair):
     _, pre = model.prefill(port_lora, torch.zeros((2, 3), dtype=torch.long),
                            idx)
     assert pre["pos"].shape == () and pre["pos"].dtype == torch.int32
-    padded = pad_cache(pre, 2)
+    padded = model.pad_cache(pre, 2)
     model.decode_step(port_lora, padded, tokens, idx)
     assert int(padded["pos"]) == 4 and int(pre["pos"]) == 3
 

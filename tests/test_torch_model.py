@@ -18,7 +18,7 @@ from repro.models import Model as JaxModel, ShardingPlan  # noqa: E402
 from repro.models.transformer import pad_cache as jax_pad_cache  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_reduced as port_reduced  # noqa: E402
-from repro_torch.models import Model, ModelConfig, pad_cache  # noqa: E402
+from repro_torch.models import Model, ModelConfig  # noqa: E402
 
 KEY = jax.random.PRNGKey(1)
 
@@ -65,7 +65,7 @@ def test_prefill_and_decode_match_jax(pair, ids):
     want, _ = jd.decode_step(params, lora, jax_pad_cache(jcache, 4),
                              tokens[:, -1:], idx)
     _, cache = model.prefill(port_lora, t_tok[:, :-1], t_idx)
-    got, new_cache = model.decode_step(port_lora, pad_cache(cache, 4),
+    got, new_cache = model.decode_step(port_lora, model.pad_cache(cache, 4),
                                        t_tok[:, -1:], t_idx)
     assert _rel(got, want) < 2e-4
     assert int(new_cache["pos"]) == tokens.shape[1]
@@ -84,7 +84,7 @@ def test_decode_matches_prefill(pair):
     idx = torch.tensor([1, 2], dtype=torch.int32)
     full, _ = model.prefill(port_lora, tokens, idx)
     _, cache = model.prefill(port_lora, tokens[:, :-1], idx)
-    dec, _ = model.decode_step(port_lora, pad_cache(cache, 4),
+    dec, _ = model.decode_step(port_lora, model.pad_cache(cache, 4),
                                tokens[:, -1:], idx)
     rel = float((dec - full).abs().max() / (full.abs().max() + 1e-9))
     assert rel < 2e-4

@@ -28,7 +28,7 @@ from repro.models.attention import decode_attention_rolling  # noqa: E402
 from repro.models.transformer import pad_cache as jax_pad_cache  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_config, get_reduced  # noqa: E402
-from repro_torch.models import Model, pad_cache  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.attention import CacheSlot, decode_attention  # noqa: E402
 
 ARCHS = ("gemma3-1b", "qwen1.5-4b", "internlm2-20b", "musicgen-medium",
@@ -102,7 +102,7 @@ def test_prefill_and_decode_match_jax(pair):
     _, cache = model.prefill(port_lora, t_tok[:, :-1], t_idx,
                              img_embeds=_t(img))
     assert int(cache["pos"]) == 23 + cfg.n_image_tokens
-    padded = pad_cache(cache, 4, cfg.local_window)
+    padded = model.pad_cache(cache, 4)
     got, _ = model.decode_step(port_lora, padded, t_tok[:, -1:], t_idx)
     assert _rel(got, want) < 2e-4
     assert int(padded["pos"]) == 24 + cfg.n_image_tokens
@@ -138,8 +138,7 @@ def test_teacher_forcing(pair):
     full, _ = model.prefill(port_lora, tokens, idx, img_embeds=_t(img))
     _, cache = model.prefill(port_lora, tokens[:, :-1], idx,
                              img_embeds=_t(img))
-    dec, _ = model.decode_step(port_lora,
-                               pad_cache(cache, 4, model.cfg.local_window),
+    dec, _ = model.decode_step(port_lora, model.pad_cache(cache, 4),
                                tokens[:, -1:], idx)
     assert bool(torch.isfinite(full).all()) and _rel(dec, full.numpy()) < 2e-4
 
@@ -191,7 +190,7 @@ def test_short_prompt_decode_jax_evicts_port_exact(gemma3, prompt):
     assert _rel(np.asarray(jax_dec), full) > 0.1
     t_tok, t_idx = torch.from_numpy(tokens).long(), torch.from_numpy(idx)
     _, cache = model.prefill(port_lora, t_tok[:, :-1], t_idx)
-    padded = pad_cache(cache, 4, model.cfg.local_window)
+    padded = model.pad_cache(cache, 4)
     assert padded["layers"][0]["k_loc"].shape[1] == min(
         prompt + 4, model.cfg.local_window)
     got, _ = model.decode_step(port_lora, padded, t_tok[:, -1:], t_idx)
@@ -204,7 +203,7 @@ def test_pad_cache_rolling_buffers():
     window = model.cfg.local_window
     for s, rows in ((9, 13), (14, 16), (23, 16)):
         _, cache = model.prefill(None, torch.zeros((1, s), dtype=torch.long))
-        padded = pad_cache(cache, 4, window)
+        padded = model.pad_cache(cache, 4)
         for c, p in zip(cache["layers"], padded["layers"]):
             if "k" in c:
                 assert p["k"].shape[1] == s + 4
@@ -212,5 +211,11 @@ def test_pad_cache_rolling_buffers():
                 assert p["k_loc"].shape[1] == rows
                 assert torch.equal(p["v_loc"][:, :c["v_loc"].shape[1]],
                                    c["v_loc"])
-    with pytest.raises(ValueError, match="window"):
-        pad_cache(cache, 4)
+        # padding again: a rolling buffer grows no further than the window
+        again = model.pad_cache(padded, 4)
+        for p, a in zip(padded["layers"], again["layers"]):
+            if "k" in p:
+                assert a["k"].shape[1] == s + 8
+            else:
+                assert a["k_loc"].shape[1] == min(window, rows + 4)
+        assert int(again["pos"]) == s and again["pos"] is not cache["pos"]
