@@ -24,14 +24,21 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    held too (full and ragged lengths); flash-decode (B 8, S 512, ragged
    lengths, per row) and BGMV (the q and v projections' widths) at the
    published shapes of gemma3-1b, qwen1.5-4b, internlm2-20b,
-   musicgen-medium and internvl2-2b, and SGMV at gemma3's d 1152, T 1024;
+   musicgen-medium, internvl2-2b and olmoe-1b-7b (16 heads of 128 on 16
+   KV heads, d 2048, as moonshot), and SGMV at gemma3's d 1152, T 1024;
+   the MoE FFN (``moe.apply_moe``) against its dropless oracle
+   ``apply_moe_ref`` at olmoe-1b-7b's published widths, bf16, at T 8 (the
+   decode step's) and T 512 (T*k 4096, the largest dropless size);
 4. teacher forcing at phi4-mini's published widths, f32, 4 layers:
    decode after ``prefill(tokens[:, :-1])`` must match ``prefill(tokens)``
    to a relative error below 2e-4; then the same for each of the five
    other dense architectures at its published widths, f32, its depth cut
    (``VARIANTS``: gemma3 8 layers on 624-token prompts, past its 512
    window; the others 2 layers; internvl2 after 256 image embeddings),
-   each printed with its cut, SGMV, BGMV and flash-decode launched;
+   each printed with its cut, SGMV, BGMV and flash-decode launched; then
+   the MoE architectures (``MOE_VARIANTS``): olmoe-1b-7b 4 layers,
+   moonshot-v1-16b-a3b 2 layers, and olmoe-1b-7b 4 layers with int8
+   experts, on 4x32-token prompts (both prefills dropless);
 5. serving: ``repro_torch.launch.serve.serve`` with the launcher's default
    flags (8 adapters, 4 slots, rank 8, dataset small, 30 s horizon) on the
    published phi4-mini-3.8b (32 layers, bf16, weights from seed 0), every
@@ -45,7 +52,14 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    gemma3-1b (26 layers, 21 of them local on 512-row rolling buffers,
    bf16), whose replay must launch BGMV 52 and flash-decode 26 times and
    whose last two checked steps also wrap the rolling buffers; phase 6b
-   times its step as phase 6 times phi4-mini's;
+   times its step as phase 6 times phi4-mini's.  Phases 5c and 6c do the
+   same for the published olmoe-1b-7b (16 layers, 64 experts of 1024,
+   top-8, bf16; BGMV 32 and flash-decode 16 launches a replay), and 6c
+   also splits its step's device time into the expert products, the MoE
+   FFN's other kernels (routing, dispatch, combine), attention, BGMV, the
+   dense products and the rest (``moe_step_split``), and prints the step's
+   bound (``step_bound``: its weights over the HBM rate, against the dense
+   expert products' operations);
 6. the served model's decode step three ways: the eager step's wall, the
    replayed step's wall (as ``TorchExecutor.step`` times it) and device
    span (CUDA events), and the device time of each by kernel group from
@@ -71,7 +85,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    beside every row the per-launch floor
    (``floor_ms``: a 1-element in-place op, replayed the same way); BGMV and
    flash-decode also at gemma3-1b's serving shapes (``gemma3_*``: d 1152,
-   o 1024 and 256; 4 heads of D 256 on 1 KV head, beside SDPA);
+   o 1024 and 256; 4 heads of D 256 on 1 KV head, beside SDPA) and
+   olmoe-1b-7b's (``olmoe_*``: d 2048, o 2048; 16 heads of D 128 on 16 KV
+   heads, beside SDPA);
 7. the measurement path: ``repro_torch.bench.kernels_bench`` times the
    fused kernel (and SGMV for prefill) over its (batch, seq, rank) grid at
    phi4-mini-3.8b's published widths, fits a ``MeasuredStepTimes``, and
@@ -83,10 +99,10 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 
 Launch counts are zeroed just before each path a user drives (teacher
 forcing through ``Model.prefill``/``decode_step`` in phase 4, for each
-architecture, serving in phases 5 and 5b, measurement in phase 7) and read
-just after it.  SGMV, BGMV and flash-decode must have launched in phase 4,
-BGMV and flash-decode in phases 5 and 5b, the fused kernel and SGMV in
-phase 7.  Each kernel's
+architecture, serving in phases 5, 5b and 5c, measurement in phase 7) and
+read just after it.  SGMV, BGMV and flash-decode must have launched in
+phase 4, BGMV and flash-decode in phases 5, 5b and 5c, the fused kernel
+and SGMV in phase 7.  Each kernel's
 ``launches`` in the kernel table is the count of the path it serves
 (``path``).  Float32 products run in full f32 (TF32 off) wherever parity
 is checked.  The last two lines are the kernel table and the device, as
@@ -153,6 +169,16 @@ VARIANTS = {"gemma3-1b": (8, 625), "qwen1.5-4b": (2, 33),
             "internlm2-20b": (2, 33), "musicgen-medium": (2, 33),
             "internvl2-2b": (2, 33)}
 SERVED_VARIANT = "gemma3-1b"    # served at its published widths (phase 5b)
+# the MoE architectures: olmoe-1b-7b served at its published widths (phase
+# 5c); phase 3 holds the MoE FFN at its widths at these token counts (the
+# decode step's, and the largest dropless one: T*k = 4096); phase 4
+# teacher-forces each (arch, layers, int8 experts) at published widths, f32,
+# on 4x32-token prompts (4*33*k <= 4096: both prefills dropless)
+MOE_ARCH = "olmoe-1b-7b"
+MOE_TOKENS = (8, 512)
+MOE_VARIANTS = (("olmoe-1b-7b", 4, False), ("moonshot-v1-16b-a3b", 2, False),
+                ("olmoe-1b-7b", 4, True))
+MOE_RANGE = "moe_ffn"           # phase 6c's profiler range around the MoE FFN
 
 
 def say(*parts) -> None:
@@ -264,20 +290,48 @@ def phase_kernels():
     del q, k, v
     check_sgmv_measure(inp, errs)
     check_fused_grid(errs)
+    check_moe(inp, errs)
     return errs
+
+
+def check_moe(inp, errs):
+    """The MoE FFN (``moe.apply_moe``: routing, dispatch into the (E, C, d)
+    buffer, the expert products, the combine) against its dropless oracle
+    ``apply_moe_ref`` at olmoe-1b-7b's published widths (d 2048, 64
+    experts of 1024, top-8), bf16, x ~ N(0, 1) as after the norm, at each
+    of ``MOE_TOKENS``; the aux loss finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(MOE_ARCH)
+    kw = dict(top_k=cfg.top_k, n_experts=cfg.n_experts)
+    p = moe.init_moe(inp.gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                     torch.bfloat16, "cuda")
+    for t in MOE_TOKENS:
+        x = inp.normal(t, cfg.d_model, dtype=torch.bfloat16)
+        cap = moe.capacity(t, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+        out, aux = moe.apply_moe(p, x, capacity_factor=cfg.capacity_factor,
+                                 **kw)
+        if not math.isfinite(float(aux)):
+            raise AssertionError(f"apply_moe T {t}: aux {float(aux)}")
+        check(f"apply_moe {MOE_ARCH} T {t} (capacity {cap}, dropless)",
+              out, moe.apply_moe_ref(p, x, **kw), "bfloat16", errs)
+    del p
+    torch.cuda.empty_cache()
 
 
 def check_variant_shapes(inp, lengths, dtype, dn, errs):
     """Flash-decode (B 8, S 512, ragged lengths, per row) and BGMV (T 8, the
     q and v projections' widths, N 4, r 8) at each other dense
-    architecture's published shapes, and SGMV at gemma3's d 1152, T 1024:
-    gemma3's D 256 with 4 heads on 1 KV head, internlm2's group of 6,
-    qwen1.5's and musicgen's group of 1, musicgen's D 64."""
+    architecture's published shapes and olmoe-1b-7b's (16 heads of 128 on
+    16 KV heads, d 2048; moonshot's are the same), and SGMV at gemma3's d
+    1152, T 1024: gemma3's D 256 with 4 heads on 1 KV head, internlm2's
+    group of 6, qwen1.5's, musicgen's and olmoe's group of 1, musicgen's
+    D 64."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import bgmv, flash_decode, ref, sgmv
     ids = torch.tensor([0, 1, 2, 3, -1, 0, 1, 2], dtype=torch.int32,
                        device="cuda")
-    for arch in VARIANTS:
+    for arch in (*VARIANTS, MOE_ARCH):
         cfg = get_config(arch)
         h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
         q = inp.normal(BATCH, h, d, dtype=dtype)
@@ -452,13 +506,14 @@ def check_fused_grid(errs):
 # phase 4: teacher forcing at full width
 # --------------------------------------------------------------------------- #
 
-def teacher_force(cfg, s):
+def teacher_force(cfg, s, expert_quant=False):
     """Decode after ``prefill(tokens[:, :-1])`` against ``prefill(tokens)``
     on 4 rows of ``s`` seeded tokens (and, for a VLM, seeded image
-    embeddings first), 4 adapters: the relative error of the logits, and
-    whether the full prefill's logits are finite."""
+    embeddings first), 4 adapters, int8 experts with ``expert_quant``: the
+    relative error of the logits, and whether the full prefill's logits
+    are finite."""
     from repro_torch.models import Model
-    model = Model(cfg, device="cuda", seed=0)
+    model = Model(cfg, device="cuda", seed=0, expert_quant=expert_quant)
     lora = model.init_lora(SLOTS, RANK, seed=0)
     gen = torch.Generator(device="cuda").manual_seed(2)
     tokens = torch.randint(0, cfg.vocab_size, (4, s), generator=gen,
@@ -512,6 +567,36 @@ def phase_parity_variants(ops):
             f"{'ok' if ok else 'FAIL'}; launches {counts}")
         if not ok:
             raise AssertionError(f"teacher forcing {arch}: rel={rel}")
+        require_launched(f"{arch} teacher forcing", counts,
+                         PATH_KERNELS["teacher_forcing"])
+        total = {k: total[k] + n for k, n in counts.items()}
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_parity_moe(ops):
+    """Teacher forcing for each of ``MOE_VARIANTS`` at its published
+    widths, f32, its depth cut, on 4x32-token prompts, as
+    ``phase_parity_variants``.  Returns the counts summed over them."""
+    from repro_torch.configs import get_config
+    total = dict.fromkeys(ops.launch_counts(), 0)
+    for arch, n_layers, quant in MOE_VARIANTS:
+        published = get_config(arch)
+        cfg = dataclasses.replace(published, n_layers=n_layers,
+                                  dtype="float32")
+        ops.reset_launches()
+        rel, finite = teacher_force(cfg, 33, expert_quant=quant)
+        counts = ops.launch_counts()
+        ok = finite and rel < 2e-4
+        experts = "int8" if quant else "f32"
+        say(f"  teacher forcing {arch}, {n_layers} of {published.n_layers} "
+            f"layers at d={cfg.d_model}, {cfg.n_experts} experts of "
+            f"{cfg.d_ff} ({experts}), top-{cfg.top_k}, f32, prompt 4x32: "
+            f"rel={rel:.3e} (limit 2e-4) -> {'ok' if ok else 'FAIL'}; "
+            f"launches {counts}")
+        if not ok:
+            raise AssertionError(f"teacher forcing {arch} ({experts} "
+                                 f"experts): rel={rel}")
         require_launched(f"{arch} teacher forcing", counts,
                          PATH_KERNELS["teacher_forcing"])
         total = {k: total[k] + n for k, n in counts.items()}
@@ -692,6 +777,137 @@ def check_replay(executor, steps=4):
     if not ok:
         raise AssertionError(f"replayed step disagrees with the eager step: "
                              f"{worst}, pos {pos}")
+
+
+# the parts of an MoE decode step (``moe_step_split``)
+STEP_PARTS = ("expert_bmm", "moe_glue", "flash_decode", "bgmv", "dense_gemm",
+              "other_glue")
+
+
+def step_part(kernel, in_moe, op):
+    """The part of the step a kernel belongs to: one of the port's own
+    kernels; a batched product of the MoE FFN (``aten::bmm``: the expert
+    products); anything else the MoE FFN launches (routing, dispatch,
+    combine, aux loss); another cuBLAS product; any other kernel (norms,
+    RoPE, casts, the cache write)."""
+    name = next((k for k in KERNEL_NAMES if k in kernel), None)
+    if name is not None:
+        return KERNEL_NAMES[name]
+    if in_moe:
+        return "expert_bmm" if op == "aten::bmm" else "moe_glue"
+    if any(w in kernel.lower() for w in GEMM_WORDS):
+        return "dense_gemm"
+    return "other_glue"
+
+
+def moe_step_split(executor, steps=3):
+    """Where the device time of an MoE model's decode step goes, by
+    ``STEP_PARTS``, in ms a step.  The eager step is profiled with the MoE
+    FFN inside a ``MOE_RANGE`` profiler range (``moe.apply_moe`` wrapped
+    here, for this profile only) and each kernel an op launched is charged
+    to that op's part; a kernel no op launched (the port's own kernels,
+    launched by their binding) goes by its name.  The replayed graph
+    launches the same kernels without their ops, so each kernel name's
+    replayed time is split as that name's eager time was.  Also prints the
+    MoE glue's largest kernels."""
+    from unittest import mock
+    from repro_torch.models import moe
+    model, lora, cache = executor.model, executor.lora, executor.cache
+    idx = torch.arange(8, dtype=torch.int32, device="cuda") % SLOTS
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    apply_moe = moe.apply_moe
+
+    def marked(*args, **kw):
+        with torch.profiler.record_function(MOE_RANGE):
+            return apply_moe(*args, **kw)
+
+    def eager():
+        model.decode_step(lora, cache, executor.tokens, idx)
+    with mock.patch.object(moe, "apply_moe", marked):
+        eager()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(steps):
+                eager()
+            torch.cuda.synchronize()
+    by_name = {}   # kernel -> part -> µs, over the eager steps
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        anc, in_moe = e, False
+        while anc is not None and not in_moe:
+            in_moe, anc = anc.name == MOE_RANGE, anc.cpu_parent
+        for k in e.kernels:
+            shares = by_name.setdefault(k.name, dict.fromkeys(STEP_PARTS, 0.0))
+            shares[step_part(k.name, in_moe, e.name)] += k.duration
+
+    def split(profile):
+        out = dict.fromkeys(STEP_PARTS, 0.0)
+        for e in profile.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA or \
+                    e.key == MOE_RANGE:   # the range's own device span
+                continue
+            ms = e.self_device_time_total / steps / 1e3
+            shares = by_name.get(e.key)
+            if not shares or not sum(shares.values()):
+                shares = {step_part(e.key, False, ""): 1.0}
+            total = sum(shares.values())
+            for part, w in shares.items():
+                out[part] += ms * w / total
+        return out
+    eager_ms = split(prof)
+    if not all(eager_ms[p] > 0 for p in STEP_PARTS):
+        raise AssertionError(f"a part of the MoE step has no device time: "
+                             f"{eager_ms}")
+    glue = sorted(((v["moe_glue"] / steps, k) for k, v in by_name.items()
+                   if v["moe_glue"]), reverse=True)
+    idx_host = idx.cpu().numpy()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            executor.decode(idx_host)
+        torch.cuda.synchronize()
+    replay_ms = split(prof)
+    for label, parts in (("eager", eager_ms), ("replayed", replay_ms)):
+        say(f"  {label} step by part (ms): " + ", ".join(
+            f"{p} {ms:.3f}" for p, ms in parts.items())
+            + f"; total {sum(parts.values()):.3f}")
+    say(f"  MoE glue: {len(glue)} kernel names; the largest:")
+    for us, key in glue[:8]:
+        say(f"    {us:9.1f} us  {key[:90]}")
+    return {"eager_split_ms": eager_ms, "replay_split_ms": replay_ms}
+
+
+def step_bound(model, batch=8):
+    """The least time of one decode step of ``batch`` rows: the bytes of
+    every weight it reads once (all parameters but an untied embedding
+    table, of which it reads ``batch`` rows) over the HBM rate, against
+    the operations of the dense (E, C, d) expert products at C = batch * k
+    (dropless) over the bf16 peak."""
+    cfg = model.cfg
+    weights = experts = 0
+    for name, p in model.named_parameters():
+        if name == "embed.embed" and not cfg.tie_embeddings:
+            continue
+        weights += p.numel() * p.element_size()
+        if ".moe.w_" in name:
+            experts += p.numel() * p.element_size()
+    flops = 2 * 3 * cfg.n_experts * batch * cfg.top_k * cfg.d_model \
+        * cfg.d_ff * cfg.n_layers
+    ms, by = bound(weights, flops, "bfloat16")
+    out = {"weight_gb": weights / 1e9, "expert_weight_gb": experts / 1e9,
+           "weights_ms": weights / HBM_BYTES_PER_S * 1e3,
+           "dispatch_tflop": flops / 1e12,
+           "dispatch_ms": flops / PEAK_FLOPS["bfloat16"] * 1e3,
+           "bound_ms": ms, "bound_by": by}
+    say(f"  step bound: {out['weight_gb']:.2f} GB of weights "
+        f"({out['expert_weight_gb']:.2f} GB experts) = "
+        f"{out['weights_ms']:.2f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+        f"dense dispatch {out['dispatch_tflop']:.3f} TFLOP = "
+        f"{out['dispatch_ms']:.3f} ms at "
+        f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s; bound {ms:.2f} ms "
+        f"by {by}")
+    return out
 
 
 def graph_ms(fn, arg_sets, calls=32, reps=5):
@@ -913,22 +1129,28 @@ def phase_timing():
     rows["flash_decode_lora"].update(fused_grid_times(unfused))
     del sets
 
-    # gemma3-1b's serving shapes: BGMV at d 1152 (q projection o 1024, v
-    # projection o 256), flash-decode at 4 heads of D 256 on 1 KV head
-    g3 = get_config(SERVED_VARIANT)
-    g3_h, g3_kv, g3_d = g3.n_heads, g3.n_kv_heads, g3.resolved_head_dim
-    for o, prefix in ((g3_h * g3_d, "gemma3"), (g3_kv * g3_d, "gemma3_o256")):
-        g_sets, b_ms, _ = lora_sets(BATCH, o, d=g3.d_model)
-        rows["bgmv"].update({
-            f"{prefix}_ms": graph_ms(bgmv.bgmv, g_sets),
-            f"{prefix}_plain_ms": graph_ms(bgmv.bgmv_plain, g_sets),
-            f"{prefix}_bound_ms": b_ms})
-    _, g_sets, b_ms, _, _, g_lib = fd_sets(g3_h, g3_kv, g3_d)
-    rows["flash_decode"].update({
-        "gemma3_ms": graph_ms(flash_decode.flash_decode, g_sets),
-        "gemma3_plain_ms": graph_ms(flash_decode.flash_decode_plain, g_sets),
-        "gemma3_bound_ms": b_ms, "gemma3_library_ms": graph_ms(sdpa, g_lib)})
-    del g_sets, g_lib
+    # the other served architectures' shapes: gemma3-1b's BGMV at d 1152 (q
+    # projection o 1024, v projection o 256) and flash-decode at 4 heads of
+    # D 256 on 1 KV head; olmoe-1b-7b's BGMV at d 2048 (q and v projections
+    # both o 2048) and flash-decode at 16 heads of D 128 on 16 KV heads
+    for arch, name in ((SERVED_VARIANT, "gemma3"), (MOE_ARCH, "olmoe")):
+        cfg = get_config(arch)
+        h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        for o in sorted({h * hd, kv * hd}, reverse=True):
+            prefix = name if o == h * hd else f"{name}_o{o}"
+            g_sets, b_ms, _ = lora_sets(BATCH, o, d=cfg.d_model)
+            rows["bgmv"].update({
+                f"{prefix}_ms": graph_ms(bgmv.bgmv, g_sets),
+                f"{prefix}_plain_ms": graph_ms(bgmv.bgmv_plain, g_sets),
+                f"{prefix}_bound_ms": b_ms})
+        _, g_sets, b_ms, _, _, g_lib = fd_sets(h, kv, hd)
+        rows["flash_decode"].update({
+            f"{name}_ms": graph_ms(flash_decode.flash_decode, g_sets),
+            f"{name}_plain_ms": graph_ms(flash_decode.flash_decode_plain,
+                                         g_sets),
+            f"{name}_bound_ms": b_ms,
+            f"{name}_library_ms": graph_ms(sdpa, g_lib)})
+        del g_sets, g_lib
 
     for r in rows.values():
         r["floor_ms"] = floor
@@ -1090,6 +1312,24 @@ def phase_serve(arch, ops):
     return executor, serve_launches
 
 
+def serve_variant(arch, phase, ops):
+    """Phases 5``phase`` and 6``phase``: serve ``arch`` at its published
+    widths (``phase_serve``), hold each replay to one BGMV launch per LoRA
+    target and one flash-decode per layer, and time its replayed step
+    (``phase_step``).  Returns the executor, the serving path's launches
+    and the step's numbers."""
+    say(f"phase 5{phase}: serving {arch} (published widths, bf16)")
+    executor, launches = phase_serve(arch, ops)
+    cfg = executor.model.cfg
+    want = {"bgmv": 2 * cfg.n_layers, "flash_decode": cfg.n_layers}
+    if executor.graph_launches != want:
+        raise AssertionError(f"{arch}: a replay launches "
+                             f"{executor.graph_launches}, not {want}")
+    say(f"phase 6{phase}: {arch}'s replayed step (bf16)")
+    _, stats = phase_step(executor, ops)
+    return executor, launches, stats
+
+
 def require_launched(path, counts, names) -> None:
     missing = [k for k in names if counts[k] == 0]
     if missing:
@@ -1135,6 +1375,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     tfv_launches = phase_parity_variants(ops)
     say(f"  launches on the five teacher-forcing paths: {tfv_launches}")
+    tfm_launches = phase_parity_moe(ops)
+    say(f"  launches on the MoE teacher-forcing paths: {tfm_launches}")
 
     say("phase 5: serving phi4-mini-3.8b (published widths, bf16)")
     executor, serve_launches = phase_serve("phi4-mini-3.8b", ops)
@@ -1145,16 +1387,16 @@ def main() -> int:
     del executor
     torch.cuda.empty_cache()
 
-    say(f"phase 5b: serving {SERVED_VARIANT} (published widths, bf16)")
-    executor, variant_launches = phase_serve(SERVED_VARIANT, ops)
-    cfg = executor.model.cfg
-    want = {"bgmv": 2 * cfg.n_layers, "flash_decode": cfg.n_layers}
-    if executor.graph_launches != want:
-        raise AssertionError(f"{SERVED_VARIANT}: a replay launches "
-                             f"{executor.graph_launches}, not {want}")
-    say(f"phase 6b: {SERVED_VARIANT}'s replayed step (bf16)")
-    _, variant_stats = phase_step(executor, ops)
+    executor, variant_launches, variant_stats = serve_variant(
+        SERVED_VARIANT, "b", ops)
     say(f"  step {SERVED_VARIANT} " + json.dumps(variant_stats))
+    del executor
+    torch.cuda.empty_cache()
+
+    executor, moe_launches, moe_stats = serve_variant(MOE_ARCH, "c", ops)
+    moe_stats.update(moe_step_split(executor))
+    moe_stats.update(step_bound=step_bound(executor.model))
+    say(f"  step {MOE_ARCH} " + json.dumps(moe_stats))
     del executor
     torch.cuda.empty_cache()
     rows = phase_timing()
@@ -1176,7 +1418,9 @@ def main() -> int:
     paths = {"teacher_forcing": tf_launches, "serving": serve_launches,
              "measurement": measure_launches,
              "teacher_forcing_variants": tfv_launches,
-             "serving_" + SERVED_VARIANT: variant_launches}
+             "teacher_forcing_moe": tfm_launches,
+             "serving_" + SERVED_VARIANT: variant_launches,
+             "serving_" + MOE_ARCH: moe_launches}
     rows["flash_decode_lora"]["grid_max_abs_err"] = \
         errs["flash_decode_lora_grid"]
     table = []

@@ -9,10 +9,13 @@ as numpy arrays, this module builds the port's per-layer layout and back:
 * LoRA    (``Model.init_lora``) <-> {"layers": [{"a_q", "b_q", ...}, ...]};
 * caches  (``init_cache``, ``prefill``) <-> {"pos", "layers": [{"k", "v"}]}.
 
-bf16 crosses bit-exact: an array whose ``dtype.name`` is "bfloat16" is
-viewed as uint16, then int16 (which torch reads), then as torch.bfloat16.
-The way back needs numpy's bfloat16 dtype, which is registered once the
-JAX package's ml_dtypes is loaded; this module never imports it.
+Every leaf crosses bit for bit: f32, int8 (int8 experts) and f16 (their
+scales) as they are, and bf16, which torch cannot take from numpy, viewed
+as uint16, then int16 (which torch reads), then as torch.bfloat16.  The
+way back needs numpy's bfloat16 dtype, which is registered once the JAX
+package's ml_dtypes is loaded; this module never imports it.  An MoE
+layer's subtree ``moe`` ({"router", "w_gate", "w_up", "w_down"} and, for
+int8 experts, their ``*_scale``) maps onto ``Block.moe`` like any other.
 """
 from __future__ import annotations
 

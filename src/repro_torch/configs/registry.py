@@ -1,7 +1,7 @@
 """Architecture registry of the port.
 
-The port serves the dense architectures of ``repro.configs``.  Every entry
-exposes:
+The port serves the dense and MoE architectures of ``repro.configs``.
+Every entry exposes:
   * ``CONFIG``    — the exact published configuration,
   * ``reduced()`` — a structurally identical, CPU-sized variant for tests.
 The other architectures of ``repro.configs`` raise and name the ROADMAP item
@@ -20,6 +20,8 @@ ARCH_IDS = (
     "qwen1p5_4b",
     "musicgen_medium",
     "internvl2_2b",
+    "olmoe_1b_7b",
+    "moonshot_v1_16b_a3b",
 )
 
 ALIASES = {
@@ -29,12 +31,12 @@ ALIASES = {
     "qwen1.5-4b": "qwen1p5_4b",
     "musicgen-medium": "musicgen_medium",
     "internvl2-2b": "internvl2_2b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
 }
 
 #: architectures of the JAX package not ported yet -> the ROADMAP item
 NOT_PORTED = {
-    "moonshot_v1_16b_a3b": "queue 1 item 7 (MoE)",
-    "olmoe_1b_7b": "queue 1 item 7 (MoE)",
     "mamba2_2p7b": "queue 1 item 8 (SSM mixers)",
     "recurrentgemma_9b": "queue 1 item 8 (RG-LRU mixers)",
 }

@@ -1,0 +1,143 @@
+"""Top-k mixture-of-experts FFN of the port (counterpart of
+``repro.models.moe``), at one shard.
+
+Functions on tensors, as in the JAX package: ``init_moe`` draws the
+parameters, ``apply_moe`` routes each token to its top-k experts through a
+fixed-capacity (E, C, d) buffer, runs the SwiGLU experts as batched matrix
+products and combines the weighted results; ``apply_moe_ref`` is the
+dropless oracle, the plain version the tests and the card check hold
+``apply_moe`` against.  Experts may be weight-only int8
+(``quantize_experts``), dequantised to the activations' dtype before the
+products (``_dequant``).
+
+The expert-parallel arguments of the JAX ``apply_moe`` (``axis_name``,
+``n_shards``, ``gather``) come with the port's distribution (ROADMAP.md
+queue 1 item 11); here every expert is local.
+
+Every shape in ``apply_moe`` follows from x's and the parameters' shapes,
+and nothing waits for the host (no ``.item()``, ``nonzero``, boolean
+masks or data-dependent sizes), so a CUDA graph that captures a decode
+step replays its MoE layers.  Kept pairs own distinct (expert, slot)
+cells, so the dispatch is a plain indexed write, and the combine sums
+each token's k results in a fixed order: no float atomics, and a replay
+is bitwise the eager step.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from . import layers
+
+def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
+             dtype, device, quant: bool = False) -> Dict[str, torch.Tensor]:
+    """The JAX package's distributions (moe.py:22-37): the router (d, E)
+    in f32 whatever ``dtype``, the experts' gate and up (E, d, f) and down
+    (E, f, d), N(0, 1/fan_in) with fan_in d, d and f."""
+    p = {
+        "router": layers.dense_init(gen, (d_model, n_experts),
+                                    torch.float32, device),
+        "w_gate": layers.dense_init(gen, (n_experts, d_model, d_ff), dtype,
+                                    device),
+        "w_up": layers.dense_init(gen, (n_experts, d_model, d_ff), dtype,
+                                  device),
+        "w_down": layers.dense_init(gen, (n_experts, d_ff, d_model), dtype,
+                                    device, fan_in=d_ff),
+    }
+    return quantize_experts(p) if quant else p
+
+
+def quantize_experts(p: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Weight-only int8 experts with one scale per (expert, output column):
+    scale = max |w| over the input axis / 127 + 1e-8 in f32, kept as f16;
+    w = clip(round(w / scale), -127, 127) as int8 (``torch.round`` rounds
+    half to even, as ``jnp.round`` does)."""
+    out = {"router": p["router"]}
+    for name in ("w_gate", "w_up", "w_down"):
+        w = p[name].float()
+        scale = w.abs().amax(-2, keepdim=True) / 127.0 + 1e-8
+        out[name] = torch.clamp(torch.round(w / scale), -127, 127).to(
+            torch.int8)
+        out[f"{name}_scale"] = scale.to(torch.float16)
+    return out
+
+
+def _dequant(p, name: str, like_dtype) -> torch.Tensor:
+    """An int8 expert weight times its scale, the product taken in bf16
+    (moe.py:54-59), cast to ``like_dtype``; any other weight as it is."""
+    w = p[name]
+    if w.dtype == torch.int8:
+        scale = p[f"{name}_scale"].to(torch.bfloat16)
+        return (w.to(torch.bfloat16) * scale).to(like_dtype)
+    return w
+
+
+def _route(p, x, top_k: int):
+    """Router probabilities (T, E) in f32, and each token's top-k experts
+    (T, k) in descending order with their weights renormalised to 1."""
+    probs = torch.softmax(x.float() @ p["router"], dim=-1)
+    weights, experts = torch.topk(probs, top_k, dim=-1, sorted=True)
+    return probs, weights / weights.sum(-1, keepdim=True), experts
+
+
+def capacity(t: int, top_k: int, n_experts: int,
+             capacity_factor: float) -> int:
+    """Slots per expert (moe.py:99-103): every pair when T*k <= 4096
+    (decode steps run dropless), else the capacity-factor bound."""
+    if t * top_k <= 4096:
+        return t * top_k
+    return int(max(-(-t * top_k * capacity_factor // n_experts), 1))
+
+
+def apply_moe(p, x, *, top_k: int, n_experts: int, capacity_factor: float):
+    """x: (T, d) -> (out (T, d) in x's dtype, Switch-style aux loss).
+
+    Pairs are ordered t*k + j; a pair's slot is the number of earlier
+    pairs routed to its expert, and a pair whose slot is past the capacity
+    is dropped (adds nothing), so the same pairs drop as in the JAX
+    package.  The products take x's dtype, the SwiGLU is computed in f32.
+    """
+    t, d = x.shape
+    probs, weights, experts = _route(p, x, top_k)
+    arange_e = torch.arange(n_experts, device=x.device)
+    density = (experts[:, :1] == arange_e).float().mean(0)
+    aux = n_experts * (density * probs.mean(0)).sum()
+
+    cap = capacity(t, top_k, n_experts, capacity_factor)
+    flat_e = experts.reshape(-1)                              # (T*k,)
+    onehot = (flat_e[:, None] == arange_e).to(torch.int32)    # (T*k, E)
+    # exclusive count of earlier pairs on the same expert
+    pos = (onehot.cumsum(0) - onehot).gather(1, flat_e[:, None])[:, 0]
+    keep = pos < cap
+    pos = torch.where(keep, pos, cap)                         # overflow slot
+    buf = x.new_zeros((n_experts, cap + 1, d))
+    xs = x[:, None].expand(t, top_k, d).reshape(t * top_k, d)
+    buf.index_put_((flat_e, pos), xs)   # kept pairs: distinct cells
+    buf = buf[:, :cap]
+
+    gate = torch.bmm(buf, _dequant(p, "w_gate", x.dtype)).float()
+    up = torch.bmm(buf, _dequant(p, "w_up", x.dtype)).float()
+    h = (F.silu(gate) * up).to(x.dtype)
+    y = torch.bmm(h, _dequant(p, "w_down", x.dtype))          # (E, C, d)
+
+    y_tok = y[flat_e, pos.clamp(max=cap - 1)]
+    y_tok = torch.where(keep[:, None], y_tok, 0) * \
+        weights.reshape(-1, 1).to(x.dtype)
+    return y_tok.view(t, top_k, d).sum(1), aux
+
+
+def apply_moe_ref(p, x, *, top_k: int, n_experts: int):
+    """The dropless oracle (moe.py:150-167): each token through each of its
+    top-k experts' weights, gathered per token, summed in f32."""
+    _, weights, experts = _route(p, x, top_k)
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for j in range(top_k):
+        e = experts[:, j]
+        gate = torch.bmm(x[:, None], p["w_gate"][e])[:, 0].float()
+        up = torch.bmm(x[:, None], p["w_up"][e])[:, 0].float()
+        h = (F.silu(gate) * up).to(x.dtype)
+        y = torch.bmm(h[:, None], p["w_down"][e])[:, 0].float()
+        out = out + y * weights[:, j:j + 1]
+    return out.to(x.dtype)

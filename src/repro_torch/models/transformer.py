@@ -5,10 +5,11 @@ package stacks each segment's layers on axis 0 and scans them, the port
 loops over its layers (``bridge.py`` maps one layout to the other).  The
 port builds attention blocks, ``global`` (a cache of ``cache_len`` rows)
 and ``local`` (a sliding window over a rolling buffer), with a dense
-SwiGLU or GELU MLP, RoPE or sinusoidal positions, RMSNorm or LayerNorm,
-optional q/k/v biases, tied embeddings and an image-embedding prefix: the
-dense architectures.  MoE, SSM and RG-LRU blocks raise and name their
-ROADMAP.md item.
+SwiGLU or GELU MLP or a top-k MoE FFN (``moe.apply_moe`` at one shard,
+its experts optionally int8), RoPE or sinusoidal positions, RMSNorm or
+LayerNorm, optional q/k/v biases, tied embeddings and an image-embedding
+prefix: the dense and MoE architectures.  SSM and RG-LRU blocks raise and
+name their ROADMAP.md item.
 
 Two entry points, as in the JAX package:
   * ``prefill``     — runs the prompt, emits last-position logits + cache;
@@ -32,12 +33,11 @@ from torch import nn
 
 from ..device import resolve_device
 from ..kernels import ops
-from . import attention, layers
+from . import attention, layers, moe
 from .config import ModelConfig
 
 #: block kinds of ModelConfig not ported yet -> ROADMAP item
 _NOT_PORTED = {
-    "moe": "queue 1 item 7 (MoE)",
     "ssd": "queue 1 item 8 (SSM mixers)",
     "rglru": "queue 1 item 8 (RG-LRU mixers)",
 }
@@ -48,8 +48,6 @@ def _check_ported(cfg: ModelConfig) -> None:
         if kind not in ("global", "local"):
             raise NotImplementedError(
                 f"{kind!r} blocks: ROADMAP.md {_NOT_PORTED.get(kind, kind)}")
-    if cfg.n_experts:
-        raise NotImplementedError(f"MoE blocks: ROADMAP.md {_NOT_PORTED['moe']}")
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -69,10 +67,12 @@ def _norm(cfg: ModelConfig, dev) -> nn.ParameterDict:
 
 class Block(nn.Module):
     """One attention layer, ``global`` or ``local`` (``kind``), with a
-    dense MLP."""
+    dense MLP (``mlp``) or, when ``cfg.n_experts``, an MoE FFN (``moe``:
+    router, expert weights and, with ``expert_quant``, int8 experts and
+    their f16 scales; ``transformer.py:95-101``)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, gen: torch.Generator,
-                 device: torch.device):
+                 device: torch.device, expert_quant: bool = False):
         super().__init__()
         self.cfg, self.kind = cfg, kind
         #: this layer's cache tensors, under the JAX package's names
@@ -94,11 +94,17 @@ class Block(nn.Module):
             for name, width in (("bq", nq), ("bk", nkv), ("bv", nkv)):
                 setattr(self, name, _param(torch.zeros(
                     width * hd, dtype=dt, device=device)))
-        mlp = {"w_up": dense((d, cfg.d_ff)),
-               "w_down": dense((cfg.d_ff, d), fan_in=cfg.d_ff)}
-        if cfg.mlp == "swiglu":
-            mlp["w_gate"] = dense((d, cfg.d_ff))
-        self.mlp = nn.ParameterDict(mlp)
+        if cfg.n_experts:
+            self.moe = nn.ParameterDict({
+                k: _param(v) for k, v in moe.init_moe(
+                    gen, d, cfg.d_ff, cfg.n_experts, dt, device,
+                    quant=expert_quant).items()})
+        else:
+            mlp = {"w_up": dense((d, cfg.d_ff)),
+                   "w_down": dense((cfg.d_ff, d), fan_in=cfg.d_ff)}
+            if cfg.mlp == "swiglu":
+                mlp["w_gate"] = dense((d, cfg.d_ff))
+            self.mlp = nn.ParameterDict(mlp)
 
     def cache_rows(self, cache_len: int) -> int:
         """Rows of this layer's cache for ``cache_len`` positions: all of
@@ -143,11 +149,24 @@ class Block(nn.Module):
             k = layers.apply_rope(k, positions, cfg.rope_theta)
         return q, k, v.reshape(b, s, cfg.n_kv_heads, hd)
 
+    def _ffn(self, h):
+        """The MLP, or the MoE FFN over the b*s tokens (``_ffn`` at one
+        shard, transformer.py:362-374; its aux loss is dropped, as the JAX
+        ``prefill`` and ``decode_step`` drop it)."""
+        cfg = self.cfg
+        if not cfg.n_experts:
+            return layers.apply_mlp(cfg.mlp, self.mlp, h)
+        b, s, d = h.shape
+        out, _ = moe.apply_moe(self.moe, h.reshape(b * s, d),
+                               top_k=cfg.top_k, n_experts=cfg.n_experts,
+                               capacity_factor=cfg.capacity_factor)
+        return out.reshape(b, s, d)
+
     def _residual(self, x, attn_out):
         b, s = x.shape[:2]
         x = x + attn_out.reshape(b, s, -1) @ self.wo
         h = layers.apply_norm(self.cfg.norm, self.norm2, x)
-        return x + layers.apply_mlp(self.cfg.mlp, self.mlp, h)
+        return x + self._ffn(h)
 
     def prefill(self, x, lora_p, adapter_idx, positions):
         """x: (B, S, d) -> (x, cache): a global layer's {"k", "v"} of
@@ -190,9 +209,12 @@ class Model(nn.Module):
     distributions, not its values: ``bridge.load_params`` copies those).
     Layer i's kind is ``cfg.layer_kinds[i]``: the block pattern repeated,
     the JAX package's segment order (``build_segments``).
+    ``expert_quant`` keeps an MoE model's experts in int8, the counterpart
+    of ``ShardingPlan.expert_quant`` (sharding.py:38).
     """
 
-    def __init__(self, cfg: ModelConfig, device=None, seed: int = 0):
+    def __init__(self, cfg: ModelConfig, device=None, seed: int = 0,
+                 expert_quant: bool = False):
         super().__init__()
         _check_ported(cfg)
         self.cfg = cfg
@@ -206,7 +228,8 @@ class Model(nn.Module):
         self.embed = nn.ParameterDict(embed)
         self.final_norm = _norm(cfg, dev)
         self.layers = nn.ModuleList(
-            Block(cfg, kind, gen, dev) for kind in cfg.layer_kinds)
+            Block(cfg, kind, gen, dev, expert_quant)
+            for kind in cfg.layer_kinds)
 
     def init_lora(self, n_adapters: int, rank: int,
                   seed: int = 0) -> Dict[str, Any]:

@@ -1,8 +1,9 @@
 """The weight bridge: JAX trees -> the port's tensors -> JAX trees is
 bitwise for every leaf of the params, LoRA banks and caches, in bf16 and
 f32, of reduced phi4-mini, gemma3 (tied embeddings, local layers' rolling
-caches, a remainder segment), qwen1.5 (q/k/v biases) and musicgen
-(LayerNorm biases, a GELU MLP)."""
+caches, a remainder segment), qwen1.5 (q/k/v biases), musicgen
+(LayerNorm biases, a GELU MLP) and olmoe (an MoE subtree: an f32 router
+beside bf16 or f32 experts, or int8 experts with f16 scales)."""
 import dataclasses
 
 import jax
@@ -31,20 +32,24 @@ def _assert_bitwise(want, got):
         assert w.tobytes() == g.tobytes()
 
 
-def _case(arch, dtype):
-    return pytest.param((arch, dtype), id=dtype if arch == "phi4-mini-3.8b"
-                        else f"{arch}-{dtype}")
+def _case(arch, dtype, quant=False):
+    name = dtype if arch == "phi4-mini-3.8b" else f"{arch}-{dtype}"
+    return pytest.param((arch, dtype, quant),
+                        id=f"{name}-int8" if quant else name)
 
 
 @pytest.fixture(params=[_case(a, d) for a in ("phi4-mini-3.8b", "gemma3-1b",
-                                              "qwen1.5-4b", "musicgen-medium")
-                        for d in ("bfloat16", "float32")])
+                                              "qwen1.5-4b", "musicgen-medium",
+                                              "olmoe-1b-7b")
+                        for d in ("bfloat16", "float32")]
+                + [_case("olmoe-1b-7b", d, quant=True)
+                   for d in ("bfloat16", "float32")])
 def models(request):
-    arch, dtype = request.param
+    arch, dtype, quant = request.param
     cfg = dataclasses.replace(get_reduced(arch), dtype=dtype)
     port_cfg = dataclasses.replace(port_reduced(arch), dtype=dtype)
-    return (JaxModel(cfg, ShardingPlan(mode="prefill")),
-            Model(port_cfg, device="cpu"))
+    return (JaxModel(cfg, ShardingPlan(mode="prefill", expert_quant=quant)),
+            Model(port_cfg, device="cpu", expert_quant=quant))
 
 
 def test_params_round_trip_bitwise(models):
@@ -65,6 +70,20 @@ def test_params_round_trip_bitwise(models):
                 i += 1
     assert i == len(model.layers) == model.cfg.n_layers
     assert ("unembed" in params["embed"]) != model.cfg.tie_embeddings
+    if model.cfg.n_experts:
+        # the stacked MoE leaves: router (R, d, E) in f32, experts
+        # (R, E, d, f) / (R, E, f, d), int8 ones with (R, E, 1, f or d) f16
+        # scales
+        cfg, leaves = model.cfg, params["segments"][0]["blocks"][0]["moe"]
+        e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+        assert leaves["router"].shape == (cfg.n_layers, d, e)
+        assert leaves["router"].dtype == np.float32
+        assert leaves["w_down"].shape == (cfg.n_layers, e, f, d)
+        if "w_up_scale" in leaves:
+            assert leaves["w_up"].dtype == np.int8
+            assert leaves["w_up_scale"].shape == (cfg.n_layers, e, 1, f)
+            assert leaves["w_up_scale"].dtype == np.float16
+            assert model.layers[0].moe["w_down_scale"].dtype == torch.float16
 
 
 def test_lora_round_trip_bitwise(models):

@@ -16,8 +16,11 @@ and adapter id -1), and check
 that the wrappers and the binding reject what the kernels do not take.
 They also hold the serving executor's captured step (a CUDA graph) bitwise
 equal to the eager step over 20 steps that cross the cache's end (and for
-reduced gemma3 over 28 that cross its rolling buffers' wrap), count its
-launches under replay, and run an eager step under the sync debug mode.
+reduced gemma3 over 28 that cross its rolling buffers' wrap, reduced
+olmoe's MoE layers over 20), count its launches under replay, and run an
+eager step under the sync debug mode (phi4-mini's and olmoe's).  The MoE
+FFN is held on the card against its CPU result and its oracle, at the
+decode shape, the largest dropless T and on the capacity path.
 """
 import dataclasses
 import math
@@ -454,6 +457,37 @@ def test_executor_replay_equals_eager_step_rolling(gen, dtype):
     _replays_equal_eager(*_served(dtype, 20, "gemma3-1b"), steps=28)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_executor_replay_equals_eager_step_moe(gen, dtype):
+    # reduced olmoe (8 experts, top-2): the MoE FFN's routing, dispatch
+    # into the (E, C, d) buffer and combine replay bit for bit
+    _replays_equal_eager(*_served(dtype, 16, "olmoe-1b-7b"), steps=20)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,router_add", [(8, 0.0), (2047, 0.0),
+                                          (2049, 0.3)])
+def test_apply_moe_on_the_card(gen, t, router_add, dtype):
+    # the decode shape, the largest dropless T (T*k 4094) and the capacity
+    # path with expert 0 past its capacity: against the port's CPU result
+    # on the same inputs, and (dropless) against the oracle on the card
+    from repro_torch.models import moe
+    e, d, f, k = 8, 64, 32, 2
+    p = moe.init_moe(torch.Generator().manual_seed(0), d, f, e, dtype, "cpu")
+    p["router"][:, 0] += router_add
+    x = torch.randn((t, d), generator=torch.Generator().manual_seed(1)).to(
+        dtype)
+    want = moe.apply_moe(p, x, top_k=k, n_experts=e, capacity_factor=1.25)
+    card = {n: w.cuda() for n, w in p.items()}
+    got = moe.apply_moe(card, x.cuda(), top_k=k, n_experts=e,
+                        capacity_factor=1.25)
+    _close(got[0].cpu(), want[0], dtype)
+    assert abs(float(got[1]) - float(want[1])) < 1e-5
+    if t * k <= 4096:
+        _close(got[0], moe.apply_moe_ref(card, x.cuda(), top_k=k,
+                                         n_experts=e), dtype)
+
+
 def test_executor_replays_count_their_launches(gen):
     model, lora, ex = _served(torch.bfloat16)
     ops.reset_launches()
@@ -471,7 +505,17 @@ def test_executor_replays_count_their_launches(gen):
 
 
 def test_eager_decode_step_does_not_synchronise(gen):
-    model, lora, ex = _served(torch.bfloat16)
+    _decode_step_does_not_synchronise("phi4-mini-3.8b")
+
+
+def test_eager_moe_decode_step_does_not_synchronise(gen):
+    # nothing in the MoE FFN waits for the host: no .item(), nonzero or
+    # data-dependent shape, so the step can be captured
+    _decode_step_does_not_synchronise("olmoe-1b-7b")
+
+
+def _decode_step_does_not_synchronise(arch):
+    model, lora, ex = _served(torch.bfloat16, arch=arch)
     ids = torch.tensor([0, 1, -1, 3, 2, 2, -1, 0], dtype=torch.int32,
                        device="cuda")
     cache = _clone_cache(ex.cache)

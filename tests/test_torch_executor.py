@@ -5,8 +5,8 @@ JAX package on the CPU.
 ``cache_len + 4`` engine steps, crossing the cache's end, against the JAX
 executor's chain of jitted ``decode_step`` calls on the same weights: the
 logits within a relative error of 2e-4 (test_consistency.py:39) at every
-step, reduced phi4-mini and reduced gemma3 (whose local layers' rolling
-buffers wrap) in float32.  Also: ``pos`` as a 0-d tensor that
+step, reduced phi4-mini, reduced gemma3 (whose local layers' rolling
+buffers wrap) and reduced olmoe (MoE layers) in float32.  Also: ``pos`` as a 0-d tensor that
 ``decode_step`` advances in place, the cache write against the JAX
 package's at positions inside and outside the cache, and the launch-count
 helper that graph replays count through.
@@ -79,6 +79,8 @@ def pair(pairs):
     # cache_len 8 the buffers have 8 rows and wrap where the caches end
     pytest.param("gemma3-1b", 8, 5, 20, id="gemma3-8-5-20"),
     pytest.param("gemma3-1b", 4, 4, CACHE_LEN, id="gemma3-4-4-8"),
+    # reduced olmoe: every layer's FFN the MoE (T 8, dropless)
+    pytest.param("olmoe-1b-7b", 8, 5, CACHE_LEN, id="olmoe-8-5-8"),
 ])
 def test_executor_steps_match_jax_executor_chain(pairs, arch, max_batch,
                                                  n_running, cache_len):

@@ -1,5 +1,6 @@
 """The port's serving layer: the copied engine against the original, the
-torch executor against the JAX decode step, and an end-to-end run on CPU."""
+torch executor against the JAX decode step (reduced phi4-mini and reduced
+olmoe), and end-to-end runs on CPU."""
 import dataclasses
 
 import jax
@@ -57,7 +58,15 @@ def test_copied_engine_matches_reference(dataset, policy):
 
 
 def test_executor_step_matches_jax_decode_step():
-    cfg = dataclasses.replace(get_reduced("phi4_mini_3p8b"), dtype="float32")
+    _executor_step_matches_jax_decode_step("phi4-mini-3.8b")
+
+
+def test_moe_executor_step_matches_jax_decode_step():
+    _executor_step_matches_jax_decode_step("olmoe-1b-7b")
+
+
+def _executor_step_matches_jax_decode_step(arch):
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
     jd = JaxModel(cfg, ShardingPlan(mode="decode"))
     key = jax.random.PRNGKey(2)
     params, lora = jd.init(key), jd.init_lora(key, 4, 4)
@@ -68,8 +77,7 @@ def test_executor_step_matches_jax_decode_step():
     want, _ = jd.decode_step(params, lora, jd.init_cache(8, 32),
                              np.zeros((8, 1), np.int32), idx)
 
-    port_cfg = dataclasses.replace(port_reduced("phi4-mini-3.8b"),
-                                   dtype="float32")
+    port_cfg = dataclasses.replace(port_reduced(arch), dtype="float32")
     model = Model(port_cfg, device="cpu")
     bridge.load_params(model, jax.tree.map(np.asarray, params))
     ex = TorchExecutor(model, bridge.lora_to_torch(
@@ -121,6 +129,19 @@ def test_serve_launcher_serves_gemma3_on_cpu():
     assert metrics.duration > 0
     rows = {tuple(c)[0]: c[tuple(c)[0]].shape[1] for c in ex.cache["layers"]}
     assert rows == {"k_loc": 16, "k": 512}
+    assert int(ex.cache["pos"]) > 0
+    assert ex.last_logits.shape == (8, 512)
+    assert bool(torch.isfinite(ex.last_logits).all())
+
+
+def test_serve_launcher_serves_olmoe_on_cpu():
+    # ``--arch olmoe-1b-7b``: reduced olmoe, every layer's FFN 8 experts,
+    # top-2 (T 8 a step, dropless)
+    args = build_parser().parse_args(["--arch", "olmoe-1b-7b", "--horizon",
+                                      "2", "--adapters", "4"])
+    metrics, ex = serve(port_reduced(args.arch), args, device="cpu")
+    assert metrics.duration > 0
+    assert all(hasattr(blk, "moe") for blk in ex.model.layers)
     assert int(ex.cache["pos"]) > 0
     assert ex.last_logits.shape == (8, 512)
     assert bool(torch.isfinite(ex.last_logits).all())

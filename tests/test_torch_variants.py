@@ -79,7 +79,8 @@ def _t(a):
     return None if a is None else torch.from_numpy(a)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ("olmoe-1b-7b",
+                                          "moonshot-v1-16b-a3b"))
 def test_configs_equal_jax_field_for_field(arch):
     assert dataclasses.asdict(get_config(arch)) == \
         dataclasses.asdict(jax_config(arch))
