@@ -29,6 +29,17 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    the MoE FFN (``moe.apply_moe``) against its dropless oracle
    ``apply_moe_ref`` at olmoe-1b-7b's published widths, bf16, at T 8 (the
    decode step's) and T 512 (T*k 4096, the largest dropless size);
+   ``quantize_kv`` on the card bit for bit its CPU result; flash-decode's
+   int8 mode against ``flash_decode_int8_plain`` at ``INT8_SHAPES``
+   (phi4-mini's serving shape, gemma3-1b's global layer, olmoe-1b-7b's G 1,
+   B 32 at S 4096), q in bf16 and in f32, full and ragged lengths (0 and 1
+   among them) on a cache with other values past each row's length (the
+   output bit for bit the clean cache's), within bf16's 3e-2 and 1e-2 of
+   each row's largest value for both q dtypes (``TOL["int8"]``: the JAX
+   arithmetic rounds P times v_scale to bf16, which the kernel does
+   against each split's running max, the plain version against the row's
+   global max); flash-decode in bf16 and in int8 over LONG_S (32768)
+   positions at phi4-mini's heads, B 8;
 4. teacher forcing at phi4-mini's published widths, f32, 4 layers:
    decode after ``prefill(tokens[:, :-1])`` must match ``prefill(tokens)``
    to a relative error below 2e-4; then the same for each of the five
@@ -38,7 +49,11 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    each printed with its cut, SGMV, BGMV and flash-decode launched; then
    the MoE architectures (``MOE_VARIANTS``): olmoe-1b-7b 4 layers,
    moonshot-v1-16b-a3b 2 layers, and olmoe-1b-7b 4 layers with int8
-   experts, on 4x32-token prompts (both prefills dropless);
+   experts, on 4x32-token prompts (both prefills dropless); then
+   phi4-mini 4 layers with an int8 KV cache (``Model(kv_quant=True)``):
+   decode against prefill, and against the same decode with the int8
+   mode's plain version, each within 2e-2
+   (tests/test_consistency_int8.py:48);
 5. serving: ``repro_torch.launch.serve.serve`` with the launcher's default
    flags (8 adapters, 4 slots, rank 8, dataset small, 30 s horizon) on the
    published phi4-mini-3.8b (32 layers, bf16, weights from seed 0), every
@@ -59,7 +74,14 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    FFN's other kernels (routing, dispatch, combine), attention, BGMV, the
    dense products and the rest (``moe_step_split``), and prints the step's
    bound (``step_bound``: its weights over the HBM rate, against the dense
-   expert products' operations);
+   expert products' operations).  Phase 5d serves the published phi4-mini
+   on an int8 KV cache as phase 5 serves it (BGMV 64 and flash-decode 32
+   launches a replay, the replay bit for bit the eager step) and times its
+   step; phase 6d times phi4-mini's replayed step at B 8 over caches of
+   LONG_S positions filled from a seeded generator (no prefill), once in
+   bf16 and once in int8, each beside its byte bound (``decode_bound``:
+   weights and the whole cache over the HBM rate) and with flash-decode's
+   share of its busy time;
 6. the served model's decode step three ways: the eager step's wall, the
    replayed step's wall (as ``TorchExecutor.step`` times it) and device
    span (CUDA events), and the device time of each by kernel group from
@@ -87,7 +109,10 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    flash-decode also at gemma3-1b's serving shapes (``gemma3_*``: d 1152,
    o 1024 and 256; 4 heads of D 256 on 1 KV head, beside SDPA) and
    olmoe-1b-7b's (``olmoe_*``: d 2048, o 2048; 16 heads of D 128 on 16 KV
-   heads, beside SDPA);
+   heads, beside SDPA); flash-decode also over LONG_S positions
+   (``s32768_*``), and its int8 mode's row (``flash_decode_int8``) at the
+   serving shape and over LONG_S positions, beside SDPA over the bf16 cache
+   of the same shape (no PyTorch call takes an int8 cache with scales);
 7. the measurement path: ``repro_torch.bench.kernels_bench`` times the
    fused kernel (and SGMV for prefill) over its (batch, seq, rank) grid at
    phi4-mini-3.8b's published widths, fits a ``MeasuredStepTimes``, and
@@ -99,12 +124,13 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 
 Launch counts are zeroed just before each path a user drives (teacher
 forcing through ``Model.prefill``/``decode_step`` in phase 4, for each
-architecture, serving in phases 5, 5b and 5c, measurement in phase 7) and
-read just after it.  SGMV, BGMV and flash-decode must have launched in
-phase 4, BGMV and flash-decode in phases 5, 5b and 5c, the fused kernel
-and SGMV in phase 7.  Each kernel's
-``launches`` in the kernel table is the count of the path it serves
-(``path``).  Float32 products run in full f32 (TF32 off) wherever parity
+architecture, serving in phases 5, 5b, 5c and 5d, measurement in phase
+7) and read just after it.  SGMV, BGMV and flash-decode must have launched
+in phase 4, BGMV and flash-decode in phases 5, 5b, 5c and 5d, the fused
+kernel and SGMV in phase 7.  Each kernel's ``launches`` in the kernel
+table is the count of the path it serves (``path``); the int8 mode counts
+as flash-decode, on the int8 paths (``serving_int8``,
+``teacher_forcing_int8``), and flash-decode's row counts the others.  Float32 products run in full f32 (TF32 off) wherever parity
 is checked.  The last two lines are the kernel table and the device, as
 JSON.
 """
@@ -125,8 +151,13 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM, data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-TOL = {"bfloat16": 3e-2, "float32": 2e-5}
-ROW_TOL = {"bfloat16": 1e-2, "float32": 2e-5}   # relative to a row's scale
+# "int8": flash-decode's int8 mode, at bf16's tolerance whatever q's dtype:
+# P times v_scale is rounded to bf16 (as the JAX package rounds it), by the
+# kernel against each split's running max and by the plain version against
+# the row's global max, so the two round different values
+TOL = {"bfloat16": 3e-2, "float32": 2e-5, "int8": 3e-2}
+ROW_TOL = {"bfloat16": 1e-2, "float32": 2e-5,   # relative to a row's scale
+           "int8": 1e-2}
 KERNEL_ROWS = {  # name -> (source, TPU kernel it replaces)
     "bgmv": ("src/repro_torch/kernels/csrc/bgmv.cu",
              "src/repro/kernels/bgmv.py:54"),
@@ -136,11 +167,19 @@ KERNEL_ROWS = {  # name -> (source, TPU kernel it replaces)
                      "src/repro/kernels/flash_decode.py:95"),
     "flash_decode_lora": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                           "src/repro/kernels/flash_decode.py:205"),
+    # the int8 mode of flash-decode (the JAX package's int8 decode,
+    # src/repro/models/attention.py:271-314, is plain jnp)
+    "flash_decode_int8": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                          "src/repro/kernels/flash_decode.py:95"),
 }
+# a row's wrapper, where it is not the row's name: the int8 mode counts its
+# launches as flash_decode's
+KERNEL_WRAPPER = {"flash_decode_int8": "flash_decode"}
 # the path each kernel is counted on, and the kernels each path must launch
 KERNEL_PATH = {"bgmv": "serving", "sgmv": "teacher_forcing",
                "flash_decode": "serving",
-               "flash_decode_lora": "measurement"}
+               "flash_decode_lora": "measurement",
+               "flash_decode_int8": "serving_int8"}
 PATH_KERNELS = {"teacher_forcing": ("sgmv", "bgmv", "flash_decode"),
                 "serving": ("bgmv", "flash_decode"),
                 "measurement": ("flash_decode_lora", "sgmv")}
@@ -179,6 +218,17 @@ MOE_TOKENS = (8, 512)
 MOE_VARIANTS = (("olmoe-1b-7b", 4, False), ("moonshot-v1-16b-a3b", 2, False),
                 ("olmoe-1b-7b", 4, True))
 MOE_RANGE = "moe_ffn"           # phase 6c's profiler range around the MoE FFN
+# the int8 KV cache: phase 3 holds the int8 mode at these (label, B, S, H,
+# KV, D): phi4-mini's serving shape, gemma3-1b's global layer, olmoe-1b-7b's
+# G 1, and the measurement path's widest batch and length; phase 6d times
+# phi4-mini's replayed step at B 8 over caches of LONG_S positions, in bf16
+# and in int8
+INT8_SHAPES = (("phi4-mini-3.8b", BATCH, CACHE, HEADS, KV_HEADS, HEAD_DIM),
+               ("gemma3-1b global", BATCH, CACHE, 4, 1, 256),
+               ("olmoe-1b-7b", BATCH, CACHE, 16, 16, 128),
+               (f"B {GRID_B} S {GRID_S}", GRID_B, GRID_S, HEADS, KV_HEADS,
+                HEAD_DIM))
+LONG_S = 32768
 
 
 def say(*parts) -> None:
@@ -291,7 +341,107 @@ def phase_kernels():
     check_sgmv_measure(inp, errs)
     check_fused_grid(errs)
     check_moe(inp, errs)
+    check_quantize_kv(inp, errs)
+    check_flash_decode_int8(inp, errs)
+    check_long(errs)
     return errs
+
+
+def int8_cache(inp, bsz, s, kv, d):
+    """An int8 K or V cache and its f16 scales: ``quantize_kv`` of bf16
+    normals."""
+    from repro_torch.models.attention import quantize_kv
+    return quantize_kv(inp.normal(bsz, s, kv, d, dtype=torch.bfloat16))
+
+
+def check_quantize_kv(inp, errs):
+    """``quantize_kv`` on the card bit for bit its CPU result, on bf16 and
+    f32 K/V of phi4-mini's serving shape (a row of zeros among them)."""
+    from repro_torch.models.attention import quantize_kv
+    for dtype in (torch.bfloat16, torch.float32):
+        x = inp.normal(BATCH, CACHE, KV_HEADS, HEAD_DIM, dtype=dtype,
+                       std=3.0)
+        x[0, 0, 0] = 0
+        q, sc = quantize_kv(x)
+        want_q, want_s = quantize_kv(x.cpu())
+        dn = str(dtype).split(".")[1]
+        check("quantize_kv int8 values, card vs CPU", q.cpu(), want_q, dn,
+              errs, exact=True)
+        check("quantize_kv f16 scales, card vs CPU", sc.cpu(), want_s, dn,
+              errs, exact=True)
+
+
+def check_flash_decode_int8(inp, errs):
+    """The int8 mode against ``flash_decode_int8_plain`` at each of
+    ``INT8_SHAPES``, q in bf16 and in f32, at the bf16 tolerance (TOL and
+    ROW_TOL "int8"): the full cache, ragged lengths (0 and 1 among them,
+    others ending inside tiles) on a cache whose positions past each row's
+    length hold other int8 values and scales (finite), which must give the
+    output of the clean cache bit for bit, and length 0 (exactly 0)."""
+    from repro_torch.kernels import flash_decode
+    fd, plain = flash_decode.flash_decode, flash_decode.flash_decode_int8_plain
+    for label, bsz, s, h, kv, d in INT8_SHAPES:
+        k, ks = int8_cache(inp, bsz, s, kv, d)
+        v, vs = int8_cache(inp, bsz, s, kv, d)
+        tile = flash_decode.tile_positions(d, 1)
+        ragged = torch.randint(0, s + 1, (bsz,), generator=inp.gen,
+                               device="cuda", dtype=torch.int32)
+        ragged[:5] = torch.tensor([0, 1, tile - 1, tile + 1, s],
+                                  device="cuda")
+        past = torch.arange(s, device="cuda")[None, :] >= ragged[:, None]
+        dirty = [t.clone() for t in (k, v, ks, vs)]
+        for t in dirty[:2]:
+            t[past] = torch.randint(-127, 128, t[past].shape,
+                                    generator=inp.gen, device="cuda",
+                                    dtype=torch.int8)
+        for t in dirty[2:]:
+            t[past] = (torch.rand(t[past].shape, generator=inp.gen,
+                                  device="cuda") * 4 + 0.01).half()
+        for qdt in (torch.bfloat16, torch.float32):
+            qn = str(qdt).split(".")[1]
+            q = inp.normal(bsz, h, d, dtype=qdt)
+            name = f"flash_decode_int8 {label} H {h} KV {kv} D {d} q {qn}"
+            check(f"{name} full", fd(q, k, v, s, ks, vs),
+                  plain(q, k, v, s, ks, vs), "int8", errs, per_row=True)
+            got = fd(q, *dirty[:2], ragged, *dirty[2:])
+            check(f"{name} ragged, garbage past the lengths", got,
+                  plain(q, *dirty[:2], ragged, *dirty[2:]), "int8", errs,
+                  per_row=True)
+            check(f"{name} ragged, garbage vs clean cache", got,
+                  fd(q, k, v, ragged, ks, vs), "int8", errs, exact=True)
+            check(f"{name} length 0", fd(q, k, v, 0, ks, vs),
+                  torch.zeros_like(q), "int8", errs, exact=True)
+        del k, v, ks, vs, dirty
+        torch.cuda.empty_cache()
+
+
+def check_long(errs):
+    """Flash-decode at phi4-mini's heads over LONG_S positions (B 8), the
+    caches phase 6d decodes over: the bf16 kernel (whose split plan had not
+    run past 4096 positions on the card) and the int8 mode against their
+    plain versions, full and ragged lengths."""
+    from repro_torch.kernels import flash_decode
+    inp = Inputs(seed=6)
+    ragged = torch.randint(1, LONG_S + 1, (BATCH,), generator=inp.gen,
+                           device="cuda", dtype=torch.int32)
+    ragged[:2] = torch.tensor([LONG_S - 1, 1], device="cuda")
+    q = inp.normal(BATCH, HEADS, HEAD_DIM, dtype=torch.bfloat16)
+    k = inp.normal(BATCH, LONG_S, KV_HEADS, HEAD_DIM, dtype=torch.bfloat16)
+    v = inp.normal(BATCH, LONG_S, KV_HEADS, HEAD_DIM, dtype=torch.bfloat16)
+    for name, length in (("full", LONG_S), ("ragged", ragged)):
+        check(f"flash_decode B {BATCH} S {LONG_S} {name} lengths",
+              flash_decode.flash_decode(q, k, v, length),
+              flash_decode.flash_decode_plain(q, k, v, length), "bfloat16",
+              errs, per_row=True)
+    from repro_torch.models.attention import quantize_kv
+    (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+    for name, length in (("full", LONG_S), ("ragged", ragged)):
+        check(f"flash_decode_int8 B {BATCH} S {LONG_S} {name} lengths",
+              flash_decode.flash_decode(q, k, v, length, ks, vs),
+              flash_decode.flash_decode_int8_plain(q, k, v, length, ks, vs),
+              "int8", errs, per_row=True)
+    del k, v, ks, vs
+    torch.cuda.empty_cache()
 
 
 def check_moe(inp, errs):
@@ -543,6 +693,61 @@ def phase_parity():
         raise AssertionError(f"teacher forcing: rel={rel}")
 
 
+def phase_parity_int8(ops):
+    """Teacher forcing of phi4-mini (4 layers, published widths, f32) with
+    its KV cache in int8 (``Model(kv_quant=True)``): decode after
+    ``prefill(tokens[:, :-1])`` against ``prefill(tokens)``, whose attention
+    reads the unquantized K/V, within the JAX test's 2e-2
+    (tests/test_consistency_int8.py:48); and the same decode with the int8
+    mode's plain version in place of the kernel, within 2e-2 too.  Returns
+    the launch counts of the kernel run."""
+    from unittest import mock
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as fd_mod
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config("phi4-mini-3.8b"), n_layers=4,
+                              dtype="float32")
+    model = Model(cfg, device="cuda", seed=0, kv_quant=True)
+    lora = model.init_lora(SLOTS, RANK, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 33), generator=gen,
+                           device="cuda")
+    ids = torch.arange(4, dtype=torch.int32, device="cuda")
+    ops.reset_launches()
+    full, _ = model.prefill(lora, tokens, ids)
+    _, cache = model.prefill(lora, tokens[:, :-1], ids)
+    dec, _ = model.decode_step(lora, model.pad_cache(cache, 4),
+                               tokens[:, -1:], ids)
+    counts = ops.launch_counts()
+
+    def plain(q, k, v, length, k_scale=None, v_scale=None):
+        return fd_mod.flash_decode_int8_plain(q, k, v, length, k_scale,
+                                              v_scale)
+    with mock.patch.object(fd_mod, "flash_decode", plain):
+        dec_plain, _ = model.decode_step(lora, model.pad_cache(cache, 4),
+                                         tokens[:, -1:], ids)
+
+    def rel(a, b):
+        return ((a - b).abs().max() / (b.abs().max() + 1e-9)).item()
+    rel_tf, rel_plain = rel(dec, full), rel(dec, dec_plain)
+    int8 = cache["layers"][0]["k"].dtype == torch.int8
+    ok = (int8 and bool(torch.isfinite(full).all()) and rel_tf < 2e-2
+          and rel_plain < 2e-2)
+    say(f"  teacher forcing, int8 KV cache, {cfg.n_layers} layers at "
+        f"d={cfg.d_model}, f32, prompt 4x32: decode vs prefill rel="
+        f"{rel_tf:.3e} (limit 2e-2), kernel vs plain attention rel="
+        f"{rel_plain:.3e} (limit 2e-2) -> {'ok' if ok else 'FAIL'}; "
+        f"launches {counts}")
+    if not ok:
+        raise AssertionError(f"int8 teacher forcing: rel {rel_tf}, "
+                             f"against the plain attention {rel_plain}")
+    require_launched("int8 teacher forcing", counts,
+                     PATH_KERNELS["teacher_forcing"])
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_parity_variants(ops):
     """Teacher forcing for each of ``VARIANTS`` at its published widths,
     f32, its depth cut, as ``phase_parity`` (internvl2 with its 256 image
@@ -613,9 +818,11 @@ def phase_parity_moe(ops):
 KERNEL_NAMES = {"bgmv_kernel": "bgmv", "sgmv_kernel": "sgmv",
                 "sgmv_segments_kernel": "sgmv",
                 "fd_split_kernel": "flash_decode",
+                "fd_split_int8_kernel": "flash_decode",
                 "fd_combine_kernel": "flash_decode",
                 "fd_lora_shrink_kernel": "flash_decode_lora"}
 FD_KERNELS = ("fd_split_kernel", "fd_combine_kernel")  # flash-decode's two
+FD_INT8_KERNELS = ("fd_split_int8_kernel", "fd_combine_kernel")  # int8 mode
 FUSED_KERNELS = FD_KERNELS + ("fd_lora_shrink_kernel",)  # the fused three
 SGMV_KERNELS = ("sgmv_segments_kernel", "sgmv_kernel")  # SGMV's sort, product
 GEMM_WORDS = ("gemm", "nvjet", "cutlass", "xmma")  # cuBLAS kernel names
@@ -641,6 +848,11 @@ def phase_step(executor, ops, n=10):
 
     def replay():
         executor.decode(idx_host)
+    # the split pass of each cache layout the model has (int8 or not)
+    quant = [blk.kv_quant for blk in model.layers]
+    absent = {"fd_split_int8_kernel": not any(quant),
+              "fd_split_kernel": all(quant)}
+    absent = tuple(k for k, no in absent.items() if no)
     ops.reset_launches()
     eager()
     per_step = ops.launch_counts()
@@ -658,8 +870,12 @@ def phase_step(executor, ops, n=10):
     end.record()
     torch.cuda.synchronize()
     stats["replay_span_ms"] = start.elapsed_time(end) / n
-    busy_e, wall_e = profile_step(eager, per_step, "eager")
-    busy_r, wall_r = profile_step(replay, per_step, "replayed")
+    busy_e, wall_e, _ = profile_step(eager, per_step, "eager", absent)
+    busy_r, wall_r, groups = profile_step(replay, per_step, "replayed",
+                                          absent)
+    stats.update(replay_groups_ms={g: us / 1e3 for g, us in groups.items()},
+                 replay_flash_decode_share=groups.get("flash_decode", 0.0)
+                 / busy_r)
     stats.update(eager_busy_ms=busy_e / 1e3, replay_busy_ms=busy_r / 1e3,
                  replay_busy_share=busy_r / 1e3 / stats["replay_ms"],
                  replay_span_share=stats["replay_span_ms"] / stats[
@@ -685,15 +901,16 @@ def wall_ms(fn, n):
     return (time.perf_counter() - t0) / n * 1e3
 
 
-def profile_step(step, per_step, label, steps=3):
+def profile_step(step, per_step, label, absent=(), steps=3):
     """Device busy µs per step (the union of the device's kernel and copy
     intervals: kernels chained as programmatic dependents overlap, so
-    their sum counts some time twice) and the profiled wall µs of
-    ``steps`` steps (torch.profiler), printing the time by kernel group
-    and the largest kernels; fails if a kernel the step launched
-    (``per_step``) shows no device time under its own name, which a
-    renamed kernel, or one the profiler did not see inside a graph,
-    would."""
+    their sum counts some time twice), the profiled wall µs of ``steps``
+    steps (torch.profiler) and the µs a step by kernel group, printing
+    those groups and the largest kernels; fails if a kernel the step
+    launched (``per_step``; but those in ``absent``, the split pass of a
+    cache layout the model does not have) shows no device time under its
+    own name, which a renamed kernel, or one the profiler did not see
+    inside a graph, would."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -715,7 +932,8 @@ def profile_step(step, per_step, label, steps=3):
             "gemm" if any(w in e.key.lower() for w in GEMM_WORDS) else "other")
         groups[group] = groups.get(group, 0.0) + us
     missing = [k for k, wrapper in KERNEL_NAMES.items()
-               if per_step.get(wrapper, 0) and not seen.get(k, 0.0) > 0]
+               if per_step.get(wrapper, 0) and k not in absent
+               and not seen.get(k, 0.0) > 0]
     if missing:
         raise AssertionError(f"kernels launched in the {label} step have no "
                              f"profiled device time: {missing}")
@@ -731,7 +949,7 @@ def profile_step(step, per_step, label, steps=3):
         + f"; {len(kernels)} kernel names; busy (union) {busy / steps:.1f}")
     for us, key in sorted(kernels, reverse=True)[:6]:
         say(f"    {us:9.1f} us  {key[:90]}")
-    return busy / steps, wall_us
+    return busy / steps, wall_us, groups
 
 
 def check_replay(executor, steps=4):
@@ -771,7 +989,7 @@ def check_replay(executor, steps=4):
     ok = ok and pos == (s - 2 + steps,) * 2 and \
         bool(torch.isfinite(pairs[steps - 1][1]).all())
     say(f"  replay vs eager, {steps} steps from pos {s - 2} (S {s}), ids "
-        f"with -1, logits and {2 * len(cache['layers'])} K/V tensors: "
+        f"with -1, logits and {len(pairs) - steps} cache tensors: "
         f"{'bitwise' if bitwise else 'not bitwise'}, largest difference "
         f"{worst[0]:.3e} ({worst[1]}), pos {pos} -> {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -878,6 +1096,20 @@ def moe_step_split(executor, steps=3):
     return {"eager_split_ms": eager_ms, "replay_split_ms": replay_ms}
 
 
+def weight_bytes(model):
+    """The bytes of weights a decode step reads once (every parameter but
+    an untied embedding table, of which it reads a few rows), and of them
+    the MoE experts'."""
+    weights = experts = 0
+    for name, p in model.named_parameters():
+        if name == "embed.embed" and not model.cfg.tie_embeddings:
+            continue
+        weights += p.numel() * p.element_size()
+        if ".moe.w_" in name:
+            experts += p.numel() * p.element_size()
+    return weights, experts
+
+
 def step_bound(model, batch=8):
     """The least time of one decode step of ``batch`` rows: the bytes of
     every weight it reads once (all parameters but an untied embedding
@@ -885,13 +1117,7 @@ def step_bound(model, batch=8):
     the operations of the dense (E, C, d) expert products at C = batch * k
     (dropless) over the bf16 peak."""
     cfg = model.cfg
-    weights = experts = 0
-    for name, p in model.named_parameters():
-        if name == "embed.embed" and not cfg.tie_embeddings:
-            continue
-        weights += p.numel() * p.element_size()
-        if ".moe.w_" in name:
-            experts += p.numel() * p.element_size()
+    weights, experts = weight_bytes(model)
     flops = 2 * 3 * cfg.n_experts * batch * cfg.top_k * cfg.d_model \
         * cfg.d_ff * cfg.n_layers
     ms, by = bound(weights, flops, "bfloat16")
@@ -1096,6 +1322,9 @@ def phase_timing():
         "split_ms": split["fd_split_kernel"],
         "combine_ms": split["fd_combine_kernel"]}
 
+    rows["flash_decode_int8"] = int8_rows(make_fd, sdpa)
+    rows["flash_decode"].update(long_bf16_times(sdpa))
+
     # fused: the same attention plus a rank-8 delta from 4 adapters
     ids = (torch.arange(BATCH, device="cuda") % SLOTS).to(torch.int32)
     expand = HEADS * HEAD_DIM
@@ -1155,6 +1384,93 @@ def phase_timing():
     for r in rows.values():
         r["floor_ms"] = floor
     return rows
+
+
+def int8_bound(bsz, h, kv, d, s):
+    """The int8 mode's bound over all ``s`` positions: bf16 q read and
+    output written, int8 K and V and their f16 scales read once; 4*G*D
+    operations a (position, KV head) against the bf16 peak."""
+    nbytes = 2 * bsz * h * d * 2 + 2 * bsz * s * kv * (d + 2) + 4 * bsz
+    return bound(nbytes, 4 * (h // kv) * bsz * s * kv * d, "bfloat16")
+
+
+def int8_rows(make_fd, sdpa):
+    """The int8 mode's row: its time, its plain version's, its split and
+    combine kernels (profiled) and its bound at phi4-mini's serving shape
+    (B 8, S 512, all positions, q bf16) and over LONG_S positions
+    (``s32768_*``), on ``quantize_kv`` of the bf16 inputs ``make_fd``
+    draws.  Its library yardstick is ``scaled_dot_product_attention`` over
+    the bf16 cache of the same shape (head-major copies): it reads twice
+    the K/V bytes, and no single PyTorch call takes an int8 cache with its
+    scales."""
+    from repro_torch.kernels import flash_decode
+    from repro_torch.models.attention import quantize_kv
+    fd = flash_decode.flash_decode
+
+    def int8_set(q, k, v, length):
+        (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+        return q, k8, v8, length, ks, vs
+    bf16 = copies(make_fd, BATCH * CACHE * KV_HEADS * HEAD_DIM * 2)
+    sets = [int8_set(*args) for args in bf16]
+    lib_sets = [(q[:, :, None], k.transpose(1, 2).contiguous(),
+                 v.transpose(1, 2).contiguous()) for q, k, v, _ in bf16]
+    del bf16
+    split = profiled_ms(fd, sets, FD_INT8_KERNELS)
+    b_ms, b_by = int8_bound(BATCH, HEADS, KV_HEADS, HEAD_DIM, CACHE)
+    row = {"ms": graph_ms(fd, sets),
+           "plain_ms": graph_ms(flash_decode.flash_decode_int8_plain, sets),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": graph_ms(sdpa, lib_sets),
+           "library_call": "scaled_dot_product_attention (GQA) on the bf16 "
+                           "cache of the same shape: twice the K/V bytes",
+           "split_ms": split["fd_split_int8_kernel"],
+           "combine_ms": split["fd_combine_kernel"]}
+    del sets, lib_sets
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q = torch.randn((BATCH, HEADS, HEAD_DIM), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    kv = [torch.randn((BATCH, LONG_S, KV_HEADS, HEAD_DIM), generator=gen,
+                      device="cuda", dtype=torch.bfloat16) for _ in range(2)]
+    lib = [(q[:, :, None], kv[0].transpose(1, 2).contiguous(),
+            kv[1].transpose(1, 2).contiguous())]
+    row["s32768_library_ms"] = graph_ms(sdpa, lib)
+    del lib
+    sets = [int8_set(q, *kv, LONG_S)]
+    del kv
+    b_ms, _ = int8_bound(BATCH, HEADS, KV_HEADS, HEAD_DIM, LONG_S)
+    row.update(s32768_ms=graph_ms(fd, sets),
+               s32768_plain_ms=graph_ms(flash_decode.flash_decode_int8_plain,
+                                        sets, calls=4),
+               s32768_bound_ms=b_ms)
+    del sets
+    torch.cuda.empty_cache()
+    return row
+
+
+def long_bf16_times(sdpa):
+    """Plain flash-decode (bf16) over LONG_S positions at phi4-mini's heads,
+    B 8: its time, its plain version's, SDPA's (head-major copies) and its
+    bound, beside the int8 mode's ``s32768_*``."""
+    from repro_torch.kernels import flash_decode
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+               for shape in ((BATCH, HEADS, HEAD_DIM),
+                             (BATCH, LONG_S, KV_HEADS, HEAD_DIM),
+                             (BATCH, LONG_S, KV_HEADS, HEAD_DIM)))
+    sets = [(q, k, v, LONG_S)]
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + 4 * BATCH
+    b_ms, _ = bound(nbytes, 4 * (HEADS // KV_HEADS) * k.numel(), "bfloat16")
+    out = {"s32768_ms": graph_ms(flash_decode.flash_decode, sets),
+           "s32768_plain_ms": graph_ms(flash_decode.flash_decode_plain, sets,
+                                       calls=4),
+           "s32768_bound_ms": b_ms,
+           "s32768_library_ms": graph_ms(sdpa, [(
+               q[:, :, None], k.transpose(1, 2).contiguous(),
+               v.transpose(1, 2).contiguous())])}
+    del q, k, v, sets
+    torch.cuda.empty_cache()
+    return out
 
 
 def fused_grid_times(unfused):
@@ -1276,19 +1592,20 @@ def phase_measure(ops):
 
 # --------------------------------------------------------------------------- #
 
-def phase_serve(arch, ops):
-    """Serve ``arch`` at its published widths (bf16, weights from seed 0)
-    with the launcher's default flags, every step but the warmup a replay
-    of the executor's captured step; at least 12 requests must finish,
-    the logits be finite, BGMV and flash-decode have launched, and the
-    launches be the warmup's and the replays'; then ``check_replay``.
-    Returns the executor and the serving path's launch counts."""
+def phase_serve(arch, ops, kv_quant=False):
+    """Serve ``arch`` at its published widths (bf16, weights from seed 0;
+    with ``kv_quant`` an int8 KV cache) with the launcher's default flags,
+    every step but the warmup a replay of the executor's captured step; at
+    least 12 requests must finish, the logits be finite, BGMV and
+    flash-decode have launched, and the launches be the warmup's and the
+    replays'; then ``check_replay``.  Returns the executor and the serving
+    path's launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import build_parser, report, serve
     args = build_parser().parse_args([])   # the launcher's defaults
     t0 = time.perf_counter()
     ops.reset_launches()
-    metrics, executor = serve(get_config(arch), args)
+    metrics, executor = serve(get_config(arch), args, kv_quant=kv_quant)
     serve_launches = ops.launch_counts()
     wall = time.perf_counter() - t0
     say(report(metrics))
@@ -1312,22 +1629,101 @@ def phase_serve(arch, ops):
     return executor, serve_launches
 
 
-def serve_variant(arch, phase, ops):
-    """Phases 5``phase`` and 6``phase``: serve ``arch`` at its published
-    widths (``phase_serve``), hold each replay to one BGMV launch per LoRA
-    target and one flash-decode per layer, and time its replayed step
-    (``phase_step``).  Returns the executor, the serving path's launches
-    and the step's numbers."""
-    say(f"phase 5{phase}: serving {arch} (published widths, bf16)")
-    executor, launches = phase_serve(arch, ops)
+def serve_variant(arch, phase, ops, kv_quant=False):
+    """Phase 5``phase``: serve ``arch`` at its published widths
+    (``phase_serve``; with ``kv_quant`` on an int8 KV cache), hold each
+    replay to one BGMV launch per LoRA target and one flash-decode per
+    layer, and time its replayed step (``phase_step``; phase 6``phase``,
+    or part of 5``phase`` with ``kv_quant``).  Returns the executor, the
+    serving path's launches and the step's numbers."""
+    cache = "an int8 KV cache" if kv_quant else "a bf16 KV cache"
+    say(f"phase 5{phase}: serving {arch} (published widths, bf16, {cache})")
+    executor, launches = phase_serve(arch, ops, kv_quant)
     cfg = executor.model.cfg
     want = {"bgmv": 2 * cfg.n_layers, "flash_decode": cfg.n_layers}
     if executor.graph_launches != want:
         raise AssertionError(f"{arch}: a replay launches "
                              f"{executor.graph_launches}, not {want}")
-    say(f"phase 6{phase}: {arch}'s replayed step (bf16)")
+    if kv_quant:
+        say(f"  {arch}'s replayed step on the int8 cache, {CACHE} positions")
+    else:
+        say(f"phase 6{phase}: {arch}'s replayed step (bf16)")
     _, stats = phase_step(executor, ops)
     return executor, launches, stats
+
+
+def fill_cache(cache, seed, pos):
+    """Fill every K/V cache tensor with seeded draws, as a long prompt
+    would leave it without running one: bf16 normals, or in an int8 cache
+    their ``quantize_kv`` with its scales (the same normals for both from
+    one seed); set the device ``pos``."""
+    from repro_torch.models.attention import quantize_kv
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for c in cache["layers"]:
+        for name in ("k", "v"):
+            x = torch.randn(c[name].shape, generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            if f"{name}_scale" in c:
+                x, scale = quantize_kv(x)
+                c[f"{name}_scale"].copy_(scale)
+            c[name].copy_(x)
+            del x
+    cache["pos"].fill_(pos)
+    torch.cuda.synchronize()
+
+
+def decode_bound(model, cache):
+    """The least time of one decode step over ``cache``: the bytes of every
+    weight it reads (as ``step_bound``) and of every K/V and scale tensor
+    of the cache, read once in full, over the HBM rate."""
+    weights, _ = weight_bytes(model)
+    kv = sum(t.numel() * t.element_size()
+             for c in cache["layers"] for t in c.values())
+    return {"weight_gb": weights / 1e9, "kv_gb": kv / 1e9,
+            "weights_ms": weights / HBM_BYTES_PER_S * 1e3,
+            "kv_ms": kv / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": (weights + kv) / HBM_BYTES_PER_S * 1e3}
+
+
+def phase_long_step(ops):
+    """Phase 6d: phi4-mini's replayed decode step (published widths, bf16
+    weights, B 8) over caches of LONG_S positions, once with a bf16 cache
+    and once with an int8 one, one after the other, the first freed: the
+    caches filled by ``fill_cache`` (no prefill), ``pos`` 16 short of the
+    end (the timed steps run past it: the write skipped, all LONG_S
+    positions attended).  Each step's wall, span, busy time and
+    flash-decode's share (``phase_step``) beside its byte bound
+    (``decode_bound``).  Returns {"bf16": ..., "int8": ...} and the int8
+    run's launches per step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving.executor import TorchExecutor
+    cfg = get_config("phi4-mini-3.8b")
+    out, launches = {}, {}
+    for label, quant in (("bf16", False), ("int8", True)):
+        t0 = time.perf_counter()
+        model = Model(cfg, device="cuda", seed=0, kv_quant=quant)
+        lora = model.init_lora(SLOTS, RANK, seed=0)
+        executor = TorchExecutor(model, lora, max_batch=BATCH,
+                                 cache_len=LONG_S, device="cuda")
+        fill_cache(executor.cache, seed=7, pos=LONG_S - 16)
+        say(f"  {label} KV cache of {LONG_S} positions: built and filled in "
+            f"{time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+        launches, stats = phase_step(executor, ops)
+        stats.update(decode_bound(model, executor.cache))
+        stats["busy_over_bound"] = stats["replay_busy_ms"] / stats["bound_ms"]
+        say(f"  {label} step over {LONG_S} positions: wall "
+            f"{stats['replay_ms']:.2f} ms, span {stats['replay_span_ms']:.2f}"
+            f", busy {stats['replay_busy_ms']:.2f} (flash-decode "
+            f"{stats['replay_flash_decode_share']:.1%}); bound "
+            f"{stats['bound_ms']:.2f} ms ({stats['weight_gb']:.2f} GB of "
+            f"weights, {stats['kv_gb']:.2f} GB of K/V), busy "
+            f"{stats['busy_over_bound']:.2f}x it")
+        out[label] = stats
+        del executor, model, lora
+        torch.cuda.empty_cache()
+    return out, launches
 
 
 def require_launched(path, counts, names) -> None:
@@ -1377,6 +1773,7 @@ def main() -> int:
     say(f"  launches on the five teacher-forcing paths: {tfv_launches}")
     tfm_launches = phase_parity_moe(ops)
     say(f"  launches on the MoE teacher-forcing paths: {tfm_launches}")
+    tf8_launches = phase_parity_int8(ops)
 
     say("phase 5: serving phi4-mini-3.8b (published widths, bf16)")
     executor, serve_launches = phase_serve("phi4-mini-3.8b", ops)
@@ -1399,13 +1796,26 @@ def main() -> int:
     say(f"  step {MOE_ARCH} " + json.dumps(moe_stats))
     del executor
     torch.cuda.empty_cache()
+
+    executor, int8_launches, int8_stats = serve_variant(
+        "phi4-mini-3.8b", "d", ops, kv_quant=True)
+    say("  step phi4-mini-3.8b int8 KV cache " + json.dumps(int8_stats))
+    del executor
+    torch.cuda.empty_cache()
+    say(f"phase 6d: phi4-mini-3.8b's replayed step over {LONG_S} positions,"
+        " bf16 against int8 KV cache")
+    long_stats, long_launches = phase_long_step(ops)
+    say("  step 32k " + json.dumps(long_stats))
     rows = phase_timing()
     for name, r in rows.items():
         extra = {k: v for k, v in r.items() if k not in
-                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+                 and not isinstance(v, str)}
+        steps = long_launches if name in KERNEL_WRAPPER else per_step
         say(f"  {name}: {r['ms'] * 1e3:.2f} us (plain {r['plain_ms'] * 1e3:.2f}"
             f" us, bound {r['bound_ms'] * 1e3:.3f} us by {r['bound_by']}, "
-            f"library {r['library_ms']}), {per_step[name]} per decode step"
+            f"library {r['library_ms']}), "
+            f"{steps[KERNEL_WRAPPER.get(name, name)]} per decode step"
             + "".join(f", {k} {v * 1e3:.2f} us" for k, v in extra.items()))
     torch.cuda.empty_cache()
 
@@ -1420,16 +1830,22 @@ def main() -> int:
              "teacher_forcing_variants": tfv_launches,
              "teacher_forcing_moe": tfm_launches,
              "serving_" + SERVED_VARIANT: variant_launches,
-             "serving_" + MOE_ARCH: moe_launches}
+             "serving_" + MOE_ARCH: moe_launches,
+             "teacher_forcing_int8": tf8_launches,
+             "serving_int8": int8_launches}
     rows["flash_decode_lora"]["grid_max_abs_err"] = \
         errs["flash_decode_lora_grid"]
     table = []
     for name, (source, replaces) in KERNEL_ROWS.items():
-        path = KERNEL_PATH[name]
+        path, wrapper = KERNEL_PATH[name], KERNEL_WRAPPER.get(name, name)
+        # the int8 mode's launches are flash_decode's on the int8 paths,
+        # flash_decode's on the others those of the bf16 and f32 caches
+        own = {p: c for p, c in paths.items()
+               if ("int8" in p) == (name in KERNEL_WRAPPER)}
         table.append({"name": name, "route": "cuda", "source": source,
-                      "replaces": replaces, "launches": paths[path][name],
+                      "replaces": replaces, "launches": own[path][wrapper],
                       "path": path,
-                      **{f"launches_{p}": c[name] for p, c in paths.items()},
+                      **{f"launches_{p}": c[wrapper] for p, c in own.items()},
                       "max_abs_err": errs[name], **rows[name]})
     say(json.dumps({"kernels": table}))
     say(json.dumps({"ok": True, "device": {

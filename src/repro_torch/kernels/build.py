@@ -8,9 +8,9 @@ every module and never build.
 One ``torch.utils.cpp_extension.load`` call compiles every ``.cu`` source
 (in parallel, through ninja) and the one binding file that includes
 PyTorch's headers (``csrc/binding.cpp``).  The extension exposes
-``kernels().bgmv(...)``, ``.sgmv(...)``, ``.flash_decode(...)`` and
-``.flash_decode_lora(...)``, taking device pointers, sizes, dtype codes and
-the stream as Python numbers.
+``kernels().bgmv(...)``, ``.sgmv(...)``, ``.flash_decode(...)``,
+``.flash_decode_int8(...)`` and ``.flash_decode_lora(...)``, taking device
+pointers, sizes, dtype codes and the stream as Python numbers.
 """
 from __future__ import annotations
 

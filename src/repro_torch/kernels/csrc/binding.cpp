@@ -58,6 +58,20 @@ void flash_decode(int64_t q, int64_t k, int64_t v, int64_t length,
         "flash_decode");
 }
 
+void flash_decode_int8(int64_t q, int64_t k, int64_t v, int64_t k_scale,
+                       int64_t v_scale, int64_t length, int64_t m_part,
+                       int64_t l_part, int64_t acc_part, int64_t out,
+                       int64_t bsz, int64_t s, int64_t h, int64_t kv,
+                       int64_t dh, int64_t n_splits, int64_t chunk,
+                       int64_t dtype, int64_t stream) {
+  check(repro_flash_decode_int8(cptr(q), cptr(k), cptr(v), cptr(k_scale),
+                                cptr(v_scale), cptr(length), ptr(m_part),
+                                ptr(l_part), ptr(acc_part), ptr(out), bsz, s,
+                                h, kv, dh, n_splits, chunk, dtype,
+                                ptr(stream)),
+        "flash_decode_int8");
+}
+
 void flash_decode_lora(int64_t q, int64_t k, int64_t v, int64_t length,
                        int64_t x, int64_t a, int64_t b, int64_t idx,
                        int64_t m_part, int64_t l_part, int64_t acc_part,
@@ -84,6 +98,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "stable sort of tokens by adapter (SGMV's segments)");
   m.def("sgmv", &sgmv, "SGMV LoRA (prefill-sized batches, dense or ragged)");
   m.def("flash_decode", &flash_decode, "split-KV flash-decode attention");
+  m.def("flash_decode_int8", &flash_decode_int8,
+        "split-KV flash-decode over an int8 cache with f16 scales");
   m.def("flash_decode_lora", &flash_decode_lora,
         "split-KV flash-decode with a fused multi-adapter LoRA delta");
 }

@@ -1,8 +1,10 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
-// Every kernel reads bf16 or f32 and accumulates in f32.  Conversions go
-// through the CUDA intrinsics only: PyTorch's extension builder compiles
-// with -D__CUDA_NO_BFLOAT16_CONVERSIONS__, which removes the implicit ones.
+// Every kernel reads bf16 or f32 (flash-decode's int8 mode an int8 cache
+// and its f16 scales) and accumulates in f32.  Conversions go through the
+// CUDA intrinsics only: torch.utils.cpp_extension compiles with
+// -D__CUDA_NO_BFLOAT16_CONVERSIONS__ and -D__CUDA_NO_HALF_CONVERSIONS__,
+// which remove the implicit ones.
 #pragma once
 
 #include <atomic>
@@ -10,6 +12,7 @@
 #include <cstring>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 // dtype codes passed from Python (see kernels/build.py: DTYPE_CODES)
@@ -57,6 +60,21 @@ template <> __device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4&
     const float2 v = __bfloat1622float2(p);
     f[2 * i] = v.x;
     f[2 * i + 1] = v.y;
+  }
+}
+
+// The 16 bytes of `u` as 16 int8 values, exactly, without a conversion
+// instruction (those run at a quarter of the FMA rate): each byte, offset by
+// 128, goes into the low mantissa byte of 2^23 (0x4B000000), and one
+// subtraction of 2^23 + 128 leaves its value.
+template <> __device__ __forceinline__ void unpack16<int8_t>(const uint4& u, float* f) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const unsigned b = w[i] ^ 0x80808080u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[4 * i + j] = __uint_as_float(__byte_perm(b, 0x4B000000u, 0x7540 + j)) - 8388736.f;
   }
 }
 

@@ -54,6 +54,23 @@
 // 2-byte loads, a shuffle reduction and two expf per head per position:
 // 29.70 us at the serving shape, 3x SDPA (PERF.md).
 //
+// The int8 mode (fd_split_int8_kernel) reads an int8 cache with one f16
+// scale per (position, KV head), the layout of the JAX package's int8 KV
+// cache (quantize_kv, src/repro/models/attention.py:226-241; its decode,
+// :271-314, is plain jnp, no Pallas kernel).  It halves the bytes of K and
+// V (at B 8, S 32768, KV 8, D 128: 537 MB a layer, against 1.07 GB in
+// bf16; the scales add 8.4 MB), which bound the pass.  Its tiles are 16 KB
+// of int8 (128 positions at D <= 128).  With bf16 q at D 32-128 it runs on
+// tensor cores (split_mma_int8): split_mma's warp layout, each lane turning
+// the int8 bytes it reads into bf16 fragments in registers, so no tile is
+// dequantized in shared memory; with f32 q, and at D 16 and 256, on CUDA
+// cores (split_scalar).  The scores are scaled by the position's k scale;
+// P, times the position's v scale and rounded to bf16 (as the JAX package
+// rounds it, against the global max there, the chunk's running max here),
+// multiplies V; the sum of the f32 P divides, in the unchanged combine.
+// The scales, 2 bytes KV apart, do not fit the 16-byte copies: they are
+// plain loads, issued ahead of the scores that need them.
+//
 // A second kernel, one block per (row, head), merges the splits by
 // log-sum-exp and writes q's dtype.  The fused kernel launches a LoRA
 // shrink between the two (fd_lora_shrink_kernel): one thread-block cluster
@@ -116,7 +133,7 @@ struct Tile {
   // the tensor-core pass: bf16, and 16-position k-blocks for each warp
   static constexpr bool kMma =
       std::is_same<T, __nv_bfloat16>::value && kP % (16 * kWarps) == 0;
-  static_assert(kChunks >= 2 && kChunks % kKS == 0 && kP % kPG == 0, "tile");
+  static_assert(kChunks >= 1 && kChunks % kKS == 0 && kP % kPG == 0, "tile");
   static_assert(kParts * kMaxG * D * 4 <= 2 * kBytes, "reduction fits the ring");
   // Shared-memory slot of chunk c of position p: the chunk index is XORed
   // with bits of p so that chunk c of 8 consecutive positions lands in 8
@@ -146,16 +163,22 @@ __device__ __forceinline__ void load_tile(T* ks, const T* k, const T* v,
   }
 }
 
-// The split pass on CUDA cores (f32, and bf16 at D 256): all 128 threads
-// work on each tile together, four barriers a tile.
-template <typename T, int D>
+// The split pass on CUDA cores (f32, bf16 at D 256, and the int8 mode):
+// all 128 threads work on each tile together, four barriers a tile.  q is
+// T; K and V are KV, T itself or int8 with the f16 scales k_scale and
+// v_scale of (bsz, s, kv) (kQuant).
+template <typename T, typename KV, int D>
 __device__ __forceinline__ void split_scalar(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int* __restrict__ length, float* __restrict__ m_part,
-    float* __restrict__ l_part, float* __restrict__ acc_part, int s, int h,
-    int kv, int n_splits, int chunk, int stages) {
-  using G = Tile<T, D>;
+    const T* __restrict__ q, const KV* __restrict__ k,
+    const KV* __restrict__ v, const __half* __restrict__ k_scale,
+    const __half* __restrict__ v_scale, const int* __restrict__ length,
+    float* __restrict__ m_part, float* __restrict__ l_part,
+    float* __restrict__ acc_part, int s, int h, int kv, int n_splits,
+    int chunk, int stages) {
+  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  using G = Tile<KV, D>;
   constexpr int kP = G::kP, kVec = G::kVec, kChunks = G::kChunks;
+  static_assert(kP <= kThreads, "one thread a position loads the scales");
   const int split = blockIdx.x, kvh = blockIdx.y, row = blockIdx.z;
   const int g_n = h / kv;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -170,14 +193,15 @@ __device__ __forceinline__ void split_scalar(
   __shared__ float sc[G::kKS][kMaxG][kP];
   __shared__ float pr[kMaxG][kP];
   __shared__ float corr_s[kMaxG];
-  T* ring = reinterpret_cast<T*>(fd_ring);
+  __shared__ float tile_scale[kQuant ? 2 : 1][kQuant ? kP : 1];  // k, v
+  KV* ring = reinterpret_cast<KV*>(fd_ring);
   auto k_slot = [&](int i) { return ring + (size_t)(i % stages) * 2 * kP * D; };
 
   const size_t base = ((size_t)row * s * kv + kvh) * D;
   const size_t stride = (size_t)kv * D;
   auto load = [&](int i) {
-    load_tile<T, D, kP>(k_slot(i), k, v, base, stride, s0 + i * kP, s1, 0,
-                        tid, kThreads);
+    load_tile<KV, D, kP>(k_slot(i), k, v, base, stride, s0 + i * kP, s1, 0,
+                         tid, kThreads);
   };
   for (int i = 0; i < stages; ++i) {  // every slot's copies in flight
     if (i < n_tiles) load(i);
@@ -204,10 +228,21 @@ __device__ __forceinline__ void split_scalar(
   const int vc = tid % kChunks, vpg = tid / kChunks;  // P.V pass
 
   for (int it = 0; it < n_tiles; ++it) {
+    // int8: position tid's scales (0 past the chunk), in flight during the
+    // scores, which do not need them
+    float k_sc = 0.f, v_sc = 0.f;
+    if constexpr (kQuant) {
+      const int p = s0 + it * kP + tid;
+      if (tid < kP && p < s1) {
+        const size_t i = ((size_t)row * s + p) * kv + kvh;
+        k_sc = __half2float(k_scale[i]);
+        v_sc = __half2float(v_scale[i]);
+      }
+    }
     repro::cp_async_wait(stages - 1);  // this thread's copies of tile `it`
     __syncthreads();                   // everyone's
-    const T* kt = k_slot(it);
-    const T* vt = kt + kP * D;
+    const KV* kt = k_slot(it);
+    const KV* vt = kt + kP * D;
     const int n_valid = min(kP, s1 - (s0 + it * kP));
 
     // Scores: thread (sp, sks) dots chunks sks, sks + kKS, ... of K[sp].
@@ -219,7 +254,7 @@ __device__ __forceinline__ void split_scalar(
       for (int i = 0; i < kChunks / G::kKS; ++i) {
         const int c = sks + G::kKS * i;
         float kf[kVec];
-        repro::unpack16<T>(
+        repro::unpack16<KV>(
             *reinterpret_cast<const uint4*>(kt + G::slot(sp, c) * kVec), kf);
 #pragma unroll
         for (int g = 0; g < kMaxG; ++g) {
@@ -232,6 +267,12 @@ __device__ __forceinline__ void split_scalar(
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g)
         if (g < g_n) sc[sks][g][sp] = part[g];
+    }
+    if constexpr (kQuant) {
+      if (tid < kP) {
+        tile_scale[0][tid] = k_sc;
+        tile_scale[1][tid] = v_sc;
+      }
     }
     __syncthreads();
 
@@ -252,6 +293,7 @@ __device__ __forceinline__ void split_scalar(
 #pragma unroll
             for (int u = 0; u < G::kKS; ++u) x += sc[u][g][p];
             x *= scale;
+            if constexpr (kQuant) x *= tile_scale[0][p];
           }
           sv[i] = x;
           mx = fmaxf(mx, x);
@@ -262,7 +304,13 @@ __device__ __forceinline__ void split_scalar(
         for (int i = 0; i < kPer; ++i) {
           const int p = lane + 32 * i;
           const float e = p < n_valid ? expf(sv[i] - m_new) : 0.f;
-          if (p < kP) pr[g][p] = e;
+          if (p < kP) {
+            // int8: P times the v scale, rounded to bf16 (l sums the f32 P)
+            if constexpr (kQuant)
+              pr[g][p] = __bfloat162float(__float2bfloat16(e * tile_scale[1][p]));
+            else
+              pr[g][p] = e;
+          }
           sum += e;
         }
         const float corr = expf(m[j] - m_new);
@@ -287,7 +335,7 @@ __device__ __forceinline__ void split_scalar(
       const int p = vpg + G::kPG * i;
       if (p < n_valid) {
         float vf[kVec];
-        repro::unpack16<T>(
+        repro::unpack16<KV>(
             *reinterpret_cast<const uint4*>(vt + G::slot(p, vc) * kVec), vf);
 #pragma unroll
         for (int g = 0; g < kMaxG; ++g) {
@@ -569,6 +617,293 @@ __device__ __forceinline__ void split_mma(
   }
 }
 
+// Four int8 values (the bytes of w) as two bf16 pairs, exactly: lo holds
+// bytes 0 and 1, hi bytes 2 and 3, the lower byte in the lower half.  Each
+// byte goes through unpack16's f32 trick; an integer of at most 8
+// significant bits is its f32's upper half in bf16.
+__device__ __forceinline__ void int8x4_to_bf16(unsigned w, unsigned& lo,
+                                               unsigned& hi) {
+  const unsigned u = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    f[j] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + j)) - 8388736.f;
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+}
+
+// kBytes (4, 8, or a multiple of 16) bytes of row r of an int8 tile from
+// byte b (a multiple of kBytes), as words.
+template <int D, int kBytes>
+__device__ __forceinline__ void load_row_bytes(unsigned* w, const int8_t* tile,
+                                               int r, int b) {
+  using G = Tile<int8_t, D>;
+  if constexpr (kBytes >= 16) {
+#pragma unroll
+    for (int i = 0; i < kBytes / 16; ++i) {
+      const uint4 u = *reinterpret_cast<const uint4*>(tile + G::slot(r, b / 16 + i) * 16);
+      w[4 * i] = u.x;
+      w[4 * i + 1] = u.y;
+      w[4 * i + 2] = u.z;
+      w[4 * i + 3] = u.w;
+    }
+  } else if constexpr (kBytes == 8) {
+    const uint2 u = *reinterpret_cast<const uint2*>(tile + G::slot(r, b / 16) * 16 + b % 16);
+    w[0] = u.x;
+    w[1] = u.y;
+  } else {
+    static_assert(kBytes == 4, "row bytes");
+    w[0] = *reinterpret_cast<const unsigned*>(tile + G::slot(r, b / 16) * 16 + b % 16);
+  }
+}
+
+// The int8 mode on tensor cores (q in bf16, D 32-128): split_mma's layout
+// over int8 tiles of 128 positions, one of each warp's 32 positions a lane.
+// Nothing is dequantized in shared memory: each lane converts the int8
+// bytes it reads into bf16 fragments (int8 values are exact in bf16), and
+// the order of the contracted axes is free, so each lane reads whole words:
+//   S = Q K^T, k-step ks: lane (g, t) takes K's d = t*D/4 + 4ks + {0..3}
+//   (and Q's the same d), so a quad reads a row's D bytes in D/4-byte runs;
+//   O = P V: output block db, column n is d = n*D/8 + db, so lane (g, t)
+//   reads d = g*D/8 .. g*D/8 + D/8 - 1 of its four positions of each
+//   16-position k-block and pairs their bytes with byte permutes.
+// Scores are scaled by the position's k scale; P, times the position's v
+// scale, is rounded once to bf16 (the JAX package's rounding) as the A
+// operand; l sums the f32 P.  Each lane loads its position's two scales
+// three tiles ahead (plain loads: 2 bytes, KV apart) and the warp shares
+// them by shuffles.
+template <int D>
+__device__ __forceinline__ void split_mma_int8(
+    const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k,
+    const int8_t* __restrict__ v, const __half* __restrict__ k_scale,
+    const __half* __restrict__ v_scale, const int* __restrict__ length,
+    float* __restrict__ m_part, float* __restrict__ l_part,
+    float* __restrict__ acc_part, int s, int h, int kv, int n_splits,
+    int chunk, int stages) {
+  using T = __nv_bfloat16;
+  using G = Tile<int8_t, D>;
+  constexpr int kP = G::kP;
+  constexpr int kPW = kP / kWarps;  // positions a warp per tile: a lane each
+  constexpr int kNB = kPW / 8;      // score n-blocks a warp per tile
+  constexpr int kKS = D / 16;       // k-steps of Q K^T
+  constexpr int kDB = D / 8;        // n-blocks of the output
+  constexpr int kRowT = D / 4;      // bytes of a K row a lane reads
+  constexpr int kColT = D / 8;      // bytes of a V row a lane reads
+  static_assert(kPW == 32 && kNB % 2 == 0 && kColT % 4 == 0, "int8 mma tile");
+  static_assert(kWarps * kMaxG * D * 4 <= 2 * G::kBytes, "merge fits the ring");
+  const int split = blockIdx.x, kvh = blockIdx.y, row = blockIdx.z;
+  const int g_n = h / kv;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;  // fragment row (head), column pair
+  const float scale = rsqrtf(static_cast<float>(D));
+  constexpr int kQPer = kMaxG * D / kThreads;
+  T qv[kQPer];
+#pragma unroll
+  for (int j = 0; j < kQPer; ++j) {
+    const int i = tid + j * kThreads;
+    qv[j] = i / D < g_n ? q[((size_t)row * h + kvh * g_n) * D + i]
+                        : __float2bfloat16(0.f);
+  }
+  const int len = min(max(length[row], 0), s);
+  const int s0 = split * chunk;
+  const int s1 = min(s0 + chunk, len);
+  const int n_tiles = s1 > s0 ? (s1 - s0 + kP - 1) / kP : 0;
+
+  extern __shared__ __align__(16) unsigned char fd_ring[];
+  __shared__ __align__(16) T qs[kMaxG][D];
+  __shared__ float wm[kWarps][kMaxG], wl[kWarps][kMaxG];
+  int8_t* ring = reinterpret_cast<int8_t*>(fd_ring);
+  const size_t base = ((size_t)row * s * kv + kvh) * D;
+  const size_t stride = (size_t)kv * D;
+  const int w0 = warp * kPW;  // this warp's first row in a tile
+  auto k_slot = [&](int i) { return ring + (size_t)(i % stages) * 2 * kP * D; };
+  auto load = [&](int i) {  // this warp's rows of tile i
+    load_tile<int8_t, D, kPW>(k_slot(i), k, v, base, stride, s0 + i * kP, s1,
+                              w0, lane, 32);
+  };
+  // this lane's position's scales in tile i, 0 past the chunk, kept as f16
+  // until used so that the loads stay in flight
+  auto load_scales = [&](int i, __half& ks, __half& vs) {
+    const int p = s0 + i * kP + w0 + lane;
+    ks = vs = __float2half(0.f);
+    if (i < n_tiles && p < s1) {
+      const size_t at = ((size_t)row * s + p) * kv + kvh;
+      ks = k_scale[at];
+      vs = v_scale[at];
+    }
+  };
+  for (int i = 0; i < stages; ++i) {  // every slot's copies in flight
+    if (i < n_tiles) load(i);
+    repro::cp_async_commit();
+  }
+  __half ksq[3], vsq[3];  // tiles it, it + 1, it + 2
+#pragma unroll
+  for (int i = 0; i < 3; ++i) load_scales(i, ksq[i], vsq[i]);
+
+  // Q as the A operand, in the K side's order of d: a0 holds d = t*D/4 +
+  // 4ks + {0, 1}, a2 d + {2, 3}; rows 8-15 (a1, a3) zero.
+#pragma unroll
+  for (int j = 0; j < kQPer; ++j) {
+    const int i = tid + j * kThreads;
+    qs[i / D][i % D] = qv[j];
+  }
+  __syncthreads();
+  unsigned qa[kKS][2];
+#pragma unroll
+  for (int ks = 0; ks < kKS; ++ks) {
+    memcpy(&qa[ks][0], &qs[gq][tq * kRowT + 4 * ks], 4);
+    memcpy(&qa[ks][1], &qs[gq][tq * kRowT + 4 * ks + 2], 4);
+  }
+
+  float m = kNegInf, l = 0.f;  // head gq over this warp's positions
+  float o[kDB][4];
+#pragma unroll
+  for (int db = 0; db < kDB; ++db)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[db][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    repro::cp_async_wait(stages - 1);  // this lane's copies of tile `it`
+    __syncwarp();                      // and the warp's
+    const int8_t* kt = k_slot(it);
+    const int8_t* vt = kt + kP * D;
+    const int pos0 = s0 + it * kP + w0;
+    const float ksc = __half2float(ksq[0]), vsc = __half2float(vsq[0]);
+
+    // S = Q K^T: n-block nb's column g is position w0 + 8nb + g.
+    float sc[kNB][4];
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nb][e] = 0.f;
+      unsigned kw[kRowT / 4];
+      load_row_bytes<D, kRowT>(kw, kt, w0 + nb * 8 + gq, tq * kRowT);
+#pragma unroll
+      for (int ks = 0; ks < kKS; ++ks) {
+        unsigned b0, b1;
+        int8x4_to_bf16(kw[ks], b0, b1);
+        const unsigned a[4] = {qa[ks][0], 0u, qa[ks][1], 0u};
+        repro::mma_bf16(sc[nb], a, b0, b1);
+      }
+    }
+
+    // Online softmax, once per tile: a quad holds one head's row; the
+    // score of column c is scaled by the k scale of lane c's position.
+    float mx = kNegInf;
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = nb * 8 + 2 * tq + j;
+        const float kc = __shfl_sync(0xffffffffu, ksc, c);
+        sc[nb][j] = pos0 + c < s1 ? sc[nb][j] * scale * kc : kNegInf;
+        mx = fmaxf(mx, sc[nb][j]);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m, mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const bool ok = pos0 + nb * 8 + 2 * tq + j < s1;
+        sc[nb][j] = ok ? expf(sc[nb][j] - m_new) : 0.f;
+        sum += sc[nb][j];
+      }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float corr = expf(m - m_new);
+    l = l * corr + sum;
+    m = m_new;
+#pragma unroll
+    for (int db = 0; db < kDB; ++db) {
+      o[db][0] *= corr;
+      o[db][1] *= corr;
+    }
+
+    // O += P V over 16-position k-blocks: k index c is position w0 + 16kb
+    // + c; the lane's A elements are positions 2t, 2t+1, 2t+8, 2t+9.
+#pragma unroll
+    for (int kb = 0; kb < kNB / 2; ++kb) {
+      const int c = 16 * kb + 2 * tq;
+      const float v0 = __shfl_sync(0xffffffffu, vsc, c);
+      const float v1 = __shfl_sync(0xffffffffu, vsc, c + 1);
+      const float v8 = __shfl_sync(0xffffffffu, vsc, c + 8);
+      const float v9 = __shfl_sync(0xffffffffu, vsc, c + 9);
+      const unsigned pa[4] = {
+          pack_bf16(__floats2bfloat162_rn(sc[2 * kb][0] * v0, sc[2 * kb][1] * v1)), 0u,
+          pack_bf16(__floats2bfloat162_rn(sc[2 * kb + 1][0] * v8, sc[2 * kb + 1][1] * v9)),
+          0u};
+      unsigned va[kColT / 4], vb[kColT / 4], vc[kColT / 4], vd[kColT / 4];
+      load_row_bytes<D, kColT>(va, vt, w0 + c, gq * kColT);
+      load_row_bytes<D, kColT>(vb, vt, w0 + c + 1, gq * kColT);
+      load_row_bytes<D, kColT>(vc, vt, w0 + c + 8, gq * kColT);
+      load_row_bytes<D, kColT>(vd, vt, w0 + c + 9, gq * kColT);
+#pragma unroll
+      for (int i = 0; i < kColT / 4; ++i) {
+        // byte j of word i is d = g*D/8 + 4i + j, output block 4i + j:
+        // pair the positions' bytes (2t with 2t+1, 2t+8 with 2t+9)
+        unsigned b0[4], b1[4];
+        int8x4_to_bf16(__byte_perm(va[i], vb[i], 0x5140), b0[0], b0[1]);
+        int8x4_to_bf16(__byte_perm(va[i], vb[i], 0x7362), b0[2], b0[3]);
+        int8x4_to_bf16(__byte_perm(vc[i], vd[i], 0x5140), b1[0], b1[1]);
+        int8x4_to_bf16(__byte_perm(vc[i], vd[i], 0x7362), b1[2], b1[3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) repro::mma_bf16(o[4 * i + e], pa, b0[e], b1[e]);
+      }
+    }
+    __syncwarp();  // the warp's rows of this slot are free: refill it
+    if (it + stages < n_tiles) load(it + stages);
+    repro::cp_async_commit();
+    ksq[0] = ksq[1];
+    vsq[0] = vsq[1];
+    ksq[1] = ksq[2];
+    vsq[1] = vsq[2];
+    load_scales(it + 3, ksq[2], vsq[2]);
+  }
+  repro::cp_async_wait(0);
+
+  // Merge the four warps by log-sum-exp through shared memory (the ring);
+  // accumulator column n of output block db is d = n*D/8 + db.
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(fd_ring);  // [kWarps][kMaxG][D]
+  if (gq < g_n) {
+#pragma unroll
+    for (int db = 0; db < kDB; ++db) {
+      red[(warp * kMaxG + gq) * D + 2 * tq * kColT + db] = o[db][0];
+      red[(warp * kMaxG + gq) * D + (2 * tq + 1) * kColT + db] = o[db][1];
+    }
+    if (tq == 0) {
+      wm[warp][gq] = m;
+      wl[warp][gq] = l;
+    }
+  }
+  __syncthreads();
+  const size_t hp0 = ((size_t)row * h + kvh * g_n) * n_splits + split;
+  if (tid < g_n) {  // each head's max, the warps' weights, the sum
+    float mw = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mw = fmaxf(mw, wm[w][tid]);
+    float ls = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      wm[w][tid] = expf(wm[w][tid] - mw);
+      ls += wl[w][tid] * wm[w][tid];
+    }
+    m_part[hp0 + (size_t)tid * n_splits] = mw;
+    l_part[hp0 + (size_t)tid * n_splits] = ls;
+  }
+  __syncthreads();
+  for (int i = tid; i < g_n * D; i += kThreads) {
+    const int g = i / D;
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) a += red[(w * kMaxG + g) * D + i % D] * wm[w][g];
+    acc_part[(hp0 + (size_t)g * n_splits) * D + i % D] = a;
+  }
+}
+
 // One block per (split, kv-head, row): the tensor-core pass where the
 // tile allows it (bf16, each warp's quarter of a tile a multiple of 16
 // positions), else the CUDA-core pass.  With kEarly (the fused kernel's
@@ -587,8 +922,30 @@ fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     split_mma<D>(q, k, v, length, m_part, l_part, acc_part, s, h, kv,
                  n_splits, chunk, stages);
   else
-    split_scalar<T, D>(q, k, v, length, m_part, l_part, acc_part, s, h, kv,
-                       n_splits, chunk, stages);
+    split_scalar<T, T, D>(q, k, v, nullptr, nullptr, length, m_part, l_part,
+                          acc_part, s, h, kv, n_splits, chunk, stages);
+}
+
+// The int8 mode's split pass: one block per (split, kv-head, row) over an
+// int8 cache and its f16 scales, q and the output in T: on tensor cores for
+// bf16 q at D 32-128 (split_mma_int8), else on CUDA cores.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 2)
+fd_split_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
+                     const int8_t* __restrict__ v,
+                     const __half* __restrict__ k_scale,
+                     const __half* __restrict__ v_scale,
+                     const int* __restrict__ length,
+                     float* __restrict__ m_part, float* __restrict__ l_part,
+                     float* __restrict__ acc_part, int s, int h, int kv,
+                     int n_splits, int chunk, int stages) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && D >= 32 && D <= 128)
+    split_mma_int8<D>(q, k, v, k_scale, v_scale, length, m_part, l_part,
+                      acc_part, s, h, kv, n_splits, chunk, stages);
+  else
+    split_scalar<T, int8_t, D>(q, k, v, k_scale, v_scale, length, m_part,
+                               l_part, acc_part, s, h, kv, n_splits, chunk,
+                               stages);
 }
 
 // The LoRA epilogue's operands: x (bsz, dx) in the attention dtype, a
@@ -816,51 +1173,73 @@ fd_combine_kernel(const float* __restrict__ m_part,
   }
 }
 
-// The split pass of one (dtype, head dim) instance: chunks must be whole
-// tiles; the ring has as many stages as a chunk has tiles, at most
-// kMaxStages.  Returns the launch error, or cudaErrorInvalidValue.
-template <typename T, int D, bool kEarly>
+// The split pass of one (dtype, head dim) instance, over an int8 cache and
+// its scales with kInt8: chunks must be whole tiles; the ring has as many
+// stages as a chunk has tiles, at most kMaxStages.  Returns the launch
+// error, or cudaErrorInvalidValue.
+template <typename T, int D, bool kEarly, bool kInt8>
 cudaError_t launch_split(const dim3& grid, cudaStream_t st, const void* q,
-                         const void* k, const void* v, const void* length,
+                         const void* k, const void* v, const void* k_scale,
+                         const void* v_scale, const void* length,
                          void* m_part, void* l_part, void* acc_part, int s,
                          int h, int kv, int n_splits, int chunk) {
-  using G = Tile<T, D>;
+  using KV = typename std::conditional<kInt8, int8_t, T>::type;
+  using G = Tile<KV, D>;
   if (chunk % G::kP) return cudaErrorInvalidValue;
   const int stages = min(kMaxStages, chunk / G::kP);
   const int smem = stages * 2 * G::kBytes;
   static repro::SmemLimit limit;
-  cudaError_t err = limit.raise(fd_split_kernel<T, D, kEarly>, smem);
-  if (err != cudaSuccess) return err;
-  fd_split_kernel<T, D, kEarly><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(length),
-      static_cast<float*>(m_part), static_cast<float*>(l_part),
-      static_cast<float*>(acc_part), s, h, kv, n_splits, chunk, stages);
+  if constexpr (kInt8) {
+    cudaError_t err = limit.raise(fd_split_int8_kernel<T, D>, smem);
+    if (err != cudaSuccess) return err;
+    fd_split_int8_kernel<T, D><<<grid, kThreads, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const int8_t*>(k),
+        static_cast<const int8_t*>(v), static_cast<const __half*>(k_scale),
+        static_cast<const __half*>(v_scale), static_cast<const int*>(length),
+        static_cast<float*>(m_part), static_cast<float*>(l_part),
+        static_cast<float*>(acc_part), s, h, kv, n_splits, chunk, stages);
+  } else {
+    cudaError_t err = limit.raise(fd_split_kernel<T, D, kEarly>, smem);
+    if (err != cudaSuccess) return err;
+    fd_split_kernel<T, D, kEarly><<<grid, kThreads, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const int*>(length),
+        static_cast<float*>(m_part), static_cast<float*>(l_part),
+        static_cast<float*>(acc_part), s, h, kv, n_splits, chunk, stages);
+  }
   return cudaPeekAtLastError();
 }
 
-// The kernels of one call: the split pass, then the combine; with kLora
-// the shrink kernel between them, the shrink and the combine each the
-// programmatic dependent of the launch before.  Returns the launch error, or cudaErrorInvalidValue for
-// a head dim that has no instance or a chunk that is not whole tiles.
-template <typename T, typename W, bool kLora>
-int launch_fd(const void* q, const void* k, const void* v, const void* length,
+// The kernels of one call: the split pass (over an int8 cache with kInt8),
+// then the combine; with kLora the shrink kernel between them, the shrink
+// and the combine each the programmatic dependent of the launch before.
+// Returns the launch error, or cudaErrorInvalidValue for a head dim that
+// has no instance or a chunk that is not whole tiles.
+template <typename T, typename W, bool kLora, bool kInt8 = false>
+int launch_fd(const void* q, const void* k, const void* v,
+              const void* k_scale, const void* v_scale, const void* length,
               void* m_part, void* l_part, void* acc_part, void* out, int bsz,
               int s, int h, int kv, int dh, int n_splits, int chunk,
               const LoraArgs<T, W>& lora, cudaStream_t st) {
-  // cp.async copies 16-byte chunks of K and V (rows are >= 32 bytes)
+  static_assert(!(kLora && kInt8), "the fused kernel reads a T cache");
+  // cp.async copies 16-byte chunks of K and V (rows are >= 16 bytes)
   if ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(n_splits, kv, bsz);
   cudaError_t err;
+#define REPRO_FD_SPLIT(D)                                                    \
+  launch_split<T, D, kLora, kInt8>(grid, st, q, k, v, k_scale, v_scale,      \
+                                   length, m_part, l_part, acc_part, s, h,   \
+                                   kv, n_splits, chunk)
   switch (dh) {
-    case 16: err = launch_split<T, 16, kLora>(grid, st, q, k, v, length, m_part, l_part, acc_part, s, h, kv, n_splits, chunk); break;
-    case 32: err = launch_split<T, 32, kLora>(grid, st, q, k, v, length, m_part, l_part, acc_part, s, h, kv, n_splits, chunk); break;
-    case 64: err = launch_split<T, 64, kLora>(grid, st, q, k, v, length, m_part, l_part, acc_part, s, h, kv, n_splits, chunk); break;
-    case 128: err = launch_split<T, 128, kLora>(grid, st, q, k, v, length, m_part, l_part, acc_part, s, h, kv, n_splits, chunk); break;
-    case 256: err = launch_split<T, 256, kLora>(grid, st, q, k, v, length, m_part, l_part, acc_part, s, h, kv, n_splits, chunk); break;
+    case 16: err = REPRO_FD_SPLIT(16); break;
+    case 32: err = REPRO_FD_SPLIT(32); break;
+    case 64: err = REPRO_FD_SPLIT(64); break;
+    case 128: err = REPRO_FD_SPLIT(128); break;
+    case 256: err = REPRO_FD_SPLIT(256); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef REPRO_FD_SPLIT
   if (err != cudaSuccess) return static_cast<int>(err);
   if constexpr (kLora) {
     // the shrink: one cluster of C blocks a row, C <= 8 from dx (as BGMV
@@ -917,9 +1296,27 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc = 0;
   REPRO_DISPATCH_DTYPE(dtype, T,
-      rc = launch_fd<T, T, false>(q, k, v, length, m_part, l_part, acc_part,
-                                  out, bsz, s, h, kv, dh, n_splits, chunk,
-                                  LoraArgs<T, T>{}, st));
+      rc = launch_fd<T, T, false>(q, k, v, nullptr, nullptr, length, m_part,
+                                  l_part, acc_part, out, bsz, s, h, kv, dh,
+                                  n_splits, chunk, LoraArgs<T, T>{}, st));
+  return rc;
+}
+
+extern "C" int repro_flash_decode_int8(
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const void* length, void* m_part, void* l_part,
+    void* acc_part, void* out, int bsz, int s, int h, int kv, int dh,
+    int n_splits, int chunk, int dtype, void* stream) {
+  if (bsz <= 0 || h <= 0) return 0;
+  if (bad_shape(h, kv, n_splits, chunk) || !k_scale || !v_scale)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc = 0;
+  REPRO_DISPATCH_DTYPE(dtype, T,
+      rc = launch_fd<T, T, false, true>(q, k, v, k_scale, v_scale, length,
+                                        m_part, l_part, acc_part, out, bsz,
+                                        s, h, kv, dh, n_splits, chunk,
+                                        LoraArgs<T, T>{}, st));
   return rc;
 }
 
@@ -937,8 +1334,8 @@ extern "C" int repro_flash_decode_lora(
   int rc = 0;
   REPRO_DISPATCH_DTYPE(dtype, T, REPRO_DISPATCH_DTYPE(w_dtype, W,
       rc = launch_fd<T, W, true>(
-          q, k, v, length, m_part, l_part, acc_part, out, bsz, s, h, kv, dh,
-          n_splits, chunk,
+          q, k, v, nullptr, nullptr, length, m_part, l_part, acc_part, out,
+          bsz, s, h, kv, dh, n_splits, chunk,
           LoraArgs<T, W>{static_cast<const T*>(x), static_cast<const W*>(a),
                          static_cast<const W*>(b),
                          static_cast<const int*>(idx),

@@ -43,6 +43,17 @@ int repro_flash_decode(const void* q, const void* k, const void* v,
                        int kv, int dh, int n_splits, int chunk, int dtype,
                        void* stream);
 
+// repro_flash_decode over an int8 cache: k, v (bsz, s, kv, dh) int8, 16-byte
+// aligned, with f16 scales k_scale, v_scale (bsz, s, kv); the scores are
+// scaled by k_scale and P, times v_scale, rounded to bf16 before it
+// multiplies V.  q (bsz, h, dh) and out in `dtype` (f32 or bf16).
+int repro_flash_decode_int8(const void* q, const void* k, const void* v,
+                            const void* k_scale, const void* v_scale,
+                            const void* length, void* m_part, void* l_part,
+                            void* acc_part, void* out, int bsz, int s, int h,
+                            int kv, int dh, int n_splits, int chunk,
+                            int dtype, void* stream);
+
 // repro_flash_decode plus scale * x @ a[idx] @ b[idx] (reshaped (h, dh))
 // added in f32 before the cast; idx[i] outside [0, n) adds nothing.
 // x (bsz, dx) in q's dtype (`dtype`); a (n, dx, r), b (n, r, h * dh) in the

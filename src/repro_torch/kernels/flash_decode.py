@@ -6,7 +6,10 @@ flash_decode.py:95) and ``flash_decode_lora`` (flash_decode.py:205).  On a
 CUDA tensor each launches the split-KV kernels in ``csrc/flash_decode.cu``
 (a split pass and a log-sum-exp combine; the fused step adds a LoRA shrink
 between them and the expand to the combine); on a CPU tensor each runs its
-plain version.
+plain version.  With f16 scales beside an int8 cache, ``flash_decode``
+takes the kernel's int8 K/V mode (the JAX package's quantized decode,
+``repro.models.attention.decode_attention_sharded``, computes it in plain
+``jnp``).
 """
 from __future__ import annotations
 
@@ -17,7 +20,8 @@ import torch
 from . import build
 from .bgmv import MAX_RANK
 
-HEAD_DIMS = (16, 32, 64, 128, 256)  # csrc/flash_decode.cu instantiations
+HEAD_DIMS = (16, 32, 64, 128, 256)  # csrc/flash_decode.cu instantiations,
+                                    # of the int8 mode too
 MAX_GROUP = 8                       # query heads per KV head (kMaxG)
 TILE_BYTES = 16384                  # of K in one tile of the split pass
 TILE_MIN, TILE_MAX = 16, 128        # positions in a tile, at least / most
@@ -56,6 +60,33 @@ def _attention_f32(q, k, v, length):
     out = torch.einsum("bkgs,bskd->bkgd", p, v.float())
     out = out / p.sum(-1, keepdim=True).clamp(min=1e-20)
     return out.reshape(bsz, h, d)
+
+
+def flash_decode_int8_plain(q, k, v, length, k_scale, v_scale):
+    """The int8 mode's function in plain PyTorch, step by step the JAX
+    package's quantized decode (``decode_attention_sharded`` at one shard,
+    attention.py:285-310): s = (q . k) in f32 / sqrt(D), times k_scale;
+    an f32 softmax over the first min(length, S) positions with one global
+    max; P times v_scale rounded to bf16 against V; the sum of the f32 P
+    divides.  A length of 0 gives 0, as ``flash_decode_plain``.
+
+    q: (B, H, D) in bf16 or f32; k/v: (B, S, KV, D) int8; k_scale/v_scale:
+    (B, S, KV) f16; length: scalar or (B,) -> (B, H, D) in q's dtype.
+    """
+    bsz, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    qs = q.reshape(bsz, kv, h // kv, d).float()
+    sc = torch.einsum("bkgd,bskd->bkgs", qs, k.float()) * (1.0 / math.sqrt(d))
+    sc = sc * k_scale.float().permute(0, 2, 1)[:, :, None]
+    mask = (torch.arange(s, device=q.device)[None, :]
+            < _lengths(length, bsz, q.device)[:, None])[:, None, None, :]
+    sc = torch.where(mask, sc, torch.full_like(sc, -1e30))
+    p = torch.where(mask, torch.exp(sc - sc.amax(-1, keepdim=True)),
+                    torch.zeros_like(sc))
+    pv = (p * v_scale.float().permute(0, 2, 1)[:, :, None]).to(torch.bfloat16)
+    out = torch.einsum("bkgs,bskd->bkgd", pv.float(), v.float())
+    out = out / p.sum(-1, keepdim=True).clamp(min=1e-20)
+    return out.reshape(bsz, h, d).to(q.dtype)
 
 
 def _check_expand(q, b):
@@ -106,8 +137,11 @@ def split_plan(bsz: int, kv: int, s: int, n_sm: int, tile: int):
     return max(-(-s // chunk), 1), chunk
 
 
-def _check(q, k, v, lengths):
-    if not (q.is_cuda and all(t.device == q.device for t in (k, v, lengths))):
+def _check(q, k, v, lengths, k_scale=None, v_scale=None):
+    quant = k_scale is not None or v_scale is not None
+    scales = (k_scale, v_scale) if quant else ()
+    if not (q.is_cuda and all(t is not None and t.device == q.device
+                              for t in (k, v, lengths) + scales)):
         raise ValueError("flash_decode: inputs must lie on one CUDA device")
     bsz, h, d = q.shape
     if k.shape != v.shape or k.ndim != 4 or k.shape[0] != bsz \
@@ -117,9 +151,19 @@ def _check(q, k, v, lengths):
     kv = k.shape[2]
     if h % kv or h // kv > MAX_GROUP or d not in HEAD_DIMS:
         raise ValueError(f"flash_decode: H={h}, KV={kv}, D={d} unsupported")
-    if not (q.dtype == k.dtype == v.dtype):
+    if quant:
+        if not (k.dtype == v.dtype == torch.int8
+                and k_scale.dtype == v_scale.dtype == torch.float16
+                and q.dtype in (torch.bfloat16, torch.float32)):
+            raise TypeError("flash_decode: the int8 mode takes int8 k and "
+                            "v, f16 scales and q in bf16 or f32")
+        if k_scale.shape != k.shape[:3] or v_scale.shape != k.shape[:3]:
+            raise ValueError(f"flash_decode: scales {tuple(k_scale.shape)},"
+                             f" {tuple(v_scale.shape)} for k "
+                             f"{tuple(k.shape)}: want (B, S, KV)")
+    elif not (q.dtype == k.dtype == v.dtype):
         raise TypeError("flash_decode: q, k and v must share one dtype")
-    if not all(t.is_contiguous() for t in (q, k, v)):
+    if not all(t.is_contiguous() for t in (q, k, v) + scales):
         raise ValueError("flash_decode: inputs must be contiguous")
     if (k.data_ptr() | v.data_ptr()) % 16:
         raise ValueError("flash_decode: k and v must be 16-byte aligned")
@@ -149,16 +193,17 @@ def _check_lora(q, x, a, b, idx):
         raise ValueError("flash_decode_lora: inputs must be contiguous")
 
 
-def _launch_args(q, k, v, length):
+def _launch_args(q, k, v, length, k_scale=None, v_scale=None):
     """The arguments both kernels share: the checked lengths, the split
-    plan and its f32 partials, and the output."""
+    plan (tiles of K's element size) and its f32 partials, and the
+    output."""
     bsz, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
     lengths = _lengths(length, bsz, q.device)
-    _check(q, k, v, lengths)
+    _check(q, k, v, lengths, k_scale, v_scale)
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
     n_splits, chunk = split_plan(bsz, kv, s, n_sm,
-                                 tile_positions(d, q.element_size()))
+                                 tile_positions(d, k.element_size()))
     m_part = torch.empty((bsz, h, n_splits), dtype=torch.float32,
                          device=q.device)
     l_part = torch.empty_like(m_part)
@@ -169,20 +214,35 @@ def _launch_args(q, k, v, length):
             (bsz, s, h, kv, d, n_splits, chunk))
 
 
-def flash_decode(q, k, v, length):
+def flash_decode(q, k, v, length, k_scale=None, v_scale=None):
     """q: (B, H, D); k/v: (B, S, KV, D); length: scalar or (B,) -> (B, H, D).
 
     Query head h attends KV head h // (H/KV) over positions < length.
+    With ``k_scale``/``v_scale`` (B, S, KV) f16, k and v are int8
+    (``attention.quantize_kv``) and the kernel's int8 mode reads them as
+    they are (plain version: ``flash_decode_int8_plain``); both launches
+    count here.
     """
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("flash_decode: give both scales or neither")
     if q.device.type == "cpu":
+        if k_scale is not None:
+            return flash_decode_int8_plain(q, k, v, length, k_scale, v_scale)
         return flash_decode_plain(q, k, v, length)
-    lengths, m_part, l_part, acc_part, out, dims = _launch_args(q, k, v,
-                                                                length)
-    build.kernels().flash_decode(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-        out.data_ptr(), *dims, build.dtype_code(q.dtype),
-        build.stream_handle(q.device))
+    lengths, m_part, l_part, acc_part, out, dims = _launch_args(
+        q, k, v, length, k_scale, v_scale)
+    stream = build.stream_handle(q.device)
+    if k_scale is not None:
+        build.kernels().flash_decode_int8(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), lengths.data_ptr(), m_part.data_ptr(),
+            l_part.data_ptr(), acc_part.data_ptr(), out.data_ptr(), *dims,
+            build.dtype_code(q.dtype), stream)
+    else:
+        build.kernels().flash_decode(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+            m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
+            out.data_ptr(), *dims, build.dtype_code(q.dtype), stream)
     flash_decode.launches += 1
     return out
 

@@ -88,13 +88,14 @@ def lora_apply(x, a, b, idx, scale: float = 1.0, ranks=None):
     return out.reshape(*lead, -1)
 
 
-def flash_decode(q, k, v, length):
+def flash_decode(q, k, v, length, k_scale=None, v_scale=None):
     """Single-token attention against a contiguous KV cache.
 
     q: (B, H, D); k/v: (B, S, KV, D); length: valid prefix length, scalar
-    or (B,).
+    or (B,).  With ``k_scale``/``v_scale`` (B, S, KV) f16, k and v are an
+    int8 cache (``models.attention.quantize_kv``).
     """
-    return fd_mod.flash_decode(q, k, v, length)
+    return fd_mod.flash_decode(q, k, v, length, k_scale, v_scale)
 
 
 def fused_decode(q, k, v, length, x, a, b, idx, scale: float = 1.0,

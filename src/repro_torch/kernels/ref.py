@@ -3,7 +3,8 @@
 Function for function the counterparts of ``repro.kernels.ref``, with the
 same rounding points (products accumulate in f32, then cast to the input's
 dtype where the JAX oracle casts), plus ``sgmv_ref``: the plain version of
-the SGMV kernel, with the TPU kernel's capacity rule.
+the SGMV kernel, with the TPU kernel's capacity rule, and
+``flash_decode_int8_ref``: attention over an int8 cache dequantized to f32.
 """
 from __future__ import annotations
 
@@ -146,6 +147,20 @@ def flash_decode_ref(q, k, v, length):
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v.float())
     return out.reshape(bsz, h, d).to(q.dtype)
+
+
+def flash_decode_int8_ref(q, k, v, length, k_scale, v_scale):
+    """Oracle of the int8 cache's attention: K and V dequantized to f32
+    (int8 times its f16 scale) and ``flash_decode_ref``'s f32 softmax, P
+    kept in f32 (the kernel and the JAX package round P times v_scale to
+    bf16).
+
+    q: (B, H, D); k/v: (B, S, KV, D) int8; k_scale/v_scale: (B, S, KV)
+    f16; length: scalar or (B,) valid length.
+    """
+    kf = k.float() * k_scale.float()[..., None]
+    vf = v.float() * v_scale.float()[..., None]
+    return flash_decode_ref(q.float(), kf, vf, length).to(q.dtype)
 
 
 def fused_decode_ref(q, k, v, length, x, a, b, idx, scale: float = 1.0):

@@ -6,8 +6,9 @@ with the torch executor, under a Poisson multi-adapter workload.
 
 The same flags and printed line as ``python -m repro.launch.serve``; like
 it, ``main()`` serves the reduced configuration.  ``serve()`` takes any
-``ModelConfig`` (``chip_smoke.py`` passes the published one).  Runs on the
-GPU.
+``ModelConfig`` (``chip_smoke.py`` passes the published one) and, as a
+keyword only, ``kv_quant`` for an int8 KV cache (the JAX launcher has no
+such flag, so neither has this one).  Runs on the GPU.
 """
 from __future__ import annotations
 
@@ -40,12 +41,13 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def serve(cfg: ModelConfig, args: argparse.Namespace,
-          device=None) -> Tuple[ServingMetrics, TorchExecutor]:
-    """Build the model (weights from seed 0) and the executor, serve the
-    workload ``args`` describes; return the engine's metrics and the
-    executor (its model, cache and last logits)."""
-    model = Model(cfg, device=device, seed=0)
+def serve(cfg: ModelConfig, args: argparse.Namespace, device=None, *,
+          kv_quant: bool = False) -> Tuple[ServingMetrics, TorchExecutor]:
+    """Build the model (weights from seed 0; with ``kv_quant`` its global
+    layers' KV caches in int8) and the executor, serve the workload
+    ``args`` describes; return the engine's metrics and the executor (its
+    model, cache and last logits)."""
+    model = Model(cfg, device=device, seed=0, kv_quant=kv_quant)
     lora = model.init_lora(max(args.slots, 1), args.rank, seed=0)
     executor = TorchExecutor(model, lora, max_batch=8, cache_len=512,
                              device=device)

@@ -7,7 +7,11 @@ the JAX package computes it outside any Pallas kernel too.  Decode writes
 the new K/V into the cache in place and attends with the port's
 flash-decode kernel, on global layers' caches and on local layers' rolling
 buffers alike; the step's position stays on the device (``CacheSlot``).
-Sequence sharding (``n_shards > 1``) is ROADMAP.md queue 1 item 11.
+A global layer's cache may be int8 with one f16 scale per (token, head)
+(``quantize_kv``; the JAX package's ``ShardingPlan.kv_quant``): the new K/V
+are quantized on the device and flash-decode reads the int8 cache and its
+scales as they are.  Sequence sharding (``n_shards > 1``) is ROADMAP.md
+queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -130,11 +134,28 @@ class CacheSlot(NamedTuple):
         return cls(pos, index, None, (pos + 1).clamp(max=w))
 
 
+def quantize_kv(x):
+    """Per-(token, head) symmetric int8 quantization over the last axis, bit
+    for bit the JAX package's ``quantize_kv`` (attention.py:226-241).
+
+    x: (..., KV, D) -> (int8 (..., KV, D), f16 scale (..., KV)).  The scale
+    is max|x| / 127 + 1e-8 in f32, rounded to f16; x is divided by the f16
+    scale in f32, rounded half to even and clipped to +-127.  A row whose
+    scale rounds to 0 in f16 (max|x| below ~3e-8) divides 0 by 0, which
+    gives 0, as XLA's float-to-int conversion makes NaN 0.
+    """
+    xf = x.float()
+    scale = (xf.abs().amax(-1) / 127.0 + 1e-8).to(torch.float16)
+    q = torch.round(xf / scale[..., None].float()).clamp(-127, 127)
+    return torch.nan_to_num(q, nan=0.0).to(torch.int8), scale
+
+
 def decode_update_cache(cache, new, slot: CacheSlot) -> None:
-    """Write ``new`` (B, KV, D) at ``slot.index`` of ``cache`` (B, S, KV, D),
-    IN PLACE (the JAX package returns an updated copy).  A global slot
-    whose ``pos`` lies outside [0, S) writes the row back unchanged, as the
-    JAX package's clipped write and ``where`` keep it
+    """Write ``new`` (B, KV, ...) at ``slot.index`` of ``cache`` (B, S, KV,
+    ...), IN PLACE (the JAX package returns an updated copy): K/V rows of
+    (B, S, KV, D) and an int8 cache's f16 scales of (B, S, KV) alike.  A
+    global slot whose ``pos`` lies outside [0, S) writes the row back
+    unchanged, as the JAX package's clipped write and ``where`` keep it
     (attention.py:244-253), in O(B*KV*D)."""
     new = new[:, None].to(cache.dtype)
     if slot.live is not None:
@@ -142,14 +163,24 @@ def decode_update_cache(cache, new, slot: CacheSlot) -> None:
     cache.index_copy_(1, slot.index, new)
 
 
-def decode_attention(q, k_cache, v_cache, new_k, new_v, slot: CacheSlot):
+def decode_attention(q, k_cache, v_cache, new_k, new_v, slot: CacheSlot,
+                     k_scale=None, v_scale=None):
     """One new token against the cache, which it first extends in place.
 
     q: (B, H, D); caches: (B, S, KV, D); new_k/new_v: (B, KV, D); slot: the
     step's ``CacheSlot`` for this cache (``at`` for a global layer's,
-    ``rolling`` for a local layer's buffer).  Attends the slot's
+    ``rolling`` for a local layer's buffer).  With ``k_scale``/``v_scale``
+    (B, S, KV) f16 the caches are int8: the new K/V are quantized
+    (``quantize_kv``) and written with their scales, as the JAX package's
+    quantized branch does (attention.py:277-283).  Attends the slot's
     ``length`` rows.  Returns (B, H, D).
     """
+    if k_scale is not None:
+        # K and V quantized in one call (row by row, as two would)
+        (new_k, new_v), (nks, nvs) = quantize_kv(torch.stack([new_k, new_v]))
+        decode_update_cache(k_scale, nks, slot)
+        decode_update_cache(v_scale, nvs, slot)
     decode_update_cache(k_cache, new_k, slot)
     decode_update_cache(v_cache, new_v, slot)
-    return ops.flash_decode(q.contiguous(), k_cache, v_cache, slot.length)
+    return ops.flash_decode(q.contiguous(), k_cache, v_cache, slot.length,
+                            k_scale, v_scale)

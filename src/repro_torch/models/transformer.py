@@ -8,8 +8,9 @@ and ``local`` (a sliding window over a rolling buffer), with a dense
 SwiGLU or GELU MLP or a top-k MoE FFN (``moe.apply_moe`` at one shard,
 its experts optionally int8), RoPE or sinusoidal positions, RMSNorm or
 LayerNorm, optional q/k/v biases, tied embeddings and an image-embedding
-prefix: the dense and MoE architectures.  SSM and RG-LRU blocks raise and
-name their ROADMAP.md item.
+prefix: the dense and MoE architectures, the global layers' KV caches in
+the model's dtype or in int8 with f16 scales (``kv_quant``).  SSM and
+RG-LRU blocks raise and name their ROADMAP.md item.
 
 Two entry points, as in the JAX package:
   * ``prefill``     — runs the prompt, emits last-position logits + cache;
@@ -69,14 +70,21 @@ class Block(nn.Module):
     """One attention layer, ``global`` or ``local`` (``kind``), with a
     dense MLP (``mlp``) or, when ``cfg.n_experts``, an MoE FFN (``moe``:
     router, expert weights and, with ``expert_quant``, int8 experts and
-    their f16 scales; ``transformer.py:95-101``)."""
+    their f16 scales; ``transformer.py:95-101``).  With ``kv_quant`` a
+    global layer keeps its cache in int8 beside f16 scales
+    (``_cache_block``, transformer.py:170-178); a local layer's rolling
+    buffer stays in the model's dtype, as in the JAX package."""
 
     def __init__(self, cfg: ModelConfig, kind: str, gen: torch.Generator,
-                 device: torch.device, expert_quant: bool = False):
+                 device: torch.device, expert_quant: bool = False,
+                 kv_quant: bool = False):
         super().__init__()
         self.cfg, self.kind = cfg, kind
-        #: this layer's cache tensors, under the JAX package's names
-        self.cache_keys = (("k", "v") if kind == "global"
+        self.kv_quant = kv_quant and kind == "global"
+        #: this layer's cache tensors, under the JAX package's names; K
+        #: comes first (``Model.decode_step`` reads its rows there)
+        self.cache_keys = (("k", "v", "k_scale", "v_scale") if self.kv_quant
+                           else ("k", "v") if kind == "global"
                            else ("k_loc", "v_loc"))
         d, dt = cfg.d_model, cfg.torch_dtype
         hd, nq, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
@@ -114,8 +122,24 @@ class Block(nn.Module):
         return min(self.cfg.local_window, cache_len)
 
     def cache_kv(self, cache):
-        """This layer's (K, V) cache tensors."""
+        """This layer's cache tensors: (K, V), and with ``kv_quant`` their
+        scales after them."""
         return tuple(cache[name] for name in self.cache_keys)
+
+    def init_cache(self, batch: int, cache_len: int, device):
+        """This layer's zero cache for ``cache_len`` positions: K/V of
+        (B, rows, KV, D) in the model's dtype, or int8 beside (B, rows, KV)
+        f16 scales."""
+        cfg = self.cfg
+        shape = (batch, self.cache_rows(cache_len), cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        kv_dtype = torch.int8 if self.kv_quant else cfg.torch_dtype
+        out = {name: torch.zeros(shape, dtype=kv_dtype, device=device)
+               for name in self.cache_keys[:2]}
+        for name in self.cache_keys[2:]:
+            out[name] = torch.zeros(shape[:3], dtype=torch.float16,
+                                    device=device)
+        return out
 
     def slot(self, pos: torch.Tensor, rows: int) -> attention.CacheSlot:
         """The step's ``CacheSlot`` in this layer's cache of ``rows`` rows."""
@@ -170,13 +194,20 @@ class Block(nn.Module):
 
     def prefill(self, x, lora_p, adapter_idx, positions):
         """x: (B, S, d) -> (x, cache): a global layer's {"k", "v"} of
-        (B, S, KV, D), a local layer's rolling {"k_loc", "v_loc"} of
-        (B, min(window, S), KV, D) (``_prefill_cache``,
-        transformer.py:297-315)."""
+        (B, S, KV, D) (with ``kv_quant`` int8, beside their (B, S, KV) f16
+        "k_scale", "v_scale": quantized over D per (token, head), after the
+        attention, which reads the unquantized K/V), a local layer's
+        rolling {"k_loc", "v_loc"} of (B, min(window, S), KV, D)
+        (``_prefill_cache``, transformer.py:297-315)."""
         q, k, v = self._qkv(x, lora_p, adapter_idx, positions)
         scale = 1.0 / math.sqrt(self.cfg.resolved_head_dim)
         if self.kind == "global":
             out = attention.ring_attention(q, k, v, scale=scale)
+            if self.kv_quant:
+                (k, ks), (v, vs) = (attention.quantize_kv(k),
+                                    attention.quantize_kv(v))
+                return self._residual(x, out), dict(zip(self.cache_keys,
+                                                        (k, v, ks, vs)))
             return self._residual(x, out), dict(zip(self.cache_keys, (k, v)))
         out = attention.local_attention(q, k, v, scale=scale,
                                         window=self.cfg.local_window)
@@ -195,9 +226,9 @@ class Block(nn.Module):
         place."""
         positions = slot.pos.reshape(1, 1).expand(x.shape[0], 1)
         q, k, v = self._qkv(x, lora_p, adapter_idx, positions)
-        kc, vc = self.cache_kv(cache)
+        kc, vc, *scales = self.cache_kv(cache)
         out = attention.decode_attention(q[:, 0], kc, vc, k[:, 0], v[:, 0],
-                                         slot)
+                                         slot, *scales)
         return self._residual(x, out[:, None])
 
 
@@ -210,14 +241,17 @@ class Model(nn.Module):
     Layer i's kind is ``cfg.layer_kinds[i]``: the block pattern repeated,
     the JAX package's segment order (``build_segments``).
     ``expert_quant`` keeps an MoE model's experts in int8, the counterpart
-    of ``ShardingPlan.expert_quant`` (sharding.py:38).
+    of ``ShardingPlan.expert_quant`` (sharding.py:38); ``kv_quant`` keeps
+    the global layers' KV caches in int8 with f16 scales, the counterpart
+    of ``ShardingPlan.kv_quant`` (sharding.py:37).
     """
 
     def __init__(self, cfg: ModelConfig, device=None, seed: int = 0,
-                 expert_quant: bool = False):
+                 expert_quant: bool = False, kv_quant: bool = False):
         super().__init__()
         _check_ported(cfg)
         self.cfg = cfg
+        self.kv_quant = kv_quant
         self.device = resolve_device(device)
         dev, dt = self.device, cfg.torch_dtype
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -228,7 +262,7 @@ class Model(nn.Module):
         self.embed = nn.ParameterDict(embed)
         self.final_norm = _norm(cfg, dev)
         self.layers = nn.ModuleList(
-            Block(cfg, kind, gen, dev, expert_quant)
+            Block(cfg, kind, gen, dev, expert_quant, kv_quant)
             for kind in cfg.layer_kinds)
 
     def init_lora(self, n_adapters: int, rank: int,
@@ -252,18 +286,12 @@ class Model(nn.Module):
         return {"layers": banks}
 
     def init_cache(self, batch: int, cache_len: int) -> Dict[str, Any]:
-        """A global layer's {"k", "v"} of ``cache_len`` rows, a local
+        """A global layer's {"k", "v"} of ``cache_len`` rows (with
+        ``kv_quant`` int8, and "k_scale", "v_scale" in f16), a local
         layer's rolling {"k_loc", "v_loc"} of min(window, cache_len) rows
         (``_cache_block``, transformer.py:163-197)."""
-        cfg = self.cfg
-
-        def zeros(rows):
-            return torch.zeros((batch, rows, cfg.n_kv_heads,
-                                cfg.resolved_head_dim),
-                               dtype=cfg.torch_dtype, device=self.device)
         return {"pos": torch.zeros((), dtype=torch.int32, device=self.device),
-                "layers": [{name: zeros(blk.cache_rows(cache_len))
-                            for name in blk.cache_keys}
+                "layers": [blk.init_cache(batch, cache_len, self.device)
                            for blk in self.layers]}
 
     def _lora_layers(self, lora):
@@ -327,7 +355,8 @@ class Model(nn.Module):
     def pad_cache(self, cache, extra: int) -> Dict[str, Any]:
         """A copy of a prefill cache with room for ``extra`` more positions.
 
-        A global layer's cache gets ``extra`` rows.  A local layer's rolling
+        A global layer's cache (its scales too) gets ``extra`` rows of
+        zeros.  A local layer's rolling
         buffer of w rows grows to min(window, w + extra): one shorter than
         the window (a prompt shorter than the window, whose row i holds
         position i) grows, so the next ``extra`` steps evict nothing the

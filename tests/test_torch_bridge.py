@@ -3,7 +3,10 @@ bitwise for every leaf of the params, LoRA banks and caches, in bf16 and
 f32, of reduced phi4-mini, gemma3 (tied embeddings, local layers' rolling
 caches, a remainder segment), qwen1.5 (q/k/v biases), musicgen
 (LayerNorm biases, a GELU MLP) and olmoe (an MoE subtree: an f32 router
-beside bf16 or f32 experts, or int8 experts with f16 scales)."""
+beside bf16 or f32 experts, or int8 experts with f16 scales), and of the
+int8 KV caches of phi4-mini and gemma3 (``kv_quant``: int8 K/V with
+(R, B, S, KV) f16 scales beside gemma3's local layers in the model's
+dtype)."""
 import dataclasses
 
 import jax
@@ -32,10 +35,10 @@ def _assert_bitwise(want, got):
         assert w.tobytes() == g.tobytes()
 
 
-def _case(arch, dtype, quant=False):
+def _case(arch, dtype, quant=False, kv_quant=False):
     name = dtype if arch == "phi4-mini-3.8b" else f"{arch}-{dtype}"
-    return pytest.param((arch, dtype, quant),
-                        id=f"{name}-int8" if quant else name)
+    suffix = "-int8" * quant + "-kv-int8" * kv_quant
+    return pytest.param((arch, dtype, quant, kv_quant), id=name + suffix)
 
 
 @pytest.fixture(params=[_case(a, d) for a in ("phi4-mini-3.8b", "gemma3-1b",
@@ -43,13 +46,18 @@ def _case(arch, dtype, quant=False):
                                               "olmoe-1b-7b")
                         for d in ("bfloat16", "float32")]
                 + [_case("olmoe-1b-7b", d, quant=True)
+                   for d in ("bfloat16", "float32")]
+                + [_case(a, d, kv_quant=True)
+                   for a in ("phi4-mini-3.8b", "gemma3-1b")
                    for d in ("bfloat16", "float32")])
 def models(request):
-    arch, dtype, quant = request.param
+    arch, dtype, quant, kv_quant = request.param
     cfg = dataclasses.replace(get_reduced(arch), dtype=dtype)
     port_cfg = dataclasses.replace(port_reduced(arch), dtype=dtype)
-    return (JaxModel(cfg, ShardingPlan(mode="prefill", expert_quant=quant)),
-            Model(port_cfg, device="cpu", expert_quant=quant))
+    return (JaxModel(cfg, ShardingPlan(mode="prefill", expert_quant=quant,
+                                       kv_quant=kv_quant)),
+            Model(port_cfg, device="cpu", expert_quant=quant,
+                  kv_quant=kv_quant))
 
 
 def test_params_round_trip_bitwise(models):
@@ -99,6 +107,9 @@ def test_cache_round_trip_bitwise(models):
     init = _numpy(jm.init_cache(2, 16))
     _assert_bitwise(init, bridge.cache_to_numpy(
         bridge.cache_to_torch(init), model.cfg))
+    # the port's own zero cache: the same keys, shapes and dtypes
+    _assert_bitwise(init, bridge.cache_to_numpy(model.init_cache(2, 16),
+                                                model.cfg))
     cfg = model.cfg
     tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 12),
                                                np.int32)
@@ -112,9 +123,21 @@ def test_cache_round_trip_bitwise(models):
     assert port["pos"].device == port["layers"][g]["k"].device
     assert port["layers"][g]["k"].shape == (2, 12, cfg.n_kv_heads,
                                             cfg.resolved_head_dim)
+    global_keys = {"k", "v", "k_scale", "v_scale"} if model.kv_quant \
+        else {"k", "v"}
     for kind, c in zip(cfg.layer_kinds, port["layers"]):
-        assert set(c) == ({"k", "v"} if kind == "global"
+        assert set(c) == (global_keys if kind == "global"
                           else {"k_loc", "v_loc"})
+    if model.kv_quant:
+        # int8 K/V, their (B, S, KV) f16 scales (R, B, S, KV in the JAX
+        # tree), the local layers' buffers in the model's dtype
+        kv = port["layers"][g]
+        assert kv["k"].dtype == torch.int8
+        assert kv["k_scale"].dtype == torch.float16
+        assert kv["k_scale"].shape == kv["k"].shape[:3]
+        for kind, c in zip(cfg.layer_kinds, port["layers"]):
+            if kind == "local":
+                assert c["k_loc"].dtype == cfg.torch_dtype
     _assert_bitwise(cache, bridge.cache_to_numpy(port, cfg))
 
 

@@ -12,13 +12,17 @@ lengths 0 and past S and at the split pass's tile edges, NaN past a row's
 length, BGMV at ranks 1-64 with widths and views off the 16-byte vector,
 SGMV at T around its 64-token tile, 32 skewed adapters, unaligned views and
 its sort kernel bit for bit, the fused decode step at shrink clusters of 1 to 8 blocks
-and adapter id -1), and check
+and adapter id -1, flash-decode's int8 mode at every head dim, at the
+tile's edges, on one KV head's scales and with NaN scales past a row's
+length), and check
 that the wrappers and the binding reject what the kernels do not take.
 They also hold the serving executor's captured step (a CUDA graph) bitwise
 equal to the eager step over 20 steps that cross the cache's end (and for
 reduced gemma3 over 28 that cross its rolling buffers' wrap, reduced
-olmoe's MoE layers over 20), count its launches under replay, and run an
-eager step under the sync debug mode (phi4-mini's and olmoe's).  The MoE
+olmoe's MoE layers over 20, and reduced phi4-mini and gemma3 on an int8
+KV cache), count its launches under replay, and run an eager step under
+the sync debug mode (phi4-mini's, olmoe's and phi4-mini's on an int8
+cache); ``quantize_kv`` on the card is its CPU result bit for bit.  The MoE
 FFN is held on the card against its CPU result and its oracle, at the
 decode shape, the largest dropless T and on the capacity path.
 """
@@ -33,6 +37,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.kernels import bgmv, build, flash_decode, ops, ref, sgmv  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.models.attention import quantize_kv  # noqa: E402
 from repro_torch.serving.executor import TorchExecutor  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -357,6 +362,126 @@ def test_flash_decode_lora_kernel_edges(gen, bsz, h, kv, s, dx, r, n, d,
         q, k, v, lengths, x, a, b, base, 1.5), attn)
 
 
+def _int8_cache(gen, bsz, s, kv, d):
+    return quantize_kv(_normal(gen, bsz, s, kv, d, dtype=torch.bfloat16))
+
+
+def _close_int8(got, want):
+    # the int8 mode at bf16's tolerance whatever q's dtype: P times
+    # v_scale is rounded to bf16 against each split's running max, where
+    # the plain version (the JAX arithmetic) rounds it against the row's
+    _close(got, want, torch.bfloat16)
+    _close_rows(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", flash_decode.HEAD_DIMS)
+def test_flash_decode_int8_tile_edges(gen, d, dtype):
+    # lengths at an int8 tile's edges (P - 1, P, P + 1) and inside the last
+    # chunk (S = 5P + 3), every head dim, D 16's rows one 16-byte chunk
+    p = flash_decode.tile_positions(d, 1)
+    s = 5 * p + 3
+    lengths = torch.tensor([p - 1, p, p + 1, 2 * p + 1, s - 1, s, s + 9, 1],
+                           dtype=torch.int32, device="cuda")
+    bsz, h, kv = lengths.numel(), 6, 2
+    q = _normal(gen, bsz, h, d, dtype=dtype)
+    k, ks = _int8_cache(gen, bsz, s, kv, d)
+    v, vs = _int8_cache(gen, bsz, s, kv, d)
+    got = flash_decode.flash_decode(q, k, v, lengths, ks, vs)
+    assert got.dtype == dtype
+    _close_int8(got, flash_decode.flash_decode_int8_plain(q, k, v, lengths,
+                                                          ks, vs))
+    assert not flash_decode.flash_decode(q, k, v, 0, ks, vs).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,d", [(4, 256), (8, 128), (1, 64)])
+def test_flash_decode_int8_one_kv_head(gen, h, d, dtype):
+    # one KV head (gemma3's global layers: 4 heads of 256): each
+    # position's scales are 2 bytes apart
+    bsz, s = 3, 700
+    q = _normal(gen, bsz, h, d, dtype=dtype)
+    k, ks = _int8_cache(gen, bsz, s, 1, d)
+    v, vs = _int8_cache(gen, bsz, s, 1, d)
+    lengths = torch.tensor([s, 1, 333], dtype=torch.int32, device="cuda")
+    _close_int8(flash_decode.flash_decode(q, k, v, lengths, ks, vs),
+                flash_decode.flash_decode_int8_plain(q, k, v, lengths, ks,
+                                                     vs))
+
+
+def test_flash_decode_int8_positions_past_length_are_never_read(gen):
+    # int8 values and NaN scales past each row's length: the split pass
+    # neither copies those positions nor loads their scales, so the output
+    # is bit for bit the clean cache's
+    bsz, s, h, kv, d = 3, 300, 8, 2, 128
+    q = _normal(gen, bsz, h, d, dtype=torch.bfloat16)
+    k, ks = _int8_cache(gen, bsz, s, kv, d)
+    v, vs = _int8_cache(gen, bsz, s, kv, d)
+    lengths = torch.tensor([1, 129, 250], dtype=torch.int32, device="cuda")
+    want = flash_decode.flash_decode(q, k, v, lengths, ks, vs)
+    for i, n in enumerate(lengths.tolist()):
+        k[i, n:], v[i, n:] = 127, -128
+        ks[i, n:] = float("nan")
+        vs[i, n:] = float("nan")
+    got = flash_decode.flash_decode(q, k, v, lengths, ks, vs)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, want)
+
+
+def test_flash_decode_int8_wrapper_rejects_what_the_kernel_does_not_take(gen):
+    bsz, s, h, kv, d = 2, 64, 4, 2, 32
+    q = _normal(gen, bsz, h, d, dtype=torch.bfloat16)
+    k, ks = _int8_cache(gen, bsz, s, kv, d)
+    v, vs = _int8_cache(gen, bsz, s, kv, d)
+    fd = flash_decode.flash_decode
+    with pytest.raises(TypeError, match="int8 mode"):
+        fd(q, k, v.bfloat16(), s, ks, vs)             # mixed K/V dtypes
+    with pytest.raises(TypeError, match="int8 mode"):
+        fd(q, k, v, s, ks.float(), vs)                # f32 scales
+    with pytest.raises(TypeError, match="int8 mode"):
+        fd(q.half(), k, v, s, ks, vs)                 # f16 q
+    with pytest.raises(TypeError, match="share one dtype"):
+        fd(q, k.bfloat16(), v, s)                     # int8 V, no scales
+    with pytest.raises(ValueError, match="want \\(B, S, KV\\)"):
+        fd(q, k, v, s, ks[:, :-1].contiguous(), vs)   # scales of S - 1
+    with pytest.raises(ValueError, match="want \\(B, S, KV\\)"):
+        fd(q, k, v, s, ks[..., None], vs)
+    with pytest.raises(ValueError, match="both scales"):
+        fd(q, k, v, s, ks, None)
+    with pytest.raises(ValueError, match="contiguous"):
+        fd(q, k, v, s, ks.transpose(0, 1).contiguous().transpose(0, 1), vs)
+    shifted = torch.zeros(k.numel() + 1, dtype=torch.int8,
+                          device="cuda")[1:].view(k.shape)
+    assert shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fd(q, shifted, v, s, ks, vs)
+    q48 = _normal(gen, bsz, h, 48, dtype=torch.bfloat16)
+    k48, ks48 = _int8_cache(gen, bsz, s, kv, 48)
+    with pytest.raises(ValueError, match="D=48"):
+        fd(q48, k48, k48, s, ks48, ks48)
+
+
+def test_binding_raises_on_a_rejected_int8_launch(gen):
+    # head dim 48 has no instance: the launcher refuses it and the binding
+    # raises rather than return an unwritten output
+    x = _normal(gen, 4, 8)
+    with pytest.raises(RuntimeError, match="flash_decode_int8: launcher "
+                                           "rejected"):
+        build.kernels().flash_decode_int8(
+            0, 0, 0, 16, 16, 0, 0, 0, 0, 0, 2, 64, 4, 2, 48, 1, 64, 1,
+            build.stream_handle(x.device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_kv_on_the_card_matches_cpu(gen, dtype):
+    x = _normal(gen, 4, 300, 8, 128, dtype=dtype, std=3.0)
+    x[0, 0, 0] = 0
+    q, s = quantize_kv(x)
+    want_q, want_s = quantize_kv(x.cpu())
+    assert torch.equal(q.cpu(), want_q)
+    assert torch.equal(s.cpu().view(torch.int16), want_s.view(torch.int16))
+
+
 def test_wrappers_reject_what_kernels_do_not_take(gen):
     x = _normal(gen, 4, 32)
     a, b = _bank(gen, 2, 32, 65, 16, torch.float32)
@@ -406,11 +531,12 @@ def test_binding_raises_on_rejected_arguments(gen):
 # the serving step captured as a CUDA graph (``TorchExecutor``)
 # --------------------------------------------------------------------------- #
 
-def _served(dtype, cache_len=16, arch="phi4-mini-3.8b"):
-    """A reduced model on the card and its executor (8 rows)."""
+def _served(dtype, cache_len=16, arch="phi4-mini-3.8b", kv_quant=False):
+    """A reduced model on the card and its executor (8 rows); with
+    ``kv_quant`` its global layers' caches in int8."""
     cfg = dataclasses.replace(get_reduced(arch),
                               dtype=str(dtype).split(".")[1])
-    model = Model(cfg, device="cuda", seed=3)
+    model = Model(cfg, device="cuda", seed=3, kv_quant=kv_quant)
     lora = model.init_lora(4, 4, seed=3)
     return model, lora, TorchExecutor(model, lora, max_batch=8,
                                       cache_len=cache_len, device="cuda")
@@ -465,6 +591,20 @@ def test_executor_replay_equals_eager_step_moe(gen, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch,cache_len,steps", [
+    ("phi4-mini-3.8b", 16, 20),
+    # gemma3's int8 global caches end at step 20, its local layers' f32 or
+    # bf16 buffers wrap at step 16
+    ("gemma3-1b", 20, 28)])
+def test_executor_replay_equals_eager_step_int8(gen, arch, cache_len, steps,
+                                                dtype):
+    # the quantized write (quantize_kv, the scales' index_copy_) and the
+    # int8 mode replay bit for bit
+    _replays_equal_eager(*_served(dtype, cache_len, arch, kv_quant=True),
+                         steps=steps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,router_add", [(8, 0.0), (2047, 0.0),
                                           (2049, 0.3)])
 def test_apply_moe_on_the_card(gen, t, router_add, dtype):
@@ -514,8 +654,13 @@ def test_eager_moe_decode_step_does_not_synchronise(gen):
     _decode_step_does_not_synchronise("olmoe-1b-7b")
 
 
-def _decode_step_does_not_synchronise(arch):
-    model, lora, ex = _served(torch.bfloat16, arch=arch)
+def test_eager_int8_decode_step_does_not_synchronise(gen):
+    # the quantized write stays on the device: the step can be captured
+    _decode_step_does_not_synchronise("phi4-mini-3.8b", kv_quant=True)
+
+
+def _decode_step_does_not_synchronise(arch, kv_quant=False):
+    model, lora, ex = _served(torch.bfloat16, arch=arch, kv_quant=kv_quant)
     ids = torch.tensor([0, 1, -1, 3, 2, 2, -1, 0], dtype=torch.int32,
                        device="cuda")
     cache = _clone_cache(ex.cache)

@@ -1,6 +1,7 @@
 """The port's serving layer: the copied engine against the original, the
-torch executor against the JAX decode step (reduced phi4-mini and reduced
-olmoe), and end-to-end runs on CPU."""
+torch executor against the JAX decode step (reduced phi4-mini, reduced
+olmoe, and reduced phi4-mini and gemma3 on an int8 KV cache), and
+end-to-end runs on CPU."""
 import dataclasses
 
 import jax
@@ -65,9 +66,16 @@ def test_moe_executor_step_matches_jax_decode_step():
     _executor_step_matches_jax_decode_step("olmoe-1b-7b")
 
 
-def _executor_step_matches_jax_decode_step(arch):
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "gemma3-1b"])
+def test_int8_cache_executor_step_matches_jax_decode_step(arch):
+    # Model(kv_quant=True) against ShardingPlan(kv_quant=True): int8 global
+    # caches (gemma3's local layers in the model's dtype)
+    _executor_step_matches_jax_decode_step(arch, kv_quant=True)
+
+
+def _executor_step_matches_jax_decode_step(arch, kv_quant=False):
     cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
-    jd = JaxModel(cfg, ShardingPlan(mode="decode"))
+    jd = JaxModel(cfg, ShardingPlan(mode="decode", kv_quant=kv_quant))
     key = jax.random.PRNGKey(2)
     params, lora = jd.init(key), jd.init_lora(key, 4, 4)
     adapters = [5, 2, 7, 0, 3]
@@ -78,7 +86,7 @@ def _executor_step_matches_jax_decode_step(arch):
                              np.zeros((8, 1), np.int32), idx)
 
     port_cfg = dataclasses.replace(port_reduced(arch), dtype="float32")
-    model = Model(port_cfg, device="cpu")
+    model = Model(port_cfg, device="cpu", kv_quant=kv_quant)
     bridge.load_params(model, jax.tree.map(np.asarray, params))
     ex = TorchExecutor(model, bridge.lora_to_torch(
         jax.tree.map(np.asarray, lora)), max_batch=8, cache_len=32,
@@ -93,6 +101,9 @@ def _executor_step_matches_jax_decode_step(arch):
     want = np.asarray(want)
     assert np.max(np.abs(got - want)) / np.max(np.abs(want)) < 2e-4
     assert int(ex.cache["pos"]) == 1
+    if kv_quant:
+        g = model.cfg.layer_kinds.index("global")
+        assert ex.cache["layers"][g]["k"].dtype == torch.int8
 
 
 def test_engine_with_torch_executor_serves_on_cpu():
@@ -130,6 +141,22 @@ def test_serve_launcher_serves_gemma3_on_cpu():
     rows = {tuple(c)[0]: c[tuple(c)[0]].shape[1] for c in ex.cache["layers"]}
     assert rows == {"k_loc": 16, "k": 512}
     assert int(ex.cache["pos"]) > 0
+    assert ex.last_logits.shape == (8, 512)
+    assert bool(torch.isfinite(ex.last_logits).all())
+
+
+def test_serve_launcher_serves_int8_cache_on_cpu():
+    # serve(..., kv_quant=True), a keyword only: the JAX launcher has no
+    # int8 flag, so the CLI has none either
+    args = build_parser().parse_args(["--horizon", "2", "--adapters", "4"])
+    assert not hasattr(args, "kv_quant")
+    metrics, ex = serve(port_reduced("phi4-mini-3.8b"), args, device="cpu",
+                        kv_quant=True)
+    assert metrics.duration > 0
+    assert ex.model.kv_quant
+    kv = ex.cache["layers"][0]
+    assert kv["k"].dtype == torch.int8 and kv["k_scale"].shape == (8, 512, 2)
+    assert bool(kv["k_scale"][:, 0].all())   # the first step was written
     assert ex.last_logits.shape == (8, 512)
     assert bool(torch.isfinite(ex.last_logits).all())
 
