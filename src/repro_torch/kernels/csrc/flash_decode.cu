@@ -22,7 +22,12 @@
 // batch sizes, so the sequence is cut into n_splits chunks of whole tiles
 // (flash_decode.py::split_plan) and one block per (split, kv-head, row)
 // covers the G query heads that share that KV head (query head h reads KV
-// head h / G), so K and V are read once for all G.
+// head h / G), so K and V are read once for all G.  Past kMaxG (8) heads,
+// which size the passes' per-head arrays, a KV head's G heads are cut into
+// ceil(G / 8) groups on grid y, one block per (split, kv-head, group,
+// row), and each group reads the KV head's K and V (at recurrentgemma-9b's
+// 16 heads on 1 KV head: twice, the second read often from L2).  The
+// combine works per (row, head) and does not see the groups.
 //
 // The split pass streams its chunk through shared memory in tiles of kP
 // positions (16 KB of K and 16 KB of V at D 128 in bf16) with 16-byte
@@ -45,8 +50,9 @@
 // bf16(P) and bf16(P - bf16(P)), is the A operand of two products O += P V
 // into one accumulator (about 16 bits of P, where the Pallas kernel keeps
 // f32), V's fragments coming from ldmatrix.trans.  The warps merge by
-// log-sum-exp at the end of the chunk.  In f32, and in bf16
-// at D 256 (a warp's share of a tile is under 16 positions), the same ring
+// log-sum-exp at the end of the chunk.  In f32, and in bf16 at D 256 (a
+// warp's share of a tile is under 16 positions) and D 8 (a row is under
+// one k-step; its 16 bytes are one chunk), the same ring
 // feeds a CUDA-core pass (split_scalar): threads that own positions compute
 // the scores, one warp per head updates the softmax once per tile, threads
 // that own (d-chunk, position group) accumulate P V in registers.  The
@@ -116,6 +122,29 @@ constexpr float kNegInf = -1.0e30f;  // finite, as in Pallas: exp(m - m) stays 1
 
 constexpr int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
 
+// Head groups: the G = h / kv query heads that share a KV head are cut
+// into ceil(G / kMaxG) groups of at most kMaxG, sizes differing by at most
+// one, and grid y is (KV head, group).  A block's heads are [h0, h0 + g_n)
+// of its row; its K/V are those of KV head kvh.
+__host__ __device__ constexpr int head_groups(int g) {
+  return (g + kMaxG - 1) / kMaxG;
+}
+
+struct HeadGroup {
+  int kvh, h0, g_n;
+};
+
+// One group (G <= kMaxG) takes no division past h / kv: the prologue of a
+// split block is on the critical path of a single-wave launch.
+__device__ __forceinline__ HeadGroup head_group(int h, int kv) {
+  const int g_all = h / kv, y = static_cast<int>(blockIdx.y);
+  if (g_all <= kMaxG) return {y, y * g_all, g_all};
+  const int n_grp = head_groups(g_all);
+  const int kvh = y / n_grp, grp = y - kvh * n_grp;
+  const int first = grp * g_all / n_grp;
+  return {kvh, kvh * g_all + first, (grp + 1) * g_all / n_grp - first};
+}
+
 // The tile geometry of one (dtype, head dim) instance.  kP is mirrored by
 // flash_decode.py::tile_positions, which cuts chunks into whole tiles.
 template <typename T, int D>
@@ -131,8 +160,8 @@ struct Tile {
   static constexpr int kParts = kPG / kWarpPG;     // P.V partials after shuffles
   static constexpr int kSw = kChunks < 8 ? kChunks : 8;
   // the tensor-core pass: bf16, and 16-position k-blocks for each warp
-  static constexpr bool kMma =
-      std::is_same<T, __nv_bfloat16>::value && kP % (16 * kWarps) == 0;
+  static constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value &&
+                               D >= 16 && kP % (16 * kWarps) == 0;
   static_assert(kChunks >= 1 && kChunks % kKS == 0 && kP % kPG == 0, "tile");
   static_assert(kParts * kMaxG * D * 4 <= 2 * kBytes, "reduction fits the ring");
   // Shared-memory slot of chunk c of position p: the chunk index is XORed
@@ -179,8 +208,9 @@ __device__ __forceinline__ void split_scalar(
   using G = Tile<KV, D>;
   constexpr int kP = G::kP, kVec = G::kVec, kChunks = G::kChunks;
   static_assert(kP <= kThreads, "one thread a position loads the scales");
-  const int split = blockIdx.x, kvh = blockIdx.y, row = blockIdx.z;
-  const int g_n = h / kv;
+  const int split = blockIdx.x, row = blockIdx.z;
+  const HeadGroup hg = head_group(h, kv);
+  const int kvh = hg.kvh, g_n = hg.g_n;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const float scale = rsqrtf(static_cast<float>(D));
   const int len = min(max(length[row], 0), s);
@@ -209,7 +239,7 @@ __device__ __forceinline__ void split_scalar(
   }
   for (int i = tid; i < g_n * D; i += kThreads)
     qs[i / D][i % D] =
-        repro::to_float(q[((size_t)row * h + kvh * g_n) * D + i]);
+        repro::to_float(q[((size_t)row * h + hg.h0) * D + i]);
 
   // Softmax state of the heads this warp owns (w, w + kWarps), and the P.V
   // accumulator of this thread's (d-chunk, position group) for every head.
@@ -375,7 +405,7 @@ __device__ __forceinline__ void split_scalar(
           red[(part * g_n + g) * D + vc * kVec + e] = acc[g][e];
   }
   __syncthreads();
-  const size_t hp0 = ((size_t)row * h + kvh * g_n) * n_splits + split;
+  const size_t hp0 = ((size_t)row * h + hg.h0) * n_splits + split;
   for (int i = tid; i < g_n * D; i += kThreads) {
     float a = 0.f;
 #pragma unroll
@@ -433,8 +463,9 @@ __device__ __forceinline__ void split_mma(
   constexpr int kDB = D / 8;        // n-blocks of the output
   static_assert(kPW % 16 == 0 && kDB % 2 == 0, "mma tile");
   static_assert(kWarps * kMaxG * D * 4 <= 2 * G::kBytes, "merge fits the ring");
-  const int split = blockIdx.x, kvh = blockIdx.y, row = blockIdx.z;
-  const int g_n = h / kv;
+  const int split = blockIdx.x, row = blockIdx.z;
+  const HeadGroup hg = head_group(h, kv);
+  const int kvh = hg.kvh, g_n = hg.g_n;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gq = lane / 4, tq = lane % 4;  // fragment row (head), column pair
   const float scale = rsqrtf(static_cast<float>(D));
@@ -445,7 +476,7 @@ __device__ __forceinline__ void split_mma(
 #pragma unroll
   for (int j = 0; j < kQPer; ++j) {
     const int i = tid + j * kThreads;
-    qv[j] = i / D < g_n ? q[((size_t)row * h + kvh * g_n) * D + i]
+    qv[j] = i / D < g_n ? q[((size_t)row * h + hg.h0) * D + i]
                         : __float2bfloat16(0.f);
   }
   const int len = min(max(length[row], 0), s);
@@ -470,7 +501,7 @@ __device__ __forceinline__ void split_mma(
     repro::cp_async_commit();
   }
 
-  // Q as the A operand: row g is query head kvh * g_n + g, zero past g_n.
+  // Q as the A operand: row g is query head hg.h0 + g, zero past g_n.
 #pragma unroll
   for (int j = 0; j < kQPer; ++j) {
     const int i = tid + j * kThreads;
@@ -593,7 +624,7 @@ __device__ __forceinline__ void split_mma(
     }
   }
   __syncthreads();
-  const size_t hp0 = ((size_t)row * h + kvh * g_n) * n_splits + split;
+  const size_t hp0 = ((size_t)row * h + hg.h0) * n_splits + split;
   if (tid < g_n) {  // each head's max, the warps' weights, the sum
     float mw = kNegInf;
 #pragma unroll
@@ -691,8 +722,9 @@ __device__ __forceinline__ void split_mma_int8(
   constexpr int kColT = D / 8;      // bytes of a V row a lane reads
   static_assert(kPW == 32 && kNB % 2 == 0 && kColT % 4 == 0, "int8 mma tile");
   static_assert(kWarps * kMaxG * D * 4 <= 2 * G::kBytes, "merge fits the ring");
-  const int split = blockIdx.x, kvh = blockIdx.y, row = blockIdx.z;
-  const int g_n = h / kv;
+  const int split = blockIdx.x, row = blockIdx.z;
+  const HeadGroup hg = head_group(h, kv);
+  const int kvh = hg.kvh, g_n = hg.g_n;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gq = lane / 4, tq = lane % 4;  // fragment row (head), column pair
   const float scale = rsqrtf(static_cast<float>(D));
@@ -701,7 +733,7 @@ __device__ __forceinline__ void split_mma_int8(
 #pragma unroll
   for (int j = 0; j < kQPer; ++j) {
     const int i = tid + j * kThreads;
-    qv[j] = i / D < g_n ? q[((size_t)row * h + kvh * g_n) * D + i]
+    qv[j] = i / D < g_n ? q[((size_t)row * h + hg.h0) * D + i]
                         : __float2bfloat16(0.f);
   }
   const int len = min(max(length[row], 0), s);
@@ -880,7 +912,7 @@ __device__ __forceinline__ void split_mma_int8(
     }
   }
   __syncthreads();
-  const size_t hp0 = ((size_t)row * h + kvh * g_n) * n_splits + split;
+  const size_t hp0 = ((size_t)row * h + hg.h0) * n_splits + split;
   if (tid < g_n) {  // each head's max, the warps' weights, the sum
     float mw = kNegInf;
 #pragma unroll
@@ -904,11 +936,11 @@ __device__ __forceinline__ void split_mma_int8(
   }
 }
 
-// One block per (split, kv-head, row): the tensor-core pass where the
-// tile allows it (bf16, each warp's quarter of a tile a multiple of 16
-// positions), else the CUDA-core pass.  With kEarly (the fused kernel's
-// instance) the LoRA shrink, launched as this grid's programmatic
-// dependent, may start at once and run beside this pass.
+// One block per (split, kv-head, head group, row): the tensor-core pass
+// where the tile allows it (bf16, D >= 16, each warp's quarter of a tile a
+// multiple of 16 positions), else the CUDA-core pass.  With kEarly (the
+// fused kernel's instance) the LoRA shrink, launched as this grid's
+// programmatic dependent, may start at once and run beside this pass.
 template <typename T, int D, bool kEarly>
 __global__ void __launch_bounds__(kThreads, 2)
 fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -926,9 +958,10 @@ fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           acc_part, s, h, kv, n_splits, chunk, stages);
 }
 
-// The int8 mode's split pass: one block per (split, kv-head, row) over an
-// int8 cache and its f16 scales, q and the output in T: on tensor cores for
-// bf16 q at D 32-128 (split_mma_int8), else on CUDA cores.
+// The int8 mode's split pass: one block per (split, kv-head, head group,
+// row) over an int8 cache and its f16 scales, q and the output in T: on
+// tensor cores for bf16 q at D 32-128 (split_mma_int8), else on CUDA
+// cores.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 2)
 fd_split_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
@@ -1214,7 +1247,8 @@ cudaError_t launch_split(const dim3& grid, cudaStream_t st, const void* q,
 // then the combine; with kLora the shrink kernel between them, the shrink
 // and the combine each the programmatic dependent of the launch before.
 // Returns the launch error, or cudaErrorInvalidValue for a head dim that
-// has no instance or a chunk that is not whole tiles.
+// has no instance (8 has none in the int8 mode) or a chunk that is not
+// whole tiles.
 template <typename T, typename W, bool kLora, bool kInt8 = false>
 int launch_fd(const void* q, const void* k, const void* v,
               const void* k_scale, const void* v_scale, const void* length,
@@ -1225,13 +1259,17 @@ int launch_fd(const void* q, const void* k, const void* v,
   // cp.async copies 16-byte chunks of K and V (rows are >= 16 bytes)
   if ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(n_splits, kv, bsz);
+  const dim3 grid(n_splits, kv * head_groups(h / kv), bsz);
   cudaError_t err;
 #define REPRO_FD_SPLIT(D)                                                    \
   launch_split<T, D, kLora, kInt8>(grid, st, q, k, v, k_scale, v_scale,      \
                                    length, m_part, l_part, acc_part, s, h,   \
                                    kv, n_splits, chunk)
   switch (dh) {
+    case 8:  // a bf16 row is one 16-byte chunk; an int8 row is half of one
+      if constexpr (kInt8) return static_cast<int>(cudaErrorInvalidValue);
+      else err = REPRO_FD_SPLIT(8);
+      break;
     case 16: err = REPRO_FD_SPLIT(16); break;
     case 32: err = REPRO_FD_SPLIT(32); break;
     case 64: err = REPRO_FD_SPLIT(64); break;
@@ -1279,7 +1317,7 @@ int launch_fd(const void* q, const void* k, const void* v,
 }
 
 bool bad_shape(int h, int kv, int n_splits, int chunk) {
-  return kv < 1 || h % kv || h / kv > kMaxG || n_splits < 1 || chunk < 1;
+  return kv < 1 || h % kv || n_splits < 1 || chunk < 1;
 }
 
 }  // namespace

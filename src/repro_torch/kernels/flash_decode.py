@@ -20,9 +20,10 @@ import torch
 from . import build
 from .bgmv import MAX_RANK
 
-HEAD_DIMS = (16, 32, 64, 128, 256)  # csrc/flash_decode.cu instantiations,
-                                    # of the int8 mode too
-MAX_GROUP = 8                       # query heads per KV head (kMaxG)
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # csrc/flash_decode.cu instantiations
+INT8_HEAD_DIMS = HEAD_DIMS[1:]         # the int8 mode's (a row >= 16 bytes)
+MAX_GROUP = 8   # query heads a block (kMaxG): a KV head's G heads are cut
+                # into head_groups(G) groups, each a block of the split pass
 TILE_BYTES = 16384                  # of K in one tile of the split pass
 TILE_MIN, TILE_MAX = 16, 128        # positions in a tile, at least / most
 
@@ -126,12 +127,19 @@ def tile_positions(d: int, itemsize: int) -> int:
     return min(TILE_MAX, max(TILE_MIN, TILE_BYTES // (d * itemsize)))
 
 
-def split_plan(bsz: int, kv: int, s: int, n_sm: int, tile: int):
-    """(n_splits, chunk): enough (split, kv-head, row) blocks to give each
-    of the card's SMs about two, with chunks of whole tiles of ``tile``
+def head_groups(g: int) -> int:
+    """Blocks a split gives the G query heads of one KV head: groups of
+    at most MAX_GROUP (``head_groups`` of ``csrc/flash_decode.cu``)."""
+    return -(-g // MAX_GROUP)
+
+
+def split_plan(bsz: int, groups: int, s: int, n_sm: int, tile: int):
+    """(n_splits, chunk): enough (split, group, row) blocks to give each
+    of the card's SMs about two, ``groups`` blocks a split and row (KV
+    heads times ``head_groups``), with chunks of whole tiles of ``tile``
     positions; split i covers [i*chunk, min((i+1)*chunk, s))."""
     n_tiles = max(-(-s // tile), 1)
-    want = -(-2 * n_sm // max(bsz * kv, 1))
+    want = -(-2 * n_sm // max(bsz * groups, 1))
     n_splits = max(1, min(want, n_tiles))
     chunk = -(-n_tiles // n_splits) * tile
     return max(-(-s // chunk), 1), chunk
@@ -149,8 +157,10 @@ def _check(q, k, v, lengths, k_scale=None, v_scale=None):
         raise ValueError(f"flash_decode: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     kv = k.shape[2]
-    if h % kv or h // kv > MAX_GROUP or d not in HEAD_DIMS:
-        raise ValueError(f"flash_decode: H={h}, KV={kv}, D={d} unsupported")
+    dims = INT8_HEAD_DIMS if quant else HEAD_DIMS
+    if h % kv or d not in dims:
+        raise ValueError(f"flash_decode: H={h}, KV={kv}, D={d} unsupported "
+                         f"(H a multiple of KV, D one of {dims})")
     if quant:
         if not (k.dtype == v.dtype == torch.int8
                 and k_scale.dtype == v_scale.dtype == torch.float16
@@ -202,7 +212,7 @@ def _launch_args(q, k, v, length, k_scale=None, v_scale=None):
     lengths = _lengths(length, bsz, q.device)
     _check(q, k, v, lengths, k_scale, v_scale)
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    n_splits, chunk = split_plan(bsz, kv, s, n_sm,
+    n_splits, chunk = split_plan(bsz, kv * head_groups(h // kv), s, n_sm,
                                  tile_positions(d, k.element_size()))
     m_part = torch.empty((bsz, h, n_splits), dtype=torch.float32,
                          device=q.device)

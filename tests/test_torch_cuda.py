@@ -7,7 +7,8 @@ fixture, never at import).  On the GPU machine:
 
 ``chip_smoke.py`` holds the kernels at the main path's shapes; these hold
 them at edge shapes (rank 1 and odd ranks, expand widths off the tile,
-every head dim the flash-decode kernels instantiate, group sizes 1..8,
+every head dim the flash-decode kernels instantiate (8 among them), group
+sizes 1..24 (past 8 in head groups),
 lengths 0 and past S and at the split pass's tile edges, NaN past a row's
 length, BGMV at ranks 1-64 with widths and views off the 16-byte vector,
 SGMV at T around its 64-token tile, 32 skewed adapters, unaligned views and
@@ -266,7 +267,11 @@ def test_sgmv_segments_kernel_matches_plain(gen, t, n):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", flash_decode.HEAD_DIMS)
 @pytest.mark.parametrize("bsz,h,kv,s", [(3, 8, 8, 7), (2, 24, 8, 100),
-                                        (2, 16, 2, 1000)])
+                                        (2, 16, 2, 1000),
+                                        # head groups: G 16 (two groups of
+                                        # 8), 12 (6 + 6), 9 (5 + 4)
+                                        (3, 16, 1, 600), (2, 24, 2, 300),
+                                        (2, 9, 1, 50)])
 def test_flash_decode_kernel_edges(gen, bsz, h, kv, s, d, dtype):
     q = _normal(gen, bsz, h, d, dtype=dtype)
     k = _normal(gen, bsz, s, kv, d, dtype=dtype)
@@ -332,7 +337,10 @@ def test_flash_decode_positions_past_length_are_never_read(gen):
     (32, 7, 7, 33, 96, 33, 5), (2, 32, 8, 70, 3072, 32, 3),
     (3, 4, 2, 90, 1000, 9, 2), (2, 8, 8, 70, 4096, 16, 3),
     # the serving shape; 11 heads over many splits
-    (8, 24, 8, 512, 3072, 8, 4), (1, 11, 11, 4096, 96, 8, 2)])
+    (8, 24, 8, 512, 3072, 8, 4), (1, 11, 11, 4096, 96, 8, 2),
+    # head groups: recurrentgemma-9b's 16 heads on 1 KV head (d 4096), a
+    # group of 10 (5 + 5)
+    (8, 16, 1, 512, 4096, 8, 4), (3, 20, 2, 300, 64, 4, 2)])
 def test_flash_decode_lora_kernel_edges(gen, bsz, h, kv, s, dx, r, n, d,
                                         dtype, wdtype):
     # group sizes 1, 3, 4 and 8; some rows run past S; with more than one
@@ -375,7 +383,7 @@ def _close_int8(got, want):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", flash_decode.HEAD_DIMS)
+@pytest.mark.parametrize("d", flash_decode.INT8_HEAD_DIMS)
 def test_flash_decode_int8_tile_edges(gen, d, dtype):
     # lengths at an int8 tile's edges (P - 1, P, P + 1) and inside the last
     # chunk (S = 5P + 3), every head dim, D 16's rows one 16-byte chunk
@@ -395,10 +403,12 @@ def test_flash_decode_int8_tile_edges(gen, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,d", [(4, 256), (8, 128), (1, 64)])
+@pytest.mark.parametrize("h,d", [(4, 256), (8, 128), (1, 64), (16, 256),
+                                 (16, 128), (12, 32)])
 def test_flash_decode_int8_one_kv_head(gen, h, d, dtype):
     # one KV head (gemma3's global layers: 4 heads of 256): each
-    # position's scales are 2 bytes apart
+    # position's scales are 2 bytes apart; 12 and 16 heads on it run in
+    # two head groups
     bsz, s = 3, 700
     q = _normal(gen, bsz, h, d, dtype=dtype)
     k, ks = _int8_cache(gen, bsz, s, 1, d)
@@ -459,6 +469,12 @@ def test_flash_decode_int8_wrapper_rejects_what_the_kernel_does_not_take(gen):
     k48, ks48 = _int8_cache(gen, bsz, s, kv, 48)
     with pytest.raises(ValueError, match="D=48"):
         fd(q48, k48, k48, s, ks48, ks48)
+    # head dim 8 runs in bf16 and f32 but not in the int8 mode (a row of
+    # 8 bytes is half a 16-byte copy)
+    q8 = _normal(gen, bsz, h, 8, dtype=torch.bfloat16)
+    k8, ks8 = _int8_cache(gen, bsz, s, kv, 8)
+    with pytest.raises(ValueError, match="D=8"):
+        fd(q8, k8, k8, s, ks8, ks8)
 
 
 def test_binding_raises_on_a_rejected_int8_launch(gen):

@@ -139,6 +139,9 @@ def test_sgmv_capacity_overflow_matches_pallas(dtype):
 @pytest.mark.parametrize("b,h,kv,d,s,block_s", [
     (2, 8, 2, 64, 512, 512), (2, 4, 1, 64, 300, 512), (2, 4, 2, 16, 33, 16),
     (3, 6, 2, 32, 100, 512),
+    # more than 8 query heads per KV head (the kernel's head groups):
+    # recurrentgemma-9b's 16 on 1, a group of 12; and head dim 8
+    (2, 16, 1, 64, 300, 512), (3, 24, 2, 32, 100, 512), (2, 8, 2, 8, 50, 16),
 ])
 def test_flash_decode_matches_pallas(b, h, kv, d, s, block_s, dtype):
     # S not divisible by the block; ragged per-row lengths
@@ -259,6 +262,8 @@ def _decode(seed, b, h, kv, d, s, dx, r, n, dtype, wdtype=None, ids=None,
 @pytest.mark.parametrize("b,h,kv,d,s,dx,r,n", [
     (2, 8, 2, 64, 512, 128, 8, 3), (3, 4, 1, 16, 100, 32, 4, 2),
     (4, 6, 2, 32, 33, 48, 16, 4),
+    # 16 query heads on 1 KV head; head dim 8
+    (2, 16, 1, 32, 70, 64, 8, 2), (3, 4, 2, 8, 40, 32, 4, 2),
 ])
 def test_fused_decode_matches_pallas_and_oracle(b, h, kv, d, s, dx, r, n,
                                                 dtype):

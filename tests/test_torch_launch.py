@@ -66,3 +66,17 @@ def test_split_plan_at_the_serving_shape():
     assert tile == 64
     assert flash_decode.split_plan(8, 8, 512, H100_SMS, tile) == (4, 128)
 
+
+
+def test_split_plan_at_recurrentgemma_shape():
+    # recurrentgemma-9b serving: 16 query heads on 1 KV head are two head
+    # groups of 8, D 256 in bf16 (32-position tiles), 8 rows; 512 rows of a
+    # rolling buffer and the full 2048-row window
+    assert [flash_decode.head_groups(g) for g in (1, 8, 9, 16, 24)] == \
+        [1, 1, 2, 2, 3]
+    tile = flash_decode.tile_positions(256, 2)
+    assert tile == 32
+    groups = 1 * flash_decode.head_groups(16)
+    assert flash_decode.split_plan(8, groups, 512, H100_SMS, tile) == (16, 32)
+    assert flash_decode.split_plan(8, groups, 2048, H100_SMS, tile) == \
+        (16, 128)
