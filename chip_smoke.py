@@ -39,13 +39,23 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    arithmetic rounds P times v_scale to bf16, which the kernel does
    against each split's running max, the plain version against the row's
    global max); flash-decode in bf16 and in int8 over LONG_S (32768)
-   positions at phi4-mini's heads, B 8;
+   positions at phi4-mini's heads, B 8; flash-decode, the fused kernel and
+   the int8 mode past 8 query heads per KV head (``HEAD_GROUP_SHAPES``:
+   recurrentgemma-9b's 16 heads on 1 KV head of 256 at 512 and 2048 rows,
+   and a group of 12), and flash-decode and the fused kernel at head dim 8,
+   in bf16 and f32, ragged lengths with 0 among them, per row (the int8
+   mode with q in bf16 and f32, at bf16's tolerance; at head dim 8 it
+   raises);
 4. teacher forcing at phi4-mini's published widths, f32, 4 layers:
    decode after ``prefill(tokens[:, :-1])`` must match ``prefill(tokens)``
    to a relative error below 2e-4; then the same for each of the five
-   other dense architectures at its published widths, f32, its depth cut
-   (``VARIANTS``: gemma3 8 layers on 624-token prompts, past its 512
-   window; the others 2 layers; internvl2 after 256 image embeddings),
+   other dense architectures and recurrentgemma-9b at its published
+   widths, f32, its depth cut (``VARIANTS``: gemma3 8 layers on 624-token
+   prompts, past its 512 window; recurrentgemma 6 layers, two (rglru,
+   rglru, local) repeats, on 2175-token prompts, past its 2048 window, its
+   local layers' flash-decode at 16 heads on 1 KV head over a wrapped
+   rolling buffer and its rglru layers' O(1) decode from the scanned
+   state; the others 2 layers; internvl2 after 256 image embeddings),
    each printed with its cut, SGMV, BGMV and flash-decode launched; then
    the MoE architectures (``MOE_VARIANTS``): olmoe-1b-7b 4 layers,
    moonshot-v1-16b-a3b 2 layers, and olmoe-1b-7b 4 layers with int8
@@ -72,7 +82,7 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    top-8, bf16; BGMV 32 and flash-decode 16 launches a replay), and 6c
    also splits its step's device time into the expert products, the MoE
    FFN's other kernels (routing, dispatch, combine), attention, BGMV, the
-   dense products and the rest (``moe_step_split``), and prints the step's
+   dense products and the rest (``step_split``), and prints the step's
    bound (``step_bound``: its weights over the HBM rate, against the dense
    expert products' operations).  Phase 5d serves the published phi4-mini
    on an int8 KV cache as phase 5 serves it (BGMV 64 and flash-decode 32
@@ -81,7 +91,14 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    LONG_S positions filled from a seeded generator (no prefill), once in
    bf16 and once in int8, each beside its byte bound (``decode_bound``:
    weights and the whole cache over the HBM rate) and with flash-decode's
-   share of its busy time;
+   share of its busy time.  Phase 5e serves the published
+   recurrentgemma-9b (38 layers: 26 rglru on conv and lru states, 12
+   local on 512-row rolling buffers, 16 heads on 1 KV head; bf16) as
+   phase 5b serves gemma3 (BGMV 24 and flash-decode 12 launches a replay,
+   the replay bit for bit the eager step, states included), and phase 6e
+   times its step, splits it as 6c splits olmoe's (``step_split``: the
+   RG-LRU mixer's products and its other kernels, attention, BGMV, the
+   dense products, the rest) and prints its weight bound;
 6. the served model's decode step three ways: the eager step's wall, the
    replayed step's wall (as ``TorchExecutor.step`` times it) and device
    span (CUDA events), and the device time of each by kernel group from
@@ -109,7 +126,10 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    flash-decode also at gemma3-1b's serving shapes (``gemma3_*``: d 1152,
    o 1024 and 256; 4 heads of D 256 on 1 KV head, beside SDPA) and
    olmoe-1b-7b's (``olmoe_*``: d 2048, o 2048; 16 heads of D 128 on 16 KV
-   heads, beside SDPA); flash-decode also over LONG_S positions
+   heads, beside SDPA); flash-decode also at recurrentgemma-9b's shape
+   (``rgemma_*``: 16 heads of D 256 on 1 KV head, over 512 rows and the
+   2048-row window, beside SDPA, and beside 8 heads on the same K/V,
+   ``*_g8_ms``); flash-decode also over LONG_S positions
    (``s32768_*``), and its int8 mode's row (``flash_decode_int8``) at the
    serving shape and over LONG_S positions, beside SDPA over the bf16 cache
    of the same shape (no PyTorch call takes an int8 cache with scales);
@@ -124,9 +144,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 
 Launch counts are zeroed just before each path a user drives (teacher
 forcing through ``Model.prefill``/``decode_step`` in phase 4, for each
-architecture, serving in phases 5, 5b, 5c and 5d, measurement in phase
+architecture, serving in phases 5, 5b, 5c, 5d and 5e, measurement in phase
 7) and read just after it.  SGMV, BGMV and flash-decode must have launched
-in phase 4, BGMV and flash-decode in phases 5, 5b, 5c and 5d, the fused
+in phase 4, BGMV and flash-decode in phases 5, 5b, 5c, 5d and 5e, the fused
 kernel and SGMV in phase 7.  Each kernel's ``launches`` in the kernel
 table is the count of the path it serves (``path``); the int8 mode counts
 as flash-decode, on the int8 paths (``serving_int8``,
@@ -206,7 +226,11 @@ MEASURE_TOKENS = (512, 2048, MEASURE_T)   # its prefill token counts
 # window; 625 and 624 split into whole chunks of 125 and 208 queries)
 VARIANTS = {"gemma3-1b": (8, 625), "qwen1.5-4b": (2, 33),
             "internlm2-20b": (2, 33), "musicgen-medium": (2, 33),
-            "internvl2-2b": (2, 33)}
+            "internvl2-2b": (2, 33),
+            # two (rglru, rglru, local) repeats on 2175-token prompts, past
+            # the 2048 window (2176 and 2175 split into whole chunks of 136
+            # and 145 queries)
+            "recurrentgemma-9b": (6, 2176)}
 SERVED_VARIANT = "gemma3-1b"    # served at its published widths (phase 5b)
 # the MoE architectures: olmoe-1b-7b served at its published widths (phase
 # 5c); phase 3 holds the MoE FFN at its widths at these token counts (the
@@ -229,6 +253,17 @@ INT8_SHAPES = (("phi4-mini-3.8b", BATCH, CACHE, HEADS, KV_HEADS, HEAD_DIM),
                (f"B {GRID_B} S {GRID_S}", GRID_B, GRID_S, HEADS, KV_HEADS,
                 HEAD_DIM))
 LONG_S = 32768
+# recurrentgemma-9b, served at its published widths (phase 5e): its
+# flash-decode has 16 query heads on 1 KV head of 256, two head groups of 8
+# in the split pass.  Phase 3 holds flash-decode, the fused kernel and the
+# int8 mode at these (label, H, KV, D, S), B 8: its shape at 512 rows (the
+# serving cache) and over the whole 2048-row window, a group of 12 (two of
+# 6) and head dim 8 (a bf16 row one 16-byte copy; not in the int8 mode);
+# phase 6 times its shape beside 8 heads on the same K/V (one group)
+HYBRID_ARCH = "recurrentgemma-9b"
+HEAD_GROUP_SHAPES = (("recurrentgemma-9b", 16, 1, 256, CACHE),
+                     ("recurrentgemma-9b window", 16, 1, 256, 2048),
+                     ("G 12", 24, 2, 128, CACHE), ("D 8", 8, 2, 8, CACHE))
 
 
 def say(*parts) -> None:
@@ -344,6 +379,7 @@ def phase_kernels():
     check_quantize_kv(inp, errs)
     check_flash_decode_int8(inp, errs)
     check_long(errs)
+    check_head_groups(errs)
     return errs
 
 
@@ -441,6 +477,63 @@ def check_long(errs):
               flash_decode.flash_decode_int8_plain(q, k, v, length, ks, vs),
               "int8", errs, per_row=True)
     del k, v, ks, vs
+    torch.cuda.empty_cache()
+
+
+def check_head_groups(errs):
+    """Flash-decode, the fused kernel and the int8 mode past 8 query heads
+    per KV head, and flash-decode at head dim 8 (``HEAD_GROUP_SHAPES``, B
+    8): q, K and V in bf16 and f32, ragged lengths (0, 1, a tile's edges,
+    the whole cache, past it) held per row; the fused kernel with ids with
+    -1 at both delta sizes and bitwise flash-decode on an all-base batch;
+    the int8 mode (its head dims) with q in bf16 and f32, at bf16's
+    tolerance; an int8 cache at head dim 8 raises."""
+    from repro_torch.kernels import flash_decode
+    inp = Inputs(seed=9)
+    fd, fused = flash_decode.flash_decode, flash_decode.flash_decode_lora
+    ids = torch.tensor([0, 1, 2, 3, -1, 0, -1, 2], dtype=torch.int32,
+                       device="cuda")
+    for label, h, kv, d, s in HEAD_GROUP_SHAPES:
+        name = f"{label} H {h} KV {kv} D {d} S {s}"
+        tile = flash_decode.tile_positions(d, 2)
+        lengths = torch.tensor([0, 1, tile - 1, tile + 1, s // 2 + 3, s - 1,
+                                s, s + 40], dtype=torch.int32, device="cuda")
+        dx = 4096 if h == 16 else 1024
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            q = inp.normal(BATCH, h, d, dtype=dtype)
+            k = inp.normal(BATCH, s, kv, d, dtype=dtype)
+            v = inp.normal(BATCH, s, kv, d, dtype=dtype)
+            check(f"flash_decode {name} ragged lengths", fd(q, k, v, lengths),
+                  flash_decode.flash_decode_plain(q, k, v, lengths), dn, errs,
+                  per_row=True)
+            x = inp.normal(BATCH, dx, dtype=dtype)
+            a, b = inp.lora_bank(SLOTS, dx, RANK, h * d, dtype)
+            for size, scale in FUSED_SCALES.items():
+                check(f"flash_decode_lora {name} ids with -1, {size}",
+                      fused(q, k, v, lengths, x, a, b, ids, scale),
+                      flash_decode.flash_decode_lora_plain(
+                          q, k, v, lengths, x, a, b, ids, scale), dn, errs,
+                      per_row=True)
+            check(f"flash_decode_lora {name} all-base vs flash_decode",
+                  fused(q, k, v, lengths, x, a, b, torch.full_like(ids, -1)),
+                  fd(q, k, v, lengths), dn, errs, exact=True)
+        (k, ks), (v, vs) = (int8_cache(inp, BATCH, s, kv, d)
+                            for _ in range(2))
+        if d not in flash_decode.INT8_HEAD_DIMS:
+            try:
+                fd(q.bfloat16(), k, v, lengths, ks, vs)
+            except ValueError as e:
+                say(f"  flash_decode_int8 {name}: raises ({e})")
+                continue
+            raise AssertionError(f"the int8 mode took head dim {d}")
+        for qdt in (torch.bfloat16, torch.float32):
+            q = inp.normal(BATCH, h, d, dtype=qdt)
+            check(f"flash_decode_int8 {name} q {str(qdt).split('.')[1]} "
+                  "ragged lengths", fd(q, k, v, lengths, ks, vs),
+                  flash_decode.flash_decode_int8_plain(q, k, v, lengths, ks,
+                                                       vs),
+                  "int8", errs, per_row=True)
     torch.cuda.empty_cache()
 
 
@@ -753,7 +846,7 @@ def phase_parity_variants(ops):
     f32, its depth cut, as ``phase_parity`` (internvl2 with its 256 image
     embeddings); the launch counts are zeroed before each and SGMV, BGMV
     and flash-decode must have launched.  Returns the counts summed over
-    the five."""
+    them."""
     from repro_torch.configs import get_config
     total = dict.fromkeys(ops.launch_counts(), 0)
     for arch, (n_layers, s) in VARIANTS.items():
@@ -997,52 +1090,68 @@ def check_replay(executor, steps=4):
                              f"{worst}, pos {pos}")
 
 
-# the parts of an MoE decode step (``moe_step_split``)
-STEP_PARTS = ("expert_bmm", "moe_glue", "flash_decode", "bgmv", "dense_gemm",
-              "other_glue")
+# the parts of a decode step (``step_split``): a mixer's own (the ops run
+# inside its profiler range: ``MIXERS``), then the port's kernels, the
+# other cuBLAS products and the rest
+MIXERS = {  # mixer -> (module, function, profiler range, its parts)
+    "moe": ("moe", "apply_moe", MOE_RANGE, ("expert_bmm", "moe_glue")),
+    "rglru": ("rglru", "apply_rglru", "rglru_mixer",
+              ("rglru_gemm", "rglru_glue")),
+}
+STEP_PARTS = ("flash_decode", "bgmv", "dense_gemm", "other_glue")
+MATMUL_OPS = ("aten::mm", "aten::matmul", "aten::addmm", "aten::bmm")
 
 
-def step_part(kernel, in_moe, op):
+def step_part(kernel, mixer, op):
     """The part of the step a kernel belongs to: one of the port's own
-    kernels; a batched product of the MoE FFN (``aten::bmm``: the expert
-    products); anything else the MoE FFN launches (routing, dispatch,
-    combine, aux loss); another cuBLAS product; any other kernel (norms,
-    RoPE, casts, the cache write)."""
+    kernels; inside the MoE FFN (``mixer`` "moe") a batched product
+    (``aten::bmm``: the expert products) or anything else it launches
+    (routing, dispatch, combine, aux loss); inside the RG-LRU mixer
+    (``mixer`` "rglru") a matrix product (its x, gate and output
+    projections) or anything else (the conv, the gates, the recurrence);
+    another cuBLAS product; any other kernel (norms, RoPE, casts, the
+    cache write)."""
     name = next((k for k in KERNEL_NAMES if k in kernel), None)
     if name is not None:
         return KERNEL_NAMES[name]
-    if in_moe:
+    if mixer == "moe":
         return "expert_bmm" if op == "aten::bmm" else "moe_glue"
+    if mixer == "rglru":
+        return "rglru_gemm" if op in MATMUL_OPS else "rglru_glue"
     if any(w in kernel.lower() for w in GEMM_WORDS):
         return "dense_gemm"
     return "other_glue"
 
 
-def moe_step_split(executor, steps=3):
-    """Where the device time of an MoE model's decode step goes, by
-    ``STEP_PARTS``, in ms a step.  The eager step is profiled with the MoE
-    FFN inside a ``MOE_RANGE`` profiler range (``moe.apply_moe`` wrapped
-    here, for this profile only) and each kernel an op launched is charged
-    to that op's part; a kernel no op launched (the port's own kernels,
-    launched by their binding) goes by its name.  The replayed graph
-    launches the same kernels without their ops, so each kernel name's
-    replayed time is split as that name's eager time was.  Also prints the
-    MoE glue's largest kernels."""
+def step_split(executor, mixer, steps=3):
+    """Where the device time of a decode step goes, by the mixer's parts
+    and ``STEP_PARTS``, in ms a step.  The eager step is profiled with
+    every call of the mixer (``moe.apply_moe`` or ``rglru.apply_rglru``,
+    wrapped here for this profile only) inside its profiler range, and
+    each kernel an op launched is charged to that op's part; a kernel no
+    op launched (the port's own kernels, launched by their binding) goes
+    by its name.  The replayed graph launches the same kernels without
+    their ops, so each kernel name's replayed time is split as that name's
+    eager time was.  Also prints the mixer's glue's largest kernels."""
+    import importlib
     from unittest import mock
-    from repro_torch.models import moe
+    module_name, fn_name, range_name, own = MIXERS[mixer]
+    module = importlib.import_module(f"repro_torch.models.{module_name}")
+    parts = own + STEP_PARTS
+    glue = own[1]
     model, lora, cache = executor.model, executor.lora, executor.cache
     idx = torch.arange(8, dtype=torch.int32, device="cuda") % SLOTS
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    apply_moe = moe.apply_moe
+    inner = getattr(module, fn_name)
 
     def marked(*args, **kw):
-        with torch.profiler.record_function(MOE_RANGE):
-            return apply_moe(*args, **kw)
+        with torch.profiler.record_function(range_name):
+            return inner(*args, **kw)
 
     def eager():
         model.decode_step(lora, cache, executor.tokens, idx)
-    with mock.patch.object(moe, "apply_moe", marked):
+    with mock.patch.object(module, fn_name, marked):
         eager()
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
@@ -1053,45 +1162,46 @@ def moe_step_split(executor, steps=3):
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
             continue
-        anc, in_moe = e, False
-        while anc is not None and not in_moe:
-            in_moe, anc = anc.name == MOE_RANGE, anc.cpu_parent
+        anc, inside = e, False
+        while anc is not None and not inside:
+            inside, anc = anc.name == range_name, anc.cpu_parent
         for k in e.kernels:
-            shares = by_name.setdefault(k.name, dict.fromkeys(STEP_PARTS, 0.0))
-            shares[step_part(k.name, in_moe, e.name)] += k.duration
+            shares = by_name.setdefault(k.name, dict.fromkeys(parts, 0.0))
+            shares[step_part(k.name, mixer if inside else None,
+                             e.name)] += k.duration
 
     def split(profile):
-        out = dict.fromkeys(STEP_PARTS, 0.0)
+        out = dict.fromkeys(parts, 0.0)
         for e in profile.key_averages():
             if e.device_type != torch.autograd.DeviceType.CUDA or \
-                    e.key == MOE_RANGE:   # the range's own device span
+                    e.key == range_name:   # the range's own device span
                 continue
             ms = e.self_device_time_total / steps / 1e3
             shares = by_name.get(e.key)
             if not shares or not sum(shares.values()):
-                shares = {step_part(e.key, False, ""): 1.0}
+                shares = {step_part(e.key, None, ""): 1.0}
             total = sum(shares.values())
             for part, w in shares.items():
                 out[part] += ms * w / total
         return out
     eager_ms = split(prof)
-    if not all(eager_ms[p] > 0 for p in STEP_PARTS):
-        raise AssertionError(f"a part of the MoE step has no device time: "
-                             f"{eager_ms}")
-    glue = sorted(((v["moe_glue"] / steps, k) for k, v in by_name.items()
-                   if v["moe_glue"]), reverse=True)
+    if not all(eager_ms[p] > 0 for p in parts):
+        raise AssertionError(f"a part of the {mixer} step has no device "
+                             f"time: {eager_ms}")
+    largest = sorted(((v[glue] / steps, k) for k, v in by_name.items()
+                      if v[glue]), reverse=True)
     idx_host = idx.cpu().numpy()
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(steps):
             executor.decode(idx_host)
         torch.cuda.synchronize()
     replay_ms = split(prof)
-    for label, parts in (("eager", eager_ms), ("replayed", replay_ms)):
+    for label, got in (("eager", eager_ms), ("replayed", replay_ms)):
         say(f"  {label} step by part (ms): " + ", ".join(
-            f"{p} {ms:.3f}" for p, ms in parts.items())
-            + f"; total {sum(parts.values()):.3f}")
-    say(f"  MoE glue: {len(glue)} kernel names; the largest:")
-    for us, key in glue[:8]:
+            f"{p} {ms:.3f}" for p, ms in got.items())
+            + f"; total {sum(got.values()):.3f}")
+    say(f"  {glue}: {len(largest)} kernel names; the largest:")
+    for us, key in largest[:8]:
         say(f"    {us:9.1f} us  {key[:90]}")
     return {"eager_split_ms": eager_ms, "replay_split_ms": replay_ms}
 
@@ -1129,8 +1239,8 @@ def step_bound(model, batch=8):
     say(f"  step bound: {out['weight_gb']:.2f} GB of weights "
         f"({out['expert_weight_gb']:.2f} GB experts) = "
         f"{out['weights_ms']:.2f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
-        f"dense dispatch {out['dispatch_tflop']:.3f} TFLOP = "
-        f"{out['dispatch_ms']:.3f} ms at "
+        f"dense dispatch {out['dispatch_tflop']:.3f} TFLOP (0 without "
+        f"experts) = {out['dispatch_ms']:.3f} ms at "
         f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s; bound {ms:.2f} ms "
         f"by {by}")
     return out
@@ -1282,17 +1392,19 @@ def phase_timing():
 
     lengths = torch.full((BATCH,), CACHE, dtype=torch.int32, device="cuda")
 
-    def fd_sets(heads, kv_heads, head_dim):
-        """Flash-decode's input maker and sets at B 8 over all S 512
-        positions, the bound of one call and its bytes, and the library
-        yardstick's sets: (B, heads, S, D), the layout change made here,
-        outside the timed calls."""
+    def fd_sets(heads, kv_heads, head_dim, s=CACHE):
+        """Flash-decode's input maker and sets at B 8 over all ``s``
+        positions (512), the bound of one call and its bytes, and the
+        library yardstick's sets: (B, heads, S, D), the layout change made
+        here, outside the timed calls."""
+        full = torch.full((BATCH,), s, dtype=torch.int32, device="cuda")
+
         def make():
             return (inp.normal(BATCH, heads, head_dim, dtype=dt),
-                    inp.normal(BATCH, CACHE, kv_heads, head_dim, dtype=dt),
-                    inp.normal(BATCH, CACHE, kv_heads, head_dim, dtype=dt),
-                    lengths)
-        kv_elems = int(lengths.sum()) * kv_heads * head_dim
+                    inp.normal(BATCH, s, kv_heads, head_dim, dtype=dt),
+                    inp.normal(BATCH, s, kv_heads, head_dim, dtype=dt),
+                    full)
+        kv_elems = BATCH * s * kv_heads * head_dim
         nbytes = (2 * BATCH * heads * head_dim + 2 * kv_elems) * es \
             + 4 * BATCH
         sets = copies(make, nbytes)
@@ -1380,10 +1492,42 @@ def phase_timing():
             f"{name}_bound_ms": b_ms,
             f"{name}_library_ms": graph_ms(sdpa, g_lib)})
         del g_sets, g_lib
+    rows["flash_decode"].update(hybrid_fd_times(fd_sets, sdpa))
 
     for r in rows.values():
         r["floor_ms"] = floor
     return rows
+
+
+def hybrid_fd_times(fd_sets, sdpa):
+    """Flash-decode at recurrentgemma-9b's shape (16 heads of 256 on 1 KV
+    head: two head groups, each reading the KV head's K and V) over 512
+    rows (``rgemma_*``) and the 2048-row window (``rgemma_s2048_*``): its
+    time, its plain version's, its bound and SDPA's; and beside each the
+    kernel with 8 heads on the same K/V (``*_g8_ms``: one group, half the
+    heads, the same bytes of K and V), which shows what the second group
+    costs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode
+    cfg = get_config(HYBRID_ARCH)
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    out = {}
+    for prefix, s in (("rgemma", CACHE), ("rgemma_s2048", cfg.local_window)):
+        _, sets, b_ms, _, _, lib = fd_sets(h, kv, hd, s)
+        out.update({
+            f"{prefix}_ms": graph_ms(flash_decode.flash_decode, sets),
+            f"{prefix}_plain_ms": graph_ms(flash_decode.flash_decode_plain,
+                                           sets),
+            f"{prefix}_bound_ms": b_ms,
+            f"{prefix}_library_ms": graph_ms(sdpa, lib)})
+        del sets, lib
+        _, sets, b_ms, _, _, _ = fd_sets(h // 2, kv, hd, s)
+        out.update({f"{prefix}_g8_ms": graph_ms(flash_decode.flash_decode,
+                                                sets),
+                    f"{prefix}_g8_bound_ms": b_ms})
+        del sets
+        torch.cuda.empty_cache()
+    return out
 
 
 def int8_bound(bsz, h, kv, d, s):
@@ -1633,14 +1777,15 @@ def serve_variant(arch, phase, ops, kv_quant=False):
     """Phase 5``phase``: serve ``arch`` at its published widths
     (``phase_serve``; with ``kv_quant`` on an int8 KV cache), hold each
     replay to one BGMV launch per LoRA target and one flash-decode per
-    layer, and time its replayed step (``phase_step``; phase 6``phase``,
+    attention layer (an rglru layer launches neither), and time its
+    replayed step (``phase_step``; phase 6``phase``,
     or part of 5``phase`` with ``kv_quant``).  Returns the executor, the
     serving path's launches and the step's numbers."""
     cache = "an int8 KV cache" if kv_quant else "a bf16 KV cache"
     say(f"phase 5{phase}: serving {arch} (published widths, bf16, {cache})")
     executor, launches = phase_serve(arch, ops, kv_quant)
-    cfg = executor.model.cfg
-    want = {"bgmv": 2 * cfg.n_layers, "flash_decode": cfg.n_layers}
+    n_attn = sum(k != "rglru" for k in executor.model.cfg.layer_kinds)
+    want = {"bgmv": 2 * n_attn, "flash_decode": n_attn}
     if executor.graph_launches != want:
         raise AssertionError(f"{arch}: a replay launches "
                              f"{executor.graph_launches}, not {want}")
@@ -1770,7 +1915,8 @@ def main() -> int:
                      PATH_KERNELS["teacher_forcing"])
     torch.cuda.empty_cache()
     tfv_launches = phase_parity_variants(ops)
-    say(f"  launches on the five teacher-forcing paths: {tfv_launches}")
+    say(f"  launches on the {len(VARIANTS)} teacher-forcing paths: "
+        f"{tfv_launches}")
     tfm_launches = phase_parity_moe(ops)
     say(f"  launches on the MoE teacher-forcing paths: {tfm_launches}")
     tf8_launches = phase_parity_int8(ops)
@@ -1791,7 +1937,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     executor, moe_launches, moe_stats = serve_variant(MOE_ARCH, "c", ops)
-    moe_stats.update(moe_step_split(executor))
+    moe_stats.update(step_split(executor, "moe"))
     moe_stats.update(step_bound=step_bound(executor.model))
     say(f"  step {MOE_ARCH} " + json.dumps(moe_stats))
     del executor
@@ -1806,6 +1952,14 @@ def main() -> int:
         " bf16 against int8 KV cache")
     long_stats, long_launches = phase_long_step(ops)
     say("  step 32k " + json.dumps(long_stats))
+
+    executor, hybrid_launches, hybrid_stats = serve_variant(HYBRID_ARCH, "e",
+                                                            ops)
+    hybrid_stats.update(step_split(executor, "rglru"))
+    hybrid_stats.update(step_bound=step_bound(executor.model))
+    say(f"  step {HYBRID_ARCH} " + json.dumps(hybrid_stats))
+    del executor
+    torch.cuda.empty_cache()
     rows = phase_timing()
     for name, r in rows.items():
         extra = {k: v for k, v in r.items() if k not in
@@ -1832,7 +1986,8 @@ def main() -> int:
              "serving_" + SERVED_VARIANT: variant_launches,
              "serving_" + MOE_ARCH: moe_launches,
              "teacher_forcing_int8": tf8_launches,
-             "serving_int8": int8_launches}
+             "serving_int8": int8_launches,
+             "serving_" + HYBRID_ARCH: hybrid_launches}
     rows["flash_decode_lora"]["grid_max_abs_err"] = \
         errs["flash_decode_lora_grid"]
     table = []

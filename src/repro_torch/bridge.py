@@ -6,8 +6,11 @@ dicts/lists/tuples of arrays, each segment's layers stacked on axis 0
 as numpy arrays, this module builds the port's per-layer layout and back:
 
 * params  (``Model.init``)      <-> ``Model``'s parameters;
-* LoRA    (``Model.init_lora``) <-> {"layers": [{"a_q", "b_q", ...}, ...]};
-* caches  (``init_cache``, ``prefill``) <-> {"pos", "layers": [{"k", "v"}]}.
+* LoRA    (``Model.init_lora``) <-> {"layers": [{"a_q", "b_q", ...}, ...]},
+  an attention-free layer's placeholder ``{"_": zeros}`` (no bank,
+  transformer.py:155-156) <-> {};
+* caches  (``init_cache``, ``prefill``) <-> {"pos", "layers": [{"k", "v"}]},
+  an rglru layer's {"conv", "lru"} states alike.
 
 Every leaf crosses bit for bit: f32, int8 (int8 experts) and f16 (their
 scales) as they are, and bf16, which torch cannot take from numpy, viewed
@@ -147,15 +150,25 @@ def export_params(model) -> Dict[str, Any]:
                                cfg.n_layers)}
 
 
+#: the JAX package's LoRA placeholder of a layer without a bank
+NO_BANK = "_"
+
+
 def lora_to_torch(lora, device="cpu"):
-    """JAX ``init_lora`` tree -> the port's {"layers": [...]}."""
-    return {"layers": to_torch(_unstack(lora["segments"]), device)}
+    """JAX ``init_lora`` tree -> the port's {"layers": [...]}; a layer's
+    placeholder {"_": ...} becomes {}."""
+    return {"layers": [{} if NO_BANK in layer else to_torch(layer, device)
+                       for layer in _unstack(lora["segments"])]}
 
 
 def lora_to_numpy(lora, cfg):
-    """The port's LoRA banks -> a JAX ``init_lora`` tree."""
-    return {"segments": _stack(to_numpy(lora["layers"]),
-                               len(cfg.block_pattern), cfg.n_layers)}
+    """The port's LoRA banks -> a JAX ``init_lora`` tree; a layer without a
+    bank gets the placeholder, one zero of ``cfg.dtype`` a layer."""
+    per_layer = [to_numpy(layer) if layer else
+                 {NO_BANK: np.zeros((1,), np.dtype(cfg.dtype))}
+                 for layer in lora["layers"]]
+    return {"segments": _stack(per_layer, len(cfg.block_pattern),
+                               cfg.n_layers)}
 
 
 def cache_to_torch(cache, device="cpu"):

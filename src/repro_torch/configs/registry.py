@@ -1,6 +1,7 @@
 """Architecture registry of the port.
 
-The port serves the dense and MoE architectures of ``repro.configs``.
+The port serves the dense, MoE and hybrid (RG-LRU) architectures of
+``repro.configs``.
 Every entry exposes:
   * ``CONFIG``    — the exact published configuration,
   * ``reduced()`` — a structurally identical, CPU-sized variant for tests.
@@ -22,6 +23,7 @@ ARCH_IDS = (
     "internvl2_2b",
     "olmoe_1b_7b",
     "moonshot_v1_16b_a3b",
+    "recurrentgemma_9b",
 )
 
 ALIASES = {
@@ -33,12 +35,12 @@ ALIASES = {
     "internvl2-2b": "internvl2_2b",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 #: architectures of the JAX package not ported yet -> the ROADMAP item
 NOT_PORTED = {
     "mamba2_2p7b": "queue 1 item 8 (SSM mixers)",
-    "recurrentgemma_9b": "queue 1 item 8 (RG-LRU mixers)",
 }
 
 

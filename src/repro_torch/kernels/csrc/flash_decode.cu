@@ -26,8 +26,10 @@
 // which size the passes' per-head arrays, a KV head's G heads are cut into
 // ceil(G / 8) groups on grid y, one block per (split, kv-head, group,
 // row), and each group reads the KV head's K and V (at recurrentgemma-9b's
-// 16 heads on 1 KV head: twice, the second read often from L2).  The
-// combine works per (row, head) and does not see the groups.
+// 16 heads on 1 KV head: twice, the second read often from L2).  Those
+// launches run instances of their own (kGroups), so that a G <= 8 launch
+// runs the code it ran before.  The combine works per (row, head) and does
+// not see the groups.
 //
 // The split pass streams its chunk through shared memory in tiles of kP
 // positions (16 KB of K and 16 KB of V at D 128 in bf16) with 16-byte
@@ -124,25 +126,36 @@ constexpr int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi 
 
 // Head groups: the G = h / kv query heads that share a KV head are cut
 // into ceil(G / kMaxG) groups of at most kMaxG, sizes differing by at most
-// one, and grid y is (KV head, group).  A block's heads are [h0, h0 + g_n)
-// of its row; its K/V are those of KV head kvh.
+// one, and grid y is (KV head, group).  A block's heads are heads [first,
+// first + g_n) of its KV head's G.  The split passes are instantiated with
+// kGroups only for G > kMaxG: a G <= kMaxG launch (one block per KV head
+// on grid y) runs the code it ran before head groups, whose time they
+// must not move; its expressions are kept as they were, since a rewrite
+// that computes the same values moved its registers and time.
 __host__ __device__ constexpr int head_groups(int g) {
   return (g + kMaxG - 1) / kMaxG;
 }
 
+template <bool kGroups>
+__device__ __forceinline__ int groups_per_kv_head(int h, int kv) {
+  if constexpr (kGroups) return head_groups(h / kv);
+  else return 1;
+}
+
 struct HeadGroup {
-  int kvh, h0, g_n;
+  int first, g_n;
 };
 
-// One group (G <= kMaxG) takes no division past h / kv: the prologue of a
-// split block is on the critical path of a single-wave launch.
-__device__ __forceinline__ HeadGroup head_group(int h, int kv) {
-  const int g_all = h / kv, y = static_cast<int>(blockIdx.y);
-  if (g_all <= kMaxG) return {y, y * g_all, g_all};
-  const int n_grp = head_groups(g_all);
-  const int kvh = y / n_grp, grp = y - kvh * n_grp;
-  const int first = grp * g_all / n_grp;
-  return {kvh, kvh * g_all + first, (grp + 1) * g_all / n_grp - first};
+template <bool kGroups>
+__device__ __forceinline__ HeadGroup head_group(int y, int h, int kv) {
+  const int g_all = h / kv;
+  if constexpr (!kGroups) {
+    return {0, g_all};
+  } else {
+    const int n_grp = head_groups(g_all);
+    const int grp = y % n_grp, first = grp * g_all / n_grp;
+    return {first, (grp + 1) * g_all / n_grp - first};
+  }
 }
 
 // The tile geometry of one (dtype, head dim) instance.  kP is mirrored by
@@ -196,7 +209,7 @@ __device__ __forceinline__ void load_tile(T* ks, const T* k, const T* v,
 // all 128 threads work on each tile together, four barriers a tile.  q is
 // T; K and V are KV, T itself or int8 with the f16 scales k_scale and
 // v_scale of (bsz, s, kv) (kQuant).
-template <typename T, typename KV, int D>
+template <typename T, typename KV, int D, bool kGroups>
 __device__ __forceinline__ void split_scalar(
     const T* __restrict__ q, const KV* __restrict__ k,
     const KV* __restrict__ v, const __half* __restrict__ k_scale,
@@ -208,9 +221,11 @@ __device__ __forceinline__ void split_scalar(
   using G = Tile<KV, D>;
   constexpr int kP = G::kP, kVec = G::kVec, kChunks = G::kChunks;
   static_assert(kP <= kThreads, "one thread a position loads the scales");
-  const int split = blockIdx.x, row = blockIdx.z;
-  const HeadGroup hg = head_group(h, kv);
-  const int kvh = hg.kvh, g_n = hg.g_n;
+  const int split = blockIdx.x,
+            kvh = blockIdx.y / groups_per_kv_head<kGroups>(h, kv),
+            row = blockIdx.z;
+  const HeadGroup hg = head_group<kGroups>(blockIdx.y, h, kv);
+  const int g_n = hg.g_n;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const float scale = rsqrtf(static_cast<float>(D));
   const int len = min(max(length[row], 0), s);
@@ -239,7 +254,8 @@ __device__ __forceinline__ void split_scalar(
   }
   for (int i = tid; i < g_n * D; i += kThreads)
     qs[i / D][i % D] =
-        repro::to_float(q[((size_t)row * h + hg.h0) * D + i]);
+        repro::to_float(q[((size_t)row * h + kvh * (h / kv) + hg.first) * D +
+                          i]);
 
   // Softmax state of the heads this warp owns (w, w + kWarps), and the P.V
   // accumulator of this thread's (d-chunk, position group) for every head.
@@ -405,7 +421,8 @@ __device__ __forceinline__ void split_scalar(
           red[(part * g_n + g) * D + vc * kVec + e] = acc[g][e];
   }
   __syncthreads();
-  const size_t hp0 = ((size_t)row * h + hg.h0) * n_splits + split;
+  const size_t hp0 =
+      ((size_t)row * h + kvh * (h / kv) + hg.first) * n_splits + split;
   for (int i = tid; i < g_n * D; i += kThreads) {
     float a = 0.f;
 #pragma unroll
@@ -447,7 +464,7 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi,
 // (m, l) once per tile from the fragments (quad shuffles), rescales its
 // accumulator, and adds P V with P split into two bf16 operands from the
 // same registers.  The four warps' states merge by log-sum-exp at the end.
-template <int D>
+template <int D, bool kGroups>
 __device__ __forceinline__ void split_mma(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ length,
@@ -463,9 +480,11 @@ __device__ __forceinline__ void split_mma(
   constexpr int kDB = D / 8;        // n-blocks of the output
   static_assert(kPW % 16 == 0 && kDB % 2 == 0, "mma tile");
   static_assert(kWarps * kMaxG * D * 4 <= 2 * G::kBytes, "merge fits the ring");
-  const int split = blockIdx.x, row = blockIdx.z;
-  const HeadGroup hg = head_group(h, kv);
-  const int kvh = hg.kvh, g_n = hg.g_n;
+  const int split = blockIdx.x,
+            kvh = blockIdx.y / groups_per_kv_head<kGroups>(h, kv),
+            row = blockIdx.z;
+  const HeadGroup hg = head_group<kGroups>(blockIdx.y, h, kv);
+  const int g_n = hg.g_n;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gq = lane / 4, tq = lane % 4;  // fragment row (head), column pair
   const float scale = rsqrtf(static_cast<float>(D));
@@ -476,8 +495,9 @@ __device__ __forceinline__ void split_mma(
 #pragma unroll
   for (int j = 0; j < kQPer; ++j) {
     const int i = tid + j * kThreads;
-    qv[j] = i / D < g_n ? q[((size_t)row * h + hg.h0) * D + i]
-                        : __float2bfloat16(0.f);
+    qv[j] = i / D < g_n
+                ? q[((size_t)row * h + kvh * (h / kv) + hg.first) * D + i]
+                : __float2bfloat16(0.f);
   }
   const int len = min(max(length[row], 0), s);
   const int s0 = split * chunk;
@@ -501,7 +521,8 @@ __device__ __forceinline__ void split_mma(
     repro::cp_async_commit();
   }
 
-  // Q as the A operand: row g is query head hg.h0 + g, zero past g_n.
+  // Q as the A operand: row g is query head kvh * G + first + g, zero
+  // past g_n.
 #pragma unroll
   for (int j = 0; j < kQPer; ++j) {
     const int i = tid + j * kThreads;
@@ -624,7 +645,8 @@ __device__ __forceinline__ void split_mma(
     }
   }
   __syncthreads();
-  const size_t hp0 = ((size_t)row * h + hg.h0) * n_splits + split;
+  const size_t hp0 =
+      ((size_t)row * h + kvh * (h / kv) + hg.first) * n_splits + split;
   if (tid < g_n) {  // each head's max, the warps' weights, the sum
     float mw = kNegInf;
 #pragma unroll
@@ -703,7 +725,7 @@ __device__ __forceinline__ void load_row_bytes(unsigned* w, const int8_t* tile,
 // operand; l sums the f32 P.  Each lane loads its position's two scales
 // three tiles ahead (plain loads: 2 bytes, KV apart) and the warp shares
 // them by shuffles.
-template <int D>
+template <int D, bool kGroups>
 __device__ __forceinline__ void split_mma_int8(
     const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k,
     const int8_t* __restrict__ v, const __half* __restrict__ k_scale,
@@ -722,9 +744,11 @@ __device__ __forceinline__ void split_mma_int8(
   constexpr int kColT = D / 8;      // bytes of a V row a lane reads
   static_assert(kPW == 32 && kNB % 2 == 0 && kColT % 4 == 0, "int8 mma tile");
   static_assert(kWarps * kMaxG * D * 4 <= 2 * G::kBytes, "merge fits the ring");
-  const int split = blockIdx.x, row = blockIdx.z;
-  const HeadGroup hg = head_group(h, kv);
-  const int kvh = hg.kvh, g_n = hg.g_n;
+  const int split = blockIdx.x,
+            kvh = blockIdx.y / groups_per_kv_head<kGroups>(h, kv),
+            row = blockIdx.z;
+  const HeadGroup hg = head_group<kGroups>(blockIdx.y, h, kv);
+  const int g_n = hg.g_n;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gq = lane / 4, tq = lane % 4;  // fragment row (head), column pair
   const float scale = rsqrtf(static_cast<float>(D));
@@ -733,8 +757,9 @@ __device__ __forceinline__ void split_mma_int8(
 #pragma unroll
   for (int j = 0; j < kQPer; ++j) {
     const int i = tid + j * kThreads;
-    qv[j] = i / D < g_n ? q[((size_t)row * h + hg.h0) * D + i]
-                        : __float2bfloat16(0.f);
+    qv[j] = i / D < g_n
+                ? q[((size_t)row * h + kvh * (h / kv) + hg.first) * D + i]
+                : __float2bfloat16(0.f);
   }
   const int len = min(max(length[row], 0), s);
   const int s0 = split * chunk;
@@ -912,7 +937,8 @@ __device__ __forceinline__ void split_mma_int8(
     }
   }
   __syncthreads();
-  const size_t hp0 = ((size_t)row * h + hg.h0) * n_splits + split;
+  const size_t hp0 =
+      ((size_t)row * h + kvh * (h / kv) + hg.first) * n_splits + split;
   if (tid < g_n) {  // each head's max, the warps' weights, the sum
     float mw = kNegInf;
 #pragma unroll
@@ -941,7 +967,7 @@ __device__ __forceinline__ void split_mma_int8(
 // multiple of 16 positions), else the CUDA-core pass.  With kEarly (the
 // fused kernel's instance) the LoRA shrink, launched as this grid's
 // programmatic dependent, may start at once and run beside this pass.
-template <typename T, int D, bool kEarly>
+template <typename T, int D, bool kEarly, bool kGroups>
 __global__ void __launch_bounds__(kThreads, 2)
 fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const int* __restrict__ length,
@@ -951,18 +977,19 @@ fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if constexpr (kEarly)
     asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   if constexpr (Tile<T, D>::kMma)
-    split_mma<D>(q, k, v, length, m_part, l_part, acc_part, s, h, kv,
-                 n_splits, chunk, stages);
+    split_mma<D, kGroups>(q, k, v, length, m_part, l_part, acc_part, s, h,
+                          kv, n_splits, chunk, stages);
   else
-    split_scalar<T, T, D>(q, k, v, nullptr, nullptr, length, m_part, l_part,
-                          acc_part, s, h, kv, n_splits, chunk, stages);
+    split_scalar<T, T, D, kGroups>(q, k, v, nullptr, nullptr, length, m_part,
+                                   l_part, acc_part, s, h, kv, n_splits,
+                                   chunk, stages);
 }
 
 // The int8 mode's split pass: one block per (split, kv-head, head group,
 // row) over an int8 cache and its f16 scales, q and the output in T: on
 // tensor cores for bf16 q at D 32-128 (split_mma_int8), else on CUDA
 // cores.
-template <typename T, int D>
+template <typename T, int D, bool kGroups>
 __global__ void __launch_bounds__(kThreads, 2)
 fd_split_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
                      const int8_t* __restrict__ v,
@@ -973,12 +1000,13 @@ fd_split_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
                      float* __restrict__ acc_part, int s, int h, int kv,
                      int n_splits, int chunk, int stages) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value && D >= 32 && D <= 128)
-    split_mma_int8<D>(q, k, v, k_scale, v_scale, length, m_part, l_part,
-                      acc_part, s, h, kv, n_splits, chunk, stages);
-  else
-    split_scalar<T, int8_t, D>(q, k, v, k_scale, v_scale, length, m_part,
+    split_mma_int8<D, kGroups>(q, k, v, k_scale, v_scale, length, m_part,
                                l_part, acc_part, s, h, kv, n_splits, chunk,
                                stages);
+  else
+    split_scalar<T, int8_t, D, kGroups>(q, k, v, k_scale, v_scale, length,
+                                        m_part, l_part, acc_part, s, h, kv,
+                                        n_splits, chunk, stages);
 }
 
 // The LoRA epilogue's operands: x (bsz, dx) in the attention dtype, a
@@ -1207,10 +1235,10 @@ fd_combine_kernel(const float* __restrict__ m_part,
 }
 
 // The split pass of one (dtype, head dim) instance, over an int8 cache and
-// its scales with kInt8: chunks must be whole tiles; the ring has as many
-// stages as a chunk has tiles, at most kMaxStages.  Returns the launch
-// error, or cudaErrorInvalidValue.
-template <typename T, int D, bool kEarly, bool kInt8>
+// its scales with kInt8, in head groups with kGroups: chunks must be whole
+// tiles; the ring has as many stages as a chunk has tiles, at most
+// kMaxStages.  Returns the launch error, or cudaErrorInvalidValue.
+template <typename T, int D, bool kEarly, bool kInt8, bool kGroups>
 cudaError_t launch_split(const dim3& grid, cudaStream_t st, const void* q,
                          const void* k, const void* v, const void* k_scale,
                          const void* v_scale, const void* length,
@@ -1223,18 +1251,19 @@ cudaError_t launch_split(const dim3& grid, cudaStream_t st, const void* q,
   const int smem = stages * 2 * G::kBytes;
   static repro::SmemLimit limit;
   if constexpr (kInt8) {
-    cudaError_t err = limit.raise(fd_split_int8_kernel<T, D>, smem);
+    cudaError_t err = limit.raise(fd_split_int8_kernel<T, D, kGroups>, smem);
     if (err != cudaSuccess) return err;
-    fd_split_int8_kernel<T, D><<<grid, kThreads, smem, st>>>(
+    fd_split_int8_kernel<T, D, kGroups><<<grid, kThreads, smem, st>>>(
         static_cast<const T*>(q), static_cast<const int8_t*>(k),
         static_cast<const int8_t*>(v), static_cast<const __half*>(k_scale),
         static_cast<const __half*>(v_scale), static_cast<const int*>(length),
         static_cast<float*>(m_part), static_cast<float*>(l_part),
         static_cast<float*>(acc_part), s, h, kv, n_splits, chunk, stages);
   } else {
-    cudaError_t err = limit.raise(fd_split_kernel<T, D, kEarly>, smem);
+    cudaError_t err =
+        limit.raise(fd_split_kernel<T, D, kEarly, kGroups>, smem);
     if (err != cudaSuccess) return err;
-    fd_split_kernel<T, D, kEarly><<<grid, kThreads, smem, st>>>(
+    fd_split_kernel<T, D, kEarly, kGroups><<<grid, kThreads, smem, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const int*>(length),
         static_cast<float*>(m_part), static_cast<float*>(l_part),
@@ -1259,12 +1288,15 @@ int launch_fd(const void* q, const void* k, const void* v,
   // cp.async copies 16-byte chunks of K and V (rows are >= 16 bytes)
   if ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool groups = h / kv > kMaxG;
   const dim3 grid(n_splits, kv * head_groups(h / kv), bsz);
   cudaError_t err;
-#define REPRO_FD_SPLIT(D)                                                    \
-  launch_split<T, D, kLora, kInt8>(grid, st, q, k, v, k_scale, v_scale,      \
-                                   length, m_part, l_part, acc_part, s, h,   \
-                                   kv, n_splits, chunk)
+#define REPRO_FD_SPLIT_G(D, G)                                               \
+  launch_split<T, D, kLora, kInt8, G>(grid, st, q, k, v, k_scale, v_scale,   \
+                                      length, m_part, l_part, acc_part, s,   \
+                                      h, kv, n_splits, chunk)
+#define REPRO_FD_SPLIT(D) \
+  (groups ? REPRO_FD_SPLIT_G(D, true) : REPRO_FD_SPLIT_G(D, false))
   switch (dh) {
     case 8:  // a bf16 row is one 16-byte chunk; an int8 row is half of one
       if constexpr (kInt8) return static_cast<int>(cudaErrorInvalidValue);
@@ -1278,6 +1310,7 @@ int launch_fd(const void* q, const void* k, const void* v,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_FD_SPLIT
+#undef REPRO_FD_SPLIT_G
   if (err != cudaSuccess) return static_cast<int>(err);
   if constexpr (kLora) {
     // the shrink: one cluster of C blocks a row, C <= 8 from dx (as BGMV

@@ -9,8 +9,10 @@ SwiGLU or GELU MLP or a top-k MoE FFN (``moe.apply_moe`` at one shard,
 its experts optionally int8), RoPE or sinusoidal positions, RMSNorm or
 LayerNorm, optional q/k/v biases, tied embeddings and an image-embedding
 prefix: the dense and MoE architectures, the global layers' KV caches in
-the model's dtype or in int8 with f16 scales (``kv_quant``).  SSM and
-RG-LRU blocks raise and name their ROADMAP.md item.
+the model's dtype or in int8 with f16 scales (``kv_quant``).  It also
+builds ``rglru`` blocks (``RGLRUBlock``: the RG-LRU mixer of
+``rglru.py`` and a dense MLP, on conv and lru state caches), the hybrid
+recurrentgemma.  SSM blocks raise and name their ROADMAP.md item.
 
 Two entry points, as in the JAX package:
   * ``prefill``     — runs the prompt, emits last-position logits + cache;
@@ -34,19 +36,18 @@ from torch import nn
 
 from ..device import resolve_device
 from ..kernels import ops
-from . import attention, layers, moe
+from . import attention, layers, moe, rglru
 from .config import ModelConfig
 
 #: block kinds of ModelConfig not ported yet -> ROADMAP item
 _NOT_PORTED = {
     "ssd": "queue 1 item 8 (SSM mixers)",
-    "rglru": "queue 1 item 8 (RG-LRU mixers)",
 }
 
 
 def _check_ported(cfg: ModelConfig) -> None:
     for kind in cfg.layer_kinds:
-        if kind not in ("global", "local"):
+        if kind not in ("global", "local", "rglru"):
             raise NotImplementedError(
                 f"{kind!r} blocks: ROADMAP.md {_NOT_PORTED.get(kind, kind)}")
 
@@ -64,6 +65,16 @@ def _norm(cfg: ModelConfig, dev) -> nn.ParameterDict:
         p["bias"] = _param(torch.zeros(cfg.d_model, dtype=cfg.torch_dtype,
                                        device=dev))
     return nn.ParameterDict(p)
+
+
+def _dense_mlp(cfg: ModelConfig, dense) -> nn.ParameterDict:
+    """``init_mlp`` (layers.py:84-95): w_up and w_down, and w_gate for
+    SwiGLU; ``dense(shape, fan_in)`` draws one weight."""
+    mlp = {"w_up": dense((cfg.d_model, cfg.d_ff)),
+           "w_down": dense((cfg.d_ff, cfg.d_model), fan_in=cfg.d_ff)}
+    if cfg.mlp == "swiglu":
+        mlp["w_gate"] = dense((cfg.d_model, cfg.d_ff))
+    return nn.ParameterDict(mlp)
 
 
 class Block(nn.Module):
@@ -108,11 +119,7 @@ class Block(nn.Module):
                     gen, d, cfg.d_ff, cfg.n_experts, dt, device,
                     quant=expert_quant).items()})
         else:
-            mlp = {"w_up": dense((d, cfg.d_ff)),
-                   "w_down": dense((cfg.d_ff, d), fan_in=cfg.d_ff)}
-            if cfg.mlp == "swiglu":
-                mlp["w_gate"] = dense((d, cfg.d_ff))
-            self.mlp = nn.ParameterDict(mlp)
+            self.mlp = _dense_mlp(cfg, dense)
 
     def cache_rows(self, cache_len: int) -> int:
         """Rows of this layer's cache for ``cache_len`` positions: all of
@@ -141,11 +148,26 @@ class Block(nn.Module):
                                     device=device)
         return out
 
+    def slot_key(self, cache):
+        """(kind, rows): the layers of one kind and cache length share one
+        ``CacheSlot`` a step."""
+        return self.kind, self.cache_kv(cache)[0].shape[1]
+
     def slot(self, pos: torch.Tensor, rows: int) -> attention.CacheSlot:
         """The step's ``CacheSlot`` in this layer's cache of ``rows`` rows."""
         if self.kind == "global":
             return attention.CacheSlot.at(pos, rows)
         return attention.CacheSlot.rolling(pos, rows)
+
+    def pad_cache(self, cache, extra: int):
+        """This layer's prefill cache with room for ``extra`` more
+        positions (``Model.pad_cache``): a global layer's tensors get
+        ``extra`` rows of zeros, a rolling buffer grows up to the window."""
+        rows = self.cache_kv(cache)[0].shape[1]
+        grow = self.cache_rows(rows + extra) - rows
+        return {name: torch.cat([cache[name], cache[name].new_zeros(
+            (cache[name].shape[0], grow) + cache[name].shape[2:])], dim=1)
+            for name in self.cache_keys}
 
     def _attn_proj(self, lora_p, h, name, adapter_idx):
         out = h @ getattr(self, f"w{name}")
@@ -232,6 +254,69 @@ class Block(nn.Module):
         return self._residual(x, out[:, None])
 
 
+class RGLRUBlock(nn.Module):
+    """One RG-LRU layer (kind ``rglru``; ``_apply_block``,
+    transformer.py:429-446): x + mixer(norm1(x)), then x + MLP(norm2(x)).
+    Its cache is the mixer's state, ``conv`` (B, conv_width - 1, W) in the
+    model's dtype and ``lru`` (B, W) f32 (``_cache_block``, :192-196); it
+    has no positions and no LoRA (``init_lora`` gives it no bank)."""
+
+    kv_quant = False   # no KV cache
+    cache_keys = ("conv", "lru")
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator,
+                 device: torch.device):
+        super().__init__()
+        self.cfg, self.kind = cfg, "rglru"
+        dt = cfg.torch_dtype
+
+        def dense(shape, fan_in=None):
+            return _param(layers.dense_init(gen, shape, dt, device, fan_in))
+
+        self.norm1 = _norm(cfg, device)
+        self.rglru = nn.ParameterDict({
+            k: _param(v) for k, v in rglru.init_rglru(gen, cfg, dt,
+                                                      device).items()})
+        self.norm2 = _norm(cfg, device)
+        self.mlp = _dense_mlp(cfg, dense)
+
+    def init_cache(self, batch: int, cache_len: int, device):
+        """Zero states, whatever ``cache_len``."""
+        w = rglru.lru_width(self.cfg)
+        return {"conv": torch.zeros((batch, self.cfg.conv_width - 1, w),
+                                    dtype=self.cfg.torch_dtype,
+                                    device=device),
+                "lru": torch.zeros((batch, w), dtype=torch.float32,
+                                   device=device)}
+
+    def slot_key(self, cache):
+        return None   # no CacheSlot: the states have no positions
+
+    def pad_cache(self, cache, extra: int):
+        """The states, copied: they do not grow (JAX's ``pad_cache``
+        passes them through, transformer.py:606-623)."""
+        return {name: cache[name].clone() for name in self.cache_keys}
+
+    def _forward(self, x, conv_state=None, lru_state=None):
+        h = layers.apply_norm(self.cfg.norm, self.norm1, x)
+        out, states = rglru.apply_rglru(self.rglru, h, conv_state=conv_state,
+                                        lru_state=lru_state)
+        x = x + out
+        h = layers.apply_norm(self.cfg.norm, self.norm2, x)
+        return x + layers.apply_mlp(self.cfg.mlp, self.mlp, h), states
+
+    def prefill(self, x, lora_p, adapter_idx, positions):
+        """x: (B, S, d) -> (x, {"conv", "lru"}): the states after the
+        prompt; ``lora_p``, ``adapter_idx`` and ``positions`` unused."""
+        x, states = self._forward(x)
+        return x, dict(zip(self.cache_keys, states))
+
+    def decode(self, x, lora_p, adapter_idx, cache, slot):
+        """x: (B, 1, d); the states are updated in place; ``slot`` is
+        None."""
+        return self._forward(x, cache["conv"], cache["lru"])[0]
+
+
 class Model(nn.Module):
     """A decoder with per-request multi-adapter LoRA on q and v.
 
@@ -262,34 +347,40 @@ class Model(nn.Module):
         self.embed = nn.ParameterDict(embed)
         self.final_norm = _norm(cfg, dev)
         self.layers = nn.ModuleList(
-            Block(cfg, kind, gen, dev, expert_quant, kv_quant)
+            RGLRUBlock(cfg, gen, dev) if kind == "rglru"
+            else Block(cfg, kind, gen, dev, expert_quant, kv_quant)
             for kind in cfg.layer_kinds)
 
     def init_lora(self, n_adapters: int, rank: int,
                   seed: int = 0) -> Dict[str, Any]:
         """Per-adapter LoRA banks on the configured targets (q, v):
-        {"layers": [{"a_q": (N, d, r), "b_q": (N, r, o), ...}, ...]}."""
+        {"layers": [{"a_q": (N, d, r), "b_q": (N, r, o), ...}, ...]}; an
+        attention-free layer gets none, {} (the JAX package's placeholder
+        ``{"_": ...}``, transformer.py:155-156)."""
         cfg, dev, dt = self.cfg, self.device, self.cfg.torch_dtype
         gen = torch.Generator(device=dev).manual_seed(seed)
         hd = cfg.resolved_head_dim
         out_dims = {"q": cfg.n_heads * hd, "v": cfg.n_kv_heads * hd}
         banks: List[Dict[str, torch.Tensor]] = []
-        for _ in self.layers:
+        for blk in self.layers:
             p = {}
+            banks.append(p)
+            if blk.kind == "rglru":
+                continue
             for t in cfg.lora_targets:
                 p[f"a_{t}"] = layers.dense_init(
                     gen, (n_adapters, cfg.d_model, rank), dt, dev)
                 p[f"b_{t}"] = layers.dense_init(
                     gen, (n_adapters, rank, out_dims[t]), dt, dev,
                     fan_in=rank)
-            banks.append(p)
         return {"layers": banks}
 
     def init_cache(self, batch: int, cache_len: int) -> Dict[str, Any]:
         """A global layer's {"k", "v"} of ``cache_len`` rows (with
         ``kv_quant`` int8, and "k_scale", "v_scale" in f16), a local
-        layer's rolling {"k_loc", "v_loc"} of min(window, cache_len) rows
-        (``_cache_block``, transformer.py:163-197)."""
+        layer's rolling {"k_loc", "v_loc"} of min(window, cache_len) rows,
+        an rglru layer's {"conv", "lru"} states (``_cache_block``,
+        transformer.py:163-197)."""
         return {"pos": torch.zeros((), dtype=torch.int32, device=self.device),
                 "layers": [blk.init_cache(batch, cache_len, self.device)
                            for blk in self.layers]}
@@ -331,7 +422,8 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode_step(self, lora, cache, tokens, adapter_idx=None):
         """tokens: (B, 1). Returns (logits (B, V), cache): the cache itself,
-        its KV tensors written and its ``pos`` advanced by one in place.
+        its KV tensors (and rglru states) written and its ``pos`` advanced
+        by one in place.
 
         ``pos`` is read on the device only, and nothing in the step waits
         for the host or the host for it, so a CUDA graph that captures one
@@ -344,10 +436,10 @@ class Model(nn.Module):
                 pos.reshape(1, 1), self.cfg.d_model).to(x.dtype)
         for block, lp, c in zip(self.layers, self._lora_layers(lora),
                                 cache["layers"]):
-            key = (block.kind, block.cache_kv(c)[0].shape[1])
-            if key not in slots:
+            key = block.slot_key(c)
+            if key is not None and key not in slots:
                 slots[key] = block.slot(pos, key[1])
-            x = block.decode(x, lp, adapter_idx, c, slots[key])
+            x = block.decode(x, lp, adapter_idx, c, slots.get(key))
         logits = self._logits(x)
         pos.add_(1)
         return logits[:, 0], cache
@@ -363,14 +455,9 @@ class Model(nn.Module):
         window still holds; one of ``window`` rows passes through.  The JAX
         package passes every rolling buffer through (transformer.py:606-622),
         so its first decode step after a prompt shorter than the window
-        evicts position 0 (ROADMAP.md queue 3).
+        evicts position 0 (ROADMAP.md queue 3).  An rglru layer's states
+        pass through, copied.
         """
-        def pad(t, rows):
-            return torch.cat(
-                [t, t.new_zeros((t.shape[0], rows) + t.shape[2:])], dim=1)
-        out = []
-        for blk, c in zip(self.layers, cache["layers"]):
-            rows = blk.cache_kv(c)[0].shape[1]
-            grow = blk.cache_rows(rows + extra) - rows
-            out.append({name: pad(c[name], grow) for name in blk.cache_keys})
-        return {"pos": cache["pos"].clone(), "layers": out}
+        return {"pos": cache["pos"].clone(),
+                "layers": [blk.pad_cache(c, extra) for blk, c in
+                           zip(self.layers, cache["layers"])]}

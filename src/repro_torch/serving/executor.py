@@ -113,8 +113,9 @@ class TorchExecutor:
     defaults to CUDA and must be the model's.
 
     On CUDA the constructor warms the step up eagerly on a side stream (the
-    kernel build, cuBLAS's workspace), resets ``pos`` and captures one
-    ``decode_step`` into a ``torch.cuda.CUDAGraph``, the counterpart of the
+    kernel build, cuBLAS's workspace), resets the cache (``pos`` and its
+    tensors) and captures one ``decode_step`` into a
+    ``torch.cuda.CUDAGraph``, the counterpart of the
     JAX executor's single jit cache entry; a failed capture raises.  The
     graph reads the adapter ids from ``ids`` and the position from the
     cache's ``pos``, both static device buffers, and writes ``last_logits``.
@@ -141,15 +142,24 @@ class TorchExecutor:
         self.graph = None
         self.graph_launches: Dict[str, int] = {}
         self.replays = 0
-        # warmup (its cache write at pos 0 is overwritten by the first step)
         # the ids' host side, pinned on CUDA so their copy is asynchronous
         self._ids_host = torch.zeros((max_batch,), dtype=torch.int32,
                                      pin_memory=self.device.type == "cuda")
         if self.device.type == "cuda":
             self._capture()
         else:
-            self._decode_eager(self.ids)
-            self.cache["pos"].zero_()
+            self._decode_eager(self.ids)   # warmup
+            self._reset_cache()
+
+    def _reset_cache(self) -> None:
+        """Undo the warmup step: ``pos`` and every cache tensor back to 0.
+        The JAX executor discards its warmup's cache (executor.py:120-123);
+        here the step wrote in place, and an rglru layer's states, unlike a
+        KV row the first step overwrites, would carry it on."""
+        self.cache["pos"].zero_()
+        for layer in self.cache["layers"]:
+            for t in layer.values():
+                t.zero_()
 
     def _decode_eager(self, ids):
         return self.model.decode_step(self.lora, self.cache, self.tokens,
@@ -161,7 +171,7 @@ class TorchExecutor:
         with torch.cuda.stream(side):
             self._decode_eager(self.ids)
         torch.cuda.current_stream(self.device).wait_stream(side)
-        self.cache["pos"].zero_()
+        self._reset_cache()
         before = ops.launch_counts()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
@@ -205,8 +215,14 @@ class TorchExecutor:
         return StepTiming(sched=t_sched, load=t_load, model=t_model)
 
     def lora_count(self) -> int:
-        """Adapters in the bank: axis 0 of the first per-layer LoRA leaf
-        (axis 1 of the JAX package's stacked leaf)."""
-        for v in self.lora["layers"][0].values():
-            return v.shape[0]
+        """Adapters in the bank: axis 0 of the first LoRA leaf of the first
+        layer that has a bank (axis 1 of the JAX package's stacked leaf).
+        The JAX executor reads segment 0's first block whatever it is
+        (executor.py:145-149): on recurrentgemma that is an rglru block,
+        whose placeholder gives 1, so every request there is served on
+        adapter 0; the port keeps each request's adapter (ROADMAP.md
+        queue 3, reference behaviours)."""
+        for layer in self.lora["layers"]:
+            for v in layer.values():
+                return v.shape[0]
         return 1

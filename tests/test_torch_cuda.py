@@ -20,10 +20,12 @@ that the wrappers and the binding reject what the kernels do not take.
 They also hold the serving executor's captured step (a CUDA graph) bitwise
 equal to the eager step over 20 steps that cross the cache's end (and for
 reduced gemma3 over 28 that cross its rolling buffers' wrap, reduced
-olmoe's MoE layers over 20, and reduced phi4-mini and gemma3 on an int8
-KV cache), count its launches under replay, and run an eager step under
-the sync debug mode (phi4-mini's, olmoe's and phi4-mini's on an int8
-cache); ``quantize_kv`` on the card is its CPU result bit for bit.  The MoE
+olmoe's MoE layers over 20, reduced phi4-mini and gemma3 on an int8
+KV cache, and reduced recurrentgemma's rglru states over 28), count its
+launches under replay, and run an eager step under the sync debug mode
+(phi4-mini's, olmoe's, phi4-mini's on an int8 cache and
+recurrentgemma's); ``quantize_kv`` on the card is its CPU result bit for
+bit, and the RG-LRU mixer its CPU result.  The MoE
 FFN is held on the card against its CPU result and its oracle, at the
 decode shape, the largest dropless T and on the capacity path.
 """
@@ -607,6 +609,42 @@ def test_executor_replay_equals_eager_step_moe(gen, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_executor_replay_equals_eager_step_rglru(gen, dtype):
+    # reduced recurrentgemma (window 16) at cache_len 20: 28 steps, the
+    # rglru layers' conv and lru states written in place every step, the
+    # local layer's 16-row buffer wrapping at step 16; its 2 heads on 1 KV
+    # head
+    _replays_equal_eager(*_served(dtype, 20, "recurrentgemma-9b"), steps=28)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decode", [False, True])
+def test_apply_rglru_on_the_card(gen, decode, dtype):
+    # the RG-LRU mixer (plain PyTorch) on the card against its CPU result
+    # on the same inputs: prefill (the log-depth scan) and decode (the
+    # states written in place)
+    from repro_torch.models import rglru
+    cfg = dataclasses.replace(get_reduced("recurrentgemma-9b"),
+                              dtype=str(dtype).split(".")[1])
+    p = rglru.init_rglru(torch.Generator().manual_seed(0), cfg, dtype, "cpu")
+    cpu_gen = torch.Generator().manual_seed(1)
+    x = torch.randn((3, 1 if decode else 37, cfg.d_model),
+                    generator=cpu_gen).to(dtype)
+    conv = torch.randn((3, 3, cfg.lru_width), generator=cpu_gen).to(dtype)
+    lru = torch.randn((3, cfg.lru_width), generator=cpu_gen)
+    states = dict(conv_state=conv, lru_state=lru) if decode else {}
+    card = {k: v.cuda() for k, v in states.items()}
+    want, (wconv, wlru) = rglru.apply_rglru(p, x, **states)
+    got, (conv_c, lru_c) = rglru.apply_rglru(
+        {k: v.cuda() for k, v in p.items()}, x.cuda(), **card)
+    if decode:
+        assert conv_c is card["conv_state"] and lru_c is card["lru_state"]
+    _close(got.cpu(), want, dtype)
+    _close(conv_c.cpu(), wconv, dtype)
+    _close(lru_c.cpu(), wlru, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("arch,cache_len,steps", [
     ("phi4-mini-3.8b", 16, 20),
     # gemma3's int8 global caches end at step 20, its local layers' f32 or
@@ -645,12 +683,22 @@ def test_apply_moe_on_the_card(gen, t, router_add, dtype):
 
 
 def test_executor_replays_count_their_launches(gen):
-    model, lora, ex = _served(torch.bfloat16)
+    _replays_count_their_launches("phi4-mini-3.8b")
+
+
+def test_executor_replays_count_their_launches_rglru(gen):
+    # recurrentgemma's rglru layers launch neither BGMV nor flash-decode
+    _replays_count_their_launches("recurrentgemma-9b")
+
+
+def _replays_count_their_launches(arch):
+    # one BGMV per LoRA target and one flash-decode per attention layer
+    model, lora, ex = _served(torch.bfloat16, arch=arch)
     ops.reset_launches()
     model.decode_step(lora, _clone_cache(ex.cache), ex.tokens, ex.ids)
     per_step = {k: n for k, n in ops.launch_counts().items() if n}
-    assert per_step == {"bgmv": 2 * model.cfg.n_layers,
-                        "flash_decode": model.cfg.n_layers}
+    n_attn = sum(k != "rglru" for k in model.cfg.layer_kinds)
+    assert per_step == {"bgmv": 2 * n_attn, "flash_decode": n_attn}
     assert ex.graph_launches == per_step
     ops.reset_launches()
     for _ in range(5):
@@ -673,6 +721,12 @@ def test_eager_moe_decode_step_does_not_synchronise(gen):
 def test_eager_int8_decode_step_does_not_synchronise(gen):
     # the quantized write stays on the device: the step can be captured
     _decode_step_does_not_synchronise("phi4-mini-3.8b", kv_quant=True)
+
+
+def test_eager_rglru_decode_step_does_not_synchronise(gen):
+    # the RG-LRU decode (the conv window, the gates, the in-place state
+    # writes) stays on the device: the step can be captured
+    _decode_step_does_not_synchronise("recurrentgemma-9b")
 
 
 def _decode_step_does_not_synchronise(arch, kv_quant=False):

@@ -6,7 +6,8 @@ JAX package on the CPU.
 executor's chain of jitted ``decode_step`` calls on the same weights: the
 logits within a relative error of 2e-4 (test_consistency.py:39) at every
 step, reduced phi4-mini, reduced gemma3 (whose local layers' rolling
-buffers wrap) and reduced olmoe (MoE layers) in float32.  Also: ``pos`` as a 0-d tensor that
+buffers wrap), reduced olmoe (MoE layers) and reduced recurrentgemma
+(rglru states beside a wrapping rolling buffer) in float32.  Also: ``pos`` as a 0-d tensor that
 ``decode_step`` advances in place, the cache write against the JAX
 package's at positions inside and outside the cache, and the launch-count
 helper that graph replays count through.
@@ -81,6 +82,10 @@ def pair(pairs):
     pytest.param("gemma3-1b", 4, 4, CACHE_LEN, id="gemma3-4-4-8"),
     # reduced olmoe: every layer's FFN the MoE (T 8, dropless)
     pytest.param("olmoe-1b-7b", 8, 5, CACHE_LEN, id="olmoe-8-5-8"),
+    # reduced recurrentgemma (window 16): rglru states beside a rolling
+    # buffer that wraps at step 16; the port's lora_count is 4, as the
+    # JAX side's ids below assume (the JAX executor's own is 1)
+    pytest.param("recurrentgemma-9b", 8, 5, 20, id="recurrentgemma-8-5-20"),
 ])
 def test_executor_steps_match_jax_executor_chain(pairs, arch, max_batch,
                                                  n_running, cache_len):

@@ -128,8 +128,7 @@ def test_decode_past_cache_end_skips_write(pair):
     assert all(bool((c["k"] == 0).all()) for c in cache["layers"])
 
 
-@pytest.mark.parametrize("arch,item", [("recurrentgemma-9b", "queue 1 item 8"),
-                                       ("mamba2-2.7b", "queue 1 item 8")])
+@pytest.mark.parametrize("arch,item", [("mamba2-2.7b", "queue 1 item 8")])
 def test_unported_architectures_raise(arch, item):
     from repro_torch.configs import get_config
     with pytest.raises(NotImplementedError, match=item):
@@ -137,7 +136,6 @@ def test_unported_architectures_raise(arch, item):
 
 
 @pytest.mark.parametrize("change,item", [
-    ({"block_pattern": ("rglru", "rglru", "local")}, "queue 1 item 8"),
     pytest.param({"block_pattern": ("ssd",)}, "queue 1 item 8",
                  id="change2-queue 1 item 8"),
 ])

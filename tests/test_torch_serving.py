@@ -172,3 +172,20 @@ def test_serve_launcher_serves_olmoe_on_cpu():
     assert int(ex.cache["pos"]) > 0
     assert ex.last_logits.shape == (8, 512)
     assert bool(torch.isfinite(ex.last_logits).all())
+
+
+def test_serve_launcher_serves_recurrentgemma_on_cpu():
+    # ``--arch recurrentgemma-9b``: reduced recurrentgemma, rglru layers on
+    # conv and lru states beside a local layer's 16-row rolling buffer;
+    # each request on its own adapter (lora_count 4)
+    args = build_parser().parse_args(["--arch", "recurrentgemma-9b",
+                                      "--horizon", "2", "--adapters", "4"])
+    metrics, ex = serve(port_reduced(args.arch), args, device="cpu")
+    assert metrics.duration > 0 and ex.lora_count() == args.slots
+    assert [sorted(c) for c in ex.cache["layers"]][:3] == [
+        ["conv", "lru"], ["conv", "lru"], ["k_loc", "v_loc"]]
+    assert ex.cache["layers"][2]["k_loc"].shape[1] == 16
+    assert int(ex.cache["pos"]) > 0
+    assert bool(ex.cache["layers"][0]["lru"].any())
+    assert ex.last_logits.shape == (8, 512)
+    assert bool(torch.isfinite(ex.last_logits).all())
