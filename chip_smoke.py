@@ -45,7 +45,10 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    and a group of 12), and flash-decode and the fused kernel at head dim 8,
    in bf16 and f32, ragged lengths with 0 among them, per row (the int8
    mode with q in bf16 and f32, at bf16's tolerance; at head dim 8 it
-   raises);
+   runs padded on its 16 instance); and flash-decode, the fused kernel
+   and the int8 mode at every head dim 1..256 (``check_head_dims``: one
+   without an instance runs the next larger one, padded), 1, 4 or 16
+   query heads a KV head by turns, q in bf16 and f32, per row;
 4. teacher forcing at phi4-mini's published widths, f32, 4 layers:
    decode after ``prefill(tokens[:, :-1])`` must match ``prefill(tokens)``
    to a relative error below 2e-4; then the same for each of the five
@@ -261,6 +264,9 @@ LONG_S = 32768
 # 6) and head dim 8 (a bf16 row one 16-byte copy; not in the int8 mode);
 # phase 6 times its shape beside 8 heads on the same K/V (one group)
 HYBRID_ARCH = "recurrentgemma-9b"
+# a head dim without an instance (H, KV, D), timed in phase 6 at B 8 over
+# CACHE positions: 96, a public head dim, on the 128 instance, padded
+PADDED_SHAPE = (32, 32, 96)
 HEAD_GROUP_SHAPES = (("recurrentgemma-9b", 16, 1, 256, CACHE),
                      ("recurrentgemma-9b window", 16, 1, 256, 2048),
                      ("G 12", 24, 2, 128, CACHE), ("D 8", 8, 2, 8, CACHE))
@@ -289,25 +295,33 @@ class Inputs:
                 self.normal(n, r, o, dtype=dtype, std=r ** -0.5))
 
 
-def check(name, got, want, dtype_name, errs, exact=False, per_row=False):
+def held(got, want, dtype_name, per_row=False):
     """Elementwise to TOL, absolute and relative; with ``per_row`` each
-    output row (last axis) must also agree to ROW_TOL of its own largest
-    magnitude."""
-    torch.cuda.synchronize()
+    output row (last axis) also to ROW_TOL of its own largest magnitude.
+    Returns whether it held, the largest departure and the largest
+    row-relative one (0 without ``per_row``)."""
     diff = (got.float() - want.float()).abs()
-    err = diff.max().item()
+    tol = TOL[dtype_name]
+    ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    rel = 0.0
+    if per_row:
+        scale = want.float().abs().amax(-1).clamp(min=1e-30)
+        rel = (diff.amax(-1) / scale).max().item()
+        ok = ok and rel <= ROW_TOL[dtype_name]
+    return ok, diff.max().item(), rel
+
+
+def check(name, got, want, dtype_name, errs, exact=False, per_row=False):
+    """``held``, printed; ``exact``: bit for bit."""
+    torch.cuda.synchronize()
     if exact:
         ok, how = torch.equal(got, want), "bitwise"
+        err = (got.float() - want.float()).abs().max().item()
     else:
-        tol = TOL[dtype_name]
-        ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
-        how = f"tol={tol}"
+        ok, err, rel = held(got, want, dtype_name, per_row)
+        how = f"tol={TOL[dtype_name]}"
         if per_row:
-            row_tol = ROW_TOL[dtype_name]
-            scale = want.float().abs().amax(-1).clamp(min=1e-30)
-            rel = (diff.amax(-1) / scale).max().item()
-            ok = ok and rel <= row_tol
-            how += f", row-relative {rel:.3e} (tol={row_tol})"
+            how += f", row-relative {rel:.3e} (tol={ROW_TOL[dtype_name]})"
     say(f"  {name} [{dtype_name}] max_abs_err={err:.3e} {how} -> "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -380,6 +394,7 @@ def phase_kernels():
     check_flash_decode_int8(inp, errs)
     check_long(errs)
     check_head_groups(errs)
+    check_head_dims(errs)
     return errs
 
 
@@ -486,8 +501,8 @@ def check_head_groups(errs):
     8): q, K and V in bf16 and f32, ragged lengths (0, 1, a tile's edges,
     the whole cache, past it) held per row; the fused kernel with ids with
     -1 at both delta sizes and bitwise flash-decode on an all-base batch;
-    the int8 mode (its head dims) with q in bf16 and f32, at bf16's
-    tolerance; an int8 cache at head dim 8 raises."""
+    the int8 mode with q in bf16 and f32, at bf16's tolerance (head dim 8
+    on its 16 instance, padded)."""
     from repro_torch.kernels import flash_decode
     inp = Inputs(seed=9)
     fd, fused = flash_decode.flash_decode, flash_decode.flash_decode_lora
@@ -520,13 +535,6 @@ def check_head_groups(errs):
                   fd(q, k, v, lengths), dn, errs, exact=True)
         (k, ks), (v, vs) = (int8_cache(inp, BATCH, s, kv, d)
                             for _ in range(2))
-        if d not in flash_decode.INT8_HEAD_DIMS:
-            try:
-                fd(q.bfloat16(), k, v, lengths, ks, vs)
-            except ValueError as e:
-                say(f"  flash_decode_int8 {name}: raises ({e})")
-                continue
-            raise AssertionError(f"the int8 mode took head dim {d}")
         for qdt in (torch.bfloat16, torch.float32):
             q = inp.normal(BATCH, h, d, dtype=qdt)
             check(f"flash_decode_int8 {name} q {str(qdt).split('.')[1]} "
@@ -534,6 +542,82 @@ def check_head_groups(errs):
                   flash_decode.flash_decode_int8_plain(q, k, v, lengths, ks,
                                                        vs),
                   "int8", errs, per_row=True)
+    torch.cuda.empty_cache()
+
+
+def check_head_dims(errs):
+    """Flash-decode, the fused kernel and the int8 mode at every head dim
+    1..256 (one without an instance runs the next larger one, padded): B
+    4, S 300, 2 KV heads and 1, 4 or 16 query heads a KV head by turns
+    (16: two head groups), lengths 0, 1, one past a tile and S; q, K and V
+    in bf16 and f32, the int8 mode with q in bf16 and f32 on
+    ``quantize_kv`` of bf16 K/V; each held per row at the tolerance of q's
+    dtype (the int8 mode at bf16's, as ``check_flash_decode_int8``, below
+    D 8 elementwise only), the fused kernel with ids with -1, bitwise
+    flash-decode on its base rows.  One line per kernel and dtype: the
+    dims held and the largest departure, with its dim; a departure past
+    the tolerance raises."""
+    from repro_torch.kernels import flash_decode
+    inp = Inputs(seed=10)
+    fd, fused = flash_decode.flash_decode, flash_decode.flash_decode_lora
+    bsz, kv, s, dx = 4, 2, 300, 64
+    ids = torch.tensor([0, -1, 1, 2], dtype=torch.int32, device="cuda")
+    worst = {}
+    for d in range(1, flash_decode.MAX_HEAD_DIM + 1):
+        h = kv * (1, 4, 16)[d % 3]
+        cases = []
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            tile = flash_decode.tile_positions(d, 2 if dn == "bfloat16"
+                                               else 4)
+            lengths = torch.tensor([0, 1, tile + 1, s], dtype=torch.int32,
+                                   device="cuda")
+            q = inp.normal(bsz, h, d, dtype=dtype)
+            k = inp.normal(bsz, s, kv, d, dtype=dtype)
+            v = inp.normal(bsz, s, kv, d, dtype=dtype)
+            attn = fd(q, k, v, lengths)
+            cases.append(("flash_decode", dn, attn,
+                          flash_decode.flash_decode_plain(q, k, v, lengths)))
+            x = inp.normal(bsz, dx, dtype=dtype)
+            a, b = inp.lora_bank(SLOTS, dx, RANK, h * d, dtype)
+            got = fused(q, k, v, lengths, x, a, b, ids, 0.5)
+            cases.append(("flash_decode_lora", dn, got,
+                          flash_decode.flash_decode_lora_plain(
+                              q, k, v, lengths, x, a, b, ids, 0.5)))
+            if not torch.equal(got[1], attn[1]):
+                raise AssertionError(f"flash_decode_lora at D {d} [{dn}]: "
+                                     "a base row is not flash-decode's")
+            (k8, ks), (v8, vs) = (int8_cache(inp, bsz, s, kv, d)
+                                  for _ in range(2))
+            lengths = torch.tensor([0, 1, flash_decode.tile_positions(d, 1)
+                                    + 1, s], dtype=torch.int32, device="cuda")
+            cases.append(("flash_decode_int8", f"int8, q {dn}",
+                          fd(q, k8, v8, lengths, ks, vs),
+                          flash_decode.flash_decode_int8_plain(
+                              q, k8, v8, lengths, ks, vs)))
+        torch.cuda.synchronize()
+        for name, dn, got, want in cases:
+            # a row of fewer than 8 values can have as its largest a sum
+            # that cancels, against which the int8 mode's bf16 rounding
+            # (each split's max) is not small: elementwise
+            tol = "int8" if name == "flash_decode_int8" else dn
+            ok, err, rel = held(got, want, tol, per_row=d >= 8
+                                or name != "flash_decode_int8")
+            if not ok:
+                raise AssertionError(
+                    f"{name} at D {d}, H {h}, KV {kv} [{dn}] disagrees with "
+                    f"its plain version: max_abs_err={err}, row-relative "
+                    f"{rel}")
+            w = worst.setdefault((name, dn), [0.0, 0, 0.0])
+            if err >= w[0]:
+                w[:2] = err, d
+            w[2] = max(w[2], rel)
+            errs[name] = max(errs.get(name, 0.0), err)
+    for (name, dn), (err, d, rel) in worst.items():
+        tol = "int8" if name == "flash_decode_int8" else dn
+        say(f"  {name} every head dim 1..{flash_decode.MAX_HEAD_DIM} [{dn}] "
+            f"max_abs_err={err:.3e} (at D {d}), row-relative {rel:.3e} "
+            f"(tol={TOL[tol]}, row {ROW_TOL[tol]}) -> ok")
     torch.cuda.empty_cache()
 
 
@@ -916,6 +1000,7 @@ KERNEL_NAMES = {"bgmv_kernel": "bgmv", "sgmv_kernel": "sgmv",
                 "fd_lora_shrink_kernel": "flash_decode_lora"}
 FD_KERNELS = ("fd_split_kernel", "fd_combine_kernel")  # flash-decode's two
 FD_INT8_KERNELS = ("fd_split_int8_kernel", "fd_combine_kernel")  # int8 mode
+FD_PAD_KERNELS = ("fd_split_pad_kernel", "fd_combine_kernel")  # padded D
 FUSED_KERNELS = FD_KERNELS + ("fd_lora_shrink_kernel",)  # the fused three
 SGMV_KERNELS = ("sgmv_segments_kernel", "sgmv_kernel")  # SGMV's sort, product
 GEMM_WORDS = ("gemm", "nvjet", "cutlass", "xmma")  # cuBLAS kernel names
@@ -1492,7 +1577,20 @@ def phase_timing():
             f"{name}_bound_ms": b_ms,
             f"{name}_library_ms": graph_ms(sdpa, g_lib)})
         del g_sets, g_lib
+    # recurrentgemma-9b's BGMV (its local layers' q and v projections: d
+    # 4096, o 4096 and 256); its flash-decode is hybrid_fd_times'
+    cfg = get_config(HYBRID_ARCH)
+    hd = cfg.resolved_head_dim
+    for o in (cfg.n_heads * hd, cfg.n_kv_heads * hd):
+        prefix = "rgemma" if o == cfg.n_heads * hd else f"rgemma_o{o}"
+        g_sets, b_ms, _ = lora_sets(BATCH, o, d=cfg.d_model)
+        rows["bgmv"].update({
+            f"{prefix}_ms": graph_ms(bgmv.bgmv, g_sets),
+            f"{prefix}_plain_ms": graph_ms(bgmv.bgmv_plain, g_sets),
+            f"{prefix}_bound_ms": b_ms})
+        del g_sets
     rows["flash_decode"].update(hybrid_fd_times(fd_sets, sdpa))
+    rows["flash_decode"].update(padded_fd_times(fd_sets, sdpa))
 
     for r in rows.values():
         r["floor_ms"] = floor
@@ -1527,6 +1625,31 @@ def hybrid_fd_times(fd_sets, sdpa):
                     f"{prefix}_g8_bound_ms": b_ms})
         del sets
         torch.cuda.empty_cache()
+    return out
+
+
+def padded_fd_times(fd_sets, sdpa):
+    """Flash-decode at a head dim without an instance (``PADDED_SHAPE``: B
+    8, S 512, 32 heads of 96 on 32 KV heads, run on the 128 instance,
+    padded, on tensor cores): its time, its plain version's, its bound,
+    SDPA's, its split and combine kernels apart (profiler), and the same
+    heads at D 128 (``d96_as_d128_*``: the instance it runs, unpadded,
+    over 4/3 the bytes)."""
+    from repro_torch.kernels import flash_decode
+    fd = flash_decode.flash_decode
+    h, kv, d = PADDED_SHAPE
+    _, sets, b_ms, _, _, lib = fd_sets(h, kv, d)
+    split = profiled_ms(fd, sets, FD_PAD_KERNELS)
+    out = {"d96_ms": graph_ms(fd, sets),
+           "d96_plain_ms": graph_ms(flash_decode.flash_decode_plain, sets),
+           "d96_bound_ms": b_ms, "d96_library_ms": graph_ms(sdpa, lib),
+           "d96_split_ms": split[FD_PAD_KERNELS[0]],
+           "d96_combine_ms": split[FD_PAD_KERNELS[1]]}
+    del sets, lib
+    _, sets, b_ms, _, _, _ = fd_sets(h, kv, 128)
+    out.update(d96_as_d128_ms=graph_ms(fd, sets), d96_as_d128_bound_ms=b_ms)
+    del sets
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1905,7 +2028,6 @@ def main() -> int:
 
     say("phase 3: kernels against their plain versions")
     errs = phase_kernels()
-
     say("phase 4: teacher forcing at full width")
     ops.reset_launches()
     phase_parity()

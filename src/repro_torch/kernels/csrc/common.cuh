@@ -85,6 +85,15 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(s), "l"(gmem), "r"(valid ? 16 : 0) : "memory");
 }
+// A 4- or 8-byte copy of the same kind (cp.async.ca: those widths go
+// through L1), aligned to its width.
+template <int kBytes>
+__device__ __forceinline__ void cp_async_small(void* smem, const void* gmem, bool valid) {
+  static_assert(kBytes == 4 || kBytes == 8, "cp.async copies 4, 8 or 16 bytes");
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+               :: "r"(s), "l"(gmem), "n"(kBytes), "r"(valid ? kBytes : 0) : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -62,6 +62,17 @@
 // 2-byte loads, a shuffle reduction and two expf per head per position:
 // 29.70 us at the serving shape, 3x SDPA (PERF.md).
 //
+// Head dims: the passes are instantiated at D = 8, 16, ..., 256 (the int8
+// mode from 16).  The Pallas kernel takes any D (its block is the whole
+// (block_s, KV, D) slab); here a head dim d without an instance runs the
+// instance of the next larger D, padded: the ring is zeroed once and each
+// row's d elements are copied into the first d of its D (in pieces of 16,
+// 8 or 4 bytes by cp.async, or 2 and 1 through registers, as the row's
+// byte width allows), q is zero past d, the scale is 1/sqrt(d), and only
+// d elements of each partial are written; the pass is the one D's
+// instance takes (tensor cores in bf16 at D 16-128).  The instantiated
+// dims' instances are the code they were (kPad = false).
+//
 // The int8 mode (fd_split_int8_kernel) reads an int8 cache with one f16
 // scale per (position, KV head), the layout of the JAX package's int8 KV
 // cache (quantize_kv, src/repro/models/attention.py:226-241; its decode,
@@ -205,18 +216,81 @@ __device__ __forceinline__ void load_tile(T* ks, const T* k, const T* v,
   }
 }
 
+// Padded instances: a head dim d that has no instance runs the next larger
+// one, D, whose tiles keep their D-element rows.  zero_ring clears the
+// ring once, before any copy (the caller then waits at a block barrier);
+// load_tile_pad writes only the first d elements of each row, so the rest
+// stay zero and the products over D equal those over d.
+template <typename KV, int D>
+__device__ __forceinline__ void zero_ring(unsigned char* ring, int stages,
+                                          int t, int nt) {
+  uint4* w = reinterpret_cast<uint4*>(ring);
+  for (int i = t; i < stages * 2 * Tile<KV, D>::kBytes / 16; i += nt)
+    w[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// load_tile for rows of d < D elements (base and stride count d-element
+// rows).  A row's d * sizeof(KV) bytes need not be a multiple of 16, nor
+// its start aligned to 16: each row goes in pieces of w bytes, the largest
+// power of two up to 16 that divides the row's bytes (k and v are 16-byte
+// aligned, so every piece is aligned to w); pieces of 16, 8 or 4 bytes by
+// cp.async, of 2 or 1 through registers.  A piece lies inside one of the
+// row's 16-byte chunks, so the chunks keep their swizzled slots.
+template <typename KV, int D, int kRows>
+__device__ __forceinline__ void load_tile_pad(KV* ks, const KV* k,
+                                              const KV* v, size_t base,
+                                              size_t stride, int p0, int end,
+                                              int r0, int t, int nt, int d) {
+  using G = Tile<KV, D>;
+  const int row_bytes = d * static_cast<int>(sizeof(KV));
+  const int w = min(row_bytes & -row_bytes, 16);
+  const int n_pc = row_bytes / w;
+  const char* kg = reinterpret_cast<const char*>(k);
+  const char* vg = reinterpret_cast<const char*>(v);
+  char* kd = reinterpret_cast<char*>(ks);
+  char* vd = kd + G::kBytes;
+  for (int i = t; i < kRows * n_pc; i += nt) {
+    const int p = r0 + i / n_pc, b = (i % n_pc) * w;
+    const bool valid = p0 + p < end;
+    const size_t off =
+        (base + (valid ? (size_t)(p0 + p) * stride : 0)) * sizeof(KV) + b;
+    const int sl = G::slot(p, b / 16) * 16 + b % 16;
+    if (w == 16) {
+      repro::cp_async16(kd + sl, kg + off, valid);
+      repro::cp_async16(vd + sl, vg + off, valid);
+    } else if (w == 8) {
+      repro::cp_async_small<8>(kd + sl, kg + off, valid);
+      repro::cp_async_small<8>(vd + sl, vg + off, valid);
+    } else if (w == 4) {
+      repro::cp_async_small<4>(kd + sl, kg + off, valid);
+      repro::cp_async_small<4>(vd + sl, vg + off, valid);
+    } else if (w == 2) {
+      const uint16_t zero = 0;
+      *reinterpret_cast<uint16_t*>(kd + sl) =
+          valid ? *reinterpret_cast<const uint16_t*>(kg + off) : zero;
+      *reinterpret_cast<uint16_t*>(vd + sl) =
+          valid ? *reinterpret_cast<const uint16_t*>(vg + off) : zero;
+    } else {
+      kd[sl] = valid ? kg[off] : 0;
+      vd[sl] = valid ? vg[off] : 0;
+    }
+  }
+}
+
 // The split pass on CUDA cores (f32, bf16 at D 256, and the int8 mode):
 // all 128 threads work on each tile together, four barriers a tile.  q is
 // T; K and V are KV, T itself or int8 with the f16 scales k_scale and
-// v_scale of (bsz, s, kv) (kQuant).
-template <typename T, typename KV, int D, bool kGroups>
+// v_scale of (bsz, s, kv) (kQuant).  With kPad the head dim is d < D (a
+// padded instance: zero_ring, load_tile_pad; q, the scale and the
+// partials take d).
+template <typename T, typename KV, int D, bool kGroups, bool kPad = false>
 __device__ __forceinline__ void split_scalar(
     const T* __restrict__ q, const KV* __restrict__ k,
     const KV* __restrict__ v, const __half* __restrict__ k_scale,
     const __half* __restrict__ v_scale, const int* __restrict__ length,
     float* __restrict__ m_part, float* __restrict__ l_part,
     float* __restrict__ acc_part, int s, int h, int kv, int n_splits,
-    int chunk, int stages) {
+    int chunk, int stages, int d = D) {
   constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   using G = Tile<KV, D>;
   constexpr int kP = G::kP, kVec = G::kVec, kChunks = G::kChunks;
@@ -227,7 +301,7 @@ __device__ __forceinline__ void split_scalar(
   const HeadGroup hg = head_group<kGroups>(blockIdx.y, h, kv);
   const int g_n = hg.g_n;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const float scale = rsqrtf(static_cast<float>(D));
+  const float scale = rsqrtf(static_cast<float>(kPad ? d : D));
   const int len = min(max(length[row], 0), s);
   const int s0 = split * chunk;
   const int s1 = min(s0 + chunk, len);
@@ -242,20 +316,38 @@ __device__ __forceinline__ void split_scalar(
   KV* ring = reinterpret_cast<KV*>(fd_ring);
   auto k_slot = [&](int i) { return ring + (size_t)(i % stages) * 2 * kP * D; };
 
-  const size_t base = ((size_t)row * s * kv + kvh) * D;
-  const size_t stride = (size_t)kv * D;
+  const size_t base = ((size_t)row * s * kv + kvh) * (kPad ? d : D);
+  const size_t stride = (size_t)kv * (kPad ? d : D);
   auto load = [&](int i) {
-    load_tile<KV, D, kP>(k_slot(i), k, v, base, stride, s0 + i * kP, s1, 0,
-                         tid, kThreads);
+    if constexpr (kPad)
+      load_tile_pad<KV, D, kP>(k_slot(i), k, v, base, stride, s0 + i * kP,
+                               s1, 0, tid, kThreads, d);
+    else
+      load_tile<KV, D, kP>(k_slot(i), k, v, base, stride, s0 + i * kP, s1,
+                           0, tid, kThreads);
   };
+  if constexpr (kPad) {
+    zero_ring<KV, D>(fd_ring, stages, tid, kThreads);
+    __syncthreads();
+  }
   for (int i = 0; i < stages; ++i) {  // every slot's copies in flight
     if (i < n_tiles) load(i);
     repro::cp_async_commit();
   }
-  for (int i = tid; i < g_n * D; i += kThreads)
-    qs[i / D][i % D] =
-        repro::to_float(q[((size_t)row * h + kvh * (h / kv) + hg.first) * D +
-                          i]);
+  if constexpr (kPad) {
+    for (int i = tid; i < g_n * D; i += kThreads) {
+      const int e = i % D;
+      qs[i / D][e] = e < d ? repro::to_float(
+                                 q[((size_t)row * h + kvh * (h / kv) +
+                                    hg.first + i / D) * d + e])
+                           : 0.f;
+    }
+  } else {
+    for (int i = tid; i < g_n * D; i += kThreads)
+      qs[i / D][i % D] =
+          repro::to_float(q[((size_t)row * h + kvh * (h / kv) + hg.first) * D +
+                            i]);
+  }
 
   // Softmax state of the heads this warp owns (w, w + kWarps), and the P.V
   // accumulator of this thread's (d-chunk, position group) for every head.
@@ -428,7 +520,11 @@ __device__ __forceinline__ void split_scalar(
 #pragma unroll
     for (int u = 0; u < G::kParts; ++u) a += red[u * g_n * D + i];
     const int g = i / D;
-    acc_part[(hp0 + (size_t)g * n_splits) * D + i % D] = a;
+    if constexpr (kPad) {
+      if (i % D < d) acc_part[(hp0 + (size_t)g * n_splits) * d + i % D] = a;
+    } else {
+      acc_part[(hp0 + (size_t)g * n_splits) * D + i % D] = a;
+    }
   }
 #pragma unroll
   for (int j = 0; j < kMaxG / kWarps; ++j) {
@@ -464,13 +560,14 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi,
 // (m, l) once per tile from the fragments (quad shuffles), rescales its
 // accumulator, and adds P V with P split into two bf16 operands from the
 // same registers.  The four warps' states merge by log-sum-exp at the end.
-template <int D, bool kGroups>
+// kPad: as split_scalar's.
+template <int D, bool kGroups, bool kPad = false>
 __device__ __forceinline__ void split_mma(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ length,
     float* __restrict__ m_part, float* __restrict__ l_part,
     float* __restrict__ acc_part, int s, int h, int kv, int n_splits,
-    int chunk, int stages) {
+    int chunk, int stages, int d = D) {
   using T = __nv_bfloat16;
   using G = Tile<T, D>;
   constexpr int kP = G::kP, kVec = G::kVec;
@@ -487,7 +584,7 @@ __device__ __forceinline__ void split_mma(
   const int g_n = hg.g_n;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gq = lane / 4, tq = lane % 4;  // fragment row (head), column pair
-  const float scale = rsqrtf(static_cast<float>(D));
+  const float scale = rsqrtf(static_cast<float>(kPad ? d : D));
   // q's loads go out first: nothing waits on them until the tiles' copies
   // are in flight
   constexpr int kQPer = kMaxG * D / kThreads;
@@ -495,9 +592,15 @@ __device__ __forceinline__ void split_mma(
 #pragma unroll
   for (int j = 0; j < kQPer; ++j) {
     const int i = tid + j * kThreads;
-    qv[j] = i / D < g_n
-                ? q[((size_t)row * h + kvh * (h / kv) + hg.first) * D + i]
-                : __float2bfloat16(0.f);
+    if constexpr (kPad)
+      qv[j] = i / D < g_n && i % D < d
+                  ? q[((size_t)row * h + kvh * (h / kv) + hg.first + i / D) *
+                          d + i % D]
+                  : __float2bfloat16(0.f);
+    else
+      qv[j] = i / D < g_n
+                  ? q[((size_t)row * h + kvh * (h / kv) + hg.first) * D + i]
+                  : __float2bfloat16(0.f);
   }
   const int len = min(max(length[row], 0), s);
   const int s0 = split * chunk;
@@ -508,14 +611,22 @@ __device__ __forceinline__ void split_mma(
   __shared__ __align__(16) T qs[kMaxG][D];
   __shared__ float wm[kWarps][kMaxG], wl[kWarps][kMaxG];
   T* ring = reinterpret_cast<T*>(fd_ring);
-  const size_t base = ((size_t)row * s * kv + kvh) * D;
-  const size_t stride = (size_t)kv * D;
+  const size_t base = ((size_t)row * s * kv + kvh) * (kPad ? d : D);
+  const size_t stride = (size_t)kv * (kPad ? d : D);
   const int w0 = warp * kPW;  // this warp's first row in a tile
   auto k_slot = [&](int i) { return ring + (size_t)(i % stages) * 2 * kP * D; };
   auto load = [&](int i) {  // this warp's rows of tile i
-    load_tile<T, D, kPW>(k_slot(i), k, v, base, stride, s0 + i * kP, s1, w0,
-                         lane, 32);
+    if constexpr (kPad)
+      load_tile_pad<T, D, kPW>(k_slot(i), k, v, base, stride, s0 + i * kP,
+                               s1, w0, lane, 32, d);
+    else
+      load_tile<T, D, kPW>(k_slot(i), k, v, base, stride, s0 + i * kP, s1,
+                           w0, lane, 32);
   };
+  if constexpr (kPad) {
+    zero_ring<T, D>(fd_ring, stages, tid, kThreads);
+    __syncthreads();
+  }
   for (int i = 0; i < stages; ++i) {  // every slot's copies in flight
     if (i < n_tiles) load(i);
     repro::cp_async_commit();
@@ -666,7 +777,11 @@ __device__ __forceinline__ void split_mma(
     float a = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) a += red[(w * kMaxG + g) * D + i % D] * wm[w][g];
-    acc_part[(hp0 + (size_t)g * n_splits) * D + i % D] = a;
+    if constexpr (kPad) {
+      if (i % D < d) acc_part[(hp0 + (size_t)g * n_splits) * d + i % D] = a;
+    } else {
+      acc_part[(hp0 + (size_t)g * n_splits) * D + i % D] = a;
+    }
   }
 }
 
@@ -724,15 +839,15 @@ __device__ __forceinline__ void load_row_bytes(unsigned* w, const int8_t* tile,
 // scale, is rounded once to bf16 (the JAX package's rounding) as the A
 // operand; l sums the f32 P.  Each lane loads its position's two scales
 // three tiles ahead (plain loads: 2 bytes, KV apart) and the warp shares
-// them by shuffles.
-template <int D, bool kGroups>
+// them by shuffles.  kPad: as split_scalar's.
+template <int D, bool kGroups, bool kPad = false>
 __device__ __forceinline__ void split_mma_int8(
     const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k,
     const int8_t* __restrict__ v, const __half* __restrict__ k_scale,
     const __half* __restrict__ v_scale, const int* __restrict__ length,
     float* __restrict__ m_part, float* __restrict__ l_part,
     float* __restrict__ acc_part, int s, int h, int kv, int n_splits,
-    int chunk, int stages) {
+    int chunk, int stages, int d = D) {
   using T = __nv_bfloat16;
   using G = Tile<int8_t, D>;
   constexpr int kP = G::kP;
@@ -751,15 +866,21 @@ __device__ __forceinline__ void split_mma_int8(
   const int g_n = hg.g_n;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gq = lane / 4, tq = lane % 4;  // fragment row (head), column pair
-  const float scale = rsqrtf(static_cast<float>(D));
+  const float scale = rsqrtf(static_cast<float>(kPad ? d : D));
   constexpr int kQPer = kMaxG * D / kThreads;
   T qv[kQPer];
 #pragma unroll
   for (int j = 0; j < kQPer; ++j) {
     const int i = tid + j * kThreads;
-    qv[j] = i / D < g_n
-                ? q[((size_t)row * h + kvh * (h / kv) + hg.first) * D + i]
-                : __float2bfloat16(0.f);
+    if constexpr (kPad)
+      qv[j] = i / D < g_n && i % D < d
+                  ? q[((size_t)row * h + kvh * (h / kv) + hg.first + i / D) *
+                          d + i % D]
+                  : __float2bfloat16(0.f);
+    else
+      qv[j] = i / D < g_n
+                  ? q[((size_t)row * h + kvh * (h / kv) + hg.first) * D + i]
+                  : __float2bfloat16(0.f);
   }
   const int len = min(max(length[row], 0), s);
   const int s0 = split * chunk;
@@ -770,13 +891,17 @@ __device__ __forceinline__ void split_mma_int8(
   __shared__ __align__(16) T qs[kMaxG][D];
   __shared__ float wm[kWarps][kMaxG], wl[kWarps][kMaxG];
   int8_t* ring = reinterpret_cast<int8_t*>(fd_ring);
-  const size_t base = ((size_t)row * s * kv + kvh) * D;
-  const size_t stride = (size_t)kv * D;
+  const size_t base = ((size_t)row * s * kv + kvh) * (kPad ? d : D);
+  const size_t stride = (size_t)kv * (kPad ? d : D);
   const int w0 = warp * kPW;  // this warp's first row in a tile
   auto k_slot = [&](int i) { return ring + (size_t)(i % stages) * 2 * kP * D; };
   auto load = [&](int i) {  // this warp's rows of tile i
-    load_tile<int8_t, D, kPW>(k_slot(i), k, v, base, stride, s0 + i * kP, s1,
-                              w0, lane, 32);
+    if constexpr (kPad)
+      load_tile_pad<int8_t, D, kPW>(k_slot(i), k, v, base, stride,
+                                    s0 + i * kP, s1, w0, lane, 32, d);
+    else
+      load_tile<int8_t, D, kPW>(k_slot(i), k, v, base, stride, s0 + i * kP,
+                                s1, w0, lane, 32);
   };
   // this lane's position's scales in tile i, 0 past the chunk, kept as f16
   // until used so that the loads stay in flight
@@ -789,6 +914,10 @@ __device__ __forceinline__ void split_mma_int8(
       vs = v_scale[at];
     }
   };
+  if constexpr (kPad) {
+    zero_ring<int8_t, D>(fd_ring, stages, tid, kThreads);
+    __syncthreads();
+  }
   for (int i = 0; i < stages; ++i) {  // every slot's copies in flight
     if (i < n_tiles) load(i);
     repro::cp_async_commit();
@@ -958,7 +1087,11 @@ __device__ __forceinline__ void split_mma_int8(
     float a = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) a += red[(w * kMaxG + g) * D + i % D] * wm[w][g];
-    acc_part[(hp0 + (size_t)g * n_splits) * D + i % D] = a;
+    if constexpr (kPad) {
+      if (i % D < d) acc_part[(hp0 + (size_t)g * n_splits) * d + i % D] = a;
+    } else {
+      acc_part[(hp0 + (size_t)g * n_splits) * D + i % D] = a;
+    }
   }
 }
 
@@ -988,7 +1121,8 @@ fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // The int8 mode's split pass: one block per (split, kv-head, head group,
 // row) over an int8 cache and its f16 scales, q and the output in T: on
 // tensor cores for bf16 q at D 32-128 (split_mma_int8), else on CUDA
-// cores.
+// cores.  Launched at the instantiated head dims; padded ones take
+// fd_split_int8_any_kernel.
 template <typename T, int D, bool kGroups>
 __global__ void __launch_bounds__(kThreads, 2)
 fd_split_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
@@ -1007,6 +1141,52 @@ fd_split_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
     split_scalar<T, int8_t, D, kGroups>(q, k, v, k_scale, v_scale, length,
                                         m_part, l_part, acc_part, s, h, kv,
                                         n_splits, chunk, stages);
+}
+
+// A head dim d that has no instance, in plain flash-decode and in the
+// fused kernel: the instance of the next larger D, padded (kPad), on the
+// pass D's instance takes.  It lets a fused launch's shrink start at
+// once, as kEarly does (without a programmatic dependent the instruction
+// does nothing).
+template <typename T, int D, bool kGroups>
+__global__ void __launch_bounds__(kThreads, 2)
+fd_split_pad_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ length,
+                    float* __restrict__ m_part, float* __restrict__ l_part,
+                    float* __restrict__ acc_part, int s, int h, int kv,
+                    int n_splits, int chunk, int stages, int d) {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  if constexpr (Tile<T, D>::kMma)
+    split_mma<D, kGroups, true>(q, k, v, length, m_part, l_part, acc_part, s,
+                                h, kv, n_splits, chunk, stages, d);
+  else
+    split_scalar<T, T, D, kGroups, true>(q, k, v, nullptr, nullptr, length,
+                                         m_part, l_part, acc_part, s, h, kv,
+                                         n_splits, chunk, stages, d);
+}
+
+// The int8 mode's split pass at a head dim without an instance (kPad, as
+// fd_split_pad_kernel): bf16 q at D 32-128 on tensor cores, else on CUDA
+// cores.
+template <typename T, int D, bool kGroups>
+__global__ void __launch_bounds__(kThreads, 2)
+fd_split_int8_any_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
+                         const int8_t* __restrict__ v,
+                         const __half* __restrict__ k_scale,
+                         const __half* __restrict__ v_scale,
+                         const int* __restrict__ length,
+                         float* __restrict__ m_part,
+                         float* __restrict__ l_part,
+                         float* __restrict__ acc_part, int s, int h, int kv,
+                         int n_splits, int chunk, int stages, int d) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && D >= 32 && D <= 128)
+    split_mma_int8<D, kGroups, true>(q, k, v, k_scale, v_scale, length,
+                                     m_part, l_part, acc_part, s, h, kv,
+                                     n_splits, chunk, stages, d);
+  else
+    split_scalar<T, int8_t, D, kGroups, true>(
+        q, k, v, k_scale, v_scale, length, m_part, l_part, acc_part, s, h,
+        kv, n_splits, chunk, stages, d);
 }
 
 // The LoRA epilogue's operands: x (bsz, dx) in the attention dtype, a
@@ -1235,22 +1415,41 @@ fd_combine_kernel(const float* __restrict__ m_part,
 }
 
 // The split pass of one (dtype, head dim) instance, over an int8 cache and
-// its scales with kInt8, in head groups with kGroups: chunks must be whole
-// tiles; the ring has as many stages as a chunk has tiles, at most
-// kMaxStages.  Returns the launch error, or cudaErrorInvalidValue.
-template <typename T, int D, bool kEarly, bool kInt8, bool kGroups>
+// its scales with kInt8, in head groups with kGroups, for a head dim d < D
+// with kPad: chunks must be whole tiles; the ring has as many stages as a
+// chunk has tiles, at most kMaxStages.  Returns the launch error, or
+// cudaErrorInvalidValue.
+template <typename T, int D, bool kEarly, bool kInt8, bool kGroups, bool kPad>
 cudaError_t launch_split(const dim3& grid, cudaStream_t st, const void* q,
                          const void* k, const void* v, const void* k_scale,
                          const void* v_scale, const void* length,
                          void* m_part, void* l_part, void* acc_part, int s,
-                         int h, int kv, int n_splits, int chunk) {
+                         int h, int kv, int n_splits, int chunk, int d) {
   using KV = typename std::conditional<kInt8, int8_t, T>::type;
   using G = Tile<KV, D>;
   if (chunk % G::kP) return cudaErrorInvalidValue;
   const int stages = min(kMaxStages, chunk / G::kP);
   const int smem = stages * 2 * G::kBytes;
   static repro::SmemLimit limit;
-  if constexpr (kInt8) {
+  if constexpr (kInt8 && kPad) {
+    cudaError_t err =
+        limit.raise(fd_split_int8_any_kernel<T, D, kGroups>, smem);
+    if (err != cudaSuccess) return err;
+    fd_split_int8_any_kernel<T, D, kGroups><<<grid, kThreads, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const int8_t*>(k),
+        static_cast<const int8_t*>(v), static_cast<const __half*>(k_scale),
+        static_cast<const __half*>(v_scale), static_cast<const int*>(length),
+        static_cast<float*>(m_part), static_cast<float*>(l_part),
+        static_cast<float*>(acc_part), s, h, kv, n_splits, chunk, stages, d);
+  } else if constexpr (kPad) {
+    cudaError_t err = limit.raise(fd_split_pad_kernel<T, D, kGroups>, smem);
+    if (err != cudaSuccess) return err;
+    fd_split_pad_kernel<T, D, kGroups><<<grid, kThreads, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const int*>(length),
+        static_cast<float*>(m_part), static_cast<float*>(l_part),
+        static_cast<float*>(acc_part), s, h, kv, n_splits, chunk, stages, d);
+  } else if constexpr (kInt8) {
     cudaError_t err = limit.raise(fd_split_int8_kernel<T, D, kGroups>, smem);
     if (err != cudaSuccess) return err;
     fd_split_int8_kernel<T, D, kGroups><<<grid, kThreads, smem, st>>>(
@@ -1272,12 +1471,22 @@ cudaError_t launch_split(const dim3& grid, cudaStream_t st, const void* q,
   return cudaPeekAtLastError();
 }
 
+// The instance that runs head dim dh: dh itself where instantiated (8, 16,
+// ..., 256; the int8 mode from 16, an int8 row of 8 bytes being half a
+// 16-byte chunk), else the next larger, padded; 0 outside [1, 256].
+// Mirrored by flash_decode.py::instance_dim.
+int instance_dim(int dh, bool int8) {
+  if (dh < 1 || dh > kMaxHeadDim) return 0;
+  int d = int8 ? 16 : 8;
+  while (d < dh) d *= 2;
+  return d;
+}
+
 // The kernels of one call: the split pass (over an int8 cache with kInt8),
 // then the combine; with kLora the shrink kernel between them, the shrink
 // and the combine each the programmatic dependent of the launch before.
-// Returns the launch error, or cudaErrorInvalidValue for a head dim that
-// has no instance (8 has none in the int8 mode) or a chunk that is not
-// whole tiles.
+// Returns the launch error, or cudaErrorInvalidValue for a head dim
+// outside [1, 256] or a chunk that is not whole tiles.
 template <typename T, typename W, bool kLora, bool kInt8 = false>
 int launch_fd(const void* q, const void* k, const void* v,
               const void* k_scale, const void* v_scale, const void* length,
@@ -1285,20 +1494,26 @@ int launch_fd(const void* q, const void* k, const void* v,
               int s, int h, int kv, int dh, int n_splits, int chunk,
               const LoraArgs<T, W>& lora, cudaStream_t st) {
   static_assert(!(kLora && kInt8), "the fused kernel reads a T cache");
-  // cp.async copies 16-byte chunks of K and V (rows are >= 16 bytes)
+  // cp.async copies 16-byte chunks of K and V (narrower pieces of a row
+  // whose bytes are not a multiple of 16, aligned within the row)
   if ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool groups = h / kv > kMaxG;
+  const int di = instance_dim(dh, kInt8);
+  const bool pad = di != dh;
   const dim3 grid(n_splits, kv * head_groups(h / kv), bsz);
   cudaError_t err;
-#define REPRO_FD_SPLIT_G(D, G)                                               \
-  launch_split<T, D, kLora, kInt8, G>(grid, st, q, k, v, k_scale, v_scale,   \
-                                      length, m_part, l_part, acc_part, s,   \
-                                      h, kv, n_splits, chunk)
+#define REPRO_FD_SPLIT_P(D, G, P)                                            \
+  launch_split<T, D, kLora, kInt8, G, P>(grid, st, q, k, v, k_scale,         \
+                                         v_scale, length, m_part, l_part,    \
+                                         acc_part, s, h, kv, n_splits,       \
+                                         chunk, dh)
+#define REPRO_FD_SPLIT_G(D, G) \
+  (pad ? REPRO_FD_SPLIT_P(D, G, true) : REPRO_FD_SPLIT_P(D, G, false))
 #define REPRO_FD_SPLIT(D) \
   (groups ? REPRO_FD_SPLIT_G(D, true) : REPRO_FD_SPLIT_G(D, false))
-  switch (dh) {
-    case 8:  // a bf16 row is one 16-byte chunk; an int8 row is half of one
+  switch (di) {
+    case 8:  // a bf16 row is one 16-byte chunk; the int8 mode starts at 16
       if constexpr (kInt8) return static_cast<int>(cudaErrorInvalidValue);
       else err = REPRO_FD_SPLIT(8);
       break;
@@ -1311,6 +1526,7 @@ int launch_fd(const void* q, const void* k, const void* v,
   }
 #undef REPRO_FD_SPLIT
 #undef REPRO_FD_SPLIT_G
+#undef REPRO_FD_SPLIT_P
   if (err != cudaSuccess) return static_cast<int>(err);
   if constexpr (kLora) {
     // the shrink: one cluster of C blocks a row, C <= 8 from dx (as BGMV

@@ -32,9 +32,10 @@ int repro_sgmv(const void* x, const void* a, const void* b, const void* idx,
                int d, int r, int o, int n, int cap, float scale, int x_dtype,
                int w_dtype, void* stream);
 
-// Split-KV single-query GQA attention.  q (bsz, h, dh); k, v (bsz, s, kv,
-// dh), 16-byte aligned; length (bsz,) int32; `chunk` positions a split, a
-// whole number of tiles (kernels/flash_decode.py::tile_positions).  Partials
+// Split-KV single-query GQA attention.  q (bsz, h, dh), 1 <= dh <= 256;
+// k, v (bsz, s, kv, dh), 16-byte aligned; length (bsz,) int32; `chunk`
+// positions a split, a whole number of tiles
+// (kernels/flash_decode.py::tile_positions).  Partials
 // m, l (bsz, h, n_splits) and acc (bsz, h, n_splits, dh) are f32 scratch;
 // out (bsz, h, dh) in q's dtype.
 int repro_flash_decode(const void* q, const void* k, const void* v,

@@ -22,6 +22,8 @@ from .bgmv import MAX_RANK
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # csrc/flash_decode.cu instantiations
 INT8_HEAD_DIMS = HEAD_DIMS[1:]         # the int8 mode's (a row >= 16 bytes)
+MAX_HEAD_DIM = HEAD_DIMS[-1]  # any head dim 1..MAX_HEAD_DIM runs: one
+                              # without an instance on the next larger's
 MAX_GROUP = 8   # query heads a block (kMaxG): a KV head's G heads are cut
                 # into head_groups(G) groups, each a block of the split pass
 TILE_BYTES = 16384                  # of K in one tile of the split pass
@@ -120,11 +122,22 @@ def flash_decode_lora_plain(q, k, v, length, x, a, b, idx,
     return out.to(q.dtype)
 
 
+def instance_dim(d: int, itemsize: int) -> int:
+    """The instantiated head dim that runs head dim ``d`` with K's element
+    size ``itemsize`` (1: the int8 mode): ``d`` itself, else the next
+    larger, padded (``instance_dim`` of ``csrc/flash_decode.cu``)."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} outside 1..{MAX_HEAD_DIM}")
+    return next(x for x in (INT8_HEAD_DIMS if itemsize == 1 else HEAD_DIMS)
+                if x >= d)
+
+
 def tile_positions(d: int, itemsize: int) -> int:
     """Positions in one tile of the split pass (``Tile::kP`` of
-    ``csrc/flash_decode.cu``): TILE_BYTES of K, within [TILE_MIN,
-    TILE_MAX]."""
-    return min(TILE_MAX, max(TILE_MIN, TILE_BYTES // (d * itemsize)))
+    ``csrc/flash_decode.cu``, at ``instance_dim``): TILE_BYTES of K,
+    within [TILE_MIN, TILE_MAX]."""
+    di = instance_dim(d, itemsize)
+    return min(TILE_MAX, max(TILE_MIN, TILE_BYTES // (di * itemsize)))
 
 
 def head_groups(g: int) -> int:
@@ -157,10 +170,10 @@ def _check(q, k, v, lengths, k_scale=None, v_scale=None):
         raise ValueError(f"flash_decode: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     kv = k.shape[2]
-    dims = INT8_HEAD_DIMS if quant else HEAD_DIMS
-    if h % kv or d not in dims:
+    if h % kv or not 1 <= d <= MAX_HEAD_DIM:
+        # past 256 one block's registers and shared memory run out
         raise ValueError(f"flash_decode: H={h}, KV={kv}, D={d} unsupported "
-                         f"(H a multiple of KV, D one of {dims})")
+                         f"(H a multiple of KV, D in 1..{MAX_HEAD_DIM})")
     if quant:
         if not (k.dtype == v.dtype == torch.int8
                 and k_scale.dtype == v_scale.dtype == torch.float16
@@ -205,8 +218,8 @@ def _check_lora(q, x, a, b, idx):
 
 def _launch_args(q, k, v, length, k_scale=None, v_scale=None):
     """The arguments both kernels share: the checked lengths, the split
-    plan (tiles of K's element size) and its f32 partials, and the
-    output."""
+    plan (tiles of K's element size at its instance's head dim) and its
+    f32 partials, and the output."""
     bsz, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
     lengths = _lengths(length, bsz, q.device)
@@ -227,11 +240,11 @@ def _launch_args(q, k, v, length, k_scale=None, v_scale=None):
 def flash_decode(q, k, v, length, k_scale=None, v_scale=None):
     """q: (B, H, D); k/v: (B, S, KV, D); length: scalar or (B,) -> (B, H, D).
 
-    Query head h attends KV head h // (H/KV) over positions < length.
-    With ``k_scale``/``v_scale`` (B, S, KV) f16, k and v are int8
-    (``attention.quantize_kv``) and the kernel's int8 mode reads them as
-    they are (plain version: ``flash_decode_int8_plain``); both launches
-    count here.
+    Query head h attends KV head h // (H/KV) over positions < length;
+    D is any of 1..256.  With ``k_scale``/``v_scale`` (B, S, KV) f16, k and
+    v are int8 (``attention.quantize_kv``) and the kernel's int8 mode reads
+    them as they are (plain version: ``flash_decode_int8_plain``); both
+    launches count here.
     """
     if (k_scale is None) != (v_scale is None):
         raise ValueError("flash_decode: give both scales or neither")

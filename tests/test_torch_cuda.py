@@ -7,8 +7,10 @@ fixture, never at import).  On the GPU machine:
 
 ``chip_smoke.py`` holds the kernels at the main path's shapes; these hold
 them at edge shapes (rank 1 and odd ranks, expand widths off the tile,
-every head dim the flash-decode kernels instantiate (8 among them), group
-sizes 1..24 (past 8 in head groups),
+every head dim the flash-decode kernels instantiate (8 among them) and
+head dims without an instance (1, 7, 24, 72, 80, 96, 100, 192, 255; the
+int8 mode also 8), which run padded, group sizes 1..24 (past 8 in head
+groups),
 lengths 0 and past S and at the split pass's tile edges, NaN past a row's
 length, BGMV at ranks 1-64 with widths and views off the 16-byte vector,
 SGMV at T around its 64-token tile, 32 skewed adapters, unaligned views and
@@ -376,12 +378,74 @@ def _int8_cache(gen, bsz, s, kv, d):
     return quantize_kv(_normal(gen, bsz, s, kv, d, dtype=torch.bfloat16))
 
 
-def _close_int8(got, want):
-    # the int8 mode at bf16's tolerance whatever q's dtype: P times
-    # v_scale is rounded to bf16 against each split's running max, where
-    # the plain version (the JAX arithmetic) rounds it against the row's
+def _close_int8(q, k, v, lengths, ks, vs, per_row=True):
+    """The int8 mode against flash_decode_int8_plain at bf16's tolerance
+    whatever q's dtype: the kernel rounds P times v_scale to bf16 against
+    each split's running max, the plain version (the JAX arithmetic)
+    against the row's global max.  Returns the kernel's output."""
+    got = flash_decode.flash_decode(q, k, v, lengths, ks, vs)
+    want = flash_decode.flash_decode_int8_plain(q, k, v, lengths, ks, vs)
     _close(got, want, torch.bfloat16)
-    _close_rows(got, want, torch.bfloat16)
+    if per_row:
+        _close_rows(got, want, torch.bfloat16)
+    return got
+
+
+# head dims without an instance, each run on the next larger one, padded:
+# the public 80, 96 and 192, dims whose rows are not whole 16-byte copies
+# (1, 7, 100, 255: pieces of 2, 8 and 2 bytes in bf16), 24 and 72
+ANY_HEAD_DIMS = (1, 7, 24, 72, 80, 96, 100, 192, 255)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", ANY_HEAD_DIMS)
+@pytest.mark.parametrize("g", [1, 4, 16])
+def test_flash_decode_kernel_any_head_dim(gen, g, d, dtype):
+    # plain flash-decode and the fused kernel at G query heads a KV head
+    # (16: two head groups), ragged lengths with 0 among them, ids with -1;
+    # the fused kernel bitwise flash-decode on an all-base batch
+    bsz, kv, s, dx, r, n = 3, 2, 300, 96, 8, 3
+    h = g * kv
+    q = _normal(gen, bsz, h, d, dtype=dtype)
+    k = _normal(gen, bsz, s, kv, d, dtype=dtype)
+    v = _normal(gen, bsz, s, kv, d, dtype=dtype)
+    lengths = torch.tensor([0, 77, s], dtype=torch.int32, device="cuda")
+    got = flash_decode.flash_decode(q, k, v, lengths)
+    want = flash_decode.flash_decode_plain(q, k, v, lengths)
+    _close(got, want, dtype)
+    _close_rows(got, want, dtype)
+    assert bool((got[0] == 0).all())
+    x = _normal(gen, bsz, dx, dtype=dtype)
+    a, b = _bank(gen, n, dx, r, h * d, dtype)
+    ids = torch.tensor([0, -1, 2], dtype=torch.int32, device="cuda")
+    fused = flash_decode.flash_decode_lora(q, k, v, lengths, x, a, b, ids,
+                                           1.5)
+    want = flash_decode.flash_decode_lora_plain(q, k, v, lengths, x, a, b,
+                                                ids, 1.5)
+    _close(fused, want, dtype)
+    _close_rows(fused, want, dtype)
+    assert torch.equal(fused[1], got[1])
+    assert torch.equal(flash_decode.flash_decode_lora(
+        q, k, v, lengths, x, a, b, torch.full_like(ids, -1), 1.5), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", (8,) + ANY_HEAD_DIMS)
+@pytest.mark.parametrize("g", [1, 4, 16])
+def test_flash_decode_int8_any_head_dim(gen, g, d, dtype):
+    # the int8 mode off its instances (8 and below on the 16 instance),
+    # lengths 0, at a tile's edge and the whole cache
+    bsz, kv, s = 3, 2, 300
+    q = _normal(gen, bsz, g * kv, d, dtype=dtype)
+    k, ks = _int8_cache(gen, bsz, s, kv, d)
+    v, vs = _int8_cache(gen, bsz, s, kv, d)
+    lengths = torch.tensor([0, flash_decode.tile_positions(d, 1) + 1, s],
+                           dtype=torch.int32, device="cuda")
+    # a row of fewer than 8 values (D 1 and 7) can have as its largest a
+    # sum that cancels, against which bf16 q's rounding (each split's
+    # max) is not small: those rows are held elementwise only
+    got = _close_int8(q, k, v, lengths, ks, vs, per_row=d >= 8)
+    assert not got[0].any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -397,10 +461,8 @@ def test_flash_decode_int8_tile_edges(gen, d, dtype):
     q = _normal(gen, bsz, h, d, dtype=dtype)
     k, ks = _int8_cache(gen, bsz, s, kv, d)
     v, vs = _int8_cache(gen, bsz, s, kv, d)
-    got = flash_decode.flash_decode(q, k, v, lengths, ks, vs)
+    got = _close_int8(q, k, v, lengths, ks, vs)
     assert got.dtype == dtype
-    _close_int8(got, flash_decode.flash_decode_int8_plain(q, k, v, lengths,
-                                                          ks, vs))
     assert not flash_decode.flash_decode(q, k, v, 0, ks, vs).any()
 
 
@@ -416,9 +478,7 @@ def test_flash_decode_int8_one_kv_head(gen, h, d, dtype):
     k, ks = _int8_cache(gen, bsz, s, 1, d)
     v, vs = _int8_cache(gen, bsz, s, 1, d)
     lengths = torch.tensor([s, 1, 333], dtype=torch.int32, device="cuda")
-    _close_int8(flash_decode.flash_decode(q, k, v, lengths, ks, vs),
-                flash_decode.flash_decode_int8_plain(q, k, v, lengths, ks,
-                                                     vs))
+    _close_int8(q, k, v, lengths, ks, vs)
 
 
 def test_flash_decode_int8_positions_past_length_are_never_read(gen):
@@ -467,26 +527,28 @@ def test_flash_decode_int8_wrapper_rejects_what_the_kernel_does_not_take(gen):
     assert shifted.data_ptr() % 16
     with pytest.raises(ValueError, match="16-byte aligned"):
         fd(q, shifted, v, s, ks, vs)
-    q48 = _normal(gen, bsz, h, 48, dtype=torch.bfloat16)
-    k48, ks48 = _int8_cache(gen, bsz, s, kv, 48)
-    with pytest.raises(ValueError, match="D=48"):
-        fd(q48, k48, k48, s, ks48, ks48)
-    # head dim 8 runs in bf16 and f32 but not in the int8 mode (a row of
-    # 8 bytes is half a 16-byte copy)
-    q8 = _normal(gen, bsz, h, 8, dtype=torch.bfloat16)
-    k8, ks8 = _int8_cache(gen, bsz, s, kv, 8)
-    with pytest.raises(ValueError, match="D=8"):
-        fd(q8, k8, k8, s, ks8, ks8)
+    # head dims 48 and 8, which have no instance, run padded (on 64 and on
+    # 16: an int8 row of 8 bytes is half a 16-byte copy); 257 raises
+    for d in (48, 8):
+        qd = _normal(gen, bsz, h, d, dtype=torch.bfloat16)
+        (kd, ksd), (vd, vsd) = (_int8_cache(gen, bsz, s, kv, d)
+                                for _ in range(2))
+        _close_int8(qd, kd, vd, s, ksd, vsd)
+    q257 = _normal(gen, bsz, h, 257, dtype=torch.bfloat16)
+    k257, ks257 = _int8_cache(gen, bsz, s, kv, 257)
+    with pytest.raises(ValueError, match="D=257 unsupported .*1..256"):
+        fd(q257, k257, k257, s, ks257, ks257)
 
 
 def test_binding_raises_on_a_rejected_int8_launch(gen):
-    # head dim 48 has no instance: the launcher refuses it and the binding
-    # raises rather than return an unwritten output
+    # head dim 257 has no instance, nor one to pad into: the launcher
+    # refuses it and the binding raises rather than return an unwritten
+    # output
     x = _normal(gen, 4, 8)
     with pytest.raises(RuntimeError, match="flash_decode_int8: launcher "
                                            "rejected"):
         build.kernels().flash_decode_int8(
-            0, 0, 0, 16, 16, 0, 0, 0, 0, 0, 2, 64, 4, 2, 48, 1, 64, 1,
+            0, 0, 0, 16, 16, 0, 0, 0, 0, 0, 2, 64, 4, 2, 257, 1, 64, 1,
             build.stream_handle(x.device))
 
 
@@ -511,9 +573,14 @@ def test_wrappers_reject_what_kernels_do_not_take(gen):
         sgmv.sgmv(x, a, b, ids.long())
     with pytest.raises(ValueError, match="contiguous"):
         bgmv.bgmv(x, a.transpose(1, 2).contiguous().transpose(1, 2), b, ids)
+    # head dim 48 runs padded on the 64 instance; 257 raises
     q = _normal(gen, 2, 4, 48)
     kv = _normal(gen, 2, 16, 2, 48)
-    with pytest.raises(ValueError, match="D=48"):
+    _close(flash_decode.flash_decode(q, kv, kv, 16),
+           flash_decode.flash_decode_plain(q, kv, kv, 16), torch.float32)
+    q = _normal(gen, 2, 4, 257)
+    kv = _normal(gen, 2, 16, 2, 257)
+    with pytest.raises(ValueError, match="D=257 unsupported .*1..256"):
         flash_decode.flash_decode(q, kv, kv, 16)
     q = _normal(gen, 2, 4, 16)
     shifted = _normal(gen, 2 * 16 * 2 * 16 + 1)[1:].view(2, 16, 2, 16)

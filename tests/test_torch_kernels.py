@@ -157,6 +157,38 @@ def test_flash_decode_matches_pallas(b, h, kv, d, s, block_s, dtype):
     _close(got, want, tol)
 
 
+# head dims the Pallas kernel takes and the card runs on a padded instance
+# (csrc/flash_decode.cu: the next larger of 8, 16, ..., 256)
+ANY_HEAD_DIMS = (24, 80, 96, 100, 192)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", ANY_HEAD_DIMS)
+def test_flash_decode_any_head_dim_matches_pallas(d, dtype):
+    # 16 query heads on 2 KV heads, ragged lengths, S not a whole block
+    jdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(d)
+    b, h, kv, s = 3, 16, 2, 70
+    jq, tq = _both(rng.standard_normal((b, h, d)), jdt)
+    jk, tk = _both(rng.standard_normal((b, s, kv, d)), jdt)
+    jv, tv = _both(rng.standard_normal((b, s, kv, d)), jdt)
+    length = np.array([1, 33, s], np.int32)
+    got = flash_decode.flash_decode(tq, tk, tv, torch.from_numpy(length))
+    _close(got, jax_flash_decode(jq, jk, jv, jnp.asarray(length), block_s=32,
+                                 interpret=True), tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", ANY_HEAD_DIMS)
+def test_fused_decode_any_head_dim_matches_pallas(d, dtype):
+    jdt, tol = DTYPES[dtype]
+    j, t = _decode(17 + d, 3, 8, 2, d, 50, 48, 8, 3, jdt)
+    got = flash_decode.flash_decode_lora(*t, 0.5)
+    assert got.shape == (3, 8, d)
+    _close(got, jax_fd_lora(*j, 0.5, interpret=True), tol)
+    _close(got, jref.fused_decode_ref(*j, 0.5), tol)
+
+
 def test_flash_decode_length_zero_gives_zero_like_pallas():
     rng = np.random.default_rng(5)
     q, k, v = (rng.standard_normal(s).astype(np.float32)

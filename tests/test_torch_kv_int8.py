@@ -129,6 +129,21 @@ def test_int8_decode_matches_jax_quantized_branch(pos):
         np.testing.assert_array_equal(c.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("d", [8, 24, 80, 96, 100, 192])
+def test_int8_any_head_dim_matches_jax_quantized_branch(d):
+    # head dims the card runs on a padded instance (8 on the int8 mode's
+    # 16): the wrapper's plain version after the JAX branch's own write at
+    # pos, over its pos + 1 positions, to 2e-5 in f32
+    q, kq, vq, ks, vs, nk, nv = _decode_inputs(d, h=8, kv=2, d=d)
+    pos = 29
+    out, *caches = _jax_branch(d)(q, kq, vq, nk, nv, jnp.int32(pos), ks, vs)
+    k, v, k_scale, v_scale = (torch.from_numpy(np.array(c)) for c in caches)
+    got = flash_decode.flash_decode(torch.from_numpy(q), k, v, pos + 1,
+                                    k_scale, v_scale)
+    assert got.shape == q.shape
+    assert _rel(got.numpy(), out) < 2e-5
+
+
 def test_int8_plain_ragged_lengths_match_jax_rows():
     # per-row lengths (the JAX branch takes one pos for the batch, so each
     # row is held against its own call): 0 gives 0, as the kernel does

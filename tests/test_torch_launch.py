@@ -5,8 +5,9 @@ tiles for the split pass.  The kernel rejects a plan that breaks this rule
 (``csrc/flash_decode.cu::launch_split``), so these tests hold the plan to it
 over the shapes the port runs: the serving step, the measurement grid
 (``repro_torch.bench.kernels_bench``: batch 1/8/32 x seq 256/1024/4096)
-and edge widths.  (BGMV's launch plan lives in its C launcher and is held
-by the card tests of ``tests/test_torch_cuda.py``.)
+and edge widths, at every head dim 1..256 (a dim without an instance
+runs the next larger one, padded).  (BGMV's launch plan lives in its C
+launcher and is held by the card tests of ``tests/test_torch_cuda.py``.)
 """
 import pytest
 
@@ -80,3 +81,44 @@ def test_split_plan_at_recurrentgemma_shape():
     assert flash_decode.split_plan(8, groups, 512, H100_SMS, tile) == (16, 32)
     assert flash_decode.split_plan(8, groups, 2048, H100_SMS, tile) == \
         (16, 128)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2, 1])
+def test_every_head_dim_has_an_instance_and_a_plan(itemsize):
+    # every head dim 1..256 runs on an instantiated one (itself where
+    # there is one; int8 from 16), whose tile fits and whose split plan
+    # covers S in whole tiles; 0 and 257 have none
+    dims = flash_decode.INT8_HEAD_DIMS if itemsize == 1 \
+        else flash_decode.HEAD_DIMS
+    for d in range(1, flash_decode.MAX_HEAD_DIM + 1):
+        di = flash_decode.instance_dim(d, itemsize)
+        assert di in dims and di >= d
+        assert di == d or di == dims[0] or di // 2 < d
+        p = flash_decode.tile_positions(d, itemsize)
+        assert p == flash_decode.tile_positions(di, itemsize)
+        assert flash_decode.TILE_MIN <= p <= flash_decode.TILE_MAX
+        assert p & (p - 1) == 0 and 128 % p == 0
+        assert 3 * 2 * p * di * itemsize <= 227 * 1024
+        for bsz, kv, s in ((1, 1, 1), (8, 8, 512), (3, 2, 1000),
+                           (32, 8, 4096)):
+            n_splits, chunk = flash_decode.split_plan(bsz, kv, s, H100_SMS,
+                                                      p)
+            assert chunk % p == 0
+            assert (n_splits - 1) * chunk < s <= n_splits * chunk
+    for d in (0, flash_decode.MAX_HEAD_DIM + 1):
+        with pytest.raises(ValueError, match="head dim"):
+            flash_decode.instance_dim(d, itemsize)
+
+
+def test_padded_head_dims_at_public_widths():
+    # 80, 96 and 192 (common public head dims) run on the 128 and 256
+    # instances: 64- and 32-position bf16 tiles, 128 and 64 in int8
+    assert [flash_decode.instance_dim(d, 2) for d in (80, 96, 192)] == \
+        [128, 128, 256]
+    assert [flash_decode.tile_positions(d, 2) for d in (80, 96, 192)] == \
+        [64, 64, 32]
+    assert [flash_decode.tile_positions(d, 1) for d in (8, 96, 192)] == \
+        [128, 128, 64]
+    assert flash_decode.split_plan(8, 32, 512, H100_SMS,
+                                   flash_decode.tile_positions(96, 2)) == \
+        (2, 256)
