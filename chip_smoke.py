@@ -34,18 +34,23 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    (phi4-mini's serving shape, gemma3-1b's global layer, olmoe-1b-7b's G 1,
    B 32 at S 4096), q in bf16 and in f32, full and ragged lengths (0 and 1
    among them) on a cache with other values past each row's length (the
-   output bit for bit the clean cache's), within bf16's 3e-2 and 1e-2 of
-   each row's largest value for both q dtypes (``TOL["int8"]``: the JAX
-   arithmetic rounds P times v_scale to bf16, which the kernel does
-   against each split's running max, the plain version against the row's
-   global max); flash-decode in bf16 and in int8 over LONG_S (32768)
+   output bit for bit the clean cache's), q in bf16 within bf16's 3e-2 and
+   1e-2 of each row's largest value (the JAX arithmetic rounds P times
+   v_scale to bf16, which the kernel does against each split's running
+   max, the plain version against the row's global max), q in f32 within
+   f32's 2e-5 of the plain version with exact q . k (``check_int8``: a
+   pre-pass gives the kernel the row's max, and both take q . k's exact
+   f32 value), its largest departure printed, and against the plain
+   version's einsum-order q . k within 2e-5 plus that version's own
+   rounding flips;
+   flash-decode in bf16 and in int8 over LONG_S (32768)
    positions at phi4-mini's heads, B 8; flash-decode, the fused kernel and
    the int8 mode past 8 query heads per KV head (``HEAD_GROUP_SHAPES``:
    recurrentgemma-9b's 16 heads on 1 KV head of 256 at 512 and 2048 rows,
    and a group of 12), and flash-decode and the fused kernel at head dim 8,
    in bf16 and f32, ragged lengths with 0 among them, per row (the int8
-   mode with q in bf16 and f32, at bf16's tolerance; at head dim 8 it
-   runs padded on its 16 instance); and flash-decode, the fused kernel
+   mode with q in bf16 and f32, at the tolerance of q's dtype; at head dim
+   8 it runs padded on its 16 instance); and flash-decode, the fused kernel
    and the int8 mode at every head dim 1..256 (``check_head_dims``: one
    without an instance runs the next larger one, padded), 1, 4 or 16
    query heads a KV head by turns, q in bf16 and f32, per row;
@@ -174,13 +179,8 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM, data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-# "int8": flash-decode's int8 mode, at bf16's tolerance whatever q's dtype:
-# P times v_scale is rounded to bf16 (as the JAX package rounds it), by the
-# kernel against each split's running max and by the plain version against
-# the row's global max, so the two round different values
-TOL = {"bfloat16": 3e-2, "float32": 2e-5, "int8": 3e-2}
-ROW_TOL = {"bfloat16": 1e-2, "float32": 2e-5,   # relative to a row's scale
-           "int8": 1e-2}
+TOL = {"bfloat16": 3e-2, "float32": 2e-5}
+ROW_TOL = {"bfloat16": 1e-2, "float32": 2e-5}   # relative to a row's scale
 KERNEL_ROWS = {  # name -> (source, TPU kernel it replaces)
     "bgmv": ("src/repro_torch/kernels/csrc/bgmv.cu",
              "src/repro/kernels/bgmv.py:54"),
@@ -405,6 +405,48 @@ def int8_cache(inp, bsz, s, kv, d):
     return quantize_kv(inp.normal(bsz, s, kv, d, dtype=torch.bfloat16))
 
 
+def check_int8(name, got, q, k, v, length, ks, vs, errs):
+    """The int8 mode's output ``got`` against ``flash_decode_int8_plain``
+    at the tolerance of q's dtype, per row.  q in bf16 at bf16's: the
+    kernel rounds P times v_scale to bf16 against each split's running
+    max, the plain version against the row's.  q in f32 at f32's 2e-5
+    against the plain version with ``exact_dot``: a pre-pass gives the
+    kernel the row's max and both take q . k's exact f32 value, so both
+    round the same terms; its largest departure is kept as ``f32q_int8``.
+    Against the plain version that sums q . k in the einsum's f32 order
+    (the JAX package's arithmetic, its order XLA's), the terms within
+    that order's rounding of a bf16 rounding boundary round the other way:
+    there each value must lie within 2e-5 plus the plain version's own
+    departure between its two sums (``f32q_int8_vs_f32_dot`` keeps the
+    largest departure)."""
+    from repro_torch.kernels import flash_decode
+    plain = flash_decode.flash_decode_int8_plain
+    if q.dtype == torch.bfloat16:
+        check(name, got, plain(q, k, v, length, ks, vs), "bfloat16", errs,
+              per_row=True)
+        return
+    exact = plain(q, k, v, length, ks, vs, exact_dot=True)
+    check(f"{name} vs exact q.k", got, exact, "float32", errs, per_row=True)
+    errs["f32q_int8"] = max(errs.get("f32q_int8", 0.0),
+                            (got - exact).abs().max().item())
+    want = plain(q, k, v, length, ks, vs)
+    flips = (exact - want).abs()
+    diff = (got - want).abs()
+    tol = TOL["float32"]
+    past = diff > tol + tol * want.abs()
+    ok = bool((diff <= tol + tol * want.abs() + flips).all())
+    say(f"    vs the einsum-order q.k: max_abs_err={diff.max().item():.3e}, "
+        f"{int(past.sum())} of {diff.numel()} values past 2e-5, each within "
+        f"the plain version's own departure between the two sums "
+        f"(largest {flips.max().item():.3e}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: a departure from the einsum-order "
+                             "plain version that its rounding flips do not "
+                             "cover")
+    errs["f32q_int8_vs_f32_dot"] = max(errs.get("f32q_int8_vs_f32_dot", 0.0),
+                                       diff.max().item())
+
+
 def check_quantize_kv(inp, errs):
     """``quantize_kv`` on the card bit for bit its CPU result, on bf16 and
     f32 K/V of phi4-mini's serving shape (a row of zeros among them)."""
@@ -424,13 +466,13 @@ def check_quantize_kv(inp, errs):
 
 def check_flash_decode_int8(inp, errs):
     """The int8 mode against ``flash_decode_int8_plain`` at each of
-    ``INT8_SHAPES``, q in bf16 and in f32, at the bf16 tolerance (TOL and
-    ROW_TOL "int8"): the full cache, ragged lengths (0 and 1 among them,
+    ``INT8_SHAPES``, q in bf16 and in f32, at the tolerance of q's dtype
+    (``check_int8``): the full cache, ragged lengths (0 and 1 among them,
     others ending inside tiles) on a cache whose positions past each row's
     length hold other int8 values and scales (finite), which must give the
     output of the clean cache bit for bit, and length 0 (exactly 0)."""
     from repro_torch.kernels import flash_decode
-    fd, plain = flash_decode.flash_decode, flash_decode.flash_decode_int8_plain
+    fd = flash_decode.flash_decode
     for label, bsz, s, h, kv, d in INT8_SHAPES:
         k, ks = int8_cache(inp, bsz, s, kv, d)
         v, vs = int8_cache(inp, bsz, s, kv, d)
@@ -452,16 +494,15 @@ def check_flash_decode_int8(inp, errs):
             qn = str(qdt).split(".")[1]
             q = inp.normal(bsz, h, d, dtype=qdt)
             name = f"flash_decode_int8 {label} H {h} KV {kv} D {d} q {qn}"
-            check(f"{name} full", fd(q, k, v, s, ks, vs),
-                  plain(q, k, v, s, ks, vs), "int8", errs, per_row=True)
+            check_int8(f"{name} full", fd(q, k, v, s, ks, vs), q, k, v, s,
+                       ks, vs, errs)
             got = fd(q, *dirty[:2], ragged, *dirty[2:])
-            check(f"{name} ragged, garbage past the lengths", got,
-                  plain(q, *dirty[:2], ragged, *dirty[2:]), "int8", errs,
-                  per_row=True)
+            check_int8(f"{name} ragged, garbage past the lengths", got, q,
+                       *dirty[:2], ragged, *dirty[2:], errs)
             check(f"{name} ragged, garbage vs clean cache", got,
-                  fd(q, k, v, ragged, ks, vs), "int8", errs, exact=True)
+                  fd(q, k, v, ragged, ks, vs), qn, errs, exact=True)
             check(f"{name} length 0", fd(q, k, v, 0, ks, vs),
-                  torch.zeros_like(q), "int8", errs, exact=True)
+                  torch.zeros_like(q), qn, errs, exact=True)
         del k, v, ks, vs, dirty
         torch.cuda.empty_cache()
 
@@ -487,10 +528,9 @@ def check_long(errs):
     from repro_torch.models.attention import quantize_kv
     (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
     for name, length in (("full", LONG_S), ("ragged", ragged)):
-        check(f"flash_decode_int8 B {BATCH} S {LONG_S} {name} lengths",
-              flash_decode.flash_decode(q, k, v, length, ks, vs),
-              flash_decode.flash_decode_int8_plain(q, k, v, length, ks, vs),
-              "int8", errs, per_row=True)
+        check_int8(f"flash_decode_int8 B {BATCH} S {LONG_S} {name} lengths",
+                   flash_decode.flash_decode(q, k, v, length, ks, vs), q, k,
+                   v, length, ks, vs, errs)
     del k, v, ks, vs
     torch.cuda.empty_cache()
 
@@ -501,8 +541,8 @@ def check_head_groups(errs):
     8): q, K and V in bf16 and f32, ragged lengths (0, 1, a tile's edges,
     the whole cache, past it) held per row; the fused kernel with ids with
     -1 at both delta sizes and bitwise flash-decode on an all-base batch;
-    the int8 mode with q in bf16 and f32, at bf16's tolerance (head dim 8
-    on its 16 instance, padded)."""
+    the int8 mode with q in bf16 and f32 (``check_int8``; head dim 8 on
+    its 16 instance, padded)."""
     from repro_torch.kernels import flash_decode
     inp = Inputs(seed=9)
     fd, fused = flash_decode.flash_decode, flash_decode.flash_decode_lora
@@ -537,11 +577,10 @@ def check_head_groups(errs):
                             for _ in range(2))
         for qdt in (torch.bfloat16, torch.float32):
             q = inp.normal(BATCH, h, d, dtype=qdt)
-            check(f"flash_decode_int8 {name} q {str(qdt).split('.')[1]} "
-                  "ragged lengths", fd(q, k, v, lengths, ks, vs),
-                  flash_decode.flash_decode_int8_plain(q, k, v, lengths, ks,
-                                                       vs),
-                  "int8", errs, per_row=True)
+            check_int8(f"flash_decode_int8 {name} q "
+                       f"{str(qdt).split('.')[1]} ragged lengths",
+                       fd(q, k, v, lengths, ks, vs), q, k, v, lengths, ks,
+                       vs, errs)
     torch.cuda.empty_cache()
 
 
@@ -552,11 +591,12 @@ def check_head_dims(errs):
     (16: two head groups), lengths 0, 1, one past a tile and S; q, K and V
     in bf16 and f32, the int8 mode with q in bf16 and f32 on
     ``quantize_kv`` of bf16 K/V; each held per row at the tolerance of q's
-    dtype (the int8 mode at bf16's, as ``check_flash_decode_int8``, below
-    D 8 elementwise only), the fused kernel with ids with -1, bitwise
-    flash-decode on its base rows.  One line per kernel and dtype: the
-    dims held and the largest departure, with its dim; a departure past
-    the tolerance raises."""
+    dtype (the int8 mode with q in f32 against the plain version with
+    exact q . k, as ``check_int8``; with q in bf16 below D 8 elementwise
+    only), the fused kernel with ids with -1, bitwise flash-decode on its
+    base rows.  One line per kernel and dtype: the dims held and the
+    largest departure, with its dim; a departure past the tolerance
+    raises."""
     from repro_torch.kernels import flash_decode
     inp = Inputs(seed=10)
     fd, fused = flash_decode.flash_decode, flash_decode.flash_decode_lora
@@ -591,17 +631,18 @@ def check_head_dims(errs):
                                   for _ in range(2))
             lengths = torch.tensor([0, 1, flash_decode.tile_positions(d, 1)
                                     + 1, s], dtype=torch.int32, device="cuda")
-            cases.append(("flash_decode_int8", f"int8, q {dn}",
+            cases.append(("flash_decode_int8", dn,
                           fd(q, k8, v8, lengths, ks, vs),
                           flash_decode.flash_decode_int8_plain(
-                              q, k8, v8, lengths, ks, vs)))
+                              q, k8, v8, lengths, ks, vs,
+                              exact_dot=dtype == torch.float32)))
         torch.cuda.synchronize()
         for name, dn, got, want in cases:
             # a row of fewer than 8 values can have as its largest a sum
             # that cancels, against which the int8 mode's bf16 rounding
-            # (each split's max) is not small: elementwise
-            tol = "int8" if name == "flash_decode_int8" else dn
-            ok, err, rel = held(got, want, tol, per_row=d >= 8
+            # with q in bf16 (each split's max) is not small: elementwise
+            ok, err, rel = held(got, want, dn, per_row=d >= 8
+                                or dn == "float32"
                                 or name != "flash_decode_int8")
             if not ok:
                 raise AssertionError(
@@ -613,11 +654,14 @@ def check_head_dims(errs):
                 w[:2] = err, d
             w[2] = max(w[2], rel)
             errs[name] = max(errs.get(name, 0.0), err)
+            if name == "flash_decode_int8" and dn == "float32":
+                errs["f32q_int8"] = max(errs.get("f32q_int8", 0.0), err)
     for (name, dn), (err, d, rel) in worst.items():
-        tol = "int8" if name == "flash_decode_int8" else dn
-        say(f"  {name} every head dim 1..{flash_decode.MAX_HEAD_DIM} [{dn}] "
-            f"max_abs_err={err:.3e} (at D {d}), row-relative {rel:.3e} "
-            f"(tol={TOL[tol]}, row {ROW_TOL[tol]}) -> ok")
+        exact = (" (vs the plain version with exact q.k)"
+                 if name == "flash_decode_int8" and dn == "float32" else "")
+        say(f"  {name} every head dim 1..{flash_decode.MAX_HEAD_DIM} [{dn}]"
+            f"{exact} max_abs_err={err:.3e} (at D {d}), row-relative "
+            f"{rel:.3e} (tol={TOL[dn]}, row {ROW_TOL[dn]}) -> ok")
     torch.cuda.empty_cache()
 
 
@@ -1000,6 +1044,9 @@ KERNEL_NAMES = {"bgmv_kernel": "bgmv", "sgmv_kernel": "sgmv",
                 "fd_lora_shrink_kernel": "flash_decode_lora"}
 FD_KERNELS = ("fd_split_kernel", "fd_combine_kernel")  # flash-decode's two
 FD_INT8_KERNELS = ("fd_split_int8_kernel", "fd_combine_kernel")  # int8 mode
+# the int8 mode with q in f32: pre-pass, split pass, combine
+FD_INT8_F32_KERNELS = ("fd_int8_max_kernel", "fd_split_int8_any_kernel",
+                       "fd_combine_kernel")
 FD_PAD_KERNELS = ("fd_split_pad_kernel", "fd_combine_kernel")  # padded D
 FUSED_KERNELS = FD_KERNELS + ("fd_lora_shrink_kernel",)  # the fused three
 SGMV_KERNELS = ("sgmv_segments_kernel", "sgmv_kernel")  # SGMV's sort, product
@@ -1653,12 +1700,15 @@ def padded_fd_times(fd_sets, sdpa):
     return out
 
 
-def int8_bound(bsz, h, kv, d, s):
-    """The int8 mode's bound over all ``s`` positions: bf16 q read and
-    output written, int8 K and V and their f16 scales read once; 4*G*D
-    operations a (position, KV head) against the bf16 peak."""
-    nbytes = 2 * bsz * h * d * 2 + 2 * bsz * s * kv * (d + 2) + 4 * bsz
-    return bound(nbytes, 4 * (h // kv) * bsz * s * kv * d, "bfloat16")
+def int8_bound(bsz, h, kv, d, s, q_bytes=2):
+    """The int8 mode's bound over all ``s`` positions: q (``q_bytes`` an
+    element: bf16, or 4 for f32) read and the output written, int8 K and V
+    and their f16 scales read once; 4*G*D operations a (position, KV head)
+    against the peak of q's type."""
+    nbytes = 2 * bsz * h * d * q_bytes + 2 * bsz * s * kv * (d + 2) \
+        + 4 * bsz
+    return bound(nbytes, 4 * (h // kv) * bsz * s * kv * d,
+                 "bfloat16" if q_bytes == 2 else "float32")
 
 
 def int8_rows(make_fd, sdpa):
@@ -1692,6 +1742,17 @@ def int8_rows(make_fd, sdpa):
                            "cache of the same shape: twice the K/V bytes",
            "split_ms": split["fd_split_int8_kernel"],
            "combine_ms": split["fd_combine_kernel"]}
+    # q in f32: the pre-pass, the split pass against the row's max, the
+    # combine
+    sets = [(q.float(), *rest) for q, *rest in sets]
+    split = profiled_ms(fd, sets, FD_INT8_F32_KERNELS)
+    b_ms, _ = int8_bound(BATCH, HEADS, KV_HEADS, HEAD_DIM, CACHE, q_bytes=4)
+    row.update(f32q_ms=graph_ms(fd, sets),
+               f32q_plain_ms=graph_ms(flash_decode.flash_decode_int8_plain,
+                                      sets),
+               f32q_bound_ms=b_ms,
+               **{f"f32q_{k.split('_kernel')[0]}_ms": split[k]
+                  for k in FD_INT8_F32_KERNELS})
     del sets, lib_sets
     gen = torch.Generator(device="cuda").manual_seed(8)
     q = torch.randn((BATCH, HEADS, HEAD_DIM), generator=gen, device="cuda",
@@ -2028,6 +2089,11 @@ def main() -> int:
 
     say("phase 3: kernels against their plain versions")
     errs = phase_kernels()
+    say(f"  the int8 mode with q in f32: largest departure from its plain "
+        f"version with exact q.k {errs['f32q_int8']:.3e} (tol 2e-5); from "
+        f"the einsum-order one {errs['f32q_int8_vs_f32_dot']:.3e}, each "
+        f"value within its rounding flips")
+
     say("phase 4: teacher forcing at full width")
     ops.reset_launches()
     phase_parity()
@@ -2112,6 +2178,9 @@ def main() -> int:
              "serving_" + HYBRID_ARCH: hybrid_launches}
     rows["flash_decode_lora"]["grid_max_abs_err"] = \
         errs["flash_decode_lora_grid"]
+    rows["flash_decode_int8"].update(
+        f32q_max_abs_err=errs["f32q_int8"],
+        f32q_vs_f32_dot_max_abs_err=errs["f32q_int8_vs_f32_dot"])
     table = []
     for name, (source, replaces) in KERNEL_ROWS.items():
         path, wrapper = KERNEL_PATH[name], KERNEL_WRAPPER.get(name, name)

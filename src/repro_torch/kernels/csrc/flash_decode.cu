@@ -85,8 +85,13 @@
 // dequantized in shared memory; with f32 q, and at D 16 and 256, on CUDA
 // cores (split_scalar).  The scores are scaled by the position's k scale;
 // P, times the position's v scale and rounded to bf16 (as the JAX package
-// rounds it, against the global max there, the chunk's running max here),
-// multiplies V; the sum of the f32 P divides, in the unchanged combine.
+// rounds it, against the row's global max), multiplies V; the sum of the
+// f32 P divides, in the unchanged combine.  With q in bf16 (the serving
+// path, held at bf16's tolerance) the pass rounds against each split's
+// running max; with q in f32 a pre-pass (fd_int8_max_kernel) first finds
+// each split's largest score, and the split pass rounds against the max
+// over the splits from its first tile on, as the JAX arithmetic does (the
+// combine's rescale factors are then all 1).
 // The scales, 2 bytes KV apart, do not fit the 16-byte copies: they are
 // plain loads, issued ahead of the scores that need them.
 //
@@ -282,17 +287,26 @@ __device__ __forceinline__ void load_tile_pad(KV* ks, const KV* k,
 // T; K and V are KV, T itself or int8 with the f16 scales k_scale and
 // v_scale of (bsz, s, kv) (kQuant).  With kPad the head dim is d < D (a
 // padded instance: zero_ring, load_tile_pad; q, the scale and the
-// partials take d).
-template <typename T, typename KV, int D, bool kGroups, bool kPad = false>
+// partials take d).  With kGlobalMax (the int8 mode with q in f32) each
+// head's softmax runs against the row's global max, fd_int8_max_kernel's
+// partials in max_part, from the first tile on, and each score's q . k is
+// summed in f64 and rounded to f32 once (ScoreT), with the scale
+// 1/sqrt(d) rounded once from f64: each product of an f32 and an int8
+// value is exact in f64, so the score is the f32 value that no order of
+// summation changes, which the plain version computes with exact_dot.
+template <typename T, typename KV, int D, bool kGroups, bool kPad = false,
+          bool kGlobalMax = false>
 __device__ __forceinline__ void split_scalar(
     const T* __restrict__ q, const KV* __restrict__ k,
     const KV* __restrict__ v, const __half* __restrict__ k_scale,
     const __half* __restrict__ v_scale, const int* __restrict__ length,
     float* __restrict__ m_part, float* __restrict__ l_part,
     float* __restrict__ acc_part, int s, int h, int kv, int n_splits,
-    int chunk, int stages, int d = D) {
+    int chunk, int stages, int d = D,
+    const float* __restrict__ max_part = nullptr) {
   constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   using G = Tile<KV, D>;
+  using ScoreT = typename std::conditional<kGlobalMax, double, float>::type;
   constexpr int kP = G::kP, kVec = G::kVec, kChunks = G::kChunks;
   static_assert(kP <= kThreads, "one thread a position loads the scales");
   const int split = blockIdx.x,
@@ -301,7 +315,9 @@ __device__ __forceinline__ void split_scalar(
   const HeadGroup hg = head_group<kGroups>(blockIdx.y, h, kv);
   const int g_n = hg.g_n;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const float scale = rsqrtf(static_cast<float>(kPad ? d : D));
+  const float scale =
+      kGlobalMax ? static_cast<float>(1.0 / sqrt(static_cast<double>(d)))
+                 : rsqrtf(static_cast<float>(kPad ? d : D));
   const int len = min(max(length[row], 0), s);
   const int s0 = split * chunk;
   const int s1 = min(s0 + chunk, len);
@@ -309,7 +325,7 @@ __device__ __forceinline__ void split_scalar(
 
   extern __shared__ __align__(16) unsigned char fd_ring[];
   __shared__ __align__(16) float qs[kMaxG][D];
-  __shared__ float sc[G::kKS][kMaxG][kP];
+  __shared__ ScoreT sc[G::kKS][kMaxG][kP];
   __shared__ float pr[kMaxG][kP];
   __shared__ float corr_s[kMaxG];
   __shared__ float tile_scale[kQuant ? 2 : 1][kQuant ? kP : 1];  // k, v
@@ -357,6 +373,22 @@ __device__ __forceinline__ void split_scalar(
     m[j] = kNegInf;
     l[j] = 0.f;
   }
+  if constexpr (kGlobalMax) {
+    // each head's max over the splits' maxima: P is rounded to bf16
+    // against it, as the JAX package rounds it against the row's max
+#pragma unroll
+    for (int j = 0; j < kMaxG / kWarps; ++j) {
+      const int g = warp + kWarps * j;
+      if (g < g_n) {
+        const float* mp =
+            max_part +
+            ((size_t)row * h + kvh * (h / kv) + hg.first + g) * n_splits;
+        float mx = kNegInf;
+        for (int i = lane; i < n_splits; i += 32) mx = fmaxf(mx, mp[i]);
+        m[j] = repro::warp_max(mx);
+      }
+    }
+  }
   float acc[kMaxG][kVec];
 #pragma unroll
   for (int g = 0; g < kMaxG; ++g)
@@ -385,7 +417,7 @@ __device__ __forceinline__ void split_scalar(
 
     // Scores: thread (sp, sks) dots chunks sks, sks + kKS, ... of K[sp].
     {
-      float part[kMaxG];
+      ScoreT part[kMaxG];
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g) part[g] = 0.f;
 #pragma unroll
@@ -398,7 +430,8 @@ __device__ __forceinline__ void split_scalar(
         for (int g = 0; g < kMaxG; ++g) {
           if (g < g_n) {
 #pragma unroll
-            for (int e = 0; e < kVec; ++e) part[g] += qs[g][c * kVec + e] * kf[e];
+            for (int e = 0; e < kVec; ++e)
+              part[g] += static_cast<ScoreT>(qs[g][c * kVec + e]) * kf[e];
           }
         }
       }
@@ -427,16 +460,24 @@ __device__ __forceinline__ void split_scalar(
           const int p = lane + 32 * i;
           float x = kNegInf;
           if (p < n_valid) {
-            x = 0.f;
+            if constexpr (kGlobalMax) {
+              double xd = 0.0;
 #pragma unroll
-            for (int u = 0; u < G::kKS; ++u) x += sc[u][g][p];
+              for (int u = 0; u < G::kKS; ++u) xd += sc[u][g][p];
+              x = static_cast<float>(xd);
+            } else {
+              x = 0.f;
+#pragma unroll
+              for (int u = 0; u < G::kKS; ++u) x += sc[u][g][p];
+            }
             x *= scale;
             if constexpr (kQuant) x *= tile_scale[0][p];
           }
           sv[i] = x;
           mx = fmaxf(mx, x);
         }
-        const float m_new = fmaxf(m[j], repro::warp_max(mx));
+        const float m_new =
+            kGlobalMax ? m[j] : fmaxf(m[j], repro::warp_max(mx));
         float sum = 0.f;
 #pragma unroll
         for (int i = 0; i < kPer; ++i) {
@@ -1121,8 +1162,8 @@ fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // The int8 mode's split pass: one block per (split, kv-head, head group,
 // row) over an int8 cache and its f16 scales, q and the output in T: on
 // tensor cores for bf16 q at D 32-128 (split_mma_int8), else on CUDA
-// cores.  Launched at the instantiated head dims; padded ones take
-// fd_split_int8_any_kernel.
+// cores.  Launched for bf16 q at the instantiated head dims; q in f32 and
+// padded head dims take fd_split_int8_any_kernel.
 template <typename T, int D, bool kGroups>
 __global__ void __launch_bounds__(kThreads, 2)
 fd_split_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
@@ -1165,10 +1206,11 @@ fd_split_pad_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                          n_splits, chunk, stages, d);
 }
 
-// The int8 mode's split pass at a head dim without an instance (kPad, as
-// fd_split_pad_kernel): bf16 q at D 32-128 on tensor cores, else on CUDA
-// cores.
-template <typename T, int D, bool kGroups>
+// The int8 mode's split pass where fd_split_int8_kernel does not run it:
+// q in f32 (on CUDA cores, against the row's global max from
+// fd_int8_max_kernel, kGlobalMax), and head dims without an instance
+// (kPad; bf16 q at D 32-128 on tensor cores).
+template <typename T, int D, bool kGroups, bool kPad>
 __global__ void __launch_bounds__(kThreads, 2)
 fd_split_int8_any_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
                          const int8_t* __restrict__ v,
@@ -1178,15 +1220,119 @@ fd_split_int8_any_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
                          float* __restrict__ m_part,
                          float* __restrict__ l_part,
                          float* __restrict__ acc_part, int s, int h, int kv,
-                         int n_splits, int chunk, int stages, int d) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && D >= 32 && D <= 128)
-    split_mma_int8<D, kGroups, true>(q, k, v, k_scale, v_scale, length,
+                         int n_splits, int chunk, int stages, int d,
+                         const float* __restrict__ max_part) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  if constexpr (!kF32 && D >= 32 && D <= 128)
+    split_mma_int8<D, kGroups, kPad>(q, k, v, k_scale, v_scale, length,
                                      m_part, l_part, acc_part, s, h, kv,
                                      n_splits, chunk, stages, d);
   else
-    split_scalar<T, int8_t, D, kGroups, true>(
+    split_scalar<T, int8_t, D, kGroups, kPad, kF32>(
         q, k, v, k_scale, v_scale, length, m_part, l_part, acc_part, s, h,
-        kv, n_splits, chunk, stages, d);
+        kv, n_splits, chunk, stages, d, max_part);
+}
+
+// 16 bytes of an int8 row from byte 16c: one 16-byte load where the row's
+// d bytes are a multiple of 16 (its start then 16-byte aligned), else
+// byte by byte, zero past d.
+__device__ __forceinline__ uint4 row_chunk(const int8_t* row, int c, int d,
+                                           bool vec) {
+  if (vec) return *reinterpret_cast<const uint4*>(row + 16 * c);
+  unsigned w[4] = {0u, 0u, 0u, 0u};
+  for (int e = 0; e < 16 && 16 * c + e < d; ++e)
+    w[e / 4] |= (static_cast<unsigned>(row[16 * c + e]) & 0xffu) << (8 * (e % 4));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The int8 mode's pre-pass for q in f32: each of the block's heads' largest
+// score s = (q . k) / sqrt(d) * k_scale over its split's positions, into
+// max_part (bsz, h, n_splits), q . k summed in f64 and rounded once, as
+// split_scalar computes it with kGlobalMax, so the split pass's scores
+// reach the max it takes over the splits and none passes it.  The JAX
+// package rounds P * v_scale to bf16 against the row's global max
+// (src/repro/models/attention.py:291-301); a split pass that rounds it
+// against its running max (the bf16-q instances) departs from that by up
+// to a bf16 step of P.  One thread a position, its K row read once, 16
+// bytes at a time (row_chunk), the next chunk's load in flight while one
+// is summed (a loop over the chunks, not unrolled: unrolled, its
+// registers spilled); q in shared memory in f64; one block per (split,
+// kv-head, head group, row) as the split pass.
+template <int D, bool kGroups>
+__global__ void __launch_bounds__(kThreads)
+fd_int8_max_kernel(const float* __restrict__ q, const int8_t* __restrict__ k,
+                   const __half* __restrict__ k_scale,
+                   const int* __restrict__ length, float* __restrict__ max_part,
+                   int s, int h, int kv, int n_splits, int chunk, int d) {
+  const int split = blockIdx.x,
+            kvh = blockIdx.y / groups_per_kv_head<kGroups>(h, kv),
+            row = blockIdx.z;
+  const HeadGroup hg = head_group<kGroups>(blockIdx.y, h, kv);
+  const int g_n = hg.g_n;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
+  const int len = min(max(length[row], 0), s);
+  const int s0 = split * chunk;
+  const int s1 = min(s0 + chunk, len);
+  const size_t head0 = (size_t)row * h + kvh * (h / kv) + hg.first;
+  __shared__ double qs[kMaxG][D];
+  __shared__ float wmax[kWarps][kMaxG];
+  for (int i = tid; i < g_n * D; i += kThreads) {
+    const int e = i % D;
+    qs[i / D][e] = e < d ? static_cast<double>(q[(head0 + i / D) * d + e])
+                         : 0.0;
+  }
+  __syncthreads();
+  float mx[kMaxG];
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g) mx[g] = kNegInf;
+  const bool vec = d % 16 == 0;
+  const int n_c = (d + 15) / 16;
+  for (int p = s0 + tid; p < s1; p += kThreads) {
+    const size_t at = ((size_t)row * s + p) * kv + kvh;
+    const int8_t* kr = k + at * d;
+    const float ksc = __half2float(k_scale[at]);
+    double part[kMaxG];
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) part[g] = 0.0;
+    uint4 next = row_chunk(kr, 0, d, vec);
+#pragma unroll 1
+    for (int c = 0; c < n_c; ++c) {  // the next chunk's load in flight
+      const uint4 cur = next;
+      if (c + 1 < n_c) next = row_chunk(kr, c + 1, d, vec);
+      float kf[16];
+      repro::unpack16<int8_t>(cur, kf);
+      double kd[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) kd[e] = kf[e];
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) {
+        if (g < g_n) {
+#pragma unroll
+          for (int e = 0; e < 16; ++e) part[g] += qs[g][16 * c + e] * kd[e];
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      float x = static_cast<float>(part[g]);
+      x *= scale;
+      x *= ksc;
+      if (g < g_n) mx[g] = fmaxf(mx[g], x);
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g) {
+    const float m = repro::warp_max(mx[g]);
+    if (lane == 0) wmax[warp][g] = m;
+  }
+  __syncthreads();
+  if (tid < g_n) {
+    float m = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) m = fmaxf(m, wmax[w][tid]);
+    max_part[(head0 + tid) * n_splits + split] = m;
+  }
 }
 
 // The LoRA epilogue's operands: x (bsz, dx) in the attention dtype, a
@@ -1417,30 +1563,42 @@ fd_combine_kernel(const float* __restrict__ m_part,
 // The split pass of one (dtype, head dim) instance, over an int8 cache and
 // its scales with kInt8, in head groups with kGroups, for a head dim d < D
 // with kPad: chunks must be whole tiles; the ring has as many stages as a
-// chunk has tiles, at most kMaxStages.  Returns the launch error, or
-// cudaErrorInvalidValue.
+// chunk has tiles, at most kMaxStages.  The int8 mode with q in f32 runs
+// its pre-pass (fd_int8_max_kernel into max_part) first.  Returns the
+// launch error, or cudaErrorInvalidValue.
 template <typename T, int D, bool kEarly, bool kInt8, bool kGroups, bool kPad>
 cudaError_t launch_split(const dim3& grid, cudaStream_t st, const void* q,
                          const void* k, const void* v, const void* k_scale,
                          const void* v_scale, const void* length,
                          void* m_part, void* l_part, void* acc_part, int s,
-                         int h, int kv, int n_splits, int chunk, int d) {
+                         int h, int kv, int n_splits, int chunk, int d,
+                         void* max_part) {
   using KV = typename std::conditional<kInt8, int8_t, T>::type;
   using G = Tile<KV, D>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
   if (chunk % G::kP) return cudaErrorInvalidValue;
   const int stages = min(kMaxStages, chunk / G::kP);
   const int smem = stages * 2 * G::kBytes;
   static repro::SmemLimit limit;
-  if constexpr (kInt8 && kPad) {
+  if constexpr (kInt8 && (kF32 || kPad)) {
+    if constexpr (kF32) {
+      fd_int8_max_kernel<D, kGroups><<<grid, kThreads, 0, st>>>(
+          static_cast<const float*>(q), static_cast<const int8_t*>(k),
+          static_cast<const __half*>(k_scale), static_cast<const int*>(length),
+          static_cast<float*>(max_part), s, h, kv, n_splits, chunk, d);
+      cudaError_t err = cudaPeekAtLastError();
+      if (err != cudaSuccess) return err;
+    }
     cudaError_t err =
-        limit.raise(fd_split_int8_any_kernel<T, D, kGroups>, smem);
+        limit.raise(fd_split_int8_any_kernel<T, D, kGroups, kPad>, smem);
     if (err != cudaSuccess) return err;
-    fd_split_int8_any_kernel<T, D, kGroups><<<grid, kThreads, smem, st>>>(
+    fd_split_int8_any_kernel<T, D, kGroups, kPad><<<grid, kThreads, smem, st>>>(
         static_cast<const T*>(q), static_cast<const int8_t*>(k),
         static_cast<const int8_t*>(v), static_cast<const __half*>(k_scale),
         static_cast<const __half*>(v_scale), static_cast<const int*>(length),
         static_cast<float*>(m_part), static_cast<float*>(l_part),
-        static_cast<float*>(acc_part), s, h, kv, n_splits, chunk, stages, d);
+        static_cast<float*>(acc_part), s, h, kv, n_splits, chunk, stages, d,
+        static_cast<const float*>(max_part));
   } else if constexpr (kPad) {
     cudaError_t err = limit.raise(fd_split_pad_kernel<T, D, kGroups>, smem);
     if (err != cudaSuccess) return err;
@@ -1485,14 +1643,16 @@ int instance_dim(int dh, bool int8) {
 // The kernels of one call: the split pass (over an int8 cache with kInt8),
 // then the combine; with kLora the shrink kernel between them, the shrink
 // and the combine each the programmatic dependent of the launch before.
-// Returns the launch error, or cudaErrorInvalidValue for a head dim
-// outside [1, 256] or a chunk that is not whole tiles.
+// max_part (bsz, h, n_splits) f32 is the int8 mode's pre-pass scratch for
+// q in f32.  Returns the launch error, or cudaErrorInvalidValue for a head
+// dim outside [1, 256] or a chunk that is not whole tiles.
 template <typename T, typename W, bool kLora, bool kInt8 = false>
 int launch_fd(const void* q, const void* k, const void* v,
               const void* k_scale, const void* v_scale, const void* length,
               void* m_part, void* l_part, void* acc_part, void* out, int bsz,
               int s, int h, int kv, int dh, int n_splits, int chunk,
-              const LoraArgs<T, W>& lora, cudaStream_t st) {
+              const LoraArgs<T, W>& lora, cudaStream_t st,
+              void* max_part = nullptr) {
   static_assert(!(kLora && kInt8), "the fused kernel reads a T cache");
   // cp.async copies 16-byte chunks of K and V (narrower pieces of a row
   // whose bytes are not a multiple of 16, aligned within the row)
@@ -1507,7 +1667,7 @@ int launch_fd(const void* q, const void* k, const void* v,
   launch_split<T, D, kLora, kInt8, G, P>(grid, st, q, k, v, k_scale,         \
                                          v_scale, length, m_part, l_part,    \
                                          acc_part, s, h, kv, n_splits,       \
-                                         chunk, dh)
+                                         chunk, dh, max_part)
 #define REPRO_FD_SPLIT_G(D, G) \
   (pad ? REPRO_FD_SPLIT_P(D, G, true) : REPRO_FD_SPLIT_P(D, G, false))
 #define REPRO_FD_SPLIT(D) \
@@ -1592,10 +1752,11 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
 extern "C" int repro_flash_decode_int8(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* length, void* m_part, void* l_part,
-    void* acc_part, void* out, int bsz, int s, int h, int kv, int dh,
-    int n_splits, int chunk, int dtype, void* stream) {
+    void* acc_part, void* max_part, void* out, int bsz, int s, int h, int kv,
+    int dh, int n_splits, int chunk, int dtype, void* stream) {
   if (bsz <= 0 || h <= 0) return 0;
-  if (bad_shape(h, kv, n_splits, chunk) || !k_scale || !v_scale)
+  if (bad_shape(h, kv, n_splits, chunk) || !k_scale || !v_scale ||
+      (dtype == REPRO_F32 && !max_part))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc = 0;
@@ -1603,7 +1764,7 @@ extern "C" int repro_flash_decode_int8(
       rc = launch_fd<T, T, false, true>(q, k, v, k_scale, v_scale, length,
                                         m_part, l_part, acc_part, out, bsz,
                                         s, h, kv, dh, n_splits, chunk,
-                                        LoraArgs<T, T>{}, st));
+                                        LoraArgs<T, T>{}, st, max_part));
   return rc;
 }
 

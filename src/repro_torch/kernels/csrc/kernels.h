@@ -47,13 +47,16 @@ int repro_flash_decode(const void* q, const void* k, const void* v,
 // repro_flash_decode over an int8 cache: k, v (bsz, s, kv, dh) int8, 16-byte
 // aligned, with f16 scales k_scale, v_scale (bsz, s, kv); the scores are
 // scaled by k_scale and P, times v_scale, rounded to bf16 before it
-// multiplies V.  q (bsz, h, dh) and out in `dtype` (f32 or bf16).
+// multiplies V.  q (bsz, h, dh) and out in `dtype` (f32 or bf16).  For q
+// in f32, max_part (bsz, h, n_splits) f32 is the scratch of a pre-pass
+// that finds the row's largest score, against which P is rounded (as the
+// JAX package rounds it); NULL for bf16 q.
 int repro_flash_decode_int8(const void* q, const void* k, const void* v,
                             const void* k_scale, const void* v_scale,
                             const void* length, void* m_part, void* l_part,
-                            void* acc_part, void* out, int bsz, int s, int h,
-                            int kv, int dh, int n_splits, int chunk,
-                            int dtype, void* stream);
+                            void* acc_part, void* max_part, void* out,
+                            int bsz, int s, int h, int kv, int dh,
+                            int n_splits, int chunk, int dtype, void* stream);
 
 // repro_flash_decode plus scale * x @ a[idx] @ b[idx] (reshaped (h, dh))
 // added in f32 before the cast; idx[i] outside [0, n) adds nothing.

@@ -65,7 +65,8 @@ def _attention_f32(q, k, v, length):
     return out.reshape(bsz, h, d)
 
 
-def flash_decode_int8_plain(q, k, v, length, k_scale, v_scale):
+def flash_decode_int8_plain(q, k, v, length, k_scale, v_scale,
+                            exact_dot: bool = False):
     """The int8 mode's function in plain PyTorch, step by step the JAX
     package's quantized decode (``decode_attention_sharded`` at one shard,
     attention.py:285-310): s = (q . k) in f32 / sqrt(D), times k_scale;
@@ -73,23 +74,47 @@ def flash_decode_int8_plain(q, k, v, length, k_scale, v_scale):
     max; P times v_scale rounded to bf16 against V; the sum of the f32 P
     divides.  A length of 0 gives 0, as ``flash_decode_plain``.
 
+    With ``exact_dot`` q . k is rounded to f32 once, from an f64 sum in
+    which each product of q's f32 value and an int8 value is exact: the
+    one f32 dot no order of summation changes, which the kernel computes
+    with q in f32 (so a term P * v_scale rounds to the same bf16 value on
+    both sides).  Without it the f32 sum's order is the einsum's, as in
+    the JAX package, where the order is XLA's.
+
     q: (B, H, D) in bf16 or f32; k/v: (B, S, KV, D) int8; k_scale/v_scale:
     (B, S, KV) f16; length: scalar or (B,) -> (B, H, D) in q's dtype.
     """
     bsz, h, d = q.shape
-    s, kv = k.shape[1], k.shape[2]
-    qs = q.reshape(bsz, kv, h // kv, d).float()
-    sc = torch.einsum("bkgd,bskd->bkgs", qs, k.float()) * (1.0 / math.sqrt(d))
-    sc = sc * k_scale.float().permute(0, 2, 1)[:, :, None]
-    mask = (torch.arange(s, device=q.device)[None, :]
-            < _lengths(length, bsz, q.device)[:, None])[:, None, None, :]
-    sc = torch.where(mask, sc, torch.full_like(sc, -1e30))
-    p = torch.where(mask, torch.exp(sc - sc.amax(-1, keepdim=True)),
-                    torch.zeros_like(sc))
-    pv = (p * v_scale.float().permute(0, 2, 1)[:, :, None]).to(torch.bfloat16)
+    p = _int8_softmax(q, k, length, k_scale, exact_dot)
+    pv = (p * _per_head(v_scale)).to(torch.bfloat16)
     out = torch.einsum("bkgs,bskd->bkgd", pv.float(), v.float())
     out = out / p.sum(-1, keepdim=True).clamp(min=1e-20)
     return out.reshape(bsz, h, d).to(q.dtype)
+
+
+def _per_head(scale):
+    """(B, S, KV) scales as (B, KV, 1, S), beside (B, KV, G, S) scores."""
+    return scale.float().permute(0, 2, 1)[:, :, None]
+
+
+def _int8_softmax(q, k, length, k_scale, exact_dot=False):
+    """The int8 mode's unnormalised f32 softmax (B, KV, G, S): s = (q . k)
+    / sqrt(D) times k_scale over the first min(length, S) positions (q . k
+    summed as ``flash_decode_int8_plain`` says), P = exp(s - max s), the
+    max over the row (the amax is the kernel's pre-pass for q in f32), 0
+    past the length."""
+    bsz, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    wide = torch.float64 if exact_dot else torch.float32
+    qs = q.reshape(bsz, kv, h // kv, d).to(wide)
+    sc = torch.einsum("bkgd,bskd->bkgs", qs, k.to(wide)).float() \
+        * (1.0 / math.sqrt(d))
+    sc = sc * _per_head(k_scale)
+    mask = (torch.arange(s, device=q.device)[None, :]
+            < _lengths(length, bsz, q.device)[:, None])[:, None, None, :]
+    sc = torch.where(mask, sc, torch.full_like(sc, -1e30))
+    return torch.where(mask, torch.exp(sc - sc.amax(-1, keepdim=True)),
+                       torch.zeros_like(sc))
 
 
 def _check_expand(q, b):
@@ -243,8 +268,11 @@ def flash_decode(q, k, v, length, k_scale=None, v_scale=None):
     Query head h attends KV head h // (H/KV) over positions < length;
     D is any of 1..256.  With ``k_scale``/``v_scale`` (B, S, KV) f16, k and
     v are int8 (``attention.quantize_kv``) and the kernel's int8 mode reads
-    them as they are (plain version: ``flash_decode_int8_plain``); both
-    launches count here.
+    them as they are (plain version: ``flash_decode_int8_plain``; with q
+    in f32 a pre-pass finds the row's largest score first, so that P is
+    rounded as the JAX package rounds it, and q . k is the exact dot's f32
+    value, the plain version's with ``exact_dot``); both launches count
+    here.
     """
     if (k_scale is None) != (v_scale is None):
         raise ValueError("flash_decode: give both scales or neither")
@@ -256,11 +284,16 @@ def flash_decode(q, k, v, length, k_scale=None, v_scale=None):
         q, k, v, length, k_scale, v_scale)
     stream = build.stream_handle(q.device)
     if k_scale is not None:
+        # q in f32: the pre-pass's largest score of each split, against
+        # whose maximum P * v_scale is rounded (the JAX arithmetic)
+        max_part = torch.empty_like(m_part) if q.dtype == torch.float32 \
+            else None
         build.kernels().flash_decode_int8(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), lengths.data_ptr(), m_part.data_ptr(),
-            l_part.data_ptr(), acc_part.data_ptr(), out.data_ptr(), *dims,
-            build.dtype_code(q.dtype), stream)
+            l_part.data_ptr(), acc_part.data_ptr(),
+            0 if max_part is None else max_part.data_ptr(), out.data_ptr(),
+            *dims, build.dtype_code(q.dtype), stream)
     else:
         build.kernels().flash_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),

@@ -17,7 +17,7 @@ SGMV at T around its 64-token tile, 32 skewed adapters, unaligned views and
 its sort kernel bit for bit, the fused decode step at shrink clusters of 1 to 8 blocks
 and adapter id -1, flash-decode's int8 mode at every head dim, at the
 tile's edges, on one KV head's scales and with NaN scales past a row's
-length), and check
+length, with q in f32 at f32's tolerance), and check
 that the wrappers and the binding reject what the kernels do not take.
 They also hold the serving executor's captured step (a CUDA graph) bitwise
 equal to the eager step over 20 steps that cross the cache's end (and for
@@ -379,15 +379,35 @@ def _int8_cache(gen, bsz, s, kv, d):
 
 
 def _close_int8(q, k, v, lengths, ks, vs, per_row=True):
-    """The int8 mode against flash_decode_int8_plain at bf16's tolerance
-    whatever q's dtype: the kernel rounds P times v_scale to bf16 against
-    each split's running max, the plain version (the JAX arithmetic)
-    against the row's global max.  Returns the kernel's output."""
+    """The int8 mode against flash_decode_int8_plain at the tolerance of
+    q's dtype; returns the kernel's output.
+
+    q in bf16 (the serving path) is held at bf16's tolerance: the kernel
+    rounds P times v_scale to bf16 against each split's running max, the
+    plain version (the JAX arithmetic) against the row's global max.  q in
+    f32 is held at f32's 2e-5 against the plain version with
+    ``exact_dot``: the kernel's pre-pass gives it the row's max and both
+    take q . k's exact f32 value, so both round each P times v_scale to
+    the same bf16 value.  Against the plain version as the JAX package
+    sums q . k (f32, in the einsum's order) a term within that order's
+    rounding of a bf16 rounding boundary rounds the other way; there the
+    kernel is held at 2e-5 plus the plain version's own departure between
+    the two sums, which is those terms' flips."""
     got = flash_decode.flash_decode(q, k, v, lengths, ks, vs)
     want = flash_decode.flash_decode_int8_plain(q, k, v, lengths, ks, vs)
-    _close(got, want, torch.bfloat16)
+    if q.dtype == torch.bfloat16:
+        _close(got, want, q.dtype)
+        if per_row:
+            _close_rows(got, want, q.dtype)
+        return got
+    exact = flash_decode.flash_decode_int8_plain(q, k, v, lengths, ks, vs,
+                                                 exact_dot=True)
+    _close(got, exact, q.dtype)
     if per_row:
-        _close_rows(got, want, torch.bfloat16)
+        _close_rows(got, exact, q.dtype)
+    flips = (exact - want).abs()
+    tol = TOL[torch.float32]
+    assert bool(((got - want).abs() <= tol + tol * want.abs() + flips).all())
     return got
 
 
@@ -444,7 +464,8 @@ def test_flash_decode_int8_any_head_dim(gen, g, d, dtype):
     # a row of fewer than 8 values (D 1 and 7) can have as its largest a
     # sum that cancels, against which bf16 q's rounding (each split's
     # max) is not small: those rows are held elementwise only
-    got = _close_int8(q, k, v, lengths, ks, vs, per_row=d >= 8)
+    got = _close_int8(q, k, v, lengths, ks, vs,
+                      per_row=d >= 8 or dtype == torch.float32)
     assert not got[0].any()
 
 
@@ -543,13 +564,14 @@ def test_flash_decode_int8_wrapper_rejects_what_the_kernel_does_not_take(gen):
 def test_binding_raises_on_a_rejected_int8_launch(gen):
     # head dim 257 has no instance, nor one to pad into: the launcher
     # refuses it and the binding raises rather than return an unwritten
-    # output
+    # output; so it does for q in f32 without the pre-pass's scratch
     x = _normal(gen, 4, 8)
-    with pytest.raises(RuntimeError, match="flash_decode_int8: launcher "
-                                           "rejected"):
-        build.kernels().flash_decode_int8(
-            0, 0, 0, 16, 16, 0, 0, 0, 0, 0, 2, 64, 4, 2, 257, 1, 64, 1,
-            build.stream_handle(x.device))
+    for dh, dtype in ((257, 1), (64, 0)):
+        with pytest.raises(RuntimeError, match="flash_decode_int8: launcher "
+                                               "rejected"):
+            build.kernels().flash_decode_int8(
+                0, 0, 0, 16, 16, 0, 0, 0, 0, 0, 0, 2, 64, 4, 2, dh, 1, 64,
+                dtype, build.stream_handle(x.device))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

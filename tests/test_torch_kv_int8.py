@@ -144,6 +144,38 @@ def test_int8_any_head_dim_matches_jax_quantized_branch(d):
     assert _rel(got.numpy(), out) < 2e-5
 
 
+@pytest.mark.parametrize("d", [32, 96, 128])
+def test_int8_exact_dot_departs_only_by_rounding_flips(d):
+    # the plain version with exact_dot (q . k's exact f32 value: the
+    # kernel's arithmetic with q in f32) against its einsum-order sum (the
+    # JAX package's arithmetic): the two f32 sums differ by a rounding or
+    # so, and each P * v_scale rounds to the same bf16 value on both
+    # sides but for the few within that of a bf16 rounding boundary; with
+    # those terms taken from the einsum-order side the outputs agree to
+    # 2e-5
+    q, kq, vq, ks, vs, _, _ = _decode_inputs(40 + d, b=4, s=300, h=16, kv=2,
+                                             d=d)
+    q, k, v, k_scale, v_scale = (torch.from_numpy(a)
+                                 for a in (q, kq, vq, ks, vs))
+    length = torch.tensor([1, 77, 300, 250], dtype=torch.int32)
+    terms = []
+    for exact in (False, True):
+        p = flash_decode._int8_softmax(q, k, length, k_scale, exact)
+        f32 = p * flash_decode._per_head(v_scale)
+        terms.append((p, f32, f32.to(torch.bfloat16)))
+    (p, f32, bf), (p_x, f32_x, bf_x) = terms
+    torch.testing.assert_close(f32_x, f32, rtol=1e-5, atol=0)
+    flipped = bf_x != bf
+    assert int(flipped.sum()) < 1e-3 * flipped.numel()
+    mixed = torch.where(flipped, bf, bf_x)
+    out = torch.einsum("bkgs,bskd->bkgd", mixed.float(), v.float()) \
+        / p_x.sum(-1, keepdim=True)
+    want = flash_decode.flash_decode_int8_plain(q, k, v, length, k_scale,
+                                                v_scale)
+    torch.testing.assert_close(out.reshape(want.shape), want, rtol=2e-5,
+                               atol=2e-5)
+
+
 def test_int8_plain_ragged_lengths_match_jax_rows():
     # per-row lengths (the JAX branch takes one pos for the batch, so each
     # row is held against its own call): 0 gives 0, as the kernel does
