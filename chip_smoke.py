@@ -147,8 +147,12 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    the port's Digital Twin sweeps placements (``find_optimal_placement``,
    32 adapters of ranks 8/16/32 at 3.2 req/s each, dataset small, 60 s
    horizon) with the analytic step-time fit of the synthetic H100 profile
-   and with the measured surface; both (N*, G*) are printed.  The measured
-   surface times one layer's launch, not a model step.
+   and with the measured surface, each on the sweep's default twin
+   (``FastTwin``), and the measured sweep once more on the object-mode
+   ``DigitalTwin`` (``fast=False``), which must give the same (N*, G*),
+   throughput and curve; each sweep's (N*, G*), twin runs and wall are
+   printed.  The measured surface times one layer's launch, not a model
+   step.
 
 Launch counts are zeroed just before each path a user drives (teacher
 forcing through ``Model.prefill``/``decode_step`` in phase 4, for each
@@ -1900,16 +1904,32 @@ def phase_measure(ops):
                          collect_memmax(profile, seed=0), 32, 96)
     pool = make_adapter_pool(PLACEMENT_POOL["n"], PLACEMENT_POOL["ranks"],
                              PLACEMENT_POOL["rates"])
-    for label, surface in (("analytic", None), ("measured", mst)):
+    sweeps = {}
+    for label, surface, fast in (("analytic", None, True),
+                                 ("measured", mst, True),
+                                 ("measured", mst, False)):
+        twin = "FastTwin" if fast else "object-mode DigitalTwin"
         t1 = time.perf_counter()
         res = find_optimal_placement(est, pool, measured_step_times=surface,
-                                     **PLACEMENT_SWEEP)
+                                     fast=fast, **PLACEMENT_SWEEP)
+        wall = time.perf_counter() - t1
         if res.best is None or not res.throughput > 0:
-            raise AssertionError(f"{label} sweep found no placement")
-        say(f"  placement ({label} step times): N* {res.n_adapters}, G* "
-            f"{res.slots}, throughput {res.throughput:.1f} tok/s (ideal "
+            raise AssertionError(f"{label} sweep ({twin}) found no placement")
+        say(f"  placement ({label} step times, {twin}): N* {res.n_adapters}"
+            f", G* {res.slots}, throughput {res.throughput:.1f} tok/s (ideal "
             f"{res.best.ideal:.1f}), {len(res.curve)} twin runs in "
-            f"{time.perf_counter() - t1:.1f} s")
+            f"{wall:.3f} s")
+        sweeps[(label, fast)] = res
+    # the sweep's default twin against the object-mode one: the same
+    # (N*, G*), throughput and curve, exactly
+    fast, legacy = (tuple([(p.n_adapters, p.slots, p.throughput, p.ideal,
+                            p.starved) for p in sweeps[("measured", f)].curve])
+                    for f in (True, False))
+    if fast != legacy:
+        raise AssertionError("the measured sweep's curve differs between "
+                             f"FastTwin and DigitalTwin: {fast} != {legacy}")
+    say("  measured sweep: FastTwin and the object-mode twin give the same "
+        "(N*, G*), throughput and curve")
     say("  note: the measured surface times one layer's fused launch (and "
         "the host's synchronise), not a model step, so the two placements "
         "are not comparable: the measured one shows how small that "

@@ -54,12 +54,9 @@ class DTResult:
 
 
 class DigitalTwin:
-    """The JAX twin with its defaults and no other options: FCFS
-    scheduling, at most 256 running requests, fixed adapter slots and no
-    shared-prefix cache."""
-
     def __init__(self, est: FittedEstimators, mode: str = "full",
-                 measured_step_times=None):
+                 max_running: int = 256, sched_policy: str = "fcfs",
+                 measured_step_times=None, prefix_cache: bool = False):
         assert mode in ("full", "mean")
         # opt-in hook: a MeasuredStepTimes surface (fitted from real
         # kernel launches by repro_torch/bench/kernels_bench.py) replaces
@@ -69,9 +66,14 @@ class DigitalTwin:
             est = est.with_measured(measured_step_times)
         self.est = est
         self.mode = mode
+        self.max_running = max_running
+        self.sched_policy = sched_policy
+        self.prefix_cache = prefix_cache
 
     def simulate(self, spec: WorkloadSpec, slots: int,
-                 requests: Optional[List[Request]] = None) -> DTResult:
+                 requests: Optional[List[Request]] = None,
+                 horizon: Optional[float] = None,
+                 dynamic_slots: bool = False) -> DTResult:
         t0 = time.perf_counter()
         ranks = {a.uid: a.rank for a in spec.adapters}
         mean_rank = (sum(ranks.values()) / len(ranks)) if ranks else 8.0
@@ -88,12 +90,28 @@ class DigitalTwin:
                 n_retries=0, n_timeouts=0, failed_at=None, retry_at=None,
                 disconnected_at=None)
                 for r in requests]
-        cfg = EngineConfig(
-            kv_capacity_tokens=self.est.kv_capacity(slots, mean_rank),
-            adapter_slots=slots)
-        engine = ServingEngine(cfg, EstimatorExecutor(self.est, slots, n,
-                                                      ranks))
-        metrics = engine.run(requests, horizon=spec.horizon)
+        if dynamic_slots:
+            # S-LoRA mode: the whole pool is available; each loaded adapter
+            # is charged its Mem_max-estimated KV-token footprint.
+            per_rank = max(-float(self.est.memmax[1]), 0.0)
+            cfg = EngineConfig(
+                kv_capacity_tokens=self.est.kv_capacity(0, mean_rank),
+                adapter_slots=0, max_running=self.max_running,
+                sched_policy=self.sched_policy, dynamic_slots=True,
+                adapter_kv_tokens={u: max(int(per_rank * r), 1)
+                                   for u, r in ranks.items()},
+                prefix_cache=self.prefix_cache)
+            slots_for_est = n
+        else:
+            cfg = EngineConfig(
+                kv_capacity_tokens=self.est.kv_capacity(slots, mean_rank),
+                adapter_slots=slots, max_running=self.max_running,
+                sched_policy=self.sched_policy,
+                prefix_cache=self.prefix_cache)
+            slots_for_est = slots
+        engine = ServingEngine(cfg, EstimatorExecutor(
+            self.est, slots_for_est, n, ranks))
+        metrics = engine.run(requests, horizon=horizon or spec.horizon)
         return DTResult(metrics=metrics,
                         sim_wall_time=time.perf_counter() - t0,
                         mode=self.mode)

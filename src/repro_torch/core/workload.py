@@ -1,8 +1,9 @@
 """Workload generation: multi-adapter request streams (paper §IV-A Setup).
 
 The port's copy of the part of ``repro.core.workload`` that the serve
-launcher and the Digital Twin's *mean* mode need; the functions are
-verbatim.  Each adapter has an independent
+launcher, the Digital Twins and their tests need; the functions are
+verbatim.  The open-loop arrivals and the trace functions (the
+gateway's inputs) are not ported yet.  Each adapter has an independent
 Poisson arrival process; request lengths come from the paper's datasets: the
 three synthetic single-length profiles (SmallRequest 23/27, MediumRequest
 250/231, LargeRequest 423/358 — P25 / mean / P75 of cleaned ShareGPT) or a
@@ -97,6 +98,23 @@ def assign_shared_prefixes(reqs: List[Request], share: float,
     return reqs
 
 
+def expected_prefix_hit_rate(spec: WorkloadSpec) -> float:
+    """Analytic prefix-cache hit-rate estimate from workload statistics
+    (the twin-side model and the placement features consume this): per
+    tenant, every carrier after the first is an expected hit, so the
+    expected hit count is ``max(rate * horizon * share - 1, 0)``,
+    normalized by total offered requests.  Ignores capacity evictions —
+    an upper bound that tightens as slot pressure falls."""
+    if spec.prefix_share <= 0 or spec.prefix_len <= 0:
+        return 0.0
+    total = sum(a.rate * spec.horizon for a in spec.adapters if a.rate > 0)
+    if total <= 0:
+        return 0.0
+    hits = sum(max(a.rate * spec.horizon * spec.prefix_share - 1.0, 0.0)
+               for a in spec.adapters if a.rate > 0)
+    return hits / total
+
+
 def generate_requests(spec: WorkloadSpec) -> List[Request]:
     rng = np.random.default_rng(spec.seed)
     reqs: List[Request] = []
@@ -168,3 +186,72 @@ def make_adapter_pool(n: int, ranks: Sequence[int], rates: Sequence[float],
     return [Adapter(uid=i, rank=ranks[i % len(ranks)],
                     rate=rates[i % len(rates)], location=location)
             for i in range(n)]
+
+
+# --------------------------------------------------------------------------- #
+# drifting adapter popularity (the rebalancing workload)
+# --------------------------------------------------------------------------- #
+
+@dataclasses.dataclass
+class DriftPhase:
+    """Piecewise-constant adapter rates on [start, <next phase start>)."""
+    start: float
+    rates: Dict[int, float]              # adapter uid -> req/s
+
+
+def rotating_hot_phases(pool: Sequence[Adapter], horizon: float,
+                        n_phases: int = 3, hot_fraction: float = 0.25,
+                        hot_rate: float = 0.5,
+                        cold_rate: float = 0.02) -> List[DriftPhase]:
+    """The drifting-popularity scenario: in each phase a different
+    contiguous slice of the pool is 'hot' (skewed traffic), everything
+    else trickles.  Phase k's hot set is disjoint from phase k+1's, so
+    residency earned in one phase is exactly wrong for the next — the
+    workload static routing degrades on and a rebalancer fixes."""
+    if n_phases < 1:
+        raise ValueError("need at least one phase")
+    uids = [a.uid for a in pool]
+    hot_n = max(int(len(uids) * hot_fraction), 1)
+    phases: List[DriftPhase] = []
+    for k in range(n_phases):
+        start = horizon * k / n_phases
+        hot = {uids[(k * hot_n + j) % len(uids)] for j in range(hot_n)}
+        phases.append(DriftPhase(
+            start=start,
+            rates={u: (hot_rate if u in hot else cold_rate)
+                   for u in uids}))
+    return phases
+
+
+def generate_drifting_requests(pool: Sequence[Adapter], dataset: str,
+                               horizon: float, phases: Sequence[DriftPhase],
+                               seed: int = 0, prefix_share: float = 0.0,
+                               prefix_len: int = 0) -> List[Request]:
+    """Poisson arrivals with piecewise-constant per-adapter rates."""
+    rng = np.random.default_rng(seed)
+    phases = sorted(phases, key=lambda p: p.start)
+    reqs: List[Request] = []
+    uid = 0
+    for i, ph in enumerate(phases):
+        end = phases[i + 1].start if i + 1 < len(phases) else horizon
+        for ad in pool:
+            rate = ph.rates.get(ad.uid, ad.rate)
+            if rate <= 0:
+                continue
+            t = ph.start
+            arrivals = []
+            while True:
+                t += rng.exponential(1.0 / rate)
+                if t >= end:
+                    break
+                arrivals.append(t)
+            ins, outs = _sample_lengths(dataset, len(arrivals), rng)
+            for a, in_len, out_len in zip(arrivals, ins, outs):
+                reqs.append(Request(uid=uid, adapter=ad.uid, arrival=a,
+                                    prompt_len=int(in_len),
+                                    output_len=max(int(out_len), 1)))
+                uid += 1
+    reqs.sort(key=lambda r: (r.arrival, r.uid))
+    for i, r in enumerate(reqs):
+        r.uid = i
+    return assign_shared_prefixes(reqs, prefix_share, prefix_len, seed=seed)

@@ -146,8 +146,8 @@ def test_measured_none_is_bitwise_the_plain_twin(twin_mode):
 
 @pytest.mark.parametrize("measured", [False, True])
 def test_placement_sweep_matches_jax(measured):
-    # the port sweeps the object-mode twin; the JAX package's FastTwin
-    # (its default) and object-mode twin both give the same labels
+    # the port's default sweep (on its FastTwin) against the JAX package's
+    # FastTwin (its default) and object-mode twin: the same labels
     (_, _, p_est), (_, _, j_est) = _fits()
     p_ms, j_ms = _surfaces() if measured else (None, None)
     kw = dict(dataset="small", horizon=30.0, seed=2)
