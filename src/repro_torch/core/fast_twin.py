@@ -40,7 +40,12 @@ The port's verbatim copy of ``repro.core.fast_twin``, on the port's copies
 of the engine, the scheduling policies and the shared-prefix cache
 (``tests/test_torch_fast_twin.py`` holds it to the JAX package's
 ``FastTwin`` and to the port's ``DigitalTwin``).  The cluster twin that
-drives ``FastEngine`` replica by replica is not ported yet.
+drives ``FastEngine`` replica by replica is not ported yet.  One line
+differs from the JAX copy: a step's cold-load latencies are summed by
+``sum()``, as the object-mode twin sums them, not by a running ``+=``.
+From Python 3.12 ``sum()`` of floats is compensated, so the running sum
+can differ from it in the last bit once three or more adapters load in
+one step, and the clock, the throughput and the ideal throughput with it.
 """
 from __future__ import annotations
 
@@ -589,7 +594,7 @@ class FastEngine:
         # ordering can admit anything, so the whole scan (and the
         # policy's sort) is skipped.
         pf = 0
-        load_lat = 0.0
+        loads: Optional[List[float]] = None
         waiting = self.waiting
         loaded = cache.loaded
         pinned = cache.pinned
@@ -671,7 +676,9 @@ class FastEngine:
                     if stop:
                         break
                 if cache.load(a, now):               # cold load
-                    load_lat += self._times.load(a)
+                    if loads is None:
+                        loads = []
+                    loads.append(self._times.load(a))
                 cache.pin(a)
                 if pfx_active:
                     pc.commit(i, pid, covered, want_insert)
@@ -706,8 +713,11 @@ class FastEngine:
         loaded = cache.loaded
         for a in cache.pinned:
             loaded[a] = now
+        # summed by sum(), as FittedEstimators.lat_step sums a step's cold
+        # loads: from Python 3.12 sum() of floats is compensated, and a
+        # running += can differ from it in the last bit
         return (self._n_run, len(self.waiting), pf, len(cache.pinned),
-                load_lat)
+                sum(loads) if loads else 0.0)
 
     # ------------------------------------------------------------------ #
     def _finish_step(self, t: float) -> None:

@@ -12,6 +12,12 @@ telescopes the per-token gaps that the object-mode twin averages).  The
 cases are the single-node ones of ``tests/test_fast_twin.py:61-156``, the
 shared-prefix cache (``tests/test_prefix_cache.py:205``), a capped running
 set (``tests/test_sched_policy.py:220``) and S-LoRA's dynamic slots.
+
+One case, ``cold_loads_summed``, is held to the JAX object-mode twin and
+not to the JAX ``FastTwin``: there a step's cold-load latencies summed by
+a running ``+=`` (the JAX copy) and by ``sum()`` (the object-mode twin;
+compensated from Python 3.12) part in the last bit, and the clock keeps
+the difference.  The port's ``FastTwin`` sums them by ``sum()``.
 """
 import numpy as np
 import pytest
@@ -100,6 +106,20 @@ def _case(c, name):
         spec, slots = c.WorkloadSpec(pool, "medium", 60.0, 3), 3
         twin = {"mode": "full", "max_running": 32,
                 "sched_policy": "adapter-fair"}
+    elif name == "cold_loads_summed":
+        # phase 7's sweep point N 16, G 4 on a measured surface whose
+        # decode steps are short beside adapter loads: a step there loads
+        # ranks 16, 8 and 32 at once, and the two ways of summing their
+        # latencies give clocks one ulp apart
+        est = _fits()[0 if c is core else 1][2]
+        surface = c.MeasuredStepTimes(
+            decode=np.array([1.912891307763394e-05, 1.9741365231431525e-08,
+                             5.439981304035021e-11, 4.4059121499748525e-11]),
+            prefill_per_token=7.729256326094218e-10,
+            adapters=np.array([1.0, 3.637038490501321e-05]))
+        pool = c.make_adapter_pool(16, [8, 16, 32], [3.2])
+        spec, slots = c.WorkloadSpec(pool, "small", 60.0, 0), 4
+        twin = {"mode": "mean", "measured_step_times": surface}
     elif name == "dynamic_slots":
         pool = c.make_adapter_pool(16, [8, 16, 32], [0.3, 0.1])
         spec, slots = c.WorkloadSpec(pool, "sharegpt", 60.0, 4), 0
@@ -136,7 +156,7 @@ def test_fast_twin_matches_jax_fast_twin(name):
     _equal(port, ref, rel=1e-9)
 
 
-@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("name", CASES + ["cold_loads_summed"])
 def test_fast_twin_matches_port_digital_twin(name):
     fast, legacy = _run(core, "FastTwin", name), _run(core, "DigitalTwin",
                                                       name)
@@ -160,6 +180,17 @@ def test_digital_twin_matches_jax(name):
                                                       name)
     assert ref.n_finished > 0
     _equal(port, ref)
+
+
+def test_fast_twin_sums_cold_loads_as_the_object_twin():
+    # the port's FastTwin equals the JAX object-mode twin where the JAX
+    # FastTwin's running sum of cold-load latencies parts from it (the
+    # case reaches that step: the two JAX twins' clocks differ)
+    port = _run(core, "FastTwin", "cold_loads_summed")
+    ref = _run(jcore, "DigitalTwin", "cold_loads_summed")
+    _equal(port, ref, rel=1e-9)
+    assert _run(jcore, "FastTwin", "cold_loads_summed").duration \
+        != ref.duration
 
 
 def test_full_mode_leaves_the_callers_stream_as_it_was():
@@ -207,6 +238,21 @@ def test_placement_fast_matches_object_mode(policy):
     a = core.find_optimal_placement(est, pool, "medium", fast=False, **kw)
     b = core.find_optimal_placement(est, pool, "medium", fast=True, **kw)
     assert len(b.curve) >= 2 * len(kw["n_grid"])
+    assert _point_key(a) == _point_key(b)
+
+
+def test_placement_fast_matches_object_mode_on_a_measured_surface():
+    # chip_smoke.py phase 7's measured sweep, cut to N 16: the slots that
+    # N 16 sweeps include G 4, where a step's cold loads sum in the last
+    # bit by the summation order
+    est, twin, spec, _, _, _ = _case(core, "cold_loads_summed")
+    kw = dict(horizon=spec.horizon, seed=spec.seed, n_grid=[16],
+              measured_step_times=twin["measured_step_times"])
+    a = core.find_optimal_placement(est, spec.adapters, spec.dataset,
+                                    fast=False, **kw)
+    b = core.find_optimal_placement(est, spec.adapters, spec.dataset,
+                                    fast=True, **kw)
+    assert (16, 4) in [(p.n_adapters, p.slots) for p in b.curve]
     assert _point_key(a) == _point_key(b)
 
 
