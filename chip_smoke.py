@@ -52,8 +52,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    mode with q in bf16 and f32, at the tolerance of q's dtype; at head dim
    8 it runs padded on its 16 instance); and flash-decode, the fused kernel
    and the int8 mode at every head dim 1..256 (``check_head_dims``: one
-   without an instance runs the next larger one, padded), 1, 4 or 16
-   query heads a KV head by turns, q in bf16 and f32, per row;
+   without an instance runs the next larger one, padded) and at head dims
+   257, 320, 384, 512, 576 and 1024 (``WIDE_DIMS``, the wide path), 1, 4
+   or 16 query heads a KV head by turns, q in bf16 and f32, per row;
 4. teacher forcing at phi4-mini's published widths, f32, 4 layers:
    decode after ``prefill(tokens[:, :-1])`` must match ``prefill(tokens)``
    to a relative error below 2e-4; then the same for each of the five
@@ -141,6 +142,8 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    (``s32768_*``), and its int8 mode's row (``flash_decode_int8``) at the
    serving shape and over LONG_S positions, beside SDPA over the bf16 cache
    of the same shape (no PyTorch call takes an int8 cache with scales);
+   flash-decode on the wide path (``d512_*``: B 8, S 512, 16 heads of 512
+   on 4 KV heads), beside its bound and SDPA, whose backend is printed;
 7. the measurement path: ``repro_torch.bench.kernels_bench`` times the
    fused kernel (and SGMV for prefill) over its (batch, seq, rank) grid at
    phi4-mini-3.8b's published widths, fits a ``MeasuredStepTimes``, and
@@ -152,7 +155,18 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    ``DigitalTwin`` (``fast=False``), which must give the same (N*, G*),
    throughput and curve; each sweep's (N*, G*), twin runs and wall are
    printed.  The measured surface times one layer's launch, not a model
-   step.
+   step.  Phase 7b runs the paper's creation phase on the card's host with
+   W = min(8, CPUs) sweep workers: ``build_pipeline`` at its defaults (40
+   scenarios, 96 adapters, 150 s horizon, the forest, the synthetic H100
+   profile), the same scenarios labelled on phase 7's measured surface
+   (``est.with_measured(mst)``, through ``SweepRunner`` with W - 1
+   workers; cut to the rounds that fit its 120 s budget, the cut printed)
+   and a forest fitted on the first 80 %; each pipeline's held-out sMAPE
+   and ``recommend`` on phase 7's pool beside phase 7's (N*, G*); the
+   first 4 scenarios labelled serially (in a thread, beside the rest),
+   equal to the runner's labels.  It fails on a
+   non-finite feature or label, N* or G* below 1, or an inference of 50
+   ms or more.
 
 Launch counts are zeroed just before each path a user drives (teacher
 forcing through ``Model.prefill``/``decode_step`` in phase 4, for each
@@ -176,6 +190,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -271,6 +286,10 @@ HYBRID_ARCH = "recurrentgemma-9b"
 # a head dim without an instance (H, KV, D), timed in phase 6 at B 8 over
 # CACHE positions: 96, a public head dim, on the 128 instance, padded
 PADDED_SHAPE = (32, 32, 96)
+# head dims past 256 (the wide path), held in phase 3 in every mode; phase
+# 6 times one (H, KV, D) of them at B 8 over CACHE positions
+WIDE_DIMS = (257, 320, 384, 512, 576, 1024)
+WIDE_SHAPE = (16, 4, 512)
 HEAD_GROUP_SHAPES = (("recurrentgemma-9b", 16, 1, 256, CACHE),
                      ("recurrentgemma-9b window", 16, 1, 256, 2048),
                      ("G 12", 24, 2, 128, CACHE), ("D 8", 8, 2, 8, CACHE))
@@ -590,7 +609,8 @@ def check_head_groups(errs):
 
 def check_head_dims(errs):
     """Flash-decode, the fused kernel and the int8 mode at every head dim
-    1..256 (one without an instance runs the next larger one, padded): B
+    1..256 (one without an instance runs the next larger one, padded) and
+    at WIDE_DIMS (past 256: the wide path): B
     4, S 300, 2 KV heads and 1, 4 or 16 query heads a KV head by turns
     (16: two head groups), lengths 0, 1, one past a tile and S; q, K and V
     in bf16 and f32, the int8 mode with q in bf16 and f32 on
@@ -598,16 +618,17 @@ def check_head_dims(errs):
     dtype (the int8 mode with q in f32 against the plain version with
     exact q . k, as ``check_int8``; with q in bf16 below D 8 elementwise
     only), the fused kernel with ids with -1, bitwise flash-decode on its
-    base rows.  One line per kernel and dtype: the dims held and the
-    largest departure, with its dim; a departure past the tolerance
-    raises."""
+    base rows.  One line per kernel, dtype and path (instances, wide): the
+    dims held and the largest departure, with its dim; a departure past
+    the tolerance raises."""
     from repro_torch.kernels import flash_decode
     inp = Inputs(seed=10)
     fd, fused = flash_decode.flash_decode, flash_decode.flash_decode_lora
     bsz, kv, s, dx = 4, 2, 300, 64
     ids = torch.tensor([0, -1, 1, 2], dtype=torch.int32, device="cuda")
     worst = {}
-    for d in range(1, flash_decode.MAX_HEAD_DIM + 1):
+    for d in list(range(1, flash_decode.MAX_INSTANCE_DIM + 1)) + \
+            list(WIDE_DIMS):
         h = kv * (1, 4, 16)[d % 3]
         cases = []
         for dtype in (torch.bfloat16, torch.float32):
@@ -653,19 +674,23 @@ def check_head_dims(errs):
                     f"{name} at D {d}, H {h}, KV {kv} [{dn}] disagrees with "
                     f"its plain version: max_abs_err={err}, row-relative "
                     f"{rel}")
-            w = worst.setdefault((name, dn), [0.0, 0, 0.0])
+            w = worst.setdefault((name, dn, flash_decode.is_wide(d)),
+                                 [0.0, 0, 0.0])
             if err >= w[0]:
                 w[:2] = err, d
             w[2] = max(w[2], rel)
             errs[name] = max(errs.get(name, 0.0), err)
             if name == "flash_decode_int8" and dn == "float32":
                 errs["f32q_int8"] = max(errs.get("f32q_int8", 0.0), err)
-    for (name, dn), (err, d, rel) in worst.items():
+    for (name, dn, wide), (err, d, rel) in worst.items():
         exact = (" (vs the plain version with exact q.k)"
                  if name == "flash_decode_int8" and dn == "float32" else "")
-        say(f"  {name} every head dim 1..{flash_decode.MAX_HEAD_DIM} [{dn}]"
-            f"{exact} max_abs_err={err:.3e} (at D {d}), row-relative "
-            f"{rel:.3e} (tol={TOL[dn]}, row {ROW_TOL[dn]}) -> ok")
+        dims = (f"head dims {', '.join(map(str, WIDE_DIMS))} (wide path)"
+                if wide else
+                f"every head dim 1..{flash_decode.MAX_INSTANCE_DIM}")
+        say(f"  {name} {dims} [{dn}]{exact} max_abs_err={err:.3e} (at D "
+            f"{d}), row-relative {rel:.3e} (tol={TOL[dn]}, row "
+            f"{ROW_TOL[dn]}) -> ok")
     torch.cuda.empty_cache()
 
 
@@ -1052,6 +1077,7 @@ FD_INT8_KERNELS = ("fd_split_int8_kernel", "fd_combine_kernel")  # int8 mode
 FD_INT8_F32_KERNELS = ("fd_int8_max_kernel", "fd_split_int8_any_kernel",
                        "fd_combine_kernel")
 FD_PAD_KERNELS = ("fd_split_pad_kernel", "fd_combine_kernel")  # padded D
+FD_WIDE_KERNELS = ("fd_split_wide_kernel", "fd_combine_kernel")  # D > 256
 FUSED_KERNELS = FD_KERNELS + ("fd_lora_shrink_kernel",)  # the fused three
 SGMV_KERNELS = ("sgmv_segments_kernel", "sgmv_kernel")  # SGMV's sort, product
 GEMM_WORDS = ("gemm", "nvjet", "cutlass", "xmma")  # cuBLAS kernel names
@@ -1642,6 +1668,7 @@ def phase_timing():
         del g_sets
     rows["flash_decode"].update(hybrid_fd_times(fd_sets, sdpa))
     rows["flash_decode"].update(padded_fd_times(fd_sets, sdpa))
+    rows["flash_decode"].update(wide_fd_times(fd_sets, sdpa))
 
     for r in rows.values():
         r["floor_ms"] = floor
@@ -1700,6 +1727,59 @@ def padded_fd_times(fd_sets, sdpa):
     _, sets, b_ms, _, _, _ = fd_sets(h, kv, 128)
     out.update(d96_as_d128_ms=graph_ms(fd, sets), d96_as_d128_bound_ms=b_ms)
     del sets
+    torch.cuda.empty_cache()
+    return out
+
+
+def sdpa_backend(fn, args):
+    """The backend PyTorch picks for the SDPA call ``fn(*args)``, from the
+    device kernels one call launches under the profiler: its name
+    (flash, efficient, cudnn or math) and the kernels' names.  A session
+    that records no device kernel (as ``profiled_ms`` sees at times) is
+    made once more; after two, the backend is "not identified"."""
+    fn(*args)
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA})
+        if names:
+            break
+    else:
+        return "not identified", []
+    low = " ".join(names).lower()
+    for backend, words in (("flash", ("flash",)),
+                           ("efficient", ("fmha", "efficient", "cutlassf")),
+                           ("cudnn", ("cudnn",))):
+        if any(w in low for w in words):
+            return backend, names
+    return "math", names
+
+
+def wide_fd_times(fd_sets, sdpa):
+    """Flash-decode on the wide path (``WIDE_SHAPE``: B 8, S 512, 16 heads
+    of 512 on 4 KV heads; no config of the repo has such a D): its time,
+    its plain version's, its bound, SDPA's (on head-major copies, with the
+    backend PyTorch picks), and its split and combine kernels apart
+    (profiler)."""
+    from repro_torch.kernels import flash_decode
+    fd = flash_decode.flash_decode
+    h, kv, d = WIDE_SHAPE
+    _, sets, b_ms, _, _, lib = fd_sets(h, kv, d)
+    split = profiled_ms(fd, sets, FD_WIDE_KERNELS)
+    backend, names = sdpa_backend(sdpa, lib[0])
+    say(f"  SDPA at D {d}: the {backend} backend ({', '.join(names)[:300]})")
+    out = {"d512_ms": graph_ms(fd, sets),
+           "d512_plain_ms": graph_ms(flash_decode.flash_decode_plain, sets),
+           "d512_bound_ms": b_ms, "d512_library_ms": graph_ms(sdpa, lib),
+           "d512_library_backend": backend,
+           "d512_split_ms": split[FD_WIDE_KERNELS[0]],
+           "d512_combine_ms": split[FD_WIDE_KERNELS[1]]}
+    del sets, lib
     torch.cuda.empty_cache()
     return out
 
@@ -1856,7 +1936,8 @@ PLACEMENT_SWEEP = dict(dataset="small", horizon=60.0, seed=0)
 def phase_measure(ops):
     """Kernel launches at full width -> MeasuredStepTimes -> the port's
     twin -> (N*, G*), beside the analytic fit's.  Returns the launch
-    counts of the path."""
+    counts of the path, the analytic estimators, the measured surface and
+    the (N*, G*) of the analytic and the measured sweep (on FastTwin)."""
     from repro_torch.bench import kernels_bench as kb
     from repro_torch.configs import get_config
     from repro_torch.core import (collect_benchmark, collect_memmax,
@@ -1935,7 +2016,145 @@ def phase_measure(ops):
         "are not comparable: the measured one shows how small that "
         "surface is")
     say(f"  phase wall {time.perf_counter() - t0:.1f} s")
-    return counts
+    placements = {label: (sweeps[(label, True)].n_adapters,
+                          sweeps[(label, True)].slots)
+                  for label in ("analytic", "measured")}
+    return counts, est, mst, placements
+
+
+# the creation phase's size (repro.core.pipeline.build_pipeline's defaults)
+# and phase 7b's budget for it
+PIPELINE_SIZE = dict(n_scenarios=40, max_adapters=96, horizon=150.0)
+PIPELINE_BUDGET_S = 120.0
+SERIAL_CHECK = 4        # scenarios labelled serially as well (7b (d))
+
+
+def phase_pipeline(est, mst, placements):
+    """Phase 7b, the paper's creation phase (Fig. 1) on the card's host:
+    (a) ``build_pipeline`` at its defaults (the analytic fit of the
+    synthetic H100 profile), its scenarios labelled by W sweep workers;
+    (b) the same scenarios labelled on phase 7's measured surface
+    (``est.with_measured(mst)``) by W - 1 workers and a forest fitted on
+    the first 80 %; (c) each pipeline's held-out sMAPE and ``recommend``
+    on phase 7's pool beside phase 7's sweeps; (d) the first SERIAL_CHECK
+    scenarios of (b) labelled serially, equal to the runner's labels.
+    (d) is the longest single piece (each scenario's sweep one after
+    another), so it runs in a thread of this process beside (a) and (b),
+    a CPU core left to it.  (b) is labelled in two runner calls, the
+    first W - 1 scenarios, then as many more rounds as the budget
+    leaves, judged from the first call's wall (a scenario's labels do
+    not depend on the call: its seed is its index).  Fails on a
+    non-finite feature or label, an N* or G* below 1, an inference of 50
+    ms or more, or serial labels that differ."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.core import (MODEL_ZOO, PlacementPipeline, SweepRunner,
+                                  TARGET_NAMES, WorkloadSpec, build_pipeline,
+                                  label_scenarios, make_adapter_pool,
+                                  scenario_grid)
+    from repro_torch.serving.metrics import smape_vec
+    t0 = time.perf_counter()
+    workers = min(8, os.cpu_count() or 1)
+    size = PIPELINE_SIZE
+    say(f"  W = {workers} sweep workers; {size['n_scenarios']} scenarios, "
+        f"{size['max_adapters']} adapters, {size['horizon']:.0f} s horizon")
+    measured_est = est.with_measured(mst)
+    scenarios = scenario_grid(limit=size["n_scenarios"], seed=0)
+    label = dict(max_adapters=size["max_adapters"], horizon=size["horizon"])
+
+    def serial():
+        t1 = time.perf_counter()
+        xd, yd, _ = label_scenarios(measured_est, scenarios[:SERIAL_CHECK],
+                                    seed=0, **label)
+        return xd, yd, time.perf_counter() - t1
+
+    with ThreadPoolExecutor(1) as thread:
+        check = thread.submit(serial)          # (d), beside (a) and (b)
+
+        # (a) the JAX package's creation phase, as it runs it
+        t1 = time.perf_counter()
+        analytic = build_pipeline(n_workers=workers)
+        say(f"  (a) build_pipeline (analytic fit, synthetic h100-llama8b "
+            f"profile): {time.perf_counter() - t1:.1f} s")
+
+        # (b) the same scenarios on the measured surface
+        w_b = max(workers - 1, 1)
+        runner = SweepRunner(measured_est, n_workers=w_b)
+        t1 = time.perf_counter()
+        xs, ys, _ = label_scenarios(measured_est, scenarios[:w_b],
+                                    runner=runner, seed=0, **label)
+        first = time.perf_counter() - t1
+        left = PIPELINE_BUDGET_S - (time.perf_counter() - t0)
+        n = min(len(scenarios), w_b * (1 + max(int(left // first), 0)))
+        rest = 0.0
+        if n > w_b:
+            t1 = time.perf_counter()
+            xr, yr, _ = label_scenarios(measured_est, scenarios[w_b:n],
+                                        runner=runner, seed=w_b, **label)
+            xs, ys = np.concatenate([xs, xr]), np.concatenate([ys, yr])
+            rest = time.perf_counter() - t1
+        xd, yd, t_serial = check.result()
+    if n < len(scenarios):
+        say(f"  (b) cut: {n} of {len(scenarios)} scenarios labelled on the "
+            f"measured surface ({w_b} workers; the first {w_b} took "
+            f"{first:.1f} s; budget {PIPELINE_BUDGET_S:.0f} s)")
+    if not (np.all(np.isfinite(xs)) and np.all(np.isfinite(ys))):
+        raise AssertionError("phase 7b: a non-finite feature or label")
+    model = MODEL_ZOO["forest"]()
+    n_train = max(int(0.8 * len(xs)), 1)
+    model.fit(xs[:n_train], ys[:n_train])
+    report = {}
+    if len(xs) > n_train:
+        pred = np.asarray(model.predict(xs[n_train:]))
+        for j, name in enumerate(TARGET_NAMES):
+            report[f"smape_{name}"] = smape_vec(pred[:, j], ys[n_train:, j])
+    measured = PlacementPipeline(est=measured_est, model=model,
+                                 model_name="forest", fit_report=report)
+    at_pool = int(np.sum(ys[:, 1] >= size["max_adapters"]))
+    say(f"  (b) {len(xs)} scenarios labelled on the measured surface in "
+        f"{first + rest:.1f} s ({first:.1f} s the first {w_b}); N* "
+        f"labels {sorted(set(ys[:, 1].astype(int).tolist()))}, G* labels "
+        f"{sorted(set(ys[:, 2].astype(int).tolist()))}; {at_pool} of "
+        f"{len(xs)} at the pool's size ({size['max_adapters']}): the "
+        "surface times one layer's launch, not a model step")
+
+    # (c) each pipeline on phase 7's pool
+    pool = make_adapter_pool(PLACEMENT_POOL["n"], PLACEMENT_POOL["ranks"],
+                             PLACEMENT_POOL["rates"])
+    stats = WorkloadSpec(pool, PLACEMENT_SWEEP["dataset"]).length_stats()
+    rates, ranks = [a.rate for a in pool], [a.rank for a in pool]
+    out = {}
+    for name, pipe in (("analytic", analytic), ("measured", measured)):
+        rec = pipe.recommend(rates, ranks, stats)
+        smape = {k: round(v, 3) for k, v in pipe.fit_report.items()}
+        say(f"  (c) {name} pipeline: held-out sMAPE {smape}; recommend on "
+            f"phase 7's pool: throughput {rec['throughput']:.1f} tok/s, N* "
+            f"{rec['served_adapters']}, G* {rec['adapter_slots']}, "
+            f"inference {rec['inference_ms']:.3f} ms; phase 7's {name} "
+            f"sweep: N* {placements[name][0]}, G* {placements[name][1]}")
+        if not (math.isfinite(rec["throughput"])
+                and all(math.isfinite(v) for v in pipe.fit_report.values())):
+            raise AssertionError(f"phase 7b: {name} pipeline not finite")
+        if rec["served_adapters"] < 1 or rec["adapter_slots"] < 1:
+            raise AssertionError(f"phase 7b: {name} recommends N* or G* < 1")
+        if rec["inference_ms"] >= 50.0:
+            raise AssertionError(f"phase 7b: {name} recommend took "
+                                 f"{rec['inference_ms']} ms")
+        out[name] = rec
+
+    # (d) determinism on the card's host
+    if not (np.array_equal(xd, xs[:SERIAL_CHECK])
+            and np.array_equal(yd, ys[:SERIAL_CHECK])):
+        raise AssertionError("phase 7b: serial labels differ from the "
+                             f"runner's: {yd.tolist()} != "
+                             f"{ys[:SERIAL_CHECK].tolist()}")
+    say(f"  (d) the first {SERIAL_CHECK} scenarios labelled serially in "
+        f"{t_serial:.1f} s, beside (a) and (b): equal to the runner's "
+        "labels")
+    wall = time.perf_counter() - t0
+    say(f"  phase 7b wall {wall:.1f} s with W = {workers} (budget "
+        f"{PIPELINE_BUDGET_S:.0f} s)")
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -2183,9 +2402,12 @@ def main() -> int:
 
     say("phase 7: measurement path (kernel launches -> MeasuredStepTimes ->"
         " Digital Twin -> (N*, G*))")
-    measure_launches = phase_measure(ops)
+    measure_launches, est, mst, placements = phase_measure(ops)
     require_launched("measurement", measure_launches,
                      PATH_KERNELS["measurement"])
+    say("phase 7b: the placement-model creation phase (twin sweeps over a "
+        "scenario grid -> labelled dataset -> forest -> recommend)")
+    phase_pipeline(est, mst, placements)
 
     paths = {"teacher_forcing": tf_launches, "serving": serve_launches,
              "measurement": measure_launches,

@@ -73,6 +73,23 @@
 // instance takes (tensor cores in bf16 at D 16-128).  The instantiated
 // dims' instances are the code they were (kPad = false).
 //
+// Head dims past 256 (up to kWideMaxHeadDim, 1024) take a wide path of
+// kernels of their own (fd_split_wide_kernel, fd_int8_max_wide_kernel,
+// fd_combine_wide_kernel), so that no instance above changes: a register
+// file and a ring sized by D would not fit one block there.  The split
+// pass reads K and V straight from global memory in tiles of kWideP (32)
+// positions, on CUDA cores: one warp a position dots q with K over d (lane
+// l the elements l, l + 32, ...; a shuffle sum), one lane a position runs
+// the softmax of a head, and each thread owns elements t, t + 128, ... of
+// d for every head in P V.  q is staged in shared memory as f32 (32 KB at
+// 8 heads of 1024).  Each mode keeps the arithmetic it has below 256: f32
+// accumulation; the int8 mode with bf16 q rounds P times v_scale against
+// each split's running max; with f32 q a pre-pass finds the row's max and
+// q . k is summed in f64 and rounded once, both passes calling one
+// function (wide_dot), so that their scores agree.  The combine is the
+// plain one, which loops over any dh; the fused one gets an instance with
+// a 1024-element delta.
+//
 // The int8 mode (fd_split_int8_kernel) reads an int8 cache with one f16
 // scale per (position, KV head), the layout of the JAX package's int8 KV
 // cache (quantize_kv, src/repro/models/attention.py:226-241; its decode,
@@ -132,6 +149,9 @@ constexpr int kTileBytes = 16384;    // of K in one tile (as many of V)
 constexpr int kCombineThreads = 128;
 constexpr int kShrinkRows = 512;     // rows of dx a shrink block, at least
 constexpr int kMaxHeadDim = 256;
+constexpr int kWideMaxHeadDim = 1024;  // the wide path's (past kMaxHeadDim)
+constexpr int kWideP = 32;             // positions in one of its tiles
+constexpr int kWideE = kWideMaxHeadDim / kThreads;  // d elements a thread
 // The fused combine starts while the split pass runs and should fit on an
 // SM beside two split blocks of up to 216 registers a thread (bf16, D
 // 128): 6 blocks an SM holds it to 80 registers, 10240 a block.
@@ -1335,6 +1355,279 @@ fd_int8_max_kernel(const float* __restrict__ q, const int8_t* __restrict__ k,
   }
 }
 
+// The wide path (head dims kMaxHeadDim + 1 .. kWideMaxHeadDim): an element
+// of K or V as f32 (int8 values exactly).
+template <typename KV>
+__device__ __forceinline__ float wide_float(KV x) {
+  if constexpr (std::is_same<KV, int8_t>::value) return static_cast<float>(x);
+  else return repro::to_float(x);
+}
+
+// q . k of the position whose K row is kr, for the block's g_n heads (q in
+// qs), by one warp: lane l sums elements l, l + 32, ... in ScoreT, then the
+// warp sums its lanes by xor shuffles in a fixed order, every lane ending
+// with each total.  The pre-pass and the split pass both call it, so with
+// ScoreT double (each product of an f32 and an int8 value exact) they round
+// the same f32 score.
+template <typename KV, typename ScoreT>
+__device__ __forceinline__ void wide_dot(const float (*qs)[kWideMaxHeadDim],
+                                         const KV* __restrict__ kr, int d,
+                                         int g_n, int lane,
+                                         ScoreT (&part)[kMaxG]) {
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g) part[g] = 0;
+#pragma unroll 4
+  for (int e = lane; e < d; e += 32) {
+    const ScoreT kf = static_cast<ScoreT>(wide_float(kr[e]));
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g)
+      if (g < g_n) part[g] += static_cast<ScoreT>(qs[g][e]) * kf;
+  }
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g)
+    if (g < g_n)
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        part[g] += __shfl_xor_sync(0xffffffffu, part[g], off);
+}
+
+// q of the block's g_n heads (consecutive in q: head0, head0 + 1, ...) as
+// f32 rows of d into qs.
+template <typename T>
+__device__ __forceinline__ void wide_load_q(float (*qs)[kWideMaxHeadDim],
+                                            const T* __restrict__ q,
+                                            size_t head0, int g_n, int d) {
+  for (int i = threadIdx.x; i < g_n * d; i += blockDim.x)
+    qs[i / d][i % d] = repro::to_float(q[head0 * d + i]);
+}
+
+// The wide split pass: one block per (split, kv-head, head group, row), as
+// the passes above (every launch in head groups: a G <= kMaxG has one), K
+// and V of d-element rows read from global memory, kWideP positions a
+// tile.  KV is T, or int8 with the f16 scales k_scale and v_scale (kQuant);
+// with kGlobalMax (the int8 mode with q in f32) each head's softmax runs
+// against the row's max, fd_int8_max_wide_kernel's partials in max_part,
+// and q . k is summed in f64 (split_scalar's contract).  It lets a fused
+// launch's shrink start at once, as fd_split_pad_kernel does.
+template <typename T, typename KV, bool kGlobalMax>
+__global__ void __launch_bounds__(kThreads)
+fd_split_wide_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                     const KV* __restrict__ v,
+                     const __half* __restrict__ k_scale,
+                     const __half* __restrict__ v_scale,
+                     const int* __restrict__ length,
+                     float* __restrict__ m_part, float* __restrict__ l_part,
+                     float* __restrict__ acc_part, int s, int h, int kv,
+                     int n_splits, int chunk, int d,
+                     const float* __restrict__ max_part) {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  using ScoreT = typename std::conditional<kGlobalMax, double, float>::type;
+  const int split = blockIdx.x, kvh = blockIdx.y / head_groups(h / kv),
+            row = blockIdx.z;
+  const HeadGroup hg = head_group<true>(blockIdx.y, h, kv);
+  const int g_n = hg.g_n;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const float scale =
+      kGlobalMax ? static_cast<float>(1.0 / sqrt(static_cast<double>(d)))
+                 : rsqrtf(static_cast<float>(d));
+  const int len = min(max(length[row], 0), s);
+  const int s0 = split * chunk;
+  const int s1 = min(s0 + chunk, len);
+  const size_t head0 = (size_t)row * h + kvh * (h / kv) + hg.first;
+  const size_t base = ((size_t)row * s * kv + kvh) * d;  // position 0's row
+  const size_t stride = (size_t)kv * d;
+
+  __shared__ __align__(16) float qs[kMaxG][kWideMaxHeadDim];
+  __shared__ float sc[kMaxG][kWideP];
+  __shared__ float pr[kMaxG][kWideP];
+  __shared__ float corr_s[kMaxG];
+  __shared__ float tile_scale[2][kWideP];  // k, v (int8)
+  wide_load_q(qs, q, head0, g_n, d);
+
+  // softmax state of the heads this warp owns (w, w + kWarps), and the
+  // P.V accumulator of this thread's elements tid + kThreads * j
+  float m[kMaxG / kWarps], l[kMaxG / kWarps];
+#pragma unroll
+  for (int j = 0; j < kMaxG / kWarps; ++j) {
+    m[j] = kNegInf;
+    l[j] = 0.f;
+    if constexpr (kGlobalMax) {
+      const int g = warp + kWarps * j;
+      if (g < g_n) {
+        const float* mp = max_part + (head0 + g) * n_splits;
+        float mx = kNegInf;
+        for (int i = lane; i < n_splits; i += 32) mx = fmaxf(mx, mp[i]);
+        m[j] = repro::warp_max(mx);
+      }
+    }
+  }
+  float acc[kMaxG][kWideE];
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g)
+#pragma unroll
+    for (int j = 0; j < kWideE; ++j) acc[g][j] = 0.f;
+  __syncthreads();
+
+  for (int p0 = s0; p0 < s1; p0 += kWideP) {
+    const int n_valid = min(kWideP, s1 - p0);
+    if constexpr (kQuant) {
+      if (tid < kWideP) {
+        float k_sc = 0.f, v_sc = 0.f;
+        if (tid < n_valid) {
+          const size_t i = ((size_t)row * s + p0 + tid) * kv + kvh;
+          k_sc = __half2float(k_scale[i]);
+          v_sc = __half2float(v_scale[i]);
+        }
+        tile_scale[0][tid] = k_sc;
+        tile_scale[1][tid] = v_sc;
+      }
+    }
+    // scores: warp w dots positions w, w + kWarps, ...
+    for (int p = warp; p < n_valid; p += kWarps) {
+      ScoreT part[kMaxG];
+      wide_dot<KV, ScoreT>(qs, k + base + (size_t)(p0 + p) * stride, d, g_n,
+                           lane, part);
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g)
+        if (g < g_n && lane == g) sc[g][p] = static_cast<float>(part[g]);
+    }
+    __syncthreads();
+
+    // online softmax, once per tile: lane p of warp w takes position p of
+    // heads w, w + kWarps
+#pragma unroll
+    for (int j = 0; j < kMaxG / kWarps; ++j) {
+      const int g = warp + kWarps * j;
+      if (g < g_n) {
+        float x = kNegInf;
+        if (lane < n_valid) {
+          x = sc[g][lane];
+          x *= scale;
+          if constexpr (kQuant) x *= tile_scale[0][lane];
+        }
+        const float m_new =
+            kGlobalMax ? m[j] : fmaxf(m[j], repro::warp_max(x));
+        const float e = lane < n_valid ? expf(x - m_new) : 0.f;
+        // int8: P times the v scale, rounded to bf16 (l sums the f32 P)
+        if constexpr (kQuant)
+          pr[g][lane] = __bfloat162float(__float2bfloat16(e * tile_scale[1][lane]));
+        else
+          pr[g][lane] = e;
+        const float corr = expf(m[j] - m_new);
+        l[j] = l[j] * corr + repro::warp_sum(e);
+        m[j] = m_new;
+        if (lane == 0) corr_s[g] = corr;
+      }
+    }
+    __syncthreads();
+
+    // P.V: this thread's elements of every head
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      if (g < g_n) {
+        const float c = corr_s[g];
+#pragma unroll
+        for (int j = 0; j < kWideE; ++j) acc[g][j] *= c;
+      }
+    }
+    for (int p = 0; p < n_valid; ++p) {
+      const KV* vr = v + base + (size_t)(p0 + p) * stride;
+      float vf[kWideE];
+#pragma unroll
+      for (int j = 0; j < kWideE; ++j) {
+        const int e = tid + kThreads * j;
+        vf[j] = e < d ? wide_float(vr[e]) : 0.f;
+      }
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) {
+        if (g < g_n) {
+          const float pg = pr[g][p];
+#pragma unroll
+          for (int j = 0; j < kWideE; ++j) acc[g][j] += pg * vf[j];
+        }
+      }
+    }
+    __syncthreads();  // sc, pr and corr_s are rewritten by the next tile
+  }
+
+  const size_t hp0 = head0 * n_splits + split;
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g) {
+    if (g < g_n) {
+#pragma unroll
+      for (int j = 0; j < kWideE; ++j) {
+        const int e = tid + kThreads * j;
+        if (e < d) acc_part[(hp0 + (size_t)g * n_splits) * d + e] = acc[g][j];
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kMaxG / kWarps; ++j) {
+    const int g = warp + kWarps * j;
+    if (g < g_n && lane == 0) {
+      m_part[hp0 + (size_t)g * n_splits] = m[j];
+      l_part[hp0 + (size_t)g * n_splits] = l[j];
+    }
+  }
+}
+
+// The wide path's pre-pass for the int8 mode with q in f32: each of the
+// block's heads' largest score (q . k) / sqrt(d) * k_scale over its
+// split's positions, into max_part (bsz, h, n_splits), the score computed
+// as fd_split_wide_kernel computes it with kGlobalMax (wide_dot in f64,
+// rounded once, then the same two products).
+__global__ void __launch_bounds__(kThreads)
+fd_int8_max_wide_kernel(const float* __restrict__ q,
+                        const int8_t* __restrict__ k,
+                        const __half* __restrict__ k_scale,
+                        const int* __restrict__ length,
+                        float* __restrict__ max_part, int s, int h, int kv,
+                        int n_splits, int chunk, int d) {
+  const int split = blockIdx.x, kvh = blockIdx.y / head_groups(h / kv),
+            row = blockIdx.z;
+  const HeadGroup hg = head_group<true>(blockIdx.y, h, kv);
+  const int g_n = hg.g_n;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
+  const int len = min(max(length[row], 0), s);
+  const int s0 = split * chunk;
+  const int s1 = min(s0 + chunk, len);
+  const size_t head0 = (size_t)row * h + kvh * (h / kv) + hg.first;
+  const size_t base = ((size_t)row * s * kv + kvh) * d;
+  const size_t stride = (size_t)kv * d;
+  __shared__ __align__(16) float qs[kMaxG][kWideMaxHeadDim];
+  __shared__ float wmax[kWarps][kMaxG];
+  wide_load_q(qs, q, head0, g_n, d);
+  __syncthreads();
+  float mx[kMaxG];
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g) mx[g] = kNegInf;
+  for (int p = s0 + warp; p < s1; p += kWarps) {
+    double part[kMaxG];
+    wide_dot<int8_t, double>(qs, k + base + (size_t)p * stride, d, g_n, lane,
+                             part);
+    const float ksc = __half2float(k_scale[((size_t)row * s + p) * kv + kvh]);
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      float x = static_cast<float>(part[g]);
+      x *= scale;
+      x *= ksc;
+      if (g < g_n) mx[g] = fmaxf(mx[g], x);
+    }
+  }
+  if (lane == 0)
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) wmax[warp][g] = mx[g];
+  __syncthreads();
+  if (tid < g_n) {
+    float m = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) m = fmaxf(m, wmax[w][tid]);
+    max_part[(head0 + tid) * n_splits + split] = m;
+  }
+}
+
 // The LoRA epilogue's operands: x (bsz, dx) in the attention dtype, a
 // (n, dx, r) and b (n, r, h*dh) in the bank's dtype W, idx (bsz,) int32,
 // h_part (bsz, r) f32 scratch for the shrink's h; block c of a row's
@@ -1499,7 +1792,7 @@ struct Expand {
 // before the wait; after it h (the shrink kernel's, the same f32 for every
 // head of the row) and the merge's m and l are read together, then the
 // expand and the merge with scale * delta.
-template <typename T, typename W, int V>
+template <typename T, typename W, int V, int kDeltaDim = kMaxHeadDim>
 __device__ __forceinline__ void combine_lora(
     const float* __restrict__ m_part, const float* __restrict__ l_part,
     const float* __restrict__ acc_part, T* __restrict__ out, int n_splits,
@@ -1520,7 +1813,7 @@ __device__ __forceinline__ void combine_lora(
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   __shared__ float h_row[lr::kMaxRank];
   __shared__ float part[kCombineThreads * lr::kMaxVec];
-  __shared__ float delta[kMaxHeadDim];
+  __shared__ float delta[kDeltaDim];
   if (live && static_cast<int>(threadIdx.x) < lora.r)
     h_row[threadIdx.x] =
         __ldcg(lora.h_part + (size_t)row * lora.r + threadIdx.x);
@@ -1558,6 +1851,54 @@ fd_combine_kernel(const float* __restrict__ m_part,
                               n_splits),
                   nullptr, 0.f);
   }
+}
+
+// The fused combine of the wide path: fd_combine_kernel's kLora instance
+// with a delta of up to kWideMaxHeadDim elements (Expand's partials fit
+// its kCombineThreads * kMaxVec floats at any dh <= 1024).
+template <typename T, typename W>
+__global__ void __launch_bounds__(kCombineThreads)
+fd_combine_wide_kernel(const float* __restrict__ m_part,
+                       const float* __restrict__ l_part,
+                       const float* __restrict__ acc_part, T* __restrict__ out,
+                       int n_splits, int dh, LoraArgs<T, W> lora) {
+  if (lora.vec_b)
+    combine_lora<T, W, 16 / sizeof(W), kWideMaxHeadDim>(
+        m_part, l_part, acc_part, out, n_splits, dh, lora);
+  else
+    combine_lora<T, W, 1, kWideMaxHeadDim>(m_part, l_part, acc_part, out,
+                                           n_splits, dh, lora);
+}
+
+// The split pass of the wide path: the pre-pass first for the int8 mode
+// with q in f32.  Chunks must be whole tiles of kWideP positions.
+template <typename T, bool kInt8>
+cudaError_t launch_split_wide(const dim3& grid, cudaStream_t st,
+                              const void* q, const void* k, const void* v,
+                              const void* k_scale, const void* v_scale,
+                              const void* length, void* m_part, void* l_part,
+                              void* acc_part, int s, int h, int kv,
+                              int n_splits, int chunk, int d,
+                              void* max_part) {
+  using KV = typename std::conditional<kInt8, int8_t, T>::type;
+  constexpr bool kGlobalMax = kInt8 && std::is_same<T, float>::value;
+  if (chunk % kWideP) return cudaErrorInvalidValue;
+  if constexpr (kGlobalMax) {
+    fd_int8_max_wide_kernel<<<grid, kThreads, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const int8_t*>(k),
+        static_cast<const __half*>(k_scale), static_cast<const int*>(length),
+        static_cast<float*>(max_part), s, h, kv, n_splits, chunk, d);
+    cudaError_t err = cudaPeekAtLastError();
+    if (err != cudaSuccess) return err;
+  }
+  fd_split_wide_kernel<T, KV, kGlobalMax><<<grid, kThreads, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), static_cast<const __half*>(k_scale),
+      static_cast<const __half*>(v_scale), static_cast<const int*>(length),
+      static_cast<float*>(m_part), static_cast<float*>(l_part),
+      static_cast<float*>(acc_part), s, h, kv, n_splits, chunk, d,
+      static_cast<const float*>(max_part));
+  return cudaPeekAtLastError();
 }
 
 // The split pass of one (dtype, head dim) instance, over an int8 cache and
@@ -1631,8 +1972,9 @@ cudaError_t launch_split(const dim3& grid, cudaStream_t st, const void* q,
 
 // The instance that runs head dim dh: dh itself where instantiated (8, 16,
 // ..., 256; the int8 mode from 16, an int8 row of 8 bytes being half a
-// 16-byte chunk), else the next larger, padded; 0 outside [1, 256].
-// Mirrored by flash_decode.py::instance_dim.
+// 16-byte chunk), else the next larger, padded; 0 outside [1, 256] (past
+// 256 the wide path runs dh unpadded, up to kWideMaxHeadDim).  Mirrored by
+// flash_decode.py::instance_dim.
 int instance_dim(int dh, bool int8) {
   if (dh < 1 || dh > kMaxHeadDim) return 0;
   int d = int8 ? 16 : 8;
@@ -1644,8 +1986,9 @@ int instance_dim(int dh, bool int8) {
 // then the combine; with kLora the shrink kernel between them, the shrink
 // and the combine each the programmatic dependent of the launch before.
 // max_part (bsz, h, n_splits) f32 is the int8 mode's pre-pass scratch for
-// q in f32.  Returns the launch error, or cudaErrorInvalidValue for a head
-// dim outside [1, 256] or a chunk that is not whole tiles.
+// q in f32.  Head dims past 256 take the wide path.  Returns the launch
+// error, or cudaErrorInvalidValue for a head dim outside [1, 1024] or a
+// chunk that is not whole tiles.
 template <typename T, typename W, bool kLora, bool kInt8 = false>
 int launch_fd(const void* q, const void* k, const void* v,
               const void* k_scale, const void* v_scale, const void* length,
@@ -1659,7 +2002,9 @@ int launch_fd(const void* q, const void* k, const void* v,
   if ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool groups = h / kv > kMaxG;
-  const int di = instance_dim(dh, kInt8);
+  const bool wide = dh > kMaxHeadDim;
+  if (wide && dh > kWideMaxHeadDim) return static_cast<int>(cudaErrorInvalidValue);
+  const int di = wide ? dh : instance_dim(dh, kInt8);
   const bool pad = di != dh;
   const dim3 grid(n_splits, kv * head_groups(h / kv), bsz);
   cudaError_t err;
@@ -1672,7 +2017,11 @@ int launch_fd(const void* q, const void* k, const void* v,
   (pad ? REPRO_FD_SPLIT_P(D, G, true) : REPRO_FD_SPLIT_P(D, G, false))
 #define REPRO_FD_SPLIT(D) \
   (groups ? REPRO_FD_SPLIT_G(D, true) : REPRO_FD_SPLIT_G(D, false))
-  switch (di) {
+  if (wide)
+    err = launch_split_wide<T, kInt8>(grid, st, q, k, v, k_scale, v_scale,
+                                      length, m_part, l_part, acc_part, s, h,
+                                      kv, n_splits, chunk, dh, max_part);
+  else switch (di) {
     case 8:  // a bf16 row is one 16-byte chunk; the int8 mode starts at 16
       if constexpr (kInt8) return static_cast<int>(cudaErrorInvalidValue);
       else err = REPRO_FD_SPLIT(8);
@@ -1711,10 +2060,11 @@ int launch_fd(const void* q, const void* k, const void* v,
                               cluster, smem, st, true, args);
     if (err != cudaSuccess) return static_cast<int>(err);
     err = lr::launch_clusters(
-        fd_combine_kernel<T, W, true>, dim3(bsz * h), kCombineThreads, 0, 0,
-        st, true, static_cast<const float*>(m_part),
-        static_cast<const float*>(l_part), static_cast<const float*>(acc_part),
-        static_cast<T*>(out), n_splits, dh, args);
+        wide ? fd_combine_wide_kernel<T, W> : fd_combine_kernel<T, W, true>,
+        dim3(bsz * h), kCombineThreads, 0, 0, st, true,
+        static_cast<const float*>(m_part), static_cast<const float*>(l_part),
+        static_cast<const float*>(acc_part), static_cast<T*>(out), n_splits,
+        dh, args);
     if (err != cudaSuccess) return static_cast<int>(err);
   } else {
     fd_combine_kernel<T, W, false><<<bsz * h, kCombineThreads, 0, st>>>(

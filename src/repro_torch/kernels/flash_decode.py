@@ -9,7 +9,9 @@ between them and the expand to the combine); on a CPU tensor each runs its
 plain version.  With f16 scales beside an int8 cache, ``flash_decode``
 takes the kernel's int8 K/V mode (the JAX package's quantized decode,
 ``repro.models.attention.decode_attention_sharded``, computes it in plain
-``jnp``).
+``jnp``).  Every mode takes any head dim 1..MAX_HEAD_DIM, as the Pallas
+kernel takes any: up to 256 on instantiated head dims, past it on the
+wide path.
 """
 from __future__ import annotations
 
@@ -22,8 +24,10 @@ from .bgmv import MAX_RANK
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # csrc/flash_decode.cu instantiations
 INT8_HEAD_DIMS = HEAD_DIMS[1:]         # the int8 mode's (a row >= 16 bytes)
-MAX_HEAD_DIM = HEAD_DIMS[-1]  # any head dim 1..MAX_HEAD_DIM runs: one
-                              # without an instance on the next larger's
+MAX_INSTANCE_DIM = HEAD_DIMS[-1]  # any head dim 1..256 runs on an instance:
+                                  # one without on the next larger's
+MAX_HEAD_DIM = 1024   # past MAX_INSTANCE_DIM the wide path runs d unpadded
+WIDE_TILE = 32        # positions in one of the wide path's tiles (kWideP)
 MAX_GROUP = 8   # query heads a block (kMaxG): a KV head's G heads are cut
                 # into head_groups(G) groups, each a block of the split pass
 TILE_BYTES = 16384                  # of K in one tile of the split pass
@@ -147,12 +151,22 @@ def flash_decode_lora_plain(q, k, v, length, x, a, b, idx,
     return out.to(q.dtype)
 
 
-def instance_dim(d: int, itemsize: int) -> int:
-    """The instantiated head dim that runs head dim ``d`` with K's element
-    size ``itemsize`` (1: the int8 mode): ``d`` itself, else the next
-    larger, padded (``instance_dim`` of ``csrc/flash_decode.cu``)."""
+def is_wide(d: int) -> bool:
+    """Whether head dim ``d`` runs on the wide path (``fd_split_wide_kernel``
+    of ``csrc/flash_decode.cu``): MAX_INSTANCE_DIM < d <= MAX_HEAD_DIM."""
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} outside 1..{MAX_HEAD_DIM}")
+    return d > MAX_INSTANCE_DIM
+
+
+def instance_dim(d: int, itemsize: int) -> int:
+    """The head dim whose kernels run head dim ``d`` with K's element size
+    ``itemsize`` (1: the int8 mode): up to MAX_INSTANCE_DIM an
+    instantiated one, ``d`` itself, else the next larger, padded
+    (``instance_dim`` of ``csrc/flash_decode.cu``); past it ``d`` itself,
+    on the wide path (``is_wide``), which runs any d unpadded."""
+    if is_wide(d):
+        return d
     return next(x for x in (INT8_HEAD_DIMS if itemsize == 1 else HEAD_DIMS)
                 if x >= d)
 
@@ -160,7 +174,9 @@ def instance_dim(d: int, itemsize: int) -> int:
 def tile_positions(d: int, itemsize: int) -> int:
     """Positions in one tile of the split pass (``Tile::kP`` of
     ``csrc/flash_decode.cu``, at ``instance_dim``): TILE_BYTES of K,
-    within [TILE_MIN, TILE_MAX]."""
+    within [TILE_MIN, TILE_MAX]; WIDE_TILE on the wide path."""
+    if is_wide(d):
+        return WIDE_TILE
     di = instance_dim(d, itemsize)
     return min(TILE_MAX, max(TILE_MIN, TILE_BYTES // (di * itemsize)))
 
@@ -196,7 +212,8 @@ def _check(q, k, v, lengths, k_scale=None, v_scale=None):
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     kv = k.shape[2]
     if h % kv or not 1 <= d <= MAX_HEAD_DIM:
-        # past 256 one block's registers and shared memory run out
+        # the wide path stages q of 8 heads in shared memory and keeps d /
+        # 128 elements of each in a thread's registers: 1024 at most
         raise ValueError(f"flash_decode: H={h}, KV={kv}, D={d} unsupported "
                          f"(H a multiple of KV, D in 1..{MAX_HEAD_DIM})")
     if quant:
@@ -266,8 +283,10 @@ def flash_decode(q, k, v, length, k_scale=None, v_scale=None):
     """q: (B, H, D); k/v: (B, S, KV, D); length: scalar or (B,) -> (B, H, D).
 
     Query head h attends KV head h // (H/KV) over positions < length;
-    D is any of 1..256.  With ``k_scale``/``v_scale`` (B, S, KV) f16, k and
-    v are int8 (``attention.quantize_kv``) and the kernel's int8 mode reads
+    D is any of 1..MAX_HEAD_DIM (1024; past 256 on the wide path, a
+    CUDA-core split pass of its own in every mode).  With
+    ``k_scale``/``v_scale`` (B, S, KV) f16, k and v are int8
+    (``attention.quantize_kv``) and the kernel's int8 mode reads
     them as they are (plain version: ``flash_decode_int8_plain``; with q
     in f32 a pre-pass finds the row's largest score first, so that P is
     rounded as the JAX package rounds it, and q . k is the exact dot's f32

@@ -9,8 +9,9 @@ fixture, never at import).  On the GPU machine:
 them at edge shapes (rank 1 and odd ranks, expand widths off the tile,
 every head dim the flash-decode kernels instantiate (8 among them) and
 head dims without an instance (1, 7, 24, 72, 80, 96, 100, 192, 255; the
-int8 mode also 8), which run padded, group sizes 1..24 (past 8 in head
-groups),
+int8 mode also 8), which run padded, head dims past 256 (257, 320, 384,
+512, 576, 1024), which run on the wide path, group sizes 1..24 (past 8 in
+head groups),
 lengths 0 and past S and at the split pass's tile edges, NaN past a row's
 length, BGMV at ranks 1-64 with widths and views off the 16-byte vector,
 SGMV at T around its 64-token tile, 32 skewed adapters, unaligned views and
@@ -415,10 +416,13 @@ def _close_int8(q, k, v, lengths, ks, vs, per_row=True):
 # the public 80, 96 and 192, dims whose rows are not whole 16-byte copies
 # (1, 7, 100, 255: pieces of 2, 8 and 2 bytes in bf16), 24 and 72
 ANY_HEAD_DIMS = (1, 7, 24, 72, 80, 96, 100, 192, 255)
+# head dims past 256, on the wide path: rows of 514 bytes in bf16 (257),
+# whole and partial 128-element thread strides, and its largest, 1024
+WIDE_HEAD_DIMS = (257, 320, 384, 512, 576, 1024)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", ANY_HEAD_DIMS)
+@pytest.mark.parametrize("d", ANY_HEAD_DIMS + WIDE_HEAD_DIMS)
 @pytest.mark.parametrize("g", [1, 4, 16])
 def test_flash_decode_kernel_any_head_dim(gen, g, d, dtype):
     # plain flash-decode and the fused kernel at G query heads a KV head
@@ -450,7 +454,7 @@ def test_flash_decode_kernel_any_head_dim(gen, g, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", (8,) + ANY_HEAD_DIMS)
+@pytest.mark.parametrize("d", (8,) + ANY_HEAD_DIMS + WIDE_HEAD_DIMS)
 @pytest.mark.parametrize("g", [1, 4, 16])
 def test_flash_decode_int8_any_head_dim(gen, g, d, dtype):
     # the int8 mode off its instances (8 and below on the 16 instance),
@@ -467,6 +471,35 @@ def test_flash_decode_int8_any_head_dim(gen, g, d, dtype):
     got = _close_int8(q, k, v, lengths, ks, vs,
                       per_row=d >= 8 or dtype == torch.float32)
     assert not got[0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [257, 512, 1024])
+def test_flash_decode_wide_tile_edges(gen, d, dtype):
+    # the wide path's 32-position tiles: lengths at a tile's edges and
+    # inside the last chunk, in every mode; NaN past each row's length
+    # (never read: the output is bit for bit the clean cache's)
+    p = flash_decode.WIDE_TILE
+    s = 5 * p + 3
+    lengths = torch.tensor([p - 1, p, p + 1, 2 * p + 1, s - 1, s, s + 9, 1],
+                           dtype=torch.int32, device="cuda")
+    bsz, h, kv = lengths.numel(), 6, 2
+    q = _normal(gen, bsz, h, d, dtype=dtype)
+    k = _normal(gen, bsz, s, kv, d, dtype=dtype)
+    v = _normal(gen, bsz, s, kv, d, dtype=dtype)
+    got = flash_decode.flash_decode(q, k, v, lengths)
+    want = flash_decode.flash_decode_plain(q, k, v, lengths)
+    _close(got, want, dtype)
+    _close_rows(got, want, dtype)
+    k8, ks = _int8_cache(gen, bsz, s, kv, d)
+    v8, vs = _int8_cache(gen, bsz, s, kv, d)
+    got8 = _close_int8(q, k8, v8, lengths, ks, vs)
+    for i, n in enumerate(lengths.tolist()):
+        k[i, n:], v[i, n:] = float("nan"), float("nan")
+        ks[i, n:], vs[i, n:] = float("nan"), float("nan")
+    assert torch.equal(flash_decode.flash_decode(q, k, v, lengths), got)
+    assert torch.equal(flash_decode.flash_decode(q, k8, v8, lengths, ks, vs),
+                       got8)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -549,24 +582,26 @@ def test_flash_decode_int8_wrapper_rejects_what_the_kernel_does_not_take(gen):
     with pytest.raises(ValueError, match="16-byte aligned"):
         fd(q, shifted, v, s, ks, vs)
     # head dims 48 and 8, which have no instance, run padded (on 64 and on
-    # 16: an int8 row of 8 bytes is half a 16-byte copy); 257 raises
-    for d in (48, 8):
+    # 16: an int8 row of 8 bytes is half a 16-byte copy), 257 on the wide
+    # path; past the largest, 1024, the wrapper raises
+    for d in (48, 8, 257):
         qd = _normal(gen, bsz, h, d, dtype=torch.bfloat16)
         (kd, ksd), (vd, vsd) = (_int8_cache(gen, bsz, s, kv, d)
                                 for _ in range(2))
         _close_int8(qd, kd, vd, s, ksd, vsd)
-    q257 = _normal(gen, bsz, h, 257, dtype=torch.bfloat16)
-    k257, ks257 = _int8_cache(gen, bsz, s, kv, 257)
-    with pytest.raises(ValueError, match="D=257 unsupported .*1..256"):
-        fd(q257, k257, k257, s, ks257, ks257)
+    d = flash_decode.MAX_HEAD_DIM + 1
+    qd = _normal(gen, bsz, h, d, dtype=torch.bfloat16)
+    kd, ksd = _int8_cache(gen, bsz, s, kv, d)
+    with pytest.raises(ValueError, match=f"D={d} unsupported .*1..1024"):
+        fd(qd, kd, kd, s, ksd, ksd)
 
 
 def test_binding_raises_on_a_rejected_int8_launch(gen):
-    # head dim 257 has no instance, nor one to pad into: the launcher
-    # refuses it and the binding raises rather than return an unwritten
-    # output; so it does for q in f32 without the pre-pass's scratch
+    # head dim 1025 is past the wide path's largest: the launcher refuses
+    # it and the binding raises rather than return an unwritten output; so
+    # it does for q in f32 without the pre-pass's scratch
     x = _normal(gen, 4, 8)
-    for dh, dtype in ((257, 1), (64, 0)):
+    for dh, dtype in ((flash_decode.MAX_HEAD_DIM + 1, 1), (64, 0)):
         with pytest.raises(RuntimeError, match="flash_decode_int8: launcher "
                                                "rejected"):
             build.kernels().flash_decode_int8(
@@ -595,14 +630,17 @@ def test_wrappers_reject_what_kernels_do_not_take(gen):
         sgmv.sgmv(x, a, b, ids.long())
     with pytest.raises(ValueError, match="contiguous"):
         bgmv.bgmv(x, a.transpose(1, 2).contiguous().transpose(1, 2), b, ids)
-    # head dim 48 runs padded on the 64 instance; 257 raises
-    q = _normal(gen, 2, 4, 48)
-    kv = _normal(gen, 2, 16, 2, 48)
-    _close(flash_decode.flash_decode(q, kv, kv, 16),
-           flash_decode.flash_decode_plain(q, kv, kv, 16), torch.float32)
-    q = _normal(gen, 2, 4, 257)
-    kv = _normal(gen, 2, 16, 2, 257)
-    with pytest.raises(ValueError, match="D=257 unsupported .*1..256"):
+    # head dim 48 runs padded on the 64 instance, 257 on the wide path;
+    # past 1024 the wrapper raises
+    for d in (48, 257):
+        q = _normal(gen, 2, 4, d)
+        kv = _normal(gen, 2, 16, 2, d)
+        _close(flash_decode.flash_decode(q, kv, kv, 16),
+               flash_decode.flash_decode_plain(q, kv, kv, 16), torch.float32)
+    d = flash_decode.MAX_HEAD_DIM + 1
+    q = _normal(gen, 2, 4, d)
+    kv = _normal(gen, 2, 16, 2, d)
+    with pytest.raises(ValueError, match=f"D={d} unsupported .*1..1024"):
         flash_decode.flash_decode(q, kv, kv, 16)
     q = _normal(gen, 2, 4, 16)
     shifted = _normal(gen, 2 * 16 * 2 * 16 + 1)[1:].view(2, 16, 2, 16)

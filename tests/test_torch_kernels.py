@@ -158,12 +158,14 @@ def test_flash_decode_matches_pallas(b, h, kv, d, s, block_s, dtype):
 
 
 # head dims the Pallas kernel takes and the card runs on a padded instance
-# (csrc/flash_decode.cu: the next larger of 8, 16, ..., 256)
+# (csrc/flash_decode.cu: the next larger of 8, 16, ..., 256), and past 256,
+# which the card runs on the wide path
 ANY_HEAD_DIMS = (24, 80, 96, 100, 192)
+WIDE_HEAD_DIMS = (320, 512)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", ANY_HEAD_DIMS)
+@pytest.mark.parametrize("d", ANY_HEAD_DIMS + WIDE_HEAD_DIMS)
 def test_flash_decode_any_head_dim_matches_pallas(d, dtype):
     # 16 query heads on 2 KV heads, ragged lengths, S not a whole block
     jdt, tol = DTYPES[dtype]
@@ -179,7 +181,7 @@ def test_flash_decode_any_head_dim_matches_pallas(d, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", ANY_HEAD_DIMS)
+@pytest.mark.parametrize("d", ANY_HEAD_DIMS + WIDE_HEAD_DIMS)
 def test_fused_decode_any_head_dim_matches_pallas(d, dtype):
     jdt, tol = DTYPES[dtype]
     j, t = _decode(17 + d, 3, 8, 2, d, 50, 48, 8, 3, jdt)
@@ -187,6 +189,22 @@ def test_fused_decode_any_head_dim_matches_pallas(d, dtype):
     assert got.shape == (3, 8, d)
     _close(got, jax_fd_lora(*j, 0.5, interpret=True), tol)
     _close(got, jref.fused_decode_ref(*j, 0.5), tol)
+
+
+@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+def test_int8_wide_head_dim_matches_jax_quantized_decode(d):
+    # the int8 mode's plain version past 256 against the JAX quantized
+    # decode (plain jnp, any D) after its own write at pos, over its pos
+    # + 1 positions, to 2e-5 in f32
+    from test_torch_kv_int8 import _decode_inputs, _jax_branch, _rel
+    q, kq, vq, ks, vs, nk, nv = _decode_inputs(d, h=8, kv=2, d=d)
+    pos = 29
+    out, *caches = _jax_branch(d)(q, kq, vq, nk, nv, jnp.int32(pos), ks, vs)
+    k, v, k_scale, v_scale = (torch.from_numpy(np.array(c)) for c in caches)
+    got = flash_decode.flash_decode_int8_plain(torch.from_numpy(q), k, v,
+                                               pos + 1, k_scale, v_scale)
+    assert got.shape == q.shape
+    assert _rel(got.numpy(), out) < 2e-5
 
 
 def test_flash_decode_length_zero_gives_zero_like_pallas():

@@ -5,8 +5,9 @@ tiles for the split pass.  The kernel rejects a plan that breaks this rule
 (``csrc/flash_decode.cu::launch_split``), so these tests hold the plan to it
 over the shapes the port runs: the serving step, the measurement grid
 (``repro_torch.bench.kernels_bench``: batch 1/8/32 x seq 256/1024/4096)
-and edge widths, at every head dim 1..256 (a dim without an instance
-runs the next larger one, padded).  (BGMV's launch plan lives in its C
+and edge widths, at every head dim 1..1024 (a dim up to 256 without an
+instance runs the next larger one, padded; past 256 the wide path's
+32-position tiles).  (BGMV's launch plan lives in its C
 launcher and is held by the card tests of ``tests/test_torch_cuda.py``.)
 """
 import pytest
@@ -86,19 +87,27 @@ def test_split_plan_at_recurrentgemma_shape():
 @pytest.mark.parametrize("itemsize", [4, 2, 1])
 def test_every_head_dim_has_an_instance_and_a_plan(itemsize):
     # every head dim 1..256 runs on an instantiated one (itself where
-    # there is one; int8 from 16), whose tile fits and whose split plan
-    # covers S in whole tiles; 0 and 257 have none
+    # there is one; int8 from 16), whose tile fits; 257..1024 on the wide
+    # path (itself, unpadded, in tiles of WIDE_TILE positions); each
+    # split plan covers S in whole tiles; 0 and 1025 have none
     dims = flash_decode.INT8_HEAD_DIMS if itemsize == 1 \
         else flash_decode.HEAD_DIMS
+    assert flash_decode.MAX_INSTANCE_DIM == dims[-1] == 256
+    assert flash_decode.MAX_HEAD_DIM == 1024
     for d in range(1, flash_decode.MAX_HEAD_DIM + 1):
         di = flash_decode.instance_dim(d, itemsize)
-        assert di in dims and di >= d
-        assert di == d or di == dims[0] or di // 2 < d
         p = flash_decode.tile_positions(d, itemsize)
-        assert p == flash_decode.tile_positions(di, itemsize)
-        assert flash_decode.TILE_MIN <= p <= flash_decode.TILE_MAX
+        if d <= flash_decode.MAX_INSTANCE_DIM:
+            assert not flash_decode.is_wide(d)
+            assert di in dims and di >= d
+            assert di == d or di == dims[0] or di // 2 < d
+            assert p == flash_decode.tile_positions(di, itemsize)
+            assert flash_decode.TILE_MIN <= p <= flash_decode.TILE_MAX
+            assert 3 * 2 * p * di * itemsize <= 227 * 1024
+        else:
+            assert flash_decode.is_wide(d) and di == d
+            assert p == flash_decode.WIDE_TILE
         assert p & (p - 1) == 0 and 128 % p == 0
-        assert 3 * 2 * p * di * itemsize <= 227 * 1024
         for bsz, kv, s in ((1, 1, 1), (8, 8, 512), (3, 2, 1000),
                            (32, 8, 4096)):
             n_splits, chunk = flash_decode.split_plan(bsz, kv, s, H100_SMS,
@@ -108,6 +117,8 @@ def test_every_head_dim_has_an_instance_and_a_plan(itemsize):
     for d in (0, flash_decode.MAX_HEAD_DIM + 1):
         with pytest.raises(ValueError, match="head dim"):
             flash_decode.instance_dim(d, itemsize)
+        with pytest.raises(ValueError, match="head dim"):
+            flash_decode.tile_positions(d, itemsize)
 
 
 def test_padded_head_dims_at_public_widths():
