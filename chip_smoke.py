@@ -69,6 +69,9 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    the MoE architectures (``MOE_VARIANTS``): olmoe-1b-7b 4 layers,
    moonshot-v1-16b-a3b 2 layers, and olmoe-1b-7b 4 layers with int8
    experts, on 4x32-token prompts (both prefills dropless); then
+   mamba2-2.7b at its published widths, f32, 4 of its 64 layers, on
+   4x512-token prompts (the prefill of 512 positions runs two chunks of
+   256, the one of 513 three of 171), launching no kernel wrapper; then
    phi4-mini 4 layers with an int8 KV cache (``Model(kv_quant=True)``):
    decode against prefill, and against the same decode with the int8
    mode's plain version, each within 2e-2
@@ -92,8 +95,8 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    also splits its step's device time into the expert products, the MoE
    FFN's other kernels (routing, dispatch, combine), attention, BGMV, the
    dense products and the rest (``step_split``), and prints the step's
-   bound (``step_bound``: its weights over the HBM rate, against the dense
-   expert products' operations).  Phase 5d serves the published phi4-mini
+   bound (``step_bound``: its weights and recurrent states over the HBM
+   rate, against the dense expert products' operations).  Phase 5d serves the published phi4-mini
    on an int8 KV cache as phase 5 serves it (BGMV 64 and flash-decode 32
    launches a replay, the replay bit for bit the eager step) and times its
    step; phase 6d times phi4-mini's replayed step at B 8 over caches of
@@ -107,7 +110,15 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    the replay bit for bit the eager step, states included), and phase 6e
    times its step, splits it as 6c splits olmoe's (``step_split``: the
    RG-LRU mixer's products and its other kernels, attention, BGMV, the
-   dense products, the rest) and prints its weight bound;
+   dense products, the rest) and prints its bound (weights, and its
+   states read once and written once).  Phase 5f
+   serves the published mamba2-2.7b (64 ssd layers on conv_x, conv_bc and
+   f32 ssm states, no attention, no LoRA; bf16) as phase 5e serves
+   recurrentgemma, its replay launching no kernel wrapper and bit for bit
+   the eager step, states included, and phase 6f times its step, splits
+   it (the SSD mixer's products and its other kernels, the dense
+   products, the rest) and prints its bound (``step_bound``: 5.40 GB of
+   weights and 2 x 1.36 GB of states at 8 rows);
 6. the served model's decode step three ways: the eager step's wall, the
    replayed step's wall (as ``TorchExecutor.step`` times it) and device
    span (CUDA events), and the device time of each by kernel group from
@@ -170,10 +181,11 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
 
 Launch counts are zeroed just before each path a user drives (teacher
 forcing through ``Model.prefill``/``decode_step`` in phase 4, for each
-architecture, serving in phases 5, 5b, 5c, 5d and 5e, measurement in phase
-7) and read just after it.  SGMV, BGMV and flash-decode must have launched
-in phase 4, BGMV and flash-decode in phases 5, 5b, 5c, 5d and 5e, the fused
-kernel and SGMV in phase 7.  Each kernel's ``launches`` in the kernel
+architecture, serving in phases 5, 5b, 5c, 5d, 5e and 5f, measurement in
+phase 7) and read just after it.  SGMV, BGMV and flash-decode must have
+launched in phase 4, BGMV and flash-decode in phases 5, 5b, 5c, 5d and 5e,
+the fused kernel and SGMV in phase 7; mamba2's paths (phase 4, 5f) must
+launch none, having no attention and no LoRA.  Each kernel's ``launches`` in the kernel
 table is the count of the path it serves (``path``); the int8 mode counts
 as flash-decode, on the int8 paths (``serving_int8``,
 ``teacher_forcing_int8``), and flash-decode's row counts the others.  Float32 products run in full f32 (TF32 off) wherever parity
@@ -283,6 +295,12 @@ LONG_S = 32768
 # 6) and head dim 8 (a bf16 row one 16-byte copy; not in the int8 mode);
 # phase 6 times its shape beside 8 heads on the same K/V (one group)
 HYBRID_ARCH = "recurrentgemma-9b"
+# mamba2-2.7b, attention-free (no LoRA, none of the kernels): phase 4
+# teacher-forces it at its published widths, f32, its depth cut to these
+# layers, on 4 x SSM_TF_S tokens (512 positions: two chunks of 256; 513:
+# three of 171); phase 5f serves it at its published widths
+SSM_ARCH = "mamba2-2.7b"
+SSM_TF_LAYERS, SSM_TF_S = 4, 513
 # a head dim without an instance (H, KV, D), timed in phase 6 at B 8 over
 # CACHE positions: 96, a public head dim, on the 128 instance, padded
 PADDED_SHAPE = (32, 32, 96)
@@ -1059,6 +1077,36 @@ def phase_parity_moe(ops):
     return total
 
 
+def phase_parity_ssd(ops):
+    """Teacher forcing of mamba2-2.7b at its published widths, f32, its
+    depth cut to SSM_TF_LAYERS (all 64 layers would take 11.3 GB in f32),
+    on 4 x SSM_TF_S tokens, as ``phase_parity``: the decode after a prefill
+    chunked in two chunks of 256 against a prefill chunked in three of
+    171.  The path launches none of the kernel wrappers.  Returns its
+    launch counts."""
+    from repro_torch.configs import get_config
+    published = get_config(SSM_ARCH)
+    cfg = dataclasses.replace(published, n_layers=SSM_TF_LAYERS,
+                              dtype="float32")
+    ops.reset_launches()
+    rel, finite = teacher_force(cfg, SSM_TF_S)
+    counts = ops.launch_counts()
+    ok = finite and rel < 2e-4
+    say(f"  teacher forcing {SSM_ARCH}, {cfg.n_layers} of "
+        f"{published.n_layers} layers (ssd) at d={cfg.d_model}, d_inner="
+        f"{cfg.d_inner}, state {cfg.ssm_state}, chunk {cfg.ssm_chunk}, f32, "
+        f"prompt 4x{SSM_TF_S - 1}: rel={rel:.3e} (limit 2e-4) -> "
+        f"{'ok' if ok else 'FAIL'}; launches {counts} (none expected: no "
+        f"attention, no LoRA)")
+    if not ok:
+        raise AssertionError(f"teacher forcing {SSM_ARCH}: rel={rel}")
+    if any(counts.values()):
+        raise AssertionError(f"{SSM_ARCH} teacher forcing launched "
+                             f"{counts}")
+    torch.cuda.empty_cache()
+    return counts
+
+
 # --------------------------------------------------------------------------- #
 # phase 6: timing
 # --------------------------------------------------------------------------- #
@@ -1259,6 +1307,7 @@ MIXERS = {  # mixer -> (module, function, profiler range, its parts)
     "moe": ("moe", "apply_moe", MOE_RANGE, ("expert_bmm", "moe_glue")),
     "rglru": ("rglru", "apply_rglru", "rglru_mixer",
               ("rglru_gemm", "rglru_glue")),
+    "ssd": ("ssm", "apply_ssd", "ssd_mixer", ("ssd_gemm", "ssd_glue")),
 }
 STEP_PARTS = ("flash_decode", "bgmv", "dense_gemm", "other_glue")
 MATMUL_OPS = ("aten::mm", "aten::matmul", "aten::addmm", "aten::bmm")
@@ -1271,15 +1320,18 @@ def step_part(kernel, mixer, op):
     (routing, dispatch, combine, aux loss); inside the RG-LRU mixer
     (``mixer`` "rglru") a matrix product (its x, gate and output
     projections) or anything else (the conv, the gates, the recurrence);
-    another cuBLAS product; any other kernel (norms, RoPE, casts, the
-    cache write)."""
+    inside the SSD mixer (``mixer`` "ssd") a matrix product (its z, x, bc,
+    dt and output projections, the state's update and read-out) or
+    anything else (the convs, softplus, decay, gate, casts, the state
+    writes); another cuBLAS product; any other kernel (norms, RoPE,
+    casts, the cache write)."""
     name = next((k for k in KERNEL_NAMES if k in kernel), None)
     if name is not None:
         return KERNEL_NAMES[name]
     if mixer == "moe":
         return "expert_bmm" if op == "aten::bmm" else "moe_glue"
-    if mixer == "rglru":
-        return "rglru_gemm" if op in MATMUL_OPS else "rglru_glue"
+    if mixer in ("rglru", "ssd"):
+        return f"{mixer}_gemm" if op in MATMUL_OPS else f"{mixer}_glue"
     if any(w in kernel.lower() for w in GEMM_WORDS):
         return "dense_gemm"
     return "other_glue"
@@ -1288,13 +1340,16 @@ def step_part(kernel, mixer, op):
 def step_split(executor, mixer, steps=3):
     """Where the device time of a decode step goes, by the mixer's parts
     and ``STEP_PARTS``, in ms a step.  The eager step is profiled with
-    every call of the mixer (``moe.apply_moe`` or ``rglru.apply_rglru``,
-    wrapped here for this profile only) inside its profiler range, and
+    every call of the mixer (``moe.apply_moe``, ``rglru.apply_rglru`` or
+    ``ssm.apply_ssd``, wrapped here for this profile only) inside its
+    profiler range, and
     each kernel an op launched is charged to that op's part; a kernel no
     op launched (the port's own kernels, launched by their binding) goes
     by its name.  The replayed graph launches the same kernels without
     their ops, so each kernel name's replayed time is split as that name's
-    eager time was.  Also prints the mixer's glue's largest kernels."""
+    eager time was.  Every part has device time but the port's kernels
+    that the step does not launch (mamba2 launches none).  Also prints
+    the mixer's glue's largest kernels."""
     import importlib
     from unittest import mock
     module_name, fn_name, range_name, own = MIXERS[mixer]
@@ -1347,7 +1402,9 @@ def step_split(executor, mixer, steps=3):
                 out[part] += ms * w / total
         return out
     eager_ms = split(prof)
-    if not all(eager_ms[p] > 0 for p in parts):
+    launched = set(executor.graph_launches)
+    if not all(eager_ms[p] > 0 for p in parts
+               if p not in KERNEL_NAMES.values() or p in launched):
         raise AssertionError(f"a part of the {mixer} step has no device "
                              f"time: {eager_ms}")
     largest = sorted(((v[glue] / steps, k) for k, v in by_name.items()
@@ -1382,25 +1439,33 @@ def weight_bytes(model):
     return weights, experts
 
 
-def step_bound(model, batch=8):
+def step_bound(model, cache, batch=8):
     """The least time of one decode step of ``batch`` rows: the bytes of
     every weight it reads once (all parameters but an untied embedding
-    table, of which it reads ``batch`` rows) over the HBM rate, against
-    the operations of the dense (E, C, d) expert products at C = batch * k
-    (dropless) over the bf16 peak."""
+    table, of which it reads ``batch`` rows) and of the recurrent states
+    of ``cache`` (an rglru or ssd layer's), read once and written once,
+    over the HBM rate, against the operations of the dense (E, C, d)
+    expert products at C = batch * k (dropless) over the bf16 peak."""
     cfg = model.cfg
     weights, experts = weight_bytes(model)
+    state = 2 * sum(t.numel() * t.element_size()
+                    for blk, c in zip(model.layers, cache["layers"])
+                    if blk.slot_key(c) is None for t in c.values())
     flops = 2 * 3 * cfg.n_experts * batch * cfg.top_k * cfg.d_model \
         * cfg.d_ff * cfg.n_layers
-    ms, by = bound(weights, flops, "bfloat16")
+    ms, by = bound(weights + state, flops, "bfloat16")
     out = {"weight_gb": weights / 1e9, "expert_weight_gb": experts / 1e9,
            "weights_ms": weights / HBM_BYTES_PER_S * 1e3,
+           "state_rw_gb": state / 1e9,
+           "state_ms": state / HBM_BYTES_PER_S * 1e3,
            "dispatch_tflop": flops / 1e12,
            "dispatch_ms": flops / PEAK_FLOPS["bfloat16"] * 1e3,
            "bound_ms": ms, "bound_by": by}
     say(f"  step bound: {out['weight_gb']:.2f} GB of weights "
         f"({out['expert_weight_gb']:.2f} GB experts) = "
         f"{out['weights_ms']:.2f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+        f"recurrent states read and written {out['state_rw_gb']:.3f} GB "
+        f"= {out['state_ms']:.3f} ms; "
         f"dense dispatch {out['dispatch_tflop']:.3f} TFLOP (0 without "
         f"experts) = {out['dispatch_ms']:.3f} ms at "
         f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s; bound {ms:.2f} ms "
@@ -2164,9 +2229,10 @@ def phase_serve(arch, ops, kv_quant=False):
     with ``kv_quant`` an int8 KV cache) with the launcher's default flags,
     every step but the warmup a replay of the executor's captured step; at
     least 12 requests must finish, the logits be finite, BGMV and
-    flash-decode have launched, and the launches be the warmup's and the
-    replays'; then ``check_replay``.  Returns the executor and the serving
-    path's launch counts."""
+    flash-decode have launched where the model has attention layers
+    (mamba2 has none: its path launches no kernel wrapper), and the
+    launches be the warmup's and the replays'; then ``check_replay``.
+    Returns the executor and the serving path's launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import build_parser, report, serve
     args = build_parser().parse_args([])   # the launcher's defaults
@@ -2185,7 +2251,8 @@ def phase_serve(arch, ops, kv_quant=False):
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("serving produced non-finite logits")
     # decode batches of 8 rows on 4 slots stay at T <= 4N: BGMV, not SGMV
-    require_launched("serving", serve_launches, PATH_KERNELS["serving"])
+    if attention_layers(executor.model.cfg):
+        require_launched("serving", serve_launches, PATH_KERNELS["serving"])
     # every step but the warmup was a replay, counted by the executor
     if executor.replays == 0 or serve_launches != {
             k: executor.graph_launches.get(k, 0) * (executor.replays + 1)
@@ -2200,15 +2267,18 @@ def serve_variant(arch, phase, ops, kv_quant=False):
     """Phase 5``phase``: serve ``arch`` at its published widths
     (``phase_serve``; with ``kv_quant`` on an int8 KV cache), hold each
     replay to one BGMV launch per LoRA target and one flash-decode per
-    attention layer (an rglru layer launches neither), and time its
+    attention layer (an rglru or ssd layer launches neither), and time its
     replayed step (``phase_step``; phase 6``phase``,
     or part of 5``phase`` with ``kv_quant``).  Returns the executor, the
     serving path's launches and the step's numbers."""
-    cache = "an int8 KV cache" if kv_quant else "a bf16 KV cache"
+    from repro_torch.configs import get_config
+    cache = ("an int8 KV cache" if kv_quant else "a bf16 KV cache"
+             if attention_layers(get_config(arch)) else "no KV cache")
     say(f"phase 5{phase}: serving {arch} (published widths, bf16, {cache})")
     executor, launches = phase_serve(arch, ops, kv_quant)
-    n_attn = sum(k != "rglru" for k in executor.model.cfg.layer_kinds)
-    want = {"bgmv": 2 * n_attn, "flash_decode": n_attn}
+    n_attn = attention_layers(executor.model.cfg)
+    want = {k: n for k, n in (("bgmv", 2 * n_attn),
+                              ("flash_decode", n_attn)) if n}
     if executor.graph_launches != want:
         raise AssertionError(f"{arch}: a replay launches "
                              f"{executor.graph_launches}, not {want}")
@@ -2294,6 +2364,12 @@ def phase_long_step(ops):
     return out, launches
 
 
+def attention_layers(cfg) -> int:
+    """The layers with attention, a KV cache and LoRA (global, local)."""
+    from repro_torch.models.transformer import ATTENTION_KINDS
+    return sum(k in ATTENTION_KINDS for k in cfg.layer_kinds)
+
+
 def require_launched(path, counts, names) -> None:
     missing = [k for k in names if counts[k] == 0]
     if missing:
@@ -2346,6 +2422,7 @@ def main() -> int:
         f"{tfv_launches}")
     tfm_launches = phase_parity_moe(ops)
     say(f"  launches on the MoE teacher-forcing paths: {tfm_launches}")
+    tfs_launches = phase_parity_ssd(ops)
     tf8_launches = phase_parity_int8(ops)
 
     say("phase 5: serving phi4-mini-3.8b (published widths, bf16)")
@@ -2365,7 +2442,7 @@ def main() -> int:
 
     executor, moe_launches, moe_stats = serve_variant(MOE_ARCH, "c", ops)
     moe_stats.update(step_split(executor, "moe"))
-    moe_stats.update(step_bound=step_bound(executor.model))
+    moe_stats.update(step_bound=step_bound(executor.model, executor.cache))
     say(f"  step {MOE_ARCH} " + json.dumps(moe_stats))
     del executor
     torch.cuda.empty_cache()
@@ -2383,8 +2460,21 @@ def main() -> int:
     executor, hybrid_launches, hybrid_stats = serve_variant(HYBRID_ARCH, "e",
                                                             ops)
     hybrid_stats.update(step_split(executor, "rglru"))
-    hybrid_stats.update(step_bound=step_bound(executor.model))
+    hybrid_stats.update(step_bound=step_bound(executor.model,
+                                              executor.cache))
     say(f"  step {HYBRID_ARCH} " + json.dumps(hybrid_stats))
+    del executor
+    torch.cuda.empty_cache()
+
+    executor, ssm_launches, ssm_stats = serve_variant(SSM_ARCH, "f", ops)
+    ssm_stats.update(step_split(executor, "ssd"))
+    ssm_stats.update(step_bound=step_bound(executor.model, executor.cache))
+    bnd = ssm_stats["step_bound"]["bound_ms"]
+    say(f"  {SSM_ARCH} replayed step: wall {ssm_stats['replay_ms']:.2f} ms, "
+        f"span {ssm_stats['replay_span_ms']:.2f}, busy "
+        f"{ssm_stats['replay_busy_ms']:.2f}; bound {bnd:.2f} ms (weights and "
+        f"states), busy {ssm_stats['replay_busy_ms'] / bnd:.2f}x it")
+    say(f"  step {SSM_ARCH} " + json.dumps(ssm_stats))
     del executor
     torch.cuda.empty_cache()
     rows = phase_timing()
@@ -2417,7 +2507,9 @@ def main() -> int:
              "serving_" + MOE_ARCH: moe_launches,
              "teacher_forcing_int8": tf8_launches,
              "serving_int8": int8_launches,
-             "serving_" + HYBRID_ARCH: hybrid_launches}
+             "serving_" + HYBRID_ARCH: hybrid_launches,
+             "teacher_forcing_" + SSM_ARCH: tfs_launches,
+             "serving_" + SSM_ARCH: ssm_launches}
     rows["flash_decode_lora"]["grid_max_abs_err"] = \
         errs["flash_decode_lora_grid"]
     rows["flash_decode_int8"].update(

@@ -7,10 +7,11 @@ as numpy arrays, this module builds the port's per-layer layout and back:
 
 * params  (``Model.init``)      <-> ``Model``'s parameters;
 * LoRA    (``Model.init_lora``) <-> {"layers": [{"a_q", "b_q", ...}, ...]},
-  an attention-free layer's placeholder ``{"_": zeros}`` (no bank,
-  transformer.py:155-156) <-> {};
+  the placeholder ``{"_": zeros}`` of a layer without attention (rglru,
+  ssd: no bank, transformer.py:144-156) <-> {}, on every such layer;
 * caches  (``init_cache``, ``prefill``) <-> {"pos", "layers": [{"k", "v"}]},
-  an rglru layer's {"conv", "lru"} states alike.
+  an rglru layer's {"conv", "lru"} and an ssd layer's {"conv_x",
+  "conv_bc", "ssm"} states alike.
 
 Every leaf crosses bit for bit: f32, int8 (int8 experts) and f16 (their
 scales) as they are, and bf16, which torch cannot take from numpy, viewed

@@ -1,12 +1,10 @@
 """Architecture registry of the port.
 
-The port serves the dense, MoE and hybrid (RG-LRU) architectures of
-``repro.configs``.
+The port serves every architecture of ``repro.configs``: the dense, MoE,
+hybrid (RG-LRU) and SSM (Mamba2) ones.
 Every entry exposes:
   * ``CONFIG``    — the exact published configuration,
   * ``reduced()`` — a structurally identical, CPU-sized variant for tests.
-The other architectures of ``repro.configs`` raise and name the ROADMAP item
-that brings them.
 """
 from __future__ import annotations
 
@@ -24,6 +22,7 @@ ARCH_IDS = (
     "olmoe_1b_7b",
     "moonshot_v1_16b_a3b",
     "recurrentgemma_9b",
+    "mamba2_2p7b",
 )
 
 ALIASES = {
@@ -36,11 +35,7 @@ ALIASES = {
     "olmoe-1b-7b": "olmoe_1b_7b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "recurrentgemma-9b": "recurrentgemma_9b",
-}
-
-#: architectures of the JAX package not ported yet -> the ROADMAP item
-NOT_PORTED = {
-    "mamba2_2p7b": "queue 1 item 8 (SSM mixers)",
+    "mamba2-2.7b": "mamba2_2p7b",
 }
 
 
@@ -50,9 +45,6 @@ def canonical(arch: str) -> str:
 
 def _module(arch: str):
     name = canonical(arch)
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch} is not ported to PyTorch yet: ROADMAP.md {NOT_PORTED[name]}")
     if name not in ARCH_IDS:
         raise ValueError(f"unknown architecture {arch!r}")
     return importlib.import_module(f".{name}", __package__)

@@ -1,13 +1,61 @@
-"""State-space mixers of the port (counterpart of ``repro.models.ssm``).
+"""State-space mixers of the port (counterpart of ``repro.models.ssm``):
+the Mamba2 / SSD mixer (arXiv:2405.21060) and ``causal_conv``, the
+depthwise causal convolution it shares with the RG-LRU mixer
+(``rglru.py``).
 
-So far only ``causal_conv``, the depthwise causal convolution that the
-RG-LRU mixer (``rglru.py``) shares with the Mamba2 mixer; the SSD mixer
-itself is ROADMAP.md queue 1 item 8a.
+Prefill runs the chunked SSD scan: within a chunk a masked quadratic form,
+across chunks a linear recurrence on the (heads, head_dim, state) tensor.
+Decode is the O(1) recurrent update on the carried state.  The JAX package
+computes both in plain ``jnp`` (no Pallas kernel), and so does the port,
+in plain PyTorch, with the JAX dtypes and casts.  Decode writes its conv
+and ssm states into the tensors it is given, in place (the JAX package
+returns new ones), so a CUDA graph that captured a step keeps its buffers.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from . import layers
+
+
+def ssd_dims(cfg):
+    """(d_inner, heads, head_dim, state) of the mixer (``ssm.py:21-24``)."""
+    d_inner = cfg.d_inner
+    return d_inner, d_inner // cfg.ssm_head_dim, cfg.ssm_head_dim, \
+        cfg.ssm_state
+
+
+def init_ssd(gen: torch.Generator, cfg, dtype, device):
+    """The mixer's parameters, with the JAX package's names, shapes, dtypes
+    and distributions (``ssm.py:27-45``): ``a_log``, ``dt_bias`` and
+    ``d_skip`` in f32."""
+    d = cfg.d_model
+    d_inner, n_heads, _, state = ssd_dims(cfg)
+
+    def dense(shape, fan_in=None):
+        return layers.dense_init(gen, shape, dtype, device, fan_in)
+
+    def conv(width):
+        return (torch.randn((cfg.conv_width, width), generator=gen,
+                            dtype=torch.float32, device=device)
+                * 0.1).to(dtype)
+
+    def full(value):
+        return torch.full((n_heads,), value, dtype=torch.float32,
+                          device=device)
+    return {
+        "w_z": dense((d, d_inner)),
+        "w_x": dense((d, d_inner)),
+        "w_bc": dense((d, 2 * state)),
+        "w_dt": dense((d, n_heads)),
+        "w_out": dense((d_inner, d), fan_in=d_inner),
+        "conv_x": conv(d_inner),
+        "conv_bc": conv(2 * state),
+        "a_log": full(0.0),
+        "dt_bias": full(-2.0),
+        "d_skip": full(1.0),
+    }
 
 
 def causal_conv(x, w, state=None, activate: bool = True):
@@ -28,3 +76,110 @@ def causal_conv(x, w, state=None, activate: bool = True):
     if activate:
         out = F.silu(out.float()).to(x.dtype)
     return out, new_state
+
+
+def ssd_chunked(x, b, c, dt, a_log, *, chunk: int, init_state=None):
+    """Chunked SSD scan (``ssm.py:67-132``), every product in f32.
+
+    x: (B, S, H, P) values; b, c: (B, S, N); dt: (B, S, H) f32
+    (post-softplus); a_log: (H,); init_state: (B, H, P, N) or None (zeros).
+    The chunk is the largest divisor of S up to ``chunk`` (a prime S runs
+    chunks of 1, as in the JAX package).  Returns (y (B, S, H, P) f32,
+    final state (B, H, P, N) f32).
+    """
+    bs, s, h, p = x.shape
+    n = b.shape[-1]
+    chunk = min(chunk, s)
+    while s % chunk:
+        chunk -= 1
+    nc, q = s // chunk, chunk
+
+    a = -torch.exp(a_log)                                  # (H,) negative
+    xr = x.reshape(bs, nc, q, h, p).float()
+    br = b.reshape(bs, nc, q, n).float()
+    cr = c.reshape(bs, nc, q, n).float()
+    dtr = dt.reshape(bs, nc, q, h)
+    cum = torch.cumsum(dtr * a, dim=2)                     # (B, nc, q, H)
+    seg_sum = cum[:, :, -1]                                # (B, nc, H)
+    decay_to_end = torch.exp(seg_sum[:, :, None] - cum)
+    # the incoming state's contribution to token i decays by a_1..a_i
+    decay_from_start = torch.exp(cum)
+
+    # intra-chunk: L[i, j] = exp(cum_i - cum_j) for i >= j, weighted by dt_j
+    li = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (B, nc, q, q, H)
+    causal = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    lmat = torch.where(causal[None, None, :, :, None], torch.exp(li), 0.0)
+    cb = torch.einsum("bcin,bcjn->bcij", cr, br)
+    gates = cb[..., None] * lmat * dtr[:, :, None, :, :]
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", gates, xr)
+
+    # each chunk's contributed state: (B, nc, H, P, N)
+    xdt = xr * (dtr * decay_to_end)[..., None]
+    chunk_states = torch.einsum("bcqhp,bcqn->bchpn", xdt, br)
+
+    # inter-chunk recurrence: the state BEFORE each chunk
+    decay_chunk = torch.exp(seg_sum)                       # (B, nc, H)
+    carry = (x.new_zeros((bs, h, p, n), dtype=torch.float32)
+             if init_state is None else init_state.float())
+    prev = []
+    for i in range(nc):
+        prev.append(carry)
+        carry = carry * decay_chunk[:, i, :, None, None] + chunk_states[:, i]
+    prev = torch.stack(prev, dim=1)                        # (B, nc, H, P, N)
+
+    y_inter = torch.einsum("bcqn,bchpn->bcqhp", cr, prev)
+    y_inter = y_inter * decay_from_start[..., None]
+    return (y_intra + y_inter).reshape(bs, s, h, p), carry
+
+
+def apply_ssd(p, x, cfg, *, conv_state=None, ssm_state=None):
+    """The Mamba2 mixer body (the norm is the caller's), as the JAX
+    ``apply_ssd`` (``ssm.py:135-182``).  x: (B, S, d) -> (y (B, S, d),
+    (conv_x, conv_bc, ssm)).
+
+    Prefill (no ``ssm_state``, or S > 1): the convs from zeros and the
+    chunked scan (chunks of up to ``cfg.ssm_chunk``) from ``ssm_state``
+    (or 0); the states returned are new
+    tensors.  Decode (``ssm_state`` and S == 1): ``conv_state`` is
+    (conv_x (B, W-1, d_inner), conv_bc (B, W-1, 2N)) in x's dtype,
+    ``ssm_state`` (B, H, P, N) f32; one O(1) step, the ssm state updated
+    in place and y read from it, the conv states written in place; all
+    three returned.
+    """
+    d_inner, n_heads, hd, state = ssd_dims(cfg)
+    bs, s, _ = x.shape
+    z = x @ p["w_z"]
+    xi = x @ p["w_x"]
+    bc = x @ p["w_bc"]
+    # dt stays f32 from its projection on: bf16 inputs, f32 products
+    dt = x.float() @ p["w_dt"].float() + p["dt_bias"]
+    dt = torch.logaddexp(dt, torch.zeros_like(dt))        # softplus
+
+    decode = ssm_state is not None and s == 1
+    cx_state, cbc_state = conv_state if decode else (None, None)
+    xi, new_cx = causal_conv(xi, p["conv_x"], state=cx_state)
+    bc, new_cbc = causal_conv(bc, p["conv_bc"], state=cbc_state)
+    xi = xi.reshape(bs, s, n_heads, hd)
+    b, c = bc[..., :state], bc[..., state:]
+
+    if decode:
+        a = -torch.exp(p["a_log"])
+        da = torch.exp(dt[:, 0] * a)                       # (B, H)
+        xdt = xi[:, 0] * dt[:, 0, :, None]                 # (B, H, P) f32
+        upd = xdt[..., None] * b[:, 0, None, None, :].float()
+        ssm_state.mul_(da[:, :, None, None]).add_(upd)     # f32, in place
+        # y from the updated state: (B, H, P, N) @ (B, 1, N, 1)
+        y = (ssm_state @ c[:, 0, None, :, None].float())[..., 0][:, None]
+        cx_state.copy_(new_cx)
+        cbc_state.copy_(new_cbc)
+        new_cx, new_cbc, new_state = cx_state, cbc_state, ssm_state
+    else:
+        y, new_state = ssd_chunked(xi, b, c, dt, p["a_log"],
+                                   chunk=cfg.ssm_chunk,
+                                   init_state=ssm_state)
+        new_cx, new_cbc = new_cx.contiguous(), new_cbc.contiguous()
+
+    y = y + xi.float() * p["d_skip"][:, None]
+    y = y.reshape(bs, s, d_inner).to(x.dtype)
+    y = y * F.silu(z.float()).to(x.dtype)                  # the gate
+    return y @ p["w_out"], (new_cx, new_cbc, new_state.float())

@@ -10,9 +10,11 @@ its experts optionally int8), RoPE or sinusoidal positions, RMSNorm or
 LayerNorm, optional q/k/v biases, tied embeddings and an image-embedding
 prefix: the dense and MoE architectures, the global layers' KV caches in
 the model's dtype or in int8 with f16 scales (``kv_quant``).  It also
-builds ``rglru`` blocks (``RGLRUBlock``: the RG-LRU mixer of
+builds the state blocks: ``rglru`` (``RGLRUBlock``: the RG-LRU mixer of
 ``rglru.py`` and a dense MLP, on conv and lru state caches), the hybrid
-recurrentgemma.  SSM blocks raise and name their ROADMAP.md item.
+recurrentgemma, and ``ssd`` (``SSDBlock``: the Mamba2 mixer of ``ssm.py``,
+no MLP, on conv and ssm state caches), the attention-free mamba2.  An
+unknown block kind raises ``ValueError``, as in the JAX package.
 
 Two entry points, as in the JAX package:
   * ``prefill``     — runs the prompt, emits last-position logits + cache;
@@ -24,7 +26,8 @@ whole batch (a 0-d int32 tensor on the model's device, as the JAX
 package's traced ``cache["pos"]``); a ``pos`` past a global cache skips
 the write; LoRA on q and v only; the vocab padded to a multiple of 256
 with the padded logits kept.  Unlike the JAX package, ``decode_step``
-updates the cache in place: its KV tensors and its ``pos``.
+updates the cache in place: its KV tensors, its recurrent states and its
+``pos``.
 """
 from __future__ import annotations
 
@@ -36,20 +39,11 @@ from torch import nn
 
 from ..device import resolve_device
 from ..kernels import ops
-from . import attention, layers, moe, rglru
+from . import attention, layers, moe, rglru, ssm
 from .config import ModelConfig
 
-#: block kinds of ModelConfig not ported yet -> ROADMAP item
-_NOT_PORTED = {
-    "ssd": "queue 1 item 8 (SSM mixers)",
-}
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    for kind in cfg.layer_kinds:
-        if kind not in ("global", "local", "rglru"):
-            raise NotImplementedError(
-                f"{kind!r} blocks: ROADMAP.md {_NOT_PORTED.get(kind, kind)}")
+#: the block kinds with attention (and a KV cache and LoRA on q and v)
+ATTENTION_KINDS = ("global", "local")
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -254,14 +248,41 @@ class Block(nn.Module):
         return self._residual(x, out[:, None])
 
 
-class RGLRUBlock(nn.Module):
+class _StateBlock(nn.Module):
+    """A layer whose cache is a recurrent state (``RGLRUBlock``,
+    ``SSDBlock``): no KV cache, no positions, no LoRA (``init_lora`` gives
+    it no bank).  Prefill returns the states after the prompt; decode
+    writes them in place.  A subclass names its ``cache_keys`` and gives
+    ``init_cache`` and ``_forward(x, *states)`` -> (x, states)."""
+
+    kv_quant = False   # no KV cache
+
+    def slot_key(self, cache):
+        return None   # no CacheSlot: the states have no positions
+
+    def pad_cache(self, cache, extra: int):
+        """The states, copied: they do not grow (JAX's ``pad_cache``
+        passes them through, transformer.py:606-623)."""
+        return {name: cache[name].clone() for name in self.cache_keys}
+
+    def prefill(self, x, lora_p, adapter_idx, positions):
+        """x: (B, S, d) -> (x, the states after the prompt); ``lora_p``,
+        ``adapter_idx`` and ``positions`` unused."""
+        x, states = self._forward(x)
+        return x, dict(zip(self.cache_keys, states))
+
+    def decode(self, x, lora_p, adapter_idx, cache, slot):
+        """x: (B, 1, d); the states are updated in place; ``slot`` is
+        None."""
+        return self._forward(x, *(cache[k] for k in self.cache_keys))[0]
+
+
+class RGLRUBlock(_StateBlock):
     """One RG-LRU layer (kind ``rglru``; ``_apply_block``,
     transformer.py:429-446): x + mixer(norm1(x)), then x + MLP(norm2(x)).
     Its cache is the mixer's state, ``conv`` (B, conv_width - 1, W) in the
-    model's dtype and ``lru`` (B, W) f32 (``_cache_block``, :192-196); it
-    has no positions and no LoRA (``init_lora`` gives it no bank)."""
+    model's dtype and ``lru`` (B, W) f32 (``_cache_block``, :192-196)."""
 
-    kv_quant = False   # no KV cache
     cache_keys = ("conv", "lru")
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator,
@@ -289,14 +310,6 @@ class RGLRUBlock(nn.Module):
                 "lru": torch.zeros((batch, w), dtype=torch.float32,
                                    device=device)}
 
-    def slot_key(self, cache):
-        return None   # no CacheSlot: the states have no positions
-
-    def pad_cache(self, cache, extra: int):
-        """The states, copied: they do not grow (JAX's ``pad_cache``
-        passes them through, transformer.py:606-623)."""
-        return {name: cache[name].clone() for name in self.cache_keys}
-
     def _forward(self, x, conv_state=None, lru_state=None):
         h = layers.apply_norm(self.cfg.norm, self.norm1, x)
         out, states = rglru.apply_rglru(self.rglru, h, conv_state=conv_state,
@@ -305,16 +318,55 @@ class RGLRUBlock(nn.Module):
         h = layers.apply_norm(self.cfg.norm, self.norm2, x)
         return x + layers.apply_mlp(self.cfg.mlp, self.mlp, h), states
 
-    def prefill(self, x, lora_p, adapter_idx, positions):
-        """x: (B, S, d) -> (x, {"conv", "lru"}): the states after the
-        prompt; ``lora_p``, ``adapter_idx`` and ``positions`` unused."""
-        x, states = self._forward(x)
-        return x, dict(zip(self.cache_keys, states))
 
-    def decode(self, x, lora_p, adapter_idx, cache, slot):
-        """x: (B, 1, d); the states are updated in place; ``slot`` is
-        None."""
-        return self._forward(x, cache["conv"], cache["lru"])[0]
+class SSDBlock(_StateBlock):
+    """One Mamba2 layer (kind ``ssd``; ``_apply_block``,
+    transformer.py:415-428): x + mixer(norm1(x)), no MLP.  Its cache is
+    the mixer's state, ``conv_x`` (B, conv_width - 1, d_inner) and
+    ``conv_bc`` (B, conv_width - 1, 2 * state) in the model's dtype and
+    ``ssm`` (B, H, P, state) f32 (``_cache_block``, :186-191).  Prefill
+    starts from zero states, as in the JAX package."""
+
+    cache_keys = ("conv_x", "conv_bc", "ssm")
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator,
+                 device: torch.device):
+        super().__init__()
+        self.cfg, self.kind = cfg, "ssd"
+        self.norm1 = _norm(cfg, device)
+        self.ssd = nn.ParameterDict({
+            k: _param(v) for k, v in ssm.init_ssd(gen, cfg, cfg.torch_dtype,
+                                                  device).items()})
+
+    def init_cache(self, batch: int, cache_len: int, device):
+        """Zero states, whatever ``cache_len``."""
+        d_inner, n_heads, hd, state = ssm.ssd_dims(self.cfg)
+        rows, dt = self.cfg.conv_width - 1, self.cfg.torch_dtype
+        return {"conv_x": torch.zeros((batch, rows, d_inner), dtype=dt,
+                                      device=device),
+                "conv_bc": torch.zeros((batch, rows, 2 * state), dtype=dt,
+                                       device=device),
+                "ssm": torch.zeros((batch, n_heads, hd, state),
+                                   dtype=torch.float32, device=device)}
+
+    def _forward(self, x, conv_x=None, conv_bc=None, ssm_state=None):
+        h = layers.apply_norm(self.cfg.norm, self.norm1, x)
+        out, states = ssm.apply_ssd(self.ssd, h, self.cfg,
+                                    conv_state=(conv_x, conv_bc),
+                                    ssm_state=ssm_state)
+        return x + out, states
+
+
+def _block(cfg: ModelConfig, kind: str, gen, dev, expert_quant: bool,
+           kv_quant: bool) -> nn.Module:
+    """Layer ``kind``'s block (``_init_block``, transformer.py:89-116)."""
+    if kind in ATTENTION_KINDS:
+        return Block(cfg, kind, gen, dev, expert_quant, kv_quant)
+    if kind == "rglru":
+        return RGLRUBlock(cfg, gen, dev)
+    if kind == "ssd":
+        return SSDBlock(cfg, gen, dev)
+    raise ValueError(kind)
 
 
 class Model(nn.Module):
@@ -334,7 +386,6 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None, seed: int = 0,
                  expert_quant: bool = False, kv_quant: bool = False):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         self.kv_quant = kv_quant
         self.device = resolve_device(device)
@@ -347,16 +398,15 @@ class Model(nn.Module):
         self.embed = nn.ParameterDict(embed)
         self.final_norm = _norm(cfg, dev)
         self.layers = nn.ModuleList(
-            RGLRUBlock(cfg, gen, dev) if kind == "rglru"
-            else Block(cfg, kind, gen, dev, expert_quant, kv_quant)
+            _block(cfg, kind, gen, dev, expert_quant, kv_quant)
             for kind in cfg.layer_kinds)
 
     def init_lora(self, n_adapters: int, rank: int,
                   seed: int = 0) -> Dict[str, Any]:
         """Per-adapter LoRA banks on the configured targets (q, v):
-        {"layers": [{"a_q": (N, d, r), "b_q": (N, r, o), ...}, ...]}; an
-        attention-free layer gets none, {} (the JAX package's placeholder
-        ``{"_": ...}``, transformer.py:155-156)."""
+        {"layers": [{"a_q": (N, d, r), "b_q": (N, r, o), ...}, ...]}; a
+        layer without attention (rglru, ssd) gets none, {} (the JAX
+        package's placeholder ``{"_": ...}``, transformer.py:144-156)."""
         cfg, dev, dt = self.cfg, self.device, self.cfg.torch_dtype
         gen = torch.Generator(device=dev).manual_seed(seed)
         hd = cfg.resolved_head_dim
@@ -365,7 +415,7 @@ class Model(nn.Module):
         for blk in self.layers:
             p = {}
             banks.append(p)
-            if blk.kind == "rglru":
+            if blk.kind not in ATTENTION_KINDS:
                 continue
             for t in cfg.lora_targets:
                 p[f"a_{t}"] = layers.dense_init(
@@ -379,7 +429,8 @@ class Model(nn.Module):
         """A global layer's {"k", "v"} of ``cache_len`` rows (with
         ``kv_quant`` int8, and "k_scale", "v_scale" in f16), a local
         layer's rolling {"k_loc", "v_loc"} of min(window, cache_len) rows,
-        an rglru layer's {"conv", "lru"} states (``_cache_block``,
+        an rglru layer's {"conv", "lru"} states, an ssd layer's
+        {"conv_x", "conv_bc", "ssm"} states (``_cache_block``,
         transformer.py:163-197)."""
         return {"pos": torch.zeros((), dtype=torch.int32, device=self.device),
                 "layers": [blk.init_cache(batch, cache_len, self.device)
@@ -422,7 +473,7 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode_step(self, lora, cache, tokens, adapter_idx=None):
         """tokens: (B, 1). Returns (logits (B, V), cache): the cache itself,
-        its KV tensors (and rglru states) written and its ``pos`` advanced
+        its KV tensors (and recurrent states) written and its ``pos`` advanced
         by one in place.
 
         ``pos`` is read on the device only, and nothing in the step waits
@@ -455,8 +506,8 @@ class Model(nn.Module):
         window still holds; one of ``window`` rows passes through.  The JAX
         package passes every rolling buffer through (transformer.py:606-622),
         so its first decode step after a prompt shorter than the window
-        evicts position 0 (ROADMAP.md queue 3).  An rglru layer's states
-        pass through, copied.
+        evicts position 0 (ROADMAP.md queue 3).  An rglru or ssd layer's
+        states pass through, copied.
         """
         return {"pos": cache["pos"].clone(),
                 "layers": [blk.pad_cache(c, extra) for blk, c in

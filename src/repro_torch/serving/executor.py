@@ -154,8 +154,8 @@ class TorchExecutor:
     def _reset_cache(self) -> None:
         """Undo the warmup step: ``pos`` and every cache tensor back to 0.
         The JAX executor discards its warmup's cache (executor.py:120-123);
-        here the step wrote in place, and an rglru layer's states, unlike a
-        KV row the first step overwrites, would carry it on."""
+        here the step wrote in place, and an rglru or ssd layer's states,
+        unlike a KV row the first step overwrites, would carry it on."""
         self.cache["pos"].zero_()
         for layer in self.cache["layers"]:
             for t in layer.values():
@@ -221,7 +221,9 @@ class TorchExecutor:
         (executor.py:145-149): on recurrentgemma that is an rglru block,
         whose placeholder gives 1, so every request there is served on
         adapter 0; the port keeps each request's adapter (ROADMAP.md
-        queue 3, reference behaviours)."""
+        queue 3, reference behaviours).  With no bank at all (mamba2) it
+        is 1, as the JAX placeholder gives: every request runs as adapter
+        0 on both sides."""
         for layer in self.lora["layers"]:
             for v in layer.values():
                 return v.shape[0]

@@ -24,11 +24,12 @@ They also hold the serving executor's captured step (a CUDA graph) bitwise
 equal to the eager step over 20 steps that cross the cache's end (and for
 reduced gemma3 over 28 that cross its rolling buffers' wrap, reduced
 olmoe's MoE layers over 20, reduced phi4-mini and gemma3 on an int8
-KV cache, and reduced recurrentgemma's rglru states over 28), count its
-launches under replay, and run an eager step under the sync debug mode
-(phi4-mini's, olmoe's, phi4-mini's on an int8 cache and
-recurrentgemma's); ``quantize_kv`` on the card is its CPU result bit for
-bit, and the RG-LRU mixer its CPU result.  The MoE
+KV cache, reduced recurrentgemma's rglru states over 28 and reduced
+mamba2's ssd states over 20), count its launches under replay (none for
+mamba2), and run an eager step under the sync debug mode (phi4-mini's,
+olmoe's, phi4-mini's on an int8 cache, recurrentgemma's and mamba2's);
+``quantize_kv`` on the card is its CPU result bit for bit, and the RG-LRU
+and SSD mixers and reduced mamba2 in bf16 their CPU results.  The MoE
 FFN is held on the card against its CPU result and its oracle, at the
 decode shape, the largest dropless T and on the capacity path.
 """
@@ -772,6 +773,69 @@ def test_apply_rglru_on_the_card(gen, decode, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_executor_replay_equals_eager_step_ssd(gen, dtype):
+    # reduced mamba2 at cache_len 16: 20 steps, the ssd layers' conv_x,
+    # conv_bc and ssm states written in place every step; no layer has
+    # attention or LoRA
+    _replays_equal_eager(*_served(dtype, 16, "mamba2-2.7b"), steps=20)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decode", [False, True])
+def test_apply_ssd_on_the_card(gen, decode, dtype):
+    # the SSD mixer (plain PyTorch) on the card against its CPU result on
+    # the same inputs: prefill (the chunked scan over 37 positions, chunks
+    # of 1 by reduced mamba2's chunk 8) and decode (the states written in
+    # place)
+    from repro_torch.models import ssm
+    cfg = dataclasses.replace(get_reduced("mamba2-2.7b"),
+                              dtype=str(dtype).split(".")[1])
+    d_inner, h, hd, n = ssm.ssd_dims(cfg)
+    p = ssm.init_ssd(torch.Generator().manual_seed(0), cfg, dtype, "cpu")
+    cpu_gen = torch.Generator().manual_seed(1)
+    x = torch.randn((3, 1 if decode else 37, cfg.d_model),
+                    generator=cpu_gen).to(dtype)
+    states = {}
+    if decode:
+        states = dict(conv_state=tuple(
+            torch.randn((3, 3, w), generator=cpu_gen).to(dtype)
+            for w in (d_inner, 2 * n)),
+            ssm_state=torch.randn((3, h, hd, n), generator=cpu_gen))
+    card = {k: tuple(t.cuda() for t in v) if isinstance(v, tuple)
+            else v.cuda() for k, v in states.items()}
+    want, wstates = ssm.apply_ssd(p, x, cfg, **states)
+    got, cstates = ssm.apply_ssd({k: v.cuda() for k, v in p.items()},
+                                 x.cuda(), cfg, **card)
+    if decode:
+        given = (*card["conv_state"], card["ssm_state"])
+        assert all(c is g for c, g in zip(cstates, given))
+    _close(got.cpu(), want, dtype)
+    for c, w in zip(cstates, wstates):
+        _close(c.cpu(), w, dtype)
+
+
+def test_reduced_mamba2_on_the_card_matches_cpu(gen):
+    # reduced mamba2 in bf16: the same weights on the card and on the CPU,
+    # prefill of 13 tokens (chunks of 1) and 6 decode steps
+    cfg = dataclasses.replace(get_reduced("mamba2-2.7b"), dtype="bfloat16")
+    cpu = Model(cfg, device="cpu", seed=3)
+    card = Model(cfg, device="cuda", seed=3)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(0, cfg.vocab_size, (4, 19),
+                           generator=torch.Generator().manual_seed(2))
+    want, wcache = cpu.prefill(None, tokens[:, :13])
+    got, cache = card.prefill(None, tokens[:, :13].cuda())
+    _close(got.cpu(), want, torch.bfloat16)
+    for i in range(13, 19):
+        want, wcache = cpu.decode_step(None, wcache, tokens[:, i:i + 1])
+        got, cache = card.decode_step(None, cache, tokens[:, i:i + 1].cuda())
+        _close(got.cpu(), want, torch.bfloat16)
+    for c, w in zip(cache["layers"], wcache["layers"]):
+        for k in c:
+            _close(c[k].cpu(), w[k], torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("arch,cache_len,steps", [
     ("phi4-mini-3.8b", 16, 20),
     # gemma3's int8 global caches end at step 20, its local layers' f32 or
@@ -818,14 +882,20 @@ def test_executor_replays_count_their_launches_rglru(gen):
     _replays_count_their_launches("recurrentgemma-9b")
 
 
+def test_executor_replays_count_their_launches_ssd(gen):
+    # mamba2 has no attention layer: a replay launches no kernel wrapper
+    _replays_count_their_launches("mamba2-2.7b")
+
+
 def _replays_count_their_launches(arch):
     # one BGMV per LoRA target and one flash-decode per attention layer
     model, lora, ex = _served(torch.bfloat16, arch=arch)
     ops.reset_launches()
     model.decode_step(lora, _clone_cache(ex.cache), ex.tokens, ex.ids)
     per_step = {k: n for k, n in ops.launch_counts().items() if n}
-    n_attn = sum(k != "rglru" for k in model.cfg.layer_kinds)
-    assert per_step == {"bgmv": 2 * n_attn, "flash_decode": n_attn}
+    n_attn = sum(k in ("global", "local") for k in model.cfg.layer_kinds)
+    want = {"bgmv": 2 * n_attn, "flash_decode": n_attn}
+    assert per_step == {k: n for k, n in want.items() if n}
     assert ex.graph_launches == per_step
     ops.reset_launches()
     for _ in range(5):
@@ -854,6 +924,12 @@ def test_eager_rglru_decode_step_does_not_synchronise(gen):
     # the RG-LRU decode (the conv window, the gates, the in-place state
     # writes) stays on the device: the step can be captured
     _decode_step_does_not_synchronise("recurrentgemma-9b")
+
+
+def test_eager_ssd_decode_step_does_not_synchronise(gen):
+    # the SSD decode (the conv windows, the O(1) update, the in-place
+    # state writes) stays on the device: the step can be captured
+    _decode_step_does_not_synchronise("mamba2-2.7b")
 
 
 def _decode_step_does_not_synchronise(arch, kv_quant=False):

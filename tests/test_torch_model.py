@@ -128,20 +128,29 @@ def test_decode_past_cache_end_skips_write(pair):
     assert all(bool((c["k"] == 0).all()) for c in cache["layers"])
 
 
-@pytest.mark.parametrize("arch,item", [("mamba2-2.7b", "queue 1 item 8")])
-def test_unported_architectures_raise(arch, item):
+def test_mamba2_builds_and_runs():
+    # the last of the JAX package's architectures: attention-free, no LoRA
     from repro_torch.configs import get_config
-    with pytest.raises(NotImplementedError, match=item):
-        get_config(arch)
+    published = get_config("mamba2-2.7b")
+    assert published.family == "ssm" and published.n_heads == 0
+    model = Model(port_reduced("mamba2-2.7b"), device="cpu")
+    lora = model.init_lora(4, 4)
+    assert lora["layers"] == [{}] * model.cfg.n_layers
+    tokens = torch.from_numpy(_tokens(s=12, seed=5)).long()
+    idx = torch.tensor([0, 3], dtype=torch.int32)
+    logits, cache = model.prefill(lora, tokens, idx)
+    assert logits.shape == (2, 512) and bool(torch.isfinite(logits).all())
+    logits, _ = model.decode_step(lora, model.pad_cache(cache, 2),
+                                  tokens[:, -1:], idx)
+    assert logits.shape == (2, 512) and bool(torch.isfinite(logits).all())
 
 
-@pytest.mark.parametrize("change,item", [
-    pytest.param({"block_pattern": ("ssd",)}, "queue 1 item 8",
-                 id="change2-queue 1 item 8"),
-])
-def test_unported_blocks_raise(change, item):
-    cfg: ModelConfig = dataclasses.replace(_port_cfg(), **change)
-    with pytest.raises(NotImplementedError, match=item):
+@pytest.mark.parametrize("kind", ["ssm", "attention", "mamba"])
+def test_unknown_block_kind_raises_value_error(kind):
+    # as the JAX package's _init_block (transformer.py:116)
+    cfg: ModelConfig = dataclasses.replace(_port_cfg(),
+                                           block_pattern=("global", kind))
+    with pytest.raises(ValueError, match=kind):
         Model(cfg, device="cpu")
 
 
