@@ -177,24 +177,45 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    first 4 scenarios labelled serially (in a thread, beside the rest),
    equal to the runner's labels.  It fails on a
    non-finite feature or label, N* or G* below 1, or an inference of 50
-   ms or more.
+   ms or more;
+8. training, after the serving models are freed: 8a, one
+   ``make_train_step`` step of phi4-mini-3.8b at its published widths,
+   2 layers, f32 (TF32 off), on 2 x 128 tokens of the seeded
+   ``TokenPipeline`` in 2 microbatches, on the card and on the CPU from
+   the same weights: loss, gradient norm and every gradient leaf within
+   2e-4 (||card - cpu||_2 / ||cpu||_2; tests/test_consistency.py:39), the
+   worst leaf printed; 8b, the published phi4-mini-3.8b (32 layers, bf16,
+   4.45B parameters) trained 8 steps on batches 0..7 of 2 x 512 tokens
+   (AdamW lr 3e-4, one warmup step), printing each step's loss and
+   gradient norm, the step's median wall (steps 2..8) and the update's
+   part of it, tokens/s, the share of 989 TFLOP/s that 6 N tokens reach
+   (N: the parameters but the input embedding), and the peak memory
+   beside the reckoning, then a ninth step under the profiler split into
+   the update, the cuBLAS products and the rest (``train_split``).  It
+   fails on a non-finite loss or norm, a last loss not below the first,
+   a kernel launch (training runs none of the port's kernels), or a
+   parameter left unchanged (but a norm scale of ones, which bf16 cannot
+   move by an AdamW step of 3e-4).
 
 Launch counts are zeroed just before each path a user drives (teacher
 forcing through ``Model.prefill``/``decode_step`` in phase 4, for each
 architecture, serving in phases 5, 5b, 5c, 5d, 5e and 5f, measurement in
-phase 7) and read just after it.  SGMV, BGMV and flash-decode must have
-launched in phase 4, BGMV and flash-decode in phases 5, 5b, 5c, 5d and 5e,
-the fused kernel and SGMV in phase 7; mamba2's paths (phase 4, 5f) must
-launch none, having no attention and no LoRA.  Each kernel's ``launches`` in the kernel
-table is the count of the path it serves (``path``); the int8 mode counts
-as flash-decode, on the int8 paths (``serving_int8``,
-``teacher_forcing_int8``), and flash-decode's row counts the others.  Float32 products run in full f32 (TF32 off) wherever parity
-is checked.  The last two lines are the kernel table and the device, as
-JSON.
+phase 7, training in phases 8a and 8b) and read just after it.  SGMV,
+BGMV and flash-decode must have launched in phase 4, BGMV and
+flash-decode in phases 5, 5b, 5c, 5d and 5e, the fused kernel and SGMV
+in phase 7; mamba2's paths (phase 4, 5f) must launch none, having no
+attention and no LoRA, and so must training's.  Each kernel's
+``launches`` in the kernel table is the count of the path it serves
+(``path``); the int8 mode counts as flash-decode, on the int8 paths
+(``serving_int8``, ``teacher_forcing_int8``), and flash-decode's row
+counts the others.  Float32 products run in full f32 (TF32 off) wherever
+parity is checked.  The last two lines are the kernel table and the
+device, as JSON.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -311,6 +332,14 @@ WIDE_SHAPE = (16, 4, 512)
 HEAD_GROUP_SHAPES = (("recurrentgemma-9b", 16, 1, 256, CACHE),
                      ("recurrentgemma-9b window", 16, 1, 256, 2048),
                      ("G 12", 24, 2, 128, CACHE), ("D 8", 8, 2, 8, CACHE))
+# training (phase 8): phi4-mini-3.8b at its published widths.  8a: its
+# depth cut to TRAIN_CHECK_LAYERS, f32, one step of TRAIN_CHECK_BATCH
+# (rows, tokens) in TRAIN_CHECK_MICRO microbatches on the card against the
+# same step on the CPU; 8b: all 32 layers, bf16, TRAIN_STEPS steps of
+# TRAIN_BATCH at lr TRAIN_LR with one warmup step
+TRAIN_ARCH = "phi4-mini-3.8b"
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_MICRO = 2, (2, 128), 2
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = (2, 512), 8, 3e-4
 
 
 def say(*parts) -> None:
@@ -2224,6 +2253,295 @@ def phase_pipeline(est, mst, placements):
 
 # --------------------------------------------------------------------------- #
 
+# --------------------------------------------------------------------------- #
+# phase 8: training
+# --------------------------------------------------------------------------- #
+
+def train_batches(cfg, rows, tokens):
+    """The seeded ``TokenPipeline`` of ``rows`` x ``tokens`` (seed 0)."""
+    from repro_torch.data import DataConfig, TokenPipeline
+    return TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=tokens, global_batch=rows,
+                                    seed=0))
+
+
+def host_available_gb() -> float:
+    """The host's available memory (``MemAvailable``), GB."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+def phase_train_check(ops):
+    """Phase 8a: one ``train_step`` of phi4-mini at its published widths,
+    ``TRAIN_CHECK_LAYERS`` layers, f32 (TF32 off), on ``TRAIN_CHECK_BATCH``
+    tokens of the seeded pipeline in ``TRAIN_CHECK_MICRO`` microbatches, on
+    the card and on the CPU from the same weights: the loss, the gradient
+    norm and every gradient leaf (the f32 mean AdamW gets) within
+    ||card - cpu||_2 / ||cpu||_2 <= 2e-4 (tests/test_consistency.py:39),
+    the worst leaf printed; the card's step launches no kernel wrapper.
+    Returns the card step's launch counts."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.training import (TrainConfig, init_train_state,
+                                      make_train_step)
+    published = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(published, n_layers=TRAIN_CHECK_LAYERS,
+                              dtype="float32")
+    rows, tokens = TRAIN_CHECK_BATCH
+    batch = train_batches(cfg, rows, tokens).batch_at(0)
+    tcfg = TrainConfig(microbatches=TRAIN_CHECK_MICRO)
+    card = Model(cfg, device="cuda", seed=0)
+    cpu = copy.deepcopy(card).to("cpu")
+    cpu.device = torch.device("cpu")
+    n_params = sum(p.numel() for p in card.parameters())
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    card_step = make_train_step(card, tcfg)
+    _, card_info = card_step(init_train_state(card, tcfg), batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    say(f"  8a: {cfg.n_layers} of {published.n_layers} layers at d="
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, f32, {n_params / 1e9:.2f}B "
+        f"parameters; batch {rows}x{tokens} in {TRAIN_CHECK_MICRO} "
+        f"microbatches; card step {card_s:.1f} s; host memory available "
+        f"before the CPU step {host_available_gb():.1f} GB")
+    t0 = time.perf_counter()
+    cpu_step = make_train_step(cpu, tcfg)
+    _, cpu_info = cpu_step(init_train_state(cpu, tcfg), batch)
+    cpu_s = time.perf_counter() - t0
+
+    def rel(got, want):
+        return ((got.double() - want.double()).norm()
+                / want.double().norm().clamp(min=1e-30)).item()
+    errs = {k: rel(card_info[k].cpu(), cpu_info[k])
+            for k in ("loss", "grad_norm", "lr")}
+    worst, worst_name = -1.0, ""
+    for name, want in cpu_step.grads.items():
+        e = rel(card_step.grads[name].cpu(), want)
+        if e > worst:
+            worst, worst_name = e, name
+    ok = max(errs.values()) <= 2e-4 and worst <= 2e-4
+    say(f"  8a: CPU step {cpu_s:.1f} s; loss {card_info['loss'].item():.6f} "
+        f"(CPU {cpu_info['loss'].item():.6f}), rel {errs['loss']:.3e}; "
+        f"grad_norm {card_info['grad_norm'].item():.6f}, rel "
+        f"{errs['grad_norm']:.3e}; worst gradient leaf {worst_name} rel "
+        f"{worst:.3e} (limit 2e-4) -> {'ok' if ok else 'FAIL'}; launches "
+        f"{launches}")
+    if not ok:
+        raise AssertionError(f"8a: the card's step departs from the CPU's: "
+                             f"{errs}, {worst_name} {worst}")
+    if any(launches.values()):
+        raise AssertionError(f"8a: the train step launched {launches}")
+    del card, cpu, card_step, cpu_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+TRAIN_RANGE = "adamw_update"   # phase 8b's profiler range around the update
+TRAIN_PARTS = ("update", "gemm", "other")
+
+
+def train_split(step, opt, batch):
+    """Where the device time of a train step goes: one more step (a ninth,
+    after the eight timed ones) under the profiler, every call of
+    ``adamw_update`` inside the range ``TRAIN_RANGE`` (wrapped here for
+    this step only).  Its wall (synchronised), the kernels it launched,
+    the device's busy time and its share of the wall, and the busy time by
+    part: the update's kernels, the other cuBLAS products (the layers'
+    projections and MLP, attention's f32 einsums, the unembedding; forward,
+    recomputation and backward) and the rest (norms, RoPE, softmax, the
+    SwiGLU, casts, the loss's glue, the embedding's gradient); the rest's
+    largest kernels printed.  Fails if the profiler saw no device time."""
+    from unittest import mock
+    from repro_torch.training import train_lib
+    inner = train_lib.adamw_update
+
+    def marked(*args, **kw):
+        with torch.profiler.record_function(TRAIN_RANGE):
+            return inner(*args, **kw)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with mock.patch.object(train_lib, "adamw_update", marked):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            _, info = step(opt, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    # each kernel name's share of each part, from the ops that launched it
+    # (an op nested in another may list the same kernel: the shares weigh
+    # the name's device time from ``key_averages``, which counts it once)
+    shares, kernels = {}, 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        anc, inside = e, False
+        while anc is not None and not inside:
+            inside, anc = anc.name == TRAIN_RANGE, anc.cpu_parent
+        for k in e.kernels:
+            part = ("update" if inside else "gemm" if any(
+                w in k.name.lower() for w in GEMM_WORDS) else "other")
+            w = shares.setdefault(k.name, dict.fromkeys(TRAIN_PARTS, 0.0))
+            w[part] += k.duration
+    parts = dict.fromkeys(TRAIN_PARTS, 0.0)
+    other, busy = {}, 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                e.key == TRAIN_RANGE:
+            continue
+        ms = e.self_device_time_total / 1e3
+        busy += ms
+        kernels += e.count
+        w = shares.get(e.key)
+        if not w or not sum(w.values()):
+            w = {"gemm" if any(g in e.key.lower() for g in GEMM_WORDS)
+                 else "other": 1.0}
+        total = sum(w.values())
+        for part, x in w.items():
+            parts[part] += ms * x / total
+        if w.get("other"):
+            other[e.key] = ms * w["other"] / total
+    if busy <= 0:
+        raise AssertionError("8b: the profiler saw no device time")
+    out = {"profiled_wall_ms": wall, "busy_ms": busy,
+           "busy_share": busy / wall, "kernels": kernels,
+           "split_ms": parts, "loss": info["loss"].item()}
+    say(f"  8b profiled step (a ninth): wall {wall:.1f} ms, busy "
+        f"{busy:.1f} ms ({busy / wall:.1%}), {kernels} kernels; update "
+        f"{parts['update']:.1f}, cuBLAS products {parts['gemm']:.1f}, the "
+        f"rest {parts['other']:.1f} ms; the rest's largest:")
+    for ms, key in sorted(((v, k) for k, v in other.items()),
+                          reverse=True)[:8]:
+        say(f"    {ms:8.2f} ms  {key[:90]}")
+    return out
+
+
+def phase_train(ops, card):
+    """Phase 8b: phi4-mini-3.8b published (32 layers, bf16, untied, weights
+    from seed 0) trained ``TRAIN_STEPS`` steps on batches 0.. of
+    ``TRAIN_BATCH`` (AdamW at lr ``TRAIN_LR``, one warmup step, the other
+    defaults; one microbatch).  Prints each step's loss and gradient norm,
+    the median step wall (synchronised, steps 2..) and the update's device
+    span in it (CUDA events around ``adamw_update``), tokens/s, the share of
+    989 TFLOP/s that 6 N tokens a step reach (N: the parameters but the
+    input embedding), and the peak memory beside the reckoning.  Fails on a
+    non-finite loss or norm, a last loss not below the first, a kernel
+    launch, or a parameter left unchanged, unless it is a 1-D tensor of
+    ones whose AdamW step stays under half the bf16 spacing below 1.0
+    (a norm scale: bf16 without master weights cannot move it).  Then a
+    ninth step under the profiler (``train_split``).  Returns its numbers
+    and the eight steps' launch counts."""
+    from unittest import mock
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.training import (AdamWConfig, TrainConfig,
+                                      init_train_state, make_train_step,
+                                      train_lib)
+    cfg = get_config(TRAIN_ARCH)
+    rows, tokens = TRAIN_BATCH
+    pipe = train_batches(cfg, rows, tokens)
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=TRAIN_LR, warmup_steps=1))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    say(f"  8b: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        f"before the model")
+    model = Model(cfg, device="cuda", seed=0)
+    opt = init_train_state(model, tcfg)
+    params = train_lib.trainable(model)
+    step = make_train_step(model, tcfg)
+    n_all = sum(p.numel() for p in params.values())
+    n_flop = n_all - model.embed["embed"].numel()
+    p_gb = sum(p.numel() * p.element_size() for p in params.values()) / 1e9
+    mv_gb = sum(2 * 4 * p.numel() for p in params.values()) / 1e9
+    before = {n: p.detach().to("cpu", copy=True)
+              for n, p in params.items()}
+
+    spans = []
+    real_update = train_lib.adamw_update
+
+    def timed_update(*args, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        out = real_update(*args, **kw)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    losses, norms, walls = [], [], []
+    ops.reset_launches()
+    with mock.patch.object(train_lib, "adamw_update", timed_update):
+        for i in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt, info = step(opt, pipe.batch_at(i))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            losses.append(info["loss"].item())
+            norms.append(info["grad_norm"].item())
+            say(f"  8b step {i + 1}: loss {losses[-1]:.4f}, grad_norm "
+                f"{norms[-1]:.4f}, lr {info['lr'].item():.3e}, "
+                f"{walls[-1]:.1f} ms")
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    update_ms = [s.elapsed_time(e) for s, e in spans]
+    step_ms = float(np.median(walls[1:]))
+    upd_ms = float(np.median(update_ms[1:]))
+    tok = rows * tokens
+    stats = {"arch": TRAIN_ARCH, "layers": cfg.n_layers, "dtype": cfg.dtype,
+             "batch": [rows, tokens], "steps": TRAIN_STEPS,
+             "losses": losses, "grad_norms": norms, "step_walls_ms": walls,
+             "update_ms": update_ms, "step_ms": step_ms,
+             "update_ms_median": upd_ms,
+             "tokens_per_s": tok / step_ms * 1e3,
+             "params": n_all, "flop_params": n_flop,
+             "flops_per_step": 6 * n_flop * tok,
+             "flop_share_bf16_peak": 6 * n_flop * tok / (step_ms / 1e3)
+             / PEAK_FLOPS["bfloat16"],
+             "peak_gb": peak_gb, "params_gb": p_gb, "grads_gb": p_gb,
+             "moments_gb": mv_gb, "reckoned_gb": 2 * p_gb + mv_gb,
+             "card": card}
+    say(f"  8b: {n_all / 1e9:.2f}B parameters ({n_flop / 1e9:.2f}B without "
+        f"the input embedding); step {step_ms:.1f} ms (median of steps 2-"
+        f"{TRAIN_STEPS}), update {upd_ms:.1f} ms of it; "
+        f"{stats['tokens_per_s']:.0f} tokens/s; 6*N*tokens "
+        f"{stats['flops_per_step'] / 1e12:.1f} TFLOP a step, "
+        f"{stats['flop_share_bf16_peak']:.1%} of 989 TFLOP/s; peak "
+        f"{peak_gb:.1f} GB against {stats['reckoned_gb']:.1f} GB reckoned "
+        f"(parameters {p_gb:.1f}, gradients {p_gb:.1f}, f32 m and v "
+        f"{mv_gb:.1f}) before activations; launches {launches}; card {card}")
+
+    frozen = []
+    bound = tcfg.optimizer.lr * (2 + tcfg.optimizer.weight_decay)
+    for name, p in params.items():
+        if torch.equal(before[name], p.detach().cpu()):
+            if not (p.dim() == 1 and bool((p == 1).all())
+                    and bound < 2.0 ** -9):
+                raise AssertionError(f"8b: parameter {name} did not change")
+            frozen.append(name)
+    say(f"  8b: {len(params) - len(frozen)} of {len(params)} parameters "
+        f"changed; {len(frozen)} norm scales of ones did not (an AdamW step "
+        f"under {bound:.1e} < half the bf16 spacing below 1.0, "
+        f"{2.0 ** -9:.2e})")
+    if not all(math.isfinite(v) for v in losses + norms):
+        raise AssertionError(f"8b: non-finite loss or norm: {losses}, "
+                             f"{norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"8b: the loss did not fall: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"8b: the train steps launched {launches}")
+    stats.update(train_split(step, opt, pipe.batch_at(TRAIN_STEPS)))
+    del model, opt, step, params, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats, launches
+
+
 def phase_serve(arch, ops, kv_quant=False):
     """Serve ``arch`` at its published widths (bf16, weights from seed 0;
     with ``kv_quant`` an int8 KV cache) with the launcher's default flags,
@@ -2499,6 +2817,16 @@ def main() -> int:
         "scenario grid -> labelled dataset -> forest -> recommend)")
     phase_pipeline(est, mst, placements)
 
+    say("phase 8: training phi4-mini-3.8b (train_loss -> autograd -> AdamW)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    say(f"  {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated after "
+        f"the serving phases")
+    check_launches = phase_train_check(ops)
+    train_stats, train_launches = phase_train(ops, card)
+    say("  train " + json.dumps(train_stats))
+
     paths = {"teacher_forcing": tf_launches, "serving": serve_launches,
              "measurement": measure_launches,
              "teacher_forcing_variants": tfv_launches,
@@ -2509,7 +2837,8 @@ def main() -> int:
              "serving_int8": int8_launches,
              "serving_" + HYBRID_ARCH: hybrid_launches,
              "teacher_forcing_" + SSM_ARCH: tfs_launches,
-             "serving_" + SSM_ARCH: ssm_launches}
+             "serving_" + SSM_ARCH: ssm_launches,
+             "training_check": check_launches, "training": train_launches}
     rows["flash_decode_lora"]["grid_max_abs_err"] = \
         errs["flash_decode_lora_grid"]
     rows["flash_decode_int8"].update(

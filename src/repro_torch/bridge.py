@@ -5,7 +5,9 @@ dicts/lists/tuples of arrays, each segment's layers stacked on axis 0
 (``repro.models.transformer``, transformer.py:128-158).  Given those trees
 as numpy arrays, this module builds the port's per-layer layout and back:
 
-* params  (``Model.init``)      <-> ``Model``'s parameters;
+* params  (``Model.init``)      <-> ``Model``'s parameters, and any tree
+  of the params' layout (gradients, AdamW moments) <-> a dict keyed by
+  parameter name (``import_tree``, ``export_tree``);
 * LoRA    (``Model.init_lora``) <-> {"layers": [{"a_q", "b_q", ...}, ...]},
   the placeholder ``{"_": zeros}`` of a layer without attention (rglru,
   ssd: no bank, transformer.py:144-156) <-> {}, on every such layer;
@@ -115,40 +117,60 @@ def _zip_stack(trees):
     return np.stack(trees)
 
 
-def load_params(model, params) -> None:
-    """Copy a JAX ``Model.init`` tree (numpy leaves) into ``model``."""
+def import_tree(params, device="cpu") -> Dict[str, torch.Tensor]:
+    """A tree in the layout of a JAX ``Model.init`` tree (numpy leaves: the
+    params, their gradients, AdamW moments) -> {the port's parameter name:
+    tensor on ``device``}; the inverse of ``export_tree``."""
     mapped = {"embed": params["embed"], "final_norm": params["final_norm"]}
     for i, blk in enumerate(_unstack(params["segments"])):
         mapped[f"layers.{i}"] = blk
-    state = {}
+    out = {}
 
     def walk(prefix, tree):
         if isinstance(tree, dict):
             for k, v in tree.items():
                 walk(f"{prefix}.{k}" if prefix else k, v)
         else:
-            state[prefix] = tensor(tree, model.device)
+            out[prefix] = tensor(tree, device)
     walk("", mapped)
-    model.load_state_dict(state, strict=True, assign=False)
+    return out
 
 
-def export_params(model) -> Dict[str, Any]:
-    """``model``'s parameters as a JAX ``Model.init`` tree of numpy arrays."""
+def load_params(model, params) -> None:
+    """Copy a JAX ``Model.init`` tree (numpy leaves) into ``model``."""
+    model.load_state_dict(import_tree(params, model.device), strict=True,
+                          assign=False)
+
+
+def export_tree(model, fn) -> Dict[str, Any]:
+    """``fn(name, parameter)`` of each of ``model``'s parameters, as a JAX
+    ``Model.init`` tree of numpy arrays: a tree the shape of the params,
+    such as their gradients or their AdamW moments, each keyed by the
+    parameter's name (``fn`` returns a tensor; a layer's leaves are
+    stacked over its segment's repeats)."""
     cfg = model.cfg
     per_layer = []
-    for blk in model.layers:
+    for i, blk in enumerate(model.layers):
         tree: Dict[str, Any] = {}
         for name, p in blk.named_parameters():
             node = tree
             *path, leaf = name.split(".")
             for k in path:
                 node = node.setdefault(k, {})
-            node[leaf] = array(p)
+            node[leaf] = array(fn(f"layers.{i}.{name}", p))
         per_layer.append(tree)
-    return {"embed": {k: array(v) for k, v in model.embed.items()},
-            "final_norm": {k: array(v) for k, v in model.final_norm.items()},
+
+    def top(prefix, params):
+        return {k: array(fn(f"{prefix}.{k}", v)) for k, v in params.items()}
+    return {"embed": top("embed", model.embed),
+            "final_norm": top("final_norm", model.final_norm),
             "segments": _stack(per_layer, len(cfg.block_pattern),
                                cfg.n_layers)}
+
+
+def export_params(model) -> Dict[str, Any]:
+    """``model``'s parameters as a JAX ``Model.init`` tree of numpy arrays."""
+    return export_tree(model, lambda name, p: p)
 
 
 #: the JAX package's LoRA placeholder of a layer without a bank

@@ -1,9 +1,11 @@
 """Attention of the port (counterparts of ``repro.models.attention``).
 
-Prefill runs causal attention in plain PyTorch, chunked over the queries
-with an f32 online-softmax state, as the JAX package's ``ring_attention``
-and ``local_attention`` at one shard (``_attend_chunked`` + ``_finalize``);
-the JAX package computes it outside any Pallas kernel too.  Decode writes
+Prefill and the training step run causal attention in plain PyTorch,
+chunked over the queries with an f32 online-softmax state, as the JAX
+package's ``ring_attention`` and ``local_attention`` at one shard
+(``_attend_chunked`` + ``_finalize``); the JAX package computes it outside
+any Pallas kernel too, and under autograd each chunk's block is recomputed
+in backward (``_flash_block_ckpt``).  Decode writes
 the new K/V into the cache in place and attends with the port's
 flash-decode kernel, on global layers' caches and on local layers' rolling
 buffers alike; the step's position stays on the device (``CacheSlot``).
@@ -18,6 +20,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 
@@ -39,6 +42,16 @@ def _flash_block(q, k, v, mask, scale, m, lse, acc):
     l_new = lse * corr + p.sum(-1)
     pv = torch.einsum("bckgs,bskd->bckgd", p, v.float())
     return m_new, l_new, acc * corr[..., None] + pv
+
+
+def _flash_block_ckpt(*args):
+    """``_flash_block``, recomputed in backward when autograd records (the
+    JAX package's ``_flash_block_ckpt``, attention.py:76): without it
+    autograd keeps each chunk's (B, C, KV, G, S) f32 scores for every
+    layer.  Under ``no_grad`` (prefill, decode) it is ``_flash_block``."""
+    if torch.is_grad_enabled():
+        return checkpoint(_flash_block, *args, use_reentrant=False)
+    return _flash_block(*args)
 
 
 def _chunk_count(seq: int, chunk: int) -> int:
@@ -73,8 +86,8 @@ def _attend_chunked(q, k, v, q_pos, kv_pos, scale, window: int,
         m0 = qs.new_full((b, c, kvh, g), NEG_INF, dtype=torch.float32)
         l0 = qs.new_zeros((b, c, kvh, g), dtype=torch.float32)
         a0 = qs.new_zeros((b, c, kvh, g, d), dtype=torch.float32)
-        outs.append(_flash_block(qs[:, i * c:(i + 1) * c], k, v, mask, scale,
-                                 m0, l0, a0))
+        outs.append(_flash_block_ckpt(qs[:, i * c:(i + 1) * c], k, v, mask,
+                                      scale, m0, l0, a0))
     return tuple(torch.cat([o[j] for o in outs], dim=1) for j in range(3))
 
 

@@ -116,3 +116,16 @@ def unembed(p, x, softcap: float = 0.0):
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
     return logits
+
+
+def cross_entropy(logits, labels, mask=None):
+    """logits (..., V) f32; labels int (...,).  The mean of logsumexp minus
+    the gold logit, or its mean over ``mask``, divided by max(sum(mask), 1)
+    (layers.py:146-154)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(nll.dtype)
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)

@@ -16,7 +16,9 @@ recurrentgemma, and ``ssd`` (``SSDBlock``: the Mamba2 mixer of ``ssm.py``,
 no MLP, on conv and ssm state caches), the attention-free mamba2.  An
 unknown block kind raises ``ValueError``, as in the JAX package.
 
-Two entry points, as in the JAX package:
+Three entry points, as in the JAX package:
+  * ``train_loss``  — the causal LM loss (chunked CE over the vocab, plus
+                      the MoE aux loss), differentiable;
   * ``prefill``     — runs the prompt, emits last-position logits + cache;
   * ``decode_step`` — one token per running request with per-request LoRA
                       adapters (the serving hot path).
@@ -36,6 +38,7 @@ from typing import Any, Dict, List
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels import ops
@@ -191,22 +194,41 @@ class Block(nn.Module):
 
     def _ffn(self, h):
         """The MLP, or the MoE FFN over the b*s tokens (``_ffn`` at one
-        shard, transformer.py:362-374; its aux loss is dropped, as the JAX
-        ``prefill`` and ``decode_step`` drop it)."""
+        shard, transformer.py:362-374), and its aux loss (0.0 for the MLP;
+        ``prefill`` and ``decode`` drop it, as the JAX ones do)."""
         cfg = self.cfg
         if not cfg.n_experts:
-            return layers.apply_mlp(cfg.mlp, self.mlp, h)
+            return layers.apply_mlp(cfg.mlp, self.mlp, h), 0.0
         b, s, d = h.shape
-        out, _ = moe.apply_moe(self.moe, h.reshape(b * s, d),
-                               top_k=cfg.top_k, n_experts=cfg.n_experts,
-                               capacity_factor=cfg.capacity_factor)
-        return out.reshape(b, s, d)
+        out, aux = moe.apply_moe(self.moe, h.reshape(b * s, d),
+                                 top_k=cfg.top_k, n_experts=cfg.n_experts,
+                                 capacity_factor=cfg.capacity_factor)
+        return out.reshape(b, s, d), aux
 
     def _residual(self, x, attn_out):
+        """(x after the output projection and the FFN, the FFN's aux
+        loss)."""
         b, s = x.shape[:2]
         x = x + attn_out.reshape(b, s, -1) @ self.wo
         h = layers.apply_norm(self.cfg.norm, self.norm2, x)
-        return x + self._ffn(h)
+        f, aux = self._ffn(h)
+        return x + f, aux
+
+    def _attend(self, q, k, v):
+        """Causal self-attention over the whole sequence: a global layer's,
+        or a local layer's within its window."""
+        scale = 1.0 / math.sqrt(self.cfg.resolved_head_dim)
+        if self.kind == "global":
+            return attention.ring_attention(q, k, v, scale=scale)
+        return attention.local_attention(q, k, v, scale=scale,
+                                         window=self.cfg.local_window)
+
+    def train_forward(self, x, positions):
+        """x: (B, S, d) -> (x, the MoE aux loss): the layer with no cache, as
+        the JAX package's train mode runs it (``_apply_block``,
+        transformer.py:398-405)."""
+        q, k, v = self._qkv(x, None, None, positions)
+        return self._residual(x, self._attend(q, k, v))
 
     def prefill(self, x, lora_p, adapter_idx, positions):
         """x: (B, S, d) -> (x, cache): a global layer's {"k", "v"} of
@@ -216,25 +238,20 @@ class Block(nn.Module):
         rolling {"k_loc", "v_loc"} of (B, min(window, S), KV, D)
         (``_prefill_cache``, transformer.py:297-315)."""
         q, k, v = self._qkv(x, lora_p, adapter_idx, positions)
-        scale = 1.0 / math.sqrt(self.cfg.resolved_head_dim)
+        x, _ = self._residual(x, self._attend(q, k, v))
         if self.kind == "global":
-            out = attention.ring_attention(q, k, v, scale=scale)
             if self.kv_quant:
                 (k, ks), (v, vs) = (attention.quantize_kv(k),
                                     attention.quantize_kv(v))
-                return self._residual(x, out), dict(zip(self.cache_keys,
-                                                        (k, v, ks, vs)))
-            return self._residual(x, out), dict(zip(self.cache_keys, (k, v)))
-        out = attention.local_attention(q, k, v, scale=scale,
-                                        window=self.cfg.local_window)
+                return x, dict(zip(self.cache_keys, (k, v, ks, vs)))
+            return x, dict(zip(self.cache_keys, (k, v)))
         s = k.shape[1]
         w = self.cache_rows(s)
         shift = (s - w) % w   # position p lands in row p % w
 
         def to_rolling(t):
             return torch.roll(t[:, s - w:], shifts=shift, dims=1)
-        return self._residual(x, out), dict(zip(
-            self.cache_keys, (to_rolling(k), to_rolling(v))))
+        return x, dict(zip(self.cache_keys, (to_rolling(k), to_rolling(v))))
 
     def decode(self, x, lora_p, adapter_idx, cache, slot):
         """x: (B, 1, d); slot: the step's ``attention.CacheSlot`` for this
@@ -245,7 +262,7 @@ class Block(nn.Module):
         kc, vc, *scales = self.cache_kv(cache)
         out = attention.decode_attention(q[:, 0], kc, vc, k[:, 0], v[:, 0],
                                          slot, *scales)
-        return self._residual(x, out[:, None])
+        return self._residual(x, out[:, None])[0]
 
 
 class _StateBlock(nn.Module):
@@ -270,6 +287,11 @@ class _StateBlock(nn.Module):
         ``adapter_idx`` and ``positions`` unused."""
         x, states = self._forward(x)
         return x, dict(zip(self.cache_keys, states))
+
+    def train_forward(self, x, positions):
+        """x: (B, S, d) -> (x, 0.0): the prefill form, whose states are new
+        tensors (nothing is written in place); ``positions`` unused."""
+        return self._forward(x)[0], 0.0
 
     def decode(self, x, lora_p, adapter_idx, cache, slot):
         """x: (B, 1, d); the states are updated in place; ``slot`` is
@@ -454,6 +476,81 @@ class Model(nn.Module):
     def _logits(self, x):
         x = layers.apply_norm(self.cfg.norm, self.final_norm, x)
         return layers.unembed(self.embed, x, self.cfg.logit_softcap)
+
+    def train_trunk(self, tokens, img_embeds=None):
+        """tokens: (B, T) -> (the final norm's output (B, I + T, d), the
+        MoE aux loss summed over the layers, f32): every layer in its
+        no-cache form (``_run_segments`` in train mode, transformer.py:
+        449-497)."""
+        x = self._embed_in(tokens, img_embeds)
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for block in self.layers:
+            x, a = block.train_forward(x, positions)
+            aux = aux + a
+        return layers.apply_norm(self.cfg.norm, self.final_norm, x), aux
+
+    def train_loss(self, batch):
+        """batch: {"tokens": (B, T+1) int, "img_embeds": (B, I, d)?} on the
+        model's device (numpy is taken too).  The mean next-token cross
+        entropy of ``tokens[:, :-1]`` against ``tokens[:, 1:]`` (the image
+        positions dropped), plus, for an MoE model, 0.01 * aux / n_layers:
+        the JAX ``train_loss`` (transformer.py:515-529), which hard-codes
+        0.01 and never reads ``TrainConfig.aux_weight``.  Differentiable;
+        raises ``ValueError`` on a model with int8 parameters
+        (``expert_quant``), which autograd cannot differentiate."""
+        ints = [n for n, p in self.named_parameters()
+                if not p.is_floating_point()]
+        if ints:
+            raise ValueError(
+                f"train_loss: {len(ints)} parameters are not floating point "
+                f"(int8 experts, expert_quant=True, e.g. {ints[0]}); their "
+                "gradients do not exist")
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        img = batch.get("img_embeds")
+        if img is not None:
+            img = torch.as_tensor(img, device=self.device)
+        x, aux = self.train_trunk(tokens[:, :-1], img)
+        if img is not None:
+            x = x[:, img.shape[1]:]
+        loss = self._chunked_ce(x, tokens[:, 1:])
+        if self.cfg.n_experts:
+            loss = loss + 0.01 * aux / max(self.cfg.n_layers, 1)
+        return loss
+
+    def _ce(self, x, labels):
+        """The cross entropy of one chunk: f32 logits, those past
+        ``vocab_size`` set to -1e30."""
+        logits = layers.unembed(self.embed, x, self.cfg.logit_softcap)
+        real = torch.arange(logits.shape[-1],
+                            device=x.device) < self.cfg.vocab_size
+        return layers.cross_entropy(torch.where(real, logits, -1e30), labels)
+
+    def _chunked_ce(self, x, labels, max_logit_bytes: int = 2 ** 28):
+        """x: (B, T, d), labels (B, T).  The JAX rule at one shard
+        (transformer.py:531-571): ``chunk`` halves from T while B * chunk *
+        V_pad * 4 bytes of logits exceed ``max_logit_bytes``; each chunk is
+        recomputed in backward (``@jax.checkpoint`` there); the loss is the
+        mean of the chunks' means."""
+        b, s, d = x.shape
+        v = layers.pad_vocab(self.cfg.vocab_size)
+        chunk = s
+        while chunk > 1 and b * chunk * v * 4 > max_logit_bytes:
+            chunk //= 2
+        nc = s // chunk
+        if nc <= 1:
+            return self._ce(x, labels)
+        xr = x.reshape(b, nc, chunk, d)
+        lr = labels.reshape(b, nc, chunk)
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(nc):
+            if torch.is_grad_enabled():
+                tot = tot + checkpoint(self._ce, xr[:, i], lr[:, i],
+                                       use_reentrant=False)
+            else:
+                tot = tot + self._ce(xr[:, i], lr[:, i])
+        return tot / nc
 
     @torch.no_grad()
     def prefill(self, lora, tokens, adapter_idx=None, img_embeds=None):

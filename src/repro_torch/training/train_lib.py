@@ -1,0 +1,115 @@
+"""Train-step factory: loss + grad + AdamW, with microbatch accumulation
+(counterpart of ``repro.training.train_lib``, at one device).
+
+The model holds its parameters: ``init_train_state`` turns on
+``requires_grad`` for the floating-point ones and returns the AdamW state
+over them, and the step updates them in place.  The gradients come from
+autograd through ``Model.train_loss``, whose attention blocks and loss
+chunks are recomputed in backward, as the JAX package's ``jax.checkpoint``s
+are.  The JAX package's compressed cross-pod gradient sync comes with the
+port's distribution (ROADMAP.md queue 1 item 11).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import torch
+
+from .optimizer import AdamWConfig, adamw_init, adamw_update
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    optimizer: AdamWConfig = AdamWConfig()
+    microbatches: int = 1        # gradient accumulation
+    # never read, as in the JAX package: train_loss hard-codes 0.01
+    aux_weight: float = 0.01
+
+
+def trainable(model) -> Dict[str, torch.nn.Parameter]:
+    """The model's floating-point parameters by name (int8 experts are
+    left out)."""
+    return {n: p for n, p in model.named_parameters()
+            if p.is_floating_point()}
+
+
+def init_train_state(model, tcfg: TrainConfig = TrainConfig()):
+    """Turn on ``requires_grad`` for the model's floating-point parameters
+    and return ``adamw_init`` of them (train_lib.py:58-61, whose
+    parameters the port's model already holds)."""
+    params = trainable(model)
+    for p in params.values():
+        p.requires_grad_(True)
+    return adamw_init(params, tcfg.optimizer)
+
+
+class TrainStep:
+    """``train_step(opt_state, batch) -> (opt_state, info)``: one step of
+    ``model`` on ``batch`` (numpy arrays or tensors), its parameters
+    updated in place; ``info`` holds "loss", "grad_norm" and "lr" as 0-d
+    tensors.  ``grads`` keeps the gradients the last step gave AdamW (with
+    microbatches, their f32 mean) until the next step begins."""
+
+    def __init__(self, model, tcfg: TrainConfig):
+        self.model, self.tcfg = model, tcfg
+        self.grads = None
+
+    def _to_device(self, batch) -> Dict[str, torch.Tensor]:
+        """The batch on the model's device, ``img_embeds`` in the model's
+        dtype (launch/train.py:59-60)."""
+        model = self.model
+        out = {"tokens": torch.as_tensor(batch["tokens"], device=model.device)}
+        if batch.get("img_embeds") is not None:
+            out["img_embeds"] = torch.as_tensor(
+                batch["img_embeds"], device=model.device).to(
+                    model.cfg.torch_dtype)
+        return out
+
+    def __call__(self, opt_state, batch):
+        model, n = self.model, self.tcfg.microbatches
+        params = {k: p for k, p in trainable(model).items()
+                  if k in opt_state["m"]}
+        self.grads = None
+        for p in params.values():
+            p.grad = None
+        batch = self._to_device(batch)
+
+        def grad_of(p):
+            return p.grad if p.grad is not None else torch.zeros_like(p)
+
+        if n > 1:
+            # split axis 0 into n microbatches; sum the gradients in f32
+            # (the JAX ``zero`` tree), then divide the sum and the loss by n
+            mbs = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])
+                   for k, v in batch.items()}
+            grads = {k: torch.zeros(p.shape, dtype=torch.float32,
+                                    device=p.device)
+                     for k, p in params.items()}
+            loss = torch.zeros((), dtype=torch.float32, device=model.device)
+            for i in range(n):
+                mb_loss = model.train_loss({k: v[i] for k, v in mbs.items()})
+                mb_loss.backward()
+                with torch.no_grad():
+                    for k, p in params.items():
+                        grads[k].add_(grad_of(p))
+                        p.grad = None
+                loss = loss + mb_loss.detach()
+            for g in grads.values():
+                g.div_(n)
+            loss = loss / n
+        else:
+            loss = model.train_loss(batch)
+            loss.backward()
+            loss = loss.detach()
+            grads = {k: grad_of(p) for k, p in params.items()}
+        _, opt_state, info = adamw_update(params, grads, opt_state,
+                                          self.tcfg.optimizer)
+        info["loss"] = loss
+        self.grads = grads
+        return opt_state, info
+
+
+def make_train_step(model, tcfg: TrainConfig = TrainConfig()) -> TrainStep:
+    """The step of ``model`` under ``tcfg`` (train_lib.py:26-55)."""
+    return TrainStep(model, tcfg)

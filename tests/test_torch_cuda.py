@@ -31,7 +31,11 @@ olmoe's, phi4-mini's on an int8 cache, recurrentgemma's and mamba2's);
 ``quantize_kv`` on the card is its CPU result bit for bit, and the RG-LRU
 and SSD mixers and reduced mamba2 in bf16 their CPU results.  The MoE
 FFN is held on the card against its CPU result and its oracle, at the
-decode shape, the largest dropless T and on the capacity path.
+decode shape, the largest dropless T and on the capacity path.  The
+training step (reduced phi4-mini, olmoe, recurrentgemma and mamba2, f32,
+two microbatches) on the card equals the same step on the CPU and launches
+no kernel wrapper, and a captured decode step still replays bit for bit
+the eager one after a train step has updated the weights in place.
 """
 import dataclasses
 import math
@@ -944,3 +948,66 @@ def _decode_step_does_not_synchronise(arch, kv_quant=False):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(logits).all())
+
+
+# --------------------------------------------------------------------------- #
+# the training step on the card
+# --------------------------------------------------------------------------- #
+
+def _train_batch(cfg, rows=4, tokens=32):
+    from repro_torch.data import DataConfig, TokenPipeline
+    return TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=tokens,
+                                    global_batch=rows)).batch_at(0)
+
+
+def _rel(got, want):
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return ((got - want).norm() / want.norm().clamp(min=1e-30)).item()
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "olmoe-1b-7b",
+                                  "recurrentgemma-9b", "mamba2-2.7b"])
+def test_train_step_on_the_card_matches_cpu(gen, arch):
+    # reduced, f32 (TF32 off), the same weights: one step of 2 microbatches
+    # on the card against the CPU's, loss, gradient norm and each f32
+    # gradient leaf within 2e-4 (test_consistency.py:39), no kernel wrapper
+    # launched (training runs none of the port's kernels)
+    from repro_torch.training import (TrainConfig, init_train_state,
+                                      make_train_step)
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    cpu = Model(cfg, device="cpu", seed=3)
+    card = Model(cfg, device="cuda", seed=3)
+    card.load_state_dict(cpu.state_dict())
+    batch = _train_batch(cfg)
+    tcfg = TrainConfig(microbatches=2)
+    cpu_step = make_train_step(cpu, tcfg)
+    _, want = cpu_step(init_train_state(cpu, tcfg), batch)
+    ops.reset_launches()
+    card_step = make_train_step(card, tcfg)
+    _, got = card_step(init_train_state(card, tcfg), batch)
+    torch.cuda.synchronize()
+    assert not any(ops.launch_counts().values())
+    for key in ("loss", "grad_norm", "lr"):
+        assert _rel(got[key], want[key]) <= 2e-4, key
+    assert card_step.grads.keys() == cpu_step.grads.keys()
+    for name, g in cpu_step.grads.items():
+        assert card_step.grads[name].dtype == torch.float32
+        assert _rel(card_step.grads[name], g) <= 2e-4, name
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "olmoe-1b-7b"])
+def test_executor_replay_equals_eager_step_after_train_step(gen, arch):
+    # the decode step captured first, then a train step updates the weights
+    # in place: the replays read the new weights and equal the eager step
+    # bit for bit
+    from repro_torch.training import (AdamWConfig, TrainConfig,
+                                      init_train_state, make_train_step)
+    model, lora, ex = _served(torch.bfloat16, 16, arch)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-2, warmup_steps=0))
+    make_train_step(model, tcfg)(init_train_state(model, tcfg),
+                                 _train_batch(model.cfg))
+    assert any(not torch.equal(before[n], p)
+               for n, p in model.named_parameters())
+    _replays_equal_eager(model, lora, ex, steps=20)

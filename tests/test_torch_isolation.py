@@ -28,7 +28,9 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
-print(len(names), bad)
+training = {"repro_torch.training.optimizer", "repro_torch.training.train_lib",
+            "repro_torch.data.pipeline"} <= set(names)
+print(len(names), training, bad)
 """
 
 
@@ -36,9 +38,10 @@ def test_importing_every_module_loads_no_jax_or_repro():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", IMPORT_ALL], env=env,
                          capture_output=True, text=True, timeout=240,
-                         check=True).stdout.split(maxsplit=1)
+                         check=True).stdout.split(maxsplit=2)
     assert int(out[0]) >= 20          # every module was imported
-    assert out[1].strip() == "[]"
+    assert out[1] == "True"           # the training step's among them
+    assert out[2].strip() == "[]"
 
 
 def _imports(path: Path):
