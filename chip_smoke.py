@@ -54,7 +54,12 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    and the int8 mode at every head dim 1..256 (``check_head_dims``: one
    without an instance runs the next larger one, padded) and at head dims
    257, 320, 384, 512, 576 and 1024 (``WIDE_DIMS``, the wide path), 1, 4
-   or 16 query heads a KV head by turns, q in bf16 and f32, per row;
+   or 16 query heads a KV head by turns, q in bf16 and f32, per row; and
+   the products the JAX package keeps in f32 (``layers.matmul_f32``) at
+   phi4-mini's decode shapes (T 8; the MLP's gate and up, the untied
+   logits over 200192 columns) within 1e-5 of the f32 product of the bf16
+   values, each timed beside the bf16 product and the upcast one
+   (``check_products_f32``);
 4. teacher forcing at phi4-mini's published widths, f32, 4 layers:
    decode after ``prefill(tokens[:, :-1])`` must match ``prefill(tokens)``
    to a relative error below 2e-4; then the same for each of the five
@@ -195,16 +200,27 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    fails on a non-finite loss or norm, a last loss not below the first,
    a kernel launch (training runs none of the port's kernels), or a
    parameter left unchanged (but a norm scale of ones, which bf16 cannot
-   move by an AdamW step of 3e-4).
+   move by an AdamW step of 3e-4);
+9. the loop around the training step (``phase_checkpoint``): phi4-mini at
+   its published widths, 2 layers, bf16, through ``FaultTolerantLoop``
+   over 6 steps of 2 x 512 tokens with async checkpoints every 3 (2 kept)
+   and a crash injected at step 4: one restart, resumed from step 3, the
+   AdamW step at 6; the same 6 steps without a crash bit for bit the same
+   parameters, m and v; the newest checkpoint restored onto the CPU bit
+   for bit; the free disk checked for two checkpoints first; then
+   ``python -m repro_torch.launch.train --reduced`` to step 20 and again
+   to 30 on one directory, the second resuming from step 20.  Prints the
+   checkpoint's bytes, each save's snapshot and write seconds, the
+   resume's and the CPU restore's, and the steps' walls.
 
 Launch counts are zeroed just before each path a user drives (teacher
 forcing through ``Model.prefill``/``decode_step`` in phase 4, for each
 architecture, serving in phases 5, 5b, 5c, 5d, 5e and 5f, measurement in
-phase 7, training in phases 8a and 8b) and read just after it.  SGMV,
+phase 7, training in phases 8a, 8b and 9) and read just after it.  SGMV,
 BGMV and flash-decode must have launched in phase 4, BGMV and
 flash-decode in phases 5, 5b, 5c, 5d and 5e, the fused kernel and SGMV
 in phase 7; mamba2's paths (phase 4, 5f) must launch none, having no
-attention and no LoRA, and so must training's.  Each kernel's
+attention and no LoRA, and so must training's (8a, 8b and 9).  Each kernel's
 ``launches`` in the kernel table is the count of the path it serves
 (``path``); the int8 mode counts as flash-decode, on the int8 paths
 (``serving_int8``, ``teacher_forcing_int8``), and flash-decode's row
@@ -218,6 +234,8 @@ import dataclasses
 import gc
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -340,6 +358,13 @@ HEAD_GROUP_SHAPES = (("recurrentgemma-9b", 16, 1, 256, CACHE),
 TRAIN_ARCH = "phi4-mini-3.8b"
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_MICRO = 2, (2, 128), 2
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = (2, 512), 8, 3e-4
+# phase 9: TRAIN_CHECK_LAYERS layers in bf16, CKPT_STEPS steps of
+# TRAIN_BATCH, a checkpoint every CKPT_EVERY steps (the last CKPT_KEEP
+# kept), a crash injected at step CKPT_FAIL; the launcher run to each of
+# LAUNCH_STEPS on one directory, a checkpoint every LAUNCH_EVERY steps
+CKPT_STEPS, CKPT_EVERY, CKPT_KEEP, CKPT_FAIL = 6, 3, 2, 4
+LAUNCH_STEPS, LAUNCH_EVERY = (20, 30), 10
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 
 
 def say(*parts) -> None:
@@ -465,7 +490,44 @@ def phase_kernels():
     check_long(errs)
     check_head_groups(errs)
     check_head_dims(errs)
+    check_products_f32(inp)
     return errs
+
+
+def check_products_f32(inp):
+    """The products the JAX package keeps in f32 (``layers.matmul_f32``:
+    cuBLAS's ``out_dtype`` overload, the bf16 weights read as they are) at
+    phi4-mini's decode shapes: T 8 rows of the MLP's gate and up (d 3072 ->
+    8192) and the untied logits (-> 200192), each against the f32 product
+    of the bf16 values on the card (TF32 off) within a relative error of
+    1e-5 (max |got - want| / max |want|); each timed (``graph_ms``)
+    beside the bf16 product cast after (the port before this check's
+    products) and the product of both operands upcast."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    cfg = get_config("phi4-mini-3.8b")
+    x = inp.normal(BATCH, cfg.d_model, dtype=torch.bfloat16)
+    for name, width in (("mlp gate", cfg.d_ff), ("mlp up", cfg.d_ff),
+                        ("logits", layers.pad_vocab(cfg.vocab_size))):
+        w = inp.normal(cfg.d_model, width, dtype=torch.bfloat16,
+                       std=cfg.d_model ** -0.5)
+        got = layers.matmul_f32(x, w)
+        want = x.float() @ w.float()
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        ok = got.dtype == torch.float32 and rel <= 1e-5
+        # a second weight where one fits the 50 MB L2
+        sets = [(x, w), (x, w.clone())] if w.nbytes <= 64e6 else [(x, w)]
+        times = [graph_ms(fn, sets, calls=8) for fn in (
+            layers.matmul_f32, lambda a, b: (a @ b).float(),
+            lambda a, b: a.float() @ b.float())]
+        say(f"  matmul_f32 {name} ({BATCH}x{cfg.d_model} @ {cfg.d_model}x"
+            f"{width}) rel {rel:.3e} (tol 1e-5) -> {'ok' if ok else 'FAIL'};"
+            f" {times[0] * 1e3:.2f} us (bf16 product cast after "
+            f"{times[1] * 1e3:.2f}, both operands upcast "
+            f"{times[2] * 1e3:.2f})")
+        if not ok:
+            raise AssertionError(f"matmul_f32 {name}: rel {rel}")
+        del w, got, want, sets
 
 
 def int8_cache(inp, bsz, s, kv, d):
@@ -2140,7 +2202,6 @@ def phase_pipeline(est, mst, placements):
     not depend on the call: its seed is its index).  Fails on a
     non-finite feature or label, an N* or G* below 1, an inference of 50
     ms or more, or serial labels that differ."""
-    import os
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.core import (MODEL_ZOO, PlacementPipeline, SweepRunner,
                                   TARGET_NAMES, WorkloadSpec, build_pipeline,
@@ -2542,6 +2603,162 @@ def phase_train(ops, card):
     return stats, launches
 
 
+def phase_checkpoint(ops, card):
+    """Phase 9: the loop around the training step.  phi4-mini-3.8b at its
+    published widths, ``TRAIN_CHECK_LAYERS`` layers, bf16, untied, weights
+    from seed 0, trained on ``TRAIN_BATCH`` batches (AdamW at lr
+    ``TRAIN_LR``, one warmup step).  Run A: ``FaultTolerantLoop.
+    run_with_restarts`` over ``CKPT_STEPS`` steps, a checkpoint every
+    ``CKPT_EVERY`` (async, the last ``CKPT_KEEP`` kept), a crash injected at
+    step ``CKPT_FAIL``: one restart, resumed from step ``CKPT_EVERY``, the
+    AdamW step at ``CKPT_STEPS``.  Run B: the same steps from the same seed
+    without a crash or a checkpoint; its parameters, m and v bit for bit
+    run A's.  The newest checkpoint restored onto the CPU bit for bit the
+    card's state.  Before any save the free space under ``CKPT_DIR`` must
+    hold two checkpoints.  Then ``python -m repro_torch.launch.train
+    --reduced`` run to each of ``LAUNCH_STEPS`` on one directory, the
+    second printing ``resumed from step`` the first's end.  Prints the
+    bytes of a checkpoint, each save's snapshot and write seconds, the
+    resume's and the CPU restore's seconds and the steps' walls; the
+    directory is removed at the end.  Returns the numbers and run A's
+    launch counts (none: training runs no kernel of the port's)."""
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.configs import get_config
+    from repro_torch.launch.fault_tolerance import FaultTolerantLoop, FTConfig
+    from repro_torch.models import Model
+    from repro_torch.training import (AdamWConfig, TrainConfig,
+                                      init_train_state, make_train_step,
+                                      train_lib)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_CHECK_LAYERS)
+    rows, tokens = TRAIN_BATCH
+    pipe = train_batches(cfg, rows, tokens)
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=TRAIN_LR, warmup_steps=1))
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    CKPT_DIR.mkdir(parents=True)
+    try:
+        model = Model(cfg, device="cuda", seed=0)
+        state = {"params": train_lib.trainable(model),
+                 "opt": init_train_state(model, tcfg)}
+        leaves = _flatten(state).values()
+        ckpt_bytes = sum(t.numel() * t.element_size() for t in leaves)
+        free = shutil.disk_usage(CKPT_DIR).free
+        say(f"  9: {cfg.n_layers} of {get_config(TRAIN_ARCH).n_layers} "
+            f"layers at d={cfg.d_model}, {cfg.dtype}, "
+            f"{sum(p.numel() for p in state['params'].values()) / 1e9:.2f}B "
+            f"parameters; a checkpoint {ckpt_bytes / 1e9:.2f} GB "
+            f"({len(leaves)} leaves); {free / 1e9:.1f} GB free under "
+            f"{CKPT_DIR}")
+        if free < 2 * ckpt_bytes:
+            raise RuntimeError(f"9: {free / 1e9:.1f} GB free under "
+                               f"{CKPT_DIR}, two checkpoints need "
+                               f"{2 * ckpt_bytes / 1e9:.1f} GB")
+        step_fn = make_train_step(model, tcfg)
+
+        def one(s, batch):
+            return {"params": s["params"],
+                    "opt": step_fn(s["opt"], batch)[0]}
+
+        loop = FaultTolerantLoop(FTConfig(
+            str(CKPT_DIR / "run_a"), checkpoint_every=CKPT_EVERY,
+            keep=CKPT_KEEP), state)
+        resume = loop.resume_or_init
+        resumes = []
+
+        def timed_resume(init_fn):
+            t0 = time.perf_counter()
+            out = resume(init_fn)
+            torch.cuda.synchronize()
+            resumes.append(time.perf_counter() - t0)
+            return out
+        loop.resume_or_init = timed_resume
+        ops.reset_launches()
+        out_a = loop.run_with_restarts(lambda: state, one, pipe.batch_at,
+                                       CKPT_STEPS, failure_at=CKPT_FAIL)
+        launches = ops.launch_counts()
+        rep = loop.report
+        step_a = int(out_a["opt"]["step"])
+        say(f"  9 run A: restarts {rep.restarts}, resumed from "
+            f"{rep.resumed_from}, {rep.steps_run} steps run, AdamW step "
+            f"{step_a}; committed {loop.mgr.steps()}; step walls (ms) "
+            + ", ".join(f"{t * 1e3:.1f}" for t in rep.step_times)
+            + "; saves " + ", ".join(
+                f"step {t['step']}: snapshot {t['snapshot_s']:.2f} s, write "
+                f"{t['write_s']:.2f} s" for t in loop.mgr.timings)
+            + f"; resume (restore + copy onto the card) {resumes[-1]:.2f} s;"
+            f" launches {launches}")
+        if (rep.restarts, rep.resumed_from, step_a) != (1, CKPT_EVERY,
+                                                        CKPT_STEPS):
+            raise AssertionError(f"9 run A: restarts {rep.restarts}, "
+                                 f"resumed from {rep.resumed_from}, step "
+                                 f"{step_a}")
+        if any(launches.values()):
+            raise AssertionError(f"9: the train steps launched {launches}")
+
+        model_b = Model(cfg, device="cuda", seed=0)
+        opt_b = init_train_state(model_b, tcfg)
+        step_b = make_train_step(model_b, tcfg)
+        for i in range(CKPT_STEPS):
+            opt_b, _ = step_b(opt_b, pipe.batch_at(i))
+        flat_a = _flatten(out_a)
+        flat_b = _flatten({"params": train_lib.trainable(model_b),
+                           "opt": opt_b})
+        differ = [k for k, t in flat_a.items()
+                  if not torch.equal(t, flat_b[k])]
+        say(f"  9 run B (no crash, no checkpoint): {len(flat_b) - len(differ)}"
+            f" of {len(flat_b)} leaves bit for bit run A's")
+        if differ:
+            raise AssertionError(f"9: run A departs from run B: {differ[:5]}")
+        del model_b, opt_b, step_b, flat_b
+
+        t0 = time.perf_counter()
+        on_cpu = _flatten(loop.mgr.restore(out_a, device="cpu"))
+        restore_s = time.perf_counter() - t0
+        differ = [k for k, t in flat_a.items()
+                  if on_cpu[k].device.type != "cpu"
+                  or not torch.equal(on_cpu[k], t.cpu())]
+        say(f"  9: step {loop.mgr.latest_step()} restored onto the CPU in "
+            f"{restore_s:.2f} s; {len(on_cpu) - len(differ)} of "
+            f"{len(on_cpu)} leaves bit for bit the card's")
+        if differ:
+            raise AssertionError(f"9: the CPU restore departs: {differ[:5]}")
+        stats = {"arch": TRAIN_ARCH, "layers": cfg.n_layers,
+                 "dtype": cfg.dtype, "batch": [rows, tokens],
+                 "checkpoint_bytes": ckpt_bytes, "saves": loop.mgr.timings,
+                 "resume_s": resumes[-1], "cpu_restore_s": restore_s,
+                 "step_walls_ms": [t * 1e3 for t in rep.step_times],
+                 "restarts": rep.restarts, "resumed_from": rep.resumed_from,
+                 "card": card}
+        del model, state, out_a, flat_a, on_cpu, loop
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        launch_dir = CKPT_DIR / "launcher"
+        env = {**os.environ, "PYTHONPATH": str(SRC)}
+        for n in LAUNCH_STEPS:
+            t0 = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                 TRAIN_ARCH, "--reduced", "--steps", str(n),
+                 "--checkpoint-every", str(LAUNCH_EVERY), "--checkpoint-dir",
+                 str(launch_dir)], env=env, cwd=ROOT, capture_output=True,
+                text=True, timeout=600)
+            if run.returncode:
+                raise AssertionError(f"9 launcher --steps {n}: exit "
+                                     f"{run.returncode}: {run.stderr[-2000:]}")
+            lines = run.stdout.strip().splitlines()
+            say(f"  9 launcher --steps {n} ({time.perf_counter() - t0:.1f} s):"
+                f" " + " | ".join(lines))
+            resumed = [ln for ln in lines if ln.startswith("resumed from")]
+            want = [] if n == LAUNCH_STEPS[0] else \
+                [f"resumed from step {LAUNCH_STEPS[0]}"]
+            if resumed != want or not lines[-1].startswith(f"done: {n} steps"):
+                raise AssertionError(f"9 launcher --steps {n}: {lines}")
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return stats, launches
+
+
 def phase_serve(arch, ops, kv_quant=False):
     """Serve ``arch`` at its published widths (bf16, weights from seed 0;
     with ``kv_quant`` an int8 KV cache) with the launcher's default flags,
@@ -2827,6 +3044,11 @@ def main() -> int:
     train_stats, train_launches = phase_train(ops, card)
     say("  train " + json.dumps(train_stats))
 
+    say("phase 9: the loop around the training step (checkpoints, the "
+        "fault-tolerant loop, the train launcher)")
+    ckpt_stats, ckpt_launches = phase_checkpoint(ops, card)
+    say("  checkpoint " + json.dumps(ckpt_stats))
+
     paths = {"teacher_forcing": tf_launches, "serving": serve_launches,
              "measurement": measure_launches,
              "teacher_forcing_variants": tfv_launches,
@@ -2838,7 +3060,8 @@ def main() -> int:
              "serving_" + HYBRID_ARCH: hybrid_launches,
              "teacher_forcing_" + SSM_ARCH: tfs_launches,
              "serving_" + SSM_ARCH: ssm_launches,
-             "training_check": check_launches, "training": train_launches}
+             "training_check": check_launches, "training": train_launches,
+             "training_loop": ckpt_launches}
     rows["flash_decode_lora"]["grid_max_abs_err"] = \
         errs["flash_decode_lora_grid"]
     rows["flash_decode_int8"].update(

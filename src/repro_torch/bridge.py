@@ -32,7 +32,10 @@ import torch
 
 
 def tensor(arr, device="cpu") -> torch.Tensor:
-    """One numpy array -> a torch tensor on ``device``, bit for bit."""
+    """One numpy array -> a torch tensor on ``device``, bit for bit (a
+    tensor is moved as it is)."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device)
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
         t = torch.from_numpy(arr.view(np.uint16).view(np.int16).copy())
@@ -118,9 +121,10 @@ def _zip_stack(trees):
 
 
 def import_tree(params, device="cpu") -> Dict[str, torch.Tensor]:
-    """A tree in the layout of a JAX ``Model.init`` tree (numpy leaves: the
-    params, their gradients, AdamW moments) -> {the port's parameter name:
-    tensor on ``device``}; the inverse of ``export_tree``."""
+    """A tree in the layout of a JAX ``Model.init`` tree (numpy or tensor
+    leaves: the params, their gradients, AdamW moments, a checkpoint's)
+    -> {the port's parameter name: tensor on ``device``}; the inverse of
+    ``export_tree``."""
     mapped = {"embed": params["embed"], "final_norm": params["final_norm"]}
     for i, blk in enumerate(_unstack(params["segments"])):
         mapped[f"layers.{i}"] = blk

@@ -3,7 +3,9 @@
 Functions on tensors; parameters live in the ``nn.Module``s of
 ``transformer.py``.  Weights keep the JAX package's (in, out) layout, so a
 projection is ``x @ w``.  The norms, RoPE and the MLP's activation compute
-in f32 and cast back, as the JAX package does.
+in f32 and cast back, as the JAX package does.  Where the JAX package
+keeps a product of bf16 operands in f32 (``preferred_element_type``) and
+computes on from it, the port takes ``matmul_f32``/``bmm_f32``.
 """
 from __future__ import annotations
 
@@ -30,6 +32,54 @@ def dense_init(gen: torch.Generator, shape, dtype, device,
 def embed_init(gen: torch.Generator, shape, dtype, device):
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     return (w.mul_(0.02)).to(dtype)
+
+
+# --------------------------------------------------------------------------- #
+# products kept in f32
+# --------------------------------------------------------------------------- #
+
+class _ProductF32(torch.autograd.Function):
+    """The f32 product of two CUDA operands of one 16-bit dtype: cuBLAS's
+    ``out_dtype`` overload of ``mm``/``bmm``, each product of the operands'
+    values accumulated in f32 and never rounded to their dtype; the
+    weights are not upcast.  The overloads have no derivative, so backward
+    is written here: the cotangent cast to the operands' dtype and its two
+    products in that dtype, what autograd of ``(x @ w).float()`` computes."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        op = torch.bmm if x.dim() == 3 else torch.mm
+        return op(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gx = g @ w.transpose(-1, -2) if ctx.needs_input_grad[0] else None
+        gw = x.transpose(-1, -2) @ g if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
+def _product_f32(x, w):
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return x @ w
+    if x.is_cuda:
+        return _ProductF32.apply(x, w)
+    return x.float() @ w.float()      # the plain version: exact on the CPU
+
+
+def matmul_f32(x, w):
+    """x (..., d) @ w (d, f) -> f32 (..., f): ``jnp.einsum(...,
+    preferred_element_type=jnp.float32)`` of bf16 (or f32) operands."""
+    lead = x.shape[:-1]
+    return _product_f32(x.reshape(-1, x.shape[-1]), w).reshape(
+        *lead, w.shape[-1])
+
+
+def bmm_f32(a, b):
+    """a (n, m, k) @ b (n, k, f) -> f32 (n, m, f), as ``matmul_f32``."""
+    return _product_f32(a, b)
 
 
 # --------------------------------------------------------------------------- #
@@ -84,11 +134,12 @@ def apply_rope(x, positions, theta: float):
 
 
 def apply_mlp(kind: str, p, x):
-    """SwiGLU or GELU MLP; the activation is computed in f32, then cast.
-    GELU is the tanh approximation, ``jax.nn.gelu``'s default."""
-    up = (x @ p["w_up"]).float()
+    """SwiGLU or GELU MLP; gate and up are f32 products, the activation is
+    computed in f32, then cast.  GELU is the tanh approximation,
+    ``jax.nn.gelu``'s default."""
+    up = matmul_f32(x, p["w_up"])
     if kind == "swiglu":
-        h = F.silu((x @ p["w_gate"]).float()) * up
+        h = F.silu(matmul_f32(x, p["w_gate"])) * up
     else:
         h = F.gelu(up, approximate="tanh")
     return h.to(x.dtype) @ p["w_down"]
@@ -103,16 +154,20 @@ def pad_vocab(v: int, multiple: int = 256) -> int:
 
 
 def embed_tokens(embed, tokens):
-    return embed[tokens]
+    """The rows of ``embed`` at ``tokens``.  ``F.embedding``, whose CPU
+    backward sums a row's gradients in token order: the indexing
+    ``embed[tokens]`` accumulates them across threads in no fixed order,
+    and a training run would not repeat to the bit."""
+    return F.embedding(tokens, embed)
 
 
 def unembed(p, x, softcap: float = 0.0):
     """f32 logits over the padded vocab (the padding is kept, as in the JAX
     package)."""
     if "unembed" in p:
-        logits = (x @ p["unembed"]).float()
+        logits = matmul_f32(x, p["unembed"])
     else:
-        logits = (x @ p["embed"].T).float()
+        logits = matmul_f32(x, p["embed"].T)
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
     return logits

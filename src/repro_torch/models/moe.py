@@ -97,7 +97,8 @@ def apply_moe(p, x, *, top_k: int, n_experts: int, capacity_factor: float):
     Pairs are ordered t*k + j; a pair's slot is the number of earlier
     pairs routed to its expert, and a pair whose slot is past the capacity
     is dropped (adds nothing), so the same pairs drop as in the JAX
-    package.  The products take x's dtype, the SwiGLU is computed in f32.
+    package.  Gate and up are f32 products, the SwiGLU is computed in f32,
+    the down product takes x's dtype.
     """
     t, d = x.shape
     probs, weights, experts = _route(p, x, top_k)
@@ -117,8 +118,8 @@ def apply_moe(p, x, *, top_k: int, n_experts: int, capacity_factor: float):
     buf.index_put_((flat_e, pos), xs)   # kept pairs: distinct cells
     buf = buf[:, :cap]
 
-    gate = torch.bmm(buf, _dequant(p, "w_gate", x.dtype)).float()
-    up = torch.bmm(buf, _dequant(p, "w_up", x.dtype)).float()
+    gate = layers.bmm_f32(buf, _dequant(p, "w_gate", x.dtype))
+    up = layers.bmm_f32(buf, _dequant(p, "w_up", x.dtype))
     h = (F.silu(gate) * up).to(x.dtype)
     y = torch.bmm(h, _dequant(p, "w_down", x.dtype))          # (E, C, d)
 
@@ -130,14 +131,15 @@ def apply_moe(p, x, *, top_k: int, n_experts: int, capacity_factor: float):
 
 def apply_moe_ref(p, x, *, top_k: int, n_experts: int):
     """The dropless oracle (moe.py:150-167): each token through each of its
-    top-k experts' weights, gathered per token, summed in f32."""
+    top-k experts' weights, gathered per token; its products in f32 up to
+    the weighted f32 sum."""
     _, weights, experts = _route(p, x, top_k)
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for j in range(top_k):
         e = experts[:, j]
-        gate = torch.bmm(x[:, None], p["w_gate"][e])[:, 0].float()
-        up = torch.bmm(x[:, None], p["w_up"][e])[:, 0].float()
+        gate = layers.bmm_f32(x[:, None], p["w_gate"][e])[:, 0]
+        up = layers.bmm_f32(x[:, None], p["w_up"][e])[:, 0]
         h = (F.silu(gate) * up).to(x.dtype)
-        y = torch.bmm(h[:, None], p["w_down"][e])[:, 0].float()
+        y = layers.bmm_f32(h[:, None], p["w_down"][e])[:, 0]
         out = out + y * weights[:, j:j + 1]
     return out.to(x.dtype)

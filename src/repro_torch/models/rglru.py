@@ -83,7 +83,7 @@ def apply_rglru(p, x, *, conv_state=None, lru_state=None):
     ``conv_state`` (B, conv_width - 1, W) in x's dtype and one step from
     ``lru_state`` (B, W) f32; both are updated IN PLACE and returned.
     """
-    gate_b = F.gelu((x @ p["w_gate"]).float(),
+    gate_b = F.gelu(layers.matmul_f32(x, p["w_gate"]),
                     approximate="tanh").to(x.dtype)
     u = x @ p["w_x"]
     decode = lru_state is not None and x.shape[1] == 1

@@ -152,7 +152,7 @@ def apply_ssd(p, x, cfg, *, conv_state=None, ssm_state=None):
     xi = x @ p["w_x"]
     bc = x @ p["w_bc"]
     # dt stays f32 from its projection on: bf16 inputs, f32 products
-    dt = x.float() @ p["w_dt"].float() + p["dt_bias"]
+    dt = layers.matmul_f32(x, p["w_dt"]) + p["dt_bias"]
     dt = torch.logaddexp(dt, torch.zeros_like(dt))        # softplus
 
     decode = ssm_state is not None and s == 1

@@ -35,7 +35,13 @@ decode shape, the largest dropless T and on the capacity path.  The
 training step (reduced phi4-mini, olmoe, recurrentgemma and mamba2, f32,
 two microbatches) on the card equals the same step on the CPU and launches
 no kernel wrapper, and a captured decode step still replays bit for bit
-the eager one after a train step has updated the weights in place.
+the eager one after a train step has updated the weights in place.  The
+products kept in f32 (``layers.matmul_f32``, ``bmm_f32``: cuBLAS's
+``out_dtype`` overloads) equal the f32 product of the bf16 values within
+1e-5, forward and backward; a checkpoint of card tensors (bf16, f32, int8,
+f16, int32) round-trips bit for bit onto the card and the CPU; and reduced
+phi4-mini's crash-and-resume run on the card ends bit for bit where its
+uninterrupted run ends.
 """
 import dataclasses
 import math
@@ -1011,3 +1017,116 @@ def test_executor_replay_equals_eager_step_after_train_step(gen, arch):
     assert any(not torch.equal(before[n], p)
                for n, p in model.named_parameters())
     _replays_equal_eager(model, lora, ex, steps=20)
+
+
+# --------------------------------------------------------------------------- #
+# products kept in f32; checkpoints and the fault-tolerant loop on the card
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("op,x_shape,w_shape", [
+    ("mm", (8, 3072), (3072, 8192)),          # phi4-mini's MLP, T 8
+    ("mm", (8, 3072), (3072, 200192)),        # its untied logits
+    ("mm", (3, 7, 65), (65, 129)),            # odd widths, 3-D x
+    ("bmm", (4, 1, 2048), (4, 2048, 1024)),   # the MoE oracle's rows
+    ("bmm", (64, 8, 2048), (64, 2048, 1024)),  # olmoe's dense dispatch
+], ids=["mlp", "logits", "odd", "bmm_rows", "bmm_experts"])
+def test_products_in_f32(gen, op, x_shape, w_shape):
+    # layers.matmul_f32 and bmm_f32: bf16 operands, f32 results within 1e-5
+    # of the f32 product of the bf16 values (TF32 off), forward and
+    # backward; the backward's cotangent in bf16, as autograd of
+    # (x @ w).float() takes it
+    from repro_torch.models import layers
+    fn = layers.matmul_f32 if op == "mm" else layers.bmm_f32
+    x = _normal(gen, *x_shape, dtype=torch.bfloat16).requires_grad_(True)
+    w = _normal(gen, *w_shape, dtype=torch.bfloat16,
+                std=w_shape[-2] ** -0.5).requires_grad_(True)
+    got = fn(x, w)
+    want = x.detach().float() @ w.detach().float()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+    g = _normal(gen, *got.shape)
+    gx, gw = torch.autograd.grad(got, (x, w), g)
+    wx, ww = torch.autograd.grad((x @ w).float(), (x, w), g)
+    assert gx.dtype == gw.dtype == torch.bfloat16
+    _close(gx, wx, torch.bfloat16)
+    _close(gw, ww, torch.bfloat16)
+
+
+def test_tied_logits_in_f32_on_the_card(gen):
+    # the tied unembedding reads embed.T, a transposed view
+    from repro_torch.models import layers
+    x = _normal(gen, 8, 1, 256, dtype=torch.bfloat16)
+    embed = _normal(gen, 4096, 256, dtype=torch.bfloat16, std=0.02)
+    got = layers.unembed({"embed": embed}, x, 30.0)
+    want = torch.tanh((x.float() @ embed.float().T) / 30.0) * 30.0
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+
+
+def test_checkpoint_of_card_tensors_round_trips(gen, tmp_path):
+    # bf16, f32, int8 and f16 leaves on the card, saved async, restored
+    # onto the card and onto the CPU bit for bit
+    from repro_torch.checkpoint import CheckpointManager
+    tree = {"w": _normal(gen, 64, 33, dtype=torch.bfloat16),
+            "m": [_normal(gen, 64, 33), _normal(gen, 5)],
+            "q": (torch.randint(-127, 128, (64, 33), generator=gen,
+                                device="cuda", dtype=torch.int8),
+                  _normal(gen, 1, 33).to(torch.float16)),
+            "step": torch.tensor(7, dtype=torch.int32, device="cuda")}
+    mgr = CheckpointManager(str(tmp_path), keep=2)
+    mgr.save(3, tree, {"card": torch.cuda.get_device_name(0)})
+    for dev in ("cuda", "cpu"):
+        got = mgr.restore(tree, device=dev)
+        pairs = [(got["w"], tree["w"]), (got["m"][0], tree["m"][0]),
+                 (got["m"][1], tree["m"][1]), (got["q"][0], tree["q"][0]),
+                 (got["q"][1], tree["q"][1]), (got["step"], tree["step"])]
+        for a, b in pairs:
+            assert a.device.type == dev and a.dtype == b.dtype
+            assert torch.equal(a.cpu(), b.cpu())
+
+
+def test_ft_loop_crash_and_resume_on_the_card(gen, tmp_path):
+    # reduced phi4-mini, bf16, on the card: 12 steps with a crash at step 8
+    # and checkpoints every 5 end bit for bit where 12 steps without one end
+    from repro_torch.checkpoint import copy_into
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch.fault_tolerance import FaultTolerantLoop, FTConfig
+    from repro_torch.training import (AdamWConfig, TrainConfig,
+                                      init_train_state, make_train_step)
+    from repro_torch.training.train_lib import trainable
+    cfg = dataclasses.replace(get_reduced("phi4-mini-3.8b"), dtype="bfloat16")
+    model = Model(cfg, device="cuda", seed=0)
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=3e-3, warmup_steps=5))
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                    global_batch=8))
+    state = {"params": trainable(model), "opt": init_train_state(model, tcfg)}
+    start = {"params": {k: v.detach().clone()
+                        for k, v in state["params"].items()},
+             "opt": {"step": state["opt"]["step"].clone(),
+                     "m": {k: v.clone() for k, v in state["opt"]["m"].items()},
+                     "v": {k: v.clone() for k, v in state["opt"]["v"].items()}}}
+    step_fn = make_train_step(model, tcfg)
+
+    def init_fn():
+        copy_into(state, start)
+        return state
+
+    def one(s, batch):
+        return {"params": s["params"], "opt": step_fn(s["opt"], batch)[0]}
+
+    finals = []
+    for name, failure_at in (("crash", 8), ("plain", None)):
+        copy_into(state, start)
+        loop = FaultTolerantLoop(FTConfig(str(tmp_path / name),
+                                          checkpoint_every=5), state)
+        out = loop.run_with_restarts(init_fn, one, pipe.batch_at, 12,
+                                     failure_at=failure_at)
+        assert loop.report.restarts == (failure_at is not None)
+        assert loop.report.resumed_from == (5 if failure_at else None)
+        assert int(out["opt"]["step"]) == 12
+        finals.append({"params": {k: v.detach().clone()
+                                  for k, v in out["params"].items()},
+                       "m": {k: v.clone() for k, v in out["opt"]["m"].items()},
+                       "v": {k: v.clone() for k, v in out["opt"]["v"].items()}})
+    for part in ("params", "m", "v"):
+        for k, v in finals[0][part].items():
+            assert torch.equal(v, finals[1][part][k]), (part, k)
