@@ -211,25 +211,49 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    ``python -m repro_torch.launch.train --reduced`` to step 20 and again
    to 30 on one directory, the second resuming from step 20.  Prints the
    checkpoint's bytes, each save's snapshot and write seconds, the
-   resume's and the CPU restore's, and the steps' walls.
+   resume's and the CPU restore's, and the steps' walls;
+10. the sharded decode: 10a, flash-decode's log-sum-exp mode
+   (``flash_decode_lse``, its own combine instance) against its plain
+   versions
+   at ``LSE_SHAPES`` (phi4-mini's serving shape, head groups, a padded
+   and a wide head dim) in every mode (q, K, V in bf16 and f32; the int8
+   mode with q in bf16 and f32), ragged lengths with 0 (-inf there), its
+   output bit for bit the call without it, and its row of the kernel
+   table timed at phi4-mini's serving shape beside ``aten.
+   _scaled_dot_product_efficient_attention(compute_log_sumexp=True)``;
+   10b, phi4-mini's heads over LONG_S positions (bf16 and int8 caches) cut
+   into SHARD_SLICES slices, each slice's kernel and
+   ``attention.combine_shards`` held to the unsharded kernel, with the
+   microseconds of the unsharded call, each slice and the combine beside
+   their byte bounds; 10c, phi4-mini-3.8b at its published widths decoded
+   under ``make_plan(cfg, make_single_device_mesh(), "decode",
+   global_batch=8)`` on the NCCL world-size-1 group, SHARD_STEPS steps
+   over SHARD_CACHE positions after a prefill, each step's logits within
+   2e-4 of the step without a plan (bitwise equality printed), with each
+   step's wall and the collectives a step.  Every number of the phase is
+   printed beside the card's name and power limit.
 
 Launch counts are zeroed just before each path a user drives (teacher
 forcing through ``Model.prefill``/``decode_step`` in phase 4, for each
 architecture, serving in phases 5, 5b, 5c, 5d, 5e and 5f, measurement in
-phase 7, training in phases 8a, 8b and 9) and read just after it.  SGMV,
+phase 7, training in phases 8a, 8b and 9, the sharded decode in phase
+10c) and read just after it.  SGMV,
 BGMV and flash-decode must have launched in phase 4, BGMV and
 flash-decode in phases 5, 5b, 5c, 5d and 5e, the fused kernel and SGMV
-in phase 7; mamba2's paths (phase 4, 5f) must launch none, having no
+in phase 7, BGMV and flash-decode's log-sum-exp mode in phase 10c;
+mamba2's paths (phase 4, 5f) must launch none, having no
 attention and no LoRA, and so must training's (8a, 8b and 9).  Each kernel's
 ``launches`` in the kernel table is the count of the path it serves
 (``path``); the int8 mode counts as flash-decode, on the int8 paths
 (``serving_int8``, ``teacher_forcing_int8``), and flash-decode's row
-counts the others.  Float32 products run in full f32 (TF32 off) wherever
-parity is checked.  The last two lines are the kernel table and the
+counts the others; the log-sum-exp mode (``flash_decode_lse``, on
+``sharded_decode``) is a wrapper of its own and counts its own launches.
+Float32 products run in full f32 (TF32 off) wherever parity is checked.  The last two lines are the kernel table and the
 device, as JSON.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -264,6 +288,12 @@ KERNEL_ROWS = {  # name -> (source, TPU kernel it replaces)
     # src/repro/models/attention.py:271-314, is plain jnp)
     "flash_decode_int8": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                           "src/repro/kernels/flash_decode.py:95"),
+    # flash-decode with its log-sum-exp (fd_combine_lse_kernel), the body
+    # of the sequence-sharded decode (the JAX package's
+    # decode_attention_sharded, src/repro/models/attention.py:256-314, is
+    # plain jnp)
+    "flash_decode_lse": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                         "src/repro/kernels/flash_decode.py:95"),
 }
 # a row's wrapper, where it is not the row's name: the int8 mode counts its
 # launches as flash_decode's
@@ -272,10 +302,12 @@ KERNEL_WRAPPER = {"flash_decode_int8": "flash_decode"}
 KERNEL_PATH = {"bgmv": "serving", "sgmv": "teacher_forcing",
                "flash_decode": "serving",
                "flash_decode_lora": "measurement",
-               "flash_decode_int8": "serving_int8"}
+               "flash_decode_int8": "serving_int8",
+               "flash_decode_lse": "sharded_decode"}
 PATH_KERNELS = {"teacher_forcing": ("sgmv", "bgmv", "flash_decode"),
                 "serving": ("bgmv", "flash_decode"),
-                "measurement": ("flash_decode_lora", "sgmv")}
+                "measurement": ("flash_decode_lora", "sgmv"),
+                "sharded_decode": ("bgmv", "flash_decode_lse")}
 # main-path shapes (phi4-mini-3.8b serving: max_batch 8, cache 512, 4 slots)
 D_MODEL, Q_OUT, V_OUT, RANK, SLOTS = 3072, 3072, 1024, 8, 4
 HEADS, KV_HEADS, HEAD_DIM, BATCH, CACHE = 24, 8, 128, 8, 512
@@ -365,6 +397,21 @@ TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = (2, 512), 8, 3e-4
 CKPT_STEPS, CKPT_EVERY, CKPT_KEEP, CKPT_FAIL = 6, 3, 2, 4
 LAUNCH_STEPS, LAUNCH_EVERY = (20, 30), 10
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+# phase 10, the sharded decode.  10a holds flash-decode's log-sum-exp mode
+# at these (label, H, KV, D), B 8 over CACHE positions, beside phi4-mini's
+# serving shape: head groups (recurrentgemma-9b's 16 heads on 1 KV head of
+# 256), a padded head dim (96 on the 128 instance) and the wide path (512);
+# 10b cuts phi4-mini's LONG_S cache (phase 6d's) into SHARD_SLICES
+# sequence slices; 10c decodes phi4-mini at its published widths under the
+# world-size-1 plan over SHARD_CACHE positions, SHARD_STEPS steps after a
+# prompt of the rest
+LSE_SHAPES = (("phi4-mini-3.8b", HEADS, KV_HEADS, HEAD_DIM),
+              ("head groups", 16, 1, 256), ("padded D 96", 32, 32, 96),
+              ("wide D 512", 16, 4, 512))
+SHARD_SLICES = 4
+SHARD_CACHE, SHARD_STEPS = 512, 4
+# the log-sum-exp mode's two kernels: the split pass and its own combine
+FD_LSE_KERNELS = ("fd_split_kernel", "fd_combine_lse_kernel")
 
 
 def say(*parts) -> None:
@@ -2899,6 +2946,384 @@ def phase_long_step(ops):
     return out, launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 10: the sharded decode
+# --------------------------------------------------------------------------- #
+
+def check_lse_values(name, got, want, dtype_name, errs):
+    """A log-sum-exp against its plain version: -inf (a length of 0) at
+    the same places, the rest finite and within TOL of ``dtype_name``."""
+    torch.cuda.synchronize()
+    empty = torch.isneginf(want)
+    ok = torch.equal(torch.isneginf(got), empty)
+    g, w = got[~empty], want[~empty]
+    tol = TOL[dtype_name]
+    ok = ok and bool(torch.isfinite(g).all()) and \
+        torch.allclose(g, w, rtol=tol, atol=tol)
+    err = (g - w).abs().max().item()
+    say(f"  {name} [{dtype_name}] max_abs_err={err:.3e} tol={tol}, "
+        f"{int(empty.sum())} rows at -inf -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} [{dtype_name}] disagrees with its plain "
+                             f"version: max_abs_err={err}")
+    errs["flash_decode_lse"] = max(errs.get("flash_decode_lse", 0.0), err)
+
+
+def check_lse_mode(errs):
+    """Phase 10a: flash-decode's log-sum-exp mode against its plain
+    versions at ``LSE_SHAPES``, B 8 over CACHE positions, ragged lengths
+    with 0 and 1 among them: the bf16/f32 mode (q, K, V in bf16 and in
+    f32) and the int8 mode (q in bf16 and in f32; f32 against the plain
+    version with exact q . k), at the tolerance of q's dtype.  Its output
+    (f32, the merge before the cast) rounded to q's dtype is bit for bit
+    the call without the log-sum-exp (the same split pass, the same merge
+    in a combine kernel of its own)."""
+    from repro_torch.kernels import flash_decode
+    from repro_torch.models.attention import quantize_kv
+    fd, fd_lse = flash_decode.flash_decode, flash_decode.flash_decode_lse
+    inp = Inputs(seed=10)
+    lengths = torch.randint(1, CACHE + 1, (BATCH,), generator=inp.gen,
+                            device="cuda", dtype=torch.int32)
+    lengths[:3] = torch.tensor([0, 1, CACHE], device="cuda")
+    for label, h, kv, d in LSE_SHAPES:
+        q = inp.normal(BATCH, h, d, dtype=torch.float32)
+        k = inp.normal(BATCH, CACHE, kv, d, dtype=torch.float32)
+        v = inp.normal(BATCH, CACHE, kv, d, dtype=torch.float32)
+        (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+        for dt in (torch.bfloat16, torch.float32):
+            dn = str(dt).split(".")[1]
+            qd = q.to(dt)
+            for mode, kv_args in (("", (k.to(dt), v.to(dt))),
+                                  (" int8", (k8, v8))):
+                scales = (ks, vs) if mode else ()
+                out, lse = fd_lse(qd, *kv_args, lengths, *scales)
+                check(f"flash_decode_lse{mode} {label} out in {dn}, the "
+                      "call without it", out.to(dt),
+                      fd(qd, *kv_args, lengths, *scales), dn, errs,
+                      exact=True)
+                if mode:
+                    want, want_lse = flash_decode.flash_decode_int8_plain(
+                        qd, *kv_args, lengths, *scales,
+                        exact_dot=dt == torch.float32, return_lse=True)
+                else:
+                    want, want_lse = flash_decode.flash_decode_plain(
+                        qd, *kv_args, lengths, return_lse=True)
+                check(f"flash_decode_lse{mode} {label} out", out, want, dn,
+                      errs, per_row=True)
+                check_lse_values(f"flash_decode_lse{mode} {label} lse", lse,
+                                 want_lse, dn, errs)
+        del q, k, v, k8, v8, ks, vs
+    torch.cuda.empty_cache()
+
+
+def lse_row(card):
+    """The log-sum-exp mode's row at phi4-mini's serving shape (B 8, S
+    CACHE, all positions, bf16): its time, the same call's without the
+    log-sum-exp on the same inputs (``no_lse_ms``), its plain version's,
+    its two kernels (profiled), its bound (q, K and V read once, the f32
+    output and the log-sum-exp written) and ``torch.ops.aten.
+    _scaled_dot_product_efficient_attention`` with ``compute_log_sumexp``
+    on the same inputs, its K and V repeated to H heads (it takes no
+    GQA), or None where that call does not run."""
+    from repro_torch.kernels import flash_decode
+    inp = Inputs(seed=11)
+    dt = torch.bfloat16
+
+    def make():
+        return (inp.normal(BATCH, HEADS, HEAD_DIM, dtype=dt),
+                inp.normal(BATCH, CACHE, KV_HEADS, HEAD_DIM, dtype=dt),
+                inp.normal(BATCH, CACHE, KV_HEADS, HEAD_DIM, dtype=dt),
+                CACHE)
+    kv_elems = BATCH * CACHE * KV_HEADS * HEAD_DIM
+    nbytes = (BATCH * HEADS * HEAD_DIM + 2 * kv_elems) * 2 \
+        + 4 * BATCH * HEADS * HEAD_DIM + 4 * BATCH + 4 * BATCH * HEADS
+    sets = copies(make, nbytes)
+    b_ms, b_by = bound(nbytes, 4 * HEADS // KV_HEADS * kv_elems, "bfloat16")
+
+    lse_call = flash_decode.flash_decode_lse
+
+    def plain(q, k, v, length):
+        return flash_decode.flash_decode_plain(q, k, v, length,
+                                               return_lse=True)
+    split = profiled_ms(lse_call, sets, FD_LSE_KERNELS)
+    row = {"ms": graph_ms(lse_call, sets),
+           "no_lse_ms": graph_ms(flash_decode.flash_decode, sets),
+           "plain_ms": graph_ms(plain, sets),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "split_ms": split["fd_split_kernel"],
+           "combine_ms": split["fd_combine_lse_kernel"]}
+    g = HEADS // KV_HEADS
+    lib_sets = [(q[:, :, None],
+                 k.transpose(1, 2).repeat_interleave(g, 1).contiguous(),
+                 v.transpose(1, 2).repeat_interleave(g, 1).contiguous())
+                for q, k, v, _ in sets[:8]]
+
+    def library(q, k, v):
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            q, k, v, None, True)
+    try:
+        got = library(*lib_sets[0])
+        ref, ref_lse = lse_call(*sets[0])
+        torch.cuda.synchronize()
+        lib_err = (got[1][:, :, 0] - ref_lse).abs().max().item()
+        row.update(library_ms=graph_ms(library, lib_sets),
+                   library_call="aten._scaled_dot_product_efficient_"
+                                "attention(compute_log_sumexp=True), K/V "
+                                f"repeated to {HEADS} heads",
+                   library_lse_max_abs_diff=lib_err)
+    except RuntimeError as e:   # the call does not take these inputs
+        say(f"  _scaled_dot_product_efficient_attention does not run here: "
+            f"{str(e).splitlines()[0][:160]}")
+        row.update(library_ms=None, library_call="none")
+    say(f"  flash_decode_lse at B {BATCH} S {CACHE}: {row['ms'] * 1e3:.2f} us"
+        f" (split {row['split_ms'] * 1e3:.2f}, combine "
+        f"{row['combine_ms'] * 1e3:.2f}; without the log-sum-exp "
+        f"{row['no_lse_ms'] * 1e3:.2f}); plain {row['plain_ms'] * 1e3:.2f} "
+        f"us; bound {b_ms * 1e3:.3f} us by {b_by}; library "
+        f"{row['library_ms']} ms ({row['library_call']}); {card}")
+    return row
+
+
+def phase_shard_slices(errs, card):
+    """Phase 10b: the arithmetic every rank of a sequence-sharded cache
+    runs, in one process: phi4-mini's heads (B 8, H 24, KV 8, D 128) over
+    LONG_S positions, a bf16 and an int8 cache (q bf16), cut into
+    SHARD_SLICES slices (contiguous copies); each slice's flash-decode with
+    its log-sum-exp (its output in f32), then ``attention.combine_shards``
+    over the stacked slices and one cast to bf16, as
+    ``decode_attention_sharded`` does, held to the unsharded kernel at
+    bf16's tolerance and per row
+    (each int8 slice rounds P * v_scale against its own max, as the JAX
+    body does), full and ragged lengths (a ragged row ends in an earlier
+    slice: the later ones weigh 0).  Prints the unsharded call's, each
+    slice's and the combine's microseconds beside their byte bounds.
+    Returns the timings."""
+    from repro_torch.kernels import flash_decode
+    from repro_torch.models.attention import combine_shards, quantize_kv
+    fd, fd_lse = flash_decode.flash_decode, flash_decode.flash_decode_lse
+    inp = Inputs(seed=6)
+    n, s_loc = SHARD_SLICES, LONG_S // SHARD_SLICES
+    ragged = torch.randint(1, LONG_S + 1, (BATCH,), generator=inp.gen,
+                           device="cuda", dtype=torch.int32)
+    ragged[:2] = torch.tensor([LONG_S - 1, 1], device="cuda")
+    q = inp.normal(BATCH, HEADS, HEAD_DIM, dtype=torch.bfloat16)
+    k = inp.normal(BATCH, LONG_S, KV_HEADS, HEAD_DIM, dtype=torch.bfloat16)
+    v = inp.normal(BATCH, LONG_S, KV_HEADS, HEAD_DIM, dtype=torch.bfloat16)
+    stacked = {"max": lambda t: t.amax(0, keepdim=True),
+               "sum": lambda t: t.sum(0, keepdim=True)}
+
+    def reduce(t, op):
+        return stacked[op](t)
+    out = {}
+    for cache in ("bf16", "int8"):
+        if cache == "int8":
+            (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+            whole_kv = (k, v, ks, vs)
+        else:
+            whole_kv = (k, v)
+        slices = [tuple(t[:, i * s_loc:(i + 1) * s_loc].contiguous()
+                        for t in whole_kv) for i in range(n)]
+
+        def slice_lengths(length):
+            if isinstance(length, int):
+                return [min(max(length - i * s_loc, 0), s_loc)
+                        for i in range(n)]
+            return [(length - i * s_loc).clamp(0, s_loc) for i in range(n)]
+
+        def sharded(length):
+            parts = [fd_lse(q, sl[0], sl[1], li, *sl[2:])
+                     for sl, li in zip(slices, slice_lengths(length))]
+            return combine_shards(torch.stack([p[0] for p in parts]),
+                                  torch.stack([p[1] for p in parts]),
+                                  reduce)[0].to(q.dtype)
+        for name, length in (("full", LONG_S), ("ragged", ragged)):
+            check(f"flash_decode_lse {n} slices {cache} B {BATCH} S {LONG_S}"
+                  f" {name} lengths, against the unsharded kernel",
+                  sharded(length), fd(q, k, v, length, *whole_kv[2:]),
+                  "bfloat16", errs, per_row=True)
+        kv_bytes = sum(t.numel() * t.element_size() for t in whole_kv)
+        io = 2 * BATCH * HEADS * HEAD_DIM * 2
+        whole_ms = graph_ms(lambda: fd(q, *whole_kv[:2], LONG_S,
+                                       *whole_kv[2:]), [()], calls=8, reps=3)
+        slice_ms = [graph_ms(lambda sl=sl: fd_lse(q, sl[0], sl[1], s_loc,
+                                                  *sl[2:]),
+                             [()], calls=8, reps=3) for sl in slices]
+        parts = [fd_lse(q, sl[0], sl[1], s_loc, *sl[2:]) for sl in slices]
+        outs = torch.stack([p[0] for p in parts])
+        lses = torch.stack([p[1] for p in parts])
+        comb_ms = graph_ms(lambda: combine_shards(outs, lses, reduce)
+                           .to(q.dtype), [()])
+        comb_bytes = outs.numel() * 4 + lses.numel() * 4 + io // 2
+        out[cache] = {
+            "whole_us": whole_ms * 1e3,
+            "whole_bound_us": (kv_bytes + io) / HBM_BYTES_PER_S * 1e6,
+            "slice_us": [t * 1e3 for t in slice_ms],
+            "slice_bound_us": (kv_bytes / n + io) / HBM_BYTES_PER_S * 1e6,
+            "combine_us": comb_ms * 1e3,
+            "combine_bound_us": comb_bytes / HBM_BYTES_PER_S * 1e6}
+        o = out[cache]
+        say(f"  {cache} cache of {LONG_S} positions in {n} slices: unsharded "
+            f"{o['whole_us']:.1f} us (bound {o['whole_bound_us']:.1f}); "
+            f"slices {', '.join(f'{t:.1f}' for t in o['slice_us'])} us "
+            f"(bound {o['slice_bound_us']:.1f} each); combine "
+            f"{o['combine_us']:.1f} us (bound {o['combine_bound_us']:.2f}); "
+            f"{card}")
+        del slices, parts, outs, lses
+    del q, k, v, whole_kv
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_step(ops, card):
+    """Phase 10c: phi4-mini-3.8b at its published widths (32 layers, bf16,
+    weights from seed 0) decoding under ``make_plan(cfg,
+    make_single_device_mesh(), "decode", global_batch=BATCH)`` on the NCCL
+    world-size-1 group (``init_cuda_group``), so that every collective of
+    the tensor-parallel step runs (over groups of one): a model without a
+    plan prefills BATCH x (SHARD_CACHE - SHARD_STEPS) tokens, its cache is
+    padded to SHARD_CACHE rows and cut by ``shard_cache``, and both models
+    decode SHARD_STEPS steps, 4 adapters on the batch's rows, the planned
+    one first.  Each step's logits must be finite and within 2e-4 (rel,
+    tests/test_consistency.py:39) of the step without a plan; whether they
+    are bitwise equal is printed.  Prints each path's first step's wall
+    (under the plan the NCCL communicators start there) and the median of
+    the others (host clock, synchronised), the collectives a step, and
+    the host time a planned step spends in them and in
+    ``attention.combine_shards`` (``host_spans``).  Returns the numbers
+    and the sharded path's launch counts."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_cuda_group, make_single_device_mesh
+    from repro_torch.models import Model
+    from repro_torch.models.sharding import (COLLECTIVES, make_plan,
+                                             reset_collectives, shard_cache)
+    cfg = get_config("phi4-mini-3.8b")
+    t0 = time.perf_counter()
+    init_cuda_group()
+    try:
+        plan = make_plan(cfg, make_single_device_mesh(), "decode",
+                         global_batch=BATCH)
+        ref = Model(cfg, device="cuda", seed=0)
+        model = Model(cfg, device="cuda", seed=0, plan=plan)
+        lora = ref.init_lora(SLOTS, RANK, seed=0)
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        tokens = torch.randint(0, cfg.vocab_size, (BATCH, SHARD_CACHE),
+                               generator=gen, device="cuda")
+        idx = (torch.arange(BATCH, device="cuda") % SLOTS).to(torch.int32)
+        prompt = SHARD_CACHE - SHARD_STEPS
+        _, cache = ref.prefill(lora, tokens[:, :prompt], idx)
+        cache = ref.pad_cache(cache, SHARD_STEPS)
+        planned = shard_cache(cache, plan)
+        torch.cuda.synchronize()
+        say(f"  plan {plan.mode}: batch over {plan.batch_axes}, width over "
+            f"{plan.width_axis!r}, cache over {plan.cache_seq_axes}; built, "
+            f"prefilled and cut in {time.perf_counter() - t0:.1f} s; {card}")
+        walls = {"plan": [], "no_plan": []}
+        got, spans = [], []
+        ops.reset_launches()
+        reset_collectives()
+        for i in range(SHARD_STEPS):
+            t1 = time.perf_counter()
+            with host_spans() as span:
+                logits, _ = model.decode_step(
+                    lora, planned, tokens[:, prompt + i:prompt + i + 1], idx)
+                torch.cuda.synchronize()
+            walls["plan"].append(time.perf_counter() - t1)
+            got.append(logits)
+            spans.append(span)
+        launches = ops.launch_counts()
+        collectives = {k: n / SHARD_STEPS for k, n in COLLECTIVES.items()}
+        rels, bitwise = [], True
+        for i in range(SHARD_STEPS):
+            t1 = time.perf_counter()
+            want, _ = ref.decode_step(lora, cache,
+                                      tokens[:, prompt + i:prompt + i + 1],
+                                      idx)
+            torch.cuda.synchronize()
+            walls["no_plan"].append(time.perf_counter() - t1)
+            if not bool(torch.isfinite(got[i]).all()):
+                raise AssertionError(f"step {i} under the plan: non-finite "
+                                     "logits")
+            rel = ((got[i] - want).abs().max()
+                   / want.abs().max().clamp(min=1e-9)).item()
+            rels.append(rel)
+            bitwise = bitwise and torch.equal(got[i], want)
+            if rel >= 2e-4:
+                raise AssertionError(f"step {i} under the plan departs from "
+                                     f"the step without it: rel {rel:.3e}")
+        stats = {"steps": SHARD_STEPS, "positions": SHARD_CACHE,
+                 "max_rel": max(rels), "bitwise": bitwise,
+                 "plan_first_step_ms": walls["plan"][0] * 1e3,
+                 "no_plan_first_step_ms": walls["no_plan"][0] * 1e3,
+                 "plan_step_ms": float(np.median(walls["plan"][1:])) * 1e3,
+                 "no_plan_step_ms":
+                     float(np.median(walls["no_plan"][1:])) * 1e3,
+                 "collectives_per_step": collectives,
+                 **{f"plan_{k}_host_ms": float(np.median(
+                     [sp[k] for sp in spans[1:]])) * 1e3 for k in spans[0]}}
+        n_coll = sum(collectives.values())
+        stats["host_us_per_collective"] = 1e3 * (
+            stats["plan_collectives_host_ms"]
+            + stats["plan_combine_collectives_host_ms"]) / n_coll
+        say(f"  {SHARD_STEPS} steps under the plan against the steps without:"
+            f" max rel {stats['max_rel']:.3e} (tol 2e-4), bitwise "
+            f"{bitwise}; step wall {stats['plan_step_ms']:.2f} ms under the "
+            f"plan, {stats['no_plan_step_ms']:.2f} ms without (median of "
+            f"steps 2-{SHARD_STEPS}, eager, host clock; the first "
+            f"{stats['plan_first_step_ms']:.2f} and "
+            f"{stats['no_plan_first_step_ms']:.2f}); collectives a step "
+            f"{collectives}; launches {launches}; {card}")
+        say(f"  host time of a planned step (median of steps 2-{SHARD_STEPS},"
+            f" with the spans on): {stats['plan_collectives_host_ms']:.2f} ms"
+            f" in the collectives outside the combine, "
+            f"{stats['plan_combine_host_ms']:.2f} ms in combine_shards, of "
+            f"which {stats['plan_combine_collectives_host_ms']:.2f} ms in its"
+            f" all-reduces; {stats['host_us_per_collective']:.1f} us a "
+            f"collective; {card}")
+        del ref, model, lora, cache, planned, got
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return stats, launches
+
+
+@contextlib.contextmanager
+def host_spans():
+    """The host seconds spent, while open, in the plan's collectives
+    (``sharding.all_reduce``/``all_gather`` as the model calls them) and in
+    ``attention.combine_shards``: a dict of ``collectives`` (outside the
+    combine), ``combine`` (the whole call) and ``combine_collectives``
+    (its all-reduces), filled as the calls return."""
+    from unittest import mock
+    from repro_torch.models import attention, sharding, transformer
+    span = {"collectives": 0.0, "combine": 0.0, "combine_collectives": 0.0}
+    inside = []
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            name = "combine_" + key if inside and key == "collectives" \
+                else key
+            if key == "combine":
+                inside.append(1)
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                span[name] += time.perf_counter() - t
+                if key == "combine":
+                    inside.pop()
+        return call
+    with contextlib.ExitStack() as stack:
+        for module, name, key in (
+                (transformer, "all_reduce", "collectives"),
+                (transformer, "all_gather", "collectives"),
+                (sharding, "all_reduce", "collectives"),
+                (attention, "combine_shards", "combine")):
+            stack.enter_context(mock.patch.object(
+                module, name, timed(getattr(module, name), key)))
+        yield span
+
+
 def attention_layers(cfg) -> int:
     """The layers with attention, a KV cache and LoRA (global, local)."""
     from repro_torch.models.transformer import ATTENTION_KINDS
@@ -3049,6 +3474,21 @@ def main() -> int:
     ckpt_stats, ckpt_launches = phase_checkpoint(ops, card)
     say("  checkpoint " + json.dumps(ckpt_stats))
 
+    say("phase 10: the sharded decode (flash-decode's log-sum-exp, "
+        f"{SHARD_SLICES} emulated sequence slices, the world-size-1 plan)")
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_lse_mode(errs)
+    rows["flash_decode_lse"] = lse_row(card)
+    slice_stats = phase_shard_slices(errs, card)
+    shard_stats, shard_launches = phase_sharded_step(ops, card)
+    require_launched("sharded decode", shard_launches,
+                     PATH_KERNELS["sharded_decode"])
+    rows["flash_decode_lse"]["slices"] = slice_stats
+    say("  sharded " + json.dumps({**shard_stats, "slices": slice_stats}))
+    say(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
+
     paths = {"teacher_forcing": tf_launches, "serving": serve_launches,
              "measurement": measure_launches,
              "teacher_forcing_variants": tfv_launches,
@@ -3061,7 +3501,8 @@ def main() -> int:
              "teacher_forcing_" + SSM_ARCH: tfs_launches,
              "serving_" + SSM_ARCH: ssm_launches,
              "training_check": check_launches, "training": train_launches,
-             "training_loop": ckpt_launches}
+             "training_loop": ckpt_launches,
+             "sharded_decode": shard_launches}
     rows["flash_decode_lora"]["grid_max_abs_err"] = \
         errs["flash_decode_lora_grid"]
     rows["flash_decode_int8"].update(

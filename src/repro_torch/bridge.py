@@ -15,6 +15,11 @@ as numpy arrays, this module builds the port's per-layer layout and back:
   an rglru layer's {"conv", "lru"} and an ssd layer's {"conv_x",
   "conv_bc", "ssm"} states alike.
 
+Under a sharding plan (``models.sharding``) ``load_params`` and
+``cache_to_shard`` carry each leaf across whole onto the CPU, cut it to
+the rank's piece there and move only that to the model's device, as the
+JAX package's ``device_put`` onto a ``NamedSharding`` places them.
+
 Every leaf crosses bit for bit: f32, int8 (int8 experts) and f16 (their
 scales) as they are, and bf16, which torch cannot take from numpy, viewed
 as uint16, then int16 (which torch reads), then as torch.bfloat16.  The
@@ -120,11 +125,10 @@ def _zip_stack(trees):
     return np.stack(trees)
 
 
-def import_tree(params, device="cpu") -> Dict[str, torch.Tensor]:
-    """A tree in the layout of a JAX ``Model.init`` tree (numpy or tensor
-    leaves: the params, their gradients, AdamW moments, a checkpoint's)
-    -> {the port's parameter name: tensor on ``device``}; the inverse of
-    ``export_tree``."""
+def named_leaves(params) -> Dict[str, Any]:
+    """A tree in the layout of a JAX ``Model.init`` tree -> {the port's
+    parameter name: leaf}, a stacked leaf indexed by its layer's repeat
+    (``leaf[r]``), nothing converted."""
     mapped = {"embed": params["embed"], "final_norm": params["final_norm"]}
     for i, blk in enumerate(_unstack(params["segments"])):
         mapped[f"layers.{i}"] = blk
@@ -135,15 +139,32 @@ def import_tree(params, device="cpu") -> Dict[str, torch.Tensor]:
             for k, v in tree.items():
                 walk(f"{prefix}.{k}" if prefix else k, v)
         else:
-            out[prefix] = tensor(tree, device)
+            out[prefix] = tree
     walk("", mapped)
     return out
 
 
+def import_tree(params, device="cpu") -> Dict[str, torch.Tensor]:
+    """A tree in the layout of a JAX ``Model.init`` tree (numpy or tensor
+    leaves: the params, their gradients, AdamW moments, a checkpoint's)
+    -> {the port's parameter name: tensor on ``device``}; the inverse of
+    ``export_tree``."""
+    return {name: tensor(leaf, device)
+            for name, leaf in named_leaves(params).items()}
+
+
 def load_params(model, params) -> None:
-    """Copy a JAX ``Model.init`` tree (numpy leaves) into ``model``."""
-    model.load_state_dict(import_tree(params, model.device), strict=True,
-                          assign=False)
+    """Copy a JAX ``Model.init`` tree (numpy leaves) into ``model``; a
+    model under a plan (``Model(cfg, plan=...)``) gets the rank's pieces,
+    each leaf cut by its ``param_specs`` on the CPU, one at a time."""
+    if model.plan is None:
+        tree = import_tree(params, model.device)
+    else:
+        from .models.sharding import shard_tensor
+        tree = {name: shard_tensor(tensor(leaf), model.param_specs[name],
+                                   model.plan).to(model.device)
+                for name, leaf in named_leaves(params).items()}
+    model.load_state_dict(tree, strict=True, assign=False)
 
 
 def export_tree(model, fn) -> Dict[str, Any]:
@@ -204,6 +225,17 @@ def cache_to_torch(cache, device="cpu"):
     there, as JAX reads its traced ``pos``)."""
     return {"pos": tensor(cache["pos"], device),
             "layers": to_torch(_unstack(cache["segments"]), device)}
+
+
+def cache_to_shard(cache, plan, device="cpu"):
+    """A JAX cache, as ``cache_to_torch`` carries it across, then cut to
+    this rank's pieces by ``plan.cache_specs`` (``sharding.shard_cache``)
+    on the CPU and moved to ``device``; a plan without a mesh leaves it
+    whole."""
+    from .models.sharding import shard_cache
+    if plan.mesh is None:
+        return cache_to_torch(cache, device)
+    return to_torch(shard_cache(cache_to_torch(cache), plan), device)
 
 
 def cache_to_numpy(cache, cfg):

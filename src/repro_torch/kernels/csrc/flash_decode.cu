@@ -113,13 +113,19 @@
 // plain loads, issued ahead of the scores that need them.
 //
 // A second kernel, one block per (row, head), merges the splits by
-// log-sum-exp and writes q's dtype.  The fused kernel launches a LoRA
-// shrink between the two (fd_lora_shrink_kernel): one thread-block cluster
-// of C <= 8 blocks per row, block c shrinking its dx/C slice of h = x[row]
-// @ A[id] with 16-byte loads of A and the cluster summing the partials
-// through distributed shared memory in one fixed order
-// (lora.cuh::cluster_shrink, BGMV's), into an f32 scratch, as the Pallas
-// epilogue keeps h in f32.  The shrink and the combine (instantiated with
+// log-sum-exp and writes q's dtype.  The slices of a sequence-sharded cache
+// (the JAX package's decode_attention_sharded, plain jnp) combine by each
+// slice's log-sum-exp: a call that asks for it (an lse buffer given to
+// repro_flash_decode or repro_flash_decode_int8) runs the same
+// split pass and a combine kernel of its own (fd_combine_lse_kernel),
+// which also writes m + log l per (row, head) and leaves the output in
+// f32, so that no other instance's code changes.  The fused kernel
+// launches a LoRA shrink between the two (fd_lora_shrink_kernel): one
+// thread-block cluster of C <= 8 blocks per row, block c shrinking its
+// dx/C slice of h = x[row] @ A[id] with 16-byte loads of A and the
+// cluster summing the partials through distributed shared memory in one
+// fixed order (lora.cuh::cluster_shrink, BGMV's), into an f32 scratch, as
+// the Pallas epilogue keeps h in f32.  The shrink and the combine (with
 // kLora) are each the programmatic dependent of the launch before, and the
 // split pass's fused instance (kEarly) lets the shrink start at once: the
 // shrink runs beside the split pass, then waits for it; the combine puts
@@ -1694,13 +1700,21 @@ struct MergeStats {
   float mx, inv;
 };
 
-__device__ __forceinline__ MergeStats merge_stats(const float* mp,
-                                                  const float* lp,
-                                                  int n_splits) {
-  float mx = kNegInf;
+// The largest m of the splits, and the sum of their l rescaled to it.
+__device__ __forceinline__ float merge_sum(const float* mp, const float* lp,
+                                           int n_splits, float& mx) {
+  mx = kNegInf;
   for (int i = 0; i < n_splits; ++i) mx = fmaxf(mx, mp[i]);
   float ls = 0.f;
   for (int i = 0; i < n_splits; ++i) ls += lp[i] * expf(mp[i] - mx);
+  return ls;
+}
+
+__device__ __forceinline__ MergeStats merge_stats(const float* mp,
+                                                  const float* lp,
+                                                  int n_splits) {
+  float mx;
+  const float ls = merge_sum(mp, lp, n_splits, mx);
   return {mx, 1.f / fmaxf(ls, 1e-20f)};
 }
 
@@ -1853,6 +1867,30 @@ fd_combine_kernel(const float* __restrict__ m_part,
   }
 }
 
+// fd_combine_kernel's plain merge, which also writes each (row, head)'s
+// log-sum-exp, lse[hp] = m + log l of the merged max and sum (-inf at a
+// length of 0: every split empty, l = 0): the flash-decode of one slice of
+// a sequence-sharded cache, whose slices combine by it.  Its output stays
+// f32, the merge before the cast, so that the slices combine before one
+// rounding to q's dtype, as the JAX package combines its shards' f32
+// partials.  A kernel of its own, so that fd_combine_kernel's instances
+// keep their code; its merge is theirs (merge_sum and merge_head), so its
+// output rounds to theirs bit for bit.
+__global__ void __launch_bounds__(kCombineThreads)
+fd_combine_lse_kernel(const float* __restrict__ m_part,
+                      const float* __restrict__ l_part,
+                      const float* __restrict__ acc_part,
+                      float* __restrict__ out, float* __restrict__ lse,
+                      int n_splits, int dh) {
+  const size_t hp = blockIdx.x;
+  float mx;
+  const float ls = merge_sum(m_part + hp * n_splits, l_part + hp * n_splits,
+                             n_splits, mx);
+  if (threadIdx.x == 0) lse[hp] = mx + logf(ls);
+  merge_head<float>(m_part, l_part, acc_part, out, n_splits, dh, hp,
+                    MergeStats{mx, 1.f / fmaxf(ls, 1e-20f)}, nullptr, 0.f);
+}
+
 // The fused combine of the wide path: fd_combine_kernel's kLora instance
 // with a delta of up to kWideMaxHeadDim elements (Expand's partials fit
 // its kCombineThreads * kMaxVec floats at any dh <= 1024).
@@ -1986,16 +2024,18 @@ int instance_dim(int dh, bool int8) {
 // then the combine; with kLora the shrink kernel between them, the shrink
 // and the combine each the programmatic dependent of the launch before.
 // max_part (bsz, h, n_splits) f32 is the int8 mode's pre-pass scratch for
-// q in f32.  Head dims past 256 take the wide path.  Returns the launch
-// error, or cudaErrorInvalidValue for a head dim outside [1, 1024] or a
-// chunk that is not whole tiles.
+// q in f32.  Head dims past 256 take the wide path.  With lse (bsz, h) f32
+// (not with kLora) the combine is fd_combine_lse_kernel, which writes the
+// log-sum-exp there too, and out in f32.  Returns the launch error, or
+// cudaErrorInvalidValue for a head dim outside [1, 1024] or a chunk that
+// is not whole tiles.
 template <typename T, typename W, bool kLora, bool kInt8 = false>
 int launch_fd(const void* q, const void* k, const void* v,
               const void* k_scale, const void* v_scale, const void* length,
               void* m_part, void* l_part, void* acc_part, void* out, int bsz,
               int s, int h, int kv, int dh, int n_splits, int chunk,
               const LoraArgs<T, W>& lora, cudaStream_t st,
-              void* max_part = nullptr) {
+              void* max_part = nullptr, void* lse = nullptr) {
   static_assert(!(kLora && kInt8), "the fused kernel reads a T cache");
   // cp.async copies 16-byte chunks of K and V (narrower pieces of a row
   // whose bytes are not a multiple of 16, aligned within the row)
@@ -2066,6 +2106,11 @@ int launch_fd(const void* q, const void* k, const void* v,
         static_cast<const float*>(acc_part), static_cast<T*>(out), n_splits,
         dh, args);
     if (err != cudaSuccess) return static_cast<int>(err);
+  } else if (lse) {
+    fd_combine_lse_kernel<<<bsz * h, kCombineThreads, 0, st>>>(
+        static_cast<const float*>(m_part), static_cast<const float*>(l_part),
+        static_cast<const float*>(acc_part), static_cast<float*>(out),
+        static_cast<float*>(lse), n_splits, dh);
   } else {
     fd_combine_kernel<T, W, false><<<bsz * h, kCombineThreads, 0, st>>>(
         static_cast<const float*>(m_part), static_cast<const float*>(l_part),
@@ -2084,8 +2129,8 @@ bool bad_shape(int h, int kv, int n_splits, int chunk) {
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
                                   const void* length, void* m_part,
                                   void* l_part, void* acc_part, void* out,
-                                  int bsz, int s, int h, int kv, int dh,
-                                  int n_splits, int chunk, int dtype,
+                                  void* lse, int bsz, int s, int h, int kv,
+                                  int dh, int n_splits, int chunk, int dtype,
                                   void* stream) {
   if (bsz <= 0 || h <= 0) return 0;
   if (bad_shape(h, kv, n_splits, chunk))
@@ -2095,15 +2140,16 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
   REPRO_DISPATCH_DTYPE(dtype, T,
       rc = launch_fd<T, T, false>(q, k, v, nullptr, nullptr, length, m_part,
                                   l_part, acc_part, out, bsz, s, h, kv, dh,
-                                  n_splits, chunk, LoraArgs<T, T>{}, st));
+                                  n_splits, chunk, LoraArgs<T, T>{}, st,
+                                  nullptr, lse));
   return rc;
 }
 
 extern "C" int repro_flash_decode_int8(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* length, void* m_part, void* l_part,
-    void* acc_part, void* max_part, void* out, int bsz, int s, int h, int kv,
-    int dh, int n_splits, int chunk, int dtype, void* stream) {
+    void* acc_part, void* max_part, void* out, void* lse, int bsz, int s,
+    int h, int kv, int dh, int n_splits, int chunk, int dtype, void* stream) {
   if (bsz <= 0 || h <= 0) return 0;
   if (bad_shape(h, kv, n_splits, chunk) || !k_scale || !v_scale ||
       (dtype == REPRO_F32 && !max_part))
@@ -2114,7 +2160,8 @@ extern "C" int repro_flash_decode_int8(
       rc = launch_fd<T, T, false, true>(q, k, v, k_scale, v_scale, length,
                                         m_part, l_part, acc_part, out, bsz,
                                         s, h, kv, dh, n_splits, chunk,
-                                        LoraArgs<T, T>{}, st, max_part));
+                                        LoraArgs<T, T>{}, st, max_part,
+                                        lse));
   return rc;
 }
 

@@ -37,12 +37,17 @@ int repro_sgmv(const void* x, const void* a, const void* b, const void* idx,
 // positions a split, a whole number of tiles
 // (kernels/flash_decode.py::tile_positions).  Partials
 // m, l (bsz, h, n_splits) and acc (bsz, h, n_splits, dh) are f32 scratch;
-// out (bsz, h, dh) in q's dtype.
+// out (bsz, h, dh) in q's dtype.  With lse (bsz, h) f32 (NULL for none)
+// the combine also writes each (row, head)'s log-sum-exp of its scaled
+// scores over its first length positions, m + log l (-inf at a length of
+// 0), with which the slices of a sequence-sharded cache combine; out is
+// then f32, whatever q's dtype: the output before its cast (rounded to
+// q's dtype it is bitwise the output without lse).
 int repro_flash_decode(const void* q, const void* k, const void* v,
                        const void* length, void* m_part, void* l_part,
-                       void* acc_part, void* out, int bsz, int s, int h,
-                       int kv, int dh, int n_splits, int chunk, int dtype,
-                       void* stream);
+                       void* acc_part, void* out, void* lse, int bsz, int s,
+                       int h, int kv, int dh, int n_splits, int chunk,
+                       int dtype, void* stream);
 
 // repro_flash_decode over an int8 cache: k, v (bsz, s, kv, dh) int8, 16-byte
 // aligned, with f16 scales k_scale, v_scale (bsz, s, kv); the scores are
@@ -50,12 +55,12 @@ int repro_flash_decode(const void* q, const void* k, const void* v,
 // multiplies V.  q (bsz, h, dh) and out in `dtype` (f32 or bf16).  For q
 // in f32, max_part (bsz, h, n_splits) f32 is the scratch of a pre-pass
 // that finds the row's largest score, against which P is rounded (as the
-// JAX package rounds it); NULL for bf16 q.
+// JAX package rounds it); NULL for bf16 q.  lse as repro_flash_decode's.
 int repro_flash_decode_int8(const void* q, const void* k, const void* v,
                             const void* k_scale, const void* v_scale,
                             const void* length, void* m_part, void* l_part,
                             void* acc_part, void* max_part, void* out,
-                            int bsz, int s, int h, int kv, int dh,
+                            void* lse, int bsz, int s, int h, int kv, int dh,
                             int n_splits, int chunk, int dtype, void* stream);
 
 // repro_flash_decode plus scale * x @ a[idx] @ b[idx] (reshaped (h, dh))

@@ -11,7 +11,9 @@ takes the kernel's int8 K/V mode (the JAX package's quantized decode,
 ``repro.models.attention.decode_attention_sharded``, computes it in plain
 ``jnp``).  Every mode takes any head dim 1..MAX_HEAD_DIM, as the Pallas
 kernel takes any: up to 256 on instantiated head dims, past it on the
-wide path.
+wide path.  ``flash_decode_lse`` is ``flash_decode`` that also returns
+each (row, head)'s log-sum-exp: the slices of a sequence-sharded cache
+combine by it (``models.attention.combine_shards``).
 """
 from __future__ import annotations
 
@@ -43,18 +45,32 @@ def _lengths(length, bsz: int, device):
                            device=device).broadcast_to((bsz,)).contiguous()
 
 
-def flash_decode_plain(q, k, v, length):
+def flash_decode_plain(q, k, v, length, return_lse: bool = False):
     """The kernel's function in plain PyTorch: scale 1/sqrt(D), f32 softmax
     over the first min(length, S) positions of each row; a length of 0
-    gives 0, as the kernel (and the Pallas kernel) gives.
+    gives 0, as the kernel (and the Pallas kernel) gives.  With
+    ``return_lse`` it returns the output before its cast (f32) and each
+    (row, head)'s log-sum-exp of its scaled f32 scores over those
+    positions, (B, H) in f32: m + log l of the softmax's max m and sum l,
+    -inf at a length of 0 (``_lse``).
 
     q: (B, H, D); k/v: (B, S, KV, D); length: scalar or (B,).
     """
+    if return_lse:
+        return _attention_f32(q, k, v, length, with_lse=True)
     return _attention_f32(q, k, v, length).to(q.dtype)
 
 
-def _attention_f32(q, k, v, length):
-    """``flash_decode_plain`` before its cast: (B, H, D) in f32."""
+def _lse(m, l, bsz: int, h: int):
+    """m + log l as (B, H): a row whose length is 0 has m = -1e30 and
+    l = 0, whose log is -inf, so that its weight in a log-sum-exp combine
+    (``attention.combine_shards``) is exp(-inf) = 0."""
+    return (m + l.log()).reshape(bsz, h)
+
+
+def _attention_f32(q, k, v, length, with_lse: bool = False):
+    """``flash_decode_plain`` before its cast: (B, H, D) in f32 (and the
+    log-sum-exp, with ``with_lse``)."""
     bsz, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
     qs = q.reshape(bsz, kv, h // kv, d).float()
@@ -62,15 +78,17 @@ def _attention_f32(q, k, v, length):
     mask = (torch.arange(s, device=q.device)[None, :]
             < _lengths(length, bsz, q.device)[:, None])[:, None, None, :]
     sc = torch.where(mask, sc, torch.full_like(sc, -1e30))
-    p = torch.where(mask, torch.exp(sc - sc.amax(-1, keepdim=True)),
-                    torch.zeros_like(sc))
+    m = sc.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(sc - m), torch.zeros_like(sc))
     out = torch.einsum("bkgs,bskd->bkgd", p, v.float())
-    out = out / p.sum(-1, keepdim=True).clamp(min=1e-20)
-    return out.reshape(bsz, h, d)
+    lsum = p.sum(-1, keepdim=True)
+    out = (out / lsum.clamp(min=1e-20)).reshape(bsz, h, d)
+    return (out, _lse(m, lsum, bsz, h)) if with_lse else out
 
 
 def flash_decode_int8_plain(q, k, v, length, k_scale, v_scale,
-                            exact_dot: bool = False):
+                            exact_dot: bool = False,
+                            return_lse: bool = False):
     """The int8 mode's function in plain PyTorch, step by step the JAX
     package's quantized decode (``decode_attention_sharded`` at one shard,
     attention.py:285-310): s = (q . k) in f32 / sqrt(D), times k_scale;
@@ -85,15 +103,20 @@ def flash_decode_int8_plain(q, k, v, length, k_scale, v_scale,
     both sides).  Without it the f32 sum's order is the einsum's, as in
     the JAX package, where the order is XLA's.
 
+    With ``return_lse`` it returns the output before its cast (f32) and
+    the log-sum-exp of the scaled scores, (B, H) in f32, as
+    ``flash_decode_plain`` gives them.
+
     q: (B, H, D) in bf16 or f32; k/v: (B, S, KV, D) int8; k_scale/v_scale:
     (B, S, KV) f16; length: scalar or (B,) -> (B, H, D) in q's dtype.
     """
     bsz, h, d = q.shape
-    p = _int8_softmax(q, k, length, k_scale, exact_dot)
+    p, m = _int8_softmax(q, k, length, k_scale, exact_dot, with_max=True)
     pv = (p * _per_head(v_scale)).to(torch.bfloat16)
     out = torch.einsum("bkgs,bskd->bkgd", pv.float(), v.float())
-    out = out / p.sum(-1, keepdim=True).clamp(min=1e-20)
-    return out.reshape(bsz, h, d).to(q.dtype)
+    lsum = p.sum(-1, keepdim=True)
+    out = (out / lsum.clamp(min=1e-20)).reshape(bsz, h, d)
+    return (out, _lse(m, lsum, bsz, h)) if return_lse else out.to(q.dtype)
 
 
 def _per_head(scale):
@@ -101,12 +124,12 @@ def _per_head(scale):
     return scale.float().permute(0, 2, 1)[:, :, None]
 
 
-def _int8_softmax(q, k, length, k_scale, exact_dot=False):
+def _int8_softmax(q, k, length, k_scale, exact_dot=False, with_max=False):
     """The int8 mode's unnormalised f32 softmax (B, KV, G, S): s = (q . k)
     / sqrt(D) times k_scale over the first min(length, S) positions (q . k
     summed as ``flash_decode_int8_plain`` says), P = exp(s - max s), the
     max over the row (the amax is the kernel's pre-pass for q in f32), 0
-    past the length."""
+    past the length; with ``with_max`` also that max, (B, KV, G, 1)."""
     bsz, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
     wide = torch.float64 if exact_dot else torch.float32
@@ -117,8 +140,9 @@ def _int8_softmax(q, k, length, k_scale, exact_dot=False):
     mask = (torch.arange(s, device=q.device)[None, :]
             < _lengths(length, bsz, q.device)[:, None])[:, None, None, :]
     sc = torch.where(mask, sc, torch.full_like(sc, -1e30))
-    return torch.where(mask, torch.exp(sc - sc.amax(-1, keepdim=True)),
-                       torch.zeros_like(sc))
+    m = sc.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(sc - m), torch.zeros_like(sc))
+    return (p, m) if with_max else p
 
 
 def _check_expand(q, b):
@@ -258,10 +282,11 @@ def _check_lora(q, x, a, b, idx):
         raise ValueError("flash_decode_lora: inputs must be contiguous")
 
 
-def _launch_args(q, k, v, length, k_scale=None, v_scale=None):
+def _launch_args(q, k, v, length, k_scale=None, v_scale=None,
+                 out_dtype=None):
     """The arguments both kernels share: the checked lengths, the split
     plan (tiles of K's element size at its instance's head dim) and its
-    f32 partials, and the output."""
+    f32 partials, and the output (in q's dtype unless ``out_dtype``)."""
     bsz, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
     lengths = _lengths(length, bsz, q.device)
@@ -274,7 +299,7 @@ def _launch_args(q, k, v, length, k_scale=None, v_scale=None):
     l_part = torch.empty_like(m_part)
     acc_part = torch.empty((bsz, h, n_splits, d), dtype=torch.float32,
                            device=q.device)
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=out_dtype or q.dtype)
     return (lengths, m_part, l_part, acc_part, out,
             (bsz, s, h, kv, d, n_splits, chunk))
 
@@ -293,15 +318,61 @@ def flash_decode(q, k, v, length, k_scale=None, v_scale=None):
     value, the plain version's with ``exact_dot``); both launches count
     here.
     """
+    if q.device.type == "cpu":
+        return _plain(q, k, v, length, k_scale, v_scale)
+    out = _launch(q, k, v, length, k_scale, v_scale)
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0
+
+
+def flash_decode_lse(q, k, v, length, k_scale=None, v_scale=None):
+    """``flash_decode`` that also returns each (row, head)'s log-sum-exp:
+    (out, lse).  out is in f32, the merge before its cast (rounded to q's
+    dtype, bit for bit ``flash_decode``'s output), and lse (B, H) f32, the
+    log-sum-exp of each (row, head)'s scaled scores, m + log l of the
+    combine's merged max and sum (-inf at a length of 0).  The same split
+    pass in every mode, and a combine of its own
+    (``fd_combine_lse_kernel``), which writes both.  A sequence-sharded
+    cache's slices combine by them (``models.attention.combine_shards``)
+    before one rounding to q's dtype.
+    """
+    if q.device.type == "cpu":
+        return _plain(q, k, v, length, k_scale, v_scale, return_lse=True)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    out = _launch(q, k, v, length, k_scale, v_scale, lse)
+    flash_decode_lse.launches += 1
+    return out, lse
+
+
+flash_decode_lse.launches = 0
+
+
+def _check_scales(k_scale, v_scale):
     if (k_scale is None) != (v_scale is None):
         raise ValueError("flash_decode: give both scales or neither")
-    if q.device.type == "cpu":
-        if k_scale is not None:
-            return flash_decode_int8_plain(q, k, v, length, k_scale, v_scale)
-        return flash_decode_plain(q, k, v, length)
+
+
+def _plain(q, k, v, length, k_scale, v_scale, return_lse: bool = False):
+    """The plain version of ``flash_decode`` (``flash_decode_lse``)."""
+    _check_scales(k_scale, v_scale)
+    if k_scale is not None:
+        return flash_decode_int8_plain(q, k, v, length, k_scale, v_scale,
+                                       return_lse=return_lse)
+    return flash_decode_plain(q, k, v, length, return_lse=return_lse)
+
+
+def _launch(q, k, v, length, k_scale, v_scale, lse=None):
+    """Launch flash-decode (its int8 mode with scales); with ``lse`` (B, H)
+    f32 the combine writes the log-sum-exp there and the output in f32."""
+    _check_scales(k_scale, v_scale)
     lengths, m_part, l_part, acc_part, out, dims = _launch_args(
-        q, k, v, length, k_scale, v_scale)
+        q, k, v, length, k_scale, v_scale,
+        q.dtype if lse is None else torch.float32)
     stream = build.stream_handle(q.device)
+    lse_ptr = 0 if lse is None else lse.data_ptr()
     if k_scale is not None:
         # q in f32: the pre-pass's largest score of each split, against
         # whose maximum P * v_scale is rounded (the JAX arithmetic)
@@ -312,17 +383,14 @@ def flash_decode(q, k, v, length, k_scale=None, v_scale=None):
             v_scale.data_ptr(), lengths.data_ptr(), m_part.data_ptr(),
             l_part.data_ptr(), acc_part.data_ptr(),
             0 if max_part is None else max_part.data_ptr(), out.data_ptr(),
-            *dims, build.dtype_code(q.dtype), stream)
+            lse_ptr, *dims, build.dtype_code(q.dtype), stream)
     else:
         build.kernels().flash_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
             m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-            out.data_ptr(), *dims, build.dtype_code(q.dtype), stream)
-    flash_decode.launches += 1
+            out.data_ptr(), lse_ptr, *dims, build.dtype_code(q.dtype),
+            stream)
     return out
-
-
-flash_decode.launches = 0
 
 
 def flash_decode_lora(q, k, v, length, x, a, b, idx, scale: float = 1.0):

@@ -20,6 +20,7 @@ from . import bgmv as bgmv_mod, flash_decode as fd_mod, ref, sgmv as sgmv_mod
 #: the wrappers that count their launches (``<wrapper>.launches``)
 KERNELS = {"bgmv": bgmv_mod.bgmv, "sgmv": sgmv_mod.sgmv,
            "flash_decode": fd_mod.flash_decode,
+           "flash_decode_lse": fd_mod.flash_decode_lse,
            "flash_decode_lora": fd_mod.flash_decode_lora}
 
 
@@ -96,6 +97,12 @@ def flash_decode(q, k, v, length, k_scale=None, v_scale=None):
     int8 cache (``models.attention.quantize_kv``).
     """
     return fd_mod.flash_decode(q, k, v, length, k_scale, v_scale)
+
+
+def flash_decode_lse(q, k, v, length, k_scale=None, v_scale=None):
+    """``flash_decode`` that also returns the (B, H) f32 log-sum-exp of the
+    scaled scores: (out in f32, lse)."""
+    return fd_mod.flash_decode_lse(q, k, v, length, k_scale, v_scale)
 
 
 def fused_decode(q, k, v, length, x, a, b, idx, scale: float = 1.0,

@@ -12,8 +12,13 @@ buffers alike; the step's position stays on the device (``CacheSlot``).
 A global layer's cache may be int8 with one f16 scale per (token, head)
 (``quantize_kv``; the JAX package's ``ShardingPlan.kv_quant``): the new K/V
 are quantized on the device and flash-decode reads the int8 cache and its
-scales as they are.  Sequence sharding (``n_shards > 1``) is ROADMAP.md
-queue 1 item 11.
+scales as they are.  Under a decode plan a global layer's cache is
+sequence-sharded (``decode_attention_sharded``): each rank writes the new
+row only if it owns ``pos``, runs flash-decode over its slice and gets back
+the log-sum-exp with the output, and the ranks combine by it
+(``combine_shards``).  Sequence-sharded prefill and training attention
+(``ring_attention``, ``local_attention`` at more than one shard) are
+ROADMAP.md queue 1 item 11b.
 """
 from __future__ import annotations
 
@@ -135,6 +140,19 @@ class CacheSlot(NamedTuple):
         return cls(pos, index, index[0] == pos, (pos + 1).clamp(max=s))
 
     @classmethod
+    def shard(cls, pos: torch.Tensor, s_loc: int, my: int) -> "CacheSlot":
+        """Slice ``my`` of a cache sequence-sharded into slices of ``s_loc``
+        rows (positions [my * s_loc, (my + 1) * s_loc)): row pos - my *
+        s_loc, clamped into the slice, written only where pos lies in it
+        (``decode_update_cache`` of the JAX package, attention.py:244-253),
+        attending clamp(pos + 1 - my * s_loc, 0, s_loc) rows: none on a
+        slice past pos."""
+        local = pos - my * s_loc
+        index = local.clamp(0, s_loc - 1).reshape(1).long()
+        return cls(pos, index, index[0] == local,
+                   (local + 1).clamp(0, s_loc))
+
+    @classmethod
     def rolling(cls, pos: torch.Tensor, w: int) -> "CacheSlot":
         """A local layer's rolling buffer of w rows (the JAX package's
         ``decode_attention_rolling``, attention.py:317-351): row pos % w,
@@ -197,3 +215,52 @@ def decode_attention(q, k_cache, v_cache, new_k, new_v, slot: CacheSlot,
     decode_update_cache(v_cache, new_v, slot)
     return ops.flash_decode(q.contiguous(), k_cache, v_cache, slot.length,
                             k_scale, v_scale)
+
+
+def combine_shards(out, lse, reduce):
+    """The attention over a whole cache from its slices' (``out``, ``lse``),
+    in f32: out (..., H, D) and lse (..., H), both f32, as
+    ``ops.flash_decode_lse`` gives them for one slice;
+    ``reduce(t, op)`` reduces t over the slices, op "max" or "sum" (an
+    all-reduce over the cache's ranks, or a reduction over a stacked
+    leading axis).  Each slice weighs exp(lse - max lse): 0 for a slice
+    with no live row (lse -inf).  The JAX package's one ``pmax`` and two
+    ``psum``s of (m, l, acc) (attention.py:305-309) are here one max of
+    lse and one sum of [out * w | w]; the caller casts the quotient to
+    q's dtype once.  At one slice the weight is 1 and the result is
+    ``out`` bit for bit."""
+    m = reduce(lse.clone(), "max")
+    w = torch.exp(lse - m)[..., None]
+    part = reduce(torch.cat([out * w, w], dim=-1), "sum")
+    return part[..., :-1] / part[..., -1:]
+
+
+def decode_attention_sharded(q, k_cache, v_cache, new_k, new_v,
+                             slot: CacheSlot, k_scale=None, v_scale=None, *,
+                             group=None):
+    """The per-rank body of the JAX package's ``decode_attention_sharded``
+    (attention.py:256-314) on a sequence-sharded cache.
+
+    q: (B, H, D) and new_k/new_v: (B, KV, D), replicated over the cache's
+    ranks; caches: this rank's slice (B, S_loc, KV, D), and with
+    ``k_scale``/``v_scale`` (B, S_loc, KV) f16 the int8 cache's scales,
+    sharded with the rows; slot: ``CacheSlot.shard`` of this slice.  The
+    new row is written in place on the rank that owns ``pos`` (quantized
+    first for an int8 cache, as ``decode_attention`` does); flash-decode
+    attends the slice's live rows and returns its output in f32 and its
+    log-sum-exp; the ranks of ``group`` combine (``combine_shards``: one
+    all-reduce max and one all-reduce sum) and the result is cast once.
+    An int8 slice rounds P * v_scale against its own max, as the JAX body
+    rounds it against each shard's.  Returns (B, H, D) in q's dtype.
+    """
+    from .sharding import all_reduce
+    if k_scale is not None:
+        (new_k, new_v), (nks, nvs) = quantize_kv(torch.stack([new_k, new_v]))
+        decode_update_cache(k_scale, nks, slot)
+        decode_update_cache(v_scale, nvs, slot)
+    decode_update_cache(k_cache, new_k, slot)
+    decode_update_cache(v_cache, new_v, slot)
+    out, lse = ops.flash_decode_lse(q.contiguous(), k_cache, v_cache,
+                                    slot.length, k_scale, v_scale)
+    return combine_shards(out, lse, lambda t, op: all_reduce(t, op, group)
+                          ).to(q.dtype)

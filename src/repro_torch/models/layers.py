@@ -137,12 +137,19 @@ def apply_mlp(kind: str, p, x):
     """SwiGLU or GELU MLP; gate and up are f32 products, the activation is
     computed in f32, then cast.  GELU is the tanh approximation,
     ``jax.nn.gelu``'s default."""
+    return mlp_hidden(kind, p, x) @ p["w_down"]
+
+
+def mlp_hidden(kind: str, p, x):
+    """``apply_mlp`` before its down projection: the activation, in x's
+    dtype (over the rank's columns of w_up/w_gate when they are
+    sharded)."""
     up = matmul_f32(x, p["w_up"])
     if kind == "swiglu":
         h = F.silu(matmul_f32(x, p["w_gate"])) * up
     else:
         h = F.gelu(up, approximate="tanh")
-    return h.to(x.dtype) @ p["w_down"]
+    return h.to(x.dtype)
 
 
 # --------------------------------------------------------------------------- #

@@ -11,8 +11,9 @@ dropless oracle, the plain version the tests and the card check hold
 products (``_dequant``).
 
 The expert-parallel arguments of the JAX ``apply_moe`` (``axis_name``,
-``n_shards``, ``gather``) come with the port's distribution (ROADMAP.md
-queue 1 item 11); here every expert is local.
+``n_shards``, ``gather``) are ROADMAP.md queue 1 item 11b; here every
+expert is local, and a ``Model`` under a plan wider than one rank
+refuses an MoE FFN.
 
 Every shape in ``apply_moe`` follows from x's and the parameters' shapes,
 and nothing waits for the host (no ``.item()``, ``nonzero``, boolean

@@ -1,0 +1,388 @@
+"""Sharding plans of the port (counterpart of ``repro.models.sharding``).
+
+The same rules, line for line: ``ShardingPlan`` turns each parameter and
+cache leaf into a spec on a named mesh, and ``make_plan`` sets up the
+baseline plan of each step kind (train, prefill, decode).  In decode the
+batch goes to ``data``, the weights are column- or row-sharded over
+``model`` (resident TP) and the KV cache is sequence-sharded over
+``model``, or over ``(data, model)`` when ``global_batch`` is 1.
+
+What differs from the JAX package:
+
+* a spec is a tuple with one entry per dimension, each ``None``, an axis
+  name or a tuple of two or more axis names (a ``PartitionSpec``'s
+  entries: a one-axis tuple is its name), and a scalar's is ``()``;
+* the mesh is a ``torch.distributed.device_mesh.DeviceMesh`` or
+  ``launch.mesh.MeshShape`` (names and sizes only, for specs without
+  processes, as the JAX package's ``AbstractMesh``), or None; the plan
+  reads only its ``mesh_dim_names`` and ``shape``;
+* the port keeps one tensor per layer where the JAX package stacks a
+  segment's layers on a leading axis: a port spec is the JAX spec without
+  that axis, under the port's parameter names (``layers.3.mlp.w_up``), and
+  the cache rules, written against (R, B, ...) leaves there, index the
+  port's (B, ...) leaves one lower;
+* ``constrain`` and ``shardings`` have no counterpart: the port places
+  tensors itself (``shard_tensor``, the port's ``device_put``) and its
+  decode runs explicit collectives (``all_reduce``, ``all_gather``) over
+  the mesh's process groups (``ShardingPlan.group``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+
+#: collectives issued by ``all_reduce`` and ``all_gather`` (the sharded
+#: decode's); ``reset_collectives`` zeroes them
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0}
+
+
+def reset_collectives() -> None:
+    for name in COLLECTIVES:
+        COLLECTIVES[name] = 0
+
+
+def mesh_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} of a ``DeviceMesh`` or a ``MeshShape``."""
+    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _spec(entries) -> tuple:
+    """A spec from its entries, a one-axis tuple as its name (as a
+    ``PartitionSpec`` holds it)."""
+    return tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e
+                 for e in entries)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingPlan:
+    mesh: Any = None                       # DeviceMesh | MeshShape | None
+    batch_axes: Tuple[str, ...] = ()       # activation batch dim
+    seq_axis: str = ""                     # activation seq dim (train/prefill)
+    width_axis: str = ""                   # TP width axis (ssm/hybrid, serve)
+    fsdp_axes: Tuple[str, ...] = ()        # weight-shard axes (train)
+    cache_seq_axes: Tuple[str, ...] = ()   # KV-cache seq dim (serve)
+    kv_quant: bool = False                 # int8 KV cache (beyond-paper)
+    expert_quant: bool = False             # weight-only int8 experts (serve)
+    attn_batch_shard: bool = False         # reshard attn batch over seq axis
+    remat: bool = False
+    unroll: bool = False                   # analysis mode: unroll inner loops
+    mode: str = "train"                    # train | prefill | decode
+
+    # ------------------------------------------------------------------ #
+    def axis_size(self, *names: str) -> int:
+        if self.mesh is None:
+            return 1
+        sizes = mesh_sizes(self.mesh)
+        n = 1
+        for name in names:
+            if name:
+                n *= sizes[name]
+        return n
+
+    @property
+    def n_seq(self) -> int:
+        return self.axis_size(self.seq_axis)
+
+    @property
+    def n_width(self) -> int:
+        return self.axis_size(self.width_axis)
+
+    @property
+    def n_cache(self) -> int:
+        return self.axis_size(*self.cache_seq_axes)
+
+    def _fits(self, dim: int, axes) -> bool:
+        axes = axes if isinstance(axes, tuple) else (axes,)
+        return dim % max(self.axis_size(*axes), 1) == 0
+
+    # ------------------------------------------------------------------ #
+    def dp(self):
+        return self.batch_axes if self.batch_axes else None
+
+    # ------------------------------------------------------------------ #
+    # parameter specs
+    # ------------------------------------------------------------------ #
+    _COL = ("w_gate", "w_up", "w_z", "w_x", "w_dt", "wq", "wk", "wv",
+            "unembed", "w_gate_in")
+    _ROW = ("w_down", "w_out", "wo")
+    _SMALL = ("router", "scale", "bias", "a_log", "dt_bias", "d_skip",
+              "a_param", "w_bc", "conv_bc", "bq", "bk", "bv")
+
+    def param_spec(self, path: Tuple[str, ...], shape: Tuple[int, ...]):
+        """The spec of the parameter at ``path`` (its name split on ".":
+        ``("layers", "3", "mlp", "w_up")``) of (unstacked) ``shape``."""
+        name = path[-1]
+        is_expert = "moe" in path
+        is_lora = "lora" in path or name.startswith(("a_", "b_")) and \
+            name in ("a_q", "b_q", "a_v", "b_v")
+        nd = len(shape)
+        none = [None] * nd
+
+        if is_lora:
+            return _spec(none)
+        if name in self._SMALL and not is_expert:
+            return _spec(none)
+
+        w = self.width_axis or None
+
+        if is_expert and name in ("w_gate", "w_up", "w_down", "router",
+                                  "w_gate_scale", "w_up_scale",
+                                  "w_down_scale"):
+            if name == "router":
+                return _spec(none)
+            if name.endswith("_scale"):     # (E, 1, ff): E over EP axis
+                spec = list(none)
+                ep = (self.width_axis or self.seq_axis) or None
+                if ep and self._fits(shape[nd - 3], ep):
+                    spec[nd - 3] = ep
+                return _spec(spec)
+            # (E, d, ff) / (E, ff, d): experts over EP axis
+            spec = list(none)
+            ep = (self.width_axis or self.seq_axis) or None
+            e_dim = nd - 3
+            if ep and self._fits(shape[e_dim], ep):
+                spec[e_dim] = ep
+            if self.fsdp_axes:
+                ff_dim = nd - 1 if name != "w_down" else nd - 2
+                if spec[ff_dim] is None and self._fits(shape[ff_dim], "data"):
+                    spec[ff_dim] = "data"
+            return _spec(spec)
+
+        spec = list(none)
+        if name in ("w_a", "w_i"):  # (nb, wb, wb) block-diagonal gates
+            if w and self._fits(shape[nd - 3], w):
+                spec[nd - 3] = w
+            return _spec(spec)
+        if name in ("conv_x", "conv_w"):
+            if w and self._fits(shape[nd - 1], w):
+                spec[nd - 1] = w
+            return _spec(spec)
+        if name == "embed":
+            if self.mode == "train" and self.fsdp_axes and \
+                    self._fits(shape[0], self.fsdp_axes):
+                return _spec((self.fsdp_axes, None))
+            return _spec(none)
+
+        if w and name in self._COL and self._fits(shape[nd - 1], w):
+            spec[nd - 1] = w
+        elif w and name in self._ROW and self._fits(shape[nd - 2], w):
+            spec[nd - 2] = w
+
+        if self.mode == "train" and self.fsdp_axes:
+            # FSDP: shard the largest still-unsharded dim
+            cands = sorted(range(max(nd - 2, 0), nd),
+                           key=lambda i: -shape[i])
+            for i in cands:
+                if spec[i] is None and self._fits(shape[i], self.fsdp_axes):
+                    spec[i] = self.fsdp_axes
+                    break
+        return _spec(spec)
+
+    def param_specs(self, params) -> Dict[str, tuple]:
+        """{name: spec} of ``params``, a mapping of dotted parameter names
+        to anything with a ``shape`` (``dict(model.named_parameters())``
+        of an unsharded model, or ``bridge.import_tree``'s output)."""
+        return {name: self.param_spec(tuple(name.split(".")),
+                                      tuple(t.shape))
+                for name, t in params.items()}
+
+    # ------------------------------------------------------------------ #
+    # cache specs
+    # ------------------------------------------------------------------ #
+    def cache_spec(self, path: Tuple[str, ...], shape: Tuple[int, ...]):
+        """The spec of the cache leaf at ``path`` (its name last) of shape
+        ``shape``: the JAX rules with the layer axis R gone."""
+        name = path[-1]
+        nd = len(shape)
+        if name == "pos":
+            return ()
+        dp = self.dp()
+        w = self.width_axis or None
+        cache_seq = self.cache_seq_axes if self.cache_seq_axes else None
+        if name in ("k", "v"):             # (B, S, KV, D) global layers
+            return _spec((dp, cache_seq, None, None))
+        if name in ("k_scale", "v_scale"):  # (B, S, KV) int8-KV scales
+            return _spec((dp, cache_seq, None))
+        if name in ("k_loc", "v_loc"):     # (B, W, KV, D) rolling
+            return _spec((dp, None, None, None))
+        if name in ("conv_x", "conv"):     # (B, cw-1, C@width)
+            sp = [None] * nd
+            sp[0] = dp
+            if w and shape[-1] % max(self.axis_size(w), 1) == 0:
+                sp[-1] = w
+            return _spec(sp)
+        if name == "conv_bc":
+            return _spec((dp, None, None))
+        if name == "ssm":                  # (B, H@width, p, n)
+            sp = [dp, None, None, None]
+            if w and shape[1] % max(self.axis_size(w), 1) == 0:
+                sp[1] = w
+            return _spec(sp)
+        if name == "lru":                  # (B, W@width)
+            sp = [dp, None]
+            if w and shape[1] % max(self.axis_size(w), 1) == 0:
+                sp[1] = w
+            return _spec(sp)
+        return _spec([None] * nd)
+
+    def cache_specs(self, cache):
+        """The port's cache tree ({"pos", "layers": [{name: leaf}]}) with
+        each leaf replaced by its spec."""
+        return {"pos": (),
+                "layers": [{name: self.cache_spec((str(i), name),
+                                                  tuple(t.shape))
+                            for name, t in layer.items()}
+                           for i, layer in enumerate(cache["layers"])]}
+
+    # ------------------------------------------------------------------ #
+    # this rank on a DeviceMesh (no counterpart: pjit places for JAX)
+    # ------------------------------------------------------------------ #
+    def coordinate(self, entry) -> int:
+        """This rank's index along a spec entry (an axis or a tuple of
+        axes, the first the most significant, as a ``PartitionSpec``
+        orders them)."""
+        sizes = mesh_sizes(self.mesh)
+        i = 0
+        for a in _axes(entry):
+            i = i * sizes[a] + self.mesh.get_local_rank(a)
+        return i
+
+    def group(self, entry):
+        """The process group over a spec entry's axes (one axis, or a tuple
+        flattened into one group).  Flattening makes new groups: every
+        rank calls it, in the same order (``Model`` does, when it is
+        built)."""
+        axes = _axes(entry)
+        if len(axes) == 1:
+            return self.mesh.get_group(axes[0])
+        return self.mesh[axes]._flatten("_".join(axes)).get_group()
+
+
+class RankGroups:
+    """What one rank's sharded decode needs of its plan's mesh: the process
+    groups over the width axis and over the cache axes, and the rank's
+    index along each.  Built on every rank in the same order (the cache
+    axes' group of a ``(data, model)`` plan is a flattened mesh, a new
+    group)."""
+
+    def __init__(self, plan: ShardingPlan):
+        self.plan = plan
+        self.width = plan.group(plan.width_axis) if plan.width_axis else None
+        self.width_index = plan.coordinate(plan.width_axis) \
+            if plan.width_axis else 0
+        axes = plan.cache_seq_axes
+        self.cache = plan.group(axes) if axes else None
+        self.cache_index = plan.coordinate(axes) if axes else 0
+
+
+def local_shape(shape, spec, plan: ShardingPlan) -> Tuple[int, ...]:
+    """The shape of a rank's piece of a tensor of ``shape`` under
+    ``spec``."""
+    return tuple(n if entry is None else n // plan.axis_size(*_axes(entry))
+                 for n, entry in zip(shape, spec))
+
+
+def shard_cache(cache, plan: ShardingPlan):
+    """This rank's piece of a whole cache ({"pos", "layers"}), cut by
+    ``plan.cache_specs`` (``pos`` copied)."""
+    specs = plan.cache_specs(cache)
+    return {"pos": cache["pos"].clone(),
+            "layers": [{name: shard_tensor(t, sp[name], plan)
+                        for name, t in layer.items()}
+                       for layer, sp in zip(cache["layers"],
+                                            specs["layers"])]}
+
+
+def shard_tensor(t: torch.Tensor, spec, plan: ShardingPlan) -> torch.Tensor:
+    """This rank's piece of the full tensor ``t`` under ``spec`` (the
+    port's ``jax.device_put`` onto a ``NamedSharding``): dimension i is cut
+    into ``axis_size(*spec[i])`` equal pieces and the rank keeps the one at
+    its coordinate.  A copy, contiguous; a dimension that does not divide
+    raises (the plan's ``_fits`` replicates those)."""
+    if plan.mesh is None:
+        return t
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        n = plan.axis_size(*_axes(entry))
+        if t.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not "
+                             f"divide over {entry} ({n})")
+        size = t.shape[dim] // n
+        t = t.narrow(dim, plan.coordinate(entry) * size, size)
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    """``t`` reduced in place over ``group`` ("sum" or "max"); counted."""
+    import torch.distributed as dist
+    COLLECTIVES["all_reduce"] += 1
+    dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
+                           "max": dist.ReduceOp.MAX}[op], group=group)
+    return t
+
+
+def all_gather(t: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """The group's pieces of ``t`` concatenated along ``dim`` in rank
+    order; counted."""
+    import torch.distributed as dist
+    COLLECTIVES["all_gather"] += 1
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+# --------------------------------------------------------------------------- #
+# canonical plans
+# --------------------------------------------------------------------------- #
+
+def make_plan(cfg, mesh, kind: str, *, unroll: bool = False,
+              remat: bool = False, global_batch: int = 1,
+              kv_quant: bool = False) -> ShardingPlan:
+    """Baseline plan for (family, step kind)."""
+    if mesh is None:
+        return ShardingPlan(mode="train" if kind == "train" else kind,
+                            unroll=unroll, remat=remat, kv_quant=kv_quant)
+    axes = mesh_sizes(mesh)
+    has_pod = "pod" in axes
+    # ssm/hybrid keep full seq (recurrence) and use width-TP everywhere
+    width_tp_family = cfg.family in ("ssm", "hybrid")
+
+    batch_axes: Tuple[str, ...] = ("pod", "data") if has_pod else ("data",)
+    n_batch = math.prod(axes[a] for a in batch_axes)
+    if global_batch % max(n_batch, 1) != 0 or global_batch < n_batch:
+        batch_axes = ("data",) if global_batch % axes.get("data", 1) == 0 \
+            and global_batch >= axes.get("data", 1) else ()
+
+    if kind == "train":
+        return ShardingPlan(
+            mesh=mesh, batch_axes=batch_axes,
+            seq_axis="" if width_tp_family else "model",
+            width_axis="model" if width_tp_family else "",
+            fsdp_axes=("data",) if width_tp_family else ("data", "model"),
+            remat=remat, unroll=unroll, mode="train")
+    if kind == "prefill":
+        return ShardingPlan(
+            mesh=mesh, batch_axes=batch_axes,
+            seq_axis="" if width_tp_family else "model",
+            width_axis="model",
+            cache_seq_axes=("model",), kv_quant=kv_quant,
+            unroll=unroll, mode="prefill")
+    # decode
+    cache_axes: Tuple[str, ...] = ("model",)
+    if not batch_axes:  # global_batch=1 (long_500k): seq over data too
+        cache_axes = ("data", "model")
+    return ShardingPlan(
+        mesh=mesh, batch_axes=batch_axes,
+        seq_axis="", width_axis="model",
+        cache_seq_axes=cache_axes, kv_quant=kv_quant,
+        unroll=unroll, mode="decode")
+

@@ -23,6 +23,30 @@ Three entry points, as in the JAX package:
   * ``decode_step`` — one token per running request with per-request LoRA
                       adapters (the serving hot path).
 
+Under a decode plan (``Model(cfg, plan=make_plan(cfg, mesh, "decode",
+global_batch=B))``, one ``Model`` a rank of a ``DeviceMesh``) each weight
+is cut to the rank's piece by ``plan.param_spec`` as it is drawn, so that
+a rank holds its pieces and one whole tensor at most, and the step runs
+tensor-parallel over the plan's ``model`` axis with explicit collectives,
+where the JAX package lets pjit place the ops (``_attend_decode``,
+transformer.py:317-360, is its one ``shard_map``): wq/wk/wv are
+column-sharded and their heads all-gathered (q and the new K/V are
+replicated over the cache axis there too); wo and w_down are row-sharded
+and all-reduced; w_gate/w_up column-sharded; the untied unembedding
+column-sharded and its logits all-gathered (a tied one reads the
+replicated embedding); LoRA is replicated.  A global layer's cache is
+sequence-sharded over the plan's cache axes and decodes through
+``attention.decode_attention_sharded``; a local layer's rolling buffer is
+replicated over ``model`` and decodes as without a plan.  Each piece
+follows its spec: a width that does not divide stays whole.  The caller
+gives ``decode_step`` the rank's rows of the batch and of the adapter ids
+(``sharding.shard_tensor``) and the rank's cache (``sharding.shard_cache`` of a
+prefill cache of the model without a plan: prefill stays unsharded), and
+gets the rank's rows of the logits over the whole vocab.  MoE, ``ssd``
+and ``rglru`` blocks under a plan wider than one rank, and prefill and
+training under a plan, raise ``NotImplementedError`` (ROADMAP.md queue 1
+items 11b and 11c).
+
 The port keeps these JAX behaviours for parity: one scalar ``pos`` for the
 whole batch (a 0-d int32 tensor on the model's device, as the JAX
 package's traced ``cache["pos"]``); a ``pos`` past a global cache skips
@@ -44,6 +68,8 @@ from ..device import resolve_device
 from ..kernels import ops
 from . import attention, layers, moe, rglru, ssm
 from .config import ModelConfig
+from .sharding import (RankGroups, all_gather, all_reduce, local_shape,
+                       shard_tensor)
 
 #: the block kinds with attention (and a KV cache and LoRA on q and v)
 ATTENTION_KINDS = ("global", "local")
@@ -66,11 +92,12 @@ def _norm(cfg: ModelConfig, dev) -> nn.ParameterDict:
 
 def _dense_mlp(cfg: ModelConfig, dense) -> nn.ParameterDict:
     """``init_mlp`` (layers.py:84-95): w_up and w_down, and w_gate for
-    SwiGLU; ``dense(shape, fan_in)`` draws one weight."""
-    mlp = {"w_up": dense((cfg.d_model, cfg.d_ff)),
-           "w_down": dense((cfg.d_ff, cfg.d_model), fan_in=cfg.d_ff)}
+    SwiGLU; ``dense(name, shape, fan_in)`` draws weight ``mlp.<name>``."""
+    mlp = {"w_up": dense("mlp.w_up", (cfg.d_model, cfg.d_ff)),
+           "w_down": dense("mlp.w_down", (cfg.d_ff, cfg.d_model),
+                           fan_in=cfg.d_ff)}
     if cfg.mlp == "swiglu":
-        mlp["w_gate"] = dense((cfg.d_model, cfg.d_ff))
+        mlp["w_gate"] = dense("mlp.w_gate", (cfg.d_model, cfg.d_ff))
     return nn.ParameterDict(mlp)
 
 
@@ -81,11 +108,19 @@ class Block(nn.Module):
     their f16 scales; ``transformer.py:95-101``).  With ``kv_quant`` a
     global layer keeps its cache in int8 beside f16 scales
     (``_cache_block``, transformer.py:170-178); a local layer's rolling
-    buffer stays in the model's dtype, as in the JAX package."""
+    buffer stays in the model's dtype, as in the JAX package.
+    ``place(name, t)``, where given, turns each weight drawn, by its
+    name in the layer, into what the layer keeps (under a plan, the
+    rank's piece)."""
+
+    #: under a plan, the rank's groups (``sharding.RankGroups``) and the
+    #: specs of this layer's parameters by local name; None and {} without
+    tp = None
+    specs: Dict[str, tuple] = {}
 
     def __init__(self, cfg: ModelConfig, kind: str, gen: torch.Generator,
                  device: torch.device, expert_quant: bool = False,
-                 kv_quant: bool = False):
+                 kv_quant: bool = False, place=None):
         super().__init__()
         self.cfg, self.kind = cfg, kind
         self.kv_quant = kv_quant and kind == "global"
@@ -97,19 +132,22 @@ class Block(nn.Module):
         d, dt = cfg.d_model, cfg.torch_dtype
         hd, nq, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
 
-        def dense(shape, fan_in=None):
-            return _param(layers.dense_init(gen, shape, dt, device, fan_in))
+        place = place or (lambda name, t: t)
+
+        def dense(name, shape, fan_in=None):
+            return _param(place(name, layers.dense_init(gen, shape, dt,
+                                                        device, fan_in)))
 
         self.norm1 = _norm(cfg, device)
-        self.wq = dense((d, nq * hd))
-        self.wk = dense((d, nkv * hd))
-        self.wv = dense((d, nkv * hd))
-        self.wo = dense((nq * hd, d), fan_in=nq * hd)
+        self.wq = dense("wq", (d, nq * hd))
+        self.wk = dense("wk", (d, nkv * hd))
+        self.wv = dense("wv", (d, nkv * hd))
+        self.wo = dense("wo", (nq * hd, d), fan_in=nq * hd)
         self.norm2 = _norm(cfg, device)
         if cfg.qkv_bias:
             for name, width in (("bq", nq), ("bk", nkv), ("bv", nkv)):
-                setattr(self, name, _param(torch.zeros(
-                    width * hd, dtype=dt, device=device)))
+                setattr(self, name, _param(place(name, torch.zeros(
+                    width * hd, dtype=dt, device=device))))
         if cfg.n_experts:
             self.moe = nn.ParameterDict({
                 k: _param(v) for k, v in moe.init_moe(
@@ -151,10 +189,35 @@ class Block(nn.Module):
         return self.kind, self.cache_kv(cache)[0].shape[1]
 
     def slot(self, pos: torch.Tensor, rows: int) -> attention.CacheSlot:
-        """The step's ``CacheSlot`` in this layer's cache of ``rows`` rows."""
+        """The step's ``CacheSlot`` in this layer's cache of ``rows`` rows
+        (under a plan a global layer's is the rank's slice of the
+        sequence-sharded cache)."""
         if self.kind == "global":
+            if self.tp is not None:
+                return attention.CacheSlot.shard(pos, rows,
+                                                 self.tp.cache_index)
             return attention.CacheSlot.at(pos, rows)
         return attention.CacheSlot.rolling(pos, rows)
+
+    def _sharded(self, name: str) -> bool:
+        """Whether parameter ``name`` is cut over the plan's mesh."""
+        return any(e is not None for e in self.specs.get(name, ()))
+
+    def _down(self, x, name: str, local: bool):
+        """x @ parameter ``name`` (wo, mlp.w_down) under a plan: a
+        row-sharded weight takes the rank's columns of x (``local``: x
+        holds only those, the product of column-sharded weights) and its
+        partial products are all-reduced over the width axis; a whole
+        weight takes the whole x (gathered if ``local``)."""
+        w = self.get_parameter(name)
+        sharded = self._sharded(name)
+        if local and not sharded:
+            x = all_gather(x, self.tp.width)
+        elif sharded and not local:
+            n = w.shape[0]
+            x = x[..., self.tp.width_index * n:(self.tp.width_index + 1) * n]
+        out = x @ w
+        return all_reduce(out, "sum", self.tp.width) if sharded else out
 
     def pad_cache(self, cache, extra: int):
         """This layer's prefill cache with room for ``extra`` more
@@ -168,6 +231,8 @@ class Block(nn.Module):
 
     def _attn_proj(self, lora_p, h, name, adapter_idx):
         out = h @ getattr(self, f"w{name}")
+        if self._sharded(f"w{name}"):   # the rank's heads -> all of them
+            out = all_gather(out, self.tp.width)
         if self.cfg.qkv_bias:
             out = out + getattr(self, f"b{name}")
         if lora_p is not None and f"a_{name}" in lora_p and \
@@ -198,6 +263,10 @@ class Block(nn.Module):
         ``prefill`` and ``decode`` drop it, as the JAX ones do)."""
         cfg = self.cfg
         if not cfg.n_experts:
+            if self.tp is not None:
+                return self._down(layers.mlp_hidden(cfg.mlp, self.mlp, h),
+                                  "mlp.w_down",
+                                  local=self._sharded("mlp.w_up")), 0.0
             return layers.apply_mlp(cfg.mlp, self.mlp, h), 0.0
         b, s, d = h.shape
         out, aux = moe.apply_moe(self.moe, h.reshape(b * s, d),
@@ -209,7 +278,10 @@ class Block(nn.Module):
         """(x after the output projection and the FFN, the FFN's aux
         loss)."""
         b, s = x.shape[:2]
-        x = x + attn_out.reshape(b, s, -1) @ self.wo
+        if self.tp is not None:
+            x = x + self._down(attn_out.reshape(b, s, -1), "wo", local=False)
+        else:
+            x = x + attn_out.reshape(b, s, -1) @ self.wo
         h = layers.apply_norm(self.cfg.norm, self.norm2, x)
         f, aux = self._ffn(h)
         return x + f, aux
@@ -260,8 +332,13 @@ class Block(nn.Module):
         positions = slot.pos.reshape(1, 1).expand(x.shape[0], 1)
         q, k, v = self._qkv(x, lora_p, adapter_idx, positions)
         kc, vc, *scales = self.cache_kv(cache)
-        out = attention.decode_attention(q[:, 0], kc, vc, k[:, 0], v[:, 0],
-                                         slot, *scales)
+        if self.tp is not None and self.kind == "global":
+            out = attention.decode_attention_sharded(
+                q[:, 0], kc, vc, k[:, 0], v[:, 0], slot, *scales,
+                group=self.tp.cache)
+        else:
+            out = attention.decode_attention(q[:, 0], kc, vc, k[:, 0],
+                                             v[:, 0], slot, *scales)
         return self._residual(x, out[:, None])[0]
 
 
@@ -313,7 +390,7 @@ class RGLRUBlock(_StateBlock):
         self.cfg, self.kind = cfg, "rglru"
         dt = cfg.torch_dtype
 
-        def dense(shape, fan_in=None):
+        def dense(name, shape, fan_in=None):
             return _param(layers.dense_init(gen, shape, dt, device, fan_in))
 
         self.norm1 = _norm(cfg, device)
@@ -380,10 +457,14 @@ class SSDBlock(_StateBlock):
 
 
 def _block(cfg: ModelConfig, kind: str, gen, dev, expert_quant: bool,
-           kv_quant: bool) -> nn.Module:
-    """Layer ``kind``'s block (``_init_block``, transformer.py:89-116)."""
+           kv_quant: bool, place=None) -> nn.Module:
+    """Layer ``kind``'s block (``_init_block``, transformer.py:89-116).
+    An attention block hands its attention and MLP weights to ``place``
+    as it draws them; the rest (norms, experts, the rglru and ssd blocks,
+    which no plan wider than one rank takes: ``_check_plan``) are cut
+    after (``Model._shard``)."""
     if kind in ATTENTION_KINDS:
-        return Block(cfg, kind, gen, dev, expert_quant, kv_quant)
+        return Block(cfg, kind, gen, dev, expert_quant, kv_quant, place)
     if kind == "rglru":
         return RGLRUBlock(cfg, gen, dev)
     if kind == "ssd":
@@ -402,26 +483,80 @@ class Model(nn.Module):
     ``expert_quant`` keeps an MoE model's experts in int8, the counterpart
     of ``ShardingPlan.expert_quant`` (sharding.py:38); ``kv_quant`` keeps
     the global layers' KV caches in int8 with f16 scales, the counterpart
-    of ``ShardingPlan.kv_quant`` (sharding.py:37).
+    of ``ShardingPlan.kv_quant`` (sharding.py:37); a ``plan`` sets either
+    too.  A ``plan`` with a mesh (a decode plan, ``sharding.make_plan``)
+    makes this the model of one rank: each weight drawn whole from the
+    same generator as without a plan and cut at once to the rank's piece
+    (``param_specs``), its decode tensor-parallel (see the module's
+    docstring); every rank of the mesh builds its ``Model``
+    together (the plan's groups are made then).  ``plan=None``, or a plan
+    without a mesh, is the one-device model.
     """
 
     def __init__(self, cfg: ModelConfig, device=None, seed: int = 0,
-                 expert_quant: bool = False, kv_quant: bool = False):
+                 expert_quant: bool = False, kv_quant: bool = False,
+                 plan=None):
         super().__init__()
+        if plan is not None:
+            kv_quant = kv_quant or plan.kv_quant
+            expert_quant = expert_quant or plan.expert_quant
         self.cfg = cfg
         self.kv_quant = kv_quant
         self.device = resolve_device(device)
+        self.plan = self.tp = None
+        self.param_specs: Dict[str, tuple] = {}
+        if plan is not None and plan.mesh is not None:
+            _check_plan(cfg, plan)
+            self.plan = plan
         dev, dt = self.device, cfg.torch_dtype
         gen = torch.Generator(device=dev).manual_seed(seed)
         v, d = layers.pad_vocab(cfg.vocab_size), cfg.d_model
-        embed = {"embed": _param(layers.embed_init(gen, (v, d), dt, dev))}
+        embed = {"embed": _param(self._place(
+            "embed.embed", layers.embed_init(gen, (v, d), dt, dev)))}
         if not cfg.tie_embeddings:   # tied: the unembedding reads embed.T
-            embed["unembed"] = _param(layers.dense_init(gen, (d, v), dt, dev))
+            embed["unembed"] = _param(self._place(
+                "embed.unembed", layers.dense_init(gen, (d, v), dt, dev)))
         self.embed = nn.ParameterDict(embed)
         self.final_norm = _norm(cfg, dev)
         self.layers = nn.ModuleList(
-            _block(cfg, kind, gen, dev, expert_quant, kv_quant)
-            for kind in cfg.layer_kinds)
+            _block(cfg, kind, gen, dev, expert_quant, kv_quant,
+                   lambda name, t, i=i: self._place(f"layers.{i}.{name}", t))
+            for i, kind in enumerate(cfg.layer_kinds))
+        if self.plan is not None:
+            self._shard()
+
+    def _place(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """Parameter ``name`` as drawn whole (``t``) -> the rank's piece
+        by its spec, taken on the whole shape; ``t`` without a plan."""
+        if self.plan is None:
+            return t
+        spec = self.plan.param_spec(tuple(name.split(".")), tuple(t.shape))
+        self.param_specs[name] = spec
+        return shard_tensor(t, spec, self.plan)
+
+    def _shard(self) -> None:
+        """Cut the parameters not cut as they were drawn (the norms' scales,
+        the blocks without attention) and hand the blocks the rank's
+        groups."""
+        for name, p in self.named_parameters():
+            if name not in self.param_specs:
+                p.data = self._place(name, p.data)
+        self.param_specs = {name: self.param_specs[name]
+                            for name, _ in self.named_parameters()}
+        self.tp = RankGroups(self.plan)
+        for i, blk in enumerate(self.layers):
+            prefix = f"layers.{i}."
+            blk.tp = self.tp
+            blk.specs = {n[len(prefix):]: sp for n, sp in
+                         self.param_specs.items() if n.startswith(prefix)}
+
+    def _unsharded(self, what: str) -> None:
+        if self.plan is not None:
+            raise NotImplementedError(
+                f"{what} under a plan: the port runs the decode step under a "
+                "plan (ROADMAP.md item 11a); sequence-sharded prefill and "
+                "training are items 11b and 11c.  Run it on the model "
+                "without a plan and cut its cache (sharding.shard_cache)")
 
     def init_lora(self, n_adapters: int, rank: int,
                   seed: int = 0) -> Dict[str, Any]:
@@ -453,10 +588,23 @@ class Model(nn.Module):
         layer's rolling {"k_loc", "v_loc"} of min(window, cache_len) rows,
         an rglru layer's {"conv", "lru"} states, an ssd layer's
         {"conv_x", "conv_bc", "ssm"} states (``_cache_block``,
-        transformer.py:163-197)."""
-        return {"pos": torch.zeros((), dtype=torch.int32, device=self.device),
-                "layers": [blk.init_cache(batch, cache_len, self.device)
-                           for blk in self.layers]}
+        transformer.py:163-197).  Under a plan ``batch`` and ``cache_len``
+        are the whole batch and cache, and the tensors are the rank's
+        pieces of them (``cache_specs``)."""
+        pos = torch.zeros((), dtype=torch.int32, device=self.device)
+        if self.plan is None:
+            return {"pos": pos,
+                    "layers": [blk.init_cache(batch, cache_len, self.device)
+                               for blk in self.layers]}
+        whole = {"pos": pos, "layers": [blk.init_cache(batch, cache_len,
+                                                       "meta")
+                                        for blk in self.layers]}
+        specs = self.plan.cache_specs(whole)["layers"]
+        return {"pos": pos, "layers": [
+            {name: torch.zeros(local_shape(t.shape, sp[name], self.plan),
+                               dtype=t.dtype, device=self.device)
+             for name, t in layer.items()}
+            for layer, sp in zip(whole["layers"], specs)]}
 
     def _lora_layers(self, lora):
         return lora["layers"] if lora is not None else [None] * len(self.layers)
@@ -475,13 +623,18 @@ class Model(nn.Module):
 
     def _logits(self, x):
         x = layers.apply_norm(self.cfg.norm, self.final_norm, x)
-        return layers.unembed(self.embed, x, self.cfg.logit_softcap)
+        logits = layers.unembed(self.embed, x, self.cfg.logit_softcap)
+        if any(e is not None for e in self.param_specs.get("embed.unembed",
+                                                            ())):
+            logits = all_gather(logits, self.tp.width)   # the vocab's pieces
+        return logits
 
     def train_trunk(self, tokens, img_embeds=None):
         """tokens: (B, T) -> (the final norm's output (B, I + T, d), the
         MoE aux loss summed over the layers, f32): every layer in its
         no-cache form (``_run_segments`` in train mode, transformer.py:
         449-497)."""
+        self._unsharded("train_trunk")
         x = self._embed_in(tokens, img_embeds)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -556,6 +709,7 @@ class Model(nn.Module):
     def prefill(self, lora, tokens, adapter_idx=None, img_embeds=None):
         """tokens: (B, S); img_embeds: (B, I, d) or None, prepended.
         Returns (last-position logits (B, V), cache at ``pos`` = I + S)."""
+        self._unsharded("prefill")
         x = self._embed_in(tokens, img_embeds)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -606,6 +760,27 @@ class Model(nn.Module):
         evicts position 0 (ROADMAP.md queue 3).  An rglru or ssd layer's
         states pass through, copied.
         """
+        self._unsharded("pad_cache")
         return {"pos": cache["pos"].clone(),
                 "layers": [blk.pad_cache(c, extra) for blk, c in
                            zip(self.layers, cache["layers"])]}
+
+
+def _check_plan(cfg: ModelConfig, plan) -> None:
+    """Raise ``NotImplementedError`` for what the port does not shard yet:
+    a plan other than decode (sequence-sharded prefill and training,
+    ROADMAP.md items 11b and 11c), and an MoE FFN or an ``ssd`` or
+    ``rglru`` mixer under a plan wider than one rank (expert-parallel
+    ``apply_moe`` and width-TP of the mixers, item 11b)."""
+    if plan.mode != "decode" or plan.seq_axis or plan.fsdp_axes:
+        raise NotImplementedError(
+            f"a {plan.mode} plan: the port shards the decode step (ROADMAP.md"
+            " item 11a); sequence-sharded prefill and training are ROADMAP.md"
+            " items 11b and 11c")
+    mixers = sorted(set(cfg.layer_kinds) - set(ATTENTION_KINDS))
+    if (plan.n_width > 1 or plan.n_cache > 1) and (cfg.n_experts or mixers):
+        what = "an MoE FFN" if cfg.n_experts else f"{'/'.join(mixers)} blocks"
+        raise NotImplementedError(
+            f"{cfg.name}: {what} under a plan of width {plan.n_width} and "
+            f"{plan.n_cache} cache shards: expert-parallel apply_moe and "
+            "width-TP of the SSD and RG-LRU mixers are ROADMAP.md item 11b")

@@ -6,8 +6,8 @@ The model holds its parameters: ``init_train_state`` turns on
 over them, and the step updates them in place.  The gradients come from
 autograd through ``Model.train_loss``, whose attention blocks and loss
 chunks are recomputed in backward, as the JAX package's ``jax.checkpoint``s
-are.  The JAX package's compressed cross-pod gradient sync comes with the
-port's distribution (ROADMAP.md queue 1 item 11).
+are.  The JAX package's compressed cross-pod gradient sync and sharded
+training are ROADMAP.md queue 1 item 11c.
 """
 from __future__ import annotations
 

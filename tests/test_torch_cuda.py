@@ -41,7 +41,14 @@ products kept in f32 (``layers.matmul_f32``, ``bmm_f32``: cuBLAS's
 1e-5, forward and backward; a checkpoint of card tensors (bf16, f32, int8,
 f16, int32) round-trips bit for bit onto the card and the CPU; and reduced
 phi4-mini's crash-and-resume run on the card ends bit for bit where its
-uninterrupted run ends.
+uninterrupted run ends.  Flash-decode's log-sum-exp mode
+(``flash_decode_lse``) is held against its plain versions in every mode
+(q, K, V in f32 and bf16, the int8 mode), at head groups, padded and wide
+head dims, length 0 (-inf) among the lengths, its output bit for bit the
+call without it;
+and reduced phi4-mini and gemma3 (bf16; phi4-mini also on an int8 cache)
+decoding under the world-size-1 plan on the NCCL group hold to the step
+without a plan.
 """
 import dataclasses
 import math
@@ -616,8 +623,8 @@ def test_binding_raises_on_a_rejected_int8_launch(gen):
         with pytest.raises(RuntimeError, match="flash_decode_int8: launcher "
                                                "rejected"):
             build.kernels().flash_decode_int8(
-                0, 0, 0, 16, 16, 0, 0, 0, 0, 0, 0, 2, 64, 4, 2, dh, 1, 64,
-                dtype, build.stream_handle(x.device))
+                0, 0, 0, 16, 16, 0, 0, 0, 0, 0, 0, 0, 2, 64, 4, 2, dh, 1,
+                64, dtype, build.stream_handle(x.device))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1130,3 +1137,88 @@ def test_ft_loop_crash_and_resume_on_the_card(gen, tmp_path):
     for part in ("params", "m", "v"):
         for k, v in finals[0][part].items():
             assert torch.equal(v, finals[1][part][k]), (part, k)
+
+
+# flash-decode's log-sum-exp mode (B, H, KV, D): phi4-mini's heads, head
+# groups past 8 (16 on 1 KV head of 256), padded head dims (96; 8 on the
+# int8 mode's 16) and the wide path (512)
+LSE_SHAPES = [(8, 24, 8, 128), (8, 16, 1, 256), (4, 8, 2, 96), (4, 8, 2, 512),
+              (2, 4, 4, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True], ids=["kv", "int8"])
+@pytest.mark.parametrize("bsz,h,kv,d", LSE_SHAPES)
+def test_flash_decode_lse_matches_plain(gen, bsz, h, kv, d, int8, dtype):
+    # the output in f32, rounded to q's dtype bit for bit the call without
+    # the log-sum-exp; output and log-sum-exp at q's tolerance against the
+    # plain version's (the int8 mode with q in f32 against exact q . k),
+    # -inf at a length of 0
+    s = 300
+    q = _normal(gen, bsz, h, d, dtype=dtype)
+    k, v = (_normal(gen, bsz, s, kv, d, dtype=dtype) for _ in range(2))
+    lengths = torch.randint(0, s + 8, (bsz,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    lengths[:2] = torch.tensor([0, 1], device="cuda")
+    scales = ()
+    if int8:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        scales = (ks, vs)
+    out, lse = flash_decode.flash_decode_lse(q, k, v, lengths, *scales)
+    assert lse.shape == (bsz, h) and lse.dtype == out.dtype == torch.float32
+    assert torch.equal(out.to(dtype), flash_decode.flash_decode(
+        q, k, v, lengths, *scales))
+    if int8:
+        want_out, want = flash_decode.flash_decode_int8_plain(
+            q, k, v, lengths, *scales, exact_dot=dtype == torch.float32,
+            return_lse=True)
+    else:
+        want_out, want = flash_decode.flash_decode_plain(q, k, v, lengths,
+                                                         return_lse=True)
+    _close(out, want_out, dtype)
+    empty = torch.isneginf(want)
+    assert bool(empty[0].all()) and torch.equal(torch.isneginf(lse), empty)
+    _close(lse[~empty], want[~empty], dtype)
+
+
+@pytest.mark.parametrize("arch,kv_quant", [("phi4-mini-3.8b", False),
+                                           ("gemma3-1b", False),
+                                           ("phi4-mini-3.8b", True)])
+def test_plan_step_at_world_size_one_equals_the_step_without(gen, arch,
+                                                             kv_quant):
+    # the NCCL world-size-1 group: every collective of the plan's step runs
+    # over groups of one, its global layers through flash-decode's
+    # log-sum-exp mode and the combine
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_cuda_group, make_single_device_mesh
+    from repro_torch.models.sharding import (COLLECTIVES, make_plan,
+                                             reset_collectives, shard_cache)
+    cfg = dataclasses.replace(get_reduced(arch), dtype="bfloat16")
+    init_cuda_group()
+    try:
+        plan = make_plan(cfg, make_single_device_mesh(), "decode",
+                         global_batch=4, kv_quant=kv_quant)
+        ref = Model(cfg, device="cuda", seed=3, kv_quant=kv_quant)
+        model = Model(cfg, device="cuda", seed=3, plan=plan)
+        assert model.layers[-1].kv_quant == ref.layers[-1].kv_quant
+        lora = ref.init_lora(4, 4, seed=3)
+        tokens = torch.randint(0, cfg.vocab_size, (4, 24), generator=gen,
+                               device="cuda")
+        idx = torch.tensor([0, 1, -1, 3], dtype=torch.int32, device="cuda")
+        _, cache = ref.prefill(lora, tokens[:, :20], idx)
+        cache = ref.pad_cache(cache, 4)
+        planned = shard_cache(cache, plan)
+        ops.reset_launches()
+        reset_collectives()
+        for i in range(20, 24):
+            got, _ = model.decode_step(lora, planned, tokens[:, i:i + 1], idx)
+            want, _ = ref.decode_step(lora, cache, tokens[:, i:i + 1], idx)
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(got).all())
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            assert rel < 2e-4, (i, rel)
+        assert ops.launch_counts()["flash_decode_lse"] > 0
+        assert COLLECTIVES["all_reduce"] > 0 and COLLECTIVES["all_gather"] > 0
+    finally:
+        dist.destroy_process_group()
+        ops.reset_launches()

@@ -163,6 +163,7 @@ def test_add_launches_counts_replays():
         ops.add_launches(per_step, 3)
         assert ops.launch_counts() == {"bgmv": 256, "sgmv": 0,
                                        "flash_decode": 128,
+                                       "flash_decode_lse": 0,
                                        "flash_decode_lora": 0}
         ops.add_launches(per_step, -4)
         assert set(ops.launch_counts().values()) == {0}

@@ -280,8 +280,10 @@ def test_kernel_wrappers_count_only_launches():
     ops.lora_apply(tx.repeat(8, 1), ta, tb, ti.repeat(8))
     _, args = _decode(12, 2, 4, 2, 16, 32, 24, 4, 2, np.float32)
     ops.flash_decode(*args[:4])
+    ops.flash_decode_lse(*args[:4])
     ops.fused_decode(*args)
     assert ops.launch_counts() == {"bgmv": 0, "sgmv": 0, "flash_decode": 0,
+                                   "flash_decode_lse": 0,
                                    "flash_decode_lora": 0}
 
 
