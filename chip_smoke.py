@@ -214,9 +214,8 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    resume's and the CPU restore's, and the steps' walls;
 10. the sharded decode: 10a, flash-decode's log-sum-exp mode
    (``flash_decode_lse``, its own combine instance) against its plain
-   versions
-   at ``LSE_SHAPES`` (phi4-mini's serving shape, head groups, a padded
-   and a wide head dim) in every mode (q, K, V in bf16 and f32; the int8
+   versions at ``LSE_SHAPES`` (phi4-mini's and olmoe-1b-7b's serving
+   shapes, head groups, a padded and a wide head dim) in every mode (q, K, V in bf16 and f32; the int8
    mode with q in bf16 and f32), ragged lengths with 0 (-inf there), its
    output bit for bit the call without it, and its row of the kernel
    table timed at phi4-mini's serving shape beside ``aten.
@@ -230,19 +229,25 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    global_batch=8)`` on the NCCL world-size-1 group, SHARD_STEPS steps
    over SHARD_CACHE positions after a prefill, each step's logits within
    2e-4 of the step without a plan (bitwise equality printed), with each
-   step's wall and the collectives a step.  Every number of the phase is
-   printed beside the card's name and power limit.
+   step's wall and the collectives a step; 10d, the same for the MoE, SSM
+   and hybrid architectures at their published widths (``PLANNED_ARCHS``:
+   olmoe-1b-7b whole, 16 of mamba2-2.7b's 64 layers, 6 of
+   recurrentgemma-9b's 38), their experts expert-parallel and their
+   mixers width-tensor-parallel over the group of one, with the phase's
+   seconds against its budget.  Every number of the phase is printed
+   beside the card's name and power limit.
 
 Launch counts are zeroed just before each path a user drives (teacher
 forcing through ``Model.prefill``/``decode_step`` in phase 4, for each
 architecture, serving in phases 5, 5b, 5c, 5d, 5e and 5f, measurement in
 phase 7, training in phases 8a, 8b and 9, the sharded decode in phase
-10c) and read just after it.  SGMV,
+10c and for each architecture of 10d) and read just after it.  SGMV,
 BGMV and flash-decode must have launched in phase 4, BGMV and
 flash-decode in phases 5, 5b, 5c, 5d and 5e, the fused kernel and SGMV
-in phase 7, BGMV and flash-decode's log-sum-exp mode in phase 10c;
-mamba2's paths (phase 4, 5f) must launch none, having no
-attention and no LoRA, and so must training's (8a, 8b and 9).  Each kernel's
+in phase 7, BGMV and flash-decode's log-sum-exp mode in phase 10c and on
+10d's planned olmoe, BGMV and flash-decode on 10d's planned
+recurrentgemma; mamba2's paths (phase 4, 5f, 10d) must launch none,
+having no attention and no LoRA, and so must training's (8a, 8b and 9).  Each kernel's
 ``launches`` in the kernel table is the count of the path it serves
 (``path``); the int8 mode counts as flash-decode, on the int8 paths
 (``serving_int8``, ``teacher_forcing_int8``), and flash-decode's row
@@ -399,17 +404,32 @@ LAUNCH_STEPS, LAUNCH_EVERY = (20, 30), 10
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 # phase 10, the sharded decode.  10a holds flash-decode's log-sum-exp mode
 # at these (label, H, KV, D), B 8 over CACHE positions, beside phi4-mini's
-# serving shape: head groups (recurrentgemma-9b's 16 heads on 1 KV head of
+# serving shape: olmoe-1b-7b's (10d's planned path, one query head per KV
+# head), head groups (recurrentgemma-9b's 16 heads on 1 KV head of
 # 256), a padded head dim (96 on the 128 instance) and the wide path (512);
 # 10b cuts phi4-mini's LONG_S cache (phase 6d's) into SHARD_SLICES
 # sequence slices; 10c decodes phi4-mini at its published widths under the
 # world-size-1 plan over SHARD_CACHE positions, SHARD_STEPS steps after a
 # prompt of the rest
 LSE_SHAPES = (("phi4-mini-3.8b", HEADS, KV_HEADS, HEAD_DIM),
+              ("olmoe-1b-7b", 16, 16, 128),
               ("head groups", 16, 1, 256), ("padded D 96", 32, 32, 96),
               ("wide D 512", 16, 4, 512))
 SHARD_SLICES = 4
 SHARD_CACHE, SHARD_STEPS = 512, 4
+# 10d decodes these at their published widths under the same plan, their
+# depth cut to the layers given (None: all of them), and holds each
+# planned path to launching exactly these kernels: olmoe's 16 layers
+# (BGMV and the log-sum-exp mode on its sequence-sharded caches), 16 of
+# mamba2's 64 (no attention, no LoRA: none), 6 of recurrentgemma's 38
+# (two (rglru, rglru, local) repeats: BGMV and plain flash-decode on the
+# local layers' replicated rolling buffers)
+PLANNED_ARCHS = (("olmoe-1b-7b", None), ("mamba2-2.7b", 16),
+                 ("recurrentgemma-9b", 6))
+PLANNED_KERNELS = {"olmoe-1b-7b": ("bgmv", "flash_decode_lse"),
+                   "mamba2-2.7b": (),
+                   "recurrentgemma-9b": ("bgmv", "flash_decode")}
+PLANNED_BUDGET_S = 120
 # the log-sum-exp mode's two kernels: the split pass and its own combine
 FD_LSE_KERNELS = ("fd_split_kernel", "fd_combine_lse_kernel")
 
@@ -3174,6 +3194,109 @@ def phase_shard_slices(errs, card):
     return out
 
 
+def planned_pair(cfg, plan):
+    """A model of ``cfg`` without a plan and one under ``plan`` (bf16,
+    weights from seed 0), the LoRA banks, and both models' caches after a
+    prefill of BATCH x (SHARD_CACHE - SHARD_STEPS) tokens on the model
+    without a plan, padded to SHARD_CACHE rows (for the planned model cut
+    by ``shard_cache``); with the tokens and adapter ids."""
+    from repro_torch.models import Model
+    from repro_torch.models.sharding import shard_cache
+    ref = Model(cfg, device="cuda", seed=0)
+    model = Model(cfg, device="cuda", seed=0, plan=plan)
+    lora = ref.init_lora(SLOTS, RANK, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, SHARD_CACHE),
+                           generator=gen, device="cuda")
+    idx = (torch.arange(BATCH, device="cuda") % SLOTS).to(torch.int32)
+    _, cache = ref.prefill(lora, tokens[:, :SHARD_CACHE - SHARD_STEPS], idx)
+    cache = ref.pad_cache(cache, SHARD_STEPS)
+    planned = shard_cache(cache, plan)
+    torch.cuda.synchronize()
+    return ref, model, lora, cache, planned, tokens, idx
+
+
+def decode_against_plan(ops, ref, model, lora, cache, planned, tokens, idx,
+                        label):
+    """SHARD_STEPS decode steps of ``model`` (under a plan, on ``planned``)
+    and then of ``ref`` (without, on ``cache``), after the prompt in
+    ``tokens``: each planned step's logits finite and within 2e-4 (rel,
+    tests/test_consistency.py:39) of the step without a plan.  Returns the
+    numbers (the max rel, whether every step was bitwise equal, each
+    path's first step's wall and the median of the others, host clock,
+    synchronised; the collectives a step; the host time a planned step
+    spends in them and in ``attention.combine_shards``, ``host_spans``)
+    and the planned path's launch counts."""
+    from repro_torch.models.sharding import COLLECTIVES, reset_collectives
+    prompt = SHARD_CACHE - SHARD_STEPS
+    walls = {"plan": [], "no_plan": []}
+    got, spans = [], []
+    ops.reset_launches()
+    reset_collectives()
+    for i in range(SHARD_STEPS):
+        t1 = time.perf_counter()
+        with host_spans() as span:
+            logits, _ = model.decode_step(
+                lora, planned, tokens[:, prompt + i:prompt + i + 1], idx)
+            torch.cuda.synchronize()
+        walls["plan"].append(time.perf_counter() - t1)
+        got.append(logits)
+        spans.append(span)
+    launches = ops.launch_counts()
+    collectives = {k: n / SHARD_STEPS for k, n in COLLECTIVES.items()}
+    rels, bitwise = [], True
+    for i in range(SHARD_STEPS):
+        t1 = time.perf_counter()
+        want, _ = ref.decode_step(lora, cache,
+                                  tokens[:, prompt + i:prompt + i + 1], idx)
+        torch.cuda.synchronize()
+        walls["no_plan"].append(time.perf_counter() - t1)
+        if not bool(torch.isfinite(got[i]).all()):
+            raise AssertionError(f"{label}: step {i} under the plan: "
+                                 "non-finite logits")
+        rel = ((got[i] - want).abs().max()
+               / want.abs().max().clamp(min=1e-9)).item()
+        rels.append(rel)
+        bitwise = bitwise and torch.equal(got[i], want)
+        if rel >= 2e-4:
+            raise AssertionError(f"{label}: step {i} under the plan departs "
+                                 f"from the step without it: rel {rel:.3e}")
+    stats = {"steps": SHARD_STEPS, "positions": SHARD_CACHE,
+             "max_rel": max(rels), "bitwise": bitwise,
+             "plan_first_step_ms": walls["plan"][0] * 1e3,
+             "no_plan_first_step_ms": walls["no_plan"][0] * 1e3,
+             "plan_step_ms": float(np.median(walls["plan"][1:])) * 1e3,
+             "no_plan_step_ms":
+                 float(np.median(walls["no_plan"][1:])) * 1e3,
+             "collectives_per_step": collectives,
+             **{f"plan_{k}_host_ms": float(np.median(
+                 [sp[k] for sp in spans[1:]])) * 1e3 for k in spans[0]}}
+    n_coll = sum(collectives.values())
+    stats["host_us_per_collective"] = 1e3 * (
+        stats["plan_collectives_host_ms"]
+        + stats["plan_combine_collectives_host_ms"]) / max(n_coll, 1)
+    return stats, launches
+
+
+def say_planned(label, stats, launches, card):
+    say(f"  {label}: {SHARD_STEPS} steps under the plan against the steps "
+        f"without: max rel {stats['max_rel']:.3e} (tol 2e-4), bitwise "
+        f"{stats['bitwise']}; step wall {stats['plan_step_ms']:.2f} ms "
+        f"under the plan, {stats['no_plan_step_ms']:.2f} ms without (median"
+        f" of steps 2-{SHARD_STEPS}, eager, host clock; the first "
+        f"{stats['plan_first_step_ms']:.2f} and "
+        f"{stats['no_plan_first_step_ms']:.2f}); collectives a step "
+        f"{stats['collectives_per_step']}; launches {launches}; {card}")
+    say(f"  {label}: host time of a planned step (median of steps "
+        f"2-{SHARD_STEPS}, with the spans on): "
+        f"{stats['plan_collectives_host_ms']:.2f} ms in the collectives "
+        f"outside the combine, {stats['plan_combine_host_ms']:.2f} ms in "
+        f"combine_shards, of which "
+        f"{stats['plan_combine_collectives_host_ms']:.2f} ms in its "
+        f"all-reduces; {stats['host_us_per_collective']:.1f} us a "
+        f"collective; {card}")
+
+
 def phase_sharded_step(ops, card):
     """Phase 10c: phi4-mini-3.8b at its published widths (32 layers, bf16,
     weights from seed 0) decoding under ``make_plan(cfg,
@@ -3183,114 +3306,86 @@ def phase_sharded_step(ops, card):
     plan prefills BATCH x (SHARD_CACHE - SHARD_STEPS) tokens, its cache is
     padded to SHARD_CACHE rows and cut by ``shard_cache``, and both models
     decode SHARD_STEPS steps, 4 adapters on the batch's rows, the planned
-    one first.  Each step's logits must be finite and within 2e-4 (rel,
-    tests/test_consistency.py:39) of the step without a plan; whether they
-    are bitwise equal is printed.  Prints each path's first step's wall
-    (under the plan the NCCL communicators start there) and the median of
-    the others (host clock, synchronised), the collectives a step, and
-    the host time a planned step spends in them and in
-    ``attention.combine_shards`` (``host_spans``).  Returns the numbers
-    and the sharded path's launch counts."""
+    one first (``decode_against_plan``).  Returns the numbers and the
+    sharded path's launch counts."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import init_cuda_group, make_single_device_mesh
-    from repro_torch.models import Model
-    from repro_torch.models.sharding import (COLLECTIVES, make_plan,
-                                             reset_collectives, shard_cache)
+    from repro_torch.models.sharding import make_plan
     cfg = get_config("phi4-mini-3.8b")
     t0 = time.perf_counter()
     init_cuda_group()
     try:
         plan = make_plan(cfg, make_single_device_mesh(), "decode",
                          global_batch=BATCH)
-        ref = Model(cfg, device="cuda", seed=0)
-        model = Model(cfg, device="cuda", seed=0, plan=plan)
-        lora = ref.init_lora(SLOTS, RANK, seed=0)
-        gen = torch.Generator(device="cuda").manual_seed(12)
-        tokens = torch.randint(0, cfg.vocab_size, (BATCH, SHARD_CACHE),
-                               generator=gen, device="cuda")
-        idx = (torch.arange(BATCH, device="cuda") % SLOTS).to(torch.int32)
-        prompt = SHARD_CACHE - SHARD_STEPS
-        _, cache = ref.prefill(lora, tokens[:, :prompt], idx)
-        cache = ref.pad_cache(cache, SHARD_STEPS)
-        planned = shard_cache(cache, plan)
-        torch.cuda.synchronize()
+        pair = planned_pair(cfg, plan)
         say(f"  plan {plan.mode}: batch over {plan.batch_axes}, width over "
             f"{plan.width_axis!r}, cache over {plan.cache_seq_axes}; built, "
             f"prefilled and cut in {time.perf_counter() - t0:.1f} s; {card}")
-        walls = {"plan": [], "no_plan": []}
-        got, spans = [], []
-        ops.reset_launches()
-        reset_collectives()
-        for i in range(SHARD_STEPS):
-            t1 = time.perf_counter()
-            with host_spans() as span:
-                logits, _ = model.decode_step(
-                    lora, planned, tokens[:, prompt + i:prompt + i + 1], idx)
-                torch.cuda.synchronize()
-            walls["plan"].append(time.perf_counter() - t1)
-            got.append(logits)
-            spans.append(span)
-        launches = ops.launch_counts()
-        collectives = {k: n / SHARD_STEPS for k, n in COLLECTIVES.items()}
-        rels, bitwise = [], True
-        for i in range(SHARD_STEPS):
-            t1 = time.perf_counter()
-            want, _ = ref.decode_step(lora, cache,
-                                      tokens[:, prompt + i:prompt + i + 1],
-                                      idx)
-            torch.cuda.synchronize()
-            walls["no_plan"].append(time.perf_counter() - t1)
-            if not bool(torch.isfinite(got[i]).all()):
-                raise AssertionError(f"step {i} under the plan: non-finite "
-                                     "logits")
-            rel = ((got[i] - want).abs().max()
-                   / want.abs().max().clamp(min=1e-9)).item()
-            rels.append(rel)
-            bitwise = bitwise and torch.equal(got[i], want)
-            if rel >= 2e-4:
-                raise AssertionError(f"step {i} under the plan departs from "
-                                     f"the step without it: rel {rel:.3e}")
-        stats = {"steps": SHARD_STEPS, "positions": SHARD_CACHE,
-                 "max_rel": max(rels), "bitwise": bitwise,
-                 "plan_first_step_ms": walls["plan"][0] * 1e3,
-                 "no_plan_first_step_ms": walls["no_plan"][0] * 1e3,
-                 "plan_step_ms": float(np.median(walls["plan"][1:])) * 1e3,
-                 "no_plan_step_ms":
-                     float(np.median(walls["no_plan"][1:])) * 1e3,
-                 "collectives_per_step": collectives,
-                 **{f"plan_{k}_host_ms": float(np.median(
-                     [sp[k] for sp in spans[1:]])) * 1e3 for k in spans[0]}}
-        n_coll = sum(collectives.values())
-        stats["host_us_per_collective"] = 1e3 * (
-            stats["plan_collectives_host_ms"]
-            + stats["plan_combine_collectives_host_ms"]) / n_coll
-        say(f"  {SHARD_STEPS} steps under the plan against the steps without:"
-            f" max rel {stats['max_rel']:.3e} (tol 2e-4), bitwise "
-            f"{bitwise}; step wall {stats['plan_step_ms']:.2f} ms under the "
-            f"plan, {stats['no_plan_step_ms']:.2f} ms without (median of "
-            f"steps 2-{SHARD_STEPS}, eager, host clock; the first "
-            f"{stats['plan_first_step_ms']:.2f} and "
-            f"{stats['no_plan_first_step_ms']:.2f}); collectives a step "
-            f"{collectives}; launches {launches}; {card}")
-        say(f"  host time of a planned step (median of steps 2-{SHARD_STEPS},"
-            f" with the spans on): {stats['plan_collectives_host_ms']:.2f} ms"
-            f" in the collectives outside the combine, "
-            f"{stats['plan_combine_host_ms']:.2f} ms in combine_shards, of "
-            f"which {stats['plan_combine_collectives_host_ms']:.2f} ms in its"
-            f" all-reduces; {stats['host_us_per_collective']:.1f} us a "
-            f"collective; {card}")
-        del ref, model, lora, cache, planned, got
+        stats, launches = decode_against_plan(ops, *pair, label=cfg.name)
+        say_planned(cfg.name, stats, launches, card)
+        del pair
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
     return stats, launches
 
 
+def phase_planned_archs(ops, card):
+    """Phase 10d: the MoE, SSM and hybrid architectures under the
+    world-size-1 plan, as phase 10c decodes phi4-mini: each of
+    ``PLANNED_ARCHS`` at its published widths (bf16, its depth cut to the
+    layers given) decodes SHARD_STEPS steps under ``make_plan(cfg,
+    make_single_device_mesh(), "decode", global_batch=BATCH)`` against the
+    model without a plan (``decode_against_plan``): olmoe's experts
+    through the expert-parallel ``apply_moe``, mamba2's and
+    recurrentgemma's mixers width-tensor-parallel.  Returns {arch: the
+    numbers} and {arch: the planned path's launch counts}."""
+    import dataclasses as dc
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_cuda_group, make_single_device_mesh
+    from repro_torch.models.sharding import make_plan
+    t0 = time.perf_counter()
+    stats, launches = {}, {}
+    init_cuda_group()
+    try:
+        for arch, layers in PLANNED_ARCHS:
+            t1 = time.perf_counter()
+            published = get_config(arch)
+            cfg = dc.replace(published, n_layers=layers or published.n_layers)
+            plan = make_plan(cfg, make_single_device_mesh(), "decode",
+                             global_batch=BATCH)
+            pair = planned_pair(cfg, plan)
+            label = f"{arch} ({cfg.n_layers} of {published.n_layers} layers)"
+            stats[arch], launches[arch] = decode_against_plan(
+                ops, *pair, label=label)
+            stats[arch]["layers"] = cfg.n_layers
+            stats[arch]["seconds"] = time.perf_counter() - t1
+            say_planned(label, stats[arch], launches[arch], card)
+            del pair
+            gc.collect()
+            torch.cuda.empty_cache()
+            need = PLANNED_KERNELS[arch]
+            require_launched(f"planned {arch}", launches[arch], need)
+            extra = [k for k, n in launches[arch].items()
+                     if n and k not in need]
+            if extra:
+                raise AssertionError(f"planned {arch} launched {extra}, "
+                                     f"not only {need}")
+    finally:
+        dist.destroy_process_group()
+    wall = time.perf_counter() - t0
+    say(f"  phase 10d took {wall:.1f} s (budget {PLANNED_BUDGET_S} s); "
+        f"{card}")
+    return stats, launches
+
+
 @contextlib.contextmanager
 def host_spans():
     """The host seconds spent, while open, in the plan's collectives
-    (``sharding.all_reduce``/``all_gather`` as the model calls them) and in
+    (``sharding.all_reduce``/``all_gather``/``reduce_scatter`` as the
+    model, the experts and the mixers call them) and in
     ``attention.combine_shards``: a dict of ``collectives`` (outside the
     combine), ``combine`` (the whole call) and ``combine_collectives``
     (its all-reduces), filled as the calls return."""
@@ -3318,6 +3413,8 @@ def host_spans():
                 (transformer, "all_reduce", "collectives"),
                 (transformer, "all_gather", "collectives"),
                 (sharding, "all_reduce", "collectives"),
+                (sharding, "all_gather", "collectives"),
+                (sharding, "reduce_scatter", "collectives"),
                 (attention, "combine_shards", "combine")):
             stack.enter_context(mock.patch.object(
                 module, name, timed(getattr(module, name), key)))
@@ -3487,6 +3584,10 @@ def main() -> int:
                      PATH_KERNELS["sharded_decode"])
     rows["flash_decode_lse"]["slices"] = slice_stats
     say("  sharded " + json.dumps({**shard_stats, "slices": slice_stats}))
+    say("phase 10d: the MoE, SSM and hybrid architectures under the "
+        "world-size-1 plan")
+    planned_stats, planned_launches = phase_planned_archs(ops, card)
+    say("  planned " + json.dumps(planned_stats))
     say(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
 
     paths = {"teacher_forcing": tf_launches, "serving": serve_launches,
@@ -3502,7 +3603,9 @@ def main() -> int:
              "serving_" + SSM_ARCH: ssm_launches,
              "training_check": check_launches, "training": train_launches,
              "training_loop": ckpt_launches,
-             "sharded_decode": shard_launches}
+             "sharded_decode": shard_launches,
+             **{"sharded_decode_" + a: c
+                for a, c in planned_launches.items()}}
     rows["flash_decode_lora"]["grid_max_abs_err"] = \
         errs["flash_decode_lora_grid"]
     rows["flash_decode_int8"].update(

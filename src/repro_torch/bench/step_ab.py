@@ -1,8 +1,9 @@
 """Served decode steps and the training step on the card, for holding one
 checkout against another in one session: ``chip_smoke.py``'s phases 5
-and 6 on phi4-mini-3.8b, 5f and 6f on mamba2-2.7b (with the SSD split)
-and 8b, and, where the checkout has them, the products kept in f32
-(``layers.matmul_f32``) replayed beside the bf16 product.
+and 6 on phi4-mini-3.8b, 5f and 6f on mamba2-2.7b (with the SSD split),
+5c and 6c on olmoe-1b-7b and 8b, and, where the checkout has them, the
+products kept in f32 (``layers.matmul_f32``) replayed beside the bf16
+product.
 
 Run the file from the root of each checkout in turns (A, B, B, A): it
 imports the ``chip_smoke.py`` and ``repro_torch`` of the directory it
@@ -69,7 +70,11 @@ def main() -> None:
     mamba2.update(cs.step_split(executor, "ssd"))
     del executor
     torch.cuda.empty_cache()
-    out = {"label": label, "card": card, "phi4": phi4, "mamba2": mamba2}
+    executor, _, olmoe = cs.serve_variant(cs.MOE_ARCH, "c", ops)
+    del executor
+    torch.cuda.empty_cache()
+    out = {"label": label, "card": card, "phi4": phi4, "mamba2": mamba2,
+           "olmoe": olmoe}
     try:
         stats, _ = cs.phase_train(ops, card)
         out["train"] = {k: stats[k] for k in TRAIN_KEYS}

@@ -16,9 +16,9 @@ scales as they are.  Under a decode plan a global layer's cache is
 sequence-sharded (``decode_attention_sharded``): each rank writes the new
 row only if it owns ``pos``, runs flash-decode over its slice and gets back
 the log-sum-exp with the output, and the ranks combine by it
-(``combine_shards``).  Sequence-sharded prefill and training attention
-(``ring_attention``, ``local_attention`` at more than one shard) are
-ROADMAP.md queue 1 item 11b.
+(``combine_shards``).  Sequence-sharded prefill attention
+(``ring_attention``, ``local_attention`` at more than one shard) is
+ROADMAP.md queue 1 item 11d, and sharded training item 11c.
 """
 from __future__ import annotations
 

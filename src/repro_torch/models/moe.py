@@ -1,5 +1,5 @@
 """Top-k mixture-of-experts FFN of the port (counterpart of
-``repro.models.moe``), at one shard.
+``repro.models.moe``).
 
 Functions on tensors, as in the JAX package: ``init_moe`` draws the
 parameters, ``apply_moe`` routes each token to its top-k experts through a
@@ -10,10 +10,18 @@ dropless oracle, the plain version the tests and the card check hold
 (``quantize_experts``), dequantised to the activations' dtype before the
 products (``_dequant``).
 
-The expert-parallel arguments of the JAX ``apply_moe`` (``axis_name``,
-``n_shards``, ``gather``) are ROADMAP.md queue 1 item 11b; here every
-expert is local, and a ``Model`` under a plan wider than one rank
-refuses an MoE FFN.
+Expert parallelism follows the JAX ``apply_moe``'s (``axis_name``,
+``n_shards``, ``gather``; moe.py:62-147), its axis a process group and
+this rank's index on it (``group``, ``index``; ``sharding.RankGroups``):
+the rank holds ``e_local`` experts, those from ``index * e_local`` on,
+routes every token, dispatches the pairs of its own experts and leaves
+the others to their ranks, and the ranks' outputs are summed.  With
+``gather`` the tokens are the rank's sequence piece, all-gathered first
+(capacity then counts the global tokens) and the sum reduce-scattered
+back (prefill and training, ROADMAP.md items 11d and 11c); without it
+they are replicated and the sum is one all-reduce (decode).  Experts
+that do not divide over the axis stay whole on every rank (``_fits``):
+then rank 0 owns every pair and the others none, as in the JAX package.
 
 Every shape in ``apply_moe`` follows from x's and the parameters' shapes,
 and nothing waits for the host (no ``.item()``, ``nonzero``, boolean
@@ -30,24 +38,40 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from . import layers
+from . import layers, sharding
 
 def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
-             dtype, device, quant: bool = False) -> Dict[str, torch.Tensor]:
+             dtype, device, quant: bool = False,
+             place=None) -> Dict[str, torch.Tensor]:
     """The JAX package's distributions (moe.py:22-37): the router (d, E)
     in f32 whatever ``dtype``, the experts' gate and up (E, d, f) and down
-    (E, f, d), N(0, 1/fan_in) with fan_in d, d and f."""
-    p = {
-        "router": layers.dense_init(gen, (d_model, n_experts),
-                                    torch.float32, device),
-        "w_gate": layers.dense_init(gen, (n_experts, d_model, d_ff), dtype,
-                                    device),
-        "w_up": layers.dense_init(gen, (n_experts, d_model, d_ff), dtype,
-                                  device),
-        "w_down": layers.dense_init(gen, (n_experts, d_ff, d_model), dtype,
-                                    device, fan_in=d_ff),
-    }
-    return quantize_experts(p) if quant else p
+    (E, f, d), N(0, 1/fan_in) with fan_in d, d and f; with ``quant`` each
+    expert weight is made int8 as it is drawn (``quantize_experts``).
+    ``place(name, t)``, where given, turns each tensor into what is kept
+    as soon as it is made (under a plan, the rank's piece)."""
+    place = place or (lambda name, t: t)
+    p = {"router": place("router", layers.dense_init(
+        gen, (d_model, n_experts), torch.float32, device))}
+    for name, shape, fan_in in (("w_gate", (n_experts, d_model, d_ff), None),
+                                ("w_up", (n_experts, d_model, d_ff), None),
+                                ("w_down", (n_experts, d_ff, d_model), d_ff)):
+        w = layers.dense_init(gen, shape, dtype, device, fan_in)
+        if not quant:
+            p[name] = place(name, w)
+            continue
+        w, scale = _quantize(w)
+        p[name] = place(name, w)
+        p[f"{name}_scale"] = place(f"{name}_scale", scale)
+    return p
+
+
+def _quantize(w: torch.Tensor):
+    """One expert weight -> (int8 weight, f16 scale per (expert, output
+    column)); see ``quantize_experts``."""
+    w = w.float()
+    scale = w.abs().amax(-2, keepdim=True) / 127.0 + 1e-8
+    return (torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8),
+            scale.to(torch.float16))
 
 
 def quantize_experts(p: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -57,11 +81,7 @@ def quantize_experts(p: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     half to even, as ``jnp.round`` does)."""
     out = {"router": p["router"]}
     for name in ("w_gate", "w_up", "w_down"):
-        w = p[name].float()
-        scale = w.abs().amax(-2, keepdim=True) / 127.0 + 1e-8
-        out[name] = torch.clamp(torch.round(w / scale), -127, 127).to(
-            torch.int8)
-        out[f"{name}_scale"] = scale.to(torch.float16)
+        out[name], out[f"{name}_scale"] = _quantize(p[name])
     return out
 
 
@@ -92,7 +112,8 @@ def capacity(t: int, top_k: int, n_experts: int,
     return int(max(-(-t * top_k * capacity_factor // n_experts), 1))
 
 
-def apply_moe(p, x, *, top_k: int, n_experts: int, capacity_factor: float):
+def apply_moe(p, x, *, top_k: int, n_experts: int, capacity_factor: float,
+              group=None, index: int = 0, gather: bool = True):
     """x: (T, d) -> (out (T, d) in x's dtype, Switch-style aux loss).
 
     Pairs are ordered t*k + j; a pair's slot is the number of earlier
@@ -100,23 +121,46 @@ def apply_moe(p, x, *, top_k: int, n_experts: int, capacity_factor: float):
     is dropped (adds nothing), so the same pairs drop as in the JAX
     package.  Gate and up are f32 products, the SwiGLU is computed in f32,
     the down product takes x's dtype.
+
+    With a ``group`` (expert parallelism; see the module's docstring) ``p``
+    holds this rank's experts, ``index`` is the rank's index on the group,
+    ``gather`` says whether x is the rank's piece of the tokens (True) or
+    all of them (False).  Every rank routes the same tokens (x, or x
+    gathered) through the whole router, so the aux loss is the same on
+    each rank of the group and the JAX package's ``pmean`` of it over the
+    axis is the identity: no collective here.  Where the rank holds every
+    expert (no group, a group of one, or rank 0 of experts that do not
+    divide) the pairs are not masked.
     """
-    t, d = x.shape
-    probs, weights, experts = _route(p, x, top_k)
+    e_local = p["w_gate"].shape[0]
+    x_all = x if group is None or not gather else \
+        sharding.all_gather(x, group, dim=0)
+    t, d = x_all.shape
+    probs, weights, experts = _route(p, x_all, top_k)
     arange_e = torch.arange(n_experts, device=x.device)
     density = (experts[:, :1] == arange_e).float().mean(0)
     aux = n_experts * (density * probs.mean(0)).sum()
 
     cap = capacity(t, top_k, n_experts, capacity_factor)
-    flat_e = experts.reshape(-1)                              # (T*k,)
-    onehot = (flat_e[:, None] == arange_e).to(torch.int32)    # (T*k, E)
-    # exclusive count of earlier pairs on the same expert
-    pos = (onehot.cumsum(0) - onehot).gather(1, flat_e[:, None])[:, 0]
+    local_e = experts.reshape(-1)                             # (T*k,)
+    is_local = None
+    if e_local < n_experts or index:    # some pairs are other ranks'
+        local_e = local_e - index * e_local
+        is_local = (local_e >= 0) & (local_e < e_local)
+        local_e = local_e.clamp(0, e_local - 1)
+    onehot = local_e[:, None] == arange_e[:e_local]
+    if is_local is not None:
+        onehot = onehot & is_local[:, None]
+    onehot = onehot.to(torch.int32)                           # (T*k, E_loc)
+    # exclusive count of earlier pairs on the same local expert
+    pos = (onehot.cumsum(0) - onehot).gather(1, local_e[:, None])[:, 0]
     keep = pos < cap
+    if is_local is not None:
+        keep = keep & is_local
     pos = torch.where(keep, pos, cap)                         # overflow slot
-    buf = x.new_zeros((n_experts, cap + 1, d))
-    xs = x[:, None].expand(t, top_k, d).reshape(t * top_k, d)
-    buf.index_put_((flat_e, pos), xs)   # kept pairs: distinct cells
+    buf = x.new_zeros((e_local, cap + 1, d))
+    xs = x_all[:, None].expand(t, top_k, d).reshape(t * top_k, d)
+    buf.index_put_((local_e, pos), xs)  # kept pairs: distinct cells
     buf = buf[:, :cap]
 
     gate = layers.bmm_f32(buf, _dequant(p, "w_gate", x.dtype))
@@ -124,10 +168,15 @@ def apply_moe(p, x, *, top_k: int, n_experts: int, capacity_factor: float):
     h = (F.silu(gate) * up).to(x.dtype)
     y = torch.bmm(h, _dequant(p, "w_down", x.dtype))          # (E, C, d)
 
-    y_tok = y[flat_e, pos.clamp(max=cap - 1)]
+    y_tok = y[local_e, pos.clamp(max=cap - 1)]
     y_tok = torch.where(keep[:, None], y_tok, 0) * \
         weights.reshape(-1, 1).to(x.dtype)
-    return y_tok.view(t, top_k, d).sum(1), aux
+    out = y_tok.view(t, top_k, d).sum(1)
+    if group is None:
+        return out, aux
+    if gather:
+        return sharding.reduce_scatter(out, group, dim=0), aux
+    return sharding.all_reduce(out, "sum", group), aux
 
 
 def apply_moe_ref(p, x, *, top_k: int, n_experts: int):

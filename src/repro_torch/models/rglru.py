@@ -8,6 +8,19 @@ plain PyTorch: prefill scans the sequence in log depth (``rglru_scan``),
 decode is the O(1) update.  Decode writes its conv and lru states into the
 tensors it is given, in place (the JAX package returns new ones), so a
 CUDA graph that captured a step keeps its buffers.
+
+Under width tensor parallelism (``apply_rglru(..., shards=...)``) a rank
+holds the pieces its plan gives it (``sharding.py:91-163``, ``:196-208``):
+``w_x``, ``w_gate``, ``conv_w`` and ``w_out``'s rows cut over the width W
+(and the ``conv`` and ``lru`` states with them) when the axis divides
+it, the block-diagonal ``w_a`` and ``w_i`` cut over their blocks when the
+axis divides the 16 blocks, and ``a_param`` whole (sliced to the rank's
+channels here).  The JAX package lets pjit lay the mixer out from those
+specs (its channels are independent, so the mixer's one collective is
+``w_out``'s); the port does it by hand: when the axis divides W but not
+the blocks, the rank's channels cut a block apart, so the gates' input is
+gathered whole, both gates run on every block (``w_a``, ``w_i`` whole)
+and the rank keeps its channels of them.
 """
 from __future__ import annotations
 
@@ -25,24 +38,31 @@ def lru_width(cfg) -> int:
     return cfg.lru_width or cfg.d_model
 
 
-def init_rglru(gen: torch.Generator, cfg, dtype, device):
+def init_rglru(gen: torch.Generator, cfg, dtype, device, place=None):
     """The mixer's parameters, with the JAX package's shapes, dtypes and
-    distributions (``rglru.py:27-42``): ``a_param`` in f32."""
+    distributions (``rglru.py:27-42``): ``a_param`` in f32.  ``place(name,
+    t)``, where given, turns each one into what is kept as soon as it is
+    drawn (under a plan, the rank's piece)."""
     d, w, nb = cfg.d_model, lru_width(cfg), N_GATE_BLOCKS
     wb = w // nb
+    place = place or (lambda name, t: t)
 
-    def dense(shape, fan_in=None):
-        return layers.dense_init(gen, shape, dtype, device, fan_in)
-    conv = torch.randn((cfg.conv_width, w), generator=gen,
-                       dtype=torch.float32, device=device) * 0.1
+    def dense(name, shape, fan_in=None):
+        return place(name, layers.dense_init(gen, shape, dtype, device,
+                                             fan_in))
+    # the order of the draws (conv_w first) fixes the weights a seed gives
+    conv = place("conv_w", (torch.randn((cfg.conv_width, w), generator=gen,
+                                        dtype=torch.float32, device=device)
+                            * 0.1).to(dtype))
     return {
-        "w_x": dense((d, w)),
-        "w_gate": dense((d, w)),
-        "conv_w": conv.to(dtype),
-        "w_a": dense((nb, wb, wb), fan_in=wb),
-        "w_i": dense((nb, wb, wb), fan_in=wb),
-        "a_param": torch.ones(w, dtype=torch.float32, device=device),
-        "w_out": dense((w, d), fan_in=w),
+        "w_x": dense("w_x", (d, w)),
+        "w_gate": dense("w_gate", (d, w)),
+        "conv_w": conv,
+        "w_a": dense("w_a", (nb, wb, wb), fan_in=wb),
+        "w_i": dense("w_i", (nb, wb, wb), fan_in=wb),
+        "a_param": place("a_param", torch.ones(w, dtype=torch.float32,
+                                               device=device)),
+        "w_out": dense("w_out", (w, d), fan_in=w),
     }
 
 
@@ -73,7 +93,7 @@ def rglru_scan(a, bx, h0=None):
     return bx
 
 
-def apply_rglru(p, x, *, conv_state=None, lru_state=None):
+def apply_rglru(p, x, *, conv_state=None, lru_state=None, shards=None):
     """x: (B, S, d) -> (y (B, S, d), (conv_state, lru_state)), as the JAX
     ``apply_rglru`` (``rglru.py:70-102``).
 
@@ -82,7 +102,14 @@ def apply_rglru(p, x, *, conv_state=None, lru_state=None):
     Decode (``lru_state`` and S == 1): one conv tap window from
     ``conv_state`` (B, conv_width - 1, W) in x's dtype and one step from
     ``lru_state`` (B, W) f32; both are updated IN PLACE and returned.
+
+    ``shards`` (``sharding.WidthShards``; see the module's docstring):
+    ``p`` and the states are the rank's pieces, and y is summed over the
+    width group.
     """
+    # the rank's channels (of W) and gate blocks, where the plan cuts them
+    chans = shards is not None and "w_x" in shards
+    blocks = shards is not None and "w_a" in shards
     gate_b = F.gelu(layers.matmul_f32(x, p["w_gate"]),
                     approximate="tanh").to(x.dtype)
     u = x @ p["w_x"]
@@ -91,9 +118,14 @@ def apply_rglru(p, x, *, conv_state=None, lru_state=None):
                               state=conv_state if decode else None,
                               activate=False)
 
-    r = torch.sigmoid(_block_gate(u, p["w_a"]))
-    i = torch.sigmoid(_block_gate(u, p["w_i"]))
+    ub = u if shards is None else shards.relayout(u, chans, blocks)
+    r = torch.sigmoid(_block_gate(ub, p["w_a"]))
+    i = torch.sigmoid(_block_gate(ub, p["w_i"]))
     a_param = p["a_param"]
+    if shards is not None:   # the gates, and a_param, on the rank's channels
+        r = shards.relayout(r, blocks, chans)
+        i = shards.relayout(i, blocks, chans)
+        a_param = shards.piece(a_param) if chans else a_param
     softplus = torch.logaddexp(a_param, torch.zeros_like(a_param))
     log_a = -C_RGLRU * softplus[None, None, :] * r
     a = torch.exp(log_a)
@@ -114,4 +146,6 @@ def apply_rglru(p, x, *, conv_state=None, lru_state=None):
 
     y = h.to(x.dtype) * gate_b
     out = y @ p["w_out"]
+    if shards is not None:
+        out = shards.reduce(out, chans)
     return out, (new_conv, new_state.float())

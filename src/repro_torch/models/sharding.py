@@ -23,8 +23,11 @@ What differs from the JAX package:
   port's (B, ...) leaves one lower;
 * ``constrain`` and ``shardings`` have no counterpart: the port places
   tensors itself (``shard_tensor``, the port's ``device_put``) and its
-  decode runs explicit collectives (``all_reduce``, ``all_gather``) over
-  the mesh's process groups (``ShardingPlan.group``).
+  decode runs explicit collectives (``all_reduce``, ``all_gather``,
+  ``reduce_scatter``) over the mesh's process groups
+  (``ShardingPlan.group``); where pjit lays out a mixer from its leaves'
+  specs, the port moves activations between a rank's piece and the whole
+  itself (``WidthShards``).
 """
 from __future__ import annotations
 
@@ -34,9 +37,9 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-#: collectives issued by ``all_reduce`` and ``all_gather`` (the sharded
-#: decode's); ``reset_collectives`` zeroes them
-COLLECTIVES = {"all_reduce": 0, "all_gather": 0}
+#: collectives issued by ``all_reduce``, ``all_gather`` and
+#: ``reduce_scatter``; ``reset_collectives`` zeroes them
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
 
 
 def reset_collectives() -> None:
@@ -105,6 +108,11 @@ class ShardingPlan:
     # ------------------------------------------------------------------ #
     def dp(self):
         return self.batch_axes if self.batch_axes else None
+
+    def cuts_width(self, spec) -> bool:
+        """Whether ``spec`` cuts a dimension over the width axis."""
+        return bool(self.width_axis) and any(
+            self.width_axis in _axes(e) for e in spec if e is not None)
 
     # ------------------------------------------------------------------ #
     # parameter specs
@@ -267,19 +275,66 @@ class ShardingPlan:
 
 class RankGroups:
     """What one rank's sharded decode needs of its plan's mesh: the process
-    groups over the width axis and over the cache axes, and the rank's
-    index along each.  Built on every rank in the same order (the cache
-    axes' group of a ``(data, model)`` plan is a flattened mesh, a new
-    group)."""
+    groups over the width axis, over the expert-parallel axis (the width
+    axis, or the sequence axis without one: ``_ffn``, transformer.py:367),
+    over the cache axes and over the batch axes, and the rank's index
+    along each.  Built on every rank in the same order (the cache axes'
+    group of a ``(data, model)`` plan is a flattened mesh, a new group)."""
 
     def __init__(self, plan: ShardingPlan):
         self.plan = plan
-        self.width = plan.group(plan.width_axis) if plan.width_axis else None
-        self.width_index = plan.coordinate(plan.width_axis) \
-            if plan.width_axis else 0
-        axes = plan.cache_seq_axes
-        self.cache = plan.group(axes) if axes else None
-        self.cache_index = plan.coordinate(axes) if axes else 0
+        self.width, self.width_index = self._on(plan.width_axis)
+        self.ep, self.ep_index = self._on(plan.width_axis or plan.seq_axis)
+        self.cache, self.cache_index = self._on(plan.cache_seq_axes)
+        self.batch, _ = self._on(plan.batch_axes)
+        self.n_batch = plan.axis_size(*plan.batch_axes)
+
+    def _on(self, entry):
+        """(the group over a spec entry, this rank's index on it); (None, 0)
+        for no axis."""
+        if not entry:
+            return None, 0
+        return self.plan.group(entry), self.plan.coordinate(entry)
+
+
+@dataclasses.dataclass(frozen=True)
+class WidthShards:
+    """One mixer under width tensor parallelism: the width axis's group,
+    this rank's index on it, the axis's size, and the names of the
+    mixer's leaves (its parameters, and its cache states prefixed
+    ``cache.``) that the plan cuts over the axis.
+
+    The JAX package decides each leaf's spec alone (``_fits``) and lets
+    pjit lay the mixer's activations out to match; here an activation is
+    the rank's piece or the whole along its last dimension, and
+    ``relayout`` moves it from the layout of the leaf that made it to the
+    layout of the leaf that reads it."""
+    group: Any
+    index: int
+    size: int
+    cut: frozenset
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.cut
+
+    def piece(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """This rank's piece of the whole ``t`` along ``dim`` (a view)."""
+        n = t.shape[dim] // self.size
+        return t.narrow(dim, self.index * n, n)
+
+    def relayout(self, t: torch.Tensor, have: bool,
+                 want: bool) -> torch.Tensor:
+        """``t``, the rank's piece along its last dimension if ``have``
+        else the whole, as the rank's piece if ``want`` else the whole:
+        gathered over the group, or cut."""
+        if have == want:
+            return t
+        return all_gather(t, self.group) if have else self.piece(t)
+
+    def reduce(self, t: torch.Tensor, cut: bool) -> torch.Tensor:
+        """The product of a row-cut weight (``cut``) summed over the group;
+        a whole weight's as it is."""
+        return all_reduce(t, "sum", self.group) if cut else t
 
 
 def local_shape(shape, spec, plan: ShardingPlan) -> Tuple[int, ...]:
@@ -327,6 +382,19 @@ def all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
     dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
                            "max": dist.ReduceOp.MAX}[op], group=group)
     return t
+
+
+def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, cut along ``dim`` into the group's
+    pieces in rank order, and this rank's piece (``psum_scatter(...,
+    tiled=True)``); counted."""
+    import torch.distributed as dist
+    COLLECTIVES["reduce_scatter"] += 1
+    parts = [p.contiguous() for p in
+             t.chunk(dist.get_world_size(group), dim=dim)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group)
+    return out
 
 
 def all_gather(t: torch.Tensor, group, dim: int = -1) -> torch.Tensor:

@@ -10,6 +10,19 @@ computes both in plain ``jnp`` (no Pallas kernel), and so does the port,
 in plain PyTorch, with the JAX dtypes and casts.  Decode writes its conv
 and ssm states into the tensors it is given, in place (the JAX package
 returns new ones), so a CUDA graph that captured a step keeps its buffers.
+
+Under width tensor parallelism (``apply_ssd(..., shards=...)``) a rank
+holds the pieces its plan gives it (``sharding.py:91-163``, ``:196-208``):
+``w_z``, ``w_x``, ``conv_x`` and ``w_out``'s rows cut over ``d_inner``
+(and the ``conv_x`` state with them) when the axis divides it, ``w_dt``
+and the ``ssm`` state cut over the heads when the axis divides H, and
+``w_bc``, ``conv_bc``, ``a_log``, ``dt_bias`` and ``d_skip`` whole (the
+last three sliced to the rank's heads here).  The JAX package lets pjit
+lay the mixer out from those specs (its heads are independent, so the
+mixer's one collective is ``w_out``'s); the port does it by hand: when
+the axis divides ``d_inner`` but not H, the rank's channels cut heads
+apart, so x after its conv is gathered whole, the scan runs on every
+head (the ``ssm`` state is whole) and the rank keeps its channels after.
 """
 from __future__ import annotations
 
@@ -26,12 +39,15 @@ def ssd_dims(cfg):
         cfg.ssm_state
 
 
-def init_ssd(gen: torch.Generator, cfg, dtype, device):
+def init_ssd(gen: torch.Generator, cfg, dtype, device, place=None):
     """The mixer's parameters, with the JAX package's names, shapes, dtypes
     and distributions (``ssm.py:27-45``): ``a_log``, ``dt_bias`` and
-    ``d_skip`` in f32."""
+    ``d_skip`` in f32.  ``place(name, t)``, where given, turns each one
+    into what is kept as soon as it is drawn (under a plan, the rank's
+    piece)."""
     d = cfg.d_model
     d_inner, n_heads, _, state = ssd_dims(cfg)
+    place = place or (lambda name, t: t)
 
     def dense(shape, fan_in=None):
         return layers.dense_init(gen, shape, dtype, device, fan_in)
@@ -44,18 +60,17 @@ def init_ssd(gen: torch.Generator, cfg, dtype, device):
     def full(value):
         return torch.full((n_heads,), value, dtype=torch.float32,
                           device=device)
-    return {
-        "w_z": dense((d, d_inner)),
-        "w_x": dense((d, d_inner)),
-        "w_bc": dense((d, 2 * state)),
-        "w_dt": dense((d, n_heads)),
-        "w_out": dense((d_inner, d), fan_in=d_inner),
-        "conv_x": conv(d_inner),
-        "conv_bc": conv(2 * state),
-        "a_log": full(0.0),
-        "dt_bias": full(-2.0),
-        "d_skip": full(1.0),
-    }
+    draws = (("w_z", lambda: dense((d, d_inner))),
+             ("w_x", lambda: dense((d, d_inner))),
+             ("w_bc", lambda: dense((d, 2 * state))),
+             ("w_dt", lambda: dense((d, n_heads))),
+             ("w_out", lambda: dense((d_inner, d), fan_in=d_inner)),
+             ("conv_x", lambda: conv(d_inner)),
+             ("conv_bc", lambda: conv(2 * state)),
+             ("a_log", lambda: full(0.0)),
+             ("dt_bias", lambda: full(-2.0)),
+             ("d_skip", lambda: full(1.0)))
+    return {name: place(name, draw()) for name, draw in draws}
 
 
 def causal_conv(x, w, state=None, activate: bool = True):
@@ -132,7 +147,7 @@ def ssd_chunked(x, b, c, dt, a_log, *, chunk: int, init_state=None):
     return (y_intra + y_inter).reshape(bs, s, h, p), carry
 
 
-def apply_ssd(p, x, cfg, *, conv_state=None, ssm_state=None):
+def apply_ssd(p, x, cfg, *, conv_state=None, ssm_state=None, shards=None):
     """The Mamba2 mixer body (the norm is the caller's), as the JAX
     ``apply_ssd`` (``ssm.py:135-182``).  x: (B, S, d) -> (y (B, S, d),
     (conv_x, conv_bc, ssm)).
@@ -145,25 +160,37 @@ def apply_ssd(p, x, cfg, *, conv_state=None, ssm_state=None):
     ``ssm_state`` (B, H, P, N) f32; one O(1) step, the ssm state updated
     in place and y read from it, the conv states written in place; all
     three returned.
+
+    ``shards`` (``sharding.WidthShards``; see the module's docstring):
+    ``p`` and the states are the rank's pieces, and y is summed over the
+    width group; the rank's states are what it updates.
     """
-    d_inner, n_heads, hd, state = ssd_dims(cfg)
+    _, _, hd, state = ssd_dims(cfg)
     bs, s, _ = x.shape
+    # the rank's channels (of d_inner) and heads, where the plan cuts them
+    chans = shards is not None and "w_x" in shards
+    heads = shards is not None and "w_dt" in shards
+
+    def mine(t):   # a whole per-head leaf, as the rank's heads
+        return shards.piece(t) if heads else t
     z = x @ p["w_z"]
     xi = x @ p["w_x"]
     bc = x @ p["w_bc"]
     # dt stays f32 from its projection on: bf16 inputs, f32 products
-    dt = layers.matmul_f32(x, p["w_dt"]) + p["dt_bias"]
+    dt = layers.matmul_f32(x, p["w_dt"]) + mine(p["dt_bias"])
     dt = torch.logaddexp(dt, torch.zeros_like(dt))        # softplus
 
     decode = ssm_state is not None and s == 1
     cx_state, cbc_state = conv_state if decode else (None, None)
     xi, new_cx = causal_conv(xi, p["conv_x"], state=cx_state)
     bc, new_cbc = causal_conv(bc, p["conv_bc"], state=cbc_state)
-    xi = xi.reshape(bs, s, n_heads, hd)
+    if shards is not None:   # the scan's channels: its heads'
+        xi = shards.relayout(xi, chans, heads)
+    xi = xi.reshape(bs, s, -1, hd)
     b, c = bc[..., :state], bc[..., state:]
 
     if decode:
-        a = -torch.exp(p["a_log"])
+        a = -torch.exp(mine(p["a_log"]))
         da = torch.exp(dt[:, 0] * a)                       # (B, H)
         xdt = xi[:, 0] * dt[:, 0, :, None]                 # (B, H, P) f32
         upd = xdt[..., None] * b[:, 0, None, None, :].float()
@@ -174,12 +201,17 @@ def apply_ssd(p, x, cfg, *, conv_state=None, ssm_state=None):
         cbc_state.copy_(new_cbc)
         new_cx, new_cbc, new_state = cx_state, cbc_state, ssm_state
     else:
-        y, new_state = ssd_chunked(xi, b, c, dt, p["a_log"],
+        y, new_state = ssd_chunked(xi, b, c, dt, mine(p["a_log"]),
                                    chunk=cfg.ssm_chunk,
                                    init_state=ssm_state)
         new_cx, new_cbc = new_cx.contiguous(), new_cbc.contiguous()
 
-    y = y + xi.float() * p["d_skip"][:, None]
-    y = y.reshape(bs, s, d_inner).to(x.dtype)
+    y = y + xi.float() * mine(p["d_skip"])[:, None]
+    y = y.reshape(bs, s, -1).to(x.dtype)
+    if shards is not None:   # back to the rank's channels, z's and w_out's
+        y = shards.relayout(y, heads, chans)
     y = y * F.silu(z.float()).to(x.dtype)                  # the gate
-    return y @ p["w_out"], (new_cx, new_cbc, new_state.float())
+    out = y @ p["w_out"]
+    if shards is not None:
+        out = shards.reduce(out, chans)
+    return out, (new_cx, new_cbc, new_state.float())

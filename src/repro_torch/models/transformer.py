@@ -5,8 +5,8 @@ package stacks each segment's layers on axis 0 and scans them, the port
 loops over its layers (``bridge.py`` maps one layout to the other).  The
 port builds attention blocks, ``global`` (a cache of ``cache_len`` rows)
 and ``local`` (a sliding window over a rolling buffer), with a dense
-SwiGLU or GELU MLP or a top-k MoE FFN (``moe.apply_moe`` at one shard,
-its experts optionally int8), RoPE or sinusoidal positions, RMSNorm or
+SwiGLU or GELU MLP or a top-k MoE FFN (``moe.apply_moe``, its experts
+optionally int8), RoPE or sinusoidal positions, RMSNorm or
 LayerNorm, optional q/k/v biases, tied embeddings and an image-embedding
 prefix: the dense and MoE architectures, the global layers' KV caches in
 the model's dtype or in int8 with f16 scales (``kv_quant``).  It also
@@ -34,7 +34,14 @@ column-sharded and their heads all-gathered (q and the new K/V are
 replicated over the cache axis there too); wo and w_down are row-sharded
 and all-reduced; w_gate/w_up column-sharded; the untied unembedding
 column-sharded and its logits all-gathered (a tied one reads the
-replicated embedding); LoRA is replicated.  A global layer's cache is
+replicated embedding); LoRA is replicated.  The MoE FFN is expert
+parallel over the width axis (``moe.apply_moe`` with the width group: the
+rank's experts, the tokens replicated, one all-reduce; ``_ffn``,
+transformer.py:362-402).  The ``ssd`` and ``rglru`` mixers are
+width-tensor-parallel (``ssm.apply_ssd``, ``rglru.apply_rglru`` with
+``sharding.WidthShards``: the rank's heads or channels, one all-reduce
+after ``w_out``) and so are their states; the rglru block's MLP is cut as
+an attention block's.  A global layer's cache is
 sequence-sharded over the plan's cache axes and decodes through
 ``attention.decode_attention_sharded``; a local layer's rolling buffer is
 replicated over ``model`` and decodes as without a plan.  Each piece
@@ -42,10 +49,9 @@ follows its spec: a width that does not divide stays whole.  The caller
 gives ``decode_step`` the rank's rows of the batch and of the adapter ids
 (``sharding.shard_tensor``) and the rank's cache (``sharding.shard_cache`` of a
 prefill cache of the model without a plan: prefill stays unsharded), and
-gets the rank's rows of the logits over the whole vocab.  MoE, ``ssd``
-and ``rglru`` blocks under a plan wider than one rank, and prefill and
-training under a plan, raise ``NotImplementedError`` (ROADMAP.md queue 1
-items 11b and 11c).
+gets the rank's rows of the logits over the whole vocab.  Prefill and
+training under a plan raise ``NotImplementedError`` (ROADMAP.md queue 1
+items 11d, sequence-sharded prefill, and 11c, sharded training).
 
 The port keeps these JAX behaviours for parity: one scalar ``pos`` for the
 whole batch (a 0-d int32 tensor on the model's device, as the JAX
@@ -68,8 +74,8 @@ from ..device import resolve_device
 from ..kernels import ops
 from . import attention, layers, moe, rglru, ssm
 from .config import ModelConfig
-from .sharding import (RankGroups, all_gather, all_reduce, local_shape,
-                       shard_tensor)
+from .sharding import (RankGroups, WidthShards, all_gather, all_reduce,
+                       local_shape, shard_tensor)
 
 #: the block kinds with attention (and a KV cache and LoRA on q and v)
 ATTENTION_KINDS = ("global", "local")
@@ -101,7 +107,51 @@ def _dense_mlp(cfg: ModelConfig, dense) -> nn.ParameterDict:
     return nn.ParameterDict(mlp)
 
 
-class Block(nn.Module):
+class _Planned(nn.Module):
+    """What a block does under a plan: its parameters' specs, the rank's
+    groups, and the row/column products of a dense MLP or output
+    projection."""
+
+    #: under a plan, the rank's groups (``sharding.RankGroups``) and the
+    #: specs of this layer's parameters by local name; None and {} without
+    tp = None
+    specs: Dict[str, tuple] = {}
+
+    def shard(self, tp: RankGroups, specs: Dict[str, tuple]) -> None:
+        """Take the rank's groups and this layer's parameter specs (by
+        local name), as ``Model`` hands them over once it has cut the
+        layer's weights."""
+        self.tp, self.specs = tp, specs
+
+    def _sharded(self, name: str) -> bool:
+        """Whether parameter ``name`` is cut over the plan's mesh."""
+        return any(e is not None for e in self.specs.get(name, ()))
+
+    def _down(self, x, name: str, local: bool):
+        """x @ parameter ``name`` (wo, mlp.w_down) under a plan: a
+        row-sharded weight takes the rank's columns of x (``local``: x
+        holds only those, the product of column-sharded weights) and its
+        partial products are all-reduced over the width axis; a whole
+        weight takes the whole x (gathered if ``local``)."""
+        w = self.get_parameter(name)
+        sharded = self._sharded(name)
+        if local and not sharded:
+            x = all_gather(x, self.tp.width)
+        elif sharded and not local:
+            n = w.shape[0]
+            x = x[..., self.tp.width_index * n:(self.tp.width_index + 1) * n]
+        out = x @ w
+        return all_reduce(out, "sum", self.tp.width) if sharded else out
+
+    def _mlp(self, h):
+        """The dense MLP, its products cut by their specs under a plan."""
+        if self.tp is None:
+            return layers.apply_mlp(self.cfg.mlp, self.mlp, h)
+        return self._down(layers.mlp_hidden(self.cfg.mlp, self.mlp, h),
+                          "mlp.w_down", local=self._sharded("mlp.w_up"))
+
+
+class Block(_Planned):
     """One attention layer, ``global`` or ``local`` (``kind``), with a
     dense MLP (``mlp``) or, when ``cfg.n_experts``, an MoE FFN (``moe``:
     router, expert weights and, with ``expert_quant``, int8 experts and
@@ -112,11 +162,6 @@ class Block(nn.Module):
     ``place(name, t)``, where given, turns each weight drawn, by its
     name in the layer, into what the layer keeps (under a plan, the
     rank's piece)."""
-
-    #: under a plan, the rank's groups (``sharding.RankGroups``) and the
-    #: specs of this layer's parameters by local name; None and {} without
-    tp = None
-    specs: Dict[str, tuple] = {}
 
     def __init__(self, cfg: ModelConfig, kind: str, gen: torch.Generator,
                  device: torch.device, expert_quant: bool = False,
@@ -152,7 +197,8 @@ class Block(nn.Module):
             self.moe = nn.ParameterDict({
                 k: _param(v) for k, v in moe.init_moe(
                     gen, d, cfg.d_ff, cfg.n_experts, dt, device,
-                    quant=expert_quant).items()})
+                    quant=expert_quant,
+                    place=lambda name, t: place(f"moe.{name}", t)).items()})
         else:
             self.mlp = _dense_mlp(cfg, dense)
 
@@ -199,26 +245,6 @@ class Block(nn.Module):
             return attention.CacheSlot.at(pos, rows)
         return attention.CacheSlot.rolling(pos, rows)
 
-    def _sharded(self, name: str) -> bool:
-        """Whether parameter ``name`` is cut over the plan's mesh."""
-        return any(e is not None for e in self.specs.get(name, ()))
-
-    def _down(self, x, name: str, local: bool):
-        """x @ parameter ``name`` (wo, mlp.w_down) under a plan: a
-        row-sharded weight takes the rank's columns of x (``local``: x
-        holds only those, the product of column-sharded weights) and its
-        partial products are all-reduced over the width axis; a whole
-        weight takes the whole x (gathered if ``local``)."""
-        w = self.get_parameter(name)
-        sharded = self._sharded(name)
-        if local and not sharded:
-            x = all_gather(x, self.tp.width)
-        elif sharded and not local:
-            n = w.shape[0]
-            x = x[..., self.tp.width_index * n:(self.tp.width_index + 1) * n]
-        out = x @ w
-        return all_reduce(out, "sum", self.tp.width) if sharded else out
-
     def pad_cache(self, cache, extra: int):
         """This layer's prefill cache with room for ``extra`` more
         positions (``Model.pad_cache``): a global layer's tensors get
@@ -257,34 +283,42 @@ class Block(nn.Module):
             k = layers.apply_rope(k, positions, cfg.rope_theta)
         return q, k, v.reshape(b, s, cfg.n_kv_heads, hd)
 
-    def _ffn(self, h):
-        """The MLP, or the MoE FFN over the b*s tokens (``_ffn`` at one
-        shard, transformer.py:362-374), and its aux loss (0.0 for the MLP;
-        ``prefill`` and ``decode`` drop it, as the JAX ones do)."""
+    def _ffn(self, h, aux: bool = True):
+        """The MLP, or the MoE FFN over the b*s tokens (``_ffn``,
+        transformer.py:362-402), and its aux loss (0.0 for the MLP;
+        ``prefill`` and ``decode`` drop it, as the JAX ones do).  Under a
+        plan the experts are parallel over the plan's width axis (its
+        sequence axis without one), the tokens gathered over it first if
+        they are sequence-sharded.  The aux loss is then the same on each
+        rank of the expert group (``apply_moe``) and is averaged over the
+        batch axes; with ``aux`` False (the decode drops it) that
+        all-reduce is skipped and the aux loss is the rank's."""
         cfg = self.cfg
         if not cfg.n_experts:
-            if self.tp is not None:
-                return self._down(layers.mlp_hidden(cfg.mlp, self.mlp, h),
-                                  "mlp.w_down",
-                                  local=self._sharded("mlp.w_up")), 0.0
-            return layers.apply_mlp(cfg.mlp, self.mlp, h), 0.0
+            return self._mlp(h), 0.0
         b, s, d = h.shape
-        out, aux = moe.apply_moe(self.moe, h.reshape(b * s, d),
-                                 top_k=cfg.top_k, n_experts=cfg.n_experts,
-                                 capacity_factor=cfg.capacity_factor)
-        return out.reshape(b, s, d), aux
+        ep = {}
+        if self.tp is not None:
+            ep = {"group": self.tp.ep, "index": self.tp.ep_index,
+                  "gather": bool(self.tp.plan.seq_axis)}
+        out, a = moe.apply_moe(self.moe, h.reshape(b * s, d),
+                               top_k=cfg.top_k, n_experts=cfg.n_experts,
+                               capacity_factor=cfg.capacity_factor, **ep)
+        if ep and aux and self.tp.batch is not None:
+            a = all_reduce(a, "sum", self.tp.batch) / self.tp.n_batch
+        return out.reshape(b, s, d), a
 
-    def _residual(self, x, attn_out):
+    def _residual(self, x, attn_out, aux: bool = True):
         """(x after the output projection and the FFN, the FFN's aux
-        loss)."""
+        loss; ``aux`` False: the decode's, which drops it)."""
         b, s = x.shape[:2]
         if self.tp is not None:
             x = x + self._down(attn_out.reshape(b, s, -1), "wo", local=False)
         else:
             x = x + attn_out.reshape(b, s, -1) @ self.wo
         h = layers.apply_norm(self.cfg.norm, self.norm2, x)
-        f, aux = self._ffn(h)
-        return x + f, aux
+        f, a = self._ffn(h, aux)
+        return x + f, a
 
     def _attend(self, q, k, v):
         """Causal self-attention over the whole sequence: a global layer's,
@@ -339,17 +373,44 @@ class Block(nn.Module):
         else:
             out = attention.decode_attention(q[:, 0], kc, vc, k[:, 0],
                                              v[:, 0], slot, *scales)
-        return self._residual(x, out[:, None])[0]
+        return self._residual(x, out[:, None], aux=False)[0]
 
 
-class _StateBlock(nn.Module):
+class _StateBlock(_Planned):
     """A layer whose cache is a recurrent state (``RGLRUBlock``,
     ``SSDBlock``): no KV cache, no positions, no LoRA (``init_lora`` gives
     it no bank).  Prefill returns the states after the prompt; decode
     writes them in place.  A subclass names its ``cache_keys`` and gives
-    ``init_cache`` and ``_forward(x, *states)`` -> (x, states)."""
+    ``init_cache`` and ``_forward(x, *states)`` -> (x, states).
+
+    Under a plan the mixer is width-tensor-parallel: ``shards`` names the
+    mixer's leaves the plan cuts (``sharding.WidthShards``).  The mixer's
+    code reads one leaf of each of its ``WIDTH_GROUPS`` for the cut of
+    all: the leaves of a group have one cut dimension, so ``_fits`` cuts
+    them all or none."""
 
     kv_quant = False   # no KV cache
+    shards = None
+    #: the mixer's ParameterDict, and its leaves (parameters, and states
+    #: as ``cache.<name>``) that share a cut dimension
+    MIXER = ""
+    WIDTH_GROUPS: tuple = ()
+
+    def shard(self, tp: RankGroups, specs: Dict[str, tuple]) -> None:
+        super().shard(tp, specs)
+        plan = tp.plan
+        prefix = self.MIXER + "."
+        names = {n[len(prefix):] for n, sp in specs.items()
+                 if n.startswith(prefix) and plan.cuts_width(sp)}
+        whole = self.init_cache(1, 1, "meta")
+        names |= {f"cache.{n}" for n, t in whole.items()
+                  if plan.cuts_width(plan.cache_spec((n,), tuple(t.shape)))}
+        for group in self.WIDTH_GROUPS:
+            if len({n in names for n in group}) > 1:
+                raise AssertionError(f"{self.kind}: the plan cuts some of "
+                                     f"{group} and not the others")
+        self.shards = WidthShards(tp.width, tp.width_index, plan.n_width,
+                                  frozenset(names))
 
     def slot_key(self, cache):
         return None   # no CacheSlot: the states have no positions
@@ -383,20 +444,26 @@ class RGLRUBlock(_StateBlock):
     model's dtype and ``lru`` (B, W) f32 (``_cache_block``, :192-196)."""
 
     cache_keys = ("conv", "lru")
+    MIXER = "rglru"
+    WIDTH_GROUPS = (("w_x", "w_gate", "conv_w", "w_out", "cache.conv",
+                     "cache.lru"), ("w_a", "w_i"))
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator,
-                 device: torch.device):
+                 device: torch.device, place=None):
         super().__init__()
         self.cfg, self.kind = cfg, "rglru"
         dt = cfg.torch_dtype
+        place = place or (lambda name, t: t)
 
         def dense(name, shape, fan_in=None):
-            return _param(layers.dense_init(gen, shape, dt, device, fan_in))
+            return _param(place(name, layers.dense_init(gen, shape, dt,
+                                                        device, fan_in)))
 
         self.norm1 = _norm(cfg, device)
         self.rglru = nn.ParameterDict({
-            k: _param(v) for k, v in rglru.init_rglru(gen, cfg, dt,
-                                                      device).items()})
+            k: _param(v) for k, v in rglru.init_rglru(
+                gen, cfg, dt, device,
+                place=lambda name, t: place(f"rglru.{name}", t)).items()})
         self.norm2 = _norm(cfg, device)
         self.mlp = _dense_mlp(cfg, dense)
 
@@ -412,10 +479,11 @@ class RGLRUBlock(_StateBlock):
     def _forward(self, x, conv_state=None, lru_state=None):
         h = layers.apply_norm(self.cfg.norm, self.norm1, x)
         out, states = rglru.apply_rglru(self.rglru, h, conv_state=conv_state,
-                                        lru_state=lru_state)
+                                        lru_state=lru_state,
+                                        shards=self.shards)
         x = x + out
         h = layers.apply_norm(self.cfg.norm, self.norm2, x)
-        return x + layers.apply_mlp(self.cfg.mlp, self.mlp, h), states
+        return x + self._mlp(h), states
 
 
 class SSDBlock(_StateBlock):
@@ -427,15 +495,20 @@ class SSDBlock(_StateBlock):
     starts from zero states, as in the JAX package."""
 
     cache_keys = ("conv_x", "conv_bc", "ssm")
+    MIXER = "ssd"
+    WIDTH_GROUPS = (("w_x", "w_z", "conv_x", "w_out", "cache.conv_x"),
+                    ("w_dt", "cache.ssm"))
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator,
-                 device: torch.device):
+                 device: torch.device, place=None):
         super().__init__()
         self.cfg, self.kind = cfg, "ssd"
+        place = place or (lambda name, t: t)
         self.norm1 = _norm(cfg, device)
         self.ssd = nn.ParameterDict({
-            k: _param(v) for k, v in ssm.init_ssd(gen, cfg, cfg.torch_dtype,
-                                                  device).items()})
+            k: _param(v) for k, v in ssm.init_ssd(
+                gen, cfg, cfg.torch_dtype, device,
+                place=lambda name, t: place(f"ssd.{name}", t)).items()})
 
     def init_cache(self, batch: int, cache_len: int, device):
         """Zero states, whatever ``cache_len``."""
@@ -452,23 +525,22 @@ class SSDBlock(_StateBlock):
         h = layers.apply_norm(self.cfg.norm, self.norm1, x)
         out, states = ssm.apply_ssd(self.ssd, h, self.cfg,
                                     conv_state=(conv_x, conv_bc),
-                                    ssm_state=ssm_state)
+                                    ssm_state=ssm_state, shards=self.shards)
         return x + out, states
 
 
 def _block(cfg: ModelConfig, kind: str, gen, dev, expert_quant: bool,
            kv_quant: bool, place=None) -> nn.Module:
     """Layer ``kind``'s block (``_init_block``, transformer.py:89-116).
-    An attention block hands its attention and MLP weights to ``place``
-    as it draws them; the rest (norms, experts, the rglru and ssd blocks,
-    which no plan wider than one rank takes: ``_check_plan``) are cut
-    after (``Model._shard``)."""
+    Each block hands its weights (attention, MLP, experts, mixer) to
+    ``place`` as it draws them; the norms are cut after
+    (``Model._shard``)."""
     if kind in ATTENTION_KINDS:
         return Block(cfg, kind, gen, dev, expert_quant, kv_quant, place)
     if kind == "rglru":
-        return RGLRUBlock(cfg, gen, dev)
+        return RGLRUBlock(cfg, gen, dev, place)
     if kind == "ssd":
-        return SSDBlock(cfg, gen, dev)
+        return SSDBlock(cfg, gen, dev, place)
     raise ValueError(kind)
 
 
@@ -535,9 +607,8 @@ class Model(nn.Module):
         return shard_tensor(t, spec, self.plan)
 
     def _shard(self) -> None:
-        """Cut the parameters not cut as they were drawn (the norms' scales,
-        the blocks without attention) and hand the blocks the rank's
-        groups."""
+        """Cut the parameters not cut as they were drawn (the norms'
+        scales) and hand the blocks the rank's groups."""
         for name, p in self.named_parameters():
             if name not in self.param_specs:
                 p.data = self._place(name, p.data)
@@ -546,17 +617,18 @@ class Model(nn.Module):
         self.tp = RankGroups(self.plan)
         for i, blk in enumerate(self.layers):
             prefix = f"layers.{i}."
-            blk.tp = self.tp
-            blk.specs = {n[len(prefix):]: sp for n, sp in
-                         self.param_specs.items() if n.startswith(prefix)}
+            blk.shard(self.tp, {n[len(prefix):]: sp for n, sp in
+                                self.param_specs.items()
+                                if n.startswith(prefix)})
 
     def _unsharded(self, what: str) -> None:
         if self.plan is not None:
             raise NotImplementedError(
                 f"{what} under a plan: the port runs the decode step under a "
-                "plan (ROADMAP.md item 11a); sequence-sharded prefill and "
-                "training are items 11b and 11c.  Run it on the model "
-                "without a plan and cut its cache (sharding.shard_cache)")
+                "plan (ROADMAP.md items 11a and 11b); sequence-sharded "
+                "prefill is item 11d and sharded training item 11c.  Run it "
+                "on the model without a plan and cut its cache "
+                "(sharding.shard_cache)")
 
     def init_lora(self, n_adapters: int, rank: int,
                   seed: int = 0) -> Dict[str, Any]:
@@ -767,20 +839,11 @@ class Model(nn.Module):
 
 
 def _check_plan(cfg: ModelConfig, plan) -> None:
-    """Raise ``NotImplementedError`` for what the port does not shard yet:
-    a plan other than decode (sequence-sharded prefill and training,
-    ROADMAP.md items 11b and 11c), and an MoE FFN or an ``ssd`` or
-    ``rglru`` mixer under a plan wider than one rank (expert-parallel
-    ``apply_moe`` and width-TP of the mixers, item 11b)."""
+    """Raise ``NotImplementedError`` for a plan the port does not run: any
+    but a decode plan (sequence-sharded prefill, ROADMAP.md item 11d, and
+    sharded training, item 11c)."""
     if plan.mode != "decode" or plan.seq_axis or plan.fsdp_axes:
         raise NotImplementedError(
-            f"a {plan.mode} plan: the port shards the decode step (ROADMAP.md"
-            " item 11a); sequence-sharded prefill and training are ROADMAP.md"
-            " items 11b and 11c")
-    mixers = sorted(set(cfg.layer_kinds) - set(ATTENTION_KINDS))
-    if (plan.n_width > 1 or plan.n_cache > 1) and (cfg.n_experts or mixers):
-        what = "an MoE FFN" if cfg.n_experts else f"{'/'.join(mixers)} blocks"
-        raise NotImplementedError(
-            f"{cfg.name}: {what} under a plan of width {plan.n_width} and "
-            f"{plan.n_cache} cache shards: expert-parallel apply_moe and "
-            "width-TP of the SSD and RG-LRU mixers are ROADMAP.md item 11b")
+            f"{cfg.name}: a {plan.mode} plan: the port shards the decode "
+            "step (ROADMAP.md items 11a and 11b); sequence-sharded prefill "
+            "is ROADMAP.md item 11d and sharded training item 11c")

@@ -1,33 +1,56 @@
-"""The JAX package's sequence-sharded decode body on 4 host devices.
+"""The JAX package's sharded bodies on host devices.
 
 Usage: python tests/sharded_body_jax.py <inputs.npz> <outputs.npz>
 
-Runs ``repro.models.attention.decode_attention_sharded`` under the JAX
-package's ``shard_map`` shim, the cache cut over a ``model`` axis of 4, on
-the inputs' q, caches (and int8 scales), new K/V and pos, and writes the
-output and the updated caches.  A subprocess of
-tests/test_torch_distributed.py: the device count must be set before jax
-initialises.
+The inputs' ``kind`` picks the body (``attention`` when absent):
+
+* ``attention``: ``repro.models.attention.decode_attention_sharded`` under
+  the JAX package's ``shard_map`` shim, the cache cut over a ``model`` axis
+  of 4, on the inputs' q, caches (and int8 scales), new K/V and pos; writes
+  the output and the updated caches;
+* ``moe``: ``repro.models.moe.apply_moe`` under ``shard_map`` over a
+  ``model`` axis of 4, the experts cut over it where it divides them (else
+  whole on every device), x cut over it with ``gather`` (else
+  replicated); writes the output and the aux loss;
+* ``ffn``: ``Model._ffn`` of the inputs' reduced architecture under its
+  decode plan on the inputs' ``mesh`` (data, model), on one layer's
+  ``moe.*`` leaves and x (B, 1, d); writes the output and the aux loss.
+
+The MoE bodies are compiled with XLA's excess precision off, the
+arithmetic the JAX source states (see tests/test_torch_moe.py).  A
+subprocess of tests/test_torch_distributed.py: the device count (the
+mesh's size) must be set before jax initialises.
 """
+import dataclasses
 import math
 import os
 import sys
 
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import numpy as np
+
+INPUTS = dict(np.load(sys.argv[1])) if __name__ == "__main__" else {}
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=%d" % \
+    math.prod(INPUTS.get("mesh", (1, 4)))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
-import numpy as np  # noqa: E402
 from jax.sharding import PartitionSpec as P  # noqa: E402
 
+from repro.configs import get_reduced  # noqa: E402
 from repro.launch.mesh import make_test_mesh  # noqa: E402
+from repro.models import Model, make_plan  # noqa: E402
 from repro.models.attention import decode_attention_sharded  # noqa: E402
+from repro.models.moe import apply_moe  # noqa: E402
 from repro.models.transformer import shard_map  # noqa: E402
 
 
-def main(src, dst):
-    inp = dict(np.load(src))
+def _as_written(f, *args):
+    return jax.jit(f).lower(*args).compile(
+        {"xla_allow_excess_precision": False})(*args)
+
+
+def attention(inp):
     n = 4
     mesh = make_test_mesh(1, n)
     quant = "k_scale" in inp
@@ -50,8 +73,43 @@ def main(src, dst):
                           out_specs=tuple(out_specs), check_vma=False))
     outs = [np.asarray(o) for o in f(*args)]
     names = ["out", "k", "v", "k_scale", "v_scale"][:len(outs)]
-    np.savez(dst, **dict(zip(names, outs)))
+    return dict(zip(names, outs))
+
+
+def moe(inp):
+    n = 4
+    mesh = make_test_mesh(1, n)
+    gather = bool(inp["gather"])
+    p = {k[4:]: inp[k] for k in inp if k.startswith("moe.")}
+    e = p["w_gate"].shape[0]
+    ep = "model" if e % n == 0 else None
+    espec = {k: P(None, None) if k == "router" else P(ep, None, None)
+             for k in p}
+    xspec = P("model", None) if gather else P()
+
+    def body(pl, xl):
+        return apply_moe(pl, xl, top_k=int(inp["top_k"]), n_experts=e,
+                         capacity_factor=float(inp["capacity_factor"]),
+                         axis_name="model", n_shards=n, gather=gather)
+    f = shard_map(body, mesh=mesh, in_specs=(espec, xspec),
+                  out_specs=(xspec, P()), check_vma=False)
+    out, aux = _as_written(f, p, inp["x"])
+    return {"out": np.asarray(out), "aux": np.asarray(aux)}
+
+
+def ffn(inp):
+    mesh = make_test_mesh(*map(int, inp["mesh"]))
+    cfg = dataclasses.replace(get_reduced(str(inp["arch"])), dtype="float32")
+    x = inp["x"]
+    model = Model(cfg, make_plan(cfg, mesh, "decode",
+                                 global_batch=x.shape[0]))
+    p = {"moe": {k[4:]: inp[k] for k in inp if k.startswith("moe.")}}
+    with (jax.set_mesh(mesh) if hasattr(jax, "set_mesh") else mesh):
+        out, aux = _as_written(model._ffn, p, x)
+    return {"out": np.asarray(out), "aux": np.asarray(aux)}
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], sys.argv[2])
+    kind = str(INPUTS.get("kind", "attention"))
+    np.savez(sys.argv[2], **{"attention": attention, "moe": moe,
+                             "ffn": ffn}[kind](INPUTS))

@@ -5,19 +5,32 @@ Each test spawns its ranks (``tests/torch_dist_ranks.py``: gloo on a
 timeout of SPAWN_TIMEOUT seconds, and joins them; a hung collective fails
 the one test.
 
-(i) ``attention.decode_attention_sharded`` on 4 ranks, an f32 and an
-int8 cache, against the JAX body under its ``shard_map`` shim on 4 host
-devices (``tests/sharded_body_jax.py``, a subprocess, as
+(i) The bodies, against the JAX ones under its ``shard_map`` shim on
+host devices (``tests/sharded_body_jax.py``, a subprocess, as
 ``tests/test_sharded.py`` runs its cases) on the same numpy-seeded inputs:
-the output to rel 2e-5 in f32 (each int8 slice rounds P * v_scale against
-its own max on both sides), the updated slices bit for bit.  (ii) ``case_decode`` of
-``tests/sharded_cases.py:88-115``: reduced phi4-mini and gemma3-1b at
-batch 4 on a (2, 4) mesh and phi4-mini at batch 1 (its cache over
-``(data, model)``, 8-way), each rank's logits at 4 steps after a prefill
-to the JAX single-device ``decode_step`` chain on bridged weights at
-rel < 1e-4, each rank holding one whole weight at most while it draws and
-while it loads its pieces.  (iii) MoE, SSM and hybrid models under a plan of width 4
-raise ``NotImplementedError`` naming ROADMAP item 11b.
+``attention.decode_attention_sharded`` on 4 ranks, an f32 and an int8
+cache, the output to rel 2e-5 in f32 (each int8 slice rounds P * v_scale
+against its own max on both sides), the updated slices bit for bit;
+expert-parallel ``moe.apply_moe`` on 4 ranks in f32, x replicated
+(``gather=False``, the decode's) and sequence-sharded (``gather=True``),
+past the dropless bound with a skewed router (the same tokens lose a
+pair), with int8 experts and with 6 experts on 4 ranks (whole on each,
+rank 0 owns every pair), each rank's output to rel 2e-5 and the aux loss;
+and reduced olmoe's ``Block._ffn`` under the (2, 4) decode plan, its aux
+loss JAX's mean over the expert and batch axes (the port all-reduces over
+the batch axis alone: an expert group's ranks route the same tokens).  (ii) ``case_decode`` of
+``tests/sharded_cases.py:88-115``: reduced phi4-mini, gemma3-1b, olmoe,
+moonshot and recurrentgemma at batch 4 on a (2, 4) mesh, phi4-mini and
+mamba2 at batch 1 (a cache over ``(data, model)``, 8-way; JAX's
+``decode_b1``), each rank's logits at 4 steps after a prefill to the JAX
+single-device ``decode_step`` chain on bridged weights at rel < 1e-4,
+each rank holding one whole weight at most while it draws and while it
+loads its pieces; and two meshes where a mixer's specs disagree (mamba2
+with 4 heads of 32 on 8 ranks: ``w_x`` cut mid-head, ``w_dt`` and the
+``ssm`` state whole; recurrentgemma with W 48 on 3 ranks: ``w_x`` cut
+off the 16 gate blocks, ``w_a`` whole).  (iii) every architecture builds
+under a decode plan; prefill and training plans raise
+``NotImplementedError`` naming items 11d and 11c.
 """
 import dataclasses
 import os
@@ -33,7 +46,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.configs import get_reduced  # noqa: E402
+from repro.configs.registry import ARCH_IDS  # noqa: E402
 from repro.models import Model as JaxModel, ShardingPlan  # noqa: E402
+from repro.models import moe as jax_moe  # noqa: E402
 from repro.models.attention import quantize_kv as jax_quantize_kv  # noqa: E402
 from repro.models.transformer import pad_cache as jax_pad_cache  # noqa: E402
 from repro_torch.configs import get_reduced as port_reduced  # noqa: E402
@@ -78,6 +93,8 @@ def _body_inputs(quant: bool, pos: int, b=2, s=32, h=8, kv=2, d=32):
 
 
 def _jax_body(inp, tmp_path):
+    """The JAX body of ``inp["kind"]`` (tests/sharded_body_jax.py) on
+    ``inp``."""
     src, dst = tmp_path / "body_in.npz", tmp_path / "body_out.npz"
     np.savez(src, **inp)
     proc = subprocess.run(
@@ -104,22 +121,128 @@ def test_sharded_body_matches_jax_shard_map(quant, pos, tmp_path):
             np.testing.assert_array_equal(
                 got, want[name][:, i * s_loc:(i + 1) * s_loc])
         # one all-reduce max and one all-reduce sum
-        assert r["collectives"] == {"all_reduce": 2, "all_gather": 0}
+        assert r["collectives"] == {"all_reduce": 2, "all_gather": 0,
+                                    "reduce_scatter": 0}
     assert sorted(r["index"] for r in outs) == [0, 1, 2, 3]
+
+
+def _moe_inputs(t, gather, experts=8, quant=False, router_add=0.0):
+    """Reduced olmoe's widths (d 64, f 32, top-2) with ``experts`` experts
+    from ``init_moe(PRNGKey(3))`` (int8 with ``quant``), the router's
+    column 0 raised by ``router_add``, x (t, d) f32 from ``default_rng``."""
+    cfg = get_reduced("olmoe_1b_7b")
+    p = jax_moe.init_moe(jax.random.PRNGKey(3), cfg.d_model, cfg.d_ff,
+                         experts, jnp.float32, quant=quant)
+    p = dict(p, router=p["router"].at[:, 0].add(router_add))
+    x = np.random.default_rng(t).standard_normal(
+        (t, cfg.d_model)).astype(np.float32)
+    return {"kind": "moe", "x": x, "gather": gather, "top_k": cfg.top_k,
+            "capacity_factor": cfg.capacity_factor,
+            **{f"moe.{k}": np.asarray(v) for k, v in p.items()}}
+
+
+@pytest.mark.parametrize("t,gather,experts,quant,router_add", [
+    pytest.param(16, False, 8, False, 0.0, id="replicated"),
+    pytest.param(32, True, 8, False, 0.0, id="gathered"),
+    # 2400 tokens over the 4 ranks: T*k 4800 > 4096, capacity 750, and
+    # expert 0 takes more than that
+    pytest.param(2400, True, 8, False, 0.3, id="past-dropless"),
+    pytest.param(16, False, 8, True, 0.0, id="int8-experts"),
+    pytest.param(16, False, 6, False, 0.0, id="6-experts-replicated"),
+    pytest.param(32, True, 6, False, 0.0, id="6-experts-gathered"),
+])
+def test_expert_parallel_moe_matches_jax_shard_map(t, gather, experts, quant,
+                                                   router_add, tmp_path):
+    inp = _moe_inputs(t, gather, experts, quant, router_add)
+    want = _jax_body(inp, tmp_path)
+    outs = ranks.spawn("moe", 4, inp, tmp_path, SPAWN_TIMEOUT)
+    assert sorted(r["index"] for r in outs) == [0, 1, 2, 3]
+    t_loc = t // 4 if gather else t
+    for r in outs:
+        rows = slice(r["index"] * t_loc, (r["index"] + 1) * t_loc) \
+            if gather else slice(None)
+        assert r["out"].shape == (t_loc, 64)
+        assert _rel(r["out"], want["out"][rows]) < 2e-5
+        np.testing.assert_allclose(r["aux"], float(want["aux"]), rtol=1e-6)
+        # experts that do not divide stay whole: e_local = E
+        assert r["e_local"] == (experts // 4 if experts % 4 == 0
+                                else experts)
+        assert r["collectives"] == {
+            "all_reduce": int(not gather), "all_gather": int(gather),
+            "reduce_scatter": int(gather)}
+    if router_add:
+        # the tokens that lost a pair: the rows apart from the dropless
+        # oracle, the same in both packages, and some
+        p = {k[4:]: jnp.asarray(v) for k, v in inp.items()
+             if k.startswith("moe.")}
+        ref = np.asarray(jax_moe.apply_moe_ref(
+            p, jnp.asarray(inp["x"]), top_k=2, n_experts=experts))
+        got = np.concatenate([r["out"] for r in
+                              sorted(outs, key=lambda r: r["index"])])
+        jax_rows = np.abs(want["out"] - ref).max(1) > 1e-4
+        port_rows = np.abs(got - ref).max(1) > 1e-4
+        assert jax_rows.sum() > 0
+        np.testing.assert_array_equal(port_rows, jax_rows)
+
+
+def test_moe_ffn_under_a_decode_plan_matches_jax(tmp_path):
+    # reduced olmoe's layer 0 on a (2, 4) mesh: experts over model, the
+    # batch's rows over data, the aux loss JAX's mean over both
+    cfg = dataclasses.replace(get_reduced("olmoe_1b_7b"), dtype="float32")
+    params = JaxModel(cfg, ShardingPlan()).init(KEY)
+    x = np.random.default_rng(5).standard_normal(
+        (4, 1, cfg.d_model)).astype(np.float32)
+    layer0 = params["segments"][0]["blocks"][0]["moe"]
+    inp = {"kind": "ffn", "arch": "olmoe_1b_7b", "mesh": (2, 4), "x": x,
+           **{f"moe.{k}": np.asarray(v[0]) for k, v in layer0.items()}}
+    want = _jax_body(inp, tmp_path)
+    outs = ranks.spawn("ffn", 8, {**inp, "params": jax.tree.map(
+        np.asarray, params)}, tmp_path, SPAWN_TIMEOUT)
+    for r in outs:
+        rows = slice(r["batch_index"] * 2, r["batch_index"] * 2 + 2)
+        assert r["n_batch"] == 2
+        assert _rel(r[True]["out"], want["out"][rows]) < 2e-5
+        np.testing.assert_allclose(r[True]["aux"], float(want["aux"]),
+                                   rtol=1e-6)
+        # the output's all-reduce, then the aux loss's over the batch's
+        # axis (it is the same on every rank of the experts' axis);
+        # without the aux loss only the first
+        assert r[True]["collectives"]["all_reduce"] == 2
+        assert r[False]["collectives"]["all_reduce"] == 1
+        np.testing.assert_array_equal(r[False]["out"], r[True]["out"])
 
 
 # --------------------------------------------------------------------------- #
 # (ii) the model: case_decode
 # --------------------------------------------------------------------------- #
 
-def _jax_reference(arch: str, batch: int, rows: int = 32):
-    """JAX single-device decode: prefill PROMPT tokens, pad the cache to
+#: the mixers' per-head and per-channel leaves, which ``init`` sets to
+#: one value each; drawn at random here, so that a rank slicing another
+#: rank's heads or channels of them shows
+CONSTANT_LEAVES = ("a_log", "dt_bias", "d_skip", "a_param")
+
+
+def _vary_constants(params):
+    def vary(path, leaf):
+        name = getattr(path[-1], "key", None)
+        if name not in CONSTANT_LEAVES:
+            return leaf
+        noise = np.random.default_rng(len(leaf.shape) + leaf.size).uniform(
+            -0.5, 0.5, leaf.shape).astype(np.float32)
+        return leaf + jnp.asarray(noise, leaf.dtype)
+    return jax.tree_util.tree_map_with_path(vary, params)
+
+
+def _jax_reference(arch: str, batch: int, rows: int = 32, **overrides):
+    """JAX single-device decode of the reduced ``arch`` (with
+    ``overrides`` of its config): prefill PROMPT tokens, pad the cache to
     ``rows`` rows, then STEPS decode steps; (numpy inputs of the rank
     case, the reference logits (STEPS, B, V))."""
-    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32",
+                              **overrides)
     m_pre = JaxModel(cfg, ShardingPlan(mode="prefill"))
     m_dec = JaxModel(cfg, ShardingPlan(mode="decode"))
-    params = m_pre.init(KEY)
+    params = _vary_constants(m_pre.init(KEY))
     lora = m_pre.init_lora(KEY, 4, 4)
     tokens = jax.random.randint(KEY, (batch, PROMPT + STEPS), 0,
                                 cfg.vocab_size)
@@ -127,7 +250,8 @@ def _jax_reference(arch: str, batch: int, rows: int = 32):
     _, cache = jax.jit(m_pre.prefill)(params, lora, tokens[:, :PROMPT], idx)
     cache = jax_pad_cache(cache, rows - PROMPT)
     to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
-    inputs = {"arch": arch, "params": to_np(params), "lora": to_np(lora),
+    inputs = {"arch": arch, "overrides": overrides,
+              "params": to_np(params), "lora": to_np(lora),
               "cache": to_np(cache),
               "tokens": np.asarray(tokens[:, PROMPT:], np.int32),
               "idx": np.asarray(idx, np.int32), "rows": rows}
@@ -174,6 +298,72 @@ def test_case_decode_where_widths_do_not_divide(tmp_path):
         assert r["specs"]["layers.0.mlp.w_down"] == ("model", None)
 
 
+# the experts' and the mixers' specs under the (2, 4) decode plan, and the
+# leaves each mixer's code reads as cut (``WidthShards``; None: a layer
+# with attention)
+MOE_SPECS = {"layers.0.moe.w_gate": ("model", None, None),
+             "layers.0.moe.w_down": ("model", None, None),
+             "layers.0.moe.router": (None, None),
+             "layers.0.wq": (None, "model")}
+SSD_CUT = ["cache.conv_x", "cache.ssm", "conv_x", "w_dt", "w_out", "w_x",
+           "w_z"]
+RGLRU_CUT = ["cache.conv", "cache.lru", "conv_w", "w_a", "w_gate", "w_i",
+             "w_out", "w_x"]
+
+
+@pytest.mark.parametrize("arch,batch,specs,cut", [
+    ("olmoe_1b_7b", 4, MOE_SPECS, [None] * 2),
+    ("moonshot_v1_16b_a3b", 4, MOE_SPECS, [None] * 2),
+    ("mamba2_2p7b", 1, {"layers.0.ssd.w_x": (None, "model"),
+                        "layers.0.ssd.w_dt": (None, "model"),
+                        "layers.0.ssd.w_out": ("model", None),
+                        "layers.0.ssd.w_bc": (None, None)}, [SSD_CUT] * 2),
+    ("recurrentgemma_9b", 4, {"layers.0.rglru.w_a": ("model", None, None),
+                              "layers.0.rglru.w_out": ("model", None),
+                              "layers.0.mlp.w_down": ("model", None),
+                              "layers.2.wq": (None, "model")},
+     [RGLRU_CUT, RGLRU_CUT, None, RGLRU_CUT, RGLRU_CUT]),
+])
+def test_moe_and_state_models_decode_like_jax(arch, batch, specs, cut,
+                                              tmp_path):
+    inputs, want = _jax_reference(arch, batch)
+    inputs["mesh"] = (2, 4)
+    outs = ranks.spawn("model", 8, inputs, tmp_path, SPAWN_TIMEOUT)
+    n_cache = 4 if batch > 1 else 8
+    assert sorted({r["cache_index"] for r in outs}) == list(range(n_cache))
+    _check_ranks(outs, want, batch)
+    for r in outs:
+        assert {n: r["specs"][n] for n in specs} == specs
+        assert r["width_cut"] == cut
+
+
+@pytest.mark.parametrize("arch,mesh,overrides,specs,cut", [
+    # H 4 on 8 ranks: d_inner 128 is cut (16 channels, half a head), the
+    # heads are not; x after its conv is gathered for the scan
+    ("mamba2_2p7b", (1, 8), {"ssm_head_dim": 32},
+     {"layers.0.ssd.w_x": (None, "model"), "layers.0.ssd.w_dt": (None, None),
+      "layers.0.ssd.w_out": ("model", None)},
+     ["cache.conv_x", "conv_x", "w_out", "w_x", "w_z"]),
+    # W 48 on 3 ranks: 16 channels a rank, 16 gate blocks of 3 are not cut;
+    # the gates' input is gathered
+    ("recurrentgemma_9b", (1, 3), {"lru_width": 48},
+     {"layers.0.rglru.w_x": (None, "model"),
+      "layers.0.rglru.w_a": (None, None, None),
+      "layers.0.rglru.w_out": ("model", None)},
+     ["cache.conv", "cache.lru", "conv_w", "w_gate", "w_out", "w_x"]),
+])
+def test_mixers_whose_specs_disagree_decode_like_jax(arch, mesh, overrides,
+                                                     specs, cut, tmp_path):
+    inputs, want = _jax_reference(arch, 2, **overrides)
+    inputs["mesh"] = mesh
+    outs = ranks.spawn("model", mesh[0] * mesh[1], inputs, tmp_path,
+                       SPAWN_TIMEOUT)
+    _check_ranks(outs, want, 2)
+    for r in outs:
+        assert {n: r["specs"][n] for n in specs} == specs
+        assert r["width_cut"][0] == cut
+
+
 def _check_ranks(outs, want, batch):
     """Each rank's rows of the logits at every step to rel 1e-4 of the
     JAX decode's; its cache advanced; ``init_cache`` the rank's shapes."""
@@ -191,24 +381,20 @@ def _check_ranks(outs, want, batch):
 
 
 # --------------------------------------------------------------------------- #
-# (iii) what the port does not shard yet
+# (iii) which plans the port takes
 # --------------------------------------------------------------------------- #
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-2.7b",
-                                  "recurrentgemma-9b"])
-def test_moe_and_state_mixers_raise_under_a_wide_plan(arch):
-    cfg = port_reduced(arch)
-    plan = make_plan(cfg, MeshShape((2, 4), ("data", "model")), "decode",
-                     global_batch=4)
-    assert plan.n_width == 4
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        Model(cfg, device="cpu", plan=plan)
+def test_every_architecture_builds_under_a_decode_plan(tmp_path):
+    outs = ranks.spawn("build", 8, {"archs": list(ARCH_IDS)}, tmp_path,
+                       SPAWN_TIMEOUT)
+    for r in outs:
+        assert r == {a: (4, 4) for a in ARCH_IDS}
 
 
 def test_prefill_and_train_plans_raise():
     cfg = port_reduced("phi4-mini-3.8b")
     mesh = MeshShape((2, 4), ("data", "model"))
-    for kind in ("prefill", "train"):
-        with pytest.raises(NotImplementedError, match="11b and 11c"):
+    for kind, item in (("prefill", "item 11d"), ("train", "item 11c")):
+        with pytest.raises(NotImplementedError, match=item):
             Model(cfg, device="cpu", plan=make_plan(cfg, mesh, kind,
                                                     global_batch=4))

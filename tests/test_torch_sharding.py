@@ -2,12 +2,14 @@
 
 ``repro_torch.models.sharding``: ``make_plan`` gives the JAX plan's fields
 for every kind, mesh shape and global batch, and ``param_spec`` /
-``cache_spec`` give, for every leaf of every reduced architecture and of
-phi4-mini-3.8b and gemma3-1b at their published shapes (the JAX side
-through ``jax.eval_shape``: nothing is allocated), the JAX
-``PartitionSpec`` less the stack axis of the JAX package's per-segment
-stacks, on a (2, 4) and a (2, 16, 16) mesh (``MeshShape`` and JAX's
-``AbstractMesh``).  Also ``shard_tensor`` (the pieces tile the whole),
+``cache_spec`` give, for every leaf of every reduced architecture, of
+phi4-mini-3.8b and gemma3-1b at their published shapes and of two reduced
+variants whose mixer specs disagree on a mesh (mamba2 with 4 heads of 32,
+recurrentgemma with an RG-LRU width of 48; the JAX side through
+``jax.eval_shape``: nothing is allocated), the JAX ``PartitionSpec`` less
+the stack axis of the JAX package's per-segment stacks, on a (2, 4), a
+(1, 8), a (1, 3) and a (2, 16, 16) mesh (``MeshShape`` and JAX's
+``AbstractMesh``): the experts, the mixers and their states among them.  Also ``shard_tensor`` (the pieces tile the whole),
 ``CacheSlot.shard``, flash-decode's log-sum-exp on the CPU (its plain
 versions against ``torch.logsumexp`` of the masked f32 scores, length 0
 among the lengths) and ``attention.combine_shards`` over slices of one
@@ -34,19 +36,32 @@ from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.launch.mesh import MeshShape  # noqa: E402
 from repro_torch.models.attention import (CacheSlot, combine_shards,  # noqa: E402
                                           quantize_kv)
+from repro_torch.models.transformer import ATTENTION_KINDS  # noqa: E402
 from repro_torch.models.sharding import (ShardingPlan, local_shape,  # noqa: E402
                                          make_plan, shard_tensor)
 
 MESHES = {"2x4": ((2, 4), ("data", "model")),
+          "1x8": ((1, 8), ("data", "model")),
+          "1x3": ((1, 3), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
 KINDS = ("train", "prefill", "decode")
 GLOBAL_BATCHES = (1, 4, 64)
-# every reduced architecture, and two at their published shapes
+# reduced architectures whose mixer's leaves are cut apart on a mesh: on
+# 1x8 mamba2's d_inner 128 divides and its 4 heads do not; on 1x3
+# recurrentgemma's width 48 divides and its 16 gate blocks do not
+VARIANTS = {"mamba2-hd32": ("mamba2_2p7b", {"ssm_head_dim": 32}),
+            "recurrentgemma-w48": ("recurrentgemma_9b", {"lru_width": 48})}
+# every reduced architecture, two at their published shapes, the variants
 CONFIGS = [("reduced", a) for a in ARCH_IDS] + \
-    [("published", "phi4_mini_3p8b"), ("published", "gemma3_1b")]
+    [("published", "phi4_mini_3p8b"), ("published", "gemma3_1b")] + \
+    [("variant", v) for v in VARIANTS]
 
 
 def _configs(which, arch):
+    if which == "variant":
+        arch, over = VARIANTS[arch]
+        return (dataclasses.replace(get_reduced(arch), **over),
+                dataclasses.replace(port_reduced(arch), **over))
     get_j, get_p = ((get_reduced, port_reduced) if which == "reduced"
                     else (get_config, port_config))
     return get_j(arch), get_p(arch)
@@ -118,6 +133,15 @@ def test_param_specs_equal_jax_less_the_stack_axis(which, arch, mesh_key):
             _leaf_tree(lora, jplan.param_specs(lora))["segments"])
         for i, layer in enumerate(banks):
             for name, leaf in layer.items():
+                if name == bridge.NO_BANK:
+                    # a layer without attention: the port has no bank
+                    # there (its init_lora gives {}).  The JAX
+                    # placeholder (1,) keeps its spec off its stack axis;
+                    # a train plan over a data axis of size 1 would cut
+                    # the port's lone (1,) leaf over it: not compared
+                    assert pcfg.layer_kinds[i] not in ATTENTION_KINDS
+                    if kind == "train" and jplan.mesh.shape["data"] == 1:
+                        continue
                 assert pplan.param_spec(("layers", str(i), name),
                                         leaf.shape) == leaf.want()
     assert n > 0
@@ -141,6 +165,37 @@ def test_cache_specs_equal_jax_less_the_stack_axis(which, arch, mesh_key):
                 assert set(specs) == set(layer)
                 for name, leaf in layer.items():
                     assert specs[name] == leaf.want(), (kind, gb, name)
+
+
+@pytest.mark.parametrize("variant,mesh_key,cut,whole", [
+    ("mamba2-hd32", "1x8", ("ssd.w_x", "ssd.w_z", "ssd.w_out", "ssd.conv_x"),
+     ("ssd.w_dt",)),
+    ("recurrentgemma-w48", "1x3", ("rglru.w_x", "rglru.w_gate",
+                                   "rglru.w_out", "rglru.conv_w"),
+     ("rglru.w_a", "rglru.w_i")),
+])
+def test_variants_cut_a_mixer_apart_in_the_jax_package(variant, mesh_key,
+                                                       cut, whole):
+    # the disagreement the sharded decode's tests decode through, as the
+    # JAX package's decode plan states it (and so the port's, above)
+    jcfg, _ = _configs("variant", variant)
+    shape, names = MESHES[mesh_key]
+    plan = jax_make_plan(jcfg, AbstractMesh(shape, names), "decode",
+                         global_batch=2)
+    params = jax.eval_shape(JaxModel(jcfg, JaxPlan()).init,
+                            jax.random.PRNGKey(0))
+    named = bridge.named_leaves(
+        _leaf_tree(params, plan.param_specs(params)))
+    for name in cut:
+        assert "model" in named[f"layers.0.{name}"].want()
+    for name in whole:
+        assert set(named[f"layers.0.{name}"].want()) == {None}
+    cache = jax.eval_shape(lambda: JaxModel(jcfg, JaxPlan()).init_cache(2,
+                                                                        32))
+    states = bridge._unstack(_leaf_tree(
+        cache, plan.cache_specs(cache))["segments"])[0]
+    state = "ssm" if "ssd.w_dt" in whole else "lru"
+    assert ("model" in states[state].want()) == (state == "lru")
 
 
 def test_decode_plans_shard_as_the_jax_package_says():

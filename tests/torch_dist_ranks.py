@@ -21,7 +21,7 @@ import torch.multiprocessing as mp
 from repro_torch import bridge
 from repro_torch.configs import get_reduced
 from repro_torch.launch.mesh import init_cpu_group, make_test_mesh
-from repro_torch.models import Model, layers, sharding, transformer
+from repro_torch.models import Model, layers, moe, sharding, transformer
 from repro_torch.models.attention import CacheSlot, decode_attention_sharded
 from repro_torch.models.sharding import (COLLECTIVES, RankGroups,
                                          ShardingPlan, make_plan,
@@ -132,11 +132,61 @@ class WholeAtCut:
         return stack
 
 
+def case_moe(inp):
+    """``moe.apply_moe`` on this rank of a (1, world) mesh, experts
+    parallel over ``model``: the rank's experts (all of them where the
+    axis does not divide them), and x's rows of the rank (``gather``) or
+    all of them; the output and the aux loss."""
+    mesh = make_test_mesh(1, dist.get_world_size(), device="cpu")
+    plan = ShardingPlan(mesh=mesh, width_axis="model", mode="decode")
+    tp = RankGroups(plan)
+    p = {}
+    for key, arr in inp.items():
+        if key.startswith("moe."):
+            name = key[4:]
+            spec = plan.param_spec(("layers", "0", "moe", name), arr.shape)
+            p[name] = shard_tensor(bridge.tensor(arr), spec, plan)
+    x = torch.from_numpy(inp["x"])
+    if inp["gather"]:
+        x = shard_tensor(x, ("model", None), plan)
+    reset_collectives()
+    out, aux = moe.apply_moe(
+        p, x, top_k=int(inp["top_k"]), n_experts=inp["moe.router"].shape[1],
+        capacity_factor=float(inp["capacity_factor"]), group=tp.ep,
+        index=tp.ep_index, gather=bool(inp["gather"]))
+    return {"index": tp.ep_index, "out": out.numpy(), "aux": float(aux),
+            "e_local": p["w_gate"].shape[0],
+            "collectives": dict(COLLECTIVES)}
+
+
+def case_ffn(inp):
+    """Layer 0's ``Block._ffn`` of a planned reduced MoE model on bridged
+    weights, on this rank's rows of x (B, 1, d), with and without its aux
+    loss: the outputs, the aux loss and the collectives of each."""
+    cfg = dataclasses.replace(get_reduced(inp["arch"]), dtype="float32")
+    mesh = make_test_mesh(*inp["mesh"], device="cpu")
+    x = inp["x"]
+    plan = make_plan(cfg, mesh, "decode", global_batch=x.shape[0])
+    model = Model(cfg, device="cpu", plan=plan)
+    bridge.load_params(model, inp["params"])
+    h = shard_tensor(torch.from_numpy(x), (plan.dp(), None, None), plan)
+    out = {"batch_index": plan.coordinate(plan.dp()),
+           "n_batch": plan.axis_size(*plan.dp())}
+    for with_aux in (True, False):
+        reset_collectives()
+        got, aux = model.layers[0]._ffn(h, aux=with_aux)
+        out[with_aux] = {"out": got.numpy(), "aux": float(aux),
+                         "collectives": dict(COLLECTIVES)}
+    return out
+
+
 def case_model(inp):
     """The port's decode under ``make_plan(cfg, make_test_mesh(data,
-    model), "decode", global_batch=B)`` on bridged JAX weights and cache:
-    this rank's rows of the logits at each step."""
-    cfg = dataclasses.replace(get_reduced(inp["arch"]), dtype="float32")
+    model), "decode", global_batch=B)`` on bridged JAX weights and cache
+    (the reduced architecture with the inputs' ``overrides``): this rank's
+    rows of the logits at each step."""
+    cfg = dataclasses.replace(get_reduced(inp["arch"]), dtype="float32",
+                              **inp.get("overrides", {}))
     mesh = make_test_mesh(*inp["mesh"], device="cpu")
     tokens, idx = inp["tokens"], inp["idx"]
     plan = make_plan(cfg, mesh, "decode", global_batch=tokens.shape[0],
@@ -161,6 +211,7 @@ def case_model(inp):
     for i in range(tok.shape[1]):
         out, cache = model.decode_step(lora, cache, tok[:, i:i + 1], ids)
         logits.append(out.numpy())
+    shards = [getattr(blk, "shards", None) for blk in model.layers]
     return {"batch_index": plan.coordinate(dp) if dp else 0,
             "n_batch": plan.axis_size(*dp) if dp else 1,
             "cache_index": model.tp.cache_index,
@@ -168,9 +219,22 @@ def case_model(inp):
             "init_shapes": init_shapes,
             "whole_at_cut": (drawn.most, loaded.most),
             "collectives": dict(COLLECTIVES),
-            "specs": {n: model.param_specs[n]
-                      for n in ("layers.0.wq", "layers.0.wo",
-                                "layers.0.mlp.w_down", "embed.embed")}}
+            "specs": dict(model.param_specs),
+            "width_cut": [sorted(s.cut) if s else None for s in shards]}
 
 
-CASES = {"body": case_body, "model": case_model}
+def case_build(inp):
+    """Each of the inputs' reduced architectures built under the (2, 4)
+    decode plan at batch 4: {arch: (width, cache shards)}."""
+    mesh = make_test_mesh(2, 4, device="cpu")
+    out = {}
+    for arch in inp["archs"]:
+        cfg = get_reduced(arch)
+        model = Model(cfg, device="cpu", plan=make_plan(cfg, mesh, "decode",
+                                                        global_batch=4))
+        out[arch] = (model.plan.n_width, model.plan.n_cache)
+    return out
+
+
+CASES = {"body": case_body, "moe": case_moe, "ffn": case_ffn,
+         "model": case_model, "build": case_build}
