@@ -11,6 +11,15 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    absolute and relative; SGMV also at the measurement path's 32 adapters
    with skewed ids (one past capacity, empty ones, ids outside [0, N)),
    and its sort kernel bit for bit against ``sgmv.segments_plain``;
+   SGMV with whole-prompt arrival ranks (the whole prompt's capacity
+   rule under a sequence cut, ``check_sgmv_arrival``) at B 8 x S 512,
+   d 3072, r 8, o 3072 and 1024, N 4, bf16, with ids spread over the
+   adapters and with every request on adapter 0 (1920 of 4096 tokens
+   dropped): on the whole prompt's own ranks bit for bit the call
+   without them, each of 4 sequence slices against its rows of the plain
+   version of the whole prompt, and the slices together against the
+   whole prompt, bit for bit or within bf16's 3e-2 (which of the two is
+   printed);
    flash-decode and the fused flash-decode+LoRA,
    whose attention outputs are weighted means of V and shrink with the
    row's length, also within 1e-2 (bf16) and 2e-5 (f32) of each output
@@ -234,19 +243,29 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    olmoe-1b-7b whole, 16 of mamba2-2.7b's 64 layers, 6 of
    recurrentgemma-9b's 38), their experts expert-parallel and their
    mixers width-tensor-parallel over the group of one, with the phase's
-   seconds against its budget.  Every number of the phase is printed
-   beside the card's name and power limit.
+   seconds against its budget; 10e, the sharded prefill: phi4-mini-3.8b
+   at its published widths prefills BATCH x PREFILL_S tokens under
+   ``make_plan(cfg, make_single_device_mesh(), "prefill",
+   global_batch=BATCH)`` on the NCCL world-size-1 group (its weights
+   gathered whole, the ring over a group of one, SGMV with whole-prompt
+   arrival ranks), ``pad_cache`` lays the cache out for the decode plan,
+   and a model under the decode plan decodes SHARD_STEPS steps from it; the
+   logits, the padded cache and every step bit for bit those of the
+   model without a plan, with both prefills' eager walls, the planned
+   prefill's collectives and SGMV's launches.  Every number of the phase
+   is printed beside the card's name and power limit.
 
 Launch counts are zeroed just before each path a user drives (teacher
 forcing through ``Model.prefill``/``decode_step`` in phase 4, for each
 architecture, serving in phases 5, 5b, 5c, 5d, 5e and 5f, measurement in
 phase 7, training in phases 8a, 8b and 9, the sharded decode in phase
-10c and for each architecture of 10d) and read just after it.  SGMV,
+10c and for each architecture of 10d, the sharded prefill in 10e) and
+read just after it.  SGMV,
 BGMV and flash-decode must have launched in phase 4, BGMV and
 flash-decode in phases 5, 5b, 5c, 5d and 5e, the fused kernel and SGMV
 in phase 7, BGMV and flash-decode's log-sum-exp mode in phase 10c and on
 10d's planned olmoe, BGMV and flash-decode on 10d's planned
-recurrentgemma; mamba2's paths (phase 4, 5f, 10d) must launch none,
+recurrentgemma, SGMV on 10e's planned prefill; mamba2's paths (phase 4, 5f, 10d) must launch none,
 having no attention and no LoRA, and so must training's (8a, 8b and 9).  Each kernel's
 ``launches`` in the kernel table is the count of the path it serves
 (``path``); the int8 mode counts as flash-decode, on the int8 paths
@@ -312,7 +331,8 @@ KERNEL_PATH = {"bgmv": "serving", "sgmv": "teacher_forcing",
 PATH_KERNELS = {"teacher_forcing": ("sgmv", "bgmv", "flash_decode"),
                 "serving": ("bgmv", "flash_decode"),
                 "measurement": ("flash_decode_lora", "sgmv"),
-                "sharded_decode": ("bgmv", "flash_decode_lse")}
+                "sharded_decode": ("bgmv", "flash_decode_lse"),
+                "sharded_prefill": ("sgmv",)}
 # main-path shapes (phi4-mini-3.8b serving: max_batch 8, cache 512, 4 slots)
 D_MODEL, Q_OUT, V_OUT, RANK, SLOTS = 3072, 3072, 1024, 8, 4
 HEADS, KV_HEADS, HEAD_DIM, BATCH, CACHE = 24, 8, 128, 8, 512
@@ -430,6 +450,11 @@ PLANNED_KERNELS = {"olmoe-1b-7b": ("bgmv", "flash_decode_lse"),
                    "mamba2-2.7b": (),
                    "recurrentgemma-9b": ("bgmv", "flash_decode")}
 PLANNED_BUDGET_S = 120
+# 10e prefills BATCH x PREFILL_S tokens of phi4-mini under the world-size-1
+# prefill plan (phase 3 holds SGMV with whole-prompt arrival ranks at this
+# prompt's shape, ARRIVAL_SLICES sequence slices of it)
+PREFILL_S, ARRIVAL_SLICES = 512, 4
+PREFILL_BUDGET_S = 90
 # the log-sum-exp mode's two kernels: the split pass and its own combine
 FD_LSE_KERNELS = ("fd_split_kernel", "fd_combine_lse_kernel")
 
@@ -550,6 +575,7 @@ def phase_kernels():
         check_variant_shapes(inp, lengths, dtype, dn, errs)
     del q, k, v
     check_sgmv_measure(inp, errs)
+    check_sgmv_arrival(inp, errs)
     check_fused_grid(errs)
     check_moe(inp, errs)
     check_quantize_kv(inp, errs)
@@ -967,6 +993,68 @@ def check_sgmv_skewed(inp, x, dtype, dn, errs):
     check(f"sgmv N {n} skewed ragged vs dense on the masked bank", ragged,
           sgmv.sgmv(x, am, bm, ids), dn, errs, exact=True)
     return ids
+
+
+def check_sgmv_arrival(inp, errs):
+    """SGMV with whole-prompt arrival ranks at the sharded prefill's shape
+    (BATCH x PREFILL_S tokens, d 3072, r 8, N 4, bf16), at both LoRA
+    widths the prefill gives it (q's Q_OUT and v's V_OUT, which tile
+    differently): ids spread over the adapters, and every request on
+    adapter 0 (cap 2176 of 4096: 1920 dropped).  On the whole prompt's own
+    arrival ranks the call is the one without them, bit for bit; each of
+    ARRIVAL_SLICES sequence slices, with its tokens' whole-prompt arrival
+    ranks (``sgmv.arrival_ranks``) and capacity, against its rows of the
+    plain version of the whole prompt; the slices in the prompt's order
+    against the whole prompt: bit for bit, else within bf16's 3e-2
+    (printed).  Records in ``errs`` whether the slices were bitwise
+    (``sgmv_arrival_bitwise``)."""
+    from repro_torch.kernels import ref, sgmv
+    dt, dn = torch.bfloat16, "bfloat16"
+    t, s_loc = BATCH * PREFILL_S, PREFILL_S // ARRIVAL_SLICES
+    cap = ref.sgmv_capacity(t, SLOTS)
+    x = inp.normal(t, D_MODEL, dtype=dt)
+    x3 = x.reshape(BATCH, PREFILL_S, D_MODEL)
+    bitwise = True
+    for o in (Q_OUT, V_OUT):
+        a, b = inp.lora_bank(SLOTS, D_MODEL, RANK, o, dt)
+        for label, ids in (
+                ("spread", torch.arange(BATCH, device="cuda") % SLOTS),
+                ("one adapter", torch.zeros(BATCH, device="cuda"))):
+            label = f"o {o} {label}"
+            ids = ids.to(torch.int32)
+            per_token = ids.repeat_interleave(PREFILL_S)
+            whole = sgmv.sgmv(x, a, b, per_token)
+            plain = ref.sgmv_ref(x, a, b, per_token).reshape(
+                BATCH, PREFILL_S, o)
+            own = ref._bucket_positions(per_token, SLOTS).to(torch.int32)
+            check(f"sgmv arrival {label}, whole prompt's own ranks",
+                  sgmv.sgmv(x, a, b, per_token, arrival=own), whole, dn,
+                  errs, exact=True)
+            parts = []
+            for i in range(ARRIVAL_SLICES):
+                lo = i * s_loc
+                arrival = sgmv.arrival_ranks(ids, 0, BATCH, PREFILL_S, lo,
+                                             s_loc)
+                xp = x3[:, lo:lo + s_loc].reshape(-1, D_MODEL).contiguous()
+                tp = ids.repeat_interleave(s_loc)
+                got = sgmv.sgmv(xp, a, b, tp, arrival=arrival, cap=cap)
+                check(f"sgmv arrival {label}, slice {i} of {ARRIVAL_SLICES}",
+                      got, plain[:, lo:lo + s_loc].reshape(-1, o), dn, errs)
+                parts.append(got.reshape(BATCH, s_loc, o))
+            sliced = torch.stack(parts, 1).reshape(t, o)
+            torch.cuda.synchronize()
+            same = torch.equal(sliced, whole)
+            bitwise = bitwise and same
+            dropped = int((per_token >= 0).sum()) - int(
+                (ref._bucket_positions(per_token, SLOTS) < cap).sum())
+            check(f"sgmv arrival {label}, {ARRIVAL_SLICES} slices against "
+                  f"the whole prompt ({dropped} of {t} tokens dropped, "
+                  f"bitwise {same})", sliced, whole, dn, errs)
+            if "one adapter" in label and not (dropped == t - cap and bool(
+                    (whole[cap:] == 0).all()) and bool(whole[:cap].any())):
+                raise AssertionError("sgmv arrival: the whole prompt must "
+                                     "drop the tokens past its capacity")
+    errs["sgmv_arrival_bitwise"] = bitwise
 
 
 def check_sgmv_measure(inp, errs):
@@ -1773,7 +1861,43 @@ def phase_timing():
                               ids=ids)
     rows["sgmv"].update({"measure_ms": graph_ms(sgmv.sgmv, sets),
                          "measure_bound_ms": b_ms})
-    del sets
+    # whole-prompt arrival ranks at phase 3's shape (BATCH x PREFILL_S
+    # tokens, 4 adapters spread over the requests): the whole prompt with
+    # its own arrival ranks beside the same call without them, one of
+    # ARRIVAL_SLICES sequence slices with the whole prompt's, and the
+    # plain version of the whole
+    t = BATCH * PREFILL_S
+    req = (torch.arange(BATCH, device="cuda") % SLOTS).to(torch.int32)
+    ids = req.repeat_interleave(PREFILL_S)
+    own = ref._bucket_positions(ids, SLOTS).to(torch.int32)
+    sets, _, _ = lora_sets(t, Q_OUT, ids=ids)
+    s_loc = PREFILL_S // ARRIVAL_SLICES
+    part = sgmv.arrival_ranks(req, 0, BATCH, PREFILL_S, s_loc, s_loc)
+    cap = ref.sgmv_capacity(t, SLOTS)
+    p_ids = req.repeat_interleave(s_loc)
+    p_sets, _, _ = lora_sets(BATCH * s_loc, Q_OUT, ids=p_ids)
+
+    def arrival_bound(tokens):
+        """x, the 4 adapters' banks and y once, ids and arrival ranks (4
+        bytes each a token); nothing dropped (ids spread)."""
+        nbytes = (tokens * (D_MODEL + Q_OUT) + SLOTS * RANK * (
+            D_MODEL + Q_OUT)) * es + 8 * tokens
+        return bound(nbytes, 2 * tokens * RANK * (D_MODEL + Q_OUT),
+                     "bfloat16")
+    b_ms, b_by = arrival_bound(t)
+    p_ms, _ = arrival_bound(BATCH * s_loc)
+    rows["sgmv"].update({
+        "arrival_ms": graph_ms(
+            lambda x, a, b, i: sgmv.sgmv(x, a, b, i, arrival=own), sets),
+        "arrival_no_argument_ms": graph_ms(sgmv.sgmv, sets),
+        "arrival_plain_ms": graph_ms(
+            lambda x, a, b, i: ref.sgmv_ref(x, a, b, i), sets),
+        "arrival_bound_ms": b_ms, "arrival_bound_by": b_by,
+        "arrival_slice_ms": graph_ms(
+            lambda x, a, b, i: sgmv.sgmv(x, a, b, i, arrival=part, cap=cap),
+            p_sets),
+        "arrival_slice_bound_ms": p_ms})
+    del sets, p_sets
 
     lengths = torch.full((BATCH,), CACHE, dtype=torch.int32, device="cuda")
 
@@ -3217,7 +3341,7 @@ def planned_pair(cfg, plan):
 
 
 def decode_against_plan(ops, ref, model, lora, cache, planned, tokens, idx,
-                        label):
+                        label, prompt=SHARD_CACHE - SHARD_STEPS):
     """SHARD_STEPS decode steps of ``model`` (under a plan, on ``planned``)
     and then of ``ref`` (without, on ``cache``), after the prompt in
     ``tokens``: each planned step's logits finite and within 2e-4 (rel,
@@ -3228,7 +3352,6 @@ def decode_against_plan(ops, ref, model, lora, cache, planned, tokens, idx,
     spends in them and in ``attention.combine_shards``, ``host_spans``)
     and the planned path's launch counts."""
     from repro_torch.models.sharding import COLLECTIVES, reset_collectives
-    prompt = SHARD_CACHE - SHARD_STEPS
     walls = {"plan": [], "no_plan": []}
     got, spans = [], []
     ops.reset_launches()
@@ -3261,7 +3384,7 @@ def decode_against_plan(ops, ref, model, lora, cache, planned, tokens, idx,
         if rel >= 2e-4:
             raise AssertionError(f"{label}: step {i} under the plan departs "
                                  f"from the step without it: rel {rel:.3e}")
-    stats = {"steps": SHARD_STEPS, "positions": SHARD_CACHE,
+    stats = {"steps": SHARD_STEPS, "positions": prompt + SHARD_STEPS,
              "max_rel": max(rels), "bitwise": bitwise,
              "plan_first_step_ms": walls["plan"][0] * 1e3,
              "no_plan_first_step_ms": walls["no_plan"][0] * 1e3,
@@ -3378,6 +3501,107 @@ def phase_planned_archs(ops, card):
     wall = time.perf_counter() - t0
     say(f"  phase 10d took {wall:.1f} s (budget {PLANNED_BUDGET_S} s); "
         f"{card}")
+    return stats, launches
+
+
+def phase_planned_prefill(ops, card):
+    """Phase 10e: phi4-mini-3.8b at its published widths (32 layers, bf16,
+    weights from seed 0) prefills BATCH x PREFILL_S tokens (4 adapters on
+    the batch's rows) under ``make_plan(cfg, make_single_device_mesh(),
+    "prefill", global_batch=BATCH)`` on the NCCL world-size-1 group: each
+    weight gathered whole at its use, the ring and the last row over
+    groups of one, SGMV with whole-prompt arrival ranks.  ``pad_cache``
+    lays its cache out for the decode plan of the same mesh, from which a model under
+    that plan decodes SHARD_STEPS steps (``decode_against_plan``).  Held
+    against the model without a plan, bit for bit: the prefill's logits,
+    the padded cache and every step.  The two prefills run twice each
+    (planned first), the second walls printed; the launch counts and
+    collectives are those of the first planned prefill.  Returns the
+    numbers and the planned prefill's launch counts."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_cuda_group, make_single_device_mesh
+    from repro_torch.models import Model
+    from repro_torch.models.sharding import (COLLECTIVES, make_plan,
+                                             reset_collectives)
+    cfg = get_config("phi4-mini-3.8b")
+    t0 = time.perf_counter()
+    init_cuda_group()
+    try:
+        mesh = make_single_device_mesh()
+        ref = Model(cfg, device="cuda", seed=0)
+        pre = Model(cfg, device="cuda", seed=0, plan=make_plan(
+            cfg, mesh, "prefill", global_batch=BATCH))
+        dec = Model(cfg, device="cuda", seed=0, plan=make_plan(
+            cfg, mesh, "decode", global_batch=BATCH))
+        lora = ref.init_lora(SLOTS, RANK, seed=0)
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        tokens = torch.randint(0, cfg.vocab_size,
+                               (BATCH, PREFILL_S + SHARD_STEPS),
+                               generator=gen, device="cuda")
+        idx = (torch.arange(BATCH, device="cuda") % SLOTS).to(torch.int32)
+        prompt = tokens[:, :PREFILL_S]
+        walls = {"plan": [], "no_plan": []}
+        for i in range(2):
+            if i == 0:
+                ops.reset_launches()
+                reset_collectives()
+            t1 = time.perf_counter()
+            got, planned = pre.prefill(lora, prompt, idx)
+            torch.cuda.synchronize()
+            walls["plan"].append(time.perf_counter() - t1)
+            if i == 0:
+                launches = ops.launch_counts()
+                collectives = dict(COLLECTIVES)
+            t1 = time.perf_counter()
+            want, cache = ref.prefill(lora, prompt, idx)
+            torch.cuda.synchronize()
+            walls["no_plan"].append(time.perf_counter() - t1)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError("planned prefill: non-finite logits")
+        logits_bitwise = torch.equal(got, want)
+        planned = pre.pad_cache(planned, SHARD_STEPS)
+        cache = ref.pad_cache(cache, SHARD_STEPS)
+        cache_bitwise = all(torch.equal(a[n], b[n]) for a, b in zip(
+            planned["layers"], cache["layers"]) for n in b)
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        say(f"  planned prefill of {BATCH}x{PREFILL_S} tokens: logits "
+            f"bitwise {logits_bitwise} (max rel {rel:.3e}), padded cache "
+            f"bitwise {cache_bitwise}; eager wall {walls['plan'][1] * 1e3:.1f}"
+            f" ms under the plan, {walls['no_plan'][1] * 1e3:.1f} ms without "
+            f"(second calls, host clock, synchronised; the first "
+            f"{walls['plan'][0] * 1e3:.1f} and "
+            f"{walls['no_plan'][0] * 1e3:.1f}); collectives {collectives}; "
+            f"launches {launches}; {card}")
+        stats, dec_launches = decode_against_plan(
+            ops, ref, dec, lora, cache, planned, tokens, idx,
+            label=f"{cfg.name} after the planned prefill", prompt=PREFILL_S)
+        say_planned(f"{cfg.name} after the planned prefill", stats,
+                    dec_launches, card)
+        if not (logits_bitwise and cache_bitwise and stats["bitwise"]):
+            raise AssertionError(
+                f"planned prefill -> pad_cache -> decode at world size 1 is "
+                f"not the path without a plan bit for bit: logits "
+                f"{logits_bitwise}, cache {cache_bitwise}, decode "
+                f"{stats['bitwise']}")
+        require_launched("sharded decode after the planned prefill",
+                         dec_launches, PATH_KERNELS["sharded_decode"])
+        del ref, pre, dec, planned, cache
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    say(f"  phase 10e took {wall:.1f} s (budget {PREFILL_BUDGET_S} s); "
+        f"{card}")
+    stats.update({
+        "prompt": [BATCH, PREFILL_S], "logits_bitwise": logits_bitwise,
+        "cache_bitwise": cache_bitwise, "prefill_collectives": collectives,
+        "plan_prefill_ms": walls["plan"][1] * 1e3,
+        "no_plan_prefill_ms": walls["no_plan"][1] * 1e3,
+        "plan_first_prefill_ms": walls["plan"][0] * 1e3,
+        "no_plan_first_prefill_ms": walls["no_plan"][0] * 1e3,
+        "seconds": wall})
     return stats, launches
 
 
@@ -3588,6 +3812,12 @@ def main() -> int:
         "world-size-1 plan")
     planned_stats, planned_launches = phase_planned_archs(ops, card)
     say("  planned " + json.dumps(planned_stats))
+    say("phase 10e: the sharded prefill (phi4-mini-3.8b under the "
+        "world-size-1 prefill plan -> pad_cache -> the decode plan)")
+    prefill_stats, prefill_launches = phase_planned_prefill(ops, card)
+    require_launched("sharded prefill", prefill_launches,
+                     PATH_KERNELS["sharded_prefill"])
+    say("  prefill " + json.dumps(prefill_stats))
     say(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
 
     paths = {"teacher_forcing": tf_launches, "serving": serve_launches,
@@ -3605,9 +3835,11 @@ def main() -> int:
              "training_loop": ckpt_launches,
              "sharded_decode": shard_launches,
              **{"sharded_decode_" + a: c
-                for a, c in planned_launches.items()}}
+                for a, c in planned_launches.items()},
+             "sharded_prefill": prefill_launches}
     rows["flash_decode_lora"]["grid_max_abs_err"] = \
         errs["flash_decode_lora_grid"]
+    rows["sgmv"]["arrival_slices_bitwise"] = errs["sgmv_arrival_bitwise"]
     rows["flash_decode_int8"].update(
         f32q_max_abs_err=errs["f32q_int8"],
         f32q_vs_f32_dot_max_abs_err=errs["f32q_int8_vs_f32_dot"])

@@ -44,13 +44,22 @@ def add_launches(counts: dict, times: int = 1) -> None:
         KERNELS[name].launches += n * times
 
 
-def lora_apply(x, a, b, idx, scale: float = 1.0, ranks=None):
+def lora_apply(x, a, b, idx, scale: float = 1.0, ranks=None, arrival=None,
+               tokens=None):
     """Multi-adapter LoRA delta: y[t] = scale * x[t] @ A[idx[t]] @ B[idx[t]].
 
     x: (..., d); idx: per-token adapter ids broadcastable to x's leading
     dims, or per-REQUEST ids of shape (B,) for x of shape (B, S, d).
     a: (N, d, r); b: (N, r, o).  Returns (..., o).  ids < 0 -> zero delta;
     ``ranks`` (N,) enables ragged per-adapter ranks.
+
+    ``tokens`` and ``arrival``, where given: x is one rank's piece of a
+    prompt of ``tokens`` tokens cut over ranks, and ``arrival`` (x's
+    tokens, flattened) their arrival ranks in it (``sgmv.arrival_ranks``).
+    The kernel is then picked by the whole prompt's size and SGMV keeps its
+    capacity rule (``sgmv_capacity(tokens, N)``), so that the pieces
+    compute what the whole prompt computes.  The CPU's per-request path
+    has no capacity (as the JAX package's plain path) and reads neither.
     """
     idx = torch.as_tensor(idx, device=x.device)
     lead = x.shape[:-1]
@@ -77,15 +86,18 @@ def lora_apply(x, a, b, idx, scale: float = 1.0, ranks=None):
     if ranks is not None:
         ranks = torch.as_tensor(ranks, dtype=torch.int32,
                                 device=x.device).contiguous()
-    if xt.shape[0] <= 4 * a.shape[0]:
+    t = xt.shape[0] if tokens is None else tokens
+    if t <= 4 * a.shape[0]:
         # decode-sized -> BGMV; ragged banks are pre-masked (ops.py:77-84)
         if ranks is not None:
             a, b = ref.mask_ragged(a, b, ranks)
         out = bgmv_mod.bgmv(xt, a.contiguous(), b.contiguous(), it, scale)
     else:
         # prefill-sized -> SGMV, which masks ragged lanes itself
-        out = sgmv_mod.sgmv(xt, a.contiguous(), b.contiguous(), it, scale,
-                            ranks=ranks)
+        out = sgmv_mod.sgmv(
+            xt, a.contiguous(), b.contiguous(), it, scale, ranks=ranks,
+            arrival=arrival,
+            cap=None if tokens is None else ref.sgmv_capacity(t, a.shape[0]))
     return out.reshape(*lead, -1)
 
 

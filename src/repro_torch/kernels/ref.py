@@ -95,21 +95,21 @@ def sgmv_capacity(t: int, n: int) -> int:
     return -(-cap // 128) * 128
 
 
-def sgmv_ref(x, a, b, idx, scale: float = 1.0, ranks=None):
+def sgmv_ref(x, a, b, idx, scale: float = 1.0, ranks=None, cap=None):
     """Plain version of the SGMV kernel.
 
     y[t] = scale * x[t] @ A[idx[t]] @ B[idx[t]] with h kept in f32 between
     the two products, as the kernel keeps it.  A token with idx < 0, or
     whose rank among its adapter's tokens (arrival order) is >= the
-    capacity ``sgmv_capacity(T, N)``, gets exactly 0.  ``ranks`` (N,) masks
-    lanes >= ranks[i] of A's columns and B's rows.
+    capacity ``cap`` (default ``sgmv_capacity(T, N)``), gets exactly 0.
+    ``ranks`` (N,) masks lanes >= ranks[i] of A's columns and B's rows.
     """
     n = a.shape[0]
     idx = torch.as_tensor(idx, device=x.device)
     if ranks is not None:
         a, b = mask_ragged(a, b, ranks)
-    keep = _bucket_positions(idx, n) < sgmv_capacity(x.shape[0], n)
-    return lora_f32(x, a, b, idx, scale, keep)
+    cap = sgmv_capacity(x.shape[0], n) if cap is None else cap
+    return lora_f32(x, a, b, idx, scale, _bucket_positions(idx, n) < cap)
 
 
 def lora_f32(x, a, b, idx, scale: float = 1.0, keep=None):

@@ -6,7 +6,11 @@ The port of ``repro.kernels.sgmv.sgmv`` and both of its Pallas kernels
 the tokens by adapter (whose plain version is ``segments_plain``) and the
 segmented product; on a CPU tensor it runs the plain version,
 ``ref.sgmv_ref``.  Both keep the TPU kernel's capacity rule
-(``ref.sgmv_capacity``): a token past its adapter's capacity gets 0.
+(``ref.sgmv_capacity``): a token past its adapter's capacity gets 0.  A
+prompt cut over sequence ranks keeps the whole prompt's rule: each rank
+passes its tokens' whole-prompt arrival ranks (``arrival_ranks``) and the
+whole prompt's capacity; a token at or past it takes id -1, which the
+kernel already maps to 0, so the same kernel runs.
 """
 from __future__ import annotations
 
@@ -49,16 +53,49 @@ def segments(idx, n: int):
     return perm, seg
 
 
-def sgmv(x, a, b, idx, scale: float = 1.0, ranks=None):
+def arrival_ranks(ids, first: int, rows: int, seq: int, lo: int,
+                  s_loc: int):
+    """Whole-prompt arrival ranks of one rank's piece of a prompt of
+    per-request adapter ids ``ids`` (B,) over ``seq`` positions, flattened
+    row-major as ``ops.lora_apply`` flattens the piece: rows [first, first
+    + rows) of the batch, positions [lo, lo + s_loc).  Token (b, s) of the
+    whole prompt is token b * seq + s, so its rank among its adapter's
+    tokens is seq * #{b' < b : ids[b'] == ids[b]} + s.  Plain tensor
+    operations on ids' device, no host sync.  Returns (rows * s_loc,)
+    int32."""
+    dev = ids.device
+    mine = first + torch.arange(rows, device=dev)
+    earlier = (torch.arange(ids.shape[0], device=dev)[None, :]
+               < mine[:, None]) & (ids[None, :] == ids[mine][:, None])
+    out = seq * earlier.sum(1)[:, None] + lo + \
+        torch.arange(s_loc, device=dev)[None, :]
+    return out.reshape(-1).to(torch.int32)
+
+
+def sgmv(x, a, b, idx, scale: float = 1.0, ranks=None, arrival=None,
+         cap=None):
     """x: (T, d); a: (N, d, r); b: (N, r, o); idx: (T,) int32 -> (T, o).
 
     Tokens with idx < 0 get a zero delta.  ``ranks`` (N,) int32 makes the
-    bank ragged: adapter i uses only its first ranks[i] lanes.
+    bank ragged: adapter i uses only its first ranks[i] lanes.  ``cap`` is
+    the capacity (``sgmv_capacity`` of x's token count by default).
+    ``arrival`` (T,) int, where given, holds each token's arrival rank in
+    a whole prompt of which x is a piece (``arrival_ranks``), and ``cap``
+    that prompt's capacity: a token whose arrival rank is at or past it
+    takes id -1.  A kept token's rank in x is at most its arrival rank, so
+    the capacity rule on x then drops nothing more.
     """
+    t = x.shape[0]
+    cap = sgmv_capacity(t, a.shape[0]) if cap is None else cap
+    if arrival is not None:
+        if arrival.shape != idx.shape:
+            raise ValueError(f"sgmv: arrival {tuple(arrival.shape)} must "
+                             f"match idx {tuple(idx.shape)}")
+        idx = torch.where(arrival < cap, idx, -1)
     if x.device.type == "cpu":
-        return sgmv_ref(x, a, b, idx, scale, ranks=ranks)
+        return sgmv_ref(x, a, b, idx, scale, ranks=ranks, cap=cap)
     check_lora_args("sgmv", x, a, b, idx, ranks)
-    t, d = x.shape
+    d = x.shape[1]
     n, _, r = a.shape
     o = b.shape[-1]
     perm = torch.empty_like(idx)  # the sort's scratch
@@ -68,7 +105,7 @@ def sgmv(x, a, b, idx, scale: float = 1.0, ranks=None):
         x.data_ptr(), a.data_ptr(), b.data_ptr(), idx.data_ptr(),
         perm.data_ptr(), seg.data_ptr(),
         0 if ranks is None else ranks.data_ptr(), y.data_ptr(), t, d, r, o, n,
-        sgmv_capacity(t, n), float(scale), build.dtype_code(x.dtype),
+        cap, float(scale), build.dtype_code(x.dtype),
         build.dtype_code(a.dtype), build.stream_handle(x.device))
     sgmv.launches += 1
     return y

@@ -16,9 +16,13 @@ scales as they are.  Under a decode plan a global layer's cache is
 sequence-sharded (``decode_attention_sharded``): each rank writes the new
 row only if it owns ``pos``, runs flash-decode over its slice and gets back
 the log-sum-exp with the output, and the ranks combine by it
-(``combine_shards``).  Sequence-sharded prefill attention
-(``ring_attention``, ``local_attention`` at more than one shard) is
-ROADMAP.md queue 1 item 11d, and sharded training item 11c.
+(``combine_shards``).  Under a prefill plan the sequence is cut over the
+plan's sequence axis and the prefill attention is the JAX package's
+per-rank bodies (attention.py:146-219): ``ring_attention`` passes each
+rank's K/V around the ring (``sharding.shift``) and merges the partial
+states in the JAX order, ``local_attention`` gathers only the previous
+chunks its window reaches.  Sharded training is ROADMAP.md queue 1 item
+11c.
 """
 from __future__ import annotations
 
@@ -102,23 +106,80 @@ def _finalize(m, lse, acc, dtype):
     return out.reshape(b, s, kv * g, d).to(dtype)
 
 
-def ring_attention(q, k, v, *, scale: float, q_chunk: int = 256):
-    """Causal self-attention at one sequence shard.
+def _merge_state(state_a, state_b):
+    """Two online-softmax partial states (m, lse, acc) as one (the JAX
+    package's ``_merge_state``, attention.py:128-134, op for op)."""
+    m_a, l_a, a_a = state_a
+    m_b, l_b, a_b = state_b
+    m = torch.maximum(m_a, m_b)
+    ca, cb = (m_a - m).exp(), (m_b - m).exp()
+    return m, l_a * ca + l_b * cb, a_a * ca[..., None] + a_b * cb[..., None]
 
-    q: (B, S, H, D); k/v: (B, S, KV, D) -> (B, S, H, D) in q's dtype.
+
+def ring_attention(q, k, v, *, scale: float, q_chunk: int = 256,
+                   group=None, index: int = 0, n_shards: int = 1):
+    """Causal self-attention of a sequence cut into ``n_shards`` slices
+    (the JAX package's per-rank body, attention.py:146-188).
+
+    q: (B, S_loc, H, D); k/v: (B, S_loc, KV, D), this rank's slice
+    (``index`` on ``group``, positions [index * S_loc, (index + 1) *
+    S_loc)) -> (B, S_loc, H, D) in q's dtype.  At step j the rank holds the
+    K/V of rank (index - j) mod n, attends them and passes them on
+    (``sharding.shift``, K and V in one message); the partial states are
+    merged in the order j = 0 .. n - 1 from an empty state, as the JAX
+    loop merges them, and finalized once.  At one shard: causal attention
+    over the slice, no collective.
     """
-    return local_attention(q, k, v, scale=scale, window=0, q_chunk=q_chunk)
+    if n_shards == 1:
+        return local_attention(q, k, v, scale=scale, window=0,
+                               q_chunk=q_chunk)
+    from .sharding import shift
+    b, sq, h, _ = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    q_pos = index * sq + torch.arange(sq, device=q.device)
+    state = (q.new_full((b, sq, kvh, h // kvh), NEG_INF, dtype=torch.float32),
+             q.new_zeros((b, sq, kvh, h // kvh), dtype=torch.float32),
+             q.new_zeros((b, sq, kvh, h // kvh, q.shape[-1]),
+                         dtype=torch.float32))
+    kv = torch.stack([k, v])
+    for j in range(n_shards):
+        src = (index - j) % n_shards
+        kv_pos = src * skv + torch.arange(skv, device=q.device)
+        state = _merge_state(state, _attend_chunked(
+            q, kv[0], kv[1], q_pos, kv_pos, scale, 0, q_chunk))
+        if j != n_shards - 1:
+            kv = shift(kv, group)
+    return _finalize(*state, q.dtype)
 
 
 def local_attention(q, k, v, *, scale: float, window: int,
-                    q_chunk: int = 256):
-    """Sliding-window causal self-attention at one sequence shard (the JAX
-    package's ``local_attention`` at ``n_shards == 1``, which gathers no
-    neighbour chunk); shapes as ``ring_attention``; window 0: no window."""
-    q_pos = torch.arange(q.shape[1], device=q.device)
-    kv_pos = torch.arange(k.shape[1], device=q.device)
-    m, lse, acc = _attend_chunked(q, k, v, q_pos, kv_pos, scale, window,
-                                  q_chunk)
+                    q_chunk: int = 256, group=None, index: int = 0,
+                    n_shards: int = 1):
+    """Sliding-window causal self-attention of a sequence cut into
+    ``n_shards`` slices (the JAX package's per-rank body,
+    attention.py:195-219); shapes as ``ring_attention``; window 0: no
+    window.  The rank gathers the min(ceil(window / S_loc), n - 1) slices
+    before its own from its ring predecessors (``sharding.shift``, K and V
+    in one message); the first ranks' wrapped-around slices sit at
+    negative positions, which are masked.  At one shard: no neighbour
+    slice, no collective."""
+    if n_shards == 1:
+        q_pos = torch.arange(q.shape[1], device=q.device)
+        kv_pos = torch.arange(k.shape[1], device=q.device)
+        m, lse, acc = _attend_chunked(q, k, v, q_pos, kv_pos, scale, window,
+                                      q_chunk)
+        return _finalize(m, lse, acc, q.dtype)
+    from .sharding import shift
+    skv = k.shape[1]
+    parts = [torch.stack([k, v])]
+    for _ in range(min(-(-window // skv), n_shards - 1)):
+        parts.insert(0, shift(parts[0], group))
+    kv = torch.cat(parts, dim=2)
+    q_pos = index * q.shape[1] + torch.arange(q.shape[1], device=q.device)
+    start = (index - len(parts) + 1) * skv
+    kv_pos = start + torch.arange(kv.shape[2], device=q.device)
+    m, lse, acc = _attend_chunked(q, kv[0], kv[1], q_pos, kv_pos, scale,
+                                  window, q_chunk)
     return _finalize(m, lse, acc, q.dtype)
 
 

@@ -18,8 +18,8 @@ routes every token, dispatches the pairs of its own experts and leaves
 the others to their ranks, and the ranks' outputs are summed.  With
 ``gather`` the tokens are the rank's sequence piece, all-gathered first
 (capacity then counts the global tokens) and the sum reduce-scattered
-back (prefill and training, ROADMAP.md items 11d and 11c); without it
-they are replicated and the sum is one all-reduce (decode).  Experts
+back (the prefill under a prefill plan; training, ROADMAP.md item 11c);
+without it they are replicated and the sum is one all-reduce (decode).  Experts
 that do not divide over the axis stay whole on every rank (``_fits``):
 then rank 0 owns every pair and the others none, as in the JAX package.
 

@@ -23,8 +23,9 @@ What differs from the JAX package:
   port's (B, ...) leaves one lower;
 * ``constrain`` and ``shardings`` have no counterpart: the port places
   tensors itself (``shard_tensor``, the port's ``device_put``) and its
-  decode runs explicit collectives (``all_reduce``, ``all_gather``,
-  ``reduce_scatter``) over the mesh's process groups
+  decode and prefill run explicit collectives (``all_reduce``,
+  ``all_gather``, ``reduce_scatter``, ``shift``, the port's ``ppermute``,
+  and ``gather_whole``) over the mesh's process groups
   (``ShardingPlan.group``); where pjit lays out a mixer from its leaves'
   specs, the port moves activations between a rank's piece and the whole
   itself (``WidthShards``).
@@ -37,9 +38,12 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-#: collectives issued by ``all_reduce``, ``all_gather`` and
-#: ``reduce_scatter``; ``reset_collectives`` zeroes them
-COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
+#: collectives issued by ``all_reduce``, ``all_gather``,
+#: ``reduce_scatter``, ``shift`` and ``gather_whole`` (a weight gathered
+#: whole, counted apart from the activations' gathers);
+#: ``reset_collectives`` zeroes them
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
+               "shift": 0, "weight_gather": 0}
 
 
 def reset_collectives() -> None:
@@ -274,19 +278,22 @@ class ShardingPlan:
 
 
 class RankGroups:
-    """What one rank's sharded decode needs of its plan's mesh: the process
-    groups over the width axis, over the expert-parallel axis (the width
-    axis, or the sequence axis without one: ``_ffn``, transformer.py:367),
-    over the cache axes and over the batch axes, and the rank's index
-    along each.  Built on every rank in the same order (the cache axes'
-    group of a ``(data, model)`` plan is a flattened mesh, a new group)."""
+    """What one rank's sharded prefill and decode need of its plan's mesh:
+    the process groups over the width axis, over the expert-parallel axis
+    (the width axis, or the sequence axis without one: ``_ffn``,
+    transformer.py:367), over the cache axes, over the sequence axis and
+    over the batch axes, and the rank's index along each.  Built on every
+    rank in the same order (the cache axes' group of a ``(data, model)``
+    plan is a flattened mesh, a new group)."""
 
     def __init__(self, plan: ShardingPlan):
         self.plan = plan
         self.width, self.width_index = self._on(plan.width_axis)
         self.ep, self.ep_index = self._on(plan.width_axis or plan.seq_axis)
         self.cache, self.cache_index = self._on(plan.cache_seq_axes)
-        self.batch, _ = self._on(plan.batch_axes)
+        self.seq, self.seq_index = self._on(plan.seq_axis)
+        self.n_seq = plan.n_seq
+        self.batch, self.batch_index = self._on(plan.batch_axes)
         self.n_batch = plan.axis_size(*plan.batch_axes)
 
     def _on(self, entry):
@@ -406,6 +413,48 @@ def all_gather(t: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=dim)
+
+
+def shift(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` sent to the next rank of ``group`` (index i to (i + 1) % n)
+    and the previous rank's received, ``jax.lax.ppermute`` over the ring
+    ``[(i, (i + 1) % n)]``: one send and one receive batched
+    (``batch_isend_irecv``, which gloo and NCCL both take); counted.  A
+    group of one returns ``t``."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    if n == 1:
+        return t
+    COLLECTIVES["shift"] += 1
+    i = dist.get_group_rank(group, dist.get_rank())
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    ops = [dist.P2POp(dist.isend, t, dist.get_global_rank(group, (i + 1) % n),
+                      group),
+           dist.P2POp(dist.irecv, out,
+                      dist.get_global_rank(group, (i - 1) % n), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+def gather_whole(t: torch.Tensor, spec, plan: ShardingPlan) -> torch.Tensor:
+    """The whole tensor of which ``t`` is this rank's piece under ``spec``
+    (``shard_tensor``'s inverse): each cut dimension all-gathered over its
+    entry's group, in rank order; ``t`` itself where nothing is cut.
+    Counted as ``weight_gather``, one a cut dimension."""
+    import torch.distributed as dist
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        group = plan.group(entry)
+        COLLECTIVES["weight_gather"] += 1
+        t = t.contiguous()
+        parts = [torch.empty_like(t)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, t, group=group)
+        t = torch.cat(parts, dim=dim)
+    return t
 
 
 # --------------------------------------------------------------------------- #

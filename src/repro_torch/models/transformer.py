@@ -47,11 +47,32 @@ sequence-sharded over the plan's cache axes and decodes through
 replicated over ``model`` and decodes as without a plan.  Each piece
 follows its spec: a width that does not divide stays whole.  The caller
 gives ``decode_step`` the rank's rows of the batch and of the adapter ids
-(``sharding.shard_tensor``) and the rank's cache (``sharding.shard_cache`` of a
-prefill cache of the model without a plan: prefill stays unsharded), and
-gets the rank's rows of the logits over the whole vocab.  Prefill and
-training under a plan raise ``NotImplementedError`` (ROADMAP.md queue 1
-items 11d, sequence-sharded prefill, and 11c, sharded training).
+(``sharding.shard_tensor``) and the rank's cache (``pad_cache`` of the
+prefill under the prefill plan, or ``sharding.shard_cache`` of a whole
+cache), and gets the rank's rows of the logits over the whole vocab.
+
+Under a prefill plan (``make_plan(cfg, mesh, "prefill", global_batch=B)``)
+the caller gives ``prefill`` the rank's rows of the batch, the whole
+prompt, and ``prefill`` cuts the sequence over the plan's sequence axis
+(``model``) for the attention families: each rank runs its slice of the
+positions, RoPE at their global positions, global layers through
+``attention.ring_attention`` and local layers through
+``attention.local_attention`` over the sequence group, the MoE FFN with
+its tokens gathered over the expert group (``gather``).  The one axis cuts
+both the sequence and the weights' width there, so a rank's weight piece
+cannot meet another rank's tokens: each weight cut over the axis is
+gathered whole at its use (``sharding.gather_whole``; the JAX package's
+layout, sharding.py:5-8), and the per-token arithmetic is that of the
+model without a plan.  The SSM and hybrid families keep the whole
+sequence (no sequence axis) and run width-tensor-parallel as in decode.
+SGMV keeps the whole prompt's capacity rule: each rank passes its tokens'
+whole-prompt arrival ranks (``sgmv.arrival_ranks``, the adapter ids
+gathered over the batch axes).  The prefill returns the last position's
+logits on every rank and the rank's cache in the prefill plan's layout;
+``pad_cache`` turns it into the rank's piece of the padded cache in the
+decode plan's layout.  Training under a plan raises
+``NotImplementedError`` (ROADMAP.md queue 1 item 11c), and so does a
+prefill plan with ``attn_batch_shard`` (item 11e).
 
 The port keeps these JAX behaviours for parity: one scalar ``pos`` for the
 whole batch (a 0-d int32 tensor on the model's device, as the JAX
@@ -75,7 +96,7 @@ from ..kernels import ops
 from . import attention, layers, moe, rglru, ssm
 from .config import ModelConfig
 from .sharding import (RankGroups, WidthShards, all_gather, all_reduce,
-                       local_shape, shard_tensor)
+                       gather_whole, local_shape, make_plan, shard_tensor)
 
 #: the block kinds with attention (and a KV cache and LoRA on q and v)
 ATTENTION_KINDS = ("global", "local")
@@ -127,6 +148,21 @@ class _Planned(nn.Module):
         """Whether parameter ``name`` is cut over the plan's mesh."""
         return any(e is not None for e in self.specs.get(name, ()))
 
+    @property
+    def seq_cut(self) -> bool:
+        """Whether the plan cuts the activations' sequence (a prefill plan
+        of an attention family), and so each weight is gathered whole at
+        its use (``_whole``)."""
+        return self.tp is not None and bool(self.tp.plan.seq_axis)
+
+    def _whole(self, name: str):
+        """Parameter ``name`` whole: the rank's piece gathered over the
+        mesh (``gather_whole``), or the parameter where it is not cut."""
+        w = self.get_parameter(name)
+        if not self._sharded(name):
+            return w
+        return gather_whole(w, self.specs[name], self.tp.plan)
+
     def _down(self, x, name: str, local: bool):
         """x @ parameter ``name`` (wo, mlp.w_down) under a plan: a
         row-sharded weight takes the rank's columns of x (``local``: x
@@ -144,9 +180,13 @@ class _Planned(nn.Module):
         return all_reduce(out, "sum", self.tp.width) if sharded else out
 
     def _mlp(self, h):
-        """The dense MLP, its products cut by their specs under a plan."""
+        """The dense MLP, its products cut by their specs under a plan (its
+        weights gathered whole under a sequence cut)."""
         if self.tp is None:
             return layers.apply_mlp(self.cfg.mlp, self.mlp, h)
+        if self.seq_cut:
+            return layers.apply_mlp(self.cfg.mlp, {
+                k: self._whole(f"mlp.{k}") for k in self.mlp}, h)
         return self._down(layers.mlp_hidden(self.cfg.mlp, self.mlp, h),
                           "mlp.w_down", local=self._sharded("mlp.w_up"))
 
@@ -245,37 +285,65 @@ class Block(_Planned):
             return attention.CacheSlot.at(pos, rows)
         return attention.CacheSlot.rolling(pos, rows)
 
-    def pad_cache(self, cache, extra: int):
+    def pad_cache(self, cache, extra: int, decode=None):
         """This layer's prefill cache with room for ``extra`` more
         positions (``Model.pad_cache``): a global layer's tensors get
-        ``extra`` rows of zeros, a rolling buffer grows up to the window."""
+        ``extra`` rows of zeros, a rolling buffer grows up to the window.
+        Under a prefill plan (``decode``: the decode plan whose layout the
+        result takes) a global layer's slices are gathered whole over the
+        prefill plan's cache axes, padded, and cut to the rank's slice
+        under the decode plan's cache axes; the replicated rolling buffer
+        is padded as without a plan."""
+        if decode is not None and self.kind == "global":
+            n = decode.n_cache
+            index = decode.coordinate(decode.cache_seq_axes)
+            out = {}
+            for name in self.cache_keys:
+                t = all_gather(cache[name], self.tp.cache, dim=1)
+                rows = t.shape[1] + extra
+                if rows % n:
+                    raise ValueError(
+                        f"{rows} cache rows do not divide over the decode "
+                        f"plan's {decode.cache_seq_axes} ({n})")
+                t = torch.cat([t, t.new_zeros((t.shape[0], extra)
+                                              + t.shape[2:])], dim=1)
+                out[name] = t[:, index * (rows // n):
+                              (index + 1) * (rows // n)].contiguous()
+            return out
         rows = self.cache_kv(cache)[0].shape[1]
         grow = self.cache_rows(rows + extra) - rows
         return {name: torch.cat([cache[name], cache[name].new_zeros(
             (cache[name].shape[0], grow) + cache[name].shape[2:])], dim=1)
             for name in self.cache_keys}
 
-    def _attn_proj(self, lora_p, h, name, adapter_idx):
-        out = h @ getattr(self, f"w{name}")
-        if self._sharded(f"w{name}"):   # the rank's heads -> all of them
-            out = all_gather(out, self.tp.width)
+    def _attn_proj(self, lora_p, h, name, adapter_idx, cut=None):
+        """h's q, k or v (``name``), with its LoRA delta; ``cut`` ({"arrival",
+        "tokens"} or None): h is a piece of a prompt cut over ranks
+        (``ops.lora_apply``)."""
+        if self.seq_cut:
+            out = h @ self._whole(f"w{name}")
+        else:
+            out = h @ getattr(self, f"w{name}")
+            if self._sharded(f"w{name}"):   # the rank's heads -> all of them
+                out = all_gather(out, self.tp.width)
         if self.cfg.qkv_bias:
             out = out + getattr(self, f"b{name}")
         if lora_p is not None and f"a_{name}" in lora_p and \
                 adapter_idx is not None:
             delta = ops.lora_apply(h, lora_p[f"a_{name}"],
-                                   lora_p[f"b_{name}"], adapter_idx)
+                                   lora_p[f"b_{name}"], adapter_idx,
+                                   **(cut or {}))
             out = out + delta.to(out.dtype)
         return out
 
-    def _qkv(self, x, lora_p, adapter_idx, positions):
+    def _qkv(self, x, lora_p, adapter_idx, positions, cut=None):
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.resolved_head_dim
         h = layers.apply_norm(cfg.norm, self.norm1, x)
-        q = self._attn_proj(lora_p, h, "q", adapter_idx)
-        k = self._attn_proj(lora_p, h, "k", adapter_idx)
-        v = self._attn_proj(lora_p, h, "v", adapter_idx)
+        q = self._attn_proj(lora_p, h, "q", adapter_idx, cut)
+        k = self._attn_proj(lora_p, h, "k", adapter_idx, cut)
+        v = self._attn_proj(lora_p, h, "v", adapter_idx, cut)
         q = q.reshape(b, s, cfg.n_heads, hd)
         k = k.reshape(b, s, cfg.n_kv_heads, hd)
         if cfg.pos_emb == "rope":
@@ -312,7 +380,9 @@ class Block(_Planned):
         """(x after the output projection and the FFN, the FFN's aux
         loss; ``aux`` False: the decode's, which drops it)."""
         b, s = x.shape[:2]
-        if self.tp is not None:
+        if self.seq_cut:
+            x = x + attn_out.reshape(b, s, -1) @ self._whole("wo")
+        elif self.tp is not None:
             x = x + self._down(attn_out.reshape(b, s, -1), "wo", local=False)
         else:
             x = x + attn_out.reshape(b, s, -1) @ self.wo
@@ -322,12 +392,17 @@ class Block(_Planned):
 
     def _attend(self, q, k, v):
         """Causal self-attention over the whole sequence: a global layer's,
-        or a local layer's within its window."""
+        or a local layer's within its window; under a sequence cut over
+        the plan's sequence group (the rank's slice of the queries)."""
         scale = 1.0 / math.sqrt(self.cfg.resolved_head_dim)
+        ring = {}
+        if self.seq_cut:
+            ring = {"group": self.tp.seq, "index": self.tp.seq_index,
+                    "n_shards": self.tp.n_seq}
         if self.kind == "global":
-            return attention.ring_attention(q, k, v, scale=scale)
+            return attention.ring_attention(q, k, v, scale=scale, **ring)
         return attention.local_attention(q, k, v, scale=scale,
-                                         window=self.cfg.local_window)
+                                         window=self.cfg.local_window, **ring)
 
     def train_forward(self, x, positions):
         """x: (B, S, d) -> (x, the MoE aux loss): the layer with no cache, as
@@ -336,28 +411,54 @@ class Block(_Planned):
         q, k, v = self._qkv(x, None, None, positions)
         return self._residual(x, self._attend(q, k, v))
 
-    def prefill(self, x, lora_p, adapter_idx, positions):
+    def prefill(self, x, lora_p, adapter_idx, positions, cut=None):
         """x: (B, S, d) -> (x, cache): a global layer's {"k", "v"} of
         (B, S, KV, D) (with ``kv_quant`` int8, beside their (B, S, KV) f16
         "k_scale", "v_scale": quantized over D per (token, head), after the
         attention, which reads the unquantized K/V), a local layer's
         rolling {"k_loc", "v_loc"} of (B, min(window, S), KV, D)
-        (``_prefill_cache``, transformer.py:297-315)."""
-        q, k, v = self._qkv(x, lora_p, adapter_idx, positions)
-        x, _ = self._residual(x, self._attend(q, k, v))
+        (``_prefill_cache``, transformer.py:297-315).  ``cut``: see
+        ``_attn_proj``.
+
+        Under a plan the cache is the rank's piece in the plan's layout
+        (``cache_specs``): a global layer's rows are the rank's slice of the
+        sequence (its own under a sequence cut); a local layer's rolling
+        buffer is replicated, so under a sequence cut every rank gathers
+        the sequence's last rows from the ranks that hold them."""
+        q, k, v = self._qkv(x, lora_p, adapter_idx, positions, cut)
+        x, _ = self._residual(x, self._attend(q, k, v), aux=False)
+        n = self.tp.n_seq if self.seq_cut else 1
         if self.kind == "global":
+            if self.tp is not None and not self.seq_cut:
+                k, v = self._cache_slice(k), self._cache_slice(v)
             if self.kv_quant:
                 (k, ks), (v, vs) = (attention.quantize_kv(k),
                                     attention.quantize_kv(v))
                 return x, dict(zip(self.cache_keys, (k, v, ks, vs)))
             return x, dict(zip(self.cache_keys, (k, v)))
-        s = k.shape[1]
+        s = k.shape[1] * n
         w = self.cache_rows(s)
         shift = (s - w) % w   # position p lands in row p % w
+        if n > 1:   # each rank's last min(w, S_loc) rows, in rank order
+            m = min(w, k.shape[1])
+            kv = all_gather(torch.stack([k[:, -m:], v[:, -m:]]), self.tp.seq,
+                            dim=2)
+            k, v = kv[0], kv[1]
 
         def to_rolling(t):
-            return torch.roll(t[:, s - w:], shifts=shift, dims=1)
+            return torch.roll(t[:, t.shape[1] - w:], shifts=shift, dims=1)
         return x, dict(zip(self.cache_keys, (to_rolling(k), to_rolling(v))))
+
+    def _cache_slice(self, t):
+        """The rank's rows of a whole (B, S, ...) global-layer tensor under
+        the plan's cache axes."""
+        n = self.tp.plan.n_cache
+        if t.shape[1] % n:
+            raise ValueError(f"{t.shape[1]} cache rows do not divide over "
+                             f"{self.tp.plan.cache_seq_axes} ({n})")
+        rows = t.shape[1] // n
+        return t[:, self.tp.cache_index * rows:
+                 (self.tp.cache_index + 1) * rows].contiguous()
 
     def decode(self, x, lora_p, adapter_idx, cache, slot):
         """x: (B, 1, d); slot: the step's ``attention.CacheSlot`` for this
@@ -415,14 +516,17 @@ class _StateBlock(_Planned):
     def slot_key(self, cache):
         return None   # no CacheSlot: the states have no positions
 
-    def pad_cache(self, cache, extra: int):
+    def pad_cache(self, cache, extra: int, decode=None):
         """The states, copied: they do not grow (JAX's ``pad_cache``
-        passes them through, transformer.py:606-623)."""
+        passes them through, transformer.py:606-623), and a prefill plan
+        and a decode plan cut them alike."""
         return {name: cache[name].clone() for name in self.cache_keys}
 
-    def prefill(self, x, lora_p, adapter_idx, positions):
+    def prefill(self, x, lora_p, adapter_idx, positions, cut=None):
         """x: (B, S, d) -> (x, the states after the prompt); ``lora_p``,
-        ``adapter_idx`` and ``positions`` unused."""
+        ``adapter_idx``, ``positions`` and ``cut`` unused.  Under a plan
+        the whole sequence, the mixer width-tensor-parallel as in
+        decode."""
         x, states = self._forward(x)
         return x, dict(zip(self.cache_keys, states))
 
@@ -556,13 +660,13 @@ class Model(nn.Module):
     of ``ShardingPlan.expert_quant`` (sharding.py:38); ``kv_quant`` keeps
     the global layers' KV caches in int8 with f16 scales, the counterpart
     of ``ShardingPlan.kv_quant`` (sharding.py:37); a ``plan`` sets either
-    too.  A ``plan`` with a mesh (a decode plan, ``sharding.make_plan``)
-    makes this the model of one rank: each weight drawn whole from the
-    same generator as without a plan and cut at once to the rank's piece
-    (``param_specs``), its decode tensor-parallel (see the module's
-    docstring); every rank of the mesh builds its ``Model``
-    together (the plan's groups are made then).  ``plan=None``, or a plan
-    without a mesh, is the one-device model.
+    too.  A ``plan`` with a mesh (a prefill or decode plan,
+    ``sharding.make_plan``) makes this the model of one rank: each weight
+    drawn whole from the same generator as without a plan and cut at once
+    to the rank's piece (``param_specs``), its prefill or decode sharded
+    (see the module's docstring); every rank of the mesh builds its
+    ``Model`` together (the plan's groups are made then).  ``plan=None``,
+    or a plan without a mesh, is the one-device model.
     """
 
     def __init__(self, cfg: ModelConfig, device=None, seed: int = 0,
@@ -624,11 +728,16 @@ class Model(nn.Module):
     def _unsharded(self, what: str) -> None:
         if self.plan is not None:
             raise NotImplementedError(
-                f"{what} under a plan: the port runs the decode step under a "
-                "plan (ROADMAP.md items 11a and 11b); sequence-sharded "
-                "prefill is item 11d and sharded training item 11c.  Run it "
-                "on the model without a plan and cut its cache "
-                "(sharding.shard_cache)")
+                f"{what} under a plan: the port runs prefill and the decode "
+                "step under their plans; sharded training is ROADMAP.md "
+                "item 11c")
+
+    def _planned(self, what: str, mode: str) -> None:
+        """Raise unless the model has no plan or a ``mode`` plan."""
+        if self.plan is not None and self.plan.mode != mode:
+            raise ValueError(
+                f"{what} under a {self.plan.mode} plan: build the model under "
+                f"make_plan(cfg, mesh, {mode!r}, ...)")
 
     def init_lora(self, n_adapters: int, rank: int,
                   seed: int = 0) -> Dict[str, Any]:
@@ -681,14 +790,20 @@ class Model(nn.Module):
     def _lora_layers(self, lora):
         return lora["layers"] if lora is not None else [None] * len(self.layers)
 
-    def _embed_in(self, tokens, img_embeds=None):
+    def _embed_in(self, tokens, img_embeds=None, lo: int = 0, length=None):
         """Token embeddings after the image embeddings, if any, plus the
-        sinusoidal positions (``_embed_in``, transformer.py:504-513)."""
-        x = layers.embed_tokens(self.embed["embed"], tokens)
-        if img_embeds is not None:
-            x = torch.cat([img_embeds.to(x.dtype), x], dim=1)
+        sinusoidal positions (``_embed_in``, transformer.py:504-513);
+        positions [lo, lo + length) of that sequence only (all of them by
+        default), the tokens and image embeddings cut before the lookup."""
+        n_img = 0 if img_embeds is None else img_embeds.shape[1]
+        hi = n_img + tokens.shape[1] if length is None else lo + length
+        x = layers.embed_tokens(self.embed["embed"],
+                                tokens[:, max(lo - n_img, 0):
+                                       max(hi - n_img, 0)])
+        if img_embeds is not None and lo < n_img:
+            x = torch.cat([img_embeds[:, lo:hi].to(x.dtype), x], dim=1)
         if self.cfg.pos_emb == "sinusoidal":
-            positions = torch.arange(x.shape[1], device=x.device)[None]
+            positions = torch.arange(lo, hi, device=x.device)[None]
             x = x + layers.sinusoidal_pos_emb(
                 positions, self.cfg.d_model).to(x.dtype)
         return x
@@ -780,28 +895,73 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill(self, lora, tokens, adapter_idx=None, img_embeds=None):
         """tokens: (B, S); img_embeds: (B, I, d) or None, prepended.
-        Returns (last-position logits (B, V), cache at ``pos`` = I + S)."""
-        self._unsharded("prefill")
-        x = self._embed_in(tokens, img_embeds)
-        b, s, _ = x.shape
-        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        Returns (last-position logits (B, V), cache at ``pos`` = I + S).
+
+        Under a prefill plan: the rank's rows of the batch, of the adapter
+        ids (per request, (B,)) and of ``img_embeds``, over the whole
+        prompt; the sequence of I + S positions is cut over the plan's
+        sequence axis, which must divide it (raises ``ValueError``
+        otherwise, as the JAX package's ``shard_map`` does).  Returns the
+        last position's logits on every rank and the rank's cache
+        (``Block.prefill``); ``pos`` is I + S."""
+        self._planned("prefill", "prefill")
+        n_img = 0 if img_embeds is None else img_embeds.shape[1]
+        s = n_img + tokens.shape[1]
+        n = self.tp.n_seq if self.tp is not None else 1
+        if s % n:
+            raise ValueError(
+                f"prefill of {s} positions under a plan that cuts the "
+                f"sequence over {self.plan.seq_axis!r} ({n} ranks): the "
+                "length must divide over the axis")
+        lo = self.tp.seq_index * (s // n) if n > 1 else 0
+        x = self._embed_in(tokens, img_embeds, lo, s // n)
+        b, s_loc, _ = x.shape
+        positions = (lo + torch.arange(s_loc, device=x.device))[None] \
+            .expand(b, s_loc)
+        cut = None
+        if self.tp is not None and lora is not None and \
+                adapter_idx is not None:
+            cut = self._prompt_cut(adapter_idx, b, s, lo, s_loc)
         caches = []
         for block, lp in zip(self.layers, self._lora_layers(lora)):
-            x, kv = block.prefill(x, lp, adapter_idx, positions)
+            x, kv = block.prefill(x, lp, adapter_idx, positions, cut)
             caches.append(kv)
-        logits = self._logits(x[:, -1:])
+        x = x[:, -1:]
+        if n > 1:   # the last position: the last sequence rank's last row
+            x = all_gather(x, self.tp.seq, dim=1)[:, -1:]
+        logits = self._logits(x)
         pos = torch.full((), s, dtype=torch.int32, device=x.device)
         return logits[:, 0], {"pos": pos, "layers": caches}
+
+    def _prompt_cut(self, adapter_idx, b: int, s: int, lo: int,
+                    s_loc: int):
+        """What ``ops.lora_apply`` needs of the whole prompt under a plan:
+        the rank's tokens' whole-prompt arrival ranks (the per-request ids
+        gathered over the batch axes) and the whole prompt's token
+        count."""
+        from ..kernels.sgmv import arrival_ranks
+        ids = torch.as_tensor(adapter_idx, device=self.device)
+        if ids.shape != (b,):
+            raise ValueError(f"prefill under a plan takes per-request "
+                             f"adapter ids of shape ({b},), not "
+                             f"{tuple(ids.shape)}")
+        ids = ids.to(torch.int32)
+        if self.tp.batch is not None:
+            ids = all_gather(ids, self.tp.batch, dim=0)
+        first = self.tp.batch_index * b
+        return {"arrival": arrival_ranks(ids, first, b, s, lo, s_loc),
+                "tokens": ids.shape[0] * s}
 
     @torch.no_grad()
     def decode_step(self, lora, cache, tokens, adapter_idx=None):
         """tokens: (B, 1). Returns (logits (B, V), cache): the cache itself,
         its KV tensors (and recurrent states) written and its ``pos`` advanced
-        by one in place.
+        by one in place (under a decode plan, the rank's rows and cache).
 
         ``pos`` is read on the device only, and nothing in the step waits
         for the host or the host for it, so a CUDA graph that captures one
         call replays the step at every position."""
+        self._planned("decode_step", "decode")
         pos = cache["pos"]
         slots = {}   # one CacheSlot per (kind, rows), made once a step
         x = layers.embed_tokens(self.embed["embed"], tokens)
@@ -831,19 +991,47 @@ class Model(nn.Module):
         so its first decode step after a prompt shorter than the window
         evicts position 0 (ROADMAP.md queue 3).  An rglru or ssd layer's
         states pass through, copied.
+
+        Under a prefill plan ``cache`` is the rank's prefill cache and the
+        result the rank's piece of the whole padded cache in the layout of
+        the decode plan of the same mesh and batch (``make_plan(cfg, mesh,
+        "decode", global_batch=B)``), which a model under that plan decodes
+        from: a global layer's slices are gathered over the cache axes and
+        cut anew (``Block.pad_cache``); the rest keeps its layout, which
+        both plans share.
         """
-        self._unsharded("pad_cache")
+        self._planned("pad_cache", "prefill")
+        decode = None
+        if self.plan is not None:
+            rows = self.plan.axis_size(*self.plan.batch_axes)
+            b = next(iter(cache["layers"][0].values())).shape[0]
+            decode = make_plan(self.cfg, self.plan.mesh, "decode",
+                               global_batch=b * rows,
+                               kv_quant=self.plan.kv_quant)
         return {"pos": cache["pos"].clone(),
-                "layers": [blk.pad_cache(c, extra) for blk, c in
+                "layers": [blk.pad_cache(c, extra, decode) for blk, c in
                            zip(self.layers, cache["layers"])]}
 
 
 def _check_plan(cfg: ModelConfig, plan) -> None:
-    """Raise ``NotImplementedError`` for a plan the port does not run: any
-    but a decode plan (sequence-sharded prefill, ROADMAP.md item 11d, and
-    sharded training, item 11c)."""
-    if plan.mode != "decode" or plan.seq_axis or plan.fsdp_axes:
+    """Raise ``NotImplementedError`` for a plan the port does not run: a
+    train plan (sharded training, ROADMAP.md item 11c), a prefill plan with
+    ``attn_batch_shard`` (item 11e), and plans ``make_plan`` does not
+    make (a decode plan with a sequence axis, a prefill plan whose cache
+    axes are not its sequence axis)."""
+    if plan.mode == "train" or plan.fsdp_axes:
         raise NotImplementedError(
-            f"{cfg.name}: a {plan.mode} plan: the port shards the decode "
-            "step (ROADMAP.md items 11a and 11b); sequence-sharded prefill "
-            "is ROADMAP.md item 11d and sharded training item 11c")
+            f"{cfg.name}: a {plan.mode} plan: the port shards prefill and "
+            "the decode step; sharded training is ROADMAP.md item 11c")
+    if plan.mode == "prefill" and plan.attn_batch_shard:
+        raise NotImplementedError(
+            f"{cfg.name}: a prefill plan with attn_batch_shard: "
+            "batch-parallel attention over the sequence axis is ROADMAP.md "
+            "item 11e")
+    if plan.seq_axis and (plan.mode != "prefill"
+                          or plan.cache_seq_axes != (plan.seq_axis,)):
+        raise NotImplementedError(
+            f"{cfg.name}: a {plan.mode} plan with sequence axis "
+            f"{plan.seq_axis!r} and cache axes {plan.cache_seq_axes}: the "
+            "port cuts the sequence only in a prefill plan whose cache "
+            "axes are its sequence axis, as make_plan makes it")

@@ -1,6 +1,6 @@
 """The JAX package's sharded bodies on host devices.
 
-Usage: python tests/sharded_body_jax.py <inputs.npz> <outputs.npz>
+Usage: python tests/sharded_body_jax.py <inputs.npz|.pkl> <outputs.npz|.pkl>
 
 The inputs' ``kind`` picks the body (``attention`` when absent):
 
@@ -14,7 +14,16 @@ The inputs' ``kind`` picks the body (``attention`` when absent):
   replicated); writes the output and the aux loss;
 * ``ffn``: ``Model._ffn`` of the inputs' reduced architecture under its
   decode plan on the inputs' ``mesh`` (data, model), on one layer's
-  ``moe.*`` leaves and x (B, 1, d); writes the output and the aux loss.
+  ``moe.*`` leaves and x (B, 1, d); writes the output and the aux loss;
+* ``seq_attention``: ``ring_attention`` (``window`` 0) or
+  ``local_attention`` under ``shard_map`` over a ``model`` axis of 4, q,
+  k, v (B, S, H, D) cut over the sequence; writes the output;
+* ``prefill`` (a pickle, with ``archs``: {arch: {params, lora, tokens,
+  idx, img}} and ``prompt``): ``Model.prefill`` of each reduced
+  architecture under ``make_plan(cfg, mesh, "prefill", global_batch=B)``
+  on the inputs' ``mesh``, on ``prompt`` positions: the image embeddings
+  ``img`` (B, I, d) where not None, then ``tokens[:, :prompt - I]``;
+  writes {arch: {logits, cache}} as a pickle.
 
 The MoE bodies are compiled with XLA's excess precision off, the
 arithmetic the JAX source states (see tests/test_torch_moe.py).  A
@@ -24,11 +33,20 @@ mesh's size) must be set before jax initialises.
 import dataclasses
 import math
 import os
+import pickle
 import sys
 
 import numpy as np
 
-INPUTS = dict(np.load(sys.argv[1])) if __name__ == "__main__" else {}
+
+def _load(path):
+    if path.endswith(".pkl"):
+        with open(path, "rb") as f:
+            return pickle.load(f)
+    return dict(np.load(path))
+
+
+INPUTS = _load(sys.argv[1]) if __name__ == "__main__" else {}
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=%d" % \
     math.prod(INPUTS.get("mesh", (1, 4)))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
@@ -40,7 +58,8 @@ from jax.sharding import PartitionSpec as P  # noqa: E402
 from repro.configs import get_reduced  # noqa: E402
 from repro.launch.mesh import make_test_mesh  # noqa: E402
 from repro.models import Model, make_plan  # noqa: E402
-from repro.models.attention import decode_attention_sharded  # noqa: E402
+from repro.models.attention import (decode_attention_sharded,  # noqa: E402
+                                    local_attention, ring_attention)
 from repro.models.moe import apply_moe  # noqa: E402
 from repro.models.transformer import shard_map  # noqa: E402
 
@@ -109,7 +128,48 @@ def ffn(inp):
     return {"out": np.asarray(out), "aux": np.asarray(aux)}
 
 
+def seq_attention(inp):
+    n = 4
+    mesh = make_test_mesh(1, n)
+    spec = P(None, "model", None, None)
+    window = int(inp["window"])
+    kw = dict(axis_name="model", n_shards=n,
+              scale=1.0 / math.sqrt(inp["q"].shape[-1]))
+    if window:
+        body = lambda q, k, v: local_attention(q, k, v, window=window, **kw)  # noqa: E731
+    else:
+        body = lambda q, k, v: ring_attention(q, k, v, **kw)  # noqa: E731
+    f = jax.jit(shard_map(body, mesh=mesh, in_specs=(spec,) * 3,
+                          out_specs=spec, check_vma=False))
+    return {"out": np.asarray(f(inp["q"], inp["k"], inp["v"]))}
+
+
+def prefill(inp):
+    mesh = make_test_mesh(*map(int, inp["mesh"]))
+    out = {}
+    for arch, a in inp["archs"].items():
+        cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+        img = a.get("img")
+        n_img = 0 if img is None else img.shape[1]
+        tokens = jnp.asarray(a["tokens"][:, :inp["prompt"] - n_img])
+        model = Model(cfg, make_plan(cfg, mesh, "prefill",
+                                     global_batch=tokens.shape[0]))
+        with (jax.set_mesh(mesh) if hasattr(jax, "set_mesh") else mesh):
+            logits, cache = jax.jit(model.prefill)(
+                a["params"], a["lora"], tokens, jnp.asarray(a["idx"]),
+                None if img is None else jnp.asarray(img))
+        out[arch] = {"logits": np.asarray(logits),
+                     "cache": jax.tree.map(np.asarray, cache)}
+    return out
+
+
 if __name__ == "__main__":
     kind = str(INPUTS.get("kind", "attention"))
-    np.savez(sys.argv[2], **{"attention": attention, "moe": moe,
-                             "ffn": ffn}[kind](INPUTS))
+    result = {"attention": attention, "moe": moe, "ffn": ffn,
+              "seq_attention": seq_attention,
+              "prefill": prefill}[kind](INPUTS)
+    if sys.argv[2].endswith(".pkl"):
+        with open(sys.argv[2], "wb") as f:
+            pickle.dump(result, f)
+    else:
+        np.savez(sys.argv[2], **result)

@@ -14,8 +14,9 @@ int8 mode also 8), which run padded, head dims past 256 (257, 320, 384,
 head groups),
 lengths 0 and past S and at the split pass's tile edges, NaN past a row's
 length, BGMV at ranks 1-64 with widths and views off the 16-byte vector,
-SGMV at T around its 64-token tile, 32 skewed adapters, unaligned views and
-its sort kernel bit for bit, the fused decode step at shrink clusters of 1 to 8 blocks
+SGMV at T around its 64-token tile, 32 skewed adapters, unaligned views,
+its sort kernel bit for bit and sequence slices with their whole-prompt
+arrival ranks bit for bit the whole prompt, the fused decode step at shrink clusters of 1 to 8 blocks
 and adapter id -1, flash-decode's int8 mode at every head dim, at the
 tile's edges, on one KV head's scales and with NaN scales past a row's
 length, with q in f32 at f32's tolerance), and check
@@ -48,7 +49,11 @@ head dims, length 0 (-inf) among the lengths, its output bit for bit the
 call without it;
 and reduced phi4-mini and gemma3 (bf16; phi4-mini also on an int8 cache)
 decoding under the world-size-1 plan on the NCCL group hold to the step
-without a plan.
+without a plan; reduced phi4-mini, gemma3, olmoe and recurrentgemma
+prefill under the world-size-1 prefill plan bit for bit as without a plan
+(every request on one adapter, so SGMV's whole-prompt rule drops
+tokens), and
+decode from ``pad_cache``'s cache under the decode plan.
 """
 import dataclasses
 import math
@@ -271,6 +276,45 @@ def test_sgmv_kernel_unaligned_views(gen, r, dtype):
     assert torch.equal(sgmv.sgmv(x.clone(), a.clone(), b.clone(), ids), got)
     ranks = torch.tensor([r, 1, 3], dtype=torch.int32, device="cuda")
     _check_ragged_equals_dense(x, a, b, ids, ranks, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bsz,seq,n,slices,spread", [
+    (8, 512, 4, 4, False), (8, 512, 4, 4, True), (3, 130, 2, 2, False),
+    (5, 96, 3, 3, True)])
+def test_sgmv_arrival_mode_over_sequence_slices(gen, bsz, seq, n, slices,
+                                                spread, dtype):
+    # a prompt of per-request ids (all on adapter 0, so tokens drop, or
+    # spread) cut into sequence slices, each with its tokens' whole-prompt
+    # arrival ranks and capacity: each slice against its rows of the plain
+    # version of the whole prompt, and the slices together bit for bit the
+    # whole prompt (a token's reduction order does not depend on the tile
+    # it lands in); the whole prompt's own ranks change nothing
+    d, r, o = 256, 8, 320
+    t, s_loc = bsz * seq, seq // slices
+    x = _normal(gen, t, d, dtype=dtype)
+    a, b = _bank(gen, n, d, r, o, dtype)
+    ids = (torch.arange(bsz, device="cuda") % n if spread
+           else torch.zeros(bsz, device="cuda")).to(torch.int32)
+    whole = sgmv.sgmv(x, a, b, ids.repeat_interleave(seq))
+    own = ref._bucket_positions(ids.repeat_interleave(seq), n)
+    assert torch.equal(sgmv.sgmv(x, a, b, ids.repeat_interleave(seq),
+                                 arrival=own.to(torch.int32)), whole)
+    cap = ref.sgmv_capacity(t, n)
+    x3 = x.reshape(bsz, seq, d)
+    plain = ref.sgmv_ref(x, a, b, ids.repeat_interleave(seq)).reshape(
+        bsz, seq, o)
+    parts = []
+    for sl in range(slices):
+        arrival = sgmv.arrival_ranks(ids, 0, bsz, seq, sl * s_loc, s_loc)
+        xp = x3[:, sl * s_loc:(sl + 1) * s_loc].reshape(-1, d).contiguous()
+        tp = ids.repeat_interleave(s_loc)
+        got = sgmv.sgmv(xp, a, b, tp, arrival=arrival, cap=cap)
+        _close(got, plain[:, sl * s_loc:(sl + 1) * s_loc].reshape(-1, o),
+               dtype)
+        parts.append(got.reshape(bsz, s_loc, o))
+    torch.cuda.synchronize()
+    assert torch.equal(torch.stack(parts, 1).reshape(t, o), whole)
 
 
 @pytest.mark.parametrize("t,n", [(1, 1), (31, 4), (1000, 4), (4096, 32),
@@ -1219,6 +1263,55 @@ def test_plan_step_at_world_size_one_equals_the_step_without(gen, arch,
             assert rel < 2e-4, (i, rel)
         assert ops.launch_counts()["flash_decode_lse"] > 0
         assert COLLECTIVES["all_reduce"] > 0 and COLLECTIVES["all_gather"] > 0
+    finally:
+        dist.destroy_process_group()
+        ops.reset_launches()
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "gemma3-1b",
+                                  "olmoe-1b-7b", "recurrentgemma-9b"])
+def test_prefill_plan_at_world_size_one_equals_the_prefill_without(gen,
+                                                                   arch):
+    # the NCCL world-size-1 group: the prefill plan's weight gathers, ring
+    # and SGMV's whole-prompt rule over groups of one give the prefill without a
+    # plan bit for bit (every request on adapter 0: 512 tokens, capacity
+    # 384, so tokens drop); pad_cache lays the cache out for the decode
+    # plan, whose steps hold to the steps without a plan
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_cuda_group, make_single_device_mesh
+    from repro_torch.models.sharding import (COLLECTIVES, make_plan,
+                                             reset_collectives)
+    cfg = dataclasses.replace(get_reduced(arch), dtype="bfloat16")
+    init_cuda_group()
+    try:
+        mesh = make_single_device_mesh()
+        ref = Model(cfg, device="cuda", seed=3)
+        pre = Model(cfg, device="cuda", seed=3,
+                    plan=make_plan(cfg, mesh, "prefill", global_batch=4))
+        dec = Model(cfg, device="cuda", seed=3,
+                    plan=make_plan(cfg, mesh, "decode", global_batch=4))
+        lora = ref.init_lora(4, 4, seed=3)
+        tokens = torch.randint(0, cfg.vocab_size, (4, 132), generator=gen,
+                               device="cuda")
+        idx = torch.zeros(4, dtype=torch.int32, device="cuda")
+        ops.reset_launches()
+        reset_collectives()
+        got, planned = pre.prefill(lora, tokens[:, :128], idx)
+        launches = ops.launch_counts()["sgmv"]
+        want, cache = ref.prefill(lora, tokens[:, :128], idx)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert launches == ops.launch_counts()["sgmv"] // 2 > 0
+        planned, cache = pre.pad_cache(planned, 4), ref.pad_cache(cache, 4)
+        for a, b in zip(planned["layers"], cache["layers"]):
+            assert all(torch.equal(a[n], b[n]) for n in b)
+        for i in range(128, 132):
+            got, _ = dec.decode_step(lora, planned, tokens[:, i:i + 1], idx)
+            want, _ = ref.decode_step(lora, cache, tokens[:, i:i + 1], idx)
+            torch.cuda.synchronize()
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            assert rel < 2e-4, (i, rel)
+        assert COLLECTIVES["all_gather"] > 0
     finally:
         dist.destroy_process_group()
         ops.reset_launches()

@@ -1,4 +1,5 @@
-"""The port's sharded decode against the JAX package's, on gloo ranks.
+"""The port's sharded decode and prefill against the JAX package's, on
+gloo ranks.
 
 Each test spawns its ranks (``tests/torch_dist_ranks.py``: gloo on a
 ``FileStore`` under ``tmp_path``, one CPU process a rank) with its own
@@ -29,11 +30,23 @@ loads its pieces; and two meshes where a mixer's specs disagree (mamba2
 with 4 heads of 32 on 8 ranks: ``w_x`` cut mid-head, ``w_dt`` and the
 ``ssm`` state whole; recurrentgemma with W 48 on 3 ranks: ``w_x`` cut
 off the 16 gate blocks, ``w_a`` whole).  (iii) every architecture builds
-under a decode plan; prefill and training plans raise
-``NotImplementedError`` naming items 11d and 11c.
+under a decode plan; training plans raise ``NotImplementedError`` naming
+item 11c, and prefill plans with ``attn_batch_shard`` item 11e.  (iv) The
+prefill under a plan: ``attention.ring_attention`` and
+``local_attention`` on 4 sequence ranks against the JAX bodies under
+``shard_map``; reduced phi4-mini, gemma3-1b (window 16 over slices of 8:
+two neighbour slices), olmoe, internvl2-2b (12 image embeddings across
+the first slice's end), musicgen-medium (sinusoidal positions), mamba2
+and recurrentgemma prefilled under the (2, 4) prefill plan at batch 4
+over 32 positions against the JAX package's prefill under the same plan
+(logits to rel 2e-4, each rank's cache piece to rel 1e-5), then ``pad_cache`` into the decode plan's
+layout and 4 decode steps under the decode plan against the JAX
+``case_decode`` flow (rel 2e-4); every architecture prefilled under a
+prefill plan against the port's model without one.
 """
 import dataclasses
 import os
+import pickle
 import subprocess
 import sys
 from pathlib import Path
@@ -64,6 +77,7 @@ KEY = jax.random.PRNGKey(2)
 PROMPT, STEPS = 27, 4   # a cache of 32 rows: steps at pos 27..30, across
                         # the 8-way slices' boundary at 28 (33 rows on a
                         # model axis of 3)
+PREFILL_PROMPT = 32     # the planned prefill's: 8 positions a sequence rank
 
 
 def _rel(got, want):
@@ -92,16 +106,21 @@ def _body_inputs(quant: bool, pos: int, b=2, s=32, h=8, kv=2, d=32):
     return inp
 
 
-def _jax_body(inp, tmp_path):
+def _jax_body(inp, tmp_path, suffix=".npz"):
     """The JAX body of ``inp["kind"]`` (tests/sharded_body_jax.py) on
-    ``inp``."""
-    src, dst = tmp_path / "body_in.npz", tmp_path / "body_out.npz"
-    np.savez(src, **inp)
+    ``inp``, passed as an npz (or, ``suffix`` ".pkl", a pickle)."""
+    src, dst = tmp_path / f"body_in{suffix}", tmp_path / f"body_out{suffix}"
+    if suffix == ".pkl":
+        src.write_bytes(pickle.dumps(inp))
+    else:
+        np.savez(src, **inp)
     proc = subprocess.run(
         [sys.executable, str(BODY), str(src), str(dst)], capture_output=True,
         text=True, timeout=SPAWN_TIMEOUT,
         env={**os.environ, "JAX_PLATFORMS": "cpu"})
     assert proc.returncode == 0, proc.stderr[-3000:]
+    if suffix == ".pkl":
+        return pickle.loads(dst.read_bytes())
     return dict(np.load(dst))
 
 
@@ -122,7 +141,8 @@ def test_sharded_body_matches_jax_shard_map(quant, pos, tmp_path):
                 got, want[name][:, i * s_loc:(i + 1) * s_loc])
         # one all-reduce max and one all-reduce sum
         assert r["collectives"] == {"all_reduce": 2, "all_gather": 0,
-                                    "reduce_scatter": 0}
+                                    "reduce_scatter": 0, "shift": 0,
+                                    "weight_gather": 0}
     assert sorted(r["index"] for r in outs) == [0, 1, 2, 3]
 
 
@@ -169,7 +189,7 @@ def test_expert_parallel_moe_matches_jax_shard_map(t, gather, experts, quant,
                                 else experts)
         assert r["collectives"] == {
             "all_reduce": int(not gather), "all_gather": int(gather),
-            "reduce_scatter": int(gather)}
+            "reduce_scatter": int(gather), "shift": 0, "weight_gather": 0}
     if router_add:
         # the tokens that lost a pair: the rows apart from the dropless
         # oracle, the same in both packages, and some
@@ -233,33 +253,41 @@ def _vary_constants(params):
     return jax.tree_util.tree_map_with_path(vary, params)
 
 
-def _jax_reference(arch: str, batch: int, rows: int = 32, **overrides):
+def _jax_reference(arch: str, batch: int, rows: int = 32,
+                   prompt: int = PROMPT, n_img: int = 0, **overrides):
     """JAX single-device decode of the reduced ``arch`` (with
-    ``overrides`` of its config): prefill PROMPT tokens, pad the cache to
-    ``rows`` rows, then STEPS decode steps; (numpy inputs of the rank
-    case, the reference logits (STEPS, B, V))."""
+    ``overrides`` of its config): prefill ``prompt`` positions (``n_img``
+    seeded image embeddings, then tokens), pad the cache to ``rows`` rows,
+    then STEPS decode steps; (numpy inputs of the rank case, the reference
+    logits (STEPS, B, V))."""
     cfg = dataclasses.replace(get_reduced(arch), dtype="float32",
                               **overrides)
     m_pre = JaxModel(cfg, ShardingPlan(mode="prefill"))
     m_dec = JaxModel(cfg, ShardingPlan(mode="decode"))
     params = _vary_constants(m_pre.init(KEY))
     lora = m_pre.init_lora(KEY, 4, 4)
-    tokens = jax.random.randint(KEY, (batch, PROMPT + STEPS), 0,
+    text = prompt - n_img
+    tokens = jax.random.randint(KEY, (batch, text + STEPS), 0,
                                 cfg.vocab_size)
+    img = jax.random.normal(jax.random.fold_in(KEY, 7),
+                            (batch, n_img, cfg.d_model)) if n_img else None
     idx = jnp.arange(batch, dtype=jnp.int32) % 4
-    _, cache = jax.jit(m_pre.prefill)(params, lora, tokens[:, :PROMPT], idx)
-    cache = jax_pad_cache(cache, rows - PROMPT)
+    _, cache = jax.jit(m_pre.prefill)(params, lora, tokens[:, :text], idx,
+                                      img)
+    cache = jax_pad_cache(cache, rows - prompt)
     to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
     inputs = {"arch": arch, "overrides": overrides,
               "params": to_np(params), "lora": to_np(lora),
               "cache": to_np(cache),
-              "tokens": np.asarray(tokens[:, PROMPT:], np.int32),
+              "tokens": np.asarray(tokens[:, text:], np.int32),
+              "all_tokens": np.asarray(tokens, np.int32),
+              "img": None if img is None else np.asarray(img),
               "idx": np.asarray(idx, np.int32), "rows": rows}
     step = jax.jit(m_dec.decode_step)
     want = []
     for i in range(STEPS):
         logits, cache = step(params, lora, cache,
-                             tokens[:, PROMPT + i:PROMPT + i + 1], idx)
+                             tokens[:, text + i:text + i + 1], idx)
         want.append(np.asarray(logits))
     return inputs, np.stack(want)
 
@@ -392,9 +420,115 @@ def test_every_architecture_builds_under_a_decode_plan(tmp_path):
 
 
 def test_prefill_and_train_plans_raise():
+    # the prefill plans the port refuses: batch-parallel attention over the
+    # sequence axis (the hill-climb's variant); every train plan
     cfg = port_reduced("phi4-mini-3.8b")
     mesh = MeshShape((2, 4), ("data", "model"))
-    for kind, item in (("prefill", "item 11d"), ("train", "item 11c")):
+    batch_shard = dataclasses.replace(
+        make_plan(cfg, mesh, "prefill", global_batch=4),
+        attn_batch_shard=True)
+    for plan, item in ((batch_shard, "item 11e"),
+                       (make_plan(cfg, mesh, "train", global_batch=4),
+                        "item 11c")):
         with pytest.raises(NotImplementedError, match=item):
-            Model(cfg, device="cpu", plan=make_plan(cfg, mesh, kind,
-                                                    global_batch=4))
+            Model(cfg, device="cpu", plan=plan)
+
+
+def test_every_architecture_builds_under_a_prefill_plan(tmp_path):
+    # the attention families cut the sequence over model (4 slices), the
+    # SSM and hybrid ones keep it whole; every one prefills as the model
+    # without a plan does
+    outs = ranks.spawn("build", 8, {"archs": list(ARCH_IDS),
+                                    "kind": "prefill"}, tmp_path,
+                       SPAWN_TIMEOUT)
+    for r in outs:
+        assert set(r) == set(ARCH_IDS)
+        for arch, (width, cache, got, want, pos) in r.items():
+            assert (width, cache) == (4, 4)
+            assert got.shape == want.shape == (2, want.shape[1])
+            assert np.isfinite(got).all()
+            assert _rel(got, want) < 2e-4, arch
+            assert pos == 32
+
+
+# --------------------------------------------------------------------------- #
+# (iv) the prefill under a plan
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("window,shifts", [
+    pytest.param(0, 3, id="ring"),
+    # a window of 16 over slices of 8: the two slices before
+    pytest.param(16, 2, id="local-two-slices"),
+    pytest.param(5, 1, id="local-one-slice"),
+    # past the whole sequence: capped at the other 3 slices
+    pytest.param(40, 3, id="local-capped"),
+])
+def test_sequence_sharded_attention_matches_jax_shard_map(window, shifts,
+                                                          tmp_path):
+    rng = np.random.default_rng(21 + window)
+    b, s, h, kv, d = 2, 32, 4, 2, 16
+    inp = {"kind": "seq_attention", "window": window,
+           "q": rng.standard_normal((b, s, h, d)).astype(np.float32),
+           "k": rng.standard_normal((b, s, kv, d)).astype(np.float32),
+           "v": rng.standard_normal((b, s, kv, d)).astype(np.float32)}
+    want = _jax_body(inp, tmp_path)["out"]
+    outs = ranks.spawn("seq_attention", 4, inp, tmp_path, SPAWN_TIMEOUT)
+    assert sorted(r["index"] for r in outs) == [0, 1, 2, 3]
+    for r in outs:
+        i = r["index"]
+        assert _rel(r["out"], want[:, i * 8:(i + 1) * 8]) < 2e-5
+        assert r["collectives"]["shift"] == shifts
+
+
+@pytest.mark.parametrize("archs,batch,rows", [
+    # internvl2 with 12 image embeddings, across the first slice's end;
+    # musicgen's sinusoidal positions at each slice's global positions
+    pytest.param(("phi4_mini_3p8b", "gemma3_1b", "olmoe_1b_7b",
+                  "internvl2_2b", "musicgen_medium"), 4, 36,
+                 id="attention"),
+    pytest.param(("mamba2_2p7b", "recurrentgemma_9b"), 4, 36, id="state"),
+    # batch 1: the prefill plan has no batch axis, the decode plan cuts the
+    # cache over (data, model), 8 slices of 5 rows
+    pytest.param(("phi4_mini_3p8b",), 1, 40, id="batch-1"),
+])
+def test_prefill_under_a_plan_matches_jax(archs, batch, rows, tmp_path):
+    refs = {a: _jax_reference(a, batch, rows=rows, prompt=PREFILL_PROMPT,
+                              n_img=12 if a == "internvl2_2b" else 0)
+            for a in archs}
+    per_arch = {a: {"params": inp["params"], "lora": inp["lora"],
+                    "tokens": inp["all_tokens"], "idx": inp["idx"],
+                    "img": inp["img"]}
+                for a, (inp, _) in refs.items()}
+    planned = _jax_body({"kind": "prefill", "mesh": (2, 4),
+                         "prompt": PREFILL_PROMPT, "archs": per_arch},
+                        tmp_path, suffix=".pkl")
+    for a in archs:
+        per_arch[a]["jax_cache"] = planned[a]["cache"]
+    outs = ranks.spawn("prefill", 8, {"archs": per_arch, "steps": STEPS,
+                                      "prompt": PREFILL_PROMPT, "rows": rows},
+                       tmp_path, SPAWN_TIMEOUT)
+    n_batch = 2 if batch > 1 else 1
+    for a in archs:
+        attention_family = a not in ("mamba2_2p7b", "recurrentgemma_9b")
+        n_seq = 4 if attention_family else 1
+        assert sorted({r[a]["seq_index"] for r in outs}) == list(range(n_seq))
+        assert sorted({r[a]["cache_index"] for r in outs}) == \
+            list(range(8 // n_batch))
+        for r in outs:
+            o = r[a]
+            assert (o["n_seq"], o["n_batch"]) == (n_seq, n_batch)
+            bi, per = o["batch_index"], batch // n_batch
+            batch_rows = slice(bi * per, (bi + 1) * per)
+            assert _rel(o["logits"], planned[a]["logits"][batch_rows]) < 2e-4
+            worst = max(o["cache_rel"], key=o["cache_rel"].get)
+            assert o["cache_rel"][worst] < 1e-5, (a, worst)
+            assert o["pos"] == PREFILL_PROMPT
+            assert o["arrival_ok"] and o["shapes_ok"]
+            assert _rel(o["decode"], refs[a][1][:, batch_rows]) < 2e-4
+            assert o["decode_pos"] == PREFILL_PROMPT + STEPS
+            c = o["collectives"]
+            if attention_family:   # the ring, and the weights gathered
+                assert c["shift"] > 0 and c["weight_gather"] > 0
+            else:                  # width-TP over the whole sequence
+                assert c["shift"] == c["weight_gather"] == 0
+                assert c["all_reduce"] > 0

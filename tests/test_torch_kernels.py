@@ -136,6 +136,71 @@ def test_sgmv_capacity_overflow_matches_pallas(dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+def test_sgmv_capacity_over_sequence_slices_is_the_whole_prompts(dtype):
+    # a prompt of 4 requests x 128 tokens, every request on adapter 0 of 4:
+    # the whole prompt's capacity is 384 of its 512 tokens.  Cut into 4
+    # sequence slices (the ranks of a prefill plan) with the tokens'
+    # whole-prompt arrival ranks and capacity, the slices give the whole
+    # prompt's result bit for bit, which is the JAX kernel's in interpret
+    # mode; each slice with its own rule (32 tokens a request, its own
+    # capacity 128) would keep all 512
+    jdt, tol = DTYPES[dtype]
+    bsz, seq, n, slices, d = 4, 128, 4, 4, 32
+    t, s_loc = bsz * seq, seq // slices
+    (jx, ja, jb, ji), (tx, ta, tb, ti) = _lora(
+        9, t, d, 8, 32, n, jdt, ids=np.zeros(t))
+    cap = ref.sgmv_capacity(t, n)
+    assert cap == 384
+    whole = sgmv.sgmv(tx, ta, tb, ti)
+    _close(whole, jax_sgmv(jx, ja, jb, ji, interpret=True), tol)
+    assert bool((whole[cap:] == 0).all()) and bool(whole[:cap].any())
+    ids = torch.zeros(bsz, dtype=torch.int32)
+    x3 = tx.reshape(bsz, seq, d)
+    pieces, own, routed = [], [], []
+    for r in range(slices):
+        lo = r * s_loc
+        arrival = sgmv.arrival_ranks(ids, 0, bsz, seq, lo, s_loc)
+        xp = x3[:, lo:lo + s_loc].reshape(-1, d)
+        tp = ti[:xp.shape[0]]
+        pieces.append(sgmv.sgmv(xp, ta, tb, tp, arrival=arrival, cap=cap))
+        own.append(sgmv.sgmv(xp, ta, tb, tp))
+        # ops.lora_apply with per-token ids takes SGMV and the same rule
+        routed.append(ops.lora_apply(xp, ta, tb, tp, arrival=arrival,
+                                     tokens=t))
+
+    def whole_order(parts):
+        return torch.stack([p.reshape(bsz, s_loc, -1) for p in parts],
+                           1).reshape(t, -1)
+    assert torch.equal(whole_order(pieces), whole)
+    assert torch.equal(whole_order(routed), whole)
+    assert bool(whole_order(own).all(-1).all())   # nothing dropped
+
+
+@pytest.mark.parametrize("bsz,seq,n_batch,n_seq", [(6, 12, 2, 3),
+                                                   (4, 8, 1, 4),
+                                                   (5, 6, 5, 1)])
+def test_arrival_ranks_are_the_whole_prompts(bsz, seq, n_batch, n_seq):
+    # each (batch piece, sequence slice) of a prompt of per-request ids,
+    # some repeated and some < 0: its tokens' arrival ranks are those of
+    # the whole prompt flattened row-major (ref._bucket_positions)
+    ids = torch.from_numpy(np.random.default_rng(bsz * seq).integers(
+        -1, 3, bsz).astype(np.int32))
+    whole = ref._bucket_positions(ids.repeat_interleave(seq).long(), 3)
+    whole = torch.where(ids.repeat_interleave(seq) >= 0, whole,
+                        0).reshape(bsz, seq)
+    rows, s_loc = bsz // n_batch, seq // n_seq
+    for bi in range(n_batch):
+        for si in range(n_seq):
+            got = sgmv.arrival_ranks(ids, bi * rows, rows, seq, si * s_loc,
+                                     s_loc).reshape(rows, s_loc)
+            live = ids[bi * rows:(bi + 1) * rows] >= 0
+            want = whole[bi * rows:(bi + 1) * rows, si * s_loc:
+                         (si + 1) * s_loc]
+            assert got.dtype == torch.int32
+            assert torch.equal(got[live].long(), want[live])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,h,kv,d,s,block_s", [
     (2, 8, 2, 64, 512, 512), (2, 4, 1, 64, 300, 512), (2, 4, 2, 16, 33, 16),
     (3, 6, 2, 32, 100, 512),

@@ -3,7 +3,8 @@
 Each case runs in ``world`` processes spawned by ``spawn``: every rank
 starts a gloo process group on a ``FileStore`` in the case's directory,
 reads the case's inputs (``inputs.pkl``, numpy), runs its part of the
-port's sharded decode on the CPU and writes what it got (``out<rank>.pkl``).
+port's sharded prefill or decode on the CPU and writes what it got
+(``out<rank>.pkl``).
 This module imports torch and the port only, so a rank loads no JAX.
 """
 import contextlib
@@ -22,6 +23,8 @@ from repro_torch import bridge
 from repro_torch.configs import get_reduced
 from repro_torch.launch.mesh import init_cpu_group, make_test_mesh
 from repro_torch.models import Model, layers, moe, sharding, transformer
+from repro_torch.kernels import ref as kernel_ref
+from repro_torch.models import attention
 from repro_torch.models.attention import CacheSlot, decode_attention_sharded
 from repro_torch.models.sharding import (COLLECTIVES, RankGroups,
                                          ShardingPlan, make_plan,
@@ -225,16 +228,153 @@ def case_model(inp):
 
 def case_build(inp):
     """Each of the inputs' reduced architectures built under the (2, 4)
-    decode plan at batch 4: {arch: (width, cache shards)}."""
+    plan of ``inp["kind"]`` (decode by default) at batch 4: {arch: (width,
+    cache shards)}.  Under a prefill plan each also prefills 4 x 32
+    positions of seeded tokens (a VLM 12 image embeddings and 20 tokens,
+    the image crossing a slice's end) with 4 adapters, and the arch's entry
+    gains the rank's rows of the logits, those of the model without a plan
+    (the same seed, so the same weights) and the cache's ``pos``."""
+    kind = inp.get("kind", "decode")
     mesh = make_test_mesh(2, 4, device="cpu")
     out = {}
     for arch in inp["archs"]:
         cfg = get_reduced(arch)
-        model = Model(cfg, device="cpu", plan=make_plan(cfg, mesh, "decode",
-                                                        global_batch=4))
+        if kind == "prefill":
+            cfg = dataclasses.replace(cfg, dtype="float32")
+        plan = make_plan(cfg, mesh, kind, global_batch=4)
+        model = Model(cfg, device="cpu", plan=plan)
         out[arch] = (model.plan.n_width, model.plan.n_cache)
+        if kind != "prefill":
+            continue
+        whole = Model(cfg, device="cpu")
+        lora = whole.init_lora(4, 4, seed=1)
+        gen = torch.Generator().manual_seed(3)
+        n_img = 12 if cfg.n_image_tokens else 0
+        tokens = torch.randint(0, cfg.vocab_size, (4, 32 - n_img),
+                               generator=gen)
+        img = torch.randn((4, n_img, cfg.d_model), generator=gen) \
+            if n_img else None
+        idx = torch.arange(4, dtype=torch.int32) % 4
+        want, _ = whole.prefill(lora, tokens, idx, img)
+        dp = plan.dp()
+        rows = (dp, None, None)
+        got, cache = model.prefill(
+            lora, shard_tensor(tokens, (dp, None), plan),
+            shard_tensor(idx, (dp,), plan),
+            shard_tensor(img, rows, plan) if n_img else None)
+        out[arch] += (got.numpy(), shard_tensor(want, (dp, None), plan)
+                      .numpy(), int(cache["pos"]))
+    return out
+
+
+def case_seq_attention(inp):
+    """``attention.ring_attention`` (window 0) or ``local_attention`` on
+    this rank's slice of q, k, v (B, S, H, D) cut over ``model`` of a
+    (1, world) mesh: the rank's index, its slice of the output and the
+    collectives."""
+    world = dist.get_world_size()
+    mesh = make_test_mesh(1, world, device="cpu")
+    plan = ShardingPlan(mesh=mesh, seq_axis="model", width_axis="model",
+                        cache_seq_axes=("model",), mode="prefill")
+    tp = RankGroups(plan)
+    q, k, v = (shard_tensor(torch.from_numpy(inp[n]),
+                            (None, "model", None, None), plan)
+               for n in ("q", "k", "v"))
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    ring = {"group": tp.seq, "index": tp.seq_index, "n_shards": world}
+    reset_collectives()
+    if inp["window"]:
+        out = attention.local_attention(q, k, v, scale=float(scale),
+                                        window=int(inp["window"]), **ring)
+    else:
+        out = attention.ring_attention(q, k, v, scale=float(scale), **ring)
+    return {"index": tp.seq_index, "out": out.numpy(),
+            "collectives": dict(COLLECTIVES)}
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want)) / (np.max(np.abs(want)) + 1e-9))
+
+
+def case_prefill(inp):
+    """For each of the inputs' reduced architectures: the port's prefill
+    under ``make_plan(cfg, make_test_mesh(2, 4), "prefill",
+    global_batch=B)`` on bridged JAX weights, the rank's rows of the
+    batch and the whole prompt of ``prompt`` positions (the image
+    embeddings ``img``, where not None, then tokens); then ``pad_cache``
+    to ``rows`` positions and ``steps`` decode steps of a model under the
+    decode plan from that cache.  Per arch: the rank's indices,
+    its rows of the prefill's logits, each cache leaf's relative departure
+    from the JAX prefill's cache under the same plan cut by the same spec
+    (``inp[arch]["jax_cache"]``), whether the tokens' arrival ranks are
+    the whole prompt's, whether the padded cache has the decode model's
+    shapes, the decode's logits at each step and the prefill's
+    collectives."""
+    mesh = make_test_mesh(2, 4, device="cpu")
+    out = {}
+    for arch, a in inp["archs"].items():
+        cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+        tokens, idx = a["tokens"], a["idx"]
+        b, prompt, steps = tokens.shape[0], inp["prompt"], inp["steps"]
+        rows = inp["rows"]
+        plan = make_plan(cfg, mesh, "prefill", global_batch=b)
+        model = Model(cfg, device="cpu", plan=plan)
+        bridge.load_params(model, a["params"])
+        lora = bridge.lora_to_torch(a["lora"])
+        dp = plan.dp()
+        tok = shard_tensor(torch.from_numpy(tokens).long(), (dp, None), plan)
+        ids = shard_tensor(torch.from_numpy(idx), (dp,), plan)
+        img = a.get("img")
+        text = prompt - (0 if img is None else img.shape[1])
+        if img is not None:
+            img = shard_tensor(torch.from_numpy(img), (dp, None, None), plan)
+        reset_collectives()
+        logits, cache = model.prefill(lora, tok[:, :text], ids, img)
+        collectives = dict(COLLECTIVES)
+        want = bridge.cache_to_shard(a["jax_cache"], plan)
+        cache_rel = {f"{i}.{n}": _rel(t.numpy(), want["layers"][i][n].numpy())
+                     for i, layer in enumerate(cache["layers"])
+                     for n, t in layer.items()}
+        # the whole prompt's arrival ranks: token (b, s) is b * S + s
+        tp = model.tp
+        s_loc = prompt // tp.n_seq
+        per_token = torch.from_numpy(idx).repeat_interleave(prompt)
+        whole = kernel_ref._bucket_positions(
+            per_token, int(idx.max()) + 1).reshape(b, prompt)
+        first = tp.batch_index * tok.shape[0]
+        lo = tp.seq_index * s_loc
+        arrival = model._prompt_cut(ids, tok.shape[0], prompt, lo,
+                                    s_loc)["arrival"]
+        arrival_ok = torch.equal(
+            arrival.long(), whole[first:first + tok.shape[0],
+                                  lo:lo + s_loc].reshape(-1))
+        padded = model.pad_cache(cache, rows - prompt)
+        dec = Model(cfg, device="cpu", plan=make_plan(
+            cfg, mesh, "decode", global_batch=b))
+        bridge.load_params(dec, a["params"])
+        zeros = dec.init_cache(b, rows)
+        shapes_ok = all(
+            {n: t.shape for n, t in x.items()} == {n: t.shape
+                                                  for n, t in y.items()}
+            for x, y in zip(zeros["layers"], padded["layers"]))
+        steps_out = []
+        for i in range(steps):
+            got, padded = dec.decode_step(
+                lora, padded, tok[:, text + i:text + i + 1], ids)
+            steps_out.append(got.numpy())
+        out[arch] = {"batch_index": tp.batch_index if dp else 0,
+                     "n_batch": plan.axis_size(*dp) if dp else 1,
+                     "seq_index": tp.seq_index, "n_seq": tp.n_seq,
+                     "logits": logits.numpy(), "pos": int(cache["pos"]),
+                     "cache_rel": cache_rel, "arrival_ok": arrival_ok,
+                     "shapes_ok": shapes_ok, "decode": np.stack(steps_out),
+                     "decode_pos": int(padded["pos"]),
+                     "cache_index": dec.tp.cache_index,
+                     "collectives": collectives}
     return out
 
 
 CASES = {"body": case_body, "moe": case_moe, "ffn": case_ffn,
-         "model": case_model, "build": case_build}
+         "model": case_model, "build": case_build,
+         "seq_attention": case_seq_attention, "prefill": case_prefill}
