@@ -252,21 +252,33 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    and a model under the decode plan decodes SHARD_STEPS steps from it; the
    logits, the padded cache and every step bit for bit those of the
    model without a plan, with both prefills' eager walls, the planned
-   prefill's collectives and SGMV's launches.  Every number of the phase
-   is printed beside the card's name and power limit.
+   prefill's collectives and SGMV's launches; 10f, sharded training:
+   phi4-mini-3.8b at its published widths (its weights FSDP-cut and
+   gathered whole at their use, the sequence over ``model``) and 16 of
+   mamba2-2.7b's 64 layers (width-tensor-parallel, FSDP over ``data``),
+   bf16, TRAIN_PLAN_STEPS steps of TRAIN_BATCH under ``make_plan(cfg,
+   make_single_device_mesh(), "train", global_batch=2)`` on the NCCL
+   world-size-1 group against the same steps without a plan from the
+   same weights and batches: each step's loss and gradient norm within
+   2e-4 (bitwise equality printed), the parameters' largest relative
+   departure after the steps, both walls a step, the collectives a step
+   by kind (forward, and backward with its recompute), both peaks, no
+   kernel launched, the phase's seconds against its budget.  Every
+   number of the phase is printed beside the card's name and power limit.
 
 Launch counts are zeroed just before each path a user drives (teacher
 forcing through ``Model.prefill``/``decode_step`` in phase 4, for each
 architecture, serving in phases 5, 5b, 5c, 5d, 5e and 5f, measurement in
 phase 7, training in phases 8a, 8b and 9, the sharded decode in phase
-10c and for each architecture of 10d, the sharded prefill in 10e) and
-read just after it.  SGMV,
+10c and for each architecture of 10d, the sharded prefill in 10e,
+sharded training in 10f) and read just after it.  SGMV,
 BGMV and flash-decode must have launched in phase 4, BGMV and
 flash-decode in phases 5, 5b, 5c, 5d and 5e, the fused kernel and SGMV
 in phase 7, BGMV and flash-decode's log-sum-exp mode in phase 10c and on
 10d's planned olmoe, BGMV and flash-decode on 10d's planned
 recurrentgemma, SGMV on 10e's planned prefill; mamba2's paths (phase 4, 5f, 10d) must launch none,
-having no attention and no LoRA, and so must training's (8a, 8b and 9).  Each kernel's
+having no attention and no LoRA, and so must training's (8a, 8b, 9 and
+10f).  Each kernel's
 ``launches`` in the kernel table is the count of the path it serves
 (``path``); the int8 mode counts as flash-decode, on the int8 paths
 (``serving_int8``, ``teacher_forcing_int8``), and flash-decode's row
@@ -457,6 +469,12 @@ PREFILL_S, ARRIVAL_SLICES = 512, 4
 PREFILL_BUDGET_S = 90
 # the log-sum-exp mode's two kernels: the split pass and its own combine
 FD_LSE_KERNELS = ("fd_split_kernel", "fd_combine_lse_kernel")
+# 10f trains these at their published widths (bf16, depth cut to the
+# layers given; None: all) TRAIN_PLAN_STEPS steps of TRAIN_BATCH under the
+# world-size-1 train plan against the same steps without a plan, each
+# step's loss and gradient norm within TRAIN_PLAN_TOL (relative)
+TRAIN_PLAN_ARCHS = (("phi4-mini-3.8b", None), ("mamba2-2.7b", 16))
+TRAIN_PLAN_STEPS, TRAIN_PLAN_TOL, TRAIN_PLAN_BUDGET_S = 3, 2e-4, 120
 
 
 def say(*parts) -> None:
@@ -3298,18 +3316,37 @@ def phase_shard_slices(errs, card):
         comb_ms = graph_ms(lambda: combine_shards(outs, lses, reduce)
                            .to(q.dtype), [()])
         comb_bytes = outs.numel() * 4 + lses.numel() * 4 + io // 2
+        lib_us = None
+        if cache == "bf16":   # the library's log-sum-exp call on slice 0
+            g = HEADS // KV_HEADS
+            lib = (q[:, :, None],
+                   slices[0][0].transpose(1, 2).repeat_interleave(g, 1)
+                   .contiguous(),
+                   slices[0][1].transpose(1, 2).repeat_interleave(g, 1)
+                   .contiguous())
+            try:
+                lib_us = graph_ms(
+                    lambda: torch.ops.aten
+                    ._scaled_dot_product_efficient_attention(
+                        *lib, None, True), [()], calls=8, reps=3) * 1e3
+            except RuntimeError as e:   # the call does not take them
+                say(f"  _scaled_dot_product_efficient_attention does not "
+                    f"run on a slice: {str(e).splitlines()[0][:160]}")
+            del lib
         out[cache] = {
             "whole_us": whole_ms * 1e3,
             "whole_bound_us": (kv_bytes + io) / HBM_BYTES_PER_S * 1e6,
             "slice_us": [t * 1e3 for t in slice_ms],
             "slice_bound_us": (kv_bytes / n + io) / HBM_BYTES_PER_S * 1e6,
+            "slice_library_us": lib_us,
             "combine_us": comb_ms * 1e3,
             "combine_bound_us": comb_bytes / HBM_BYTES_PER_S * 1e6}
         o = out[cache]
         say(f"  {cache} cache of {LONG_S} positions in {n} slices: unsharded "
             f"{o['whole_us']:.1f} us (bound {o['whole_bound_us']:.1f}); "
             f"slices {', '.join(f'{t:.1f}' for t in o['slice_us'])} us "
-            f"(bound {o['slice_bound_us']:.1f} each); combine "
+            f"(bound {o['slice_bound_us']:.1f} each; library "
+            f"{o['slice_library_us']}); combine "
             f"{o['combine_us']:.1f} us (bound {o['combine_bound_us']:.2f}); "
             f"{card}")
         del slices, parts, outs, lses
@@ -3605,6 +3642,157 @@ def phase_planned_prefill(ops, card):
     return stats, launches
 
 
+def train_plan_run(cfg, plan, tcfg, pipe):
+    """TRAIN_PLAN_STEPS steps of ``cfg`` (bf16, weights from seed 0) under
+    ``plan`` (None: without one) on batches 0.. of ``pipe``: the losses,
+    gradient norms and synchronised step walls, the collectives of each
+    step's forward (``train_loss``) and of the rest of it (backward with
+    its recompute, ``sync_grads`` and the norm), the peak memory, and the
+    parameters after the steps on the host."""
+    from repro_torch.models import Model
+    from repro_torch.models.sharding import COLLECTIVES, reset_collectives
+    from repro_torch.training import init_train_state, make_train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device="cuda", seed=0, plan=plan)
+    opt = init_train_state(model, tcfg)
+    step = make_train_step(model, tcfg)
+    loss_of = model.train_loss
+    forward = []
+
+    def counted(batch):
+        reset_collectives()
+        loss = loss_of(batch)
+        forward.append(dict(COLLECTIVES))
+        reset_collectives()
+        return loss
+    model.train_loss = counted
+    out = {"losses": [], "norms": [], "walls_ms": [], "forward": forward,
+           "rest": []}
+    for i in range(TRAIN_PLAN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt, info = step(opt, pipe.batch_at(i))
+        torch.cuda.synchronize()
+        out["walls_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["rest"].append(dict(COLLECTIVES))
+        out["losses"].append(info["loss"].item())
+        out["norms"].append(info["grad_norm"].item())
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["params"] = {n: p.detach().to("cpu", copy=True)
+                     for n, p in model.named_parameters()}
+    del model, opt, step, info
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_plan(ops, card):
+    """Phase 10f: sharded training at world size 1.  Each of
+    ``TRAIN_PLAN_ARCHS`` at its published widths (bf16, weights from seed
+    0, depth cut as given: phi4-mini whole, its weights FSDP-cut and
+    gathered whole at their use, the sequence cut over ``model``; mamba2
+    width-tensor-parallel with FSDP over ``data``) trains
+    TRAIN_PLAN_STEPS steps of TRAIN_BATCH under ``make_plan(cfg,
+    make_single_device_mesh(), "train", global_batch=rows)`` on the NCCL
+    world-size-1 group, then the same steps without a plan from the same
+    weights and batches (AdamW at lr TRAIN_LR, one warmup step).  Each
+    step's loss and gradient norm must be within TRAIN_PLAN_TOL of the
+    step without a plan (whether they are bitwise is printed), and the
+    path must launch no kernel; prints the parameters' largest relative
+    departure after the steps, both walls a step, the collectives a step
+    by kind (forward; backward with its recompute, the gradients' sums
+    and the norm) and both peaks.  Returns {arch: the numbers} and the
+    launch counts."""
+    import dataclasses as dc
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_cuda_group, make_single_device_mesh
+    from repro_torch.models.sharding import make_plan
+    from repro_torch.training import AdamWConfig, TrainConfig
+    t0 = time.perf_counter()
+    rows, tokens = TRAIN_BATCH
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=TRAIN_LR, warmup_steps=1))
+    stats = {}
+    ops.reset_launches()
+    init_cuda_group()
+    try:
+        for arch, layers in TRAIN_PLAN_ARCHS:
+            t1 = time.perf_counter()
+            published = get_config(arch)
+            cfg = dc.replace(published, n_layers=layers or published.n_layers)
+            pipe = train_batches(cfg, rows, tokens)
+            plan = make_plan(cfg, make_single_device_mesh(), "train",
+                             global_batch=rows)
+            got = train_plan_run(cfg, plan, tcfg, pipe)
+            want = train_plan_run(cfg, None, tcfg, pipe)
+            rel = {k: max(abs(a - b) / abs(b) for a, b in
+                          zip(got[k], want[k])) for k in ("losses", "norms")}
+            worst, worst_name = -1.0, ""
+            for name, p in want["params"].items():
+                a = got["params"][name].cuda().float()
+                b = p.cuda().float()
+                r = ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+                if r > worst:
+                    worst, worst_name = r, name
+            del a, b
+            label = f"{arch} ({cfg.n_layers} of {published.n_layers} layers)"
+            st = {"layers": cfg.n_layers, "batch": [rows, tokens],
+                  "plan": {"batch": plan.batch_axes, "seq": plan.seq_axis,
+                           "width": plan.width_axis, "fsdp": plan.fsdp_axes},
+                  "losses": got["losses"], "no_plan_losses": want["losses"],
+                  "grad_norms": got["norms"], "no_plan_grad_norms":
+                  want["norms"], "loss_rel": rel["losses"],
+                  "grad_norm_rel": rel["norms"],
+                  "bitwise": got["losses"] == want["losses"]
+                  and got["norms"] == want["norms"],
+                  "param_rel_worst": worst, "param_rel_worst_leaf":
+                  worst_name, "plan_step_ms": got["walls_ms"],
+                  "no_plan_step_ms": want["walls_ms"],
+                  "forward_collectives": got["forward"][-1],
+                  "backward_collectives": got["rest"][-1],
+                  "plan_peak_gb": got["peak_gb"],
+                  "no_plan_peak_gb": want["peak_gb"], "card": card}
+            del got, want
+            gc.collect()
+            st["seconds"] = time.perf_counter() - t1
+            stats[arch] = st
+            say(f"  10f {label}: losses {st['losses']} against "
+                f"{st['no_plan_losses']}, grad norms {st['grad_norms']} "
+                f"against {st['no_plan_grad_norms']}: max rel "
+                f"{st['loss_rel']:.3e} and {st['grad_norm_rel']:.3e} (tol "
+                f"{TRAIN_PLAN_TOL}), bitwise {st['bitwise']}; parameters "
+                f"after {TRAIN_PLAN_STEPS} steps: largest relative departure"
+                f" {worst:.3e} ({worst_name}); {card}")
+            say(f"  10f {label}: step walls "
+                f"{', '.join(f'{t:.1f}' for t in st['plan_step_ms'])} ms "
+                f"under the plan, "
+                f"{', '.join(f'{t:.1f}' for t in st['no_plan_step_ms'])} ms "
+                f"without (synchronised, host clock); collectives a step: "
+                f"forward {st['forward_collectives']}, backward with its "
+                f"recompute, the gradients' sums and the norm "
+                f"{st['backward_collectives']}; peak "
+                f"{st['plan_peak_gb']:.1f} GB under the plan, "
+                f"{st['no_plan_peak_gb']:.1f} GB without; {card}")
+            if not all(math.isfinite(v) for v in st["losses"]
+                       + st["grad_norms"]):
+                raise AssertionError(f"10f {arch}: non-finite loss or norm")
+            if max(rel.values()) > TRAIN_PLAN_TOL:
+                raise AssertionError(f"10f {arch}: the planned steps depart "
+                                     f"from the steps without a plan: {rel}")
+    finally:
+        dist.destroy_process_group()
+    launches = ops.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"10f: the train steps launched {launches}")
+    wall = time.perf_counter() - t0
+    say(f"  phase 10f took {wall:.1f} s (budget {TRAIN_PLAN_BUDGET_S} s); "
+        f"launches {launches}; {card}")
+    stats["seconds"] = wall
+    return stats, launches
+
+
 @contextlib.contextmanager
 def host_spans():
     """The host seconds spent, while open, in the plan's collectives
@@ -3818,6 +4006,10 @@ def main() -> int:
     require_launched("sharded prefill", prefill_launches,
                      PATH_KERNELS["sharded_prefill"])
     say("  prefill " + json.dumps(prefill_stats))
+    say("phase 10f: sharded training (phi4-mini-3.8b and mamba2-2.7b under "
+        "the world-size-1 train plan against the steps without one)")
+    train_plan_stats, train_plan_launches = phase_train_plan(ops, card)
+    say("  train plan " + json.dumps(train_plan_stats))
     say(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
 
     paths = {"teacher_forcing": tf_launches, "serving": serve_launches,
@@ -3836,7 +4028,8 @@ def main() -> int:
              "sharded_decode": shard_launches,
              **{"sharded_decode_" + a: c
                 for a, c in planned_launches.items()},
-             "sharded_prefill": prefill_launches}
+             "sharded_prefill": prefill_launches,
+             "sharded_training": train_plan_launches}
     rows["flash_decode_lora"]["grid_max_abs_err"] = \
         errs["flash_decode_lora_grid"]
     rows["sgmv"]["arrival_slices_bitwise"] = errs["sgmv_arrival_bitwise"]

@@ -21,8 +21,10 @@ plan's sequence axis and the prefill attention is the JAX package's
 per-rank bodies (attention.py:146-219): ``ring_attention`` passes each
 rank's K/V around the ring (``sharding.shift``) and merges the partial
 states in the JAX order, ``local_attention`` gathers only the previous
-chunks its window reaches.  Sharded training is ROADMAP.md queue 1 item
-11c.
+chunks its window reaches.  Under a train plan the same bodies run under
+autograd: ``shift``'s adjoint, the reverse shift, carries each K/V
+slice's gradient back to its rank, and every rank issues its shifts in
+the same order in the forward and in the block's recompute.
 """
 from __future__ import annotations
 

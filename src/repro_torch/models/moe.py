@@ -18,7 +18,9 @@ routes every token, dispatches the pairs of its own experts and leaves
 the others to their ranks, and the ranks' outputs are summed.  With
 ``gather`` the tokens are the rank's sequence piece, all-gathered first
 (capacity then counts the global tokens) and the sum reduce-scattered
-back (the prefill under a prefill plan; training, ROADMAP.md item 11c);
+back (the prefill under a prefill plan, and training under a train plan,
+where the gather's adjoint sums each rank's gradients of the tokens and
+each rank backpropagates 1 / n of the aux loss they all compute alike);
 without it they are replicated and the sum is one all-reduce (decode).  Experts
 that do not divide over the axis stay whole on every rank (``_fits``):
 then rank 0 owns every pair and the others none, as in the JAX package.
@@ -133,13 +135,19 @@ def apply_moe(p, x, *, top_k: int, n_experts: int, capacity_factor: float,
     divide) the pairs are not masked.
     """
     e_local = p["w_gate"].shape[0]
-    x_all = x if group is None or not gather else \
-        sharding.all_gather(x, group, dim=0)
+    gathered = group is not None and gather
+    # each rank sends the gathered tokens through its own experts: their
+    # gradients are summed back to the tokens' rank
+    x_all = sharding.all_gather(x, group, dim=0, adjoint="sum") \
+        if gathered else x
     t, d = x_all.shape
     probs, weights, experts = _route(p, x_all, top_k)
     arange_e = torch.arange(n_experts, device=x.device)
     density = (experts[:, :1] == arange_e).float().mean(0)
     aux = n_experts * (density * probs.mean(0)).sum()
+    if gathered:   # the same on each rank, which all backpropagate it
+        import torch.distributed as dist
+        aux = sharding.scale_grad(aux, 1.0 / dist.get_world_size(group))
 
     cap = capacity(t, top_k, n_experts, capacity_factor)
     local_e = experts.reshape(-1)                             # (T*k,)

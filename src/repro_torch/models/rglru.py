@@ -105,14 +105,18 @@ def apply_rglru(p, x, *, conv_state=None, lru_state=None, shards=None):
 
     ``shards`` (``sharding.WidthShards``; see the module's docstring):
     ``p`` and the states are the rank's pieces, and y is summed over the
-    width group.
+    width group.  Under autograd (training under a train plan) x, which
+    enters the rank's channels, and the whole leaves cut to them have
+    their gradients summed over the group.
     """
     # the rank's channels (of W) and gate blocks, where the plan cuts them
     chans = shards is not None and "w_x" in shards
     blocks = shards is not None and "w_a" in shards
-    gate_b = F.gelu(layers.matmul_f32(x, p["w_gate"]),
+    # x enters the rank's channels: its gradient summed over the group
+    xc = shards.enter(x, chans) if shards is not None else x
+    gate_b = F.gelu(layers.matmul_f32(xc, p["w_gate"]),
                     approximate="tanh").to(x.dtype)
-    u = x @ p["w_x"]
+    u = xc @ p["w_x"]
     decode = lru_state is not None and x.shape[1] == 1
     u, new_conv = causal_conv(u, p["conv_w"],
                               state=conv_state if decode else None,

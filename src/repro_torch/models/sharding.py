@@ -23,12 +23,13 @@ What differs from the JAX package:
   port's (B, ...) leaves one lower;
 * ``constrain`` and ``shardings`` have no counterpart: the port places
   tensors itself (``shard_tensor``, the port's ``device_put``) and its
-  decode and prefill run explicit collectives (``all_reduce``,
+  training, prefill and decode run explicit collectives (``all_reduce``,
   ``all_gather``, ``reduce_scatter``, ``shift``, the port's ``ppermute``,
   and ``gather_whole``) over the mesh's process groups
-  (``ShardingPlan.group``); where pjit lays out a mixer from its leaves'
-  specs, the port moves activations between a rank's piece and the whole
-  itself (``WidthShards``).
+  (``ShardingPlan.group``), each with its adjoint under autograd where
+  jax.grad transposes the program; where pjit lays out a mixer from its
+  leaves' specs, the port moves activations between a rank's piece and
+  the whole itself (``WidthShards``).
 """
 from __future__ import annotations
 
@@ -276,15 +277,43 @@ class ShardingPlan:
             return self.mesh.get_group(axes[0])
         return self.mesh[axes]._flatten("_".join(axes)).get_group()
 
+    # ------------------------------------------------------------------ #
+    # a train plan's gradients (no counterpart: pjit differentiates the
+    # global program for JAX)
+    # ------------------------------------------------------------------ #
+    @property
+    def token_axes(self) -> Tuple[str, ...]:
+        """The axes whose ranks hold different tokens: the batch axes, and
+        the sequence axis where there is one (never the width axis)."""
+        return self.batch_axes + ((self.seq_axis,) if self.seq_axis else ())
+
+    def grad_sum_axes(self, spec) -> Tuple[str, ...]:
+        """The token axes over which a parameter of ``spec`` has its
+        gradient summed after backward: those its spec does not cut.  A
+        cut over an axis is either gathered at its use (the gather's
+        reduce-scatter sums over it) or meets every token of the axis
+        there (experts over the tokens gathered for them)."""
+        cut = {a for e in spec if e is not None for a in _axes(e)}
+        return tuple(a for a in self.token_axes if a not in cut)
+
+    def replicas(self, spec) -> int:
+        """The ranks that hold the same piece of a tensor of ``spec``: the
+        product of the mesh's axes the spec does not cut."""
+        cut = {a for e in spec if e is not None for a in _axes(e)}
+        return math.prod(n for a, n in mesh_sizes(self.mesh).items()
+                         if a not in cut)
+
 
 class RankGroups:
-    """What one rank's sharded prefill and decode need of its plan's mesh:
-    the process groups over the width axis, over the expert-parallel axis
-    (the width axis, or the sequence axis without one: ``_ffn``,
-    transformer.py:367), over the cache axes, over the sequence axis and
-    over the batch axes, and the rank's index along each.  Built on every
-    rank in the same order (the cache axes' group of a ``(data, model)``
-    plan is a flattened mesh, a new group)."""
+    """What one rank's sharded training, prefill and decode need of its
+    plan's mesh: the process groups over the width axis, over the
+    expert-parallel axis (the width axis, or the sequence axis without
+    one: ``_ffn``, transformer.py:367), over the cache axes, over the
+    sequence axis and over the batch axes, and the rank's index along
+    each; a train plan's also over its token axes and over the whole
+    mesh.  Built on every rank in the same order (a group over two axes,
+    such as the cache axes of a ``(data, model)`` plan, is a flattened
+    mesh, a new group)."""
 
     def __init__(self, plan: ShardingPlan):
         self.plan = plan
@@ -295,6 +324,12 @@ class RankGroups:
         self.n_seq = plan.n_seq
         self.batch, self.batch_index = self._on(plan.batch_axes)
         self.n_batch = plan.axis_size(*plan.batch_axes)
+        if plan.mode == "train":
+            # the loss's mean over the ranks that hold different tokens,
+            # and the gradient norm's sum over every rank
+            self.tokens, _ = self._on(plan.token_axes)
+            self.n_tokens = plan.axis_size(*plan.token_axes)
+            self.world, _ = self._on(tuple(plan.mesh.mesh_dim_names))
 
     def _on(self, entry):
         """(the group over a spec entry, this rank's index on it); (None, 0)
@@ -325,18 +360,31 @@ class WidthShards:
         return name in self.cut
 
     def piece(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
-        """This rank's piece of the whole ``t`` along ``dim`` (a view)."""
+        """This rank's piece of the whole ``t`` along ``dim`` (a view).
+        ``t`` is held alike over the group and each rank keeps another
+        piece, so under autograd the gradient of ``t`` is summed over the
+        group (``copy``)."""
         n = t.shape[dim] // self.size
-        return t.narrow(dim, self.index * n, n)
+        return copy(t, self.group).narrow(dim, self.index * n, n)
+
+    def enter(self, t: torch.Tensor, cut: bool) -> torch.Tensor:
+        """``t``, held alike over the group, as the input of a product
+        with a column-cut weight (``cut``): its gradient summed over the
+        group under autograd (``copy``); a whole weight's input as it
+        is."""
+        return copy(t, self.group) if cut else t
 
     def relayout(self, t: torch.Tensor, have: bool,
                  want: bool) -> torch.Tensor:
         """``t``, the rank's piece along its last dimension if ``have``
         else the whole, as the rank's piece if ``want`` else the whole:
-        gathered over the group, or cut."""
+        gathered over the group (a whole every rank consumes alike), or
+        cut (``piece``)."""
         if have == want:
             return t
-        return all_gather(t, self.group) if have else self.piece(t)
+        if have:
+            return all_gather(t, self.group, adjoint="slice")
+        return self.piece(t)
 
     def reduce(self, t: torch.Tensor, cut: bool) -> torch.Tensor:
         """The product of a row-cut weight (``cut``) summed over the group;
@@ -382,21 +430,38 @@ def shard_tensor(t: torch.Tensor, spec, plan: ShardingPlan) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
-    """``t`` reduced in place over ``group`` ("sum" or "max"); counted."""
-    import torch.distributed as dist
-    COLLECTIVES["all_reduce"] += 1
-    dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
-                           "max": dist.ReduceOp.MAX}[op], group=group)
-    return t
+# --------------------------------------------------------------------------- #
+# collectives, each with its adjoint under autograd
+# --------------------------------------------------------------------------- #
+#
+# The convention of a planned loss: it is the same scalar on every rank, and
+# each rank backpropagates from it.  A tensor that every rank of a group
+# holds alike and consumes alike then gets the same, whole gradient on each
+# of them; one that each rank consumes differently gets on each rank the
+# part of the gradient its own consumption makes, and the parts are summed
+# where the tensor is reduced back.  Which adjoint a collective takes so
+# depends on how its output is consumed, and each call site says so
+# (``all_gather``'s ``adjoint``; ``copy`` where a tensor held alike enters
+# a computation that differs by rank).  Under ``no_grad``, or on a tensor
+# that needs no gradient, each function runs its forward alone, as it did
+# before it had an adjoint.  The backward's collectives are counted in
+# ``COLLECTIVES`` under the key of the collective they issue (a weight
+# gather's reduce-scatters under "reduce_scatter").
+
+def _needs_grad(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
 
 
-def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
-    """The sum of ``t`` over ``group``, cut along ``dim`` into the group's
-    pieces in rank order, and this rank's piece (``psum_scatter(...,
-    tiled=True)``); counted."""
+def _gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     import torch.distributed as dist
-    COLLECTIVES["reduce_scatter"] += 1
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    import torch.distributed as dist
     parts = [p.contiguous() for p in
              t.chunk(dist.get_world_size(group), dim=dim)]
     out = torch.empty_like(parts[0])
@@ -404,15 +469,186 @@ def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return out
 
 
-def all_gather(t: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
-    """The group's pieces of ``t`` concatenated along ``dim`` in rank
-    order; counted."""
+def _send(t: torch.Tensor, group, step: int) -> torch.Tensor:
+    """``t`` sent to group index i + ``step`` and the one of i - ``step``
+    received (indices mod n)."""
     import torch.distributed as dist
-    COLLECTIVES["all_gather"] += 1
+    n = dist.get_world_size(group)
+    i = dist.get_group_rank(group, dist.get_rank())
     t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t, group=group)
-    return torch.cat(parts, dim=dim)
+    out = torch.empty_like(t)
+    ops = [dist.P2POp(dist.isend, t,
+                      dist.get_global_rank(group, (i + step) % n), group),
+           dist.P2POp(dist.irecv, out,
+                      dist.get_global_rank(group, (i - step) % n), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """A sum over the group whose result every rank consumes alike: the
+    gradient passes through (Megatron's "reduce")."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        import torch.distributed as dist
+        COLLECTIVES["all_reduce"] += 1
+        out = t.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Copy(torch.autograd.Function):
+    """A tensor held alike over the group, about to be consumed
+    differently by each rank: the identity forward, its gradients summed
+    over the group backward (Megatron's "copy")."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        COLLECTIVES["all_reduce"] += 1
+        g = g.clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, factor):
+        ctx.factor = factor
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.factor, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        COLLECTIVES["reduce_scatter"] += 1
+        return _scatter(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        COLLECTIVES["all_gather"] += 1
+        return _gather(g, ctx.group, ctx.dim), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim, adjoint, key):
+        import torch.distributed as dist
+        ctx.group, ctx.dim, ctx.adjoint = group, dim, adjoint
+        ctx.n = t.shape[dim]
+        ctx.index = dist.get_group_rank(group, dist.get_rank())
+        COLLECTIVES[key] += 1
+        return _gather(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.adjoint == "slice":
+            return (g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n).contiguous(),
+                    None, None, None, None)
+        COLLECTIVES["reduce_scatter"] += 1
+        return _scatter(g, ctx.group, ctx.dim), None, None, None, None
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        COLLECTIVES["shift"] += 1
+        return _send(t, group, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        COLLECTIVES["shift"] += 1
+        return _send(g, ctx.group, -1), None
+
+
+def all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    """``t`` reduced over ``group`` ("sum" or "max"); counted.  Without a
+    gradient in reach, in place.  Under autograd a sum is a new tensor
+    whose every rank consumes it alike (a row-cut product's partial sums,
+    ``WidthShards.reduce`` and ``_Planned._down``; the loss's mean): its
+    gradient passes through unchanged.  A max has no gradient: a tensor
+    that needs one raises ``ValueError``."""
+    import torch.distributed as dist
+    if _needs_grad(t):
+        if op != "sum":
+            raise ValueError(f"all_reduce {op!r} has no gradient: reduce a "
+                             "tensor that does not require one")
+        return _AllReduceSum.apply(t, group)
+    COLLECTIVES["all_reduce"] += 1
+    dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
+                           "max": dist.ReduceOp.MAX}[op], group=group)
+    return t
+
+
+def copy(t: torch.Tensor, group) -> torch.Tensor:
+    """``t``, held alike on every rank of ``group``, where each rank goes
+    on to consume it differently (the input of a column-cut product, a
+    replicated tensor cut into the rank's piece): the identity, and under
+    autograd its gradients summed over the group (one all-reduce, counted
+    in backward).  ``t`` itself without a gradient in reach, and over a
+    group of one (whose sum is the gradient: autograd then sums ``t``'s
+    gradients in the order it does without a plan)."""
+    import torch.distributed as dist
+    if not _needs_grad(t) or dist.get_world_size(group) == 1:
+        return t
+    return _Copy.apply(t, group)
+
+
+def scale_grad(t: torch.Tensor, factor: float) -> torch.Tensor:
+    """``t``, its gradient multiplied by ``factor`` under autograd: a value
+    computed alike on the ``n`` ranks of a group whose gradient reaches
+    its inputs through adjoints that sum over the group (an all-gather's
+    reduce-scatter) is backpropagated by each rank at 1 / n."""
+    if factor == 1 or not _needs_grad(t):
+        return t
+    return _ScaleGrad.apply(t, factor)
+
+
+def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, cut along ``dim`` into the group's
+    pieces in rank order, and this rank's piece (``psum_scatter(...,
+    tiled=True)``); counted.  Its adjoint is the all-gather of the
+    pieces' gradients."""
+    if _needs_grad(t):
+        return _ReduceScatter.apply(t, group, dim)
+    COLLECTIVES["reduce_scatter"] += 1
+    return _scatter(t, group, dim)
+
+
+def all_gather(t: torch.Tensor, group, dim: int = -1,
+               adjoint: str = "") -> torch.Tensor:
+    """The group's pieces of ``t`` concatenated along ``dim`` in rank
+    order; counted.  Under autograd ``adjoint`` names how the ranks
+    consume the whole: "slice" where every rank consumes it alike (its
+    gradient is then the same whole on each, and the rank keeps its
+    piece's), "sum" where each consumes it differently (the pieces'
+    gradients are reduce-scattered); a tensor that needs a gradient
+    without one raises ``ValueError``."""
+    if _needs_grad(t):
+        if adjoint not in ("slice", "sum"):
+            raise ValueError("all_gather under autograd: name the adjoint, "
+                             "'slice' (the ranks consume the whole alike) "
+                             "or 'sum' (each consumes it differently)")
+        return _AllGather.apply(t, group, dim, adjoint, "all_gather")
+    COLLECTIVES["all_gather"] += 1
+    return _gather(t, group, dim)
 
 
 def shift(t: torch.Tensor, group) -> torch.Tensor:
@@ -420,40 +656,44 @@ def shift(t: torch.Tensor, group) -> torch.Tensor:
     and the previous rank's received, ``jax.lax.ppermute`` over the ring
     ``[(i, (i + 1) % n)]``: one send and one receive batched
     (``batch_isend_irecv``, which gloo and NCCL both take); counted.  A
-    group of one returns ``t``."""
+    group of one returns ``t``.  Its adjoint is the reverse shift, i + 1
+    to i."""
     import torch.distributed as dist
-    n = dist.get_world_size(group)
-    if n == 1:
+    if dist.get_world_size(group) == 1:
         return t
+    if _needs_grad(t):
+        return _Shift.apply(t, group)
     COLLECTIVES["shift"] += 1
-    i = dist.get_group_rank(group, dist.get_rank())
-    t = t.contiguous()
-    out = torch.empty_like(t)
-    ops = [dist.P2POp(dist.isend, t, dist.get_global_rank(group, (i + 1) % n),
-                      group),
-           dist.P2POp(dist.irecv, out,
-                      dist.get_global_rank(group, (i - 1) % n), group)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return out
+    return _send(t, group, 1)
 
 
-def gather_whole(t: torch.Tensor, spec, plan: ShardingPlan) -> torch.Tensor:
+def _gathered(spec, axes):
+    """The (dimension, entry) pairs of ``spec`` that ``gather_whole``
+    gathers: every cut one, or with ``axes`` those cut over some of
+    ``axes`` only."""
+    return [(dim, entry) for dim, entry in enumerate(spec)
+            if entry is not None
+            and (axes is None or set(_axes(entry)) <= set(axes))]
+
+
+def gather_whole(t: torch.Tensor, spec, plan: ShardingPlan,
+                 axes=None) -> torch.Tensor:
     """The whole tensor of which ``t`` is this rank's piece under ``spec``
     (``shard_tensor``'s inverse): each cut dimension all-gathered over its
-    entry's group, in rank order; ``t`` itself where nothing is cut.
-    Counted as ``weight_gather``, one a cut dimension."""
-    import torch.distributed as dist
-    for dim, entry in enumerate(spec):
-        if entry is None:
-            continue
+    entry's group, in rank order; with ``axes`` only the dimensions cut
+    over some of those axes (an FSDP gather that keeps a width or expert
+    cut); ``t`` itself where nothing is gathered.  Counted as
+    ``weight_gather``, one a gathered dimension.  The ranks consume a
+    gathered weight differently (each with its own tokens), so its adjoint
+    is a reduce-scatter for each gathered dimension, in reverse order: the
+    rank's piece gets the whole gradient of its piece."""
+    for dim, entry in _gathered(spec, axes):
         group = plan.group(entry)
-        COLLECTIVES["weight_gather"] += 1
-        t = t.contiguous()
-        parts = [torch.empty_like(t)
-                 for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, t, group=group)
-        t = torch.cat(parts, dim=dim)
+        if _needs_grad(t):
+            t = _AllGather.apply(t, group, dim, "sum", "weight_gather")
+        else:
+            COLLECTIVES["weight_gather"] += 1
+            t = _gather(t, group, dim)
     return t
 
 

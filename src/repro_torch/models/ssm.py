@@ -163,7 +163,10 @@ def apply_ssd(p, x, cfg, *, conv_state=None, ssm_state=None, shards=None):
 
     ``shards`` (``sharding.WidthShards``; see the module's docstring):
     ``p`` and the states are the rank's pieces, and y is summed over the
-    width group; the rank's states are what it updates.
+    width group; the rank's states are what it updates.  Under autograd
+    (training under a train plan) each tensor held alike over the group
+    that enters the rank's channels or heads (x, B and C, the per-head
+    leaves) has its gradient summed over the group there.
     """
     _, _, hd, state = ssd_dims(cfg)
     bs, s, _ = x.shape
@@ -173,11 +176,14 @@ def apply_ssd(p, x, cfg, *, conv_state=None, ssm_state=None, shards=None):
 
     def mine(t):   # a whole per-head leaf, as the rank's heads
         return shards.piece(t) if heads else t
-    z = x @ p["w_z"]
-    xi = x @ p["w_x"]
+    # x enters the rank's channels (and heads); w_bc's product stays whole
+    xc = shards.enter(x, chans) if shards is not None else x
+    z = xc @ p["w_z"]
+    xi = xc @ p["w_x"]
     bc = x @ p["w_bc"]
     # dt stays f32 from its projection on: bf16 inputs, f32 products
-    dt = layers.matmul_f32(x, p["w_dt"]) + mine(p["dt_bias"])
+    dt = layers.matmul_f32(xc if heads else x, p["w_dt"]) + \
+        mine(p["dt_bias"])
     dt = torch.logaddexp(dt, torch.zeros_like(dt))        # softplus
 
     decode = ssm_state is not None and s == 1
@@ -187,6 +193,8 @@ def apply_ssd(p, x, cfg, *, conv_state=None, ssm_state=None, shards=None):
     if shards is not None:   # the scan's channels: its heads'
         xi = shards.relayout(xi, chans, heads)
     xi = xi.reshape(bs, s, -1, hd)
+    if heads:   # the whole B and C enter the rank's heads
+        bc = shards.enter(bc, True)
     b, c = bc[..., :state], bc[..., state:]
 
     if decode:

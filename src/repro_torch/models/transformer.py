@@ -70,9 +70,25 @@ whole-prompt arrival ranks (``sgmv.arrival_ranks``, the adapter ids
 gathered over the batch axes).  The prefill returns the last position's
 logits on every rank and the rank's cache in the prefill plan's layout;
 ``pad_cache`` turns it into the rank's piece of the padded cache in the
-decode plan's layout.  Training under a plan raises
-``NotImplementedError`` (ROADMAP.md queue 1 item 11c), and so does a
-prefill plan with ``attn_batch_shard`` (item 11e).
+decode plan's layout.
+
+Under a train plan (``make_plan(cfg, mesh, "train", global_batch=B)``)
+``train_loss`` takes the rank's rows of the batch (``batch_rows``) and
+returns the whole batch's loss on every rank.  Each weight is cut FSDP
+style as it is drawn (``param_spec``: the attention families over
+``(data, model)``, the SSM and hybrid families over ``data`` beside
+their width cut over ``model``) and gathered at its use: whole for the
+attention families, which cut the sequence over ``model`` as the prefill
+does (ring and local attention, the MoE's experts over ``model`` with
+their tokens gathered), over ``data`` alone for the SSM and hybrid
+families, whose mixers, MLPs and attention run width-tensor-parallel as
+in decode.  Every collective has its adjoint under autograd
+(``sharding``: a gathered weight's is a reduce-scatter, so the rank's
+piece gets its whole gradient), each layer is recomputed in backward so
+no gathered weight is kept, and ``sync_grads`` sums the gradients of the
+leaves held alike over the ranks that hold different tokens.  A prefill
+or train plan with ``attn_batch_shard`` raises ``NotImplementedError``
+(ROADMAP.md item 11e).
 
 The port keeps these JAX behaviours for parity: one scalar ``pos`` for the
 whole batch (a 0-d int32 tensor on the model's device, as the JAX
@@ -95,7 +111,7 @@ from ..device import resolve_device
 from ..kernels import ops
 from . import attention, layers, moe, rglru, ssm
 from .config import ModelConfig
-from .sharding import (RankGroups, WidthShards, all_gather, all_reduce,
+from .sharding import (RankGroups, WidthShards, all_gather, all_reduce, copy,
                        gather_whole, local_shape, make_plan, shard_tensor)
 
 #: the block kinds with attention (and a KV cache and LoRA on q and v)
@@ -148,20 +164,40 @@ class _Planned(nn.Module):
         """Whether parameter ``name`` is cut over the plan's mesh."""
         return any(e is not None for e in self.specs.get(name, ()))
 
+    def _width_cut(self, name: str) -> bool:
+        """Whether parameter ``name`` is cut over the plan's width axis (a
+        product the rank runs on its piece, width-tensor-parallel)."""
+        return self.tp is not None and \
+            self.tp.plan.cuts_width(self.specs.get(name, ()))
+
     @property
     def seq_cut(self) -> bool:
-        """Whether the plan cuts the activations' sequence (a prefill plan
-        of an attention family), and so each weight is gathered whole at
-        its use (``_whole``)."""
+        """Whether the plan cuts the activations' sequence (a prefill or
+        train plan of an attention family), and so each weight is gathered
+        whole at its use (``_w``)."""
         return self.tp is not None and bool(self.tp.plan.seq_axis)
 
-    def _whole(self, name: str):
-        """Parameter ``name`` whole: the rank's piece gathered over the
-        mesh (``gather_whole``), or the parameter where it is not cut."""
+    def _w(self, name: str):
+        """Parameter ``name`` as the rank uses it: under a sequence cut the
+        whole weight (the rank's piece gathered over the mesh,
+        ``gather_whole``); under a train plan without one the rank's width
+        piece (its FSDP cut gathered); else the parameter itself."""
         w = self.get_parameter(name)
         if not self._sharded(name):
             return w
-        return gather_whole(w, self.specs[name], self.tp.plan)
+        plan = self.tp.plan
+        if self.seq_cut:
+            return gather_whole(w, self.specs[name], plan)
+        if plan.fsdp_axes:
+            return gather_whole(w, self.specs[name], plan,
+                                axes=plan.fsdp_axes)
+        return w
+
+    def _enter(self, h, name: str):
+        """h, held alike over the width group, as the input of parameter
+        ``name``'s product: its gradient summed over the group where the
+        weight is width-cut (``sharding.copy``)."""
+        return copy(h, self.tp.width) if self._width_cut(name) else h
 
     def _down(self, x, name: str, local: bool):
         """x @ parameter ``name`` (wo, mlp.w_down) under a plan: a
@@ -169,13 +205,14 @@ class _Planned(nn.Module):
         holds only those, the product of column-sharded weights) and its
         partial products are all-reduced over the width axis; a whole
         weight takes the whole x (gathered if ``local``)."""
-        w = self.get_parameter(name)
-        sharded = self._sharded(name)
+        w = self._w(name)
+        sharded = self._width_cut(name)
         if local and not sharded:
-            x = all_gather(x, self.tp.width)
+            x = all_gather(x, self.tp.width, adjoint="slice")
         elif sharded and not local:
             n = w.shape[0]
-            x = x[..., self.tp.width_index * n:(self.tp.width_index + 1) * n]
+            x = copy(x, self.tp.width)[..., self.tp.width_index * n:
+                                        (self.tp.width_index + 1) * n]
         out = x @ w
         return all_reduce(out, "sum", self.tp.width) if sharded else out
 
@@ -186,9 +223,11 @@ class _Planned(nn.Module):
             return layers.apply_mlp(self.cfg.mlp, self.mlp, h)
         if self.seq_cut:
             return layers.apply_mlp(self.cfg.mlp, {
-                k: self._whole(f"mlp.{k}") for k in self.mlp}, h)
-        return self._down(layers.mlp_hidden(self.cfg.mlp, self.mlp, h),
-                          "mlp.w_down", local=self._sharded("mlp.w_up"))
+                k: self._w(f"mlp.{k}") for k in self.mlp}, h)
+        hidden = {k: self._w(f"mlp.{k}") for k in self.mlp if k != "w_down"}
+        return self._down(layers.mlp_hidden(self.cfg.mlp, hidden,
+                                            self._enter(h, "mlp.w_up")),
+                          "mlp.w_down", local=self._width_cut("mlp.w_up"))
 
 
 class Block(_Planned):
@@ -320,12 +359,14 @@ class Block(_Planned):
         """h's q, k or v (``name``), with its LoRA delta; ``cut`` ({"arrival",
         "tokens"} or None): h is a piece of a prompt cut over ranks
         (``ops.lora_apply``)."""
-        if self.seq_cut:
-            out = h @ self._whole(f"w{name}")
-        else:
+        if self.tp is None:
             out = h @ getattr(self, f"w{name}")
-            if self._sharded(f"w{name}"):   # the rank's heads -> all of them
-                out = all_gather(out, self.tp.width)
+        elif self.seq_cut:
+            out = h @ self._w(f"w{name}")
+        else:
+            out = self._enter(h, f"w{name}") @ self._w(f"w{name}")
+            if self._width_cut(f"w{name}"):   # the rank's heads -> all
+                out = all_gather(out, self.tp.width, adjoint="slice")
         if self.cfg.qkv_bias:
             out = out + getattr(self, f"b{name}")
         if lora_p is not None and f"a_{name}" in lora_p and \
@@ -357,7 +398,8 @@ class Block(_Planned):
         ``prefill`` and ``decode`` drop it, as the JAX ones do).  Under a
         plan the experts are parallel over the plan's width axis (its
         sequence axis without one), the tokens gathered over it first if
-        they are sequence-sharded.  The aux loss is then the same on each
+        they are sequence-sharded (a train plan's FSDP cut of the experts
+        gathered, their expert cut kept).  The aux loss is then the same on each
         rank of the expert group (``apply_moe``) and is averaged over the
         batch axes; with ``aux`` False (the decode drops it) that
         all-reduce is skipped and the aux loss is the rank's."""
@@ -365,11 +407,19 @@ class Block(_Planned):
         if not cfg.n_experts:
             return self._mlp(h), 0.0
         b, s, d = h.shape
-        ep = {}
+        ep, experts = {}, self.moe
         if self.tp is not None:
+            plan = self.tp.plan
             ep = {"group": self.tp.ep, "index": self.tp.ep_index,
-                  "gather": bool(self.tp.plan.seq_axis)}
-        out, a = moe.apply_moe(self.moe, h.reshape(b * s, d),
+                  "gather": bool(plan.seq_axis)}
+            # a train plan's FSDP cut gathered; the expert cut kept
+            keep = plan.width_axis or plan.seq_axis
+            fsdp = tuple(a for a in plan.fsdp_axes if a != keep)
+            if fsdp:
+                experts = {k: gather_whole(v, self.specs[f"moe.{k}"], plan,
+                                           axes=fsdp)
+                           for k, v in self.moe.items()}
+        out, a = moe.apply_moe(experts, h.reshape(b * s, d),
                                top_k=cfg.top_k, n_experts=cfg.n_experts,
                                capacity_factor=cfg.capacity_factor, **ep)
         if ep and aux and self.tp.batch is not None:
@@ -381,7 +431,7 @@ class Block(_Planned):
         loss; ``aux`` False: the decode's, which drops it)."""
         b, s = x.shape[:2]
         if self.seq_cut:
-            x = x + attn_out.reshape(b, s, -1) @ self._whole("wo")
+            x = x + attn_out.reshape(b, s, -1) @ self._w("wo")
         elif self.tp is not None:
             x = x + self._down(attn_out.reshape(b, s, -1), "wo", local=False)
         else:
@@ -516,6 +566,14 @@ class _StateBlock(_Planned):
     def slot_key(self, cache):
         return None   # no CacheSlot: the states have no positions
 
+    def _mixer(self):
+        """The mixer's parameters as the rank uses them: under a train
+        plan each one's FSDP cut gathered (``_w``), its width cut kept."""
+        p = getattr(self, self.MIXER)
+        if self.tp is None or not self.tp.plan.fsdp_axes:
+            return p
+        return {k: self._w(f"{self.MIXER}.{k}") for k in p}
+
     def pad_cache(self, cache, extra: int, decode=None):
         """The states, copied: they do not grow (JAX's ``pad_cache``
         passes them through, transformer.py:606-623), and a prefill plan
@@ -582,7 +640,8 @@ class RGLRUBlock(_StateBlock):
 
     def _forward(self, x, conv_state=None, lru_state=None):
         h = layers.apply_norm(self.cfg.norm, self.norm1, x)
-        out, states = rglru.apply_rglru(self.rglru, h, conv_state=conv_state,
+        out, states = rglru.apply_rglru(self._mixer(), h,
+                                        conv_state=conv_state,
                                         lru_state=lru_state,
                                         shards=self.shards)
         x = x + out
@@ -627,7 +686,7 @@ class SSDBlock(_StateBlock):
 
     def _forward(self, x, conv_x=None, conv_bc=None, ssm_state=None):
         h = layers.apply_norm(self.cfg.norm, self.norm1, x)
-        out, states = ssm.apply_ssd(self.ssd, h, self.cfg,
+        out, states = ssm.apply_ssd(self._mixer(), h, self.cfg,
                                     conv_state=(conv_x, conv_bc),
                                     ssm_state=ssm_state, shards=self.shards)
         return x + out, states
@@ -660,11 +719,11 @@ class Model(nn.Module):
     of ``ShardingPlan.expert_quant`` (sharding.py:38); ``kv_quant`` keeps
     the global layers' KV caches in int8 with f16 scales, the counterpart
     of ``ShardingPlan.kv_quant`` (sharding.py:37); a ``plan`` sets either
-    too.  A ``plan`` with a mesh (a prefill or decode plan,
+    too.  A ``plan`` with a mesh (a train, prefill or decode plan,
     ``sharding.make_plan``) makes this the model of one rank: each weight
     drawn whole from the same generator as without a plan and cut at once
-    to the rank's piece (``param_specs``), its prefill or decode sharded
-    (see the module's docstring); every rank of the mesh builds its
+    to the rank's piece (``param_specs``), its training, prefill or decode
+    sharded (see the module's docstring); every rank of the mesh builds its
     ``Model`` together (the plan's groups are made then).  ``plan=None``,
     or a plan without a mesh, is the one-device model.
     """
@@ -725,12 +784,46 @@ class Model(nn.Module):
                                 self.param_specs.items()
                                 if n.startswith(prefix)})
 
-    def _unsharded(self, what: str) -> None:
-        if self.plan is not None:
-            raise NotImplementedError(
-                f"{what} under a plan: the port runs prefill and the decode "
-                "step under their plans; sharded training is ROADMAP.md "
-                "item 11c")
+    def _w(self, name: str):
+        """Model-level parameter ``name`` (``embed.embed``,
+        ``embed.unembed``) as the rank uses it: under a train plan its
+        FSDP cut gathered, all of it under a sequence cut, its width cut
+        kept otherwise (``_Planned._w``); else the parameter."""
+        w = self.get_parameter(name)
+        spec = self.param_specs.get(name, ())
+        if self.plan is None or not self.plan.fsdp_axes or \
+                all(e is None for e in spec):
+            return w
+        axes = None if self.plan.seq_axis else self.plan.fsdp_axes
+        return gather_whole(w, spec, self.plan, axes=axes)
+
+    def batch_rows(self, batch):
+        """This rank's rows of a whole batch ({"tokens", "img_embeds"?}),
+        cut over the plan's batch axes (``shard_tensor``); the batch itself
+        without a plan."""
+        if self.plan is None:
+            return batch
+        return {k: shard_tensor(v, (self.plan.dp(),) + (None,) * (v.ndim - 1),
+                                self.plan)
+                for k, v in batch.items() if v is not None}
+
+    @torch.no_grad()
+    def sync_grads(self, grads: Dict[str, torch.Tensor]) -> None:
+        """Under a train plan, finish a backward's gradients of the rank's
+        parameters ({name: gradient}, such as each one's ``.grad``) in
+        place: each is summed over the token axes its spec does not cut
+        (``ShardingPlan.grad_sum_axes``: a replicated leaf over the batch
+        axes, and over the sequence axis where the plan cuts one; never
+        over the width axis, whose ranks hold the same tokens), so that
+        every rank holds the gradient of its piece of the whole loss.  The
+        FSDP pieces come out of their gathers' reduce-scatters whole.
+        Nothing without a plan."""
+        if self.plan is None:
+            return
+        for name, g in grads.items():
+            axes = self.plan.grad_sum_axes(self.param_specs[name])
+            if axes:
+                all_reduce(g, "sum", self.plan.group(axes))
 
     def _planned(self, what: str, mode: str) -> None:
         """Raise unless the model has no plan or a ``mode`` plan."""
@@ -790,24 +883,6 @@ class Model(nn.Module):
     def _lora_layers(self, lora):
         return lora["layers"] if lora is not None else [None] * len(self.layers)
 
-    def _embed_in(self, tokens, img_embeds=None, lo: int = 0, length=None):
-        """Token embeddings after the image embeddings, if any, plus the
-        sinusoidal positions (``_embed_in``, transformer.py:504-513);
-        positions [lo, lo + length) of that sequence only (all of them by
-        default), the tokens and image embeddings cut before the lookup."""
-        n_img = 0 if img_embeds is None else img_embeds.shape[1]
-        hi = n_img + tokens.shape[1] if length is None else lo + length
-        x = layers.embed_tokens(self.embed["embed"],
-                                tokens[:, max(lo - n_img, 0):
-                                       max(hi - n_img, 0)])
-        if img_embeds is not None and lo < n_img:
-            x = torch.cat([img_embeds[:, lo:hi].to(x.dtype), x], dim=1)
-        if self.cfg.pos_emb == "sinusoidal":
-            positions = torch.arange(lo, hi, device=x.device)[None]
-            x = x + layers.sinusoidal_pos_emb(
-                positions, self.cfg.d_model).to(x.dtype)
-        return x
-
     def _logits(self, x):
         x = layers.apply_norm(self.cfg.norm, self.final_norm, x)
         logits = layers.unembed(self.embed, x, self.cfg.logit_softcap)
@@ -816,18 +891,66 @@ class Model(nn.Module):
             logits = all_gather(logits, self.tp.width)   # the vocab's pieces
         return logits
 
+    def _seq_slice(self, s: int):
+        """(the ranks the plan cuts a sequence of ``s`` positions over, the
+        first position of this rank's slice): (1, 0) without a sequence
+        cut; a length the axis does not divide raises ``ValueError``, as
+        the JAX package's ``shard_map`` does."""
+        n = self.tp.n_seq if self.tp is not None else 1
+        if s % n:
+            raise ValueError(
+                f"{s} positions under a plan that cuts the sequence over "
+                f"{self.plan.seq_axis!r} ({n} ranks): the length must "
+                "divide over the axis")
+        return n, (self.tp.seq_index * (s // n) if n > 1 else 0)
+
+    def _embed_slice(self, tokens, img_embeds=None, embed=None):
+        """(x, positions, n, lo): token embeddings after the image
+        embeddings, if any, plus the sinusoidal positions (``_embed_in``,
+        transformer.py:504-513), of this rank's slice of the I + T
+        positions only, [lo, lo + S_loc) of ``n`` slices (``_seq_slice``;
+        all of them without a sequence cut), the tokens and image
+        embeddings cut before the lookup in ``embed`` (the parameter by
+        default); and the slice's global positions (B, S_loc)."""
+        n_img = 0 if img_embeds is None else img_embeds.shape[1]
+        n, lo = self._seq_slice(n_img + tokens.shape[1])
+        hi = lo + (n_img + tokens.shape[1]) // n
+        x = layers.embed_tokens(self.embed["embed"] if embed is None
+                                else embed,
+                                tokens[:, max(lo - n_img, 0):
+                                       max(hi - n_img, 0)])
+        if img_embeds is not None and lo < n_img:
+            x = torch.cat([img_embeds[:, lo:hi].to(x.dtype), x], dim=1)
+        positions = torch.arange(lo, hi, device=x.device)[None]
+        if self.cfg.pos_emb == "sinusoidal":
+            x = x + layers.sinusoidal_pos_emb(
+                positions, self.cfg.d_model).to(x.dtype)
+        return x, positions.expand(x.shape[0], hi - lo), n, lo
+
     def train_trunk(self, tokens, img_embeds=None):
         """tokens: (B, T) -> (the final norm's output (B, I + T, d), the
         MoE aux loss summed over the layers, f32): every layer in its
         no-cache form (``_run_segments`` in train mode, transformer.py:
-        449-497)."""
-        self._unsharded("train_trunk")
-        x = self._embed_in(tokens, img_embeds)
-        b, s, _ = x.shape
-        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        449-497).
+
+        Under a train plan: the rank's rows of the batch over the whole
+        sequence; an attention family's rank runs its slice of the I + T
+        positions (the sequence cut over the plan's sequence axis, as the
+        prefill cuts it) and gets that slice of the output.  Each layer is
+        recomputed in backward (``torch.utils.checkpoint``), so its weights
+        are gathered again there and autograd keeps no gathered weight;
+        every rank issues its collectives in the same order in the forward
+        and in the recompute."""
+        self._planned("train_trunk", "train")
+        x, positions, _, _ = self._embed_slice(tokens, img_embeds,
+                                               self._w("embed.embed"))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in self.layers:
-            x, a = block.train_forward(x, positions)
+            if self.plan is not None and torch.is_grad_enabled():
+                x, a = checkpoint(block.train_forward, x, positions,
+                                  use_reentrant=False)
+            else:
+                x, a = block.train_forward(x, positions)
             aux = aux + a
         return layers.apply_norm(self.cfg.norm, self.final_norm, x), aux
 
@@ -839,7 +962,18 @@ class Model(nn.Module):
         the JAX ``train_loss`` (transformer.py:515-529), which hard-codes
         0.01 and never reads ``TrainConfig.aux_weight``.  Differentiable;
         raises ``ValueError`` on a model with int8 parameters
-        (``expert_quant``), which autograd cannot differentiate."""
+        (``expert_quant``), which autograd cannot differentiate.
+
+        Under a train plan ``batch`` holds the rank's rows
+        (``batch_rows``) and the loss is the whole batch's, the same on
+        every rank: the rank's chunked cross entropy over its rows and
+        positions (chunks sized on them, as JAX sizes them on a shard's),
+        averaged over the ranks that hold different tokens (the batch
+        axes, and the sequence axis of an attention family) by one
+        all-reduce whose gradient passes through; the MoE aux loss is
+        averaged over the batch axes (``Block._ffn``).  Each rank
+        backpropagates it; ``sync_grads`` then finishes the replicated
+        leaves' gradients."""
         ints = [n for n, p in self.named_parameters()
                 if not p.is_floating_point()]
         if ints:
@@ -852,45 +986,93 @@ class Model(nn.Module):
         if img is not None:
             img = torch.as_tensor(img, device=self.device)
         x, aux = self.train_trunk(tokens[:, :-1], img)
-        if img is not None:
-            x = x[:, img.shape[1]:]
-        loss = self._chunked_ce(x, tokens[:, 1:])
+        labels = tokens[:, 1:]
+        n_img = 0 if img is None else img.shape[1]
+        if self.plan is None:
+            if img is not None:
+                x = x[:, n_img:]
+            loss = self._chunked_ce(x, labels)
+        else:
+            loss = self._planned_ce(x, labels, n_img)
         if self.cfg.n_experts:
             loss = loss + 0.01 * aux / max(self.cfg.n_layers, 1)
         return loss
 
-    def _ce(self, x, labels):
+    def _planned_ce(self, x, labels, n_img: int):
+        """The whole batch's mean cross entropy from this rank's slice x
+        (B_loc, S_loc, d) of the final norm's output under a train plan,
+        the same on every rank.  Without image embeddings each rank holds
+        as many labels: the mean of the ranks' chunked means.  With them a
+        sequence cut leaves a rank its positions past the image only:
+        each rank sums its labels' cross entropies (the image positions
+        weigh 0, so every rank runs the same products and collectives) and
+        the sum over the ranks is divided by the batch's label count."""
+        tp = self.tp
+        n, lo = self._seq_slice(n_img + labels.shape[1])
+        if n == 1 or not n_img:
+            ce = self._chunked_ce(x[:, n_img:], labels[:, lo:lo + x.shape[1]])
+            return all_reduce(ce, "sum", tp.tokens) / tp.n_tokens
+        pos = lo + torch.arange(x.shape[1], device=x.device) - n_img
+        mask = (pos >= 0)[None].expand(x.shape[0], -1)
+        mine = labels[:, pos.clamp(min=0)]
+        total = labels.numel() * tp.n_tokens // n
+        return all_reduce(self._chunked_ce(x, mine, mask=mask), "sum",
+                          tp.tokens) / total
+
+    def _ce(self, x, labels, mask=None):
         """The cross entropy of one chunk: f32 logits, those past
-        ``vocab_size`` set to -1e30."""
-        logits = layers.unembed(self.embed, x, self.cfg.logit_softcap)
+        ``vocab_size`` set to -1e30; with ``mask`` its sum over the masked
+        labels.  Under a train plan the unembedding is gathered here (so
+        a chunk's recompute gathers it again); a width-cut one gives the
+        rank's vocab columns, gathered over the width group, whose ranks
+        all compute this loss alike."""
+        p = self.embed
+        if self.plan is not None:   # the table the unembedding reads
+            name = "unembed" if "unembed" in p else "embed"
+            p = {name: self._w(f"embed.{name}")}
+        cut = self.plan is not None and self.plan.cuts_width(
+            self.param_specs.get("embed.unembed", ()))
+        if cut:
+            x = copy(x, self.tp.width)
+        logits = layers.unembed(p, x, self.cfg.logit_softcap)
+        if cut:
+            logits = all_gather(logits, self.tp.width, adjoint="slice")
         real = torch.arange(logits.shape[-1],
                             device=x.device) < self.cfg.vocab_size
-        return layers.cross_entropy(torch.where(real, logits, -1e30), labels)
+        logits = torch.where(real, logits, -1e30)
+        if mask is None:
+            return layers.cross_entropy(logits, labels)
+        return layers.cross_entropy(logits, labels, mask) * \
+            mask.sum().clamp(min=1)
 
-    def _chunked_ce(self, x, labels, max_logit_bytes: int = 2 ** 28):
+    def _chunked_ce(self, x, labels, max_logit_bytes: int = 2 ** 28,
+                    mask=None):
         """x: (B, T, d), labels (B, T).  The JAX rule at one shard
         (transformer.py:531-571): ``chunk`` halves from T while B * chunk *
         V_pad * 4 bytes of logits exceed ``max_logit_bytes``; each chunk is
         recomputed in backward (``@jax.checkpoint`` there); the loss is the
-        mean of the chunks' means."""
+        mean of the chunks' means (with ``mask`` (B, T) the sum of the
+        chunks' masked sums)."""
         b, s, d = x.shape
         v = layers.pad_vocab(self.cfg.vocab_size)
         chunk = s
         while chunk > 1 and b * chunk * v * 4 > max_logit_bytes:
             chunk //= 2
         nc = s // chunk
+        masked = () if mask is None else (mask,)
         if nc <= 1:
-            return self._ce(x, labels)
+            return self._ce(x, labels, *masked)
         xr = x.reshape(b, nc, chunk, d)
         lr = labels.reshape(b, nc, chunk)
+        mr = [m.reshape(b, nc, chunk) for m in masked]
         tot = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(nc):
+            args = (xr[:, i], lr[:, i]) + tuple(m[:, i] for m in mr)
             if torch.is_grad_enabled():
-                tot = tot + checkpoint(self._ce, xr[:, i], lr[:, i],
-                                       use_reentrant=False)
+                tot = tot + checkpoint(self._ce, *args, use_reentrant=False)
             else:
-                tot = tot + self._ce(xr[:, i], lr[:, i])
-        return tot / nc
+                tot = tot + self._ce(*args)
+        return tot if masked else tot / nc
 
     @torch.no_grad()
     def prefill(self, lora, tokens, adapter_idx=None, img_embeds=None):
@@ -905,19 +1087,9 @@ class Model(nn.Module):
         last position's logits on every rank and the rank's cache
         (``Block.prefill``); ``pos`` is I + S."""
         self._planned("prefill", "prefill")
-        n_img = 0 if img_embeds is None else img_embeds.shape[1]
-        s = n_img + tokens.shape[1]
-        n = self.tp.n_seq if self.tp is not None else 1
-        if s % n:
-            raise ValueError(
-                f"prefill of {s} positions under a plan that cuts the "
-                f"sequence over {self.plan.seq_axis!r} ({n} ranks): the "
-                "length must divide over the axis")
-        lo = self.tp.seq_index * (s // n) if n > 1 else 0
-        x = self._embed_in(tokens, img_embeds, lo, s // n)
+        x, positions, n, lo = self._embed_slice(tokens, img_embeds)
         b, s_loc, _ = x.shape
-        positions = (lo + torch.arange(s_loc, device=x.device))[None] \
-            .expand(b, s_loc)
+        s = n * s_loc
         cut = None
         if self.tp is not None and lora is not None and \
                 adapter_idx is not None:
@@ -1015,19 +1187,31 @@ class Model(nn.Module):
 
 def _check_plan(cfg: ModelConfig, plan) -> None:
     """Raise ``NotImplementedError`` for a plan the port does not run: a
-    train plan (sharded training, ROADMAP.md item 11c), a prefill plan with
-    ``attn_batch_shard`` (item 11e), and plans ``make_plan`` does not
-    make (a decode plan with a sequence axis, a prefill plan whose cache
-    axes are not its sequence axis)."""
-    if plan.mode == "train" or plan.fsdp_axes:
+    prefill or train plan with ``attn_batch_shard`` (ROADMAP.md item
+    11e), and plans ``make_plan`` does not make (FSDP axes outside a
+    train plan, a decode plan with a sequence axis, a prefill plan whose
+    cache axes are not its sequence axis), or a train plan whose FSDP
+    axes hold the same tokens on their ranks (a global batch the data
+    axis does not divide)."""
+    if plan.attn_batch_shard and plan.mode in ("prefill", "train"):
         raise NotImplementedError(
-            f"{cfg.name}: a {plan.mode} plan: the port shards prefill and "
-            "the decode step; sharded training is ROADMAP.md item 11c")
-    if plan.mode == "prefill" and plan.attn_batch_shard:
-        raise NotImplementedError(
-            f"{cfg.name}: a prefill plan with attn_batch_shard: "
+            f"{cfg.name}: a {plan.mode} plan with attn_batch_shard: "
             "batch-parallel attention over the sequence axis is ROADMAP.md "
             "item 11e")
+    if plan.fsdp_axes and plan.mode != "train":
+        raise NotImplementedError(
+            f"{cfg.name}: a {plan.mode} plan with FSDP axes "
+            f"{plan.fsdp_axes}: the port cuts weights FSDP-style only "
+            "under a train plan, as make_plan makes it")
+    if plan.mode == "train":
+        alike = [a for a in plan.fsdp_axes if a not in plan.token_axes]
+        if alike:
+            raise NotImplementedError(
+                f"{cfg.name}: a train plan whose FSDP axes {alike} do not "
+                f"cut the batch (batch axes {plan.batch_axes}): the port "
+                "trains FSDP over axes whose ranks hold different tokens; "
+                "give a global batch the axes divide")
+        return
     if plan.seq_axis and (plan.mode != "prefill"
                           or plan.cache_seq_axes != (plan.seq_axis,)):
         raise NotImplementedError(

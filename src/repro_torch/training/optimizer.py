@@ -56,22 +56,39 @@ def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm
 
 
-def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
+def global_norm(grads: Iterable[torch.Tensor], replicas=None,
+                group=None) -> torch.Tensor:
     """sqrt of the sum over tensors of each one's sum of f32 squares
-    (optimizer.py:48-51)."""
+    (optimizer.py:48-51).
+
+    Under a train plan ``grads`` are a rank's pieces and the norm is the
+    whole gradients' (the clip is then JAX's): ``replicas`` gives, tensor
+    by tensor, the ranks that hold the same piece
+    (``ShardingPlan.replicas``), whose squares count once over them, and
+    the sum is all-reduced over ``group``, every rank of the mesh."""
     total = None
-    for g in grads:
+    for i, g in enumerate(grads):
         sq = torch.sum(torch.square(g.float()))
+        if replicas is not None and replicas[i] > 1:
+            sq = sq / replicas[i]
         total = sq if total is None else total + sq
+    if group is not None:
+        from ..models.sharding import all_reduce
+        total = all_reduce(total, "sum", group)
     return torch.sqrt(total)
 
 
 @torch.no_grad()
-def adamw_update(params: Tensors, grads: Tensors, state, cfg: AdamWConfig
+def adamw_update(params: Tensors, grads: Tensors, state, cfg: AdamWConfig,
+                 replicas=None, group=None
                  ) -> Tuple[Tensors, Dict[str, object], Tensors]:
     """One AdamW step (optimizer.py:54-94): returns (params, state,
     {"grad_norm", "lr"}).  ``params`` (and ``state``'s m, v and master)
     are updated in place and returned; ``state["step"]`` is a new tensor.
+    Under a train plan ``params``, ``grads`` and the state are the rank's
+    pieces, updated where they lie; ``replicas`` ({name: ranks holding the
+    same piece}) and ``group`` make the clip's norm the whole gradients'
+    (``global_norm``).
 
     Per tensor, in f32: g = grad * clip, clip = min(1, grad_clip / (gnorm +
     1e-9)) (1 when ``grad_clip`` is 0); m = b1 m + (1 - b1) g; v = b2 v +
@@ -79,7 +96,9 @@ def adamw_update(params: Tensors, grads: Tensors, state, cfg: AdamWConfig
     the bias corrections, then cast to the parameter's dtype.
     """
     step = state["step"] + 1
-    gnorm = global_norm(grads[k] for k in params)
+    gnorm = global_norm((grads[k] for k in params),
+                        None if replicas is None
+                        else [replicas[k] for k in params], group)
     clip = (torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
             if cfg.grad_clip else 1.0)
     lr = _schedule(cfg, step)

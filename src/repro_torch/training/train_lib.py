@@ -1,13 +1,15 @@
 """Train-step factory: loss + grad + AdamW, with microbatch accumulation
-(counterpart of ``repro.training.train_lib``, at one device).
+(counterpart of ``repro.training.train_lib``).
 
 The model holds its parameters: ``init_train_state`` turns on
 ``requires_grad`` for the floating-point ones and returns the AdamW state
 over them, and the step updates them in place.  The gradients come from
 autograd through ``Model.train_loss``, whose attention blocks and loss
 chunks are recomputed in backward, as the JAX package's ``jax.checkpoint``s
-are.  The JAX package's compressed cross-pod gradient sync and sharded
-training are ROADMAP.md queue 1 item 11c.
+are.  Under a train plan (``Model(cfg, plan=make_plan(cfg, mesh,
+"train", global_batch=B))``) the model holds the rank's pieces, and so do
+the AdamW state and the step's updates.  The JAX package's compressed
+cross-pod gradient sync is ROADMAP.md queue 1 item 11f.
 """
 from __future__ import annotations
 
@@ -49,7 +51,14 @@ class TrainStep:
     ``model`` on ``batch`` (numpy arrays or tensors), its parameters
     updated in place; ``info`` holds "loss", "grad_norm" and "lr" as 0-d
     tensors.  ``grads`` keeps the gradients the last step gave AdamW (with
-    microbatches, their f32 mean) until the next step begins."""
+    microbatches, their f32 mean) until the next step begins.
+
+    Under a train plan ``batch`` is the whole batch, the same on every
+    rank: with ``microbatches`` n it is cut into n microbatches of B / n
+    rows first and each is then cut to the rank's rows over the batch
+    axes (``Model.batch_rows``), as the JAX step reshapes the global batch
+    under ``jit`` (train_lib.py:39-44); the gradients are finished by
+    ``Model.sync_grads`` and the clip's norm is the whole gradients'."""
 
     def __init__(self, model, tcfg: TrainConfig):
         self.model, self.tcfg = model, tcfg
@@ -74,6 +83,7 @@ class TrainStep:
         for p in params.values():
             p.grad = None
         batch = self._to_device(batch)
+        rows = model.batch_rows
 
         def grad_of(p):
             return p.grad if p.grad is not None else torch.zeros_like(p)
@@ -88,7 +98,8 @@ class TrainStep:
                      for k, p in params.items()}
             loss = torch.zeros((), dtype=torch.float32, device=model.device)
             for i in range(n):
-                mb_loss = model.train_loss({k: v[i] for k, v in mbs.items()})
+                mb_loss = model.train_loss(rows({k: v[i]
+                                                 for k, v in mbs.items()}))
                 mb_loss.backward()
                 with torch.no_grad():
                     for k, p in params.items():
@@ -99,12 +110,18 @@ class TrainStep:
                 g.div_(n)
             loss = loss / n
         else:
-            loss = model.train_loss(batch)
+            loss = model.train_loss(rows(batch))
             loss.backward()
             loss = loss.detach()
             grads = {k: grad_of(p) for k, p in params.items()}
+        norm = {}
+        if model.plan is not None:
+            model.sync_grads(grads)
+            norm = {"replicas": {k: model.plan.replicas(
+                model.param_specs[k]) for k in params},
+                "group": model.tp.world}
         _, opt_state, info = adamw_update(params, grads, opt_state,
-                                          self.tcfg.optimizer)
+                                          self.tcfg.optimizer, **norm)
         info["loss"] = loss
         self.grads = grads
         return opt_state, info

@@ -23,7 +23,18 @@ The inputs' ``kind`` picks the body (``attention`` when absent):
   architecture under ``make_plan(cfg, mesh, "prefill", global_batch=B)``
   on the inputs' ``mesh``, on ``prompt`` positions: the image embeddings
   ``img`` (B, I, d) where not None, then ``tokens[:, :prompt - I]``;
-  writes {arch: {logits, cache}} as a pickle.
+  writes {arch: {logits, cache}} as a pickle;
+* ``train`` (a pickle, with ``archs``, ``grads`` and ``steps``): for each
+  reduced architecture in f32, ``Model.init(PRNGKey(2))`` and tokens
+  (4, 33) from ``randint(PRNGKey(2))`` (``case_train``,
+  tests/sharded_cases.py:44-63), ``train_loss`` without a plan and under
+  ``make_plan(cfg, mesh, "train", global_batch=4)`` on the inputs'
+  ``mesh``; for the archs in ``grads`` also ``jax.grad`` of the planned
+  loss (``case_grad``); for each (arch, microbatches) in ``steps`` one
+  planned ``make_train_step`` (AdamW lr 1e-3, warmup 2) from the same
+  weights; writes {arch: {params, tokens, loss, loss_unplanned, grads?}}
+  and {"steps": {(arch, microbatches): {loss, grad_norm, params}}} as a
+  pickle.
 
 The MoE bodies are compiled with XLA's excess precision off, the
 arithmetic the JAX source states (see tests/test_torch_moe.py).  A
@@ -62,6 +73,8 @@ from repro.models.attention import (decode_attention_sharded,  # noqa: E402
                                     local_attention, ring_attention)
 from repro.models.moe import apply_moe  # noqa: E402
 from repro.models.transformer import shard_map  # noqa: E402
+from repro.training import (AdamWConfig, TrainConfig,  # noqa: E402
+                            adamw_init, make_train_step)
 
 
 def _as_written(f, *args):
@@ -163,11 +176,57 @@ def prefill(inp):
     return out
 
 
+def train(inp):
+    from jax.sharding import NamedSharding
+    mesh = make_test_mesh(*map(int, inp["mesh"]))
+    key = jax.random.PRNGKey(2)
+    use = jax.set_mesh if hasattr(jax, "set_mesh") else (lambda m: m)
+    to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
+
+    def put(tree, specs):
+        return jax.tree.map(
+            lambda x, sp: jax.device_put(x, NamedSharding(mesh, sp)), tree,
+            specs, is_leaf=lambda x: not isinstance(x, (dict, list, tuple)))
+
+    out, built = {"steps": {}}, {}
+    for arch in inp["archs"]:
+        cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+        params = Model(cfg).init(key)
+        tokens = jax.random.randint(key, (4, 33), 0, cfg.vocab_size)
+        plan = make_plan(cfg, mesh, "train", global_batch=4)
+        model = Model(cfg, plan)
+        params_sh = put(params, plan.param_specs(params))
+        batch_sh = {"tokens": jax.device_put(
+            tokens, NamedSharding(mesh, P("data", None)))}
+        entry = {"params": to_np(params), "tokens": np.asarray(tokens),
+                 "loss_unplanned": float(jax.jit(Model(cfg).train_loss)(
+                     params, {"tokens": tokens}))}
+        with use(mesh):
+            entry["loss"] = float(jax.jit(model.train_loss)(params_sh,
+                                                           batch_sh))
+            if arch in inp["grads"]:
+                entry["grads"] = to_np(jax.jit(jax.grad(model.train_loss))(
+                    params_sh, batch_sh))
+        out[arch] = entry
+        built[arch] = (model, params_sh, batch_sh)
+    for arch, mb in inp["steps"]:
+        model, params_sh, batch_sh = built[arch]
+        tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=2),
+                           microbatches=mb)
+        with use(mesh):
+            new, _, info = jax.jit(make_train_step(model, tcfg))(
+                params_sh, adamw_init(params_sh, tcfg.optimizer), batch_sh)
+        out["steps"][(arch, mb)] = {"loss": float(info["loss"]),
+                                    "grad_norm": float(info["grad_norm"]),
+                                    "params": to_np(new)}
+    return out
+
+
 if __name__ == "__main__":
     kind = str(INPUTS.get("kind", "attention"))
     result = {"attention": attention, "moe": moe, "ffn": ffn,
               "seq_attention": seq_attention,
-              "prefill": prefill}[kind](INPUTS)
+              "prefill": prefill, "train": train}[kind](INPUTS)
     if sys.argv[2].endswith(".pkl"):
         with open(sys.argv[2], "wb") as f:
             pickle.dump(result, f)

@@ -30,8 +30,9 @@ loads its pieces; and two meshes where a mixer's specs disagree (mamba2
 with 4 heads of 32 on 8 ranks: ``w_x`` cut mid-head, ``w_dt`` and the
 ``ssm`` state whole; recurrentgemma with W 48 on 3 ranks: ``w_x`` cut
 off the 16 gate blocks, ``w_a`` whole).  (iii) every architecture builds
-under a decode plan; training plans raise ``NotImplementedError`` naming
-item 11c, and prefill plans with ``attn_batch_shard`` item 11e.  (iv) The
+under a decode plan; prefill and train plans with ``attn_batch_shard``
+raise ``NotImplementedError`` naming item 11e (the train plans
+themselves: tests/test_torch_train_plan.py).  (iv) The
 prefill under a plan: ``attention.ring_attention`` and
 ``local_attention`` on 4 sequence ranks against the JAX bodies under
 ``shard_map``; reduced phi4-mini, gemma3-1b (window 16 over slices of 8:
@@ -420,17 +421,14 @@ def test_every_architecture_builds_under_a_decode_plan(tmp_path):
 
 
 def test_prefill_and_train_plans_raise():
-    # the prefill plans the port refuses: batch-parallel attention over the
-    # sequence axis (the hill-climb's variant); every train plan
+    # the prefill and train plans the port refuses: batch-parallel
+    # attention over the sequence axis (the hill-climb's variant), item 11e
     cfg = port_reduced("phi4-mini-3.8b")
     mesh = MeshShape((2, 4), ("data", "model"))
-    batch_shard = dataclasses.replace(
-        make_plan(cfg, mesh, "prefill", global_batch=4),
-        attn_batch_shard=True)
-    for plan, item in ((batch_shard, "item 11e"),
-                       (make_plan(cfg, mesh, "train", global_batch=4),
-                        "item 11c")):
-        with pytest.raises(NotImplementedError, match=item):
+    for kind in ("prefill", "train"):
+        plan = dataclasses.replace(make_plan(cfg, mesh, kind, global_batch=4),
+                                   attn_batch_shard=True)
+        with pytest.raises(NotImplementedError, match="item 11e"):
             Model(cfg, device="cpu", plan=plan)
 
 

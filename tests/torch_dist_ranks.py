@@ -29,6 +29,8 @@ from repro_torch.models.attention import CacheSlot, decode_attention_sharded
 from repro_torch.models.sharding import (COLLECTIVES, RankGroups,
                                          ShardingPlan, make_plan,
                                          reset_collectives, shard_tensor)
+from repro_torch.training import (AdamWConfig, TrainConfig,
+                                  init_train_state, make_train_step)
 
 
 def spawn(case: str, world: int, inputs, workdir, timeout: float = 240.0):
@@ -233,17 +235,24 @@ def case_build(inp):
     positions of seeded tokens (a VLM 12 image embeddings and 20 tokens,
     the image crossing a slice's end) with 4 adapters, and the arch's entry
     gains the rank's rows of the logits, those of the model without a plan
-    (the same seed, so the same weights) and the cache's ``pos``."""
+    (the same seed, so the same weights) and the cache's ``pos``.  Under a
+    train plan each takes ``train_loss`` of such a batch (33 tokens, a VLM
+    12 image embeddings and 21 tokens) and backpropagates it, and the
+    entry gains the loss, the loss of the model without a plan, and for
+    an MoE whether its model with int8 experts refused ``train_loss``
+    (``ValueError``; None for the others)."""
     kind = inp.get("kind", "decode")
     mesh = make_test_mesh(2, 4, device="cpu")
     out = {}
     for arch in inp["archs"]:
         cfg = get_reduced(arch)
-        if kind == "prefill":
+        if kind in ("prefill", "train"):
             cfg = dataclasses.replace(cfg, dtype="float32")
         plan = make_plan(cfg, mesh, kind, global_batch=4)
         model = Model(cfg, device="cpu", plan=plan)
         out[arch] = (model.plan.n_width, model.plan.n_cache)
+        if kind == "train":
+            out[arch] += _train_build(cfg, plan, model)
         if kind != "prefill":
             continue
         whole = Model(cfg, device="cpu")
@@ -265,6 +274,31 @@ def case_build(inp):
         out[arch] += (got.numpy(), shard_tensor(want, (dp, None), plan)
                       .numpy(), int(cache["pos"]))
     return out
+
+
+def _train_build(cfg, plan, model):
+    """(the planned loss, the loss without a plan, int8 experts refused)
+    of ``case_build``'s train plan."""
+    gen = torch.Generator().manual_seed(3)
+    n_img = 12 if cfg.n_image_tokens else 0
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 33 - n_img),
+                                     generator=gen)}
+    if n_img:
+        batch["img_embeds"] = torch.randn((4, n_img, cfg.d_model),
+                                          generator=gen)
+    init_train_state(model)
+    loss = model.train_loss(model.batch_rows(batch))
+    loss.backward()
+    want = float(Model(cfg, device="cpu").train_loss(batch))
+    refused = None
+    if cfg.n_experts:
+        int8 = Model(cfg, device="cpu", plan=plan, expert_quant=True)
+        try:
+            int8.train_loss(int8.batch_rows(batch))
+            refused = False
+        except ValueError:
+            refused = True
+    return float(loss.detach()), want, refused
 
 
 def case_seq_attention(inp):
@@ -375,6 +409,266 @@ def case_prefill(inp):
     return out
 
 
+def _adjoint_cases(plan, rank, n):
+    """(name, rank's function, whole function, the rank's cut of the
+    whole gradients) of each collective's use, on the 4 ranks of a (2, 2)
+    mesh.  Each function takes {name: whole input}: the rank's cuts what
+    the rank holds, runs the sharded computation and returns (its loss,
+    the leaves whose gradients it compares); its loss is the same scalar
+    on every rank (the planned loss's convention).  The whole function is
+    the unsharded computation, differentiated in one process; the cut
+    takes its {name: gradient} to the rank's leaves' gradients."""
+    group = plan.group(("data", "model"))
+    col = plan.coordinate("model")
+    width = sharding.WidthShards(plan.group("model"), col, 2, frozenset())
+
+    def rows(t):   # the rank's quarter of the rows
+        m = t.shape[0] // n
+        return t[rank * m:(rank + 1) * m]
+
+    def cols(t, r):   # the columns of rank r's model coordinate (of 2)
+        k = t.shape[-1] // 2
+        return t[..., (r % 2) * k:(r % 2 + 1) * k]
+
+    def total(t):   # the loss summed over the ranks
+        return sharding.all_reduce(t, "sum", group)
+
+    def leaf(t):
+        return t.detach().clone().requires_grad_(True)
+
+    def gather_alike(T):   # every rank consumes the whole alike
+        xs = leaf(rows(T["x"]))
+        whole = sharding.all_gather(xs, group, dim=0, adjoint="slice")
+        return (torch.sin(whole) * T["w"]).sum(), [xs]
+
+    def gather_apart(T):   # each rank consumes the whole its own way
+        xs = leaf(rows(T["x"]))
+        whole = sharding.all_gather(xs, group, dim=0, adjoint="sum")
+        return total((torch.tanh(whole) * T["c"][rank]).sum()), [xs]
+
+    def gather_aux(T):   # beside one value all compute alike (the aux)
+        xs = leaf(rows(T["x"]))
+        whole = sharding.all_gather(xs, group, dim=0, adjoint="sum")
+        aux = sharding.scale_grad((torch.sin(whole) * T["w"]).sum() ** 2,
+                                  1 / n)
+        return total((torch.tanh(whole) * T["c"][rank]).sum()) + aux, [xs]
+
+    def scatter(T):
+        mine = leaf(T["c"][rank])
+        out = sharding.reduce_scatter(mine, group, dim=0)
+        return total((torch.sin(out) * rows(T["w"])).sum()), [mine]
+
+    def shifted(T):   # once and twice: a ring's chain
+        mine = leaf(T["c"][rank])
+        once = sharding.shift(mine, group)
+        twice = sharding.shift(once, group)
+        return total((torch.sin(once) * T["w"]).sum()
+                     + (torch.cos(twice) * T["x"]).sum() * (rank + 1)), [mine]
+
+    def mlp(T):   # width-TP: copy in, all-reduce out
+        xs, w1, w2 = (leaf(T["x"]), leaf(width.piece(T["w1"])),
+                      leaf(width.piece(T["w2"], 0)))
+        h = torch.tanh(width.enter(xs, True) @ w1)
+        return (torch.sin(width.reduce(h @ w2, True)) * T["w"]).sum(), \
+            [xs, w1, w2]
+
+    def pieces(T):   # cut to the piece, gathered whole, cut again
+        xs = leaf(T["x"])
+        mine = width.piece(torch.sin(xs))
+        whole = width.relayout(torch.tanh(mine), True, False)
+        back = width.relayout(whole * whole, False, True)
+        return width.reduce((back * width.piece(T["c"][col])).sum(),
+                            True), [xs]
+
+    c_sum = lambda f: lambda T: sum(  # noqa: E731
+        f(T, r) for r in range(n))
+    cases = [
+        ("all_gather-slice", gather_alike,
+         lambda T: (torch.sin(T["x"]) * T["w"]).sum(),
+         lambda G: [rows(G["x"])]),
+        ("all_gather-sum", gather_apart,
+         c_sum(lambda T, r: (torch.tanh(T["x"]) * T["c"][r]).sum()),
+         lambda G: [rows(G["x"])]),
+        ("scale_grad-aux", gather_aux,
+         lambda T: c_sum(lambda T, r: (torch.tanh(T["x"])
+                                       * T["c"][r]).sum())(T)
+         + (torch.sin(T["x"]) * T["w"]).sum() ** 2,
+         lambda G: [rows(G["x"])]),
+        ("reduce_scatter", scatter,
+         lambda T: (torch.sin(T["c"].sum(0)) * T["w"]).sum(),
+         lambda G: [G["c"][rank]]),
+        ("shift", shifted,
+         c_sum(lambda T, r: (torch.sin(T["c"][(r - 1) % n]) * T["w"]).sum()
+               + (torch.cos(T["c"][(r - 2) % n]) * T["x"]).sum() * (r + 1)),
+         lambda G: [G["c"][rank]]),
+        ("copy-all_reduce", mlp,
+         lambda T: (torch.sin(torch.tanh(T["x"] @ T["w1"]) @ T["w2"])
+                    * T["w"]).sum(),
+         lambda G: [G["x"], width.piece(G["w1"]), width.piece(G["w2"], 0)]),
+        ("piece-relayout", pieces,
+         lambda T: sum(cols(torch.tanh(torch.sin(T["x"])) ** 2 * T["c"][m],
+                            m).sum() for m in range(2)),
+         lambda G: [G["x"]]),
+    ]
+    # a weight cut by its spec, gathered (whole, or over data alone, its
+    # model cut kept) and used by each rank on its own data
+    for spec, axes in ((("data", "model"), None),
+                       ((("data", "model"), None), None),
+                       (("data", "model"), ("data",))):
+        def fsdp(T, spec=spec, axes=axes):
+            piece = leaf(shard_tensor(T["w"], spec, plan))
+            used = sharding.gather_whole(piece, spec, plan, axes=axes)
+            mine = cols(T["c"][rank], rank) if axes else T["c"][rank]
+            return total((torch.tanh(used) * mine).sum()), [piece]
+
+        def fsdp_whole(T, axes=axes):
+            return sum((cols(torch.tanh(T["w"]) * T["c"][r], r) if axes
+                        else torch.tanh(T["w"]) * T["c"][r]).sum()
+                       for r in range(n))
+        cases.append((f"gather_whole-{spec}-{axes}", fsdp, fsdp_whole,
+                      lambda G, spec=spec: [shard_tensor(G["w"], spec,
+                                                         plan)]))
+    return cases
+
+
+def case_adjoints(inp):
+    """Each collective's adjoint in each use (``_adjoint_cases``) in f64,
+    and ``attention.ring_attention`` and ``local_attention`` (window 16)
+    on 4 sequence ranks of a (1, 4) mesh in f32, against single-process
+    autograd of the unsharded function: {case: the worst max |d| / max |g|
+    of the rank's gradients}, the attention's collectives, and whether an
+    all-reduce max of a tensor that needs a gradient raised."""
+    rank, n = dist.get_rank(), dist.get_world_size()
+    plan = ShardingPlan(mesh=make_test_mesh(2, 2, device="cpu"),
+                        mode="train")
+    T = {k: torch.from_numpy(inp[k]) for k in ("x", "w", "c", "w1", "w2")}
+    out = {}
+    for name, mine, whole, cut in _adjoint_cases(plan, rank, n):
+        loss, leaves = mine(T)
+        loss.backward()
+        ref = {k: t.clone().requires_grad_(True) for k, t in T.items()}
+        whole(ref).backward()
+        want = cut({k: t.grad for k, t in ref.items()})
+        out[name] = max(_rel(t.grad.numpy(), g.numpy()) for t, g in zip(leaves, want))
+    try:
+        sharding.all_reduce(T["x"].clone().requires_grad_(True), "max",
+                            plan.group("model"))
+        out["max_raises"] = False
+    except ValueError:
+        out["max_raises"] = True
+
+    seq = ShardingPlan(mesh=make_test_mesh(1, n, device="cpu"),
+                       seq_axis="model", mode="train")
+    tp = RankGroups(seq)
+    q, k, v, dout = (torch.from_numpy(inp[name]) for name in
+                     ("q", "k", "v", "dout"))
+    scale = float(1.0 / np.sqrt(q.shape[-1]))
+    spec = (None, "model", None, None)
+    for window in (0, 16):
+        def attend(q_, k_, v_, **ring):
+            if window:
+                return attention.local_attention(q_, k_, v_, scale=scale,
+                                                 window=window, **ring)
+            return attention.ring_attention(q_, k_, v_, scale=scale, **ring)
+        ref = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        (attend(*ref) * dout).sum().backward()
+        mine = [shard_tensor(t, spec, seq).requires_grad_(True)
+                for t in (q, k, v)]
+        reset_collectives()
+        got = attend(*mine, group=tp.seq, index=tp.seq_index, n_shards=n)
+        (got * shard_tensor(dout, spec, seq)).sum().backward()
+        out[f"attention-{window}"] = max(
+            _rel(t.grad.numpy(), shard_tensor(r.grad, spec, seq).numpy())
+            for t, r in zip(mine, ref))
+        out[f"attention-{window}-collectives"] = dict(COLLECTIVES)
+    return out
+
+
+def _planned(cfg, params, mesh):
+    """The reduced model under the (2, 4) train plan at batch 4 on bridged
+    JAX weights, its parameters requiring gradients."""
+    model = Model(cfg, device="cpu",
+                  plan=make_plan(cfg, mesh, "train", global_batch=4))
+    bridge.load_params(model, params)
+    init_train_state(model)
+    return model
+
+
+def _whole(model, tensors):
+    """{name: the whole tensor} of a rank's pieces ({name: piece}),
+    gathered by each parameter's spec."""
+    with torch.no_grad():
+        return {n: sharding.gather_whole(t, model.param_specs[n],
+                                         model.plan).numpy()
+                for n, t in tensors.items()}
+
+
+def case_train(inp):
+    """The port's training under ``make_plan(cfg, make_test_mesh(2, 4),
+    "train", global_batch=4)`` on the JAX train body's weights and tokens
+    (``inp["jax"]``): per arch the planned loss, and for the archs in
+    ``grads`` each parameter's gradient after ``sync_grads`` gathered
+    whole, with the collectives of the forward and of the backward; per
+    (arch, microbatches) in ``steps`` one ``TrainStep`` (AdamW lr 1e-3,
+    warmup 2) on the whole batch: its loss and gradient norm, and against
+    the port's step without a plan on the same weights and batch (``vs``
+    "port") the worst relative departure of the rank's updated pieces from
+    the same pieces of that step, or (``vs`` "jax") the parameters after
+    the step gathered whole."""
+    mesh = make_test_mesh(2, 4, device="cpu")
+    out = {"rank": dist.get_rank(), "steps": {}}
+    for arch in inp["archs"]:
+        a = inp["jax"][arch]
+        cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+        model = _planned(cfg, a["params"], mesh)
+        rows = model.batch_rows({"tokens": torch.from_numpy(a["tokens"])
+                                 .long()})
+        reset_collectives()
+        loss = model.train_loss(rows)
+        forward = dict(COLLECTIVES)
+        reset_collectives()
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        model.sync_grads(grads)
+        entry = {"loss": float(loss.detach()), "forward": forward,
+                 "backward": dict(COLLECTIVES),
+                 "specs": dict(model.param_specs)}
+        if arch in inp["grads"]:
+            entry["grads"] = _whole(model, grads)
+        out[arch] = entry
+    for arch, mb, vs in inp["steps"]:
+        a = inp["jax"][arch]
+        cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+        tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=2),
+                           microbatches=mb)
+        batch = {"tokens": a["tokens"]}
+        model = _planned(cfg, a["params"], mesh)
+        step = make_train_step(model, tcfg)
+        _, info = step(init_train_state(model, tcfg), batch)
+        entry = {"loss": float(info["loss"]),
+                 "grad_norm": float(info["grad_norm"])}
+        if vs == "jax":
+            entry["params"] = _whole(model, dict(model.named_parameters()))
+        else:
+            whole = Model(cfg, device="cpu")
+            bridge.load_params(whole, a["params"])
+            wstep = make_train_step(whole, tcfg)
+            _, winfo = wstep(init_train_state(whole, tcfg), batch)
+            entry["whole"] = {"loss": float(winfo["loss"]),
+                              "grad_norm": float(winfo["grad_norm"])}
+            mine = dict(model.named_parameters())
+            worst = 0.0
+            with torch.no_grad():
+                for n, w in whole.named_parameters():
+                    want = shard_tensor(w, model.param_specs[n], model.plan)
+                    worst = max(worst, float(
+                        (mine[n] - want).norm() / want.norm().clamp(min=1e-30)))
+            entry["worst"] = worst
+        out["steps"][(arch, mb)] = entry
+    return out
+
+
 CASES = {"body": case_body, "moe": case_moe, "ffn": case_ffn,
          "model": case_model, "build": case_build,
-         "seq_attention": case_seq_attention, "prefill": case_prefill}
+         "seq_attention": case_seq_attention, "prefill": case_prefill,
+         "train": case_train, "adjoints": case_adjoints}
