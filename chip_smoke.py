@@ -264,7 +264,23 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    departure after the steps, both walls a step, the collectives a step
    by kind (forward, and backward with its recompute), both peaks, no
    kernel launched, the phase's seconds against its budget.  Every
-   number of the phase is printed beside the card's name and power limit.
+   number of the phase is printed beside the card's name and power limit;
+11. gradient compression (``phase_compression``): phi4-mini-3.8b at its
+   published widths (bf16, weights from seed 0) takes one training step
+   of TRAIN_BATCH, and its bf16 gradients go through
+   ``compressed_grad_sync`` COMPRESS_CALLS times on the NCCL
+   world-size-1 group, the residual carried.  Each call's synced
+   gradients must be ``(g.float() + r).to(bf16)`` bit for bit (one shard:
+   the ring is the identity, no collective), every residual within half
+   its leaf's grid step (plus the f32 roundings of x / s and q * s,
+   2**-15 s) and not all zero, and the last call on the
+   COMPRESS_CPU_LEAVES largest leaves, copied to the host, bit for bit
+   the host run of the same function (q, scale, synced and residual).
+   Prints the synchronised ms of each sync of the whole tree and their
+   median against the byte bound (each gradient and residual read once,
+   each synced gradient and new residual written once, over the HBM
+   rate), the peak memory, and the phase's seconds against its budget,
+   beside the card's name and power limit.
 
 Launch counts are zeroed just before each path a user drives (teacher
 forcing through ``Model.prefill``/``decode_step`` in phase 4, for each
@@ -475,6 +491,10 @@ FD_LSE_KERNELS = ("fd_split_kernel", "fd_combine_lse_kernel")
 # step's loss and gradient norm within TRAIN_PLAN_TOL (relative)
 TRAIN_PLAN_ARCHS = (("phi4-mini-3.8b", None), ("mamba2-2.7b", 16))
 TRAIN_PLAN_STEPS, TRAIN_PLAN_TOL, TRAIN_PLAN_BUDGET_S = 3, 2e-4, 120
+# phase 11 syncs phi4-mini's gradients COMPRESS_CALLS times, the residual
+# carried, and runs the last call's COMPRESS_CPU_LEAVES largest leaves
+# again on the host
+COMPRESS_CALLS, COMPRESS_CPU_LEAVES, COMPRESS_BUDGET_S = 3, 2, 60
 
 
 def say(*parts) -> None:
@@ -3793,6 +3813,144 @@ def phase_train_plan(ops, card):
     return stats, launches
 
 
+def compression_bytes(grads, carried: bool) -> int:
+    """The bytes one ``compressed_grad_sync`` of ``grads`` must move: each
+    gradient (and, ``carried``, its f32 residual) read once, each synced
+    gradient and f32 new residual written once."""
+    return sum(g.numel() * (2 * g.element_size() + 4 + 4 * carried)
+               for g in grads.values())
+
+
+def phase_compression(ops, card):
+    """Phase 11: phi4-mini-3.8b at its published widths (bf16, weights from
+    seed 0) takes one step of TRAIN_BATCH as phase 8b trains it; its bf16
+    gradients (``TrainStep.grads``) go through ``compressed_grad_sync``
+    COMPRESS_CALLS times on the NCCL world-size-1 group, the residual
+    carried, after the model and its AdamW state are freed.  Fails unless
+    each call's synced gradients are ``(g.float() + r).to(dtype)`` bit
+    for bit, every new residual is within s / 2 + 2**-15 s of 0 (s: its
+    leaf's scale) and not all zero, the last call on the
+    COMPRESS_CPU_LEAVES largest leaves equals the host run of the same
+    function on the same inputs bit for bit (q and scale of
+    ``_quantize``, the synced gradient and the residual), no collective
+    was issued and no kernel launched.  Returns its numbers."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_cuda_group
+    from repro_torch.models import Model
+    from repro_torch.models.sharding import COLLECTIVES, reset_collectives
+    from repro_torch.training import (AdamWConfig, TrainConfig, _quantize,
+                                      compressed_grad_sync, init_train_state,
+                                      make_train_step)
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    rows, tokens = TRAIN_BATCH
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=TRAIN_LR, warmup_steps=1))
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Model(cfg, device="cuda", seed=0)
+    opt = init_train_state(model, tcfg)
+    step = make_train_step(model, tcfg)
+    opt, info = step(opt, train_batches(cfg, rows, tokens).batch_at(0))
+    loss = info["loss"].item()
+    grads = step.grads
+    del model, opt, step, info
+    gc.collect()
+    torch.cuda.empty_cache()
+    elements = sum(g.numel() for g in grads.values())
+    dtypes = sorted({str(g.dtype) for g in grads.values()})
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    reset_collectives()
+    init_cuda_group()
+    walls, bounds, residual = [], [], None
+    try:
+        group = dist.group.WORLD
+        n = dist.get_world_size(group)
+        for c in range(COMPRESS_CALLS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            synced, new_residual = compressed_grad_sync(grads, group, n,
+                                                        residual)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+            bounds.append(compression_bytes(grads, residual is not None)
+                          / HBM_BYTES_PER_S * 1e3)
+            worst = 0.0
+            for k, g in grads.items():
+                g32 = g.float() if residual is None else \
+                    g.float() + residual[k]
+                if not torch.equal(synced[k], g32.to(g.dtype)):
+                    raise AssertionError(f"11: call {c + 1}: {k} synced is "
+                                         f"not (g + r) in {g.dtype}")
+                s = _quantize(g32)[1]
+                r = new_residual[k].abs().amax()
+                if not r > 0 or r > s * (0.5 + 2.0 ** -15):
+                    raise AssertionError(f"11: call {c + 1}: {k}'s residual "
+                                         f"{r.item():.3e} against its scale "
+                                         f"{s.item():.3e}")
+                worst = max(worst, (r / s).item())
+            say(f"  11 call {c + 1}: {walls[-1]:.2f} ms for {len(grads)} "
+                f"leaves ({elements / 1e9:.3f}B elements), byte bound "
+                f"{bounds[-1]:.2f} ms; synced bit for bit g + r; largest "
+                f"residual {worst:.6f} of its leaf's scale; {card}")
+            if c < COMPRESS_CALLS - 1:
+                residual = new_residual
+            del synced
+        collectives = dict(COLLECTIVES)
+    finally:
+        dist.destroy_process_group()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = ops.launch_counts()
+    if any(collectives.values()) or any(launches.values()):
+        raise AssertionError(f"11: collectives {collectives}, launches "
+                             f"{launches} at world size 1")
+    largest = sorted(grads, key=lambda k: grads[k].numel())
+    host = []
+    for k in largest[-COMPRESS_CPU_LEAVES:]:
+        t1 = time.perf_counter()
+        g32 = grads[k].float() + residual[k]
+        q, s = _quantize(g32)
+        cg, cr = grads[k].cpu(), residual[k].cpu()
+        cq, cs = _quantize(cg.float() + cr)
+        csynced, cres = compressed_grad_sync({k: cg}, None, 1, {k: cr})
+        same = {"q": torch.equal(q.cpu(), cq),
+                "scale": torch.equal(s.cpu().view(torch.int32),
+                                     cs.view(torch.int32)),
+                "synced": torch.equal(g32.to(grads[k].dtype).cpu(),
+                                      csynced[k]),
+                "residual": torch.equal(
+                    new_residual[k].cpu().view(torch.int32),
+                    cres[k].view(torch.int32))}
+        host.append({"leaf": k, "elements": grads[k].numel(), **same,
+                     "seconds": time.perf_counter() - t1})
+        say(f"  11 host run of call {COMPRESS_CALLS}, {k} "
+            f"({grads[k].numel() / 1e6:.1f}M elements): bit for bit "
+            f"{same} ({host[-1]['seconds']:.1f} s)")
+        if not all(same.values()):
+            raise AssertionError(f"11: {k} on the card departs from the "
+                                 f"host run: {same}")
+        del g32, q, cg, cr, cq, csynced, cres
+    ms = float(np.median(walls))
+    bound_ms = float(np.median(bounds))
+    del grads, residual, new_residual
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    stats = {"arch": TRAIN_ARCH, "batch": [rows, tokens], "loss": loss,
+             "leaves": len(largest), "elements": elements, "dtypes": dtypes,
+             "calls": COMPRESS_CALLS, "sync_ms": walls, "bound_ms": bounds,
+             "sync_ms_median": ms, "bound_ms_median": bound_ms,
+             "peak_gb": peak_gb, "host_checks": host, "seconds": wall,
+             "budget_s": COMPRESS_BUDGET_S, "card": card}
+    say(f"  11: {ms:.2f} ms a sync of the whole tree (median of "
+        f"{COMPRESS_CALLS}, synchronised, host clock) against a byte bound "
+        f"of {bound_ms:.2f} ms ({ms / bound_ms:.1f}x); peak "
+        f"{peak_gb:.1f} GB; phase 11 took {wall:.1f} s (budget "
+        f"{COMPRESS_BUDGET_S} s); {card}")
+    return stats
+
+
 @contextlib.contextmanager
 def host_spans():
     """The host seconds spent, while open, in the plan's collectives
@@ -4011,6 +4169,10 @@ def main() -> int:
     train_plan_stats, train_plan_launches = phase_train_plan(ops, card)
     say("  train plan " + json.dumps(train_plan_stats))
     say(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
+    say("phase 11: gradient compression (phi4-mini-3.8b's gradients through"
+        " compressed_grad_sync on the world-size-1 group, the residual "
+        "carried)")
+    say("  compression " + json.dumps(phase_compression(ops, card)))
 
     paths = {"teacher_forcing": tf_launches, "serving": serve_launches,
              "measurement": measure_launches,

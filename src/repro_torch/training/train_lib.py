@@ -8,8 +8,8 @@ autograd through ``Model.train_loss``, whose attention blocks and loss
 chunks are recomputed in backward, as the JAX package's ``jax.checkpoint``s
 are.  Under a train plan (``Model(cfg, plan=make_plan(cfg, mesh,
 "train", global_batch=B))``) the model holds the rank's pieces, and so do
-the AdamW state and the step's updates.  The JAX package's compressed
-cross-pod gradient sync is ROADMAP.md queue 1 item 11f.
+the AdamW state and the step's updates.  The compressed cross-pod
+gradient sync, which the step does not call, is ``compression``.
 """
 from __future__ import annotations
 

@@ -34,7 +34,14 @@ The inputs' ``kind`` picks the body (``attention`` when absent):
   planned ``make_train_step`` (AdamW lr 1e-3, warmup 2) from the same
   weights; writes {arch: {params, tokens, loss, loss_unplanned, grads?}}
   and {"steps": {(arch, microbatches): {loss, grad_norm, params}}} as a
-  pickle.
+  pickle;
+* ``compression`` (a pickle): the JAX package's int8 ring under
+  ``shard_map`` over ``data`` of a (``mesh``) mesh of n devices, device i
+  taking row i of each input, run eagerly as ``case_compression``
+  (tests/sharded_cases.py:118-135) runs it: ``quantized_psum`` of ``x``
+  (``mode`` "psum"), or ``compressed_grad_sync`` of ``grads`` ({name:
+  (calls, n, ...) f32}, cast to ``dtypes``) over the calls, the residual
+  carried ("sync"); writes each device's outputs in f32 (exact for bf16).
 
 The MoE bodies are compiled with XLA's excess precision off, the
 arithmetic the JAX source states (see tests/test_torch_moe.py).  A
@@ -222,11 +229,50 @@ def train(inp):
     return out
 
 
+def compression(inp):
+    from repro.training.compression import (compressed_grad_sync,
+                                            quantized_psum)
+    n = math.prod(inp["mesh"])
+    mesh = make_test_mesh(*inp["mesh"])
+    spec = P("data")
+
+    def per_device(f, *args):
+        # eager, not jitted: under jit XLA turns the source's / 127.0 into
+        # a product with 1 / 127 and fuses the ring's multiply-add
+        return shard_map(f, mesh=mesh, in_specs=(spec,) * len(args),
+                         out_specs=spec, check_vma=False)(*args)
+
+    if inp["mode"] == "psum":
+        return {"out": np.asarray(per_device(
+            lambda xl: quantized_psum(xl[0], "data", n)[None],
+            jnp.asarray(inp["x"])))}
+
+    def sync(g, r=None):
+        first = lambda t: {k: v[0] for k, v in t.items()}  # noqa: E731
+        synced, res = compressed_grad_sync(
+            first(g), "data", n, None if r is None else first(r))
+        return ({k: v[None] for k, v in synced.items()},
+                {k: v[None] for k, v in res.items()})
+
+    calls, residual = [], None
+    for c in range(len(next(iter(inp["grads"].values())))):
+        g = {k: jnp.asarray(v[c], inp["dtypes"][k])
+             for k, v in inp["grads"].items()}
+        synced, residual = (per_device(sync, g) if residual is None
+                            else per_device(sync, g, residual))
+        calls.append({
+            "synced": {k: np.asarray(v, np.float32)
+                       for k, v in synced.items()},
+            "dtypes": {k: str(v.dtype) for k, v in synced.items()},
+            "residual": {k: np.asarray(v) for k, v in residual.items()}})
+    return {"calls": calls}
+
+
 if __name__ == "__main__":
     kind = str(INPUTS.get("kind", "attention"))
     result = {"attention": attention, "moe": moe, "ffn": ffn,
-              "seq_attention": seq_attention,
-              "prefill": prefill, "train": train}[kind](INPUTS)
+              "seq_attention": seq_attention, "prefill": prefill,
+              "train": train, "compression": compression}[kind](INPUTS)
     if sys.argv[2].endswith(".pkl"):
         with open(sys.argv[2], "wb") as f:
             pickle.dump(result, f)

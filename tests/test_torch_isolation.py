@@ -29,7 +29,8 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
 training = {"repro_torch.training.optimizer", "repro_torch.training.train_lib",
-            "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
+            "repro_torch.training.compression", "repro_torch.data.pipeline",
+            "repro_torch.checkpoint.manager",
             "repro_torch.launch.fault_tolerance",
             "repro_torch.launch.train"} <= set(names)
 print(len(names), training, bad)

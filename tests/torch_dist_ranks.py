@@ -30,7 +30,8 @@ from repro_torch.models.sharding import (COLLECTIVES, RankGroups,
                                          ShardingPlan, make_plan,
                                          reset_collectives, shard_tensor)
 from repro_torch.training import (AdamWConfig, TrainConfig,
-                                  init_train_state, make_train_step)
+                                  compressed_grad_sync, init_train_state,
+                                  make_train_step, quantized_psum)
 
 
 def spawn(case: str, world: int, inputs, workdir, timeout: float = 240.0):
@@ -668,7 +669,45 @@ def case_train(inp):
     return out
 
 
+def case_compression(inp):
+    """The int8 ring over the ``data`` axis of a (world, 1) mesh, the
+    group's index i taking row i of each input: ``quantized_psum`` of
+    ``x`` (``mode`` "psum"), or ``compressed_grad_sync`` of ``grads``
+    ({name: (calls, world, ...) f32}, cast to ``dtypes``) over the calls,
+    the residual carried ("sync"), with whether an ``n_shards`` other than
+    the group's size raised ``ValueError``.  The outputs in f32 (exact for
+    bf16), and the collectives of the psum or of each sync."""
+    world = dist.get_world_size()
+    mesh = make_test_mesh(world, 1, device="cpu")
+    group = mesh.get_group("data")
+    i = dist.get_group_rank(group, dist.get_rank())
+    if inp["mode"] == "psum":
+        reset_collectives()
+        out = quantized_psum(torch.from_numpy(inp["x"][i]), group, world)
+        return {"index": i, "out": out.numpy(),
+                "collectives": dict(COLLECTIVES)}
+    dtypes = {k: getattr(torch, v) for k, v in inp["dtypes"].items()}
+    calls, residual = [], None
+    for c in range(len(next(iter(inp["grads"].values())))):
+        grads = {k: torch.from_numpy(v[c, i]).to(dtypes[k])
+                 for k, v in inp["grads"].items()}
+        reset_collectives()
+        synced, residual = compressed_grad_sync(grads, group, world, residual)
+        calls.append({"synced": {k: v.float().numpy()
+                                 for k, v in synced.items()},
+                      "dtypes": {k: str(v.dtype) for k, v in synced.items()},
+                      "residual": {k: v.numpy() for k, v in residual.items()},
+                      "collectives": dict(COLLECTIVES)})
+    try:
+        compressed_grad_sync(grads, group, world // 2)
+        refused = False
+    except ValueError:
+        refused = True
+    return {"index": i, "calls": calls, "refused": refused}
+
+
 CASES = {"body": case_body, "moe": case_moe, "ffn": case_ffn,
          "model": case_model, "build": case_build,
          "seq_attention": case_seq_attention, "prefill": case_prefill,
-         "train": case_train, "adjoints": case_adjoints}
+         "train": case_train, "adjoints": case_adjoints,
+         "compression": case_compression}
