@@ -280,21 +280,36 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    median against the byte bound (each gradient and residual read once,
    each synced gradient and new residual written once, over the HBM
    rate), the peak memory, and the phase's seconds against its budget,
-   beside the card's name and power limit.
+   beside the card's name and power limit;
+12. the loop around the planned training step (``phase_checkpoint_plan``):
+   phase 9's model, batches and crash under ``make_plan(cfg,
+   make_single_device_mesh(), "train", global_batch=2)`` on the NCCL
+   world-size-1 group, through the planned ``FaultTolerantLoop`` (each
+   save gathers every cut leaf whole over the group of one, rank 0
+   writes): one restart, resumed from step 3; the same planned steps
+   without a crash bit for bit the same parameters, m and v; the newest
+   checkpoint restored without a plan and under the plan into fresh
+   models, one more step from each bit for bit one more step of the
+   crashed run; each save one gather a cut leaf and the card's memory
+   grown by at most its largest leaf.  Prints the checkpoint's bytes,
+   each save's snapshot (its gathers included) and write seconds, the
+   resume's and both restores' seconds, against its budget, beside the
+   card's name and power limit.
 
 Launch counts are zeroed just before each path a user drives (teacher
 forcing through ``Model.prefill``/``decode_step`` in phase 4, for each
 architecture, serving in phases 5, 5b, 5c, 5d, 5e and 5f, measurement in
 phase 7, training in phases 8a, 8b and 9, the sharded decode in phase
 10c and for each architecture of 10d, the sharded prefill in 10e,
-sharded training in 10f) and read just after it.  SGMV,
+sharded training in 10f, the planned training loop in 12) and read just
+after it.  SGMV,
 BGMV and flash-decode must have launched in phase 4, BGMV and
 flash-decode in phases 5, 5b, 5c, 5d and 5e, the fused kernel and SGMV
 in phase 7, BGMV and flash-decode's log-sum-exp mode in phase 10c and on
 10d's planned olmoe, BGMV and flash-decode on 10d's planned
 recurrentgemma, SGMV on 10e's planned prefill; mamba2's paths (phase 4, 5f, 10d) must launch none,
-having no attention and no LoRA, and so must training's (8a, 8b, 9 and
-10f).  Each kernel's
+having no attention and no LoRA, and so must training's (8a, 8b, 9, 10f
+and 12).  Each kernel's
 ``launches`` in the kernel table is the count of the path it serves
 (``path``); the int8 mode counts as flash-decode, on the int8 paths
 (``serving_int8``, ``teacher_forcing_int8``), and flash-decode's row
@@ -495,6 +510,10 @@ TRAIN_PLAN_STEPS, TRAIN_PLAN_TOL, TRAIN_PLAN_BUDGET_S = 3, 2e-4, 120
 # carried, and runs the last call's COMPRESS_CPU_LEAVES largest leaves
 # again on the host
 COMPRESS_CALLS, COMPRESS_CPU_LEAVES, COMPRESS_BUDGET_S = 3, 2, 60
+# phase 12 runs phase 9's loop under the world-size-1 train plan; a save
+# may grow the card's allocated memory by its largest leaf, rounded up to
+# the allocator's 2 MiB
+CKPT_PLAN_BUDGET_S, ALLOC_SLACK = 120, 2 << 20
 
 
 def say(*parts) -> None:
@@ -3951,6 +3970,200 @@ def phase_compression(ops, card):
     return stats
 
 
+def phase_checkpoint_plan(ops, card):
+    """Phase 12: phase 9's loop under a train plan.  phi4-mini-3.8b at its
+    published widths, ``TRAIN_CHECK_LAYERS`` layers, bf16, weights from
+    seed 0, on ``TRAIN_BATCH`` batches (AdamW at lr ``TRAIN_LR``, one
+    warmup step), under ``make_plan(cfg, make_single_device_mesh(),
+    "train", global_batch=rows)`` on the NCCL world-size-1 group.  Run A:
+    the planned ``FaultTolerantLoop`` (``specs`` from
+    ``train_state_specs``) over ``CKPT_STEPS`` steps, a checkpoint every
+    ``CKPT_EVERY`` (async, the last ``CKPT_KEEP`` kept; each leaf gathered
+    whole over the group of one), a crash at step ``CKPT_FAIL``: one
+    restart, resumed from step ``CKPT_EVERY``.  Run B: the same planned
+    steps without a crash or a checkpoint; its parameters, m and v bit for
+    bit run A's.  The newest checkpoint restored twice, into a fresh
+    ``Model(cfg)`` without a plan and into a fresh planned one, and one
+    more step from each bit for bit one more planned step of run A.  Each
+    save issues one gather a cut leaf and grows the card's allocated
+    memory by at most its largest leaf (``ALLOC_SLACK`` over).  Before any
+    save the free space under ``CKPT_DIR`` must hold two checkpoints; the
+    directory is removed at the end.  Prints the checkpoint's bytes, each
+    save's snapshot (its gathers included) and write seconds, its gathers
+    and memory growth, the resume's and both restores' seconds and the
+    steps' walls, against ``CKPT_PLAN_BUDGET_S``.  Returns the numbers and
+    run A's launch counts (none)."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint import copy_into
+    from repro_torch.checkpoint.manager import _flatten, _leaf_specs
+    from repro_torch.configs import get_config
+    from repro_torch.launch.fault_tolerance import FaultTolerantLoop, FTConfig
+    from repro_torch.launch.mesh import (init_cuda_group,
+                                         make_single_device_mesh)
+    from repro_torch.models import Model
+    from repro_torch.models.sharding import (COLLECTIVES, make_plan,
+                                             reset_collectives)
+    from repro_torch.training import (AdamWConfig, TrainConfig,
+                                      init_train_state, make_train_step,
+                                      train_lib, train_state_specs)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_CHECK_LAYERS)
+    rows, tokens = TRAIN_BATCH
+    pipe = train_batches(cfg, rows, tokens)
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=TRAIN_LR, warmup_steps=1))
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    CKPT_DIR.mkdir(parents=True)
+    init_cuda_group()
+    try:
+        plan = make_plan(cfg, make_single_device_mesh(), "train",
+                         global_batch=rows)
+
+        def build(seed, plan):
+            """(the model's train state, its specs, its step on a state)."""
+            model = Model(cfg, device="cuda", seed=seed, plan=plan)
+            state = {"params": train_lib.trainable(model),
+                     "opt": init_train_state(model, tcfg)}
+            step_fn = make_train_step(model, tcfg)
+
+            def one(s, batch):
+                return {"params": s["params"],
+                        "opt": step_fn(s["opt"], batch)[0]}
+            return state, train_state_specs(model, state), one
+
+        state, specs, one = build(0, plan)
+        leaves = _flatten(state)
+        sizes = {k: t.numel() * t.element_size() for k, t in leaves.items()}
+        ckpt_bytes, largest = sum(sizes.values()), max(sizes.values())
+        cut = sum(any(e is not None for e in sp)
+                  for sp in _leaf_specs(state, specs).values())
+        free = shutil.disk_usage(CKPT_DIR).free
+        say(f"  12: {cfg.n_layers} of {get_config(TRAIN_ARCH).n_layers} "
+            f"layers at d={cfg.d_model}, {cfg.dtype}, under the train plan "
+            f"(batch {plan.batch_axes}, sequence {plan.seq_axis!r}, FSDP "
+            f"{plan.fsdp_axes}); a checkpoint {ckpt_bytes / 1e9:.2f} GB "
+            f"({len(leaves)} leaves, {cut} cut, the largest "
+            f"{largest / 1e9:.2f} GB); {free / 1e9:.1f} GB free under "
+            f"{CKPT_DIR}")
+        if free < 2 * ckpt_bytes:
+            raise RuntimeError(f"12: {free / 1e9:.1f} GB free under "
+                               f"{CKPT_DIR}, two checkpoints need "
+                               f"{2 * ckpt_bytes / 1e9:.1f} GB")
+        loop = FaultTolerantLoop(FTConfig(
+            str(CKPT_DIR / "run_a"), checkpoint_every=CKPT_EVERY,
+            keep=CKPT_KEEP), state, specs=specs, plan=plan)
+        resume, save = loop.resume_or_init, loop.mgr.save
+        resumes, gathers, growth = [], [], []
+
+        def timed_resume(init_fn):
+            t1 = time.perf_counter()
+            out = resume(init_fn)
+            torch.cuda.synchronize()
+            resumes.append(time.perf_counter() - t1)
+            return out
+
+        def measured_save(*args, **kwargs):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_collectives()
+            save(*args, **kwargs)
+            growth.append(torch.cuda.max_memory_allocated() - base)
+            gathers.append(COLLECTIVES["weight_gather"])
+        loop.resume_or_init, loop.mgr.save = timed_resume, measured_save
+        ops.reset_launches()
+        out_a = loop.run_with_restarts(lambda: state, one, pipe.batch_at,
+                                       CKPT_STEPS, failure_at=CKPT_FAIL)
+        launches = ops.launch_counts()
+        rep = loop.report
+        step_a = int(out_a["opt"]["step"])
+        say(f"  12 run A: restarts {rep.restarts}, resumed from "
+            f"{rep.resumed_from}, {rep.steps_run} steps run, AdamW step "
+            f"{step_a}; committed {loop.mgr.steps()}; step walls (ms) "
+            + ", ".join(f"{t * 1e3:.1f}" for t in rep.step_times)
+            + "; saves " + ", ".join(
+                f"step {t['step']}: snapshot {t['snapshot_s']:.2f} s "
+                f"({g} gathers, the card's memory +{b / 1e9:.2f} GB), write "
+                f"{t['write_s']:.2f} s" for t, g, b in
+                zip(loop.mgr.timings, gathers, growth))
+            + f"; resume (rank 0's step, restore + copy onto the card) "
+            f"{resumes[-1]:.2f} s; launches {launches}; {card}")
+        if (rep.restarts, rep.resumed_from, step_a) != (1, CKPT_EVERY,
+                                                        CKPT_STEPS):
+            raise AssertionError(f"12 run A: restarts {rep.restarts}, "
+                                 f"resumed from {rep.resumed_from}, step "
+                                 f"{step_a}")
+        if any(launches.values()):
+            raise AssertionError(f"12: the train steps launched {launches}")
+        if any(g != cut for g in gathers) or \
+                max(growth) > largest + ALLOC_SLACK:
+            raise AssertionError(f"12: saves gathered {gathers} (want {cut})"
+                                 f" and grew the card's memory by {growth} "
+                                 f"(at most {largest} + {ALLOC_SLACK})")
+
+        state_b, _, one_b = build(0, plan)
+        for i in range(CKPT_STEPS):
+            state_b = one_b(state_b, pipe.batch_at(i))
+        flat_a, flat_b = _flatten(out_a), _flatten(state_b)
+        differ = [k for k, t in flat_a.items()
+                  if not torch.equal(t, flat_b[k])]
+        say(f"  12 run B (no crash, no checkpoint): "
+            f"{len(flat_b) - len(differ)} of {len(flat_b)} leaves bit for "
+            f"bit run A's")
+        if differ:
+            raise AssertionError(f"12: run A departs from run B: "
+                                 f"{differ[:5]}")
+        del state_b, one_b, flat_b
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        flat_a = _flatten(one(out_a, pipe.batch_at(CKPT_STEPS)))
+        restores = {}
+        for label, p in (("unplanned", None), ("planned", plan)):
+            state_r, specs_r, one_r = build(1, p)
+            t1 = time.perf_counter()
+            copy_into(state_r, loop.mgr.restore(state_r, specs=specs_r,
+                                                plan=p))
+            torch.cuda.synchronize()
+            restores[label] = time.perf_counter() - t1
+            flat_r = _flatten(one_r(state_r, pipe.batch_at(CKPT_STEPS)))
+            differ = [k for k, t in flat_a.items()
+                      if not torch.equal(t, flat_r[k])]
+            same = len(flat_r) - len(differ)
+            say(f"  12: step {CKPT_STEPS} restored {label} in "
+                f"{restores[label]:.2f} s (restore + copy onto the card), "
+                f"then step {CKPT_STEPS + 1}: {same} of {len(flat_r)} leaves"
+                f" bit for bit run A's step {CKPT_STEPS + 1}; {card}")
+            if differ:
+                raise AssertionError(f"12: the {label} restore's step "
+                                     f"departs: {differ[:5]}")
+            del state_r, one_r, flat_r
+            gc.collect()
+            torch.cuda.empty_cache()
+        stats = {"arch": TRAIN_ARCH, "layers": cfg.n_layers,
+                 "dtype": cfg.dtype, "batch": [rows, tokens],
+                 "checkpoint_bytes": ckpt_bytes, "largest_leaf_bytes": largest,
+                 "leaves": len(leaves), "cut_leaves": cut,
+                 "saves": loop.mgr.timings, "save_gathers": gathers,
+                 "save_memory_growth_bytes": growth,
+                 "resume_s": resumes[-1], "restore_s": restores,
+                 "step_walls_ms": [t * 1e3 for t in rep.step_times],
+                 "restarts": rep.restarts, "resumed_from": rep.resumed_from,
+                 "card": card}
+        del state, out_a, flat_a, loop
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["seconds"] = time.perf_counter() - t0
+    say(f"  phase 12 took {stats['seconds']:.1f} s (budget "
+        f"{CKPT_PLAN_BUDGET_S} s); {card}")
+    return stats, launches
+
+
 @contextlib.contextmanager
 def host_spans():
     """The host seconds spent, while open, in the plan's collectives
@@ -4173,6 +4386,11 @@ def main() -> int:
         " compressed_grad_sync on the world-size-1 group, the residual "
         "carried)")
     say("  compression " + json.dumps(phase_compression(ops, card)))
+    say("phase 12: the loop around the planned training step (phase 9 under"
+        " the world-size-1 train plan: saves gathered whole, the resume "
+        "and restores onto a plan and onto none)")
+    ckpt_plan_stats, ckpt_plan_launches = phase_checkpoint_plan(ops, card)
+    say("  checkpoint plan " + json.dumps(ckpt_plan_stats))
 
     paths = {"teacher_forcing": tf_launches, "serving": serve_launches,
              "measurement": measure_launches,
@@ -4191,7 +4409,8 @@ def main() -> int:
              **{"sharded_decode_" + a: c
                 for a, c in planned_launches.items()},
              "sharded_prefill": prefill_launches,
-             "sharded_training": train_plan_launches}
+             "sharded_training": train_plan_launches,
+             "training_loop_planned": ckpt_plan_launches}
     rows["flash_decode_lora"]["grid_max_abs_err"] = \
         errs["flash_decode_lora_grid"]
     rows["sgmv"]["arrival_slices_bitwise"] = errs["sgmv_arrival_bitwise"]

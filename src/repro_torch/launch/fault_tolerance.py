@@ -13,8 +13,16 @@ is live: ``{"params": the model's trainable parameters by name, "opt": the
 AdamW state}``.  ``resume_or_init`` writes the checkpoint into the
 skeleton's tensors in place (the model's parameters among them), and
 ``init_fn`` must reset the state in place and return it.  The state's
-own tensors say which device it lives on, so the JAX ``shardings``
-argument has no counterpart here.
+own tensors say which device it lives on.
+
+The JAX ``shardings`` argument is ``specs`` and ``plan`` here: under a
+train plan the state holds the rank's pieces, ``specs`` is their tree of
+specs (``training.train_lib.train_state_specs``) and ``plan`` the plan
+the state lives under.  Every rank runs the loop: each save gathers the
+pieces whole and rank 0 writes them; a resume takes rank 0's newest
+committed step on every rank (rank 0 joins its write first) and restores
+each rank's pieces under ``plan``, which may lie on a mesh other than the
+one that saved.
 """
 from __future__ import annotations
 
@@ -55,21 +63,24 @@ def _synchronize(state) -> None:
 
 
 class FaultTolerantLoop:
-    def __init__(self, cfg: FTConfig, state_skeleton: Dict[str, Any]):
+    def __init__(self, cfg: FTConfig, state_skeleton: Dict[str, Any],
+                 specs: Optional[Any] = None, plan: Optional[Any] = None):
         self.cfg = cfg
         self.mgr = CheckpointManager(cfg.checkpoint_dir, keep=cfg.keep)
         self.skeleton = state_skeleton
+        self.specs, self.plan = specs, plan
         self.report = FTReport()
 
     def resume_or_init(self, init_fn: Callable[[], Dict[str, Any]]
                        ) -> Dict[str, Any]:
         """``init_fn()`` when no step is committed; else the latest step
         written into the skeleton's tensors in place, and the skeleton."""
-        latest = self.mgr.latest_step()
+        latest = self.mgr.latest_step(self.plan)
         if latest is None:
             return init_fn()
         self.report.resumed_from = latest
-        copy_into(self.skeleton, self.mgr.restore(self.skeleton, latest))
+        copy_into(self.skeleton, self.mgr.restore(
+            self.skeleton, latest, specs=self.specs, plan=self.plan))
         return self.skeleton
 
     def run(self, state: Dict[str, Any], step_fn: Callable,
@@ -99,7 +110,7 @@ class FaultTolerantLoop:
             step += 1
             self.report.steps_run += 1
             if step % self.cfg.checkpoint_every == 0 or step == n_steps:
-                self.mgr.save(step, state)
+                self.mgr.save(step, state, specs=self.specs, plan=self.plan)
         self.mgr.wait()
         return state
 
@@ -109,7 +120,7 @@ class FaultTolerantLoop:
         restarts = 0
         while True:
             state = self.resume_or_init(init_fn)
-            start = self.mgr.latest_step() or 0
+            start = self.mgr.latest_step(self.plan) or 0
             try:
                 return self.run(state, step_fn, batch_fn, n_steps,
                                 start_step=start, failure_at=failure_at)

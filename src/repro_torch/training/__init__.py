@@ -6,4 +6,5 @@ from .compression import (_quantize, compressed_grad_sync,  # noqa
                           quantized_psum)
 from .optimizer import (AdamWConfig, adamw_init, adamw_update,  # noqa
                         global_norm)
-from .train_lib import TrainConfig, init_train_state, make_train_step  # noqa
+from .train_lib import (TrainConfig, init_train_state,  # noqa
+                        make_train_step, train_state_specs)

@@ -36,6 +36,22 @@ def trainable(model) -> Dict[str, torch.nn.Parameter]:
             if p.is_floating_point()}
 
 
+def train_state_specs(model, state):
+    """The specs of a train state ``{"params": trainable(model), "opt":
+    its AdamW state}`` under the model's plan, in the state's structure:
+    each parameter's (``Model.param_specs``), each moment's and master
+    copy's its parameter's, the step replicated (``()``); None without a
+    plan.  What ``CheckpointManager`` and ``FaultTolerantLoop`` take as
+    ``specs``, the JAX package's tree of shardings."""
+    if model.plan is None:
+        return None
+    ps = model.param_specs
+    opt = {k: {n: ps[n] for n in v} for k, v in state["opt"].items()
+           if k != "step"}
+    return {"params": {n: ps[n] for n in state["params"]},
+            "opt": {"step": (), **opt}}
+
+
 def init_train_state(model, tcfg: TrainConfig = TrainConfig()):
     """Turn on ``requires_grad`` for the model's floating-point parameters
     and return ``adamw_init`` of them (train_lib.py:58-61, whose

@@ -41,7 +41,18 @@ The inputs' ``kind`` picks the body (``attention`` when absent):
   (tests/sharded_cases.py:118-135) runs it: ``quantized_psum`` of ``x``
   (``mode`` "psum"), or ``compressed_grad_sync`` of ``grads`` ({name:
   (calls, n, ...) f32}, cast to ``dtypes``) over the calls, the residual
-  carried ("sync"); writes each device's outputs in f32 (exact for bf16).
+  carried ("sync"); writes each device's outputs in f32 (exact for bf16);
+* ``checkpoint`` (a pickle, with ``archs`` and ``dir``): for each reduced
+  architecture in f32, ``Model.init(PRNGKey(2))`` and three token batches
+  (4, 33) from ``randint(PRNGKey(2 + i))``; one jitted planned
+  ``make_train_step`` (AdamW lr 1e-3, warmup 2) on batch 0 under
+  ``make_plan(cfg, mesh, "train", global_batch=4)`` on the (2, 4) mesh,
+  saved as step 1 by the JAX ``CheckpointManager`` under ``dir/<arch>``,
+  restored through ``shardings=`` onto the (1, 8) plan's
+  ``NamedSharding``s (the moments their parameters', the step
+  replicated) and a second step there on batch 1; writes {arch: {params,
+  tokens, dir, state (after step 1), loss, grad_norm and params of the
+  second step}} as a pickle.
 
 The MoE bodies are compiled with XLA's excess precision off, the
 arithmetic the JAX source states (see tests/test_torch_moe.py).  A
@@ -268,11 +279,67 @@ def compression(inp):
     return {"calls": calls}
 
 
+def checkpoint(inp):
+    from jax.sharding import NamedSharding
+    from repro.checkpoint import CheckpointManager
+    use = jax.set_mesh if hasattr(jax, "set_mesh") else (lambda m: m)
+    to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
+    meshes = {"2x4": make_test_mesh(2, 4), "1x8": make_test_mesh(1, 8)}
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=2))
+    out = {}
+    for arch in inp["archs"]:
+        cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+        params = Model(cfg).init(jax.random.PRNGKey(2))
+        tokens = np.stack([np.asarray(jax.random.randint(
+            jax.random.PRNGKey(2 + i), (4, 33), 0, cfg.vocab_size))
+            for i in range(3)])
+
+        def planned(name):
+            """(the model under ``name``'s train plan, the state's
+            shardings)."""
+            mesh = meshes[name]
+            plan = make_plan(cfg, mesh, "train", global_batch=4)
+            ps = jax.tree.map(
+                lambda x, sp: NamedSharding(mesh, sp), params,
+                plan.param_specs(params),
+                is_leaf=lambda x: not isinstance(x, (dict, list, tuple)))
+            return Model(cfg, plan), {"params": ps, "opt": {
+                "step": NamedSharding(mesh, P()), "m": ps, "v": ps}}
+
+        def step(name, model, state, i):
+            mesh = meshes[name]
+            batch = {"tokens": jax.device_put(
+                jnp.asarray(tokens[i]), NamedSharding(mesh, P("data", None)))}
+            with use(mesh):
+                new, opt, info = jax.jit(make_train_step(model, tcfg))(
+                    state["params"], state["opt"], batch)
+            return {"params": new, "opt": opt}, info
+
+        model, shardings = planned("2x4")
+        first = jax.device_put(params, shardings["params"])
+        state, _ = step("2x4", model, {"params": first, "opt": adamw_init(
+            first, tcfg.optimizer)}, 0)
+        directory = os.path.join(inp["dir"], arch)
+        mgr = CheckpointManager(directory)
+        mgr.save(1, state)
+        mgr.wait()
+        model, shardings = planned("1x8")
+        second, info = step("1x8", model,
+                            mgr.restore(state, 1, shardings=shardings), 1)
+        out[arch] = {"params": to_np(params), "tokens": tokens,
+                     "dir": directory, "state": to_np(state),
+                     "loss": float(info["loss"]),
+                     "grad_norm": float(info["grad_norm"]),
+                     "second": to_np(second["params"])}
+    return out
+
+
 if __name__ == "__main__":
     kind = str(INPUTS.get("kind", "attention"))
     result = {"attention": attention, "moe": moe, "ffn": ffn,
               "seq_attention": seq_attention, "prefill": prefill,
-              "train": train, "compression": compression}[kind](INPUTS)
+              "train": train, "compression": compression,
+              "checkpoint": checkpoint}[kind](INPUTS)
     if sys.argv[2].endswith(".pkl"):
         with open(sys.argv[2], "wb") as f:
             pickle.dump(result, f)

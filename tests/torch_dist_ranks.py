@@ -20,7 +20,11 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from repro_torch import bridge
+from repro_torch.checkpoint import CheckpointManager, copy_into
+from repro_torch.checkpoint.manager import (_flatten, _leaf_specs,
+                                            _unflatten_into)
 from repro_torch.configs import get_reduced
+from repro_torch.launch.fault_tolerance import FaultTolerantLoop, FTConfig
 from repro_torch.launch.mesh import init_cpu_group, make_test_mesh
 from repro_torch.models import Model, layers, moe, sharding, transformer
 from repro_torch.kernels import ref as kernel_ref
@@ -31,7 +35,9 @@ from repro_torch.models.sharding import (COLLECTIVES, RankGroups,
                                          reset_collectives, shard_tensor)
 from repro_torch.training import (AdamWConfig, TrainConfig,
                                   compressed_grad_sync, init_train_state,
-                                  make_train_step, quantized_psum)
+                                  make_train_step, quantized_psum,
+                                  train_state_specs)
+from repro_torch.training.train_lib import trainable
 
 
 def spawn(case: str, world: int, inputs, workdir, timeout: float = 240.0):
@@ -706,8 +712,201 @@ def case_compression(inp):
     return {"index": i, "calls": calls, "refused": refused}
 
 
+class _Planned:
+    """A reduced model in f32 on bridged JAX weights under the train plan of
+    ``mesh`` (None: no plan), with its train state ({"params", "opt"}),
+    its specs and its step (AdamW lr 1e-3, warmup 2)."""
+
+    def __init__(self, cfg, params, mesh):
+        plan = None if mesh is None else \
+            make_plan(cfg, mesh, "train", global_batch=4)
+        self.model = Model(cfg, device="cpu", plan=plan)
+        bridge.load_params(self.model, params)
+        tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=2))
+        self.state = {"params": trainable(self.model),
+                      "opt": init_train_state(self.model, tcfg)}
+        self.specs = train_state_specs(self.model, self.state)
+        self.plan = self.model.plan
+        self.train = make_train_step(self.model, tcfg)
+
+    def step(self, state, batch):
+        """One step on ``batch``: the state, its "opt" the step's."""
+        opt, self.info = self.train(state["opt"], batch)
+        return {"params": state["params"], "opt": opt}
+
+    def flat(self, state=None):
+        """{path: a copy of the leaf} of the live state (or ``state``)."""
+        return {k: t.detach().clone()
+                for k, t in _flatten(state or self.state).items()}
+
+    def pieces_of(self, whole):
+        """{path: this rank's piece of ``whole[path]``} under the plan."""
+        spec = _leaf_specs(self.state, self.specs) if self.plan else {}
+        return {k: shard_tensor(t, spec[k], self.plan) if self.plan else t
+                for k, t in whole.items()}
+
+    def whole(self, state=None):
+        """{path: a copy of the whole leaf} of the rank's pieces, gathered
+        (``gather_whole`` returns a leaf it does not cut itself)."""
+        flat = _flatten(state or self.state)
+        if self.plan is None:
+            return {k: t.detach().clone() for k, t in flat.items()}
+        spec = _leaf_specs(self.state, self.specs)
+        with torch.no_grad():
+            return {k: sharding.gather_whole(t.detach(), spec[k],
+                                             self.plan).clone()
+                    for k, t in flat.items()}
+
+
+def _differ(got, want):
+    """The paths whose tensors are not bit for bit equal."""
+    return sorted(k for k, t in got.items() if not torch.equal(t, want[k]))
+
+
+def _worst(got, want, prefix):
+    """max over the leaves under ``prefix`` of ||got - want||_2 /
+    ||want||_2."""
+    return max(float((got[k] - want[k]).norm()
+                     / want[k].norm().clamp(min=1e-30))
+               for k in got if k.startswith(prefix))
+
+
+def _checkpoint_arch(cfg, a, meshes, workdir: Path):
+    """``case_checkpoint`` for one architecture (see there)."""
+    rank = dist.get_rank()
+    tokens = a["tokens"]
+
+    def batch(i):
+        return {"tokens": tokens[i % len(tokens)]}
+    out = {}
+    # (a) two planned steps on (2, 4), saved at step 2, a third step; the
+    # restore onto the same mesh and the third step again
+    run = _Planned(cfg, a["params"], meshes["2x4"])
+    mgr = CheckpointManager(str(workdir / "planned"))
+    for i in range(2):
+        run.state = run.step(run.state, batch(i))
+    writes = []
+    save = np.save
+
+    def counted(*args, **kwargs):
+        writes.append(args[0])
+        return save(*args, **kwargs)
+    reset_collectives()
+    with mock.patch.object(np, "save", counted):
+        mgr.save(2, run.state, specs=run.specs, plan=run.plan)
+        gathers = dict(COLLECTIVES)
+        saved = run.whole()
+        run.state = run.step(run.state, batch(2))
+        mgr.wait()
+    out["save"] = {"collectives": gathers, "writes": len(writes),
+                   "timings": mgr.timings,
+                   "cut": sum(any(e is not None for e in sp) for sp in
+                              _leaf_specs(run.state, run.specs).values())}
+    third, third_whole = run.flat(), run.whole()
+    norm3 = float(run.info["grad_norm"])
+    if rank == 0:
+        # (c) an unplanned save of the gathered state
+        CheckpointManager(str(workdir / "unplanned"), async_save=False).save(
+            2, _unflatten_into(run.state, saved))
+        out["saved"] = {k: t.numpy() for k, t in saved.items()}
+        out["dirs"] = [str(workdir / side / "step_00000002")
+                       for side in ("planned", "unplanned")]
+    restored = _flatten(mgr.restore(run.state, 2, specs=run.specs,
+                                    plan=run.plan))
+    before = _differ(restored, run.pieces_of(saved))
+    copy_into(run.state, _unflatten_into(run.state, restored))
+    run.state = run.step(run.state, batch(2))
+    out["same_mesh"] = {"before": before, "after": _differ(run.flat(), third)}
+    # (b) the same checkpoint onto (1, 8), (4, 2) and, on rank 0, no plan
+    for name in ("1x8", "4x2", "none"):
+        if name == "none" and rank:
+            continue
+        other = _Planned(cfg, a["params"], meshes.get(name))
+        restored = _flatten(mgr.restore(other.state, None, specs=other.specs,
+                                        plan=other.plan))
+        before = _differ(restored, other.pieces_of(saved))
+        copy_into(other.state, _unflatten_into(other.state, restored))
+        other.state = other.step(other.state, batch(2))
+        got, want = other.flat(), other.pieces_of(third_whole)
+        out[name] = {"before": before,
+                     "params": _worst(got, want, "params/"),
+                     "moments": max(_worst(got, want, "opt/m/"),
+                                    _worst(got, want, "opt/v/")),
+                     "step": int(other.state["opt"]["step"]),
+                     "grad_norm": float(other.info["grad_norm"]),
+                     "want_grad_norm": norm3}
+        del other
+    # (d) JAX's checkpoint of one planned step on (2, 4) onto the port's
+    # (1, 8) plan, by parameter name, and its second step
+    jax_state = CheckpointManager(a["jax_dir"]).restore(a["jax_state"])
+    named = {"params": bridge.import_tree(jax_state["params"]),
+             "opt": {"step": jax_state["opt"]["step"],
+                     **{k: bridge.import_tree(jax_state["opt"][k])
+                        for k in ("m", "v")}}}
+    other = _Planned(cfg, a["params"], meshes["1x8"])
+    copy_into(other.state, _unflatten_into(
+        other.state, other.pieces_of(_flatten(named))))
+    other.state = other.step(other.state, batch(1))
+    whole = other.whole()
+    out["from_jax"] = {"loss": float(other.info["loss"]),
+                       "grad_norm": float(other.info["grad_norm"])}
+    if rank == 0:
+        out["from_jax"]["params"] = {k[len("params/"):]: t.numpy()
+                                     for k, t in whole.items()
+                                     if k.startswith("params/")}
+    del other
+    # (e) the loop on (2, 4): a crash at step 4, the resume from step 3,
+    # against the same steps without a crash
+    loop_run = _Planned(cfg, a["params"], meshes["2x4"])
+    loop = FaultTolerantLoop(FTConfig(str(workdir / "loop"),
+                                      checkpoint_every=3),
+                             loop_run.state, specs=loop_run.specs,
+                             plan=loop_run.plan)
+    ended = loop.run_with_restarts(lambda: loop_run.state, loop_run.step,
+                                   batch, 6, failure_at=4)
+    once = _Planned(cfg, a["params"], meshes["2x4"])
+    for i in range(6):
+        once.state = once.step(once.state, batch(i))
+    out["loop"] = {"resumed_from": loop.report.resumed_from,
+                   "restarts": loop.report.restarts,
+                   "committed": loop.mgr.steps(),
+                   "step": int(ended["opt"]["step"]),
+                   "differ": _differ(loop_run.flat(ended), once.flat())}
+    return out
+
+
+def case_checkpoint(inp):
+    """A planned train state's checkpoint (``CheckpointManager.save``/
+    ``restore`` with ``specs`` and ``plan``, ``FaultTolerantLoop``) for
+    each arch of ``inp["archs"]`` in f32 on the JAX checkpoint body's
+    weights and three batches (``inp["jax"][arch]``), AdamW lr 1e-3,
+    warmup 2, under ``make_plan(cfg, mesh, "train", global_batch=4)``:
+    (a) two steps on the (2, 4) mesh, an async save at step 2 (its
+    gathers, and the files each rank wrote), a third step; the restore
+    onto the same mesh (the pieces against ``shard_tensor`` of the saved
+    whole) and the third step again, bitwise against the first;
+    (b) the restore onto (1, 8), (4, 2) and, on rank 0, no plan, and the
+    third step from each: the worst relative departure of the parameters
+    and of the moments from the same pieces of the uninterrupted step, and
+    the gradient norms; (c) on rank 0 an unplanned save of the gathered
+    state at step 2 beside the planned one (their directories); (d) JAX's
+    checkpoint of one planned step onto the (1, 8) plan by parameter name
+    (``bridge.import_tree``) and the second step, its parameters gathered
+    whole; (e) ``FaultTolerantLoop.run_with_restarts`` on (2, 4), 6 steps,
+    a checkpoint every 3, a crash at step 4, against 6 steps without."""
+    meshes = {name: make_test_mesh(d, m, device="cpu")
+              for name, (d, m) in (("2x4", (2, 4)), ("1x8", (1, 8)),
+                                   ("4x2", (4, 2)))}
+    out = {"rank": dist.get_rank()}
+    for arch in inp["archs"]:
+        cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+        out[arch] = _checkpoint_arch(cfg, inp["jax"][arch], meshes,
+                                     Path(inp["dir"]) / arch)
+    return out
+
+
 CASES = {"body": case_body, "moe": case_moe, "ffn": case_ffn,
          "model": case_model, "build": case_build,
          "seq_attention": case_seq_attention, "prefill": case_prefill,
          "train": case_train, "adjoints": case_adjoints,
-         "compression": case_compression}
+         "compression": case_compression, "checkpoint": case_checkpoint}
