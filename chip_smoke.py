@@ -294,20 +294,49 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    grown by at most its largest leaf.  Prints the checkpoint's bytes,
    each save's snapshot (its gathers included) and write seconds, the
    resume's and both restores' seconds, against its budget, beside the
-   card's name and power limit.
+   card's name and power limit;
+13. the dry-run's cells (``phase_cells``): 13a builds every cell of the
+   ten architectures, each of its ``applicable_shapes`` on the
+   production meshes (16, 16) and (2, 16, 16) as ``MeshShape``s (66
+   cells), with ``launch.steps.build_step`` on ``meta`` and prints a line
+   a cell: its ``cell_id``, its plan's axes, ``cell_bytes`` a device by
+   argument group, ``model_flops_for`` and whether the arguments fit one
+   card; then each cell whole (no mesh).  It fails if the card's
+   allocated bytes moved.  13b takes each decode cell whose whole
+   arguments hold within half the card (the six of gemma3-1b,
+   mamba2-2.7b and recurrentgemma-9b at ``decode_32k`` and
+   ``long_500k``), builds it on the card (``device="cuda"``, seed 0; the
+   paper's 32 adapters of rank 16), fills its cache with seeded draws
+   (``fill_cache``: K/V, rolling buffers and recurrent states), ``pos``
+   16 short of the end, and runs ``bundle.fn`` for 3 eager steps: the
+   real arguments' bytes equal to 13a's meta count to the byte, the peak
+   memory beside them, each step's wall (CUDA events) beside
+   ``decode_bound``, every logit finite, and exactly 2 BGMV and 1
+   flash-decode launches an attention layer a step (none on mamba2); one
+   cell is freed before the next is built.  13c holds BGMV (T 128 and
+   T 1, 32 adapters of rank 16, at gemma3-1b's and recurrentgemma-9b's
+   q and v widths) and flash-decode at 13b's cache shapes against their
+   plain versions within phase 3's tolerances (bf16 3e-2, and 1e-2 of
+   each row's largest value; flash-decode on as many rows as the plain
+   version's f32 K and V take in half the free memory, the count
+   printed) and times each (CUDA graph replay) beside its bound and, for
+   flash-decode, SDPA on head-major copies.  The phase prints its
+   seconds against its 180 s budget, beside the card's name and power
+   limit.
 
 Launch counts are zeroed just before each path a user drives (teacher
 forcing through ``Model.prefill``/``decode_step`` in phase 4, for each
 architecture, serving in phases 5, 5b, 5c, 5d, 5e and 5f, measurement in
 phase 7, training in phases 8a, 8b and 9, the sharded decode in phase
 10c and for each architecture of 10d, the sharded prefill in 10e,
-sharded training in 10f, the planned training loop in 12) and read just
-after it.  SGMV,
+sharded training in 10f, the planned training loop in 12, each cell of
+13b) and read just after it.  SGMV,
 BGMV and flash-decode must have launched in phase 4, BGMV and
 flash-decode in phases 5, 5b, 5c, 5d and 5e, the fused kernel and SGMV
 in phase 7, BGMV and flash-decode's log-sum-exp mode in phase 10c and on
 10d's planned olmoe, BGMV and flash-decode on 10d's planned
-recurrentgemma, SGMV on 10e's planned prefill; mamba2's paths (phase 4, 5f, 10d) must launch none,
+recurrentgemma and on 13b's gemma3 and recurrentgemma cells, SGMV on
+10e's planned prefill; mamba2's paths (phase 4, 5f, 10d, 13b) must launch none,
 having no attention and no LoRA, and so must training's (8a, 8b, 9, 10f
 and 12).  Each kernel's
 ``launches`` in the kernel table is the count of the path it serves
@@ -514,6 +543,19 @@ COMPRESS_CALLS, COMPRESS_CPU_LEAVES, COMPRESS_BUDGET_S = 3, 2, 60
 # may grow the card's allocated memory by its largest leaf, rounded up to
 # the allocator's 2 MiB
 CKPT_PLAN_BUDGET_S, ALLOC_SLACK = 120, 2 << 20
+# phase 13, the dry-run's cells: 13a builds every (architecture x
+# applicable shape x CELL_MESHES mesh) cell on meta, CELL_COUNT of them;
+# 13b runs, whole on the card, each decode cell whose whole arguments take
+# at most CELL_ROOM of the card's memory (a decode step's temporaries are
+# a layer's activations of B rows; a prefill or train cell also holds the
+# whole batch's activations, B x S x d a layer, which ``cell_bytes`` does
+# not count), CELL_STEPS eager steps from ``pos`` CELL_TAIL short of the
+# cache's end; 13c holds BGMV at CELL_TOKENS tokens and flash-decode at
+# 13b's shapes against their plain versions and times them
+CELL_MESHES = {"pod1": ((16, 16), ("data", "model")),
+               "pod2": ((2, 16, 16), ("pod", "data", "model"))}
+CELL_COUNT, CELL_ROOM, CELL_STEPS, CELL_TAIL = 66, 0.5, 3, 16
+CELL_TOKENS, CELLS_BUDGET_S = (128, 1), 180
 
 
 def say(*parts) -> None:
@@ -3074,20 +3116,26 @@ def serve_variant(arch, phase, ops, kv_quant=False):
 
 
 def fill_cache(cache, seed, pos):
-    """Fill every K/V cache tensor with seeded draws, as a long prompt
-    would leave it without running one: bf16 normals, or in an int8 cache
-    their ``quantize_kv`` with its scales (the same normals for both from
-    one seed); set the device ``pos``."""
+    """Fill every cache tensor with seeded draws, as a long prompt would
+    leave it without running one: a global layer's K/V bf16 normals, or
+    in an int8 cache their ``quantize_kv`` with its scales (the same
+    normals for both from one seed); every other leaf (a local layer's
+    rolling ``k_loc``/``v_loc``, an rglru layer's ``conv``/``lru``, an
+    ssd layer's ``conv_x``/``conv_bc``/``ssm`` states) normals in its own
+    dtype; set the device ``pos``."""
     from repro_torch.models.attention import quantize_kv
     gen = torch.Generator(device="cuda").manual_seed(seed)
     for c in cache["layers"]:
-        for name in ("k", "v"):
-            x = torch.randn(c[name].shape, generator=gen, device="cuda",
-                            dtype=torch.bfloat16)
-            if f"{name}_scale" in c:
+        for name, t in c.items():
+            if name.endswith("_scale"):
+                continue            # drawn with its int8 tensor
+            quant = f"{name}_scale" in c
+            x = torch.randn(t.shape, generator=gen, device="cuda",
+                            dtype=torch.bfloat16 if quant else t.dtype)
+            if quant:
                 x, scale = quantize_kv(x)
                 c[f"{name}_scale"].copy_(scale)
-            c[name].copy_(x)
+            t.copy_(x)
             del x
     cache["pos"].fill_(pos)
     torch.cuda.synchronize()
@@ -4164,6 +4212,305 @@ def phase_checkpoint_plan(ops, card):
     return stats, launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 13: the dry-run's cells
+# --------------------------------------------------------------------------- #
+
+def _gb(nbytes) -> str:
+    return f"{nbytes / 1e9:.3f} GB"
+
+
+def _by_group(counts) -> str:
+    """``cell_bytes``' counts, in GB, group by group."""
+    return ", ".join(f"{k} {_gb(v)}" for k, v in counts.items())
+
+
+def phase_cells_meta(card):
+    """13a: every cell of the ten architectures on meta: ``build_step``
+    on each production mesh (``MeshShape``), one line a cell with its id,
+    its plan's axes, ``cell_bytes`` a device by group, ``model_flops_for``
+    and whether the arguments fit one device; then each (architecture,
+    shape) whole (no mesh), and whether 13b takes it.  Fails if a byte was
+    allocated on the card.  Returns (the cells 13b takes, their whole
+    counts)."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.roofline import model_flops_for
+    from repro_torch.launch.steps import build_step, cell_bytes, cell_id
+    from repro_torch.models import applicable_shapes
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    n, take, whole = 0, [], {}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape in applicable_shapes(cfg):
+            flops = model_flops_for(cfg, shape)
+            for pod, (dims, names) in CELL_MESHES.items():
+                b = build_step(cfg, shape, MeshShape(dims, names))
+                got, plan = cell_bytes(b), b.plan
+                axes = {"batch": plan.batch_axes, "seq": plan.seq_axis,
+                        "width": plan.width_axis, "fsdp": plan.fsdp_axes,
+                        "cache_seq": plan.cache_seq_axes}
+                say(f"  {cell_id(arch, shape.name, pod == 'pod2')}: plan "
+                    f"{axes}; a device {_by_group(got)}; "
+                    f"model {flops:.6e} FLOP; fits one device "
+                    f"{got['total'] <= total}")
+                n += 1
+                del b
+            w = cell_bytes(build_step(cfg, shape, None))
+            fits = shape.kind == "decode" and w["total"] <= CELL_ROOM * total
+            whole[arch, shape.name] = w
+            if fits:
+                take.append((arch, shape.name))
+            say(f"  {arch}:{shape.name} whole: {_gb(w['total'])} "
+                f"({_by_group(w)}); "
+                f"{'taken by 13b' if fits else 'not taken'}")
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    say(f"  {n} cells on meta; the card's allocated bytes {before} before, "
+        f"{after} after; {total / 1e9:.2f} GB on the card, 13b takes decode"
+        f" cells within {CELL_ROOM:.0%} of it: {take}; {card}")
+    if n != CELL_COUNT:
+        raise AssertionError(f"13a built {n} cells, not {CELL_COUNT}")
+    if after != before:
+        raise AssertionError(f"13a allocated {after - before} bytes on the "
+                             "card")
+    return take, whole
+
+
+def _arg_bytes(bundle):
+    """The bytes of the bundle's real arguments by group, counted from the
+    tensors themselves (not through ``cell_bytes``)."""
+    from repro_torch.launch.steps import ARG_GROUPS
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [t for v in tree.values() for t in leaves(v)]
+        if isinstance(tree, (list, tuple)):
+            return [t for v in tree for t in leaves(v)]
+        return [tree]
+    out = dict.fromkeys(ARG_GROUPS, 0)
+    for group, arg in zip(bundle.meta["args"], bundle.args):
+        for t in leaves(arg):
+            if t.device.type != "cuda":
+                raise AssertionError(f"an argument on {t.device}")
+            out[group] += t.numel() * t.element_size()
+    out["total"] = sum(out[g] for g in ARG_GROUPS)
+    return out
+
+
+def phase_cells_run(ops, card, take, whole):
+    """13b: each cell 13a takes, built whole on the card (weights, LoRA
+    banks and inputs from seed 0), its cache filled by ``fill_cache``
+    (every leaf kind), ``pos`` CELL_TAIL short of the end, then
+    CELL_STEPS eager steps of ``bundle.fn``: the real arguments' bytes
+    equal to 13a's meta count to the byte, the peak memory beside it, each
+    step's wall (CUDA events) beside ``decode_bound``, every logit finite,
+    and exactly 2 BGMV and 1 flash-decode launches an attention layer a
+    step (none on an attention-free architecture).  One cell is freed
+    before the next is built.  Returns the stats, the launches summed
+    over the cells, and flash-decode's shapes {(B, S, H, KV, D): the
+    cells}."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import SHAPES
+    stats, total, fd_shapes = {}, dict.fromkeys(ops.KERNELS, 0), {}
+    for arch, name in take:
+        cfg, shape = get_config(arch), SHAPES[name]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        b = build_step(cfg, shape, None, device="cuda", seed=0)
+        real, want = _arg_bytes(b), whole[arch, name]
+        if real != want:
+            raise AssertionError(f"{arch}:{name}: real arguments {real} "
+                                 f"against the meta count {want}")
+        cache = b.args[2]
+        fill_cache(cache, seed=11, pos=shape.seq_len - CELL_TAIL)
+        built = time.perf_counter() - t0
+        for fd in {(*c[k].shape[:2], cfg.n_heads, *c[k].shape[2:])
+                   for c in cache["layers"] for k in ("k", "k_loc")
+                   if k in c}:
+            fd_shapes.setdefault(fd, set()).add(f"{arch}:{name}")
+        bnd = decode_bound(b.model, cache)
+        start = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(CELL_STEPS + 1)]
+        finite = []
+        ops.reset_launches()
+        start[0].record()
+        for i in range(CELL_STEPS):
+            logits, stepped = b.fn(*b.args)
+            start[i + 1].record()
+            finite.append(torch.isfinite(logits).all())
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        finite = all(bool(f) for f in finite)
+        walls = [start[i].elapsed_time(start[i + 1])
+                 for i in range(CELL_STEPS)]
+        attn = attention_layers(cfg)
+        want_l = {k: 0 for k in launches}
+        if attn:
+            want_l.update(bgmv=2 * attn * CELL_STEPS,
+                          flash_decode=attn * CELL_STEPS)
+        for k, v in launches.items():
+            total[k] += v
+        peak = torch.cuda.max_memory_allocated() - base
+        st = {"arg_bytes": real, "peak_bytes": peak, "step_ms": walls,
+              "bound_ms": bnd["bound_ms"], "built_s": built,
+              "launches": launches, "finite": finite,
+              "logits_shape": list(logits.shape), "pos": int(cache["pos"])}
+        stats[f"{arch}:{name}"] = st
+        say(f"  {arch}:{name}: arguments {real['total']} B, equal to the "
+            f"meta count by group; peak {_gb(peak)} above the "
+            f"{_gb(base)} allocated before; built and filled in {built:.1f} s; steps "
+            f"{', '.join(f'{w:.2f}' for w in walls)} ms against a bound of "
+            f"{bnd['bound_ms']:.3f} ms ({bnd['weight_gb']:.2f} GB weights, "
+            f"{bnd['kv_gb']:.2f} GB cache); logits {tuple(logits.shape)} "
+            f"finite {finite}; launches {launches}; {card}")
+        if not finite:
+            raise AssertionError(f"{arch}:{name}: non-finite logits")
+        if launches != want_l:
+            raise AssertionError(f"{arch}:{name}: launches {launches}, "
+                                 f"want {want_l}")
+        del b, cache, logits, stepped
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats, total, fd_shapes
+
+
+def _fd_rows(bsz, s, h, kv, d):
+    """How many of a (B, S, KV, D) cache's rows ``flash_decode_plain``
+    takes at once in half the card's free memory: a row's f32 K and V,
+    and three f32 score arrays of its H heads."""
+    free, _ = torch.cuda.mem_get_info()
+    per_row = 4 * s * (2 * kv * d + 3 * h)
+    return max(1, min(bsz, int(free / 2 // per_row)))
+
+
+def phase_cells_kernels(card, errs, fd_shapes):
+    """13c: BGMV (CELL_TOKENS tokens, DRYRUN_ADAPTER_SLOTS adapters of
+    rank DRYRUN_LORA_RANK, at gemma3-1b's and recurrentgemma-9b's q and v
+    widths, ids over [-1, N)) and flash-decode at 13b's shapes (ragged
+    lengths, the first row full) against their plain versions under phase
+    3's tolerances (bf16 3e-2, and 1e-2 of each row's largest value);
+    where the plain version of a whole cache does not fit, on the rows
+    that do, the count printed.  Then each timed (CUDA graph replay,
+    ``graph_ms``), beside its bound and, for flash-decode, SDPA on
+    head-major copies.  Returns the rows' keys for the kernel table."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import (DRYRUN_ADAPTER_SLOTS,
+                                            DRYRUN_LORA_RANK)
+    from repro_torch.kernels import bgmv, flash_decode
+    import torch.nn.functional as F
+    dt, es = torch.bfloat16, 2
+    inp = Inputs(seed=13)
+    n, r = DRYRUN_ADAPTER_SLOTS, DRYRUN_LORA_RANK
+    out = {"bgmv": {}, "flash_decode": {}}
+    for arch in ("gemma3-1b", "recurrentgemma-9b"):
+        cfg = get_config(arch)
+        hd, d = cfg.resolved_head_dim, cfg.d_model
+        for o in (cfg.n_heads * hd, cfg.n_kv_heads * hd):
+            for t in CELL_TOKENS:
+                ids = torch.randint(-1, n, (t,), generator=inp.gen,
+                                    device="cuda", dtype=torch.int32)
+                ids[0] = 0
+
+                def make():
+                    x = inp.normal(t, d, dtype=dt)
+                    a, bb = inp.lora_bank(n, d, r, o, dt)
+                    return x, a, bb, ids
+                sets = copies(make, (t * d + n * r * (d + o)) * es)
+                label = f"cells_{cfg.name}_t{t}_o{o}"
+                x, a, bb, _ = sets[0]
+                check(f"bgmv {label}", bgmv.bgmv(x, a, bb, ids),
+                      bgmv.bgmv_plain(x, a, bb, ids), "bfloat16", errs,
+                      per_row=True)
+                used = int(torch.unique(ids[ids >= 0]).numel())
+                rows = int((ids >= 0).sum())
+                nbytes = (t * d + used * r * (d + o) + t * o) * es + 4 * t
+                b_ms, b_by = bound(nbytes, 2 * rows * r * (d + o),
+                                   "bfloat16")
+                row = {"ms": graph_ms(bgmv.bgmv, sets),
+                       "plain_ms": graph_ms(bgmv.bgmv_plain, sets),
+                       "bound_ms": b_ms}
+                out["bgmv"].update({f"{label}_{k}": v
+                                    for k, v in row.items()})
+                say(f"  bgmv {label}: {row['ms'] * 1e3:.2f} us (plain "
+                    f"{row['plain_ms'] * 1e3:.2f}, bound {b_ms * 1e3:.3f} "
+                    f"us by {b_by}); {card}")
+                del sets, x, a, bb
+    for (bsz, s, h, kv, d), cells in sorted(fd_shapes.items()):
+        label = f"cells_b{bsz}_s{s}_h{h}_kv{kv}_d{d}"
+        q = inp.normal(bsz, h, d, dtype=dt)
+        k = inp.normal(bsz, s, kv, d, dtype=dt)
+        v = inp.normal(bsz, s, kv, d, dtype=dt)
+        lengths = torch.randint(1, s + 1, (bsz,), generator=inp.gen,
+                                device="cuda", dtype=torch.int32)
+        lengths[0] = s
+        rows = _fd_rows(bsz, s, h, kv, d)
+        got = flash_decode.flash_decode(q, k, v, lengths)[:rows]
+        want = flash_decode.flash_decode_plain(q[:rows], k[:rows], v[:rows],
+                                               lengths[:rows])
+        check(f"flash_decode {label} ({rows} of {bsz} rows against the "
+              "plain version)", got, want, "bfloat16", errs, per_row=True)
+        del got, want
+        torch.cuda.empty_cache()
+        sets = [(q, k, v, s)]
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * es + 4 * bsz
+        b_ms, b_by = bound(nbytes, 4 * (h // kv) * k.numel(), "bfloat16")
+        big = nbytes > 2e8          # fewer calls a graph for large caches
+        row = {"ms": graph_ms(flash_decode.flash_decode, sets),
+               "plain_ms": graph_ms(flash_decode.flash_decode_plain, sets,
+                                    calls=2 if big else 32),
+               "bound_ms": b_ms}
+        torch.cuda.empty_cache()
+        lib = [(q[:, :, None], k.transpose(1, 2).contiguous(),
+                v.transpose(1, 2).contiguous())]
+        del k, v, sets
+        row["library_ms"] = graph_ms(
+            lambda qq, kk, vv: F.scaled_dot_product_attention(
+                qq, kk, vv, enable_gqa=True), lib, calls=4 if big else 32)
+        backend, _ = sdpa_backend(
+            lambda qq, kk, vv: F.scaled_dot_product_attention(
+                qq, kk, vv, enable_gqa=True), lib[0])
+        del lib, q
+        torch.cuda.empty_cache()
+        out["flash_decode"].update({f"{label}_{k_}": v_
+                                    for k_, v_ in row.items()})
+        say(f"  flash_decode {label} (the cells {sorted(cells)}): "
+            f"{row['ms'] * 1e3:.2f} us (plain {row['plain_ms'] * 1e3:.2f}, "
+            f"bound {b_ms * 1e3:.3f} us by {b_by}, SDPA "
+            f"{row['library_ms'] * 1e3:.2f} us, {backend}); {card}")
+    return out
+
+
+def phase_cells(ops, card, errs):
+    """Phase 13: 13a, 13b and 13c, the phase's seconds against
+    CELLS_BUDGET_S.  Returns the stats, 13b's launches and 13c's rows."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("phase 13a: every dry-run cell on meta (build_step, cell_bytes, "
+        "model_flops_for)")
+    take, whole = phase_cells_meta(card)
+    t_meta = time.perf_counter() - t0
+    say("phase 13b: the cells one card holds whole, 3 eager decode steps "
+        "each")
+    stats, launches, fd_shapes = phase_cells_run(ops, card, take, whole)
+    say(f"  launches over 13b's cells: {launches}")
+    say("phase 13c: BGMV and flash-decode at the cells' shapes against "
+        "their plain versions, timed")
+    rows = phase_cells_kernels(card, errs, fd_shapes)
+    wall = time.perf_counter() - t0
+    say(f"  phase 13 took {wall:.1f} s (13a {t_meta:.1f} s; budget "
+        f"{CELLS_BUDGET_S} s); {card}")
+    return {"cells": stats, "seconds": wall, "meta_seconds": t_meta,
+            "budget_s": CELLS_BUDGET_S, "card": card}, launches, rows
+
+
 @contextlib.contextmanager
 def host_spans():
     """The host seconds spent, while open, in the plan's collectives
@@ -4391,6 +4738,12 @@ def main() -> int:
         "and restores onto a plan and onto none)")
     ckpt_plan_stats, ckpt_plan_launches = phase_checkpoint_plan(ops, card)
     say("  checkpoint plan " + json.dumps(ckpt_plan_stats))
+    say("phase 13: the dry-run's cells (every cell on meta; the cells one "
+        "card holds whole, decoded at their full shapes)")
+    cells_stats, cells_launches, cells_rows = phase_cells(ops, card, errs)
+    say("  cells " + json.dumps(cells_stats))
+    for name, extra in cells_rows.items():
+        rows[name].update(extra)
 
     paths = {"teacher_forcing": tf_launches, "serving": serve_launches,
              "measurement": measure_launches,
@@ -4410,7 +4763,8 @@ def main() -> int:
                 for a, c in planned_launches.items()},
              "sharded_prefill": prefill_launches,
              "sharded_training": train_plan_launches,
-             "training_loop_planned": ckpt_plan_launches}
+             "training_loop_planned": ckpt_plan_launches,
+             "dryrun_cells": cells_launches}
     rows["flash_decode_lora"]["grid_max_abs_err"] = \
         errs["flash_decode_lora_grid"]
     rows["sgmv"]["arrival_slices_bitwise"] = errs["sgmv_arrival_bitwise"]

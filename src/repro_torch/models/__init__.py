@@ -1,2 +1,2 @@
-from .config import ModelConfig  # noqa
+from .config import ModelConfig, ShapeConfig, SHAPES, applicable_shapes  # noqa
 from .transformer import Model  # noqa

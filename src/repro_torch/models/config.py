@@ -1,7 +1,8 @@
 """Model configuration: the port's copy of ``repro.models.config``.
 
 The same frozen dataclass and properties; ``torch_dtype`` replaces
-``jnp_dtype``.
+``jnp_dtype``.  ``ShapeConfig``, the four dry-run shapes and
+``applicable_shapes`` are the JAX module's too (config.py:146-168).
 """
 from __future__ import annotations
 
@@ -138,3 +139,28 @@ class ModelConfig:
                 mult = 3 if self.mlp == "swiglu" else 2
                 total += mult * d * self.d_ff
         return int(total)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+def applicable_shapes(cfg: ModelConfig):
+    """The assignment: long_500k only for sub-quadratic archs."""
+    out = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if cfg.sub_quadratic:
+        out.append(LONG_500K)
+    return out

@@ -118,6 +118,14 @@ from .sharding import (RankGroups, WidthShards, all_gather, all_reduce, copy,
 ATTENTION_KINDS = ("global", "local")
 
 
+def _generator(dev: torch.device, seed: int) -> torch.Generator:
+    """The generator weights are drawn from on ``dev``: the device's own,
+    a CPU one on ``meta`` (which has none; a draw there allocates
+    nothing and gives only a shape)."""
+    return torch.Generator(device="cpu" if dev.type == "meta"
+                           else dev).manual_seed(seed)
+
+
 def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
@@ -744,7 +752,7 @@ class Model(nn.Module):
             _check_plan(cfg, plan)
             self.plan = plan
         dev, dt = self.device, cfg.torch_dtype
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = _generator(dev, seed)
         v, d = layers.pad_vocab(cfg.vocab_size), cfg.d_model
         embed = {"embed": _param(self._place(
             "embed.embed", layers.embed_init(gen, (v, d), dt, dev)))}
@@ -839,7 +847,7 @@ class Model(nn.Module):
         layer without attention (rglru, ssd) gets none, {} (the JAX
         package's placeholder ``{"_": ...}``, transformer.py:144-156)."""
         cfg, dev, dt = self.cfg, self.device, self.cfg.torch_dtype
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = _generator(dev, seed)
         hd = cfg.resolved_head_dim
         out_dims = {"q": cfg.n_heads * hd, "v": cfg.n_kv_heads * hd}
         banks: List[Dict[str, torch.Tensor]] = []
