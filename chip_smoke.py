@@ -188,7 +188,7 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    workers; cut to the rounds that fit its 120 s budget, the cut printed)
    and a forest fitted on the first 80 %; each pipeline's held-out sMAPE
    and ``recommend`` on phase 7's pool beside phase 7's (N*, G*); the
-   first 4 scenarios labelled serially (in a thread, beside the rest),
+   first 2 scenarios labelled serially (in a thread, beside the rest),
    equal to the runner's labels.  It fails on a
    non-finite feature or label, N* or G* below 1, or an inference of 50
    ms or more;
@@ -257,8 +257,10 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    gathered whole at their use, the sequence over ``model``) and 16 of
    mamba2-2.7b's 64 layers (width-tensor-parallel, FSDP over ``data``),
    bf16, TRAIN_PLAN_STEPS steps of TRAIN_BATCH under ``make_plan(cfg,
-   make_single_device_mesh(), "train", global_batch=2)`` on the NCCL
-   world-size-1 group against the same steps without a plan from the
+   make_single_device_mesh(), "train", global_batch=2, remat=True)`` on
+   the NCCL world-size-1 group (each layer recomputed in backward, as
+   the JAX dry-run's train cells ask) against the same steps without a
+   plan from the
    same weights and batches: each step's loss and gradient norm within
    2e-4 (bitwise equality printed), the parameters' largest relative
    departure after the steps, both walls a step, the collectives a step
@@ -283,7 +285,8 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    beside the card's name and power limit;
 12. the loop around the planned training step (``phase_checkpoint_plan``):
    phase 9's model, batches and crash under ``make_plan(cfg,
-   make_single_device_mesh(), "train", global_batch=2)`` on the NCCL
+   make_single_device_mesh(), "train", global_batch=2, remat=True)`` on
+   the NCCL
    world-size-1 group, through the planned ``FaultTolerantLoop`` (each
    save gathers every cut leaf whole over the group of one, rank 0
    writes): one restart, resumed from step 3; the same planned steps
@@ -322,6 +325,23 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    printed) and times each (CUDA graph replay) beside its bound and, for
    flash-decode, SDPA on head-major copies.  The phase prints its
    seconds against its 180 s budget, beside the card's name and power
+   limit;
+14. the dry-run's records against the card (``phase_dryrun``): 14a
+   counts each cell 13b ran with ``launch.dryrun.run_cell`` whole on
+   ``meta`` (no mesh, on the host) and prints its roofline terms at the
+   card's rates (``launch.roofline``) beside 13b's measured eager walls,
+   and its ``total_bytes_per_device`` beside 13b's measured peak memory;
+   it fails if a predicted argument byte count differs from 13b's real
+   one.  14b runs the hill-climb's ``kv_int8`` variant of gemma3-1b's
+   ``decode_32k`` (its global layers' caches int8) built whole on the
+   card, CELL_STEPS eager steps from ``pos`` CELL_TAIL short of the end
+   (flash-decode's int8 mode on the global layers): every logit finite,
+   the launches exact, the real arguments' bytes equal to the record's,
+   its walls and peak beside its dry-run record.  14c counts
+   ``DRYRUN_META_CELLS`` (one cell of each step kind) on each production
+   mesh as rank 0 of a fake process group on ``meta`` and prints each
+   record's line, the card's allocated bytes unmoved.  The phase prints
+   its seconds against DRYRUN_BUDGET_S, beside the card's name and power
    limit.
 
 Launch counts are zeroed just before each path a user drives (teacher
@@ -330,18 +350,20 @@ architecture, serving in phases 5, 5b, 5c, 5d, 5e and 5f, measurement in
 phase 7, training in phases 8a, 8b and 9, the sharded decode in phase
 10c and for each architecture of 10d, the sharded prefill in 10e,
 sharded training in 10f, the planned training loop in 12, each cell of
-13b) and read just after it.  SGMV,
+13b, the variant of 14b) and read just after it.  SGMV,
 BGMV and flash-decode must have launched in phase 4, BGMV and
 flash-decode in phases 5, 5b, 5c, 5d and 5e, the fused kernel and SGMV
 in phase 7, BGMV and flash-decode's log-sum-exp mode in phase 10c and on
 10d's planned olmoe, BGMV and flash-decode on 10d's planned
-recurrentgemma and on 13b's gemma3 and recurrentgemma cells, SGMV on
+recurrentgemma, on 13b's gemma3 and recurrentgemma cells and on 14b's
+variant (flash-decode in its int8 mode there), SGMV on
 10e's planned prefill; mamba2's paths (phase 4, 5f, 10d, 13b) must launch none,
 having no attention and no LoRA, and so must training's (8a, 8b, 9, 10f
 and 12).  Each kernel's
 ``launches`` in the kernel table is the count of the path it serves
 (``path``); the int8 mode counts as flash-decode, on the int8 paths
-(``serving_int8``, ``teacher_forcing_int8``), and flash-decode's row
+(``serving_int8``, ``teacher_forcing_int8``, ``dryrun_variant``), and
+flash-decode's row
 counts the others; the log-sum-exp mode (``flash_decode_lse``, on
 ``sharded_decode``) is a wrapper of its own and counts its own launches.
 Float32 products run in full f32 (TF32 off) wherever parity is checked.  The last two lines are the kernel table and the
@@ -367,8 +389,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12                       # H100 SXM, data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+sys.path.insert(0, str(SRC))
+# the card's rates, read where the dry-run's roofline reads them (the H100
+# SXM data sheet's): HBM bytes/s and peak FLOP/s by dtype
+from repro_torch.launch.roofline import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.roofline import \
+    PEAK_FLOPS_BY_DTYPE as PEAK_FLOPS  # noqa: E402
+from repro_torch.kernels import cost as kernel_cost  # noqa: E402
 TOL = {"bfloat16": 3e-2, "float32": 2e-5}
 ROW_TOL = {"bfloat16": 1e-2, "float32": 2e-5}   # relative to a row's scale
 KERNEL_ROWS = {  # name -> (source, TPU kernel it replaces)
@@ -556,6 +583,13 @@ CELL_MESHES = {"pod1": ((16, 16), ("data", "model")),
                "pod2": ((2, 16, 16), ("pod", "data", "model"))}
 CELL_COUNT, CELL_ROOM, CELL_STEPS, CELL_TAIL = 66, 0.5, 3, 16
 CELL_TOKENS, CELLS_BUDGET_S = (128, 1), 180
+# phase 14, the dry-run's records: 14b runs the hill-climb's DRYRUN_VARIANT
+# of DRYRUN_VARIANT_CELL whole on the card; 14c counts DRYRUN_META_CELLS,
+# one of each step kind, on both production meshes on meta
+DRYRUN_VARIANT, DRYRUN_VARIANT_CELL = "kv_int8", ("gemma3_1b", "decode_32k")
+DRYRUN_META_CELLS = (("mamba2_2p7b", "train_4k"),
+                     ("gemma3_1b", "prefill_32k"), ("gemma3_1b", "decode_32k"))
+DRYRUN_BUDGET_S = 240
 
 
 def say(*parts) -> None:
@@ -1894,7 +1928,7 @@ def phase_timing():
     from repro_torch.configs import get_config
     from repro_torch.kernels import bgmv, flash_decode, ref, sgmv
     import torch.nn.functional as F
-    dt, es = torch.bfloat16, 2
+    dt = torch.bfloat16
     inp = Inputs(seed=3)
     rows = {}
 
@@ -1908,8 +1942,8 @@ def phase_timing():
             a, b = inp.lora_bank(n, d, r, o, dt)
             return x, a, b, ids
         n_used = int(torch.unique(ids[(ids >= 0) & (ids < n)]).numel())
-        nbytes = (t * d + n_used * (d * r + r * o) + t * o) * es + 4 * t
-        b_ms, b_by = bound(nbytes, 2 * t * (d * r + r * o), "bfloat16")
+        flops, nbytes = kernel_cost.lora_cost(t, d, r, o, n_used)
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
         return copies(make, nbytes), b_ms, b_by
 
     def lora_row(name, kernel, plain, t, o):
@@ -1979,10 +2013,9 @@ def phase_timing():
     def arrival_bound(tokens):
         """x, the 4 adapters' banks and y once, ids and arrival ranks (4
         bytes each a token); nothing dropped (ids spread)."""
-        nbytes = (tokens * (D_MODEL + Q_OUT) + SLOTS * RANK * (
-            D_MODEL + Q_OUT)) * es + 8 * tokens
-        return bound(nbytes, 2 * tokens * RANK * (D_MODEL + Q_OUT),
-                     "bfloat16")
+        flops, nbytes = kernel_cost.lora_cost(tokens, D_MODEL, RANK, Q_OUT,
+                                              SLOTS, id_bytes=8)
+        return bound(nbytes, flops, "bfloat16")
     b_ms, b_by = arrival_bound(t)
     p_ms, _ = arrival_bound(BATCH * s_loc)
     rows["sgmv"].update({
@@ -2012,12 +2045,10 @@ def phase_timing():
                     inp.normal(BATCH, s, kv_heads, head_dim, dtype=dt),
                     inp.normal(BATCH, s, kv_heads, head_dim, dtype=dt),
                     full)
-        kv_elems = BATCH * s * kv_heads * head_dim
-        nbytes = (2 * BATCH * heads * head_dim + 2 * kv_elems) * es \
-            + 4 * BATCH
+        flops, nbytes = kernel_cost.flash_decode_cost(BATCH, s, heads,
+                                                      kv_heads, head_dim)
         sets = copies(make, nbytes)
-        b_ms, b_by = bound(nbytes, 4 * heads // kv_heads * kv_elems,
-                           "bfloat16")
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
         lib_sets = [(q[:, :, None], k.transpose(1, 2).contiguous(),
                      v.transpose(1, 2).contiguous()) for q, k, v, _ in sets]
         return make, sets, b_ms, b_by, nbytes, lib_sets
@@ -2027,7 +2058,6 @@ def phase_timing():
 
     make_fd, sets, b_ms, b_by, nbytes, lib_sets = fd_sets(HEADS, KV_HEADS,
                                                           HEAD_DIM)
-    kv_elems = int(lengths.sum()) * KV_HEADS * HEAD_DIM
     # the same call on the cache as the port lays it out, (B, S, KV, D),
     # through transposed views: no copy
     view_sets = [(q[:, :, None], k.transpose(1, 2), v.transpose(1, 2))
@@ -2054,11 +2084,10 @@ def phase_timing():
         a, b = inp.lora_bank(SLOTS, D_MODEL, RANK, expand, dt)
         return make_fd() + (x, a, b, ids)
     n_used = int(torch.unique(ids).numel())
-    lora_elems = BATCH * D_MODEL + n_used * RANK * (D_MODEL + expand)
-    nbytes_f = nbytes + lora_elems * es + 4 * BATCH
+    flops_f, nbytes_f = kernel_cost.flash_decode_lora_cost(
+        BATCH, CACHE, HEADS, KV_HEADS, HEAD_DIM, D_MODEL, RANK, n_used)
     sets = copies(make_fused, nbytes_f)
-    b_ms, b_by = bound(nbytes_f, 4 * HEADS // KV_HEADS * kv_elems
-                       + 2 * BATCH * RANK * (D_MODEL + expand), "bfloat16")
+    b_ms, b_by = bound(nbytes_f, flops_f, "bfloat16")
 
     def unfused(q, k, v, length, x, a, b, i):
         # the JAX bench's yardstick: base attention, a separate LoRA
@@ -2235,10 +2264,9 @@ def int8_bound(bsz, h, kv, d, s, q_bytes=2):
     element: bf16, or 4 for f32) read and the output written, int8 K and V
     and their f16 scales read once; 4*G*D operations a (position, KV head)
     against the peak of q's type."""
-    nbytes = 2 * bsz * h * d * q_bytes + 2 * bsz * s * kv * (d + 2) \
-        + 4 * bsz
-    return bound(nbytes, 4 * (h // kv) * bsz * s * kv * d,
-                 "bfloat16" if q_bytes == 2 else "float32")
+    flops, nbytes = kernel_cost.flash_decode_cost(
+        bsz, s, h, kv, d, q_bytes, kv_bytes=1, scale_bytes=2)
+    return bound(nbytes, flops, "bfloat16" if q_bytes == 2 else "float32")
 
 
 def int8_rows(make_fd, sdpa):
@@ -2317,8 +2345,9 @@ def long_bf16_times(sdpa):
                              (BATCH, LONG_S, KV_HEADS, HEAD_DIM),
                              (BATCH, LONG_S, KV_HEADS, HEAD_DIM)))
     sets = [(q, k, v, LONG_S)]
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + 4 * BATCH
-    b_ms, _ = bound(nbytes, 4 * (HEADS // KV_HEADS) * k.numel(), "bfloat16")
+    flops, nbytes = kernel_cost.flash_decode_cost(BATCH, LONG_S, HEADS,
+                                                  KV_HEADS, HEAD_DIM)
+    b_ms, _ = bound(nbytes, flops, "bfloat16")
     out = {"s32768_ms": graph_ms(flash_decode.flash_decode, sets),
            "s32768_plain_ms": graph_ms(flash_decode.flash_decode_plain, sets,
                                        calls=4),
@@ -2358,12 +2387,10 @@ def fused_grid_times(unfused):
                                                                   length),
             sets)
         if prefix == "grid":
-            n_used = int(torch.unique(idx).numel())
-            nbytes = (2 * q.numel() + k.numel() + v.numel() + x.numel()
-                      + n_used * rank * (w.dx + w.h * w.d)) * 2 + 4 * bsz
-            out["grid_bound_ms"], _ = bound(
-                nbytes, 4 * (w.h // w.kv) * k.numel()
-                + 2 * bsz * rank * (w.dx + w.h * w.d), "bfloat16")
+            flops, nbytes = kernel_cost.flash_decode_lora_cost(
+                bsz, s, w.h, w.kv, w.d, w.dx, rank,
+                int(torch.unique(idx).numel()))
+            out["grid_bound_ms"], _ = bound(nbytes, flops, "bfloat16")
         del q, k, v, sets
         torch.cuda.empty_cache()
     return out
@@ -2472,7 +2499,9 @@ def phase_measure(ops):
 # and phase 7b's budget for it
 PIPELINE_SIZE = dict(n_scenarios=40, max_adapters=96, horizon=150.0)
 PIPELINE_BUDGET_S = 120.0
-SERIAL_CHECK = 4        # scenarios labelled serially as well (7b (d))
+# scenarios labelled serially as well (7b (d)): the serial thread, ~43 s
+# a scenario beside the runner, sets 7b's wall past this count
+SERIAL_CHECK = 2
 
 
 def phase_pipeline(est, mst, placements):
@@ -3283,11 +3312,10 @@ def lse_row(card):
                 inp.normal(BATCH, CACHE, KV_HEADS, HEAD_DIM, dtype=dt),
                 inp.normal(BATCH, CACHE, KV_HEADS, HEAD_DIM, dtype=dt),
                 CACHE)
-    kv_elems = BATCH * CACHE * KV_HEADS * HEAD_DIM
-    nbytes = (BATCH * HEADS * HEAD_DIM + 2 * kv_elems) * 2 \
-        + 4 * BATCH * HEADS * HEAD_DIM + 4 * BATCH + 4 * BATCH * HEADS
+    flops, nbytes = kernel_cost.flash_decode_cost(
+        BATCH, CACHE, HEADS, KV_HEADS, HEAD_DIM, out_bytes=4, lse=True)
     sets = copies(make, nbytes)
-    b_ms, b_by = bound(nbytes, 4 * HEADS // KV_HEADS * kv_elems, "bfloat16")
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
 
     lse_call = flash_decode.flash_decode_lse
 
@@ -3811,7 +3839,7 @@ def phase_train_plan(ops, card):
             cfg = dc.replace(published, n_layers=layers or published.n_layers)
             pipe = train_batches(cfg, rows, tokens)
             plan = make_plan(cfg, make_single_device_mesh(), "train",
-                             global_batch=rows)
+                             global_batch=rows, remat=True)
             got = train_plan_run(cfg, plan, tcfg, pipe)
             want = train_plan_run(cfg, None, tcfg, pipe)
             rel = {k: max(abs(a - b) / abs(b) for a, b in
@@ -4067,7 +4095,7 @@ def phase_checkpoint_plan(ops, card):
     init_cuda_group()
     try:
         plan = make_plan(cfg, make_single_device_mesh(), "train",
-                         global_batch=rows)
+                         global_batch=rows, remat=True)
 
         def build(seed, plan):
             """(the model's train state, its specs, its step on a state)."""
@@ -4430,9 +4458,9 @@ def phase_cells_kernels(card, errs, fd_shapes):
                       per_row=True)
                 used = int(torch.unique(ids[ids >= 0]).numel())
                 rows = int((ids >= 0).sum())
-                nbytes = (t * d + used * r * (d + o) + t * o) * es + 4 * t
-                b_ms, b_by = bound(nbytes, 2 * rows * r * (d + o),
-                                   "bfloat16")
+                flops, nbytes = kernel_cost.lora_cost(t, d, r, o, used,
+                                                      rows=rows)
+                b_ms, b_by = bound(nbytes, flops, "bfloat16")
                 row = {"ms": graph_ms(bgmv.bgmv, sets),
                        "plain_ms": graph_ms(bgmv.bgmv_plain, sets),
                        "bound_ms": b_ms}
@@ -4459,8 +4487,8 @@ def phase_cells_kernels(card, errs, fd_shapes):
         del got, want
         torch.cuda.empty_cache()
         sets = [(q, k, v, s)]
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * es + 4 * bsz
-        b_ms, b_by = bound(nbytes, 4 * (h // kv) * k.numel(), "bfloat16")
+        flops, nbytes = kernel_cost.flash_decode_cost(bsz, s, h, kv, d)
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
         big = nbytes > 2e8          # fewer calls a graph for large caches
         row = {"ms": graph_ms(flash_decode.flash_decode, sets),
                "plain_ms": graph_ms(flash_decode.flash_decode_plain, sets,
@@ -4509,6 +4537,180 @@ def phase_cells(ops, card, errs):
         f"{CELLS_BUDGET_S} s); {card}")
     return {"cells": stats, "seconds": wall, "meta_seconds": t_meta,
             "budget_s": CELLS_BUDGET_S, "card": card}, launches, rows
+
+
+def _terms_ms(r) -> str:
+    """A record's roofline terms, in ms."""
+    return (f"compute {r['compute_s'] * 1e3:.4f}, memory "
+            f"{r['memory_s'] * 1e3:.4f}, collective "
+            f"{r['collective_s'] * 1e3:.4f} ms: step "
+            f"{r['step_time_s'] * 1e3:.4f} ms, {r['bottleneck']}")
+
+
+def _count_cell(arch, name, multi_pod=False, **kw):
+    """``run_cell`` of one cell, raising where it failed."""
+    from repro_torch.launch.dryrun import run_cell
+    rec = run_cell(arch, name, multi_pod, **kw)
+    if not rec["ok"]:
+        raise AssertionError(f"{rec['cell']}: {rec['error']}\n"
+                             f"{rec['traceback']}")
+    return rec
+
+
+def phase_dryrun_whole(card, cells):
+    """14a: each cell 13b ran (``cells``, its stats by ``arch:shape``)
+    counted whole on meta: its roofline terms beside 13b's eager walls,
+    its ``total_bytes_per_device`` beside 13b's peak; fails where the
+    predicted argument bytes differ from 13b's real ones.  Returns the
+    records' numbers by cell."""
+    from repro_torch.launch.dryrun import NO_MESH
+    out = {}
+    for key, st in cells.items():
+        arch, name = key.split(":")
+        rec = _count_cell(arch, name, mesh=NO_MESH)
+        mem, r = rec["memory"], rec["roofline"]
+        real = st["arg_bytes"]["total"]
+        if mem["argument_size_in_bytes"] != real:
+            raise AssertionError(f"{key}: predicted argument bytes "
+                                 f"{mem['argument_size_in_bytes']:.0f}, "
+                                 f"13b's real ones {real}")
+        wall = float(np.median(st["step_ms"][1:]))   # the warm steps
+        out[key] = {"roofline": r, "memory": mem, "cost": rec["cost"],
+                    "measured_step_ms": st["step_ms"],
+                    "measured_peak_bytes": st["peak_bytes"],
+                    "count_s": rec["elapsed_s"]}
+        say(f"  {key} whole: predicted {_terms_ms(r)}; measured warm eager "
+            f"median {wall:.3f} ms ({wall / (r['step_time_s'] * 1e3):.1f}x"
+            f" the predicted step); predicted {_gb(mem['total_bytes_per_device'])}"
+            f" a device (arguments {_gb(mem['argument_size_in_bytes'])}, "
+            f"equal to 13b's real ones; temporaries "
+            f"{_gb(mem['temp_size_in_bytes'])}) against 13b's measured "
+            f"peak {_gb(st['peak_bytes'])}; counted in "
+            f"{rec['elapsed_s']:.1f} s; {card}")
+    return out
+
+
+def phase_dryrun_variant(ops, card):
+    """14b: the hill-climb's DRYRUN_VARIANT of DRYRUN_VARIANT_CELL, its
+    dry-run record (whole, on meta), then the cell built whole on the card
+    under the variant (seed 0), its cache filled, CELL_STEPS eager steps
+    from ``pos`` CELL_TAIL short of the end: the real arguments' bytes
+    equal to the record's, an int8 global cache, every logit finite and
+    the launches exact (2 BGMV and 1 flash-decode an attention layer a
+    step).  Returns its stats and launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import NO_MESH
+    from repro_torch.launch.hillclimb import VARIANTS
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import SHAPES
+    arch, name = DRYRUN_VARIANT_CELL
+    over = VARIANTS[DRYRUN_VARIANT]
+    rec = _count_cell(arch, name, mesh=NO_MESH, plan_overrides=over)
+    cfg, shape = get_config(arch), SHAPES[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    b = build_step(cfg, shape, None, plan_overrides=over, device="cuda",
+                   seed=0)
+    real = _arg_bytes(b)
+    if real["total"] != rec["memory"]["argument_size_in_bytes"]:
+        raise AssertionError(f"{arch}:{name} [{DRYRUN_VARIANT}]: real "
+                             f"arguments {real}, the record's "
+                             f"{rec['memory']['argument_size_in_bytes']}")
+    cache = b.args[2]
+    if not any(c["k"].dtype == torch.int8 for c in cache["layers"]
+               if "k" in c):
+        raise AssertionError(f"{DRYRUN_VARIANT}: no int8 global cache")
+    fill_cache(cache, seed=11, pos=shape.seq_len - CELL_TAIL)
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(CELL_STEPS + 1)]
+    finite = []
+    ops.reset_launches()
+    events[0].record()
+    for i in range(CELL_STEPS):
+        logits, _ = b.fn(*b.args)
+        events[i + 1].record()
+        finite.append(torch.isfinite(logits).all())
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    walls = [events[i].elapsed_time(events[i + 1])
+             for i in range(CELL_STEPS)]
+    peak = torch.cuda.max_memory_allocated() - base
+    attn = attention_layers(cfg)
+    want = dict.fromkeys(launches, 0)
+    want.update(bgmv=2 * attn * CELL_STEPS, flash_decode=attn * CELL_STEPS)
+    finite = all(bool(f) for f in finite)
+    r, mem = rec["roofline"], rec["memory"]
+    say(f"  {arch}:{name} [{DRYRUN_VARIANT}]: predicted {_terms_ms(r)}; "
+        f"measured eager steps {', '.join(f'{w:.2f}' for w in walls)} ms; "
+        f"predicted {_gb(mem['total_bytes_per_device'])} a device "
+        f"(arguments {_gb(mem['argument_size_in_bytes'])}, equal to the "
+        f"real ones) against a measured peak of {_gb(peak)}; logits "
+        f"{tuple(logits.shape)} finite {finite}; launches {launches}; "
+        f"{card}")
+    if not finite:
+        raise AssertionError(f"{DRYRUN_VARIANT}: non-finite logits")
+    if launches != want:
+        raise AssertionError(f"{DRYRUN_VARIANT}: launches {launches}, want "
+                             f"{want}")
+    del b, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"cell": rec["cell"], "variant": DRYRUN_VARIANT,
+            "roofline": r, "memory": mem, "cost": rec["cost"],
+            "step_ms": walls, "peak_bytes": peak, "arg_bytes": real,
+            "launches": launches}, launches
+
+
+def phase_dryrun_meta(card):
+    """14c: DRYRUN_META_CELLS on each production mesh, counted as rank 0
+    of it on meta (``run_cell``): each record's line; fails if a cell
+    fails or the card's allocated bytes moved.  Returns the records'
+    numbers by cell."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = {}
+    for arch, name in DRYRUN_META_CELLS:
+        for multi_pod in (False, True):
+            rec = _count_cell(arch, name, multi_pod=multi_pod)
+            r, mem = rec["roofline"], rec["memory"]
+            out[rec["cell"]] = {"roofline": r, "memory": mem,
+                                "cost": rec["cost"],
+                                "count_s": rec["elapsed_s"]}
+            say(f"  OK {rec['cell']} mesh {rec['mesh']}: "
+                f"{_gb(mem['total_bytes_per_device'])} a device; "
+                f"{_terms_ms(r)}; collectives "
+                f"{rec['cost']['collectives']}; counted in "
+                f"{rec['elapsed_s']:.1f} s")
+    torch.cuda.synchronize()
+    if torch.cuda.memory_allocated() != before:
+        raise AssertionError("14c allocated on the card")
+    return out
+
+
+def phase_dryrun(ops, card, cells):
+    """Phase 14: 14a, 14b and 14c, the phase's seconds against
+    DRYRUN_BUDGET_S.  Returns the stats and 14b's launches."""
+    t0 = time.perf_counter()
+    say("phase 14a: 13b's cells counted whole on meta (run_cell) against "
+        "13b's measurements")
+    whole = phase_dryrun_whole(card, cells)
+    say(f"phase 14b: the hill-climb's {DRYRUN_VARIANT} variant of "
+        f"{':'.join(DRYRUN_VARIANT_CELL)} whole on the card")
+    variant, launches = phase_dryrun_variant(ops, card)
+    say("phase 14c: a cell of each step kind on each production mesh, as "
+        "rank 0 on meta")
+    meta = phase_dryrun_meta(card)
+    wall = time.perf_counter() - t0
+    say(f"  phase 14 took {wall:.1f} s (budget {DRYRUN_BUDGET_S} s); "
+        f"{card}")
+    if wall > DRYRUN_BUDGET_S:
+        raise AssertionError(f"phase 14 took {wall:.1f} s, over its "
+                             f"{DRYRUN_BUDGET_S} s budget")
+    return {"whole": whole, "variant": variant, "meta": meta,
+            "seconds": wall, "budget_s": DRYRUN_BUDGET_S,
+            "card": card}, launches
 
 
 @contextlib.contextmanager
@@ -4744,6 +4946,11 @@ def main() -> int:
     say("  cells " + json.dumps(cells_stats))
     for name, extra in cells_rows.items():
         rows[name].update(extra)
+    say("phase 14: the dry-run's records (run_cell: counts on meta, the "
+        "roofline at the card's rates) against the card")
+    dryrun_stats, dryrun_launches = phase_dryrun(ops, card,
+                                                 cells_stats["cells"])
+    say("  dryrun " + json.dumps(dryrun_stats))
 
     paths = {"teacher_forcing": tf_launches, "serving": serve_launches,
              "measurement": measure_launches,
@@ -4764,7 +4971,8 @@ def main() -> int:
              "sharded_prefill": prefill_launches,
              "sharded_training": train_plan_launches,
              "training_loop_planned": ckpt_plan_launches,
-             "dryrun_cells": cells_launches}
+             "dryrun_cells": cells_launches,
+             "dryrun_variant": dryrun_launches}
     rows["flash_decode_lora"]["grid_max_abs_err"] = \
         errs["flash_decode_lora_grid"]
     rows["sgmv"]["arrival_slices_bitwise"] = errs["sgmv_arrival_bitwise"]
@@ -4777,7 +4985,8 @@ def main() -> int:
         # the int8 mode's launches are flash_decode's on the int8 paths,
         # flash_decode's on the others those of the bf16 and f32 caches
         own = {p: c for p, c in paths.items()
-               if ("int8" in p) == (name in KERNEL_WRAPPER)}
+               if ("int8" in p or p == "dryrun_variant")
+               == (name in KERNEL_WRAPPER)}
         table.append({"name": name, "route": "cuda", "source": source,
                       "replaces": replaces, "launches": own[path][wrapper],
                       "path": path,

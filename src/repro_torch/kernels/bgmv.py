@@ -2,13 +2,15 @@
 
 The port of ``repro.kernels.bgmv.bgmv`` (Pallas, bgmv.py:54).  On a CUDA
 tensor ``bgmv`` launches the hand-written kernel in ``csrc/bgmv.cu``; on a
-CPU tensor it runs ``bgmv_plain``, the same arithmetic in plain PyTorch.
+CPU tensor it runs ``bgmv_plain``, the same arithmetic in plain PyTorch;
+on ``meta`` it checks its inputs, returns an empty output and adds the
+call's cost to the open counter (``cost``), launching nothing.
 """
 from __future__ import annotations
 
 import torch
 
-from . import build
+from . import build, cost
 from .ref import lora_f32
 
 MAX_RANK = 64  # kMaxRank of csrc/bgmv.cu and csrc/sgmv.cu
@@ -22,9 +24,11 @@ def bgmv_plain(x, a, b, idx, scale: float = 1.0):
 
 def check_lora_args(name, x, a, b, idx, ranks=None):
     """The checks of the LoRA kernels' wrappers (BGMV and SGMV); raises on
-    anything the kernels do not take."""
+    anything the kernels do not take (``meta`` tensors are checked as CUDA
+    ones)."""
     tensors = (x, a, b, idx) + (() if ranks is None else (ranks,))
-    if not (x.is_cuda and all(v.device == x.device for v in tensors)):
+    if not (x.device.type in ("cuda", "meta")
+            and all(v.device == x.device for v in tensors)):
         raise ValueError(f"{name}: inputs must lie on one CUDA device")
     t, d = x.shape
     n, da, r = a.shape
@@ -57,6 +61,9 @@ def bgmv(x, a, b, idx, scale: float = 1.0):
     n, _, r = a.shape
     o = b.shape[-1]
     y = torch.empty((t, o), dtype=x.dtype, device=x.device)
+    if x.is_meta:
+        cost.add("bgmv", meta_cost(x, a, b))
+        return y
     build.kernels().bgmv(
         x.data_ptr(), a.data_ptr(), b.data_ptr(), idx.data_ptr(), y.data_ptr(),
         t, d, r, o, n, float(scale), build.dtype_code(x.dtype),
@@ -66,3 +73,12 @@ def bgmv(x, a, b, idx, scale: float = 1.0):
 
 
 bgmv.launches = 0
+
+
+def meta_cost(x, a, b):
+    """The cost of a LoRA kernel's call on ``meta`` inputs (BGMV's and
+    SGMV's): every token adapted, min(T, N) adapters read."""
+    t, d = x.shape
+    n, _, r = a.shape
+    return cost.lora_cost(t, d, r, b.shape[-1], min(t, n),
+                          x_bytes=x.element_size(), w_bytes=a.element_size())

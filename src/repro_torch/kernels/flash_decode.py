@@ -6,7 +6,10 @@ flash_decode.py:95) and ``flash_decode_lora`` (flash_decode.py:205).  On a
 CUDA tensor each launches the split-KV kernels in ``csrc/flash_decode.cu``
 (a split pass and a log-sum-exp combine; the fused step adds a LoRA shrink
 between them and the expand to the combine); on a CPU tensor each runs its
-plain version.  With f16 scales beside an int8 cache, ``flash_decode``
+plain version; on ``meta`` each checks its inputs, returns empty outputs
+of the kernel's shapes and dtypes and adds the call's cost to the open
+counter (``cost``), launching nothing.  With f16 scales beside an int8
+cache, ``flash_decode``
 takes the kernel's int8 K/V mode (the JAX package's quantized decode,
 ``repro.models.attention.decode_attention_sharded``, computes it in plain
 ``jnp``).  Every mode takes any head dim 1..MAX_HEAD_DIM, as the Pallas
@@ -21,7 +24,7 @@ import math
 
 import torch
 
-from . import build
+from . import build, cost
 from .bgmv import MAX_RANK
 
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # csrc/flash_decode.cu instantiations
@@ -226,8 +229,9 @@ def split_plan(bsz: int, groups: int, s: int, n_sm: int, tile: int):
 def _check(q, k, v, lengths, k_scale=None, v_scale=None):
     quant = k_scale is not None or v_scale is not None
     scales = (k_scale, v_scale) if quant else ()
-    if not (q.is_cuda and all(t is not None and t.device == q.device
-                              for t in (k, v, lengths) + scales)):
+    if not (q.device.type in ("cuda", "meta")
+            and all(t is not None and t.device == q.device
+                    for t in (k, v, lengths) + scales)):
         raise ValueError("flash_decode: inputs must lie on one CUDA device")
     bsz, h, d = q.shape
     if k.shape != v.shape or k.ndim != 4 or k.shape[0] != bsz \
@@ -320,6 +324,8 @@ def flash_decode(q, k, v, length, k_scale=None, v_scale=None):
     """
     if q.device.type == "cpu":
         return _plain(q, k, v, length, k_scale, v_scale)
+    if q.is_meta:
+        return _meta("flash_decode", q, k, v, length, k_scale, v_scale)
     out = _launch(q, k, v, length, k_scale, v_scale)
     flash_decode.launches += 1
     return out
@@ -341,6 +347,9 @@ def flash_decode_lse(q, k, v, length, k_scale=None, v_scale=None):
     """
     if q.device.type == "cpu":
         return _plain(q, k, v, length, k_scale, v_scale, return_lse=True)
+    if q.is_meta:
+        return _meta("flash_decode_lse", q, k, v, length, k_scale, v_scale,
+                     lse=True)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     out = _launch(q, k, v, length, k_scale, v_scale, lse)
     flash_decode_lse.launches += 1
@@ -362,6 +371,24 @@ def _plain(q, k, v, length, k_scale, v_scale, return_lse: bool = False):
         return flash_decode_int8_plain(q, k, v, length, k_scale, v_scale,
                                        return_lse=return_lse)
     return flash_decode_plain(q, k, v, length, return_lse=return_lse)
+
+
+def _meta(name, q, k, v, length, k_scale, v_scale, lse=False):
+    """``flash_decode`` (``flash_decode_lse`` with ``lse``) on ``meta``:
+    the checks, the outputs' shapes and dtypes, and the call's cost over
+    every position of the cache (``cost.flash_decode_cost``)."""
+    _check_scales(k_scale, v_scale)
+    bsz, h, d = q.shape
+    _check(q, k, v, _lengths(length, bsz, q.device), k_scale, v_scale)
+    out = torch.empty_like(q, dtype=torch.float32 if lse else q.dtype)
+    cost.add(name, cost.flash_decode_cost(
+        bsz, k.shape[1], h, k.shape[2], d, q.element_size(),
+        k.element_size(), out.element_size(),
+        0 if k_scale is None else k_scale.element_size(), lse))
+    if lse:
+        return out, torch.empty(q.shape[:2], dtype=torch.float32,
+                                device=q.device)
+    return out
 
 
 def _launch(q, k, v, length, k_scale, v_scale, lse=None):
@@ -405,6 +432,14 @@ def flash_decode_lora(q, k, v, length, x, a, b, idx, scale: float = 1.0):
     if q.device.type == "cpu":
         return flash_decode_lora_plain(q, k, v, length, x, a, b, idx, scale)
     _check_lora(q, x, a, b, idx)
+    if q.is_meta:
+        bsz, h, d = q.shape
+        _check(q, k, v, _lengths(length, bsz, q.device))
+        n, dx, r = a.shape
+        cost.add("flash_decode_lora", cost.flash_decode_lora_cost(
+            bsz, k.shape[1], h, k.shape[2], d, dx, r, min(bsz, n),
+            q.element_size(), a.element_size()))
+        return torch.empty_like(q)
     lengths, m_part, l_part, acc_part, out, dims = _launch_args(q, k, v,
                                                                 length)
     n, dx, r = a.shape

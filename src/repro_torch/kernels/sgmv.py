@@ -16,8 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from . import build
-from .bgmv import check_lora_args
+from . import build, cost
+from .bgmv import check_lora_args, meta_cost
 from .ref import sgmv_capacity, sgmv_ref
 
 
@@ -98,6 +98,9 @@ def sgmv(x, a, b, idx, scale: float = 1.0, ranks=None, arrival=None,
     d = x.shape[1]
     n, _, r = a.shape
     o = b.shape[-1]
+    if x.is_meta:
+        cost.add("sgmv", meta_cost(x, a, b))
+        return torch.empty((t, o), dtype=x.dtype, device=x.device)
     perm = torch.empty_like(idx)  # the sort's scratch
     seg = torch.empty(n + 2, dtype=torch.int32, device=x.device)
     y = torch.empty((t, o), dtype=x.dtype, device=x.device)

@@ -13,9 +13,14 @@ that raises, it never falls back to the CPU.
 
 ``MeshShape`` holds a mesh's names and sizes only, for plans whose specs
 are read without processes (the JAX package's ``AbstractMesh``).
+``meta_mesh`` is one rank of a mesh of any size in this one process, for
+a model on the ``meta`` device: the dry-run's stand-in for XLA's
+partitioning of a cell onto the production mesh.
 """
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import NamedTuple, Tuple
 
 import torch
@@ -55,12 +60,17 @@ def _mk(shape, axes, device):
                             mesh_dim_names=tuple(axes))
 
 
+def production_shape(multi_pod: bool = False) -> MeshShape:
+    """The production mesh's sizes and names."""
+    if multi_pod:
+        return MeshShape((2, 16, 16), ("pod", "data", "model"))
+    return MeshShape((16, 16), ("data", "model"))
+
+
 def make_production_mesh(*, multi_pod: bool = False, device=None):
     """The JAX package's production mesh: 16x16 (data, model), or 2x16x16
     (pod, data, model) multi-pod."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _mk(shape, axes, device)
+    return _mk(*production_shape(multi_pod), device)
 
 
 def make_test_mesh(data: int = 2, model: int = 4, pod: int = 0, device=None):
@@ -72,3 +82,30 @@ def make_test_mesh(data: int = 2, model: int = 4, pod: int = 0, device=None):
 
 def make_single_device_mesh(device=None):
     return _mk((1, 1), ("data", "model"), device)
+
+
+@contextlib.contextmanager
+def meta_mesh(shape: MeshShape):
+    """Rank 0 of a mesh of ``shape`` in this process: the default process
+    group is PyTorch's fake backend at the mesh's size (it forms groups
+    and answers their sizes and ranks; ``sharding``'s collectives ask it
+    nothing else on ``meta`` tensors), the ``DeviceMesh`` is built over
+    it and yielded, and the group is destroyed on exit, whatever happens.
+    A model built under a plan on this mesh with ``device="meta"`` is rank
+    0's: its pieces and its collectives, nothing allocated.  Raises if a
+    default process group is already running.
+
+    The backend is registered by importing
+    ``torch.testing._internal.distributed.fake_pg``, a private module of
+    PyTorch (its ``FakeStore`` is the store)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("meta_mesh: a default process group is already "
+                           "running")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape.shape))
+    try:
+        yield _mk(*shape, "cpu")
+    finally:
+        dist.destroy_process_group()

@@ -64,7 +64,7 @@ class _ProductF32(torch.autograd.Function):
 def _product_f32(x, w):
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return x @ w
-    if x.is_cuda:
+    if x.device.type in ("cuda", "meta"):   # meta: the card's route
         return _ProductF32.apply(x, w)
     return x.float() @ w.float()      # the plain version: exact on the CPU
 

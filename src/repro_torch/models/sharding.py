@@ -46,10 +46,20 @@ import torch
 COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
                "shift": 0, "weight_gather": 0}
 
+#: the operand bytes of those collectives, a rank's, by the kinds of the
+#: JAX dry-run's HLO parser (``collective_bytes``, roofline.py:49-75): an
+#: all-reduce's and a reduce-scatter's whole input, an all-gather's piece
+#: (weight gathers too), a shift's tensor ("collective-permute"); the
+#: port issues no all-to-all
+COLLECTIVE_BYTES = {"all-gather": 0, "all-reduce": 0, "reduce-scatter": 0,
+                    "all-to-all": 0, "collective-permute": 0}
+
 
 def reset_collectives() -> None:
     for name in COLLECTIVES:
         COLLECTIVES[name] = 0
+    for kind in COLLECTIVE_BYTES:
+        COLLECTIVE_BYTES[kind] = 0
 
 
 def mesh_sizes(mesh) -> Dict[str, int]:
@@ -446,26 +456,50 @@ def shard_tensor(t: torch.Tensor, spec, plan: ShardingPlan) -> torch.Tensor:
 # that needs no gradient, each function runs its forward alone, as it did
 # before it had an adjoint.  The backward's collectives are counted in
 # ``COLLECTIVES`` under the key of the collective they issue (a weight
-# gather's reduce-scatters under "reduce_scatter").
+# gather's reduce-scatters under "reduce_scatter"), and their operand bytes
+# in ``COLLECTIVE_BYTES`` under its kind.
+#
+# On ``meta`` (one rank of a mesh whose process group moves nothing, the
+# dry-run's, ``launch.mesh.meta_mesh``) each collective asks the group only
+# its size and the rank's index, and gives a ``meta`` result of the shape
+# the collective gives, its tensors made by the same aten ops: the
+# sends, receives and reductions are left out.
 
 def _needs_grad(t: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and t.requires_grad
 
 
+def _operand(kind: str, t: torch.Tensor) -> None:
+    COLLECTIVE_BYTES[kind] += t.numel() * t.element_size()
+
+
+def _all_reduce(t: torch.Tensor, group, op=None) -> None:
+    """``t`` reduced over ``group`` in place (a sum by default)."""
+    import torch.distributed as dist
+    _operand("all-reduce", t)
+    if not t.is_meta:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM if op is None else op,
+                        group=group)
+
+
 def _gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     import torch.distributed as dist
     t = t.contiguous()
+    _operand("all-gather", t)
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t, group=group)
+    if not t.is_meta:
+        dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=dim)
 
 
 def _scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     import torch.distributed as dist
+    _operand("reduce-scatter", t)
     parts = [p.contiguous() for p in
              t.chunk(dist.get_world_size(group), dim=dim)]
     out = torch.empty_like(parts[0])
-    dist.reduce_scatter(out, parts, group=group)
+    if not t.is_meta:
+        dist.reduce_scatter(out, parts, group=group)
     return out
 
 
@@ -476,7 +510,10 @@ def _send(t: torch.Tensor, group, step: int) -> torch.Tensor:
     n = dist.get_world_size(group)
     i = dist.get_group_rank(group, dist.get_rank())
     t = t.contiguous()
+    _operand("collective-permute", t)
     out = torch.empty_like(t)
+    if t.is_meta:
+        return out
     ops = [dist.P2POp(dist.isend, t,
                       dist.get_global_rank(group, (i + step) % n), group),
            dist.P2POp(dist.irecv, out,
@@ -492,10 +529,9 @@ class _AllReduceSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, t, group):
-        import torch.distributed as dist
         COLLECTIVES["all_reduce"] += 1
         out = t.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        _all_reduce(out, group)
         return out
 
     @staticmethod
@@ -515,10 +551,9 @@ class _Copy(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        import torch.distributed as dist
         COLLECTIVES["all_reduce"] += 1
         g = g.clone()
-        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        _all_reduce(g, ctx.group)
         return g, None
 
 
@@ -592,8 +627,8 @@ def all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
                              "tensor that does not require one")
         return _AllReduceSum.apply(t, group)
     COLLECTIVES["all_reduce"] += 1
-    dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
-                           "max": dist.ReduceOp.MAX}[op], group=group)
+    _all_reduce(t, group, {"sum": dist.ReduceOp.SUM,
+                           "max": dist.ReduceOp.MAX}[op])
     return t
 
 

@@ -84,9 +84,10 @@ their tokens gathered), over ``data`` alone for the SSM and hybrid
 families, whose mixers, MLPs and attention run width-tensor-parallel as
 in decode.  Every collective has its adjoint under autograd
 (``sharding``: a gathered weight's is a reduce-scatter, so the rank's
-piece gets its whole gradient), each layer is recomputed in backward so
-no gathered weight is kept, and ``sync_grads`` sums the gradients of the
-leaves held alike over the ranks that hold different tokens.  A prefill
+piece gets its whole gradient), each layer is recomputed in backward
+where the plan sets ``remat`` (``train_trunk``), and ``sync_grads`` sums
+the gradients of the leaves held alike over the ranks that hold
+different tokens.  A prefill
 or train plan with ``attn_batch_shard`` raises ``NotImplementedError``
 (ROADMAP.md item 11e).
 
@@ -733,7 +734,9 @@ class Model(nn.Module):
     to the rank's piece (``param_specs``), its training, prefill or decode
     sharded (see the module's docstring); every rank of the mesh builds its
     ``Model`` together (the plan's groups are made then).  ``plan=None``,
-    or a plan without a mesh, is the one-device model.
+    or a plan without a mesh, is the one-device model.  ``remat`` is the
+    plan's (a plan without a mesh's too; False without a plan): whether
+    ``train_trunk`` recomputes each layer in backward.
     """
 
     def __init__(self, cfg: ModelConfig, device=None, seed: int = 0,
@@ -745,6 +748,7 @@ class Model(nn.Module):
             expert_quant = expert_quant or plan.expert_quant
         self.cfg = cfg
         self.kv_quant = kv_quant
+        self.remat = bool(plan is not None and plan.remat)
         self.device = resolve_device(device)
         self.plan = self.tp = None
         self.param_specs: Dict[str, tuple] = {}
@@ -944,17 +948,23 @@ class Model(nn.Module):
         Under a train plan: the rank's rows of the batch over the whole
         sequence; an attention family's rank runs its slice of the I + T
         positions (the sequence cut over the plan's sequence axis, as the
-        prefill cuts it) and gets that slice of the output.  Each layer is
-        recomputed in backward (``torch.utils.checkpoint``), so its weights
-        are gathered again there and autograd keeps no gathered weight;
-        every rank issues its collectives in the same order in the forward
-        and in the recompute."""
+        prefill cuts it) and gets that slice of the output.
+
+        With ``remat`` (the plan's, ``jax.checkpoint`` of the segment body
+        where ``plan.remat`` is set, transformer.py:481-482) and grad
+        enabled, each layer is recomputed in backward
+        (``torch.utils.checkpoint``): autograd keeps only its input, and
+        under a train plan its weights are gathered again in backward,
+        every rank issuing its collectives in the same order in the forward
+        and in the recompute.  Without it autograd keeps each layer's
+        activations for backward and, under a train plan, each gathered
+        FSDP weight too, gathered once."""
         self._planned("train_trunk", "train")
         x, positions, _, _ = self._embed_slice(tokens, img_embeds,
                                                self._w("embed.embed"))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in self.layers:
-            if self.plan is not None and torch.is_grad_enabled():
+            if self.remat and torch.is_grad_enabled():
                 x, a = checkpoint(block.train_forward, x, positions,
                                   use_reentrant=False)
             else:

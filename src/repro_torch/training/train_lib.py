@@ -6,7 +6,7 @@ The model holds its parameters: ``init_train_state`` turns on
 over them, and the step updates them in place.  The gradients come from
 autograd through ``Model.train_loss``, whose attention blocks and loss
 chunks are recomputed in backward, as the JAX package's ``jax.checkpoint``s
-are.  Under a train plan (``Model(cfg, plan=make_plan(cfg, mesh,
+are, and whose layers are where the model's plan sets ``remat``.  Under a train plan (``Model(cfg, plan=make_plan(cfg, mesh,
 "train", global_batch=B))``) the model holds the rank's pieces, and so do
 the AdamW state and the step's updates.  The compressed cross-pod
 gradient sync, which the step does not call, is ``compression``.

@@ -254,3 +254,83 @@ def test_every_architecture_trains_under_a_train_plan(tmp_path):
             assert abs(got - want) <= (5e-3 if moe else 1e-5 * abs(want)), \
                 (arch, got, want)
             assert int8_refused is (True if moe else None)
+
+
+# --------------------------------------------------------------------------- #
+# (7) plan.remat: each layer recomputed in backward exactly when it is set
+# --------------------------------------------------------------------------- #
+
+REMAT_ARCHS = ("phi4_mini_3p8b", "mamba2_2p7b")
+
+
+@pytest.fixture(scope="module")
+def remat_ranks(tmp_path_factory):
+    def make(workdir):
+        tokens = np.random.default_rng(7).integers(0, 512, (4, 33))
+        return ranks.spawn("remat", 4, {"archs": list(REMAT_ARCHS),
+                                        "tokens": tokens}, workdir,
+                           SPAWN_TIMEOUT)
+    return _shared(tmp_path_factory, "train_plan_remat", make)
+
+
+@pytest.mark.parametrize("arch", REMAT_ARCHS)
+def test_remat_on_ranks_bitwise_equal_without(remat_ranks, arch):
+    for r in remat_ranks:
+        off, on = r[arch][False], r[arch][True]
+        assert np.array_equal(off["loss"], on["loss"])
+        assert set(off["grads"]) == set(on["grads"])
+        for name, g in on["grads"].items():
+            assert np.array_equal(g, off["grads"][name]), name
+
+
+@pytest.mark.parametrize("arch", REMAT_ARCHS)
+def test_remat_on_ranks_gathers_layer_weights_again(remat_ranks, arch):
+    n_layers = 2     # the reduced configs'
+    for r in remat_ranks:
+        off, on = r[arch][False], r[arch][True]
+        # the checkpointed layers, and only with remat
+        assert (off["checkpoints"], on["checkpoints"]) == (0, n_layers)
+        assert off["forward"] == on["forward"]
+        gathers = off["forward"]["weight_gather"]
+        assert gathers > 0
+        # without remat each weight is gathered once, in the forward;
+        # with it each layer's weights again in the recompute (the
+        # embedding and unembedding, outside the layers, once)
+        assert off["backward"]["weight_gather"] == 0
+        assert 0 < on["backward"]["weight_gather"] < gathers
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_remat_unplanned_uses_checkpoint_and_changes_nothing(remat,
+                                                             monkeypatch):
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import Model, transformer
+    from repro_torch.models.sharding import make_plan
+    from repro_torch.training import init_train_state
+    cfg = dataclasses.replace(get_reduced("gemma3_1b"), dtype="float32")
+    tokens = torch.from_numpy(
+        np.random.default_rng(8).integers(0, 512, (2, 33)))
+    got = {}
+    for flag in (False, remat):
+        calls = []
+
+        def counted(*args, _inner=transformer.checkpoint, **kwargs):
+            calls.append(1)
+            return _inner(*args, **kwargs)
+        monkeypatch.setattr(transformer, "checkpoint", counted)
+        model = Model(cfg, device="cpu", seed=0,
+                      plan=make_plan(cfg, None, "train", remat=flag))
+        assert model.plan is None and model.remat is flag
+        init_train_state(model)
+        loss = model.train_loss({"tokens": tokens})
+        loss.backward()
+        monkeypatch.undo()
+        got[flag] = (loss.detach(), {n: p.grad for n, p in
+                                     model.named_parameters()}, len(calls))
+    loss, grads, n_calls = got[remat]
+    assert n_calls == (cfg.n_layers if remat else 0)
+    assert torch.equal(loss, got[False][0])
+    for name, g in grads.items():
+        assert torch.equal(g, got[False][1][name]), name

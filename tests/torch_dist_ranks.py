@@ -255,7 +255,8 @@ def case_build(inp):
         cfg = get_reduced(arch)
         if kind in ("prefill", "train"):
             cfg = dataclasses.replace(cfg, dtype="float32")
-        plan = make_plan(cfg, mesh, kind, global_batch=4)
+        plan = make_plan(cfg, mesh, kind, global_batch=4,
+                         remat=kind == "train")
         model = Model(cfg, device="cpu", plan=plan)
         out[arch] = (model.plan.n_width, model.plan.n_cache)
         if kind == "train":
@@ -595,7 +596,8 @@ def _planned(cfg, params, mesh):
     """The reduced model under the (2, 4) train plan at batch 4 on bridged
     JAX weights, its parameters requiring gradients."""
     model = Model(cfg, device="cpu",
-                  plan=make_plan(cfg, mesh, "train", global_batch=4))
+                  plan=make_plan(cfg, mesh, "train", global_batch=4,
+                                 remat=True))
     bridge.load_params(model, params)
     init_train_state(model)
     return model
@@ -719,7 +721,7 @@ class _Planned:
 
     def __init__(self, cfg, params, mesh):
         plan = None if mesh is None else \
-            make_plan(cfg, mesh, "train", global_batch=4)
+            make_plan(cfg, mesh, "train", global_batch=4, remat=True)
         self.model = Model(cfg, device="cpu", plan=plan)
         bridge.load_params(self.model, params)
         tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=2))
@@ -905,8 +907,49 @@ def case_checkpoint(inp):
     return out
 
 
+def case_remat(inp):
+    """Each reduced arch in f32 under the (2, 2) train plan at batch 4,
+    built from seed 0 twice, with ``remat`` off and on: the loss of
+    ``inp["tokens"]`` and each parameter's gradient after backward (the
+    rank's pieces), the collectives of the forward and of the backward,
+    and the calls of ``torch.utils.checkpoint`` from ``train_trunk``."""
+    mesh = make_test_mesh(2, 2, device="cpu")
+    tokens = torch.from_numpy(inp["tokens"]).long()
+    out = {"rank": dist.get_rank()}
+    for arch in inp["archs"]:
+        cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+        out[arch] = {}
+        for remat in (False, True):
+            model = Model(cfg, device="cpu", seed=0,
+                          plan=make_plan(cfg, mesh, "train", global_batch=4,
+                                         remat=remat))
+            init_train_state(model)
+            rows = model.batch_rows({"tokens": tokens})
+            calls = []
+
+            def counted(*args, **kwargs):
+                calls.append(1)
+                return transformer_checkpoint(*args, **kwargs)
+            with mock.patch.object(transformer, "checkpoint", counted):
+                reset_collectives()
+                loss = model.train_loss(rows)
+                forward = dict(COLLECTIVES)
+                reset_collectives()
+                loss.backward()
+            out[arch][remat] = {
+                "loss": loss.detach().numpy(),
+                "grads": {n: p.grad.numpy()
+                          for n, p in model.named_parameters()},
+                "forward": forward, "backward": dict(COLLECTIVES),
+                "checkpoints": len(calls)}
+    return out
+
+
+transformer_checkpoint = transformer.checkpoint
+
 CASES = {"body": case_body, "moe": case_moe, "ffn": case_ffn,
          "model": case_model, "build": case_build,
          "seq_attention": case_seq_attention, "prefill": case_prefill,
          "train": case_train, "adjoints": case_adjoints,
-         "compression": case_compression, "checkpoint": case_checkpoint}
+         "compression": case_compression, "checkpoint": case_checkpoint,
+         "remat": case_remat}
