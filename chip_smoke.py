@@ -188,7 +188,7 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    workers; cut to the rounds that fit its 120 s budget, the cut printed)
    and a forest fitted on the first 80 %; each pipeline's held-out sMAPE
    and ``recommend`` on phase 7's pool beside phase 7's (N*, G*); the
-   first 2 scenarios labelled serially (in a thread, beside the rest),
+   first 4 scenarios labelled serially (in a thread, beside the rest),
    equal to the runner's labels.  It fails on a
    non-finite feature or label, N* or G* below 1, or an inference of 50
    ms or more;
@@ -328,7 +328,8 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    limit;
 14. the dry-run's records against the card (``phase_dryrun``): 14a
    counts each cell 13b ran with ``launch.dryrun.run_cell`` whole on
-   ``meta`` (no mesh, on the host) and prints its roofline terms at the
+   ``meta`` (no mesh, on the host; the full depth only, no probes) and
+   prints its roofline terms at the
    card's rates (``launch.roofline``) beside 13b's measured eager walls,
    and its ``total_bytes_per_device`` beside 13b's measured peak memory;
    it fails if a predicted argument byte count differs from 13b's real
@@ -339,8 +340,11 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    the launches exact, the real arguments' bytes equal to the record's,
    its walls and peak beside its dry-run record.  14c counts
    ``DRYRUN_META_CELLS`` (one cell of each step kind) on each production
-   mesh as rank 0 of a fake process group on ``meta`` and prints each
-   record's line, the card's allocated bytes unmoved.  The phase prints
+   mesh as rank 0 of a fake process group on ``meta``, by the two probes
+   alone (the JAX dry-run's ``--no-full``: its roofline, no memory
+   report; the full-depth counts and their agreement with the probes
+   are the CPU dry-run's and tests'), and prints each record's line, the
+   card's allocated bytes unmoved.  The phase prints
    its seconds against DRYRUN_BUDGET_S, beside the card's name and power
    limit.
 
@@ -585,11 +589,11 @@ CELL_COUNT, CELL_ROOM, CELL_STEPS, CELL_TAIL = 66, 0.5, 3, 16
 CELL_TOKENS, CELLS_BUDGET_S = (128, 1), 180
 # phase 14, the dry-run's records: 14b runs the hill-climb's DRYRUN_VARIANT
 # of DRYRUN_VARIANT_CELL whole on the card; 14c counts DRYRUN_META_CELLS,
-# one of each step kind, on both production meshes on meta
+# one of each step kind, on both production meshes on meta, by the probes
 DRYRUN_VARIANT, DRYRUN_VARIANT_CELL = "kv_int8", ("gemma3_1b", "decode_32k")
 DRYRUN_META_CELLS = (("mamba2_2p7b", "train_4k"),
                      ("gemma3_1b", "prefill_32k"), ("gemma3_1b", "decode_32k"))
-DRYRUN_BUDGET_S = 240
+DRYRUN_BUDGET_S = 90
 
 
 def say(*parts) -> None:
@@ -2499,9 +2503,7 @@ def phase_measure(ops):
 # and phase 7b's budget for it
 PIPELINE_SIZE = dict(n_scenarios=40, max_adapters=96, horizon=150.0)
 PIPELINE_BUDGET_S = 120.0
-# scenarios labelled serially as well (7b (d)): the serial thread, ~43 s
-# a scenario beside the runner, sets 7b's wall past this count
-SERIAL_CHECK = 2
+SERIAL_CHECK = 4        # scenarios labelled serially as well (7b (d))
 
 
 def phase_pipeline(est, mst, placements):
@@ -4567,7 +4569,7 @@ def phase_dryrun_whole(card, cells):
     out = {}
     for key, st in cells.items():
         arch, name = key.split(":")
-        rec = _count_cell(arch, name, mesh=NO_MESH)
+        rec = _count_cell(arch, name, mesh=NO_MESH, probes=False)
         mem, r = rec["memory"], rec["roofline"]
         real = st["arg_bytes"]["total"]
         if mem["argument_size_in_bytes"] != real:
@@ -4605,7 +4607,8 @@ def phase_dryrun_variant(ops, card):
     from repro_torch.models import SHAPES
     arch, name = DRYRUN_VARIANT_CELL
     over = VARIANTS[DRYRUN_VARIANT]
-    rec = _count_cell(arch, name, mesh=NO_MESH, plan_overrides=over)
+    rec = _count_cell(arch, name, mesh=NO_MESH, probes=False,
+                      plan_overrides=over)
     cfg, shape = get_config(arch), SHAPES[name]
     gc.collect()
     torch.cuda.empty_cache()
@@ -4665,7 +4668,8 @@ def phase_dryrun_variant(ops, card):
 
 def phase_dryrun_meta(card):
     """14c: DRYRUN_META_CELLS on each production mesh, counted as rank 0
-    of it on meta (``run_cell``): each record's line; fails if a cell
+    of it on meta by the probes (``run_cell(full=False)``): each record's
+    line; fails if a cell
     fails or the card's allocated bytes moved.  Returns the records'
     numbers by cell."""
     torch.cuda.synchronize()
@@ -4673,13 +4677,11 @@ def phase_dryrun_meta(card):
     out = {}
     for arch, name in DRYRUN_META_CELLS:
         for multi_pod in (False, True):
-            rec = _count_cell(arch, name, multi_pod=multi_pod)
-            r, mem = rec["roofline"], rec["memory"]
-            out[rec["cell"]] = {"roofline": r, "memory": mem,
-                                "cost": rec["cost"],
+            rec = _count_cell(arch, name, multi_pod=multi_pod, full=False)
+            r = rec["roofline"]
+            out[rec["cell"]] = {"roofline": r, "cost": rec["cost"],
                                 "count_s": rec["elapsed_s"]}
             say(f"  OK {rec['cell']} mesh {rec['mesh']}: "
-                f"{_gb(mem['total_bytes_per_device'])} a device; "
                 f"{_terms_ms(r)}; collectives "
                 f"{rec['cost']['collectives']}; counted in "
                 f"{rec['elapsed_s']:.1f} s")

@@ -11,7 +11,8 @@ mesh (``launch.mesh.meta_mesh``: a process group that moves nothing):
      the remainder), counted the same way and extrapolated linearly to full
      depth (``CellCost.extrapolate``), as the JAX dry-run does.  Eager
      counting sees every layer, so the extrapolation must equal the direct
-     count: a cell where it does not fails.
+     count: a cell where it does not fails.  Without the probes
+     (``--no-probes``) the roofline is that of the direct count.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch phi4-mini-3.8b --shape train_4k
@@ -72,14 +73,12 @@ def _cost_record(cost) -> Dict[str, Any]:
 
 @contextlib.contextmanager
 def _cell_mesh(mesh, multi_pod: bool):
-    """The mesh a cell is counted on: ``mesh`` itself (a ``DeviceMesh``),
-    rank 0 of a ``MeshShape`` (the production mesh's by default) under
-    ``meta_mesh``, or None for ``NO_MESH``."""
+    """The mesh a cell is counted on: rank 0 of a ``MeshShape`` (the
+    production mesh's by default) under ``meta_mesh``, or None for
+    ``NO_MESH``."""
     if mesh is None:
         mesh = production_shape(multi_pod)
-    if not isinstance(mesh, MeshShape):
-        yield mesh
-    elif not mesh.shape:
+    if not mesh.shape:
         yield None
     else:
         with meta_mesh(mesh) as m:
@@ -98,15 +97,16 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
              probes: bool = True, full: bool = True,
              mesh=None, plan_overrides=None) -> Dict[str, Any]:
     """One cell's record: ``cell``, ``ok``, and ``skipped`` (a long cell
-    of a full-attention model), or ``memory`` (full), ``cost`` (the probes
-    extrapolated) and ``roofline`` (at the H100's rates), or ``error`` and
-    ``traceback``.  With both, ``cost_full`` is the direct full-depth
-    count, which the extrapolation must equal.
+    of a full-attention model), or ``memory`` and ``cost_full`` (the
+    direct full-depth count; with ``full``), ``cost`` (the probes
+    extrapolated, or without ``probes`` the full-depth count) and
+    ``roofline`` (of ``cost``, at the H100's rates), or ``error`` and
+    ``traceback``.  With both, the extrapolation must equal the direct
+    count.
 
     ``mesh``: None for the production mesh of ``multi_pod``, a
-    ``MeshShape`` (counted as rank 0 of it), a ``DeviceMesh`` of a running
-    group, or ``NO_MESH``: the cell whole on one device, without a plan
-    (one chip)."""
+    ``MeshShape`` (counted as rank 0 of it), or ``NO_MESH``: the cell
+    whole on one device, without a plan (one chip)."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     rec: Dict[str, Any] = {"cell": cell_id(arch, shape_name, multi_pod),
@@ -132,16 +132,19 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                 rec["cost_full"] = _cost_record(full_cost)
                 rec["full_count_s"] = round(time.time() - t0, 1)
                 del b
+            cost = full_cost if full else None
             if probes:
                 pd = probe_depths(cfg)
                 costs = [_count(cfg, shape, m, plan_overrides, layers=d)[1]
                          for d in (pd["probe1"], pd["probe2"])]
                 cost = costs[0].extrapolate(costs[1], pd["extra_repeats"])
-                rec["cost"] = _cost_record(cost)
-                if full and rec["cost"] != rec["cost_full"]:
+                if full and _cost_record(cost) != rec["cost_full"]:
                     raise AssertionError(
-                        f"the probes' extrapolation {rec['cost']} differs "
-                        f"from the full-depth count {rec['cost_full']}")
+                        f"the probes' extrapolation {_cost_record(cost)} "
+                        f"differs from the full-depth count "
+                        f"{rec['cost_full']}")
+            if cost is not None:
+                rec["cost"] = _cost_record(cost)
                 mf = model_flops_for(cfg, shape)
                 terms = RooflineTerms.from_cost(cost, n_chips, mf)
                 rec["roofline"] = {

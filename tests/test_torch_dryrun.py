@@ -400,6 +400,20 @@ def test_no_mesh_cell_counts_the_whole_step(cells):
         rec["cost"]["flops_per_chip"]
 
 
+def test_no_probes_roofline_is_the_full_count(cells):
+    cells({"gemma3_1b": get_reduced("gemma3_1b")})
+    both = dryrun.run_cell("gemma3_1b", "prefill_t", False, mesh=MESH)
+    rec = dryrun.run_cell("gemma3_1b", "prefill_t", False, mesh=MESH,
+                          probes=False)
+    assert both["ok"] and rec["ok"], rec.get("traceback")
+    assert rec["cost"] == rec["cost_full"] == both["cost"]
+    assert rec["roofline"] == both["roofline"]
+    only = dryrun.run_cell("gemma3_1b", "prefill_t", False, mesh=MESH,
+                           full=False)
+    assert only["ok"] and "memory" not in only and "cost_full" not in only
+    assert only["cost"] == both["cost"]
+
+
 def test_meta_mesh_destroys_its_group_on_error():
     import torch.distributed as dist
     with pytest.raises(KeyError):

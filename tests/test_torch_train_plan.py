@@ -291,18 +291,24 @@ def test_remat_on_ranks_gathers_layer_weights_again(remat_ranks, arch):
         # the checkpointed layers, and only with remat
         assert (off["checkpoints"], on["checkpoints"]) == (0, n_layers)
         assert off["forward"] == on["forward"]
-        gathers = off["forward"]["weight_gather"]
-        assert gathers > 0
+        # the forward's gathers: the layers' and those of the embedding
+        # and unembedding, outside the layers
+        outside = off["outside_gathers"]
+        assert on["outside_gathers"] == outside > 0
+        layer_gathers = off["forward"]["weight_gather"] - outside
+        assert layer_gathers > 0
         # without remat each weight is gathered once, in the forward;
-        # with it each layer's weights again in the recompute (the
-        # embedding and unembedding, outside the layers, once)
+        # with it every layer's weights exactly once again, in the
+        # recompute, and those outside the layers not again
         assert off["backward"]["weight_gather"] == 0
-        assert 0 < on["backward"]["weight_gather"] < gathers
+        assert on["backward"]["weight_gather"] == layer_gathers
 
 
 @pytest.mark.parametrize("remat", [False, True])
 def test_remat_unplanned_uses_checkpoint_and_changes_nothing(remat,
                                                              monkeypatch):
+    """Unplanned, ``remat`` against its opposite: checkpoint called once
+    a layer exactly when set, the loss and gradients bitwise alike."""
     import dataclasses
 
     from repro_torch.configs import get_reduced
@@ -313,7 +319,7 @@ def test_remat_unplanned_uses_checkpoint_and_changes_nothing(remat,
     tokens = torch.from_numpy(
         np.random.default_rng(8).integers(0, 512, (2, 33)))
     got = {}
-    for flag in (False, remat):
+    for flag in (remat, not remat):
         calls = []
 
         def counted(*args, _inner=transformer.checkpoint, **kwargs):
@@ -329,8 +335,11 @@ def test_remat_unplanned_uses_checkpoint_and_changes_nothing(remat,
         monkeypatch.undo()
         got[flag] = (loss.detach(), {n: p.grad for n, p in
                                      model.named_parameters()}, len(calls))
-    loss, grads, n_calls = got[remat]
-    assert n_calls == (cfg.n_layers if remat else 0)
-    assert torch.equal(loss, got[False][0])
+    for flag, (_, _, n_calls) in got.items():
+        assert n_calls == (cfg.n_layers if flag else 0), flag
+    loss, grads, _ = got[remat]
+    other_loss, other_grads, _ = got[not remat]
+    assert torch.equal(loss, other_loss)
+    assert set(grads) == set(other_grads)
     for name, g in grads.items():
-        assert torch.equal(g, got[False][1][name]), name
+        assert torch.equal(g, other_grads[name]), name

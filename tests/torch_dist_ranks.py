@@ -912,7 +912,9 @@ def case_remat(inp):
     built from seed 0 twice, with ``remat`` off and on: the loss of
     ``inp["tokens"]`` and each parameter's gradient after backward (the
     rank's pieces), the collectives of the forward and of the backward,
-    and the calls of ``torch.utils.checkpoint`` from ``train_trunk``."""
+    the weight gathers of the forward made outside the layers (the
+    model-level ``Model._w``: the embedding and the unembedding) and the
+    calls of ``torch.utils.checkpoint`` from ``train_trunk``."""
     mesh = make_test_mesh(2, 2, device="cpu")
     tokens = torch.from_numpy(inp["tokens"]).long()
     out = {"rank": dist.get_rank()}
@@ -925,15 +927,23 @@ def case_remat(inp):
                                          remat=remat))
             init_train_state(model)
             rows = model.batch_rows({"tokens": tokens})
-            calls = []
+            calls, outside = [], []
 
             def counted(*args, **kwargs):
                 calls.append(1)
                 return transformer_checkpoint(*args, **kwargs)
-            with mock.patch.object(transformer, "checkpoint", counted):
+
+            def model_w(self, name):
+                before = COLLECTIVES["weight_gather"]
+                w = transformer_model_w(self, name)
+                outside.append(COLLECTIVES["weight_gather"] - before)
+                return w
+            with mock.patch.object(transformer, "checkpoint", counted), \
+                    mock.patch.object(Model, "_w", model_w):
                 reset_collectives()
                 loss = model.train_loss(rows)
                 forward = dict(COLLECTIVES)
+                outside_forward = sum(outside)
                 reset_collectives()
                 loss.backward()
             out[arch][remat] = {
@@ -941,11 +951,13 @@ def case_remat(inp):
                 "grads": {n: p.grad.numpy()
                           for n, p in model.named_parameters()},
                 "forward": forward, "backward": dict(COLLECTIVES),
+                "outside_gathers": outside_forward,
                 "checkpoints": len(calls)}
     return out
 
 
 transformer_checkpoint = transformer.checkpoint
+transformer_model_w = Model._w
 
 CASES = {"body": case_body, "moe": case_moe, "ffn": case_ffn,
          "model": case_model, "build": case_build,
