@@ -56,10 +56,15 @@ Phases, each printed on its own line; any failure raises and exits non-zero:
    positions at phi4-mini's heads, B 8; flash-decode, the fused kernel and
    the int8 mode past 8 query heads per KV head (``HEAD_GROUP_SHAPES``:
    recurrentgemma-9b's 16 heads on 1 KV head of 256 at 512 and 2048 rows,
-   and a group of 12), and flash-decode and the fused kernel at head dim 8,
+   a group of 12, 24 heads of 256 on 1 KV head and 16 of 200), and
+   flash-decode and the fused kernel at head dim 8,
    in bf16 and f32, ragged lengths with 0 among them, per row (the int8
    mode with q in bf16 and f32, at the tolerance of q's dtype; at head dim
-   8 it runs padded on its 16 instance); and flash-decode, the fused kernel
+   8 it runs padded on its 16 instance); in bf16 at head dims 200 and 256
+   also the log-sum-exp mode, and the profiler's name of each call's split
+   kernel held to the tensor-core pass at D 256 (``require_d256_pass``,
+   also for phase 6's ``gemma3_*``/``rgemma_*`` rows and 13c's D 256
+   rows); and flash-decode, the fused kernel
    and the int8 mode at every head dim 1..256 (``check_head_dims``: one
    without an instance runs the next larger one, padded) and at head dims
    257, 320, 384, 512, 576 and 1024 (``WIDE_DIMS``, the wide path), 1, 4
@@ -381,6 +386,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -509,7 +515,13 @@ WIDE_DIMS = (257, 320, 384, 512, 576, 1024)
 WIDE_SHAPE = (16, 4, 512)
 HEAD_GROUP_SHAPES = (("recurrentgemma-9b", 16, 1, 256, CACHE),
                      ("recurrentgemma-9b window", 16, 1, 256, 2048),
-                     ("G 12", 24, 2, 128, CACHE), ("D 8", 8, 2, 8, CACHE))
+                     ("G 12", 24, 2, 128, CACHE), ("D 8", 8, 2, 8, CACHE),
+                     ("G 24", 24, 1, 256, CACHE), ("D 200", 16, 1, 200, CACHE))
+# the split kernel of a bf16 call at head dims 129..256: an instance of the
+# 256 one, whose code is the tensor-core pass split_mma_d256 (plain, fused,
+# log-sum-exp; padded), by its demangled or its mangled name
+D256_SPLIT = re.compile(r"fd_split(?:_pad)?_kernel(?:<__nv_bfloat16,\s*"
+                        r"(?:\(int\))?256\b|I13__nv_bfloat16Li256E)")
 # training (phase 8): phi4-mini-3.8b at its published widths.  8a: its
 # depth cut to TRAIN_CHECK_LAYERS, f32, one step of TRAIN_CHECK_BATCH
 # (rows, tokens) in TRAIN_CHECK_MICRO microbatches on the card against the
@@ -935,6 +947,20 @@ def check_head_groups(errs):
             check(f"flash_decode_lora {name} all-base vs flash_decode",
                   fused(q, k, v, lengths, x, a, b, torch.full_like(ids, -1)),
                   fd(q, k, v, lengths), dn, errs, exact=True)
+            if dtype == torch.bfloat16 and \
+                    flash_decode.mma256_pass(d, dtype, 2):
+                check_d256_lse(name, q, k, v, lengths, errs)
+                # the split kernel's name: plain at each shape, the fused
+                # and log-sum-exp calls at the first
+                calls = [("flash_decode", fd, (q, k, v, lengths))]
+                if label == HEAD_GROUP_SHAPES[0][0]:
+                    calls += [("flash_decode_lora", fused,
+                               (q, k, v, lengths, x, a, b, ids)),
+                              ("flash_decode_lse",
+                               flash_decode.flash_decode_lse,
+                               (q, k, v, lengths))]
+                for label_, fn, args in calls:
+                    require_d256_pass(f"{label_} {name}", fn, args)
         (k, ks), (v, vs) = (int8_cache(inp, BATCH, s, kv, d)
                             for _ in range(2))
         for qdt in (torch.bfloat16, torch.float32):
@@ -944,6 +970,56 @@ def check_head_groups(errs):
                        fd(q, k, v, lengths, ks, vs), q, k, v, lengths, ks,
                        vs, errs)
     torch.cuda.empty_cache()
+
+
+def check_d256_lse(name, q, k, v, lengths, errs):
+    """The log-sum-exp mode in bf16 on the tensor-core pass at D 256 (or
+    padded onto it): its f32 output rounded to bf16 bit for bit the call
+    without it, and output and log-sum-exp against the plain version's at
+    bf16's tolerance (the output per row)."""
+    from repro_torch.kernels import flash_decode
+    out, lse = flash_decode.flash_decode_lse(q, k, v, lengths)
+    check(f"flash_decode_lse {name} out in bfloat16, the call without it",
+          out.to(q.dtype), flash_decode.flash_decode(q, k, v, lengths),
+          "bfloat16", errs, exact=True)
+    want, want_lse = flash_decode.flash_decode_plain(q, k, v, lengths,
+                                                     return_lse=True)
+    check(f"flash_decode_lse {name} out", out, want, "bfloat16", errs,
+          per_row=True)
+    check_lse_values(f"flash_decode_lse {name} lse", lse, want_lse,
+                     "bfloat16", errs)
+
+
+def require_d256_pass(label, fn, args):
+    """That one call ``fn(*args)`` (bf16, a head dim 129..256) launches the
+    tensor-core pass at D 256: its split kernel, named by the profiler, is
+    an instance of the 256 bf16 one (``D256_SPLIT``), whose only code is
+    ``split_mma_d256``.  A profile that records no split kernel is taken
+    once more; after two, the line starts with ``PROFILER_EMPTY_SESSION``
+    and nothing is held."""
+    fn(*args)
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(2):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and "fd_split" in e.key})
+        if names:
+            break
+    if not names:
+        say(f"PROFILER_EMPTY_SESSION {label}: no split kernel recorded")
+        return
+    ok = any(D256_SPLIT.search(n) for n in names)
+    say(f"  {label}: split kernel {names[0][:80]} -> the tensor-core pass "
+        f"at D 256: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: split kernel {names} is not the "
+                             "bf16 pass at D 256")
 
 
 def check_head_dims(errs):
@@ -2126,6 +2202,9 @@ def phase_timing():
                 f"{prefix}_plain_ms": graph_ms(bgmv.bgmv_plain, g_sets),
                 f"{prefix}_bound_ms": b_ms})
         _, g_sets, b_ms, _, _, g_lib = fd_sets(h, kv, hd)
+        if hd == 256:
+            require_d256_pass(f"flash_decode {name}_*",
+                              flash_decode.flash_decode, g_sets[0])
         rows["flash_decode"].update({
             f"{name}_ms": graph_ms(flash_decode.flash_decode, g_sets),
             f"{name}_plain_ms": graph_ms(flash_decode.flash_decode_plain,
@@ -2156,12 +2235,12 @@ def phase_timing():
 
 def hybrid_fd_times(fd_sets, sdpa):
     """Flash-decode at recurrentgemma-9b's shape (16 heads of 256 on 1 KV
-    head: two head groups, each reading the KV head's K and V) over 512
-    rows (``rgemma_*``) and the 2048-row window (``rgemma_s2048_*``): its
-    time, its plain version's, its bound and SDPA's; and beside each the
-    kernel with 8 heads on the same K/V (``*_g8_ms``: one group, half the
-    heads, the same bytes of K and V), which shows what the second group
-    costs."""
+    head: one block of the tensor-core pass at D 256 reads the KV head's
+    K and V for all 16) over 512 rows (``rgemma_*``) and the 2048-row
+    window (``rgemma_s2048_*``): its time, its plain version's, its bound
+    and SDPA's; and beside each the kernel with 8 heads on the same K/V
+    (``*_g8_ms``: half the heads, the same bytes of K and V), which shows
+    what the other 8 heads cost."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_decode
     cfg = get_config(HYBRID_ARCH)
@@ -2169,6 +2248,8 @@ def hybrid_fd_times(fd_sets, sdpa):
     out = {}
     for prefix, s in (("rgemma", CACHE), ("rgemma_s2048", cfg.local_window)):
         _, sets, b_ms, _, _, lib = fd_sets(h, kv, hd, s)
+        require_d256_pass(f"flash_decode {prefix}_*",
+                          flash_decode.flash_decode, sets[0])
         out.update({
             f"{prefix}_ms": graph_ms(flash_decode.flash_decode, sets),
             f"{prefix}_plain_ms": graph_ms(flash_decode.flash_decode_plain,
@@ -4489,6 +4570,9 @@ def phase_cells_kernels(card, errs, fd_shapes):
         del got, want
         torch.cuda.empty_cache()
         sets = [(q, k, v, s)]
+        if d == 256:
+            require_d256_pass(f"flash_decode {label}",
+                              flash_decode.flash_decode, sets[0])
         flops, nbytes = kernel_cost.flash_decode_cost(bsz, s, h, kv, d)
         b_ms, b_by = bound(nbytes, flops, "bfloat16")
         big = nbytes > 2e8          # fewer calls a graph for large caches

@@ -22,14 +22,15 @@
 // batch sizes, so the sequence is cut into n_splits chunks of whole tiles
 // (flash_decode.py::split_plan) and one block per (split, kv-head, row)
 // covers the G query heads that share that KV head (query head h reads KV
-// head h / G), so K and V are read once for all G.  Past kMaxG (8) heads,
-// which size the passes' per-head arrays, a KV head's G heads are cut into
-// ceil(G / 8) groups on grid y, one block per (split, kv-head, group,
-// row), and each group reads the KV head's K and V (at recurrentgemma-9b's
-// 16 heads on 1 KV head: twice, the second read often from L2).  Those
-// launches run instances of their own (kGroups), so that a G <= 8 launch
-// runs the code it ran before.  The combine works per (row, head) and does
-// not see the groups.
+// head h / G), so K and V are read once for all G.  Past a pass's heads a
+// block (kMaxG, 8, which size the per-head arrays of every pass but one;
+// kMaxG256, 16, on the bf16 pass at D 256, whose heads are the 16 rows of
+// its products), a KV head's G heads are cut into groups on grid y, one
+// block per (split, kv-head, group, row), and each group reads the KV
+// head's K and V.  So recurrentgemma-9b's 16 heads on 1 KV head (D 256)
+// read them once; at 24 heads, twice.  Those launches run instances of
+// their own (kGroups), so that a launch of one group runs the code it ran
+// before.  The combine works per (row, head) and does not see the groups.
 //
 // The split pass streams its chunk through shared memory in tiles of kP
 // positions (16 KB of K and 16 KB of V at D 128 in bf16) with 16-byte
@@ -43,7 +44,7 @@
 // length >= S means all of S; a block past its row's length writes an empty
 // partial, and a length of 0 gives 0, as the Pallas kernel does.
 //
-// In bf16 (D <= 128) the tile is computed on tensor cores (split_mma): each
+// In bf16 (D 16-128) the tile is computed on tensor cores (split_mma): each
 // of the block's four warps owns a quarter of every tile's positions, copies
 // its own rows and runs its own online softmax, so the tile loop has no
 // block barrier.  S = Q K^T is an m16n8k16 product with the G query heads as
@@ -52,15 +53,30 @@
 // bf16(P) and bf16(P - bf16(P)), is the A operand of two products O += P V
 // into one accumulator (about 16 bits of P, where the Pallas kernel keeps
 // f32), V's fragments coming from ldmatrix.trans.  The warps merge by
-// log-sum-exp at the end of the chunk.  In f32, and in bf16 at D 256 (a
-// warp's share of a tile is under 16 positions) and D 8 (a row is under
-// one k-step; its 16 bytes are one chunk), the same ring
-// feeds a CUDA-core pass (split_scalar): threads that own positions compute
-// the scores, one warp per head updates the softmax once per tile, threads
-// that own (d-chunk, position group) accumulate P V in registers.  The
-// first design (PR 11) had each warp take one position at a time with
-// 2-byte loads, a shuffle reduction and two expf per head per position:
-// 29.70 us at the serving shape, 3x SDPA (PERF.md).
+// log-sum-exp at the end of the chunk.
+//
+// In bf16 at D 256 a tile is 32 positions, a warp's quarter 8, under a
+// 16-position k-block, and an accumulator of all 256 columns would take
+// 128 registers a thread: that pass (split_mma_d256) splits the work
+// between the warps by positions for S and by columns for P V.  Each warp
+// copies the K rows of its 8 positions and V's 64 columns it accumulates,
+// computes its positions' scores for up to 16 heads (the A operand's 16
+// rows) and puts them in shared memory; after one block barrier a tile
+// every warp runs the same online softmax over all 32 positions, so (m, l)
+// agree across the warps and need no merge, and adds P V on its columns
+// (32 accumulator registers).  One block reads a KV head's K and V once
+// for up to 16 heads; it streams 1 KB a position, the pass's bound.
+//
+// In f32, in the int8 mode at D 256, and in bf16 at D 8 (a row is under
+// one k-step; its 16 bytes are one chunk), the same ring feeds a CUDA-core
+// pass (split_scalar): threads that own positions compute the scores, one
+// warp per head updates the softmax once per tile, threads that own
+// (d-chunk, position group) accumulate P V in registers.  The first
+// design had each warp take one position at a time with 2-byte loads, a
+// shuffle reduction and two expf per head per position: 29.70 us at the
+// serving shape, 3x SDPA (PERF.md); bf16 at D 256 ran this pass before
+// split_mma_d256 (4.27x SDPA at recurrentgemma-9b's 16 heads over 2048
+// rows at B 128, where two head groups of 8 read K and V twice).
 //
 // Head dims: the passes are instantiated at D = 8, 16, ..., 256 (the int8
 // mode from 16).  The Pallas kernel takes any D (its block is the whole
@@ -70,7 +86,7 @@
 // 8 or 4 bytes by cp.async, or 2 and 1 through registers, as the row's
 // byte width allows), q is zero past d, the scale is 1/sqrt(d), and only
 // d elements of each partial are written; the pass is the one D's
-// instance takes (tensor cores in bf16 at D 16-128).  The instantiated
+// instance takes (tensor cores in bf16 at D 16-256).  The instantiated
 // dims' instances are the code they were (kPad = false).
 //
 // Head dims past 256 (up to kWideMaxHeadDim, 1024) take a wide path of
@@ -167,20 +183,29 @@ constexpr float kNegInf = -1.0e30f;  // finite, as in Pallas: exp(m - m) stays 1
 constexpr int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
 
 // Head groups: the G = h / kv query heads that share a KV head are cut
-// into ceil(G / kMaxG) groups of at most kMaxG, sizes differing by at most
-// one, and grid y is (KV head, group).  A block's heads are heads [first,
+// into ceil(G / max_g) groups of at most max_g (kMaxG; kMaxG256 on the
+// bf16 pass at D 256, split_mma_d256), sizes differing by at most one,
+// and grid y is (KV head, group).  A block's heads are heads [first,
 // first + g_n) of its KV head's G.  The split passes are instantiated with
-// kGroups only for G > kMaxG: a G <= kMaxG launch (one block per KV head
+// kGroups only for G > max_g: a G <= max_g launch (one block per KV head
 // on grid y) runs the code it ran before head groups, whose time they
 // must not move; its expressions are kept as they were, since a rewrite
 // that computes the same values moved its registers and time.
-__host__ __device__ constexpr int head_groups(int g) {
-  return (g + kMaxG - 1) / kMaxG;
+constexpr int kMaxG256 = 16;  // query heads a block of split_mma_d256
+
+// Whether (T, D) takes split_mma_d256: bf16 at D 256 (D 129-255 padded
+// onto it).
+template <typename T, int D>
+constexpr bool kMmaD256 =
+    std::is_same<T, __nv_bfloat16>::value && D == kMaxHeadDim;
+
+__host__ __device__ constexpr int head_groups(int g, int max_g = kMaxG) {
+  return (g + max_g - 1) / max_g;
 }
 
-template <bool kGroups>
+template <bool kGroups, int kMax = kMaxG>
 __device__ __forceinline__ int groups_per_kv_head(int h, int kv) {
-  if constexpr (kGroups) return head_groups(h / kv);
+  if constexpr (kGroups) return head_groups(h / kv, kMax);
   else return 1;
 }
 
@@ -188,13 +213,13 @@ struct HeadGroup {
   int first, g_n;
 };
 
-template <bool kGroups>
+template <bool kGroups, int kMax = kMaxG>
 __device__ __forceinline__ HeadGroup head_group(int y, int h, int kv) {
   const int g_all = h / kv;
   if constexpr (!kGroups) {
     return {0, g_all};
   } else {
-    const int n_grp = head_groups(g_all);
+    const int n_grp = head_groups(g_all, kMax);
     const int grp = y % n_grp, first = grp * g_all / n_grp;
     return {first, (grp + 1) * g_all / n_grp - first};
   }
@@ -308,7 +333,7 @@ __device__ __forceinline__ void load_tile_pad(KV* ks, const KV* k,
   }
 }
 
-// The split pass on CUDA cores (f32, bf16 at D 256, and the int8 mode):
+// The split pass on CUDA cores (f32, bf16 at D 8, and the int8 mode):
 // all 128 threads work on each tile together, four barriers a tile.  q is
 // T; K and V are KV, T itself or int8 with the f16 scales k_scale and
 // v_scale of (bsz, s, kv) (kQuant).  With kPad the head dim is d < D (a
@@ -619,7 +644,7 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi,
   lo = pack_bf16(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
 }
 
-// The split pass on tensor cores (bf16, D <= 128).  Each warp owns a
+// The split pass on tensor cores (bf16, D 16-128).  Each warp owns a
 // quarter of every tile's positions and runs its own pipeline and its own
 // online softmax, so the tile loop has no block barrier: it copies its rows
 // of K and V (cp.async), computes S = Q K^T with m16n8k16 products (rows:
@@ -848,6 +873,344 @@ __device__ __forceinline__ void split_mma(
       if (i % D < d) acc_part[(hp0 + (size_t)g * n_splits) * d + i % D] = a;
     } else {
       acc_part[(hp0 + (size_t)g * n_splits) * D + i % D] = a;
+    }
+  }
+}
+
+// One piece of w bytes (16, 8 or 4 by cp.async, 2 or 1 through registers;
+// load_tile_pad's pieces) from src to dst, zeros where !valid.
+__device__ __forceinline__ void copy_piece(char* dst, const char* src, int w,
+                                           bool valid) {
+  if (w == 16) {
+    repro::cp_async16(dst, src, valid);
+  } else if (w == 8) {
+    repro::cp_async_small<8>(dst, src, valid);
+  } else if (w == 4) {
+    repro::cp_async_small<4>(dst, src, valid);
+  } else if (w == 2) {
+    const uint16_t zero = 0;
+    *reinterpret_cast<uint16_t*>(dst) =
+        valid ? *reinterpret_cast<const uint16_t*>(src) : zero;
+  } else {
+    *dst = valid ? *src : 0;
+  }
+}
+
+// Issue the copies of one warp's share of a split_mma_d256 tile into the
+// ring slot at ks: the K rows whose scores the warp computes (positions
+// [kPW w, kPW (w + 1))), whole, and the 16-byte chunks of V whose columns
+// it accumulates ([kCW w, kCW (w + 1))) at every position of the tile.
+// Tile position p is sequence position p0 + p; those at or past `end` are
+// zero-filled.  With kPad the rows hold d < D elements (base and stride
+// count d-element rows) and go in load_tile_pad's pieces, so that the
+// rest of each row keeps the zeros of zero_ring.
+template <bool kPad>
+__device__ __forceinline__ void load_share_d256(
+    __nv_bfloat16* ks, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    size_t base, size_t stride, int p0, int end, int warp, int lane, int d) {
+  using T = __nv_bfloat16;
+  using G = Tile<T, kMaxHeadDim>;
+  constexpr int kPW = G::kP / kWarps, kCW = G::kChunks / kWarps;
+  static_assert(G::kChunks == 32, "a lane a chunk of a K row");
+  T* vs = ks + G::kP * kMaxHeadDim;
+  if constexpr (!kPad) {
+#pragma unroll
+    for (int j = 0; j < kPW; ++j) {  // K: row kPW w + j, chunk `lane`
+      const int p = warp * kPW + j;
+      const bool valid = p0 + p < end;
+      const size_t off =
+          base + (valid ? (size_t)(p0 + p) * stride : 0) + lane * G::kVec;
+      repro::cp_async16(ks + G::slot(p, lane) * G::kVec, k + off, valid);
+    }
+#pragma unroll
+    for (int j = 0; j < G::kP * kCW / 32; ++j) {  // V: kCW chunks a row
+      const int i = lane + 32 * j;
+      const int p = i / kCW, c = warp * kCW + i % kCW;
+      const bool valid = p0 + p < end;
+      const size_t off =
+          base + (valid ? (size_t)(p0 + p) * stride : 0) + c * G::kVec;
+      repro::cp_async16(vs + G::slot(p, c) * G::kVec, v + off, valid);
+    }
+  } else {
+    const int row_bytes = d * static_cast<int>(sizeof(T));
+    const int w = min(row_bytes & -row_bytes, 16);
+    const char* kg = reinterpret_cast<const char*>(k);
+    const char* vg = reinterpret_cast<const char*>(v);
+    char* kd = reinterpret_cast<char*>(ks);
+    char* vd = reinterpret_cast<char*>(vs);
+    auto row_off = [&](int p, bool valid) {
+      return (base + (valid ? (size_t)(p0 + p) * stride : 0)) * sizeof(T);
+    };
+    const int n_pc = row_bytes / w;
+    for (int i = lane; i < kPW * n_pc; i += 32) {
+      const int p = warp * kPW + i / n_pc, b = (i % n_pc) * w;
+      const bool valid = p0 + p < end;
+      copy_piece(kd + G::slot(p, b / 16) * 16 + b % 16,
+                 kg + row_off(p, valid) + b, w, valid);
+    }
+    const int b0 = warp * kCW * 16;  // this warp's bytes of a V row
+    const int n_v = max(0, min(kCW * 16, row_bytes - b0)) / w;
+    for (int i = lane; i < G::kP * n_v; i += 32) {
+      const int p = i / n_v, b = b0 + (i % n_v) * w;
+      const bool valid = p0 + p < end;
+      copy_piece(vd + G::slot(p, b / 16) * 16 + b % 16,
+                 vg + row_off(p, valid) + b, w, valid);
+    }
+  }
+}
+
+// The split pass on tensor cores at D 256 in bf16, for up to kMaxG256 (16)
+// query heads a block, so that recurrentgemma-9b's 16 heads on one KV head
+// read its K and V once.  Bound: the bytes of K and V (1 KB a position at
+// D 256), at most 2 * 16 FLOPs a byte; the design keeps those bytes
+// streaming and all arithmetic on tensor cores:
+// - A tile is 32 positions (16 KB of K, as many of V), in split_mma's
+//   swizzled ring of up to three stages (96 KB), two blocks an SM: up to
+//   192 KB of copies in flight on an SM.
+// - Each of the four warps copies and reads only its own share of a tile
+//   (load_share_d256): the K rows of its 8 positions, whose scores it
+//   computes, and V's columns [64 w, 64 (w + 1)) at all 32 positions,
+//   which it accumulates.  So a warp refills its share of a slot as soon
+//   as it is done with it (no barrier), as in split_mma.
+// - S = Q K^T for the warp's 8 positions: m16n8k16 with the heads as the
+//   16 rows (all 16 live at G 16; zero past g_n), Q's A fragments held in
+//   64 registers (ldmatrix from shared memory once), K^T's from ldmatrix,
+//   the 16 k-steps on two accumulators.
+// - The scaled, masked scores go to shared memory (16 x 32 f32, double-
+//   buffered by tile parity), one block barrier a tile, and every warp
+//   reads back all 32 positions' scores in its A fragments' order and runs
+//   the same online softmax for both row halves (quad shuffles), so (m, l)
+//   agree across warps bit for bit and the warps need no merge at the end.
+// - O += P V on the warp's 64 columns: 8 n-blocks, 32 f32 registers, P
+//   split into bf16 hi and lo operands (split_bf16), V's fragments from
+//   ldmatrix.trans.
+// - Each warp writes its columns of the partials; warp 0 writes (m, l).
+// A block streams about 19-21 GB/s of K and V, whatever the card's load
+// and whether its work is cut four or eight ways (PERF.md): the card's
+// 3.35 TB/s is about 25 GB/s an SM, so every SM must hold blocks, and
+// split_plan_d256 chooses the splits.
+// kPad: as split_mma's (zero_ring, rows of d elements, the scale and the
+// partials at d).
+template <bool kGroups, bool kPad = false>
+__device__ __forceinline__ void split_mma_d256(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ length,
+    float* __restrict__ m_part, float* __restrict__ l_part,
+    float* __restrict__ acc_part, int s, int h, int kv, int n_splits,
+    int chunk, int stages, int d = kMaxHeadDim) {
+  using T = __nv_bfloat16;
+  constexpr int D = kMaxHeadDim;
+  using G = Tile<T, D>;
+  constexpr int kP = G::kP, kVec = G::kVec;
+  constexpr int kPW = kP / kWarps;          // positions whose scores a warp computes
+  constexpr int kCW = G::kChunks / kWarps;  // n-blocks of 8 columns a warp accumulates
+  constexpr int kKS = D / 16;               // k-steps of Q K^T
+  constexpr int kKB = kP / 16;              // k-blocks of P V
+  constexpr int kSP = kP + 8;               // score row stride: rows 8 banks apart
+  static_assert(kPW == 8 && kCW % 2 == 0 && kKS % 2 == 0 && kKB >= 1,
+                "d256 mma tile");
+  const int split = blockIdx.x,
+            kvh = blockIdx.y / groups_per_kv_head<kGroups, kMaxG256>(h, kv),
+            row = blockIdx.z;
+  const HeadGroup hg = head_group<kGroups, kMaxG256>(blockIdx.y, h, kv);
+  const int g_n = hg.g_n;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;  // fragment rows gq, gq + 8; column pair
+  const float scale = rsqrtf(static_cast<float>(kPad ? d : D));
+  // q's loads go out first: nothing waits on them until the tiles' copies
+  // are in flight
+  constexpr int kQPer = kMaxG256 * D / kThreads;
+  T qv[kQPer];
+  const size_t q0 = (size_t)row * h + kvh * (h / kv) + hg.first;
+#pragma unroll
+  for (int j = 0; j < kQPer; ++j) {
+    const int i = tid + j * kThreads;
+    if constexpr (kPad)
+      qv[j] = i / D < g_n && i % D < d ? q[(q0 + i / D) * d + i % D]
+                                       : __float2bfloat16(0.f);
+    else
+      qv[j] = i / D < g_n ? q[q0 * D + i] : __float2bfloat16(0.f);
+  }
+  const int len = min(max(length[row], 0), s);
+  const int s0 = split * chunk;
+  const int s1 = min(s0 + chunk, len);
+  const int n_tiles = s1 > s0 ? (s1 - s0 + kP - 1) / kP : 0;
+
+  extern __shared__ __align__(16) unsigned char fd_ring[];
+  // rows 528 bytes apart: ldmatrix's eight rows of one column hit distinct
+  // 16-byte bank groups
+  __shared__ __align__(16) T qs[kMaxG256][D + 8];
+  __shared__ __align__(16) float sc_s[2][kMaxG256][kSP];
+  T* ring = reinterpret_cast<T*>(fd_ring);
+  const size_t base = ((size_t)row * s * kv + kvh) * (kPad ? d : D);
+  const size_t stride = (size_t)kv * (kPad ? d : D);
+  const int w0 = warp * kPW;  // this warp's first score position in a tile
+  const int c0 = warp * kCW;  // and its first chunk of V
+  auto k_slot = [&](int i) { return ring + (size_t)(i % stages) * 2 * kP * D; };
+  auto load = [&](int i) {
+    load_share_d256<kPad>(k_slot(i), k, v, base, stride, s0 + i * kP, s1,
+                          warp, lane, d);
+  };
+  if constexpr (kPad) {
+    zero_ring<T, D>(fd_ring, stages, tid, kThreads);
+    __syncthreads();
+  }
+  for (int i = 0; i < stages; ++i) {  // every slot's copies in flight
+    if (i < n_tiles) load(i);
+    repro::cp_async_commit();
+  }
+
+  // Q as the A operand: row g is query head kvh * G + first + g, zero
+  // past g_n; one ldmatrix a k-step gives rows 0-15.
+#pragma unroll
+  for (int j = 0; j < kQPer; ++j) {
+    const int i = tid + j * kThreads;
+    qs[i / D][i % D] = qv[j];
+  }
+  __syncthreads();
+  unsigned qa[kKS][4];
+#pragma unroll
+  for (int ks = 0; ks < kKS; ++ks)
+    repro::ldmatrix_x4<false>(qa[ks], &qs[lane % 16][ks * 16 + (lane / 16) * 8]);
+
+  // heads gq (r 0) and gq + 8 (r 1) over every position so far
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[kCW][4];
+#pragma unroll
+  for (int db = 0; db < kCW; ++db)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[db][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    repro::cp_async_wait(stages - 1);  // this lane's copies of tile `it`
+    __syncwarp();                      // and the warp's
+    const T* kt = k_slot(it);
+    const T* vt = kt + kP * D;
+    const int n_valid = min(kP, s1 - (s0 + it * kP));
+    float* sw = &sc_s[it & 1][0][0];
+
+    // S = Q K^T over the warp's 8 positions: ldmatrix gives the K^T
+    // fragments of two k-steps, each on its own accumulator.
+    {
+      float sa[4] = {0.f, 0.f, 0.f, 0.f}, sb[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ks = 0; ks < kKS; ks += 2) {
+        unsigned b[4];
+        repro::ldmatrix_x4<false>(
+            b, kt + G::slot(w0 + lane % 8, 2 * ks + lane / 8) * kVec);
+        repro::mma_bf16(sa, qa[ks], b[0], b[1]);
+        repro::mma_bf16(sb, qa[ks + 1], b[2], b[3]);
+      }
+      const int p = w0 + 2 * tq;
+      const bool ok0 = p < n_valid, ok1 = p + 1 < n_valid;
+      *reinterpret_cast<float2*>(sw + gq * kSP + p) =
+          make_float2(ok0 ? (sa[0] + sb[0]) * scale : kNegInf,
+                      ok1 ? (sa[1] + sb[1]) * scale : kNegInf);
+      *reinterpret_cast<float2*>(sw + (gq + 8) * kSP + p) =
+          make_float2(ok0 ? (sa[2] + sb[2]) * scale : kNegInf,
+                      ok1 ? (sa[3] + sb[3]) * scale : kNegInf);
+    }
+    __syncthreads();  // every warp's scores of this tile
+
+    // Online softmax, once per tile, the same in every warp: x[r][kb][j]
+    // holds row r's scores at positions 16 kb + 8 (j / 2) + 2 tq + j % 2,
+    // the A fragments' columns.
+    float x[2][kKB][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int kb = 0; kb < kKB; ++kb)
+#pragma unroll
+        for (int j2 = 0; j2 < 2; ++j2) {
+          const float2 t = *reinterpret_cast<const float2*>(
+              sw + (gq + 8 * r) * kSP + kb * 16 + j2 * 8 + 2 * tq);
+          x[r][kb][2 * j2] = t.x;
+          x[r][kb][2 * j2 + 1] = t.y;
+        }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int kb = 0; kb < kKB; ++kb)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mx = fmaxf(mx, x[r][kb][j]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int kb = 0; kb < kKB; ++kb)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int p = kb * 16 + (j / 2) * 8 + 2 * tq + j % 2;
+          x[r][kb][j] = p < n_valid ? expf(x[r][kb][j] - m_new) : 0.f;
+          sum += x[r][kb][j];
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      corr[r] = expf(m[r] - m_new);
+      l[r] = l[r] * corr[r] + sum;
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int db = 0; db < kCW; ++db) {
+      o[db][0] *= corr[0];
+      o[db][1] *= corr[0];
+      o[db][2] *= corr[1];
+      o[db][3] *= corr[1];
+    }
+
+    // O += P V over the warp's 64 columns: P of one 16-position k-block as
+    // two bf16 A operands, P_hi = bf16(P) and P_lo = bf16(P - P_hi), into
+    // the same accumulator (split_mma's); V's B fragments come transposed.
+#pragma unroll
+    for (int kb = 0; kb < kKB; ++kb) {
+      unsigned hi[4], lo[4];
+      split_bf16(x[0][kb][0], x[0][kb][1], hi[0], lo[0]);
+      split_bf16(x[1][kb][0], x[1][kb][1], hi[1], lo[1]);
+      split_bf16(x[0][kb][2], x[0][kb][3], hi[2], lo[2]);
+      split_bf16(x[1][kb][2], x[1][kb][3], hi[3], lo[3]);
+      const int p = kb * 16 + ((lane / 8) % 2) * 8 + lane % 8;
+#pragma unroll
+      for (int db = 0; db < kCW; db += 2) {
+        unsigned b[4];
+        repro::ldmatrix_x4<true>(b, vt + G::slot(p, c0 + db + lane / 16) * kVec);
+        repro::mma_bf16(o[db], hi, b[0], b[1]);
+        repro::mma_bf16(o[db + 1], hi, b[2], b[3]);
+        repro::mma_bf16(o[db], lo, b[0], b[1]);
+        repro::mma_bf16(o[db + 1], lo, b[2], b[3]);
+      }
+    }
+    __syncwarp();  // the warp's share of this slot is free: refill it
+    if (it + stages < n_tiles) load(it + stages);
+    repro::cp_async_commit();
+  }
+  repro::cp_async_wait(0);
+
+  // The partials: each warp its 64 columns of heads gq and gq + 8; (m, l)
+  // are every warp's, written by warp 0.
+  const size_t hp0 = q0 * n_splits + split;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int g = gq + 8 * r;
+    if (g < g_n) {
+      float* dst = acc_part + (hp0 + (size_t)g * n_splits) * (kPad ? d : D);
+#pragma unroll
+      for (int db = 0; db < kCW; ++db) {
+        const int col = (c0 + db) * 8 + 2 * tq;
+        if constexpr (kPad) {
+          if (col < d) dst[col] = o[db][2 * r];
+          if (col + 1 < d) dst[col + 1] = o[db][2 * r + 1];
+        } else {
+          *reinterpret_cast<float2*>(dst + col) =
+              make_float2(o[db][2 * r], o[db][2 * r + 1]);
+        }
+      }
+      if (warp == 0 && tq == 0) {
+        m_part[hp0 + (size_t)g * n_splits] = m[r];
+        l_part[hp0 + (size_t)g * n_splits] = l[r];
+      }
     }
   }
 }
@@ -1162,11 +1525,12 @@ __device__ __forceinline__ void split_mma_int8(
   }
 }
 
-// One block per (split, kv-head, head group, row): the tensor-core pass
-// where the tile allows it (bf16, D >= 16, each warp's quarter of a tile a
-// multiple of 16 positions), else the CUDA-core pass.  With kEarly (the
-// fused kernel's instance) the LoRA shrink, launched as this grid's
-// programmatic dependent, may start at once and run beside this pass.
+// One block per (split, kv-head, head group, row): a tensor-core pass in
+// bf16 (split_mma_d256 at D 256; split_mma where each warp's quarter of a
+// tile is a multiple of 16 positions, D 16-128), else the CUDA-core pass.
+// With kEarly (the fused kernel's instance) the LoRA shrink, launched as
+// this grid's programmatic dependent, may start at once and run beside
+// this pass.
 template <typename T, int D, bool kEarly, bool kGroups>
 __global__ void __launch_bounds__(kThreads, 2)
 fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -1176,7 +1540,10 @@ fd_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 int n_splits, int chunk, int stages) {
   if constexpr (kEarly)
     asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-  if constexpr (Tile<T, D>::kMma)
+  if constexpr (kMmaD256<T, D>)
+    split_mma_d256<kGroups>(q, k, v, length, m_part, l_part, acc_part, s, h,
+                            kv, n_splits, chunk, stages);
+  else if constexpr (Tile<T, D>::kMma)
     split_mma<D, kGroups>(q, k, v, length, m_part, l_part, acc_part, s, h,
                           kv, n_splits, chunk, stages);
   else
@@ -1212,9 +1579,9 @@ fd_split_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
 
 // A head dim d that has no instance, in plain flash-decode and in the
 // fused kernel: the instance of the next larger D, padded (kPad), on the
-// pass D's instance takes.  It lets a fused launch's shrink start at
-// once, as kEarly does (without a programmatic dependent the instruction
-// does nothing).
+// pass D's instance takes (bf16 d 129-255: split_mma_d256).  It lets a
+// fused launch's shrink start at once, as kEarly does (without a
+// programmatic dependent the instruction does nothing).
 template <typename T, int D, bool kGroups>
 __global__ void __launch_bounds__(kThreads, 2)
 fd_split_pad_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -1223,7 +1590,10 @@ fd_split_pad_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     float* __restrict__ acc_part, int s, int h, int kv,
                     int n_splits, int chunk, int stages, int d) {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-  if constexpr (Tile<T, D>::kMma)
+  if constexpr (kMmaD256<T, D>)
+    split_mma_d256<kGroups, true>(q, k, v, length, m_part, l_part, acc_part,
+                                  s, h, kv, n_splits, chunk, stages, d);
+  else if constexpr (Tile<T, D>::kMma)
     split_mma<D, kGroups, true>(q, k, v, length, m_part, l_part, acc_part, s,
                                 h, kv, n_splits, chunk, stages, d);
   else
@@ -2041,12 +2411,16 @@ int launch_fd(const void* q, const void* k, const void* v,
   // whose bytes are not a multiple of 16, aligned within the row)
   if ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool groups = h / kv > kMaxG;
   const bool wide = dh > kMaxHeadDim;
   if (wide && dh > kWideMaxHeadDim) return static_cast<int>(cudaErrorInvalidValue);
   const int di = wide ? dh : instance_dim(dh, kInt8);
   const bool pad = di != dh;
-  const dim3 grid(n_splits, kv * head_groups(h / kv), bsz);
+  // query heads a block: kMaxG256 on split_mma_d256 (mirrored by
+  // flash_decode.py::mma256_pass and MMA256_GROUP)
+  const int max_g = !kInt8 && kMmaD256<T, kMaxHeadDim> && di == kMaxHeadDim
+                        ? kMaxG256 : kMaxG;
+  const bool groups = h / kv > max_g;
+  const dim3 grid(n_splits, kv * head_groups(h / kv, max_g), bsz);
   cudaError_t err;
 #define REPRO_FD_SPLIT_P(D, G, P)                                            \
   launch_split<T, D, kLora, kInt8, G, P>(grid, st, q, k, v, k_scale,         \

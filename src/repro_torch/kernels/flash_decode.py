@@ -35,6 +35,9 @@ MAX_HEAD_DIM = 1024   # past MAX_INSTANCE_DIM the wide path runs d unpadded
 WIDE_TILE = 32        # positions in one of the wide path's tiles (kWideP)
 MAX_GROUP = 8   # query heads a block (kMaxG): a KV head's G heads are cut
                 # into head_groups(G) groups, each a block of the split pass
+MMA256_GROUP = 16   # query heads a block of the bf16 pass at D 256
+                    # (kMaxG256, split_mma_d256): an m16n8k16 A fragment's
+                    # 16 rows, so that up to 16 heads read K and V once
 TILE_BYTES = 16384                  # of K in one tile of the split pass
 TILE_MIN, TILE_MAX = 16, 128        # positions in a tile, at least / most
 
@@ -201,17 +204,36 @@ def instance_dim(d: int, itemsize: int) -> int:
 def tile_positions(d: int, itemsize: int) -> int:
     """Positions in one tile of the split pass (``Tile::kP`` of
     ``csrc/flash_decode.cu``, at ``instance_dim``): TILE_BYTES of K,
-    within [TILE_MIN, TILE_MAX]; WIDE_TILE on the wide path."""
+    within [TILE_MIN, TILE_MAX]; WIDE_TILE on the wide path.  At the 256
+    instance in bf16 a tile is 32 positions (16 KB of K, as many of V):
+    the tensor-core pass there (``split_mma_d256``) gives each of its
+    four warps the scores of 8 positions and the P V product of 64 of
+    the 256 columns over all 32, in a ring of up to three 32 KB stages,
+    two blocks an SM."""
     if is_wide(d):
         return WIDE_TILE
     di = instance_dim(d, itemsize)
     return min(TILE_MAX, max(TILE_MIN, TILE_BYTES // (di * itemsize)))
 
 
-def head_groups(g: int) -> int:
+def mma256_pass(d: int, dtype, itemsize: int) -> bool:
+    """Whether flash-decode at head dim ``d``, q's ``dtype`` and K's element
+    size ``itemsize`` runs the bf16 tensor-core pass at D 256
+    (``split_mma_d256`` of ``csrc/flash_decode.cu``): bf16 q and K/V at
+    the 256 instance, d 129..256."""
+    return (dtype == torch.bfloat16 and itemsize == 2 and not is_wide(d)
+            and instance_dim(d, itemsize) == MAX_INSTANCE_DIM)
+
+
+def head_groups(g: int, limit: int = MAX_GROUP) -> int:
     """Blocks a split gives the G query heads of one KV head: groups of
-    at most MAX_GROUP (``head_groups`` of ``csrc/flash_decode.cu``)."""
-    return -(-g // MAX_GROUP)
+    at most ``limit`` (``head_groups`` of ``csrc/flash_decode.cu``), so
+    that each group reads the KV head's K and V once: at G <= ``limit``
+    one block reads them for all G.  ``limit`` is MMA256_GROUP on the
+    bf16 tensor-core pass at D 256 (``mma256_pass``; the ``max_g`` of
+    ``launch_fd``), whose heads are the 16 rows of its products, and
+    MAX_GROUP on every other pass, whose per-head arrays hold 8."""
+    return -(-g // limit)
 
 
 def split_plan(bsz: int, groups: int, s: int, n_sm: int, tile: int):
@@ -221,6 +243,33 @@ def split_plan(bsz: int, groups: int, s: int, n_sm: int, tile: int):
     positions; split i covers [i*chunk, min((i+1)*chunk, s))."""
     n_tiles = max(-(-s // tile), 1)
     want = -(-2 * n_sm // max(bsz * groups, 1))
+    n_splits = max(1, min(want, n_tiles))
+    chunk = -(-n_tiles // n_splits) * tile
+    return max(-(-s // chunk), 1), chunk
+
+
+def split_plan_d256(bsz: int, groups: int, s: int, n_sm: int, tile: int):
+    """(n_splits, chunk) for the bf16 tensor-core pass at D 256, chosen from
+    a sweep of its shapes' plans on the card (``PERF.md`` §6,
+    ``bench/flash_decode_ab.py --sweep``).  A block there streams about
+    20 GB/s, a 32-position tile in about 1.5 us, and the unchanged
+    combine walks a (row, head)'s splits in turn, about 0.2 us each:
+
+    - blocks fill the card in whole waves (the floor of the SMs' slots
+      over the blocks a split, where ``split_plan`` takes the ceiling and
+      leaves a part wave: at B 128 its three splits ran 1.45 waves);
+    - two blocks an SM where a split's blocks (B times the groups) are
+      more than half the SMs; one an SM where they are fewer, since a row
+      then has many splits, whose walk in the combine costs more than
+      the second block an SM gains (6 % of the stream at B 1);
+    - at most ceil(2 sqrt(tiles)) splits: the split's time falls as
+      tiles / n_splits and the combine's rises as n_splits.
+    """
+    n_tiles = max(-(-s // tile), 1)
+    rows = max(bsz * groups, 1)
+    per_sm = 2 if 2 * rows > n_sm else 1
+    want = min(max(1, per_sm * n_sm // rows),
+               math.ceil(2 * math.sqrt(n_tiles)))
     n_splits = max(1, min(want, n_tiles))
     chunk = -(-n_tiles // n_splits) * tile
     return max(-(-s // chunk), 1), chunk
@@ -289,15 +338,19 @@ def _check_lora(q, x, a, b, idx):
 def _launch_args(q, k, v, length, k_scale=None, v_scale=None,
                  out_dtype=None):
     """The arguments both kernels share: the checked lengths, the split
-    plan (tiles of K's element size at its instance's head dim) and its
-    f32 partials, and the output (in q's dtype unless ``out_dtype``)."""
+    plan (tiles of K's element size at its instance's head dim;
+    ``split_plan_d256`` on the bf16 pass at D 256) and its f32 partials,
+    and the output (in q's dtype unless ``out_dtype``)."""
     bsz, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
     lengths = _lengths(length, bsz, q.device)
     _check(q, k, v, lengths, k_scale, v_scale)
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    n_splits, chunk = split_plan(bsz, kv * head_groups(h // kv), s, n_sm,
-                                 tile_positions(d, k.element_size()))
+    itemsize = k.element_size()
+    d256 = mma256_pass(d, q.dtype, itemsize)
+    plan = split_plan_d256 if d256 else split_plan
+    groups = kv * head_groups(h // kv, MMA256_GROUP if d256 else MAX_GROUP)
+    n_splits, chunk = plan(bsz, groups, s, n_sm, tile_positions(d, itemsize))
     m_part = torch.empty((bsz, h, n_splits), dtype=torch.float32,
                          device=q.device)
     l_part = torch.empty_like(m_part)

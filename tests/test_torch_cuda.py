@@ -336,7 +336,8 @@ def test_sgmv_segments_kernel_matches_plain(gen, t, n):
 @pytest.mark.parametrize("bsz,h,kv,s", [(3, 8, 8, 7), (2, 24, 8, 100),
                                         (2, 16, 2, 1000),
                                         # head groups: G 16 (two groups of
-                                        # 8), 12 (6 + 6), 9 (5 + 4)
+                                        # 8; one at D 256 in bf16), 12
+                                        # (6 + 6), 9 (5 + 4)
                                         (3, 16, 1, 600), (2, 24, 2, 300),
                                         (2, 9, 1, 50)])
 def test_flash_decode_kernel_edges(gen, bsz, h, kv, s, d, dtype):
@@ -488,8 +489,9 @@ WIDE_HEAD_DIMS = (257, 320, 384, 512, 576, 1024)
 @pytest.mark.parametrize("g", [1, 4, 16])
 def test_flash_decode_kernel_any_head_dim(gen, g, d, dtype):
     # plain flash-decode and the fused kernel at G query heads a KV head
-    # (16: two head groups), ragged lengths with 0 among them, ids with -1;
-    # the fused kernel bitwise flash-decode on an all-base batch
+    # (16: two head groups; one at 192 and 255 in bf16), ragged lengths
+    # with 0 among them, ids with -1; the fused kernel bitwise flash-decode
+    # on an all-base batch
     bsz, kv, s, dx, r, n = 3, 2, 300, 96, 8, 3
     h = g * kv
     q = _normal(gen, bsz, h, d, dtype=dtype)
@@ -513,6 +515,58 @@ def test_flash_decode_kernel_any_head_dim(gen, g, d, dtype):
     assert torch.equal(fused[1], got[1])
     assert torch.equal(flash_decode.flash_decode_lora(
         q, k, v, lengths, x, a, b, torch.full_like(ids, -1), 1.5), got)
+
+
+@pytest.mark.parametrize("d", [256, 200, 129])
+@pytest.mark.parametrize("g", [1, 4, 16, 24])
+def test_flash_decode_d256_tensor_core_pass(gen, g, d):
+    # the bf16 tensor-core pass at D 256 and the dims padded onto it: G up
+    # to 16 in one block a KV head (24: two groups of 12); lengths 0, 1, a
+    # tile's edges, S and past it; plain, fused (ids with -1, bitwise
+    # flash-decode on an all-base batch) and the log-sum-exp mode (its
+    # output rounded bitwise the plain call's); NaN past each row's length
+    # never read (bitwise the clean cache's output)
+    bsz, kv, s, dx, r, n = 8, 2, 300, 96, 8, 3
+    h = g * kv
+    assert flash_decode.mma256_pass(d, torch.bfloat16, 2)
+    assert flash_decode.head_groups(g, flash_decode.MMA256_GROUP) == \
+        (1 if g <= 16 else 2)
+    p = flash_decode.tile_positions(d, 2)
+    lengths = torch.tensor([0, 1, p - 1, p + 1, s // 2 + 3, s - 1, s,
+                            s + 40], dtype=torch.int32, device="cuda")
+    dt = torch.bfloat16
+    q = _normal(gen, bsz, h, d, dtype=dt)
+    k = _normal(gen, bsz, s, kv, d, dtype=dt)
+    v = _normal(gen, bsz, s, kv, d, dtype=dt)
+    got = flash_decode.flash_decode(q, k, v, lengths)
+    want = flash_decode.flash_decode_plain(q, k, v, lengths)
+    _close(got, want, dt)
+    _close_rows(got, want, dt)
+    assert bool((got[0] == 0).all())
+    x = _normal(gen, bsz, dx, dtype=dt)
+    a, b = _bank(gen, n, dx, r, h * d, dt)
+    ids = torch.tensor([0, -1, 2, 1, -1, 0, 2, 1], dtype=torch.int32,
+                       device="cuda")
+    fused = flash_decode.flash_decode_lora(q, k, v, lengths, x, a, b, ids,
+                                           1.5)
+    want_f = flash_decode.flash_decode_lora_plain(q, k, v, lengths, x, a, b,
+                                                  ids, 1.5)
+    _close(fused, want_f, dt)
+    _close_rows(fused, want_f, dt)
+    assert torch.equal(flash_decode.flash_decode_lora(
+        q, k, v, lengths, x, a, b, torch.full_like(ids, -1), 1.5), got)
+    out, lse = flash_decode.flash_decode_lse(q, k, v, lengths)
+    assert torch.equal(out.to(dt), got)
+    want_out, want_lse = flash_decode.flash_decode_plain(q, k, v, lengths,
+                                                         return_lse=True)
+    _close(out, want_out, dt)
+    empty = torch.isneginf(want_lse)
+    assert bool(empty[0].all()) and torch.equal(torch.isneginf(lse), empty)
+    _close(lse[~empty], want_lse[~empty], dt)
+    for i, m in enumerate(lengths.tolist()):
+        k[i, min(m, s):] = float("nan")
+        v[i, min(m, s):] = float("nan")
+    assert torch.equal(flash_decode.flash_decode(q, k, v, lengths), got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,7 +1,8 @@
 """The Python that chooses the flash-decode kernels' launch, on the CPU.
 
-``flash_decode.split_plan`` cuts each row's S positions into chunks of whole
-tiles for the split pass.  The kernel rejects a plan that breaks this rule
+``flash_decode.split_plan`` (``split_plan_d256`` on the bf16 tensor-core
+pass at D 256) cuts each row's S positions into chunks of whole tiles for
+the split pass.  The kernel rejects a plan that breaks this rule
 (``csrc/flash_decode.cu::launch_split``), so these tests hold the plan to it
 over the shapes the port runs: the serving step, the measurement grid
 (``repro_torch.bench.kernels_bench``: batch 1/8/32 x seq 256/1024/4096)
@@ -10,6 +11,8 @@ instance runs the next larger one, padded; past 256 the wide path's
 32-position tiles).  (BGMV's launch plan lives in its C
 launcher and is held by the card tests of ``tests/test_torch_cuda.py``.)
 """
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -71,17 +74,101 @@ def test_split_plan_at_the_serving_shape():
 
 
 def test_split_plan_at_recurrentgemma_shape():
-    # recurrentgemma-9b serving: 16 query heads on 1 KV head are two head
-    # groups of 8, D 256 in bf16 (32-position tiles), 8 rows; 512 rows of a
-    # rolling buffer and the full 2048-row window
+    # recurrentgemma-9b serving: 16 query heads on 1 KV head, D 256 in bf16
+    # (32-position tiles), 8 rows; 512 rows of a rolling buffer and the
+    # full 2048-row window.  The bf16 tensor-core pass at D 256 takes the
+    # 16 heads in one block (one group), so each split reads K and V once;
+    # every other pass cuts them into two groups of 8
+    assert flash_decode.mma256_pass(256, torch.bfloat16, 2)
+    limit = flash_decode.MMA256_GROUP
+    assert limit == 16
+    assert [flash_decode.head_groups(g, limit) for g in (1, 8, 9, 16, 24,
+                                                         33)] == \
+        [1, 1, 1, 1, 2, 3]
     assert [flash_decode.head_groups(g) for g in (1, 8, 9, 16, 24)] == \
         [1, 1, 2, 2, 3]
     tile = flash_decode.tile_positions(256, 2)
     assert tile == 32
-    groups = 1 * flash_decode.head_groups(16)
-    assert flash_decode.split_plan(8, groups, 512, H100_SMS, tile) == (16, 32)
-    assert flash_decode.split_plan(8, groups, 2048, H100_SMS, tile) == \
+    groups = 1 * flash_decode.head_groups(16, limit)
+    assert groups == 1
+    assert flash_decode.split_plan_d256(8, groups, 512, H100_SMS, tile) == \
+        (8, 64)
+    assert flash_decode.split_plan_d256(8, groups, 2048, H100_SMS, tile) == \
         (16, 128)
+    # the passes at D <= 128, in f32, and in the int8 mode keep groups of 8
+    # and their plans
+    for d, dtype, itemsize in ((128, torch.bfloat16, 2),
+                               (96, torch.bfloat16, 2),
+                               (256, torch.float32, 4),
+                               (256, torch.bfloat16, 1),
+                               (512, torch.bfloat16, 2)):
+        assert not flash_decode.mma256_pass(d, dtype, itemsize)
+    assert flash_decode.MAX_GROUP == 8
+    assert [flash_decode.mma256_pass(d, torch.bfloat16, 2)
+            for d in (128, 129, 200, 255, 256, 257)] == \
+        [False, True, True, True, True, False]
+    assert flash_decode.split_plan(8, 1 * flash_decode.head_groups(16), 512,
+                                   H100_SMS, 32) == (16, 32)
+    assert flash_decode.split_plan(8, 1 * flash_decode.head_groups(16), 2048,
+                                   H100_SMS, 32) == (16, 128)
+    assert flash_decode.split_plan(8, 8 * flash_decode.head_groups(3), 512,
+                                   H100_SMS,
+                                   flash_decode.tile_positions(128, 2)) == \
+        (4, 128)
+
+
+# the six head-dim-256 shapes where SDPA outran bf16 flash-decode before
+# the tensor-core pass at D 256 (recurrentgemma-9b's decode cells at B 128
+# and 1 and its 2048-row window at B 8; gemma3-1b's global and local layers
+# at decode_32k and its long_500k cache), by S: (name, S), each at B 1, 8
+# and 128 and G 1, 4, 16 and 24
+D256_SHAPES = (("rgemma_b128", 2048), ("gemma3_global_b128", 32768),
+               ("gemma3_local_b128", 512), ("rgemma_window_b8", 2048),
+               ("gemma3_long_b1", 524288), ("rgemma_b1", 2048))
+
+
+@pytest.mark.parametrize("g", [1, 4, 16, 24])
+@pytest.mark.parametrize("bsz", [1, 8, 128])
+@pytest.mark.parametrize("name,s", D256_SHAPES)
+def test_split_plan_covers_s_on_the_d256_pass(name, s, bsz, g):
+    # one KV head whose G heads the bf16 pass at D 256 takes in
+    # ceil(G / 16) groups, on its plan (split_plan_d256): chunks of whole
+    # 32-position tiles, consecutive, non-empty, from 0 to exactly S; no
+    # more splits than tiles nor than ceil(2 sqrt(tiles)); blocks in at
+    # most one wave of two an SM where a split's blocks are more than half
+    # the SMs, else of one an SM (one split a row where the rows alone
+    # fill it), and at least half the splits the plan wants
+    groups = flash_decode.head_groups(g, flash_decode.MMA256_GROUP)
+    assert groups == -(-g // 16)
+    tile = flash_decode.tile_positions(256, 2)
+    n_splits, chunk = flash_decode.split_plan_d256(bsz, groups, s, H100_SMS,
+                                                   tile)
+    assert chunk % tile == 0 and chunk > 0
+    spans = [(i * chunk, min((i + 1) * chunk, s)) for i in range(n_splits)]
+    assert spans[0][0] == 0 and spans[-1][1] == s
+    assert all(a < b for a, b in spans)
+    assert all(spans[i][1] == spans[i + 1][0] for i in range(n_splits - 1))
+    n_tiles = -(-s // tile)
+    cap = math.ceil(2 * math.sqrt(n_tiles))
+    assert n_splits <= min(n_tiles, cap)
+    rows = bsz * groups
+    per_sm = 2 if 2 * rows > H100_SMS else 1
+    assert rows * n_splits <= max(per_sm * H100_SMS, rows)
+    want = min(n_tiles, cap, max(1, per_sm * H100_SMS // rows))
+    assert 2 * n_splits > want
+
+
+def test_split_plan_d256_at_the_cells():
+    # the plans the D 256 pass takes at the six shapes above (one KV head)
+    # and the two served caches: two splits at B 128 (256 blocks, one
+    # wave), one block an SM at B 1 over 524288 rows, 2 sqrt(tiles) splits
+    # where that is fewer
+    plan = flash_decode.split_plan_d256
+    assert [plan(b, g, s, H100_SMS, 32) for b, g, s in (
+        (128, 1, 2048), (128, 1, 32768), (128, 1, 512), (8, 1, 2048),
+        (1, 1, 524288), (1, 1, 2048), (8, 1, 512))] == \
+        [(2, 1024), (2, 16384), (2, 256), (16, 128), (132, 4000),
+         (16, 128), (8, 64)]
 
 
 @pytest.mark.parametrize("itemsize", [4, 2, 1])
